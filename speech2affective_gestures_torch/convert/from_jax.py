@@ -1,0 +1,187 @@
+"""Weight bridge: the JAX package's PoseGenerator variables -> this port's
+state dict.
+
+The JAX variables are a nested dict of numpy arrays (`params` plus
+`batch_stats`, what `jax.device_get` returns for a flax variable tree). The
+mappers below are pure layout transforms, the same as the JAX package's
+`convert/jax_to_torch.py` inverse mappers, and emit the reference's torch
+state-dict keys, which are this port's parameter names. So
+`load_state_dict(strict=True)` takes the result, and also takes a reference
+`.pth.tar`'s `gen_model_dict` once its `module.` prefix is stripped.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+Array = np.ndarray
+
+
+def linear(p: Mapping[str, Array], prefix: str) -> dict[str, Array]:
+    """kernel (in, out) -> weight (out, in)."""
+    out = {f"{prefix}.weight": np.asarray(p["kernel"]).T}
+    if "bias" in p:
+        out[f"{prefix}.bias"] = np.asarray(p["bias"])
+    return out
+
+
+def conv1d(p: Mapping[str, Array], prefix: str) -> dict[str, Array]:
+    """(K, Cin, Cout) -> (Cout, Cin, K)."""
+    out = {f"{prefix}.weight": np.transpose(np.asarray(p["kernel"]), (2, 1, 0))}
+    if "bias" in p:
+        out[f"{prefix}.bias"] = np.asarray(p["bias"])
+    return out
+
+
+def conv2d(p: Mapping[str, Array], prefix: str) -> dict[str, Array]:
+    """(kh, kw, Cin, Cout) -> (Cout, Cin, kh, kw)."""
+    out = {f"{prefix}.weight": np.transpose(np.asarray(p["kernel"]), (3, 2, 0, 1))}
+    if "bias" in p:
+        out[f"{prefix}.bias"] = np.asarray(p["bias"])
+    return out
+
+
+def wn_conv1d(p: Mapping[str, Array], prefix: str) -> dict[str, Array]:
+    """v (K, Cin, Cout) -> weight_v (Cout, Cin, K); g (Cout,) -> weight_g
+    (Cout, 1, 1)."""
+    return {
+        f"{prefix}.weight_v": np.transpose(np.asarray(p["v"]), (2, 1, 0)),
+        f"{prefix}.weight_g": np.asarray(p["g"]).reshape(-1, 1, 1),
+        f"{prefix}.bias": np.asarray(p["bias"]),
+    }
+
+
+def batch_norm(params: Mapping[str, Array], stats: Mapping[str, Array],
+               prefix: str) -> dict[str, Array]:
+    """num_batches_tracked, which the JAX side does not carry, is 0."""
+    return {
+        f"{prefix}.weight": np.asarray(params["scale"]),
+        f"{prefix}.bias": np.asarray(params["bias"]),
+        f"{prefix}.running_mean": np.asarray(stats["mean"]),
+        f"{prefix}.running_var": np.asarray(stats["var"]),
+        f"{prefix}.num_batches_tracked": np.asarray(0, dtype=np.int64),
+    }
+
+
+def gru(p: Mapping[str, Array], prefix: str) -> dict[str, Array]:
+    """layers.GRU params (w_ih_l{k}[_rev] (in, 3H), ...) -> nn.GRU keys."""
+    num_layers = 1 + max(int(k.split("_l")[-1].removesuffix("_rev"))
+                         for k in p if k.startswith("w_ih_l"))
+    dirs = ["", "_reverse"] if "w_ih_l0_rev" in p else [""]
+    out: dict[str, Array] = {}
+    for layer in range(num_layers):
+        for d, suffix in enumerate(dirs):
+            tag = f"l{layer}" + ("_rev" if d else "")
+            out[f"{prefix}weight_ih_l{layer}{suffix}"] = np.asarray(p[f"w_ih_{tag}"]).T
+            out[f"{prefix}weight_hh_l{layer}{suffix}"] = np.asarray(p[f"w_hh_{tag}"]).T
+            out[f"{prefix}bias_ih_l{layer}{suffix}"] = np.asarray(p[f"b_ih_{tag}"])
+            out[f"{prefix}bias_hh_l{layer}{suffix}"] = np.asarray(p[f"b_hh_{tag}"])
+    return out
+
+
+def embedding(p: Mapping[str, Array], prefix: str) -> dict[str, Array]:
+    return {f"{prefix}.weight": np.asarray(p["embedding"])}
+
+
+def temporal_conv_net(p: Mapping[str, Any], prefix: str) -> dict[str, Array]:
+    """Each TemporalBlock's convs appear twice, as `conv1`/`conv2` and as
+    `net.0`/`net.4` (the reference registers them both ways)."""
+    out: dict[str, Array] = {}
+    net_idx = {1: 0, 2: 4}
+    for name, block in p.items():
+        i = int(name.removeprefix("block"))
+        for j in (1, 2):
+            conv = wn_conv1d(block[f"conv{j}"]["WNConv1d_0"],
+                             f"{prefix}network.{i}.conv{j}")
+            out.update(conv)
+            out.update({k.replace(f".conv{j}.", f".net.{net_idx[j]}."): v
+                        for k, v in conv.items()})
+        if "downsample" in block:
+            out.update(conv1d(block["downsample"], f"{prefix}network.{i}.downsample"))
+    return out
+
+
+def text_encoder_tcn(p: Mapping[str, Any], prefix: str) -> dict[str, Array]:
+    out = embedding(p["embedding"], f"{prefix}embedding")
+    out.update(temporal_conv_net(p["tcn"], f"{prefix}tcn."))
+    out.update(linear(p["decoder"], f"{prefix}decoder"))
+    return out
+
+
+def st_graph_conv(p: Mapping[str, Any], s: Mapping[str, Any],
+                  prefix: str) -> dict[str, Array]:
+    out = conv2d(p["gcn"]["conv"], f"{prefix}gcn.conv")
+    out.update(batch_norm(p["tcn_bn1"], s["tcn_bn1"], f"{prefix}tcn.0"))
+    out.update(conv2d(p["tcn_conv"], f"{prefix}tcn.2"))
+    out.update(batch_norm(p["tcn_bn2"], s["tcn_bn2"], f"{prefix}tcn.3"))
+    out.update(conv2d(p["res_conv"], f"{prefix}residual.0"))
+    out.update(batch_norm(p["res_bn"], s["res_bn"], f"{prefix}residual.1"))
+    return out
+
+
+def aff_encoder(p: Mapping[str, Any], s: Mapping[str, Any],
+                prefix: str) -> dict[str, Array]:
+    out: dict[str, Array] = {}
+    for name in ("st_gcn1", "st_gcn2"):
+        out.update(st_graph_conv(p[name], s[name], f"{prefix}{name}."))
+    for name, ref in (("batch_norm1", "batch_norm1"), ("batch_norm2", "batch_norm2"),
+                      ("bn3", "batch_norm3"), ("bn4", "batch_norm4")):
+        out.update(batch_norm(p[name], s[name], f"{prefix}{ref}"))
+    out.update(conv1d(p["conv3"], f"{prefix}conv3"))
+    out.update(conv1d(p["conv4"], f"{prefix}conv4"))
+    return out
+
+
+def mfcc_encoder(p: Mapping[str, Any], s: Mapping[str, Any],
+                 prefix: str) -> dict[str, Array]:
+    out = linear(p["linear1"], f"{prefix}linear1")
+    for i in range(1, 5):
+        out.update(conv1d(p[f"conv{i}"], f"{prefix}conv{i}"))
+        out.update(batch_norm(p[f"bn{i}"], s[f"bn{i}"], f"{prefix}batch_norm{i}"))
+    return out
+
+
+def speaker_z(p: Mapping[str, Any]) -> dict[str, Array]:
+    out = embedding(p["embedding"], "speaker_embedding.0")
+    out.update(linear(p["proj"], "speaker_embedding.1"))
+    out.update(linear(p["mu"], "speaker_mu"))
+    out.update(linear(p["log_var"], "speaker_log_var"))
+    return out
+
+
+def pose_generator(variables: Mapping[str, Any]) -> dict[str, Array]:
+    """The s2ag PoseGenerator's flax variables -> reference state-dict keys."""
+    p, s = variables["params"], variables.get("batch_stats", {})
+    out = aff_encoder(p["aff_encoder"], s["aff_encoder"], "aff_encoder.")
+    if "audio_encoder" in p:
+        out.update(mfcc_encoder(p["audio_encoder"], s["audio_encoder"],
+                                "audio_encoder."))
+    if "text_encoder" in p:
+        out.update(text_encoder_tcn(p["text_encoder"], "text_encoder."))
+    if "speaker_z" in p:
+        out.update(speaker_z(p["speaker_z"]))
+    out.update(gru(p["gru"], "gru."))
+    out.update(linear(p["out1"], "out.0"))
+    out.update(linear(p["out2"], "out.2"))
+    return out
+
+
+def to_state_dict(arrays: Mapping[str, Array]) -> dict[str, torch.Tensor]:
+    """numpy arrays -> contiguous, writable CPU tensors."""
+    return {k: torch.from_numpy(np.array(v, copy=True, order="C"))
+            for k, v in arrays.items()}
+
+
+def load_jax_generator(model: torch.nn.Module, variables: Mapping[str, Any]) -> None:
+    """Load the JAX PoseGenerator variables into `model` (strict)."""
+    model.load_state_dict(to_state_dict(pose_generator(variables)), strict=True)
+
+
+def reference_state_dict(path: str) -> dict[str, torch.Tensor]:
+    """A reference `.pth.tar`'s `gen_model_dict`, with the `module.` prefix
+    its DataParallel wrapper added stripped."""
+    blob = torch.load(path, map_location="cpu", weights_only=True)
+    return {k.removeprefix("module."): v for k, v in blob["gen_model_dict"].items()}

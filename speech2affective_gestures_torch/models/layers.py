@@ -1,0 +1,123 @@
+"""Neural building blocks, in PyTorch's channels-first layout.
+
+The JAX package (`speech2affective_gestures_tpu/models/layers.py`) rebuilt
+torch's layers to torch semantics in a channel-last layout. Here torch's own
+layers are those semantics, and the models use them directly:
+
+- its `Linear`, `Embed`, `Conv1d`, `Conv2d` are `nn.Linear`,
+  `nn.Embedding`, `nn.Conv1d`, `nn.Conv2d` (torch default init: kaiming
+  uniform a=sqrt(5), i.e. U(+-1/sqrt(fan_in)); N(0, 1) for the embedding);
+- its `BatchNorm` is `nn.BatchNorm1d`/`nn.BatchNorm2d` over the channel
+  axis: eval normalizes with the running stats, eps 1e-5; train with the
+  biased batch variance, updating the running stats with momentum 0.1 and
+  the unbiased variance.
+
+What torch lacks is below: `WNConv1d` (weight norm under torch
+`weight_norm`'s parameter names, so reference checkpoints load), `GRU`
+(nn.GRU's parameter names, its recurrence in `ops/gru_cuda.py`), and the
+activation helpers.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops import gru_cuda
+
+
+def leaky_relu(x: torch.Tensor, slope: float) -> torch.Tensor:
+    """LeakyReLU with an explicit slope. The reference often writes
+    `nn.LeakyReLU(True)`, which passes True as *negative_slope* (1.0, the
+    identity); each call site keeps its effective slope."""
+    if slope == 1.0:
+        return x
+    return F.leaky_relu(x, slope)
+
+
+def sum_bidirectional(out: torch.Tensor, hidden_size: int) -> torch.Tensor:
+    """Sum the forward and backward halves of a bi-GRU output."""
+    return out[..., :hidden_size] + out[..., hidden_size:]
+
+
+class WNConv1d(nn.Module):
+    """Weight-normalized Conv1d: weight = v * g / ||v||, the norm taken over
+    (Cin, K) for each output channel. `padding` is symmetric (an int) or
+    (left, right)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 padding: int | tuple[int, int] = 0, dilation: int = 1):
+        super().__init__()
+        v = torch.empty(out_channels, in_channels, kernel_size)
+        nn.init.kaiming_uniform_(v, a=math.sqrt(5))
+        self.weight_v = nn.Parameter(v)
+        self.weight_g = nn.Parameter(
+            v.flatten(1).norm(dim=1).view(out_channels, 1, 1).clone())
+        bound = 1.0 / math.sqrt(in_channels * kernel_size)
+        self.bias = nn.Parameter(torch.empty(out_channels).uniform_(-bound, bound))
+        self.padding = (padding, padding) if isinstance(padding, int) else tuple(padding)
+        self.dilation = dilation
+
+    def weight(self) -> torch.Tensor:
+        norm = self.weight_v.flatten(1).norm(dim=1).clamp_min(1e-12)
+        return self.weight_v * (self.weight_g / norm.view(-1, 1, 1))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv1d(F.pad(x, self.padding), self.weight(), self.bias,
+                        dilation=self.dilation)
+
+
+class GRU(nn.Module):
+    """Multi-layer, optionally bidirectional GRU, torch cell semantics.
+
+    Gates ordered (r, z, n); n = tanh(x_n + r * (W_hn h + b_hn)). Each
+    layer's input projection for the whole sequence and both directions is
+    one `torch.matmul`; the recurrence runs in `gru_cuda.gru_layer`, which
+    launches the CUDA kernel for CUDA tensors and runs the plain time loop
+    for CPU tensors. Dropout between layers, in train mode only.
+
+    forward(x (B, T, C)) -> (out (T, B, D*H), time-major;
+    h_last (num_layers*D, B, H)).
+    """
+
+    def __init__(self, input_size: int, hidden_size: int, num_layers: int = 1,
+                 bidirectional: bool = False, dropout: float = 0.0):
+        super().__init__()
+        self.hidden_size = hidden_size
+        self.num_layers = num_layers
+        self.num_dir = 2 if bidirectional else 1
+        self.dropout = dropout
+        self.suffixes = ["", "_reverse"][: self.num_dir]
+        bound = 1.0 / math.sqrt(hidden_size)
+        h3 = 3 * hidden_size
+        for layer in range(num_layers):
+            cin = input_size if layer == 0 else self.num_dir * hidden_size
+            for sfx in self.suffixes:
+                for name, shape in ((f"weight_ih_l{layer}{sfx}", (h3, cin)),
+                                    (f"weight_hh_l{layer}{sfx}", (h3, hidden_size)),
+                                    (f"bias_ih_l{layer}{sfx}", (h3,)),
+                                    (f"bias_hh_l{layer}{sfx}", (h3,))):
+                    self.register_parameter(name, nn.Parameter(
+                        torch.empty(shape).uniform_(-bound, bound)))
+
+    def _layer(self, name: str, layer: int) -> list[torch.Tensor]:
+        return [getattr(self, f"{name}_l{layer}{sfx}") for sfx in self.suffixes]
+
+    def forward(self, x: torch.Tensor):
+        out = x.transpose(0, 1)                              # (T, B, C)
+        finals = []
+        for layer in range(self.num_layers):
+            w_ih = torch.cat(self._layer("weight_ih", layer), dim=0)
+            xp = torch.matmul(out, w_ih.t())                 # (T, B, D*3H)
+            w_hh = torch.stack([w.t() for w in self._layer("weight_hh", layer)])
+            out, h_last = gru_cuda.gru_layer(
+                xp.contiguous(), w_hh.contiguous(),
+                torch.stack(self._layer("bias_ih", layer)),
+                torch.stack(self._layer("bias_hh", layer)))
+            finals.extend(h_last.unbind(0))
+            if self.dropout > 0.0 and self.training and layer < self.num_layers - 1:
+                out = F.dropout(out, self.dropout, training=True)
+        return out, torch.stack(finals)
