@@ -1,9 +1,9 @@
 """Model configuration read from the YAML files under `config/`.
 
-The fields are the ones the serving path reads, with the defaults of the
-reference's `parse_args.py` overridden by `config/multimodal_context_v2.yml`;
-other YAML keys are ignored, so the reference's own YAML files load
-unchanged.
+The fields are the ones the serving and training paths read, with the
+defaults of the reference's `parse_args.py` overridden by
+`config/multimodal_context_v2.yml`; other YAML keys are ignored, so the
+reference's own YAML files load unchanged.
 """
 
 from __future__ import annotations
@@ -23,17 +23,33 @@ class ModelConfig:
     num_mfcc: int = 14
     mean_dir_vec: tuple = tuple(C.MEAN_DIR_VEC.tolist())
     mean_pose: tuple = tuple(C.MEAN_POSE.tolist())
+    random_seed: int = -1
 
+    wordembed_path: str | None = None
     wordembed_dim: int = 300
+    freeze_wordembed: bool = False
+
+    epochs: int = 100
+    batch_size: int = 128
     dropout_prob: float = 0.3
     n_layers: int = 4
-    hidden_size_s2eg: int = 300
+    hidden_size: int = 300          # the TriModal comparator's GRU
+    hidden_size_s2eg: int = 300     # the s2ag generator's GRU
     z_type: str = "speaker"
     input_context: str = "both"
 
     motion_resampling_framerate: int = 15
     n_poses: int = 34
     n_pre_poses: int = 4
+    subdivision_stride: int = 10
+
+    learning_rate: float = 5e-4
+    discriminator_lr_weight: float = 0.2
+    loss_regression_weight: float = 500.0
+    loss_gan_weight: float = 5.0
+    loss_kld_weight: float = 0.1
+    loss_reg_weight: float = 0.05
+    loss_warmup: int = 0
 
     @classmethod
     def from_yaml(cls, path: str | pathlib.Path, **overrides: Any) -> "ModelConfig":

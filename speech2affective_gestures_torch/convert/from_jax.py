@@ -1,5 +1,6 @@
-"""Weight bridge: the JAX package's PoseGenerator variables -> this port's
-state dict.
+"""Weight bridge: the JAX package's model variables (the s2ag
+PoseGenerator, the TriModal generator, the AffDiscriminator) -> this port's
+state dicts.
 
 The JAX variables are a nested dict of numpy arrays (`params` plus
 `batch_stats`, what `jax.device_get` returns for a flax variable tree). The
@@ -144,6 +145,18 @@ def mfcc_encoder(p: Mapping[str, Any], s: Mapping[str, Any],
     return out
 
 
+def wav_encoder(p: Mapping[str, Any], s: Mapping[str, Any],
+                prefix: str) -> dict[str, Array]:
+    """The reference's `feat_extractor` Sequential: convs at 0, 3, 6, 9 and
+    batch norms at 1, 4, 7."""
+    out: dict[str, Array] = {}
+    for name, i in (("conv1", 0), ("conv2", 3), ("conv3", 6), ("conv4", 9)):
+        out.update(conv1d(p[name], f"{prefix}feat_extractor.{i}"))
+    for name, i in (("bn1", 1), ("bn2", 4), ("bn3", 7)):
+        out.update(batch_norm(p[name], s[name], f"{prefix}feat_extractor.{i}"))
+    return out
+
+
 def speaker_z(p: Mapping[str, Any]) -> dict[str, Array]:
     out = embedding(p["embedding"], "speaker_embedding.0")
     out.update(linear(p["proj"], "speaker_embedding.1"))
@@ -169,19 +182,49 @@ def pose_generator(variables: Mapping[str, Any]) -> dict[str, Array]:
     return out
 
 
+def pose_generator_trimodal(variables: Mapping[str, Any]) -> dict[str, Array]:
+    """The TriModal generator's flax variables -> reference state-dict keys."""
+    p, s = variables["params"], variables.get("batch_stats", {})
+    out = wav_encoder(p["audio_encoder"], s["audio_encoder"], "audio_encoder.")
+    out.update(text_encoder_tcn(p["text_encoder"], "text_encoder."))
+    if "speaker_z" in p:
+        out.update(speaker_z(p["speaker_z"]))
+    out.update(gru(p["gru"], "gru."))
+    out.update(linear(p["out1"], "out.0"))
+    out.update(linear(p["out2"], "out.2"))
+    return out
+
+
+def aff_discriminator(variables: Mapping[str, Any]) -> dict[str, Array]:
+    """The AffDiscriminator's flax variables -> reference state-dict keys."""
+    p, s = variables["params"], variables.get("batch_stats", {})
+    out = aff_encoder(p["aff_encoder"], s["aff_encoder"], "aff_encoder.")
+    out.update(gru(p["gru"], "gru."))
+    out.update(linear(p["out"], "out"))
+    out.update(linear(p["out2"], "out2"))
+    return out
+
+
 def to_state_dict(arrays: Mapping[str, Array]) -> dict[str, torch.Tensor]:
     """numpy arrays -> contiguous, writable CPU tensors."""
     return {k: torch.from_numpy(np.array(v, copy=True, order="C"))
             for k, v in arrays.items()}
 
 
-def load_jax_generator(model: torch.nn.Module, variables: Mapping[str, Any]) -> None:
-    """Load the JAX PoseGenerator variables into `model` (strict)."""
-    model.load_state_dict(to_state_dict(pose_generator(variables)), strict=True)
+def load_jax(model: torch.nn.Module, mapper, variables: Mapping[str, Any]) -> None:
+    """Load JAX variables into `model` through one of the mappers above
+    (`pose_generator`, `pose_generator_trimodal`, `aff_discriminator`),
+    strict."""
+    model.load_state_dict(to_state_dict(mapper(variables)), strict=True)
+
+
+def strip_module_prefix(state: Mapping[str, Any]) -> dict[str, Any]:
+    """Drop the `module.` prefix a DataParallel wrapper adds to every key."""
+    return {k.removeprefix("module."): v for k, v in state.items()}
 
 
 def reference_state_dict(path: str) -> dict[str, torch.Tensor]:
     """A reference `.pth.tar`'s `gen_model_dict`, with the `module.` prefix
     its DataParallel wrapper added stripped."""
     blob = torch.load(path, map_location="cpu", weights_only=True)
-    return {k.removeprefix("module."): v for k, v in blob["gen_model_dict"].items()}
+    return strip_module_prefix(blob["gen_model_dict"])

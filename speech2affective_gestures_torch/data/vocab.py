@@ -1,7 +1,14 @@
-"""Word vocabulary (reference `utils/vocab.py`): PAD/SOS/EOS/UNK tokens,
-word indexing and the UNK fallback the synthesis path reads."""
+"""Word and speaker vocabularies (reference `utils/vocab.py`,
+`utils/vocab_utils.py`): PAD/SOS/EOS/UNK tokens, word indexing, the UNK
+fallback, word vectors, and the corpus indexing of the training data."""
 
 from __future__ import annotations
+
+import os
+import pickle
+from typing import Iterable
+
+import numpy as np
 
 
 class Vocab:
@@ -13,6 +20,7 @@ class Vocab:
     def __init__(self, name: str, insert_default_tokens: bool = True):
         self.name = name
         self.trimmed = False
+        self.word_embedding_weights: np.ndarray | None = None
         self.reset_dictionary(insert_default_tokens)
 
     def reset_dictionary(self, insert_default_tokens: bool = True):
@@ -48,6 +56,54 @@ class Vocab:
 
     def get_word_index(self, word: str) -> int:
         return self.word2index.get(word, self.UNK_token)
+
+    def load_word_vectors(self, pretrained_path: str | None, embedding_dim: int = 300,
+                          seed: int = 0):
+        """fastText vectors (ref utils/vocab.py:70-84) when the model file
+        and the `fasttext` package are there; N(0, 1/sqrt(d)) vectors drawn
+        from `seed` otherwise."""
+        rng = np.random.default_rng(seed)
+        weights = rng.normal(0, 1.0 / np.sqrt(embedding_dim),
+                             size=(self.n_words, embedding_dim)).astype(np.float32)
+        if pretrained_path and os.path.exists(pretrained_path):
+            try:
+                import fasttext  # optional dependency
+            except ImportError:
+                fasttext = None
+            if fasttext is not None:
+                model = fasttext.load_model(pretrained_path)
+                for word, idx in self.word2index.items():
+                    weights[idx] = model.get_word_vector(word)
+        self.word_embedding_weights = weights
+
+
+def build_vocab(name: str, word_iterables: Iterable[Iterable[str]],
+                cache_path: str | None = None, word_vec_path: str | None = None,
+                feat_dim: int | None = None) -> Vocab:
+    """Index all words of the iterables, with a pickle cache (ref
+    utils/vocab_utils.py:11-35)."""
+    if cache_path and os.path.exists(cache_path):
+        with open(cache_path, "rb") as f:
+            return pickle.load(f)
+    vocab = Vocab(name)
+    for words in word_iterables:
+        for word in words:
+            vocab.index_word(word)
+    if feat_dim is not None:
+        vocab.load_word_vectors(word_vec_path, feat_dim)
+    if cache_path:
+        with open(cache_path, "wb") as f:
+            pickle.dump(vocab, f)
+    return vocab
+
+
+def make_speaker_vocab(video_ids: Iterable[str]) -> Vocab:
+    """The speaker model: a Vocab over video ids without the PAD/SOS/EOS
+    tokens, so ids start at 1 (ref loader_v2.py:521-539)."""
+    vocab = Vocab("vids", insert_default_tokens=False)
+    for vid in video_ids:
+        vocab.index_word(vid)
+    return vocab
 
 
 def placeholder_vocab(n_words: int) -> Vocab:

@@ -1,7 +1,7 @@
-"""Modality encoders of the s2ag generator (reference
-`net/multimodal_context_net_v2.py:36-175`): MFCCEncoder, TextEncoderTCN and
-the two-stage ST-GCN AffEncoder. Module names follow the reference's state
-dict keys."""
+"""Modality encoders of the s2ag models (reference
+`net/multimodal_context_net_v2.py:14-175`): WavEncoder, MFCCEncoder,
+TextEncoderTCN and the two-stage ST-GCN AffEncoder. Module names follow the
+reference's state dict keys."""
 
 from __future__ import annotations
 
@@ -10,9 +10,29 @@ from torch import nn
 
 from .. import constants as C
 from ..ops import graph as graph_ops
-from .layers import leaky_relu
+from .layers import Dropout, leaky_relu
 from .stgcn import STGraphConv
 from .tcn import TemporalConvNet
+
+
+class WavEncoder(nn.Module):
+    """Raw-waveform conv stack: (B, L) -> (B, 34, 32) for the 36267-sample
+    window (ref net/multimodal_context_net_v2.py:14-33)."""
+
+    def __init__(self):
+        super().__init__()
+        self.feat_extractor = nn.Sequential(
+            nn.Conv1d(1, 16, 15, stride=5, padding=1600),
+            nn.BatchNorm1d(16), nn.LeakyReLU(0.3),
+            nn.Conv1d(16, 32, 15, stride=6),
+            nn.BatchNorm1d(32), nn.LeakyReLU(0.3),
+            nn.Conv1d(32, 64, 15, stride=6),
+            nn.BatchNorm1d(64), nn.LeakyReLU(0.3),
+            nn.Conv1d(64, 32, 15, stride=6),
+        )
+
+    def forward(self, wav: torch.Tensor) -> torch.Tensor:
+        return self.feat_extractor(wav[:, None]).transpose(1, 2)
 
 
 class MFCCEncoder(nn.Module):
@@ -48,14 +68,21 @@ class MFCCEncoder(nn.Module):
 
 class TextEncoderTCN(nn.Module):
     """Word ids (B, T) -> (B, T, 32): embedding, dropout, dilated causal TCN,
-    Linear (ref net/multimodal_context_net_v2.py:61-91)."""
+    Linear (ref net/multimodal_context_net_v2.py:61-91). `word_embeddings`
+    (n_words, embed_size), when given, is the embedding's initial table
+    (the vocabulary's word vectors); `freeze_embedding` keeps it fixed."""
 
     def __init__(self, n_words: int, embed_size: int = 300, hidden_size: int = 300,
                  n_layers: int = 4, kernel_size: int = 2, dropout: float = 0.3,
-                 emb_dropout: float = 0.1):
+                 emb_dropout: float = 0.1, word_embeddings=None,
+                 freeze_embedding: bool = False):
         super().__init__()
         self.embedding = nn.Embedding(n_words, embed_size)
-        self.emb_drop = nn.Dropout(emb_dropout)
+        if word_embeddings is not None:
+            with torch.no_grad():
+                self.embedding.weight.copy_(torch.as_tensor(word_embeddings))
+        self.embedding.weight.requires_grad_(not freeze_embedding)
+        self.emb_drop = Dropout(emb_dropout)
         self.tcn = TemporalConvNet(embed_size, (hidden_size,) * n_layers,
                                    kernel_size, dropout)
         self.decoder = nn.Linear(hidden_size, 32)

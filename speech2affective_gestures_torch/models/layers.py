@@ -14,12 +14,15 @@ layers are those semantics, and the models use them directly:
 
 What torch lacks is below: `WNConv1d` (weight norm under torch
 `weight_norm`'s parameter names, so reference checkpoints load), `GRU`
-(nn.GRU's parameter names, its recurrence in `ops/gru_cuda.py`), and the
-activation helpers.
+(nn.GRU's parameter names, its recurrence in `ops/gru_cuda.py`), the
+activation helpers, and `Dropout`, whose masks come from an explicit
+`torch.Generator` set with `dropout_rng` (the JAX package draws them from
+flax's 'dropout' stream).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -36,6 +39,45 @@ def leaky_relu(x: torch.Tensor, slope: float) -> torch.Tensor:
     if slope == 1.0:
         return x
     return F.leaky_relu(x, slope)
+
+
+_dropout_generator: torch.Generator | None = None
+
+
+@contextlib.contextmanager
+def dropout_rng(generator: torch.Generator | None):
+    """Draw every dropout mask inside the block from `generator` (on the
+    tensors' device). Outside such a block, masks come from torch's global
+    generator."""
+    global _dropout_generator
+    prev, _dropout_generator = _dropout_generator, generator
+    try:
+        yield
+    finally:
+        _dropout_generator = prev
+
+
+def dropout(x: torch.Tensor, p: float, training: bool) -> torch.Tensor:
+    """Inverted dropout: zero each value with probability p, scale the rest
+    by 1/(1-p); the identity in eval mode or at p = 0."""
+    if not training or p == 0.0:
+        return x
+    if _dropout_generator is None:
+        return F.dropout(x, p, training=True)
+    keep = torch.rand(x.shape, generator=_dropout_generator,
+                      device=_dropout_generator.device) >= p
+    return x * keep.to(x.device) / (1.0 - p)
+
+
+class Dropout(nn.Module):
+    """`dropout` as a module (no parameters, like nn.Dropout)."""
+
+    def __init__(self, p: float = 0.5):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return dropout(x, self.p, self.training)
 
 
 def sum_bidirectional(out: torch.Tensor, hidden_size: int) -> torch.Tensor:
@@ -76,8 +118,9 @@ class GRU(nn.Module):
     Gates ordered (r, z, n); n = tanh(x_n + r * (W_hn h + b_hn)). Each
     layer's input projection for the whole sequence and both directions is
     one `torch.matmul`; the recurrence runs in `gru_cuda.gru_layer`, which
-    launches the CUDA kernel for CUDA tensors and runs the plain time loop
-    for CPU tensors. Dropout between layers, in train mode only.
+    launches the CUDA kernels for CUDA tensors (forward, and backward under
+    autograd) and runs the plain time loop for CPU tensors, which autograd
+    differentiates. Dropout between layers, in train mode only.
 
     forward(x (B, T, C)) -> (out (T, B, D*H), time-major;
     h_last (num_layers*D, B, H)).
@@ -118,6 +161,6 @@ class GRU(nn.Module):
                 torch.stack(self._layer("bias_ih", layer)),
                 torch.stack(self._layer("bias_hh", layer)))
             finals.extend(h_last.unbind(0))
-            if self.dropout > 0.0 and self.training and layer < self.num_layers - 1:
-                out = F.dropout(out, self.dropout, training=True)
+            if layer < self.num_layers - 1:
+                out = dropout(out, self.dropout, self.training)
         return out, torch.stack(finals)

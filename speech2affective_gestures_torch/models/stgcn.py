@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .layers import leaky_relu
+from .layers import Dropout, leaky_relu
 
 
 class ConvTemporalGraphical(nn.Module):
@@ -53,7 +53,7 @@ class STGraphConv(nn.Module):
             nn.ReLU(),
             nn.Conv2d(out_channels, out_channels, kernel_size, stride, padding),
             nn.BatchNorm2d(out_channels),
-            nn.Dropout(dropout),
+            Dropout(dropout),
         )
         self.residual = nn.Sequential(
             nn.Conv2d(in_channels, out_channels, 1, stride=stride),

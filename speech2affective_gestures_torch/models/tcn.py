@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .layers import WNConv1d
+from .layers import Dropout, WNConv1d
 
 
 class TemporalBlock(nn.Module):
@@ -29,8 +29,8 @@ class TemporalBlock(nn.Module):
                               padding=(pad, 0), dilation=dilation)
         # the reference's Sequential: conv, chomp, relu, dropout (x2)
         self.net = nn.Sequential(
-            self.conv1, nn.Identity(), nn.ReLU(), nn.Dropout(dropout),
-            self.conv2, nn.Identity(), nn.ReLU(), nn.Dropout(dropout),
+            self.conv1, nn.Identity(), nn.ReLU(), Dropout(dropout),
+            self.conv2, nn.Identity(), nn.ReLU(), Dropout(dropout),
         )
         # 1x1 residual projection when the widths differ; the reference's
         # N(0, 0.01) re-init of it is effective (unlike on the weight-normed

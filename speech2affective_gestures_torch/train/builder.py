@@ -1,0 +1,103 @@
+"""Model and step assembly for training (reference processor_v2.py:135-177):
+the s2ag PoseGenerator and AffDiscriminator as the trainable pair, the
+PoseGeneratorTriModal as the frozen comparator."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import constants as C
+from ..config import ModelConfig
+from ..device import resolve_device
+from ..models.discriminator import AffDiscriminator
+from ..models.generator import PoseGenerator, PoseGeneratorTriModal
+from .gan_step import GanConfig, GanStep
+
+_NOT_PORTED = ("the ablation generators (abl_audio, abl_aff) are not ported "
+               "yet: ROADMAP.md, queue 1")
+
+
+def build_models(cfg: ModelConfig, n_words: int, n_speakers: int,
+                 word_embeddings: np.ndarray | None = None,
+                 variant: str = "s2ag"):
+    """(generator, discriminator, TriModal comparator) of the paper model."""
+    if variant != "s2ag":
+        raise NotImplementedError(f"variant {variant!r}: {_NOT_PORTED}")
+    if cfg.input_context != "both" or cfg.z_type != "speaker":
+        raise NotImplementedError(
+            f"input_context={cfg.input_context!r}, z_type={cfg.z_type!r}: only "
+            "the paper's 'both' / 'speaker' generator is ported")
+    common = dict(n_words=n_words,
+                  word_embed_size=cfg.wordembed_dim, n_layers=cfg.n_layers,
+                  dropout_prob=cfg.dropout_prob, n_speakers=n_speakers,
+                  word_embeddings=word_embeddings,
+                  freeze_embedding=cfg.freeze_wordembed)
+    gen = PoseGenerator(mfcc_length=cfg.mfcc_length, num_mfcc=cfg.num_mfcc_combined,
+                        time_steps=cfg.n_poses, hidden_size=cfg.hidden_size_s2eg,
+                        **common)
+    dis = AffDiscriminator(n_poses=cfg.n_poses)
+    tri = PoseGeneratorTriModal(hidden_size=cfg.hidden_size, **common)
+    return gen, dis, tri
+
+
+def gan_config(cfg: ModelConfig, n_speakers: int,
+               divreg_draw: str = "permutation") -> GanConfig:
+    return GanConfig(
+        loss_regression_weight=cfg.loss_regression_weight,
+        loss_gan_weight=cfg.loss_gan_weight,
+        loss_kld_weight=cfg.loss_kld_weight,
+        loss_reg_weight=cfg.loss_reg_weight,
+        loss_warmup=cfg.loss_warmup,
+        learning_rate=cfg.learning_rate,
+        discriminator_lr_weight=cfg.discriminator_lr_weight,
+        z_type=cfg.z_type,
+        n_pre_poses=cfg.n_pre_poses,
+        n_speakers=n_speakers,
+        divreg_draw=divreg_draw,
+    )
+
+
+def synthetic_batch(rng: np.random.Generator, batch_size: int,
+                    cfg: ModelConfig, n_words: int = 1000,
+                    n_speakers: int = 100) -> dict:
+    """A batch with the geometry of the packed TED-db cache
+    (processor_v2.py:278-283), numpy, for smoke runs and timing."""
+    t = cfg.n_poses
+    return {
+        "extended_word_seq": rng.integers(0, n_words, (batch_size, t)).astype(np.int64),
+        "vec_seq": (rng.standard_normal((batch_size, t, C.POSE_DIM)) * 0.1).astype(np.float32),
+        "audio": (rng.standard_normal((batch_size, cfg.expected_audio_length)) * 0.1).astype(np.float32),
+        "mfcc_features": rng.standard_normal(
+            (batch_size, cfg.num_mfcc_combined, cfg.mfcc_length)).astype(np.float32),
+        "vid_indices": rng.integers(0, n_speakers, (batch_size,)).astype(np.int64),
+    }
+
+
+def to_device(batch: dict, device: torch.device) -> dict:
+    """numpy batch -> tensors on `device` (integer arrays as int64)."""
+    out = {}
+    for k, v in batch.items():
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        if not t.is_floating_point():
+            t = t.long()
+        out[k] = t.to(device, non_blocking=True)
+    return out
+
+
+def init_training(cfg: ModelConfig, seed: int, n_words: int = 1000,
+                  n_speakers: int = 100,
+                  word_embeddings: np.ndarray | None = None,
+                  device: str | torch.device | None = None, variant: str = "s2ag",
+                  divreg_draw: str = "permutation") -> dict:
+    """Models with weights drawn from `seed` on `device` (the card unless
+    `device="cpu"`), and the step over them."""
+    dev = resolve_device(device)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        gen, dis, tri = build_models(cfg, n_words, n_speakers, word_embeddings,
+                                     variant=variant)
+    gen, dis, tri = gen.to(dev), dis.to(dev), tri.to(dev).requires_grad_(False)
+    gan_cfg = gan_config(cfg, n_speakers, divreg_draw)
+    return dict(gen=gen, dis=dis, tri=tri, gan_cfg=gan_cfg, device=dev,
+                step=GanStep(gen, dis, gan_cfg, tri))

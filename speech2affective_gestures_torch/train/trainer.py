@@ -1,0 +1,228 @@
+"""Training driver (reference `processor_v2.py` class Processor, as the JAX
+package's `train/trainer.py` rebuilt it): the epoch loop with the GAN terms
+gated by `epoch > loss_warmup`, validation, and checkpoints named
+`epoch_{:06d}_loss_{:.4f}_model.pth.tar`.
+
+A checkpoint is the reference's save blob (`gen_model_dict`,
+`dis_model_dict`, keys prefixed `module.` as its DataParallel wrapper
+writes them) plus both Adam states, so the reference loads the weights and
+this trainer resumes from them (epoch-granular: the RNG state is not
+saved). The best-checkpoint choice takes the minimum positive loss, as the
+JAX package's does.
+"""
+
+from __future__ import annotations
+
+import os
+import re
+import time
+from collections import deque
+
+import numpy as np
+import torch
+
+from ..config import ModelConfig
+from ..convert.from_jax import strip_module_prefix
+from ..data.ted_db import BatchSampler, PackedDataset
+from . import builder
+from .logger import TrainLogger
+
+# the best checkpoint is looked for only after this many epochs
+# (ref processor_v2.py, min_train_epochs)
+MIN_TRAIN_EPOCHS = 20
+
+_CKPT_RE = re.compile(r"epoch_(\d+)_loss_(-?[\d.]+|nan|-?inf)_model\.pth\.tar$")
+
+
+def parse_checkpoint_name(name: str):
+    m = _CKPT_RE.match(name)
+    if not m:
+        return None
+    return int(m.group(1)), float(m.group(2))
+
+
+def find_checkpoint(work_dir: str, epoch: int | str = "best"):
+    """(name, epoch, loss) of a checkpoint in `work_dir`: 'best' = the
+    minimum positive loss, else the given epoch; None if there is none."""
+    if not os.path.isdir(work_dir):
+        return None
+    entries = [(name, *parsed) for name in os.listdir(work_dir)
+               if (parsed := parse_checkpoint_name(name))]
+    if not entries:
+        return None
+    if epoch == "best":
+        pool = [e for e in entries if e[2] > 0] or entries
+        return min(pool, key=lambda e: e[2])
+    return next((e for e in entries if e[1] == int(epoch)), None)
+
+
+class Trainer:
+    """GAN training on packed datasets, on `device` (the card unless
+    `device="cpu"`)."""
+
+    def __init__(self, cfg: ModelConfig, work_dir: str,
+                 train_data: PackedDataset | None = None,
+                 val_data: PackedDataset | None = None,
+                 test_data: PackedDataset | None = None,
+                 device: str | torch.device | None = None,
+                 val_interval: int = 1, save_interval: int = 10,
+                 seed: int = 1234, variant: str = "s2ag",
+                 trimodal_metric_interval: int = 1,
+                 divreg_draw: str = "permutation", metrics_lag: int = 8,
+                 log_interval: int = 50):
+        self.cfg = cfg
+        self.work_dir = work_dir
+        self.logger = TrainLogger(work_dir)
+        self.train_data, self.val_data, self.test_data = train_data, val_data, test_data
+        self.val_interval = val_interval
+        self.save_interval = save_interval
+        # the frozen-trimodal comparison every K-th step (1 = every step,
+        # as the reference, processor_v2.py:821)
+        self.trimodal_metric_interval = max(1, trimodal_metric_interval)
+        # steps whose metrics may stay on the card unread, so that the host
+        # queues the next step before it waits for one; the logged numbers
+        # are the same for any lag
+        self.metrics_lag = max(0, metrics_lag)
+        self.log_interval = log_interval
+
+        ref = train_data or val_data or test_data
+        n_words = ref.lang_model.n_words if ref and ref.lang_model else 1000
+        n_speakers = ref.speaker_model.n_words if ref and ref.speaker_model else 100
+        word_embeddings = (ref.lang_model.word_embedding_weights
+                           if ref and ref.lang_model else None)
+        setup = builder.init_training(
+            cfg, max(seed, 0), n_words=n_words, n_speakers=n_speakers,
+            word_embeddings=word_embeddings, device=device, variant=variant,
+            divreg_draw=divreg_draw)
+        self.device = setup["device"]
+        self.gen, self.dis, self.tri = setup["gen"], setup["dis"], setup["tri"]
+        self.step = setup["step"]
+        self.gan_cfg = setup["gan_cfg"]
+        # speaker noise, dropout masks and div-reg draws, on the device
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(seed if seed >= 0 else int(time.time()))
+        self.best_loss = np.inf
+        self.best_loss_epoch = 0
+        self.epoch = 0
+
+    # ------------------------------------------------------------- epochs
+    def _batch(self, batch: dict) -> dict:
+        return builder.to_device(batch, self.device)
+
+    def per_train_epoch(self) -> float:
+        gan_on = self.epoch > self.gan_cfg.loss_warmup
+        tri_every = self.trimodal_metric_interval
+        total, n, total_l1, n_l1 = 0.0, 0, 0.0, 0
+        start = time.time()
+
+        def consume(i, metrics):
+            nonlocal total, n, total_l1, n_l1
+            # one device->host copy for all of the step's metrics
+            values = dict(zip(metrics, torch.stack(list(metrics.values())).tolist()))
+            # halt on a non-finite loss instead of training on garbage
+            if not np.isfinite(values["s2ag_l1"]):
+                raise FloatingPointError(
+                    f"non-finite training loss at epoch {self.epoch} iter {i}: {values}")
+            # with an interval-gated comparator only the steps that computed
+            # it contribute to the epoch mean (ref processor_v2.py:821)
+            if "s2ag_vs_trimodal_l1" in values:
+                total, n = total + values["s2ag_vs_trimodal_l1"], n + 1
+            total_l1, n_l1 = total_l1 + values["s2ag_l1"], n_l1 + 1
+            if i % self.log_interval == 0:
+                line = " | ".join(f"{k}: {v:.4f}" for k, v in values.items())
+                self.logger.print_log(f"\tIter {i} Done. | {line}")
+
+        pending: deque = deque()
+        sampler = BatchSampler(self.train_data, self.cfg.batch_size,
+                               seed=self.epoch * 7919 + 1)
+        for i, batch in enumerate(sampler):
+            metrics = self.step.train_step(
+                self._batch(batch), self.generator, gan_on=gan_on,
+                tri_metric=(tri_every == 1 or i % tri_every == 0))
+            pending.append((i, metrics))
+            if len(pending) > self.metrics_lag:
+                consume(*pending.popleft())
+        while pending:
+            consume(*pending.popleft())
+        if n == 0:  # no comparator this epoch
+            total, n = total_l1, n_l1
+        self.logger.print_log(
+            f"epoch {self.epoch} train: mean_s2ag_loss {total / max(n, 1):.4f} "
+            f"({time.time() - start:.1f}s, {n_l1} iters)")
+        return total / max(n, 1)
+
+    def per_val_epoch(self) -> float:
+        sampler = BatchSampler(self.val_data, self.cfg.batch_size, seed=999)
+        gan_on = self.epoch > self.gan_cfg.loss_warmup
+        collected = []
+        for batch in sampler:
+            _, metrics = self.step.eval_step(self._batch(batch), self.generator,
+                                             gan_on=gan_on)
+            collected.append(metrics.get("s2ag_vs_trimodal_l1", metrics["s2ag_l1"]))
+        mean = float(torch.stack(collected).mean()) if collected else 0.0
+        self.logger.print_log(f"epoch {self.epoch} val: mean_s2ag_loss {mean:.4f}")
+        return mean
+
+    def train(self, epochs: int | None = None):
+        epochs = epochs or self.cfg.epochs
+        for self.epoch in range(self.epoch, epochs):
+            epoch_loss = self.per_train_epoch()
+            save = self.epoch % self.save_interval == 0
+            if self.val_data is not None and self.epoch % self.val_interval == 0:
+                epoch_loss = self.per_val_epoch()
+                if epoch_loss < self.best_loss and self.epoch > MIN_TRAIN_EPOCHS:
+                    self.best_loss = epoch_loss
+                    self.best_loss_epoch = self.epoch
+                    save = True
+            if save:
+                self.save_checkpoint(epoch_loss)
+
+    # -------------------------------------------------------- checkpoints
+    def _ckpt_name(self, loss: float) -> str:
+        return f"epoch_{self.epoch:06d}_loss_{loss:.4f}_model.pth.tar"
+
+    def save_checkpoint(self, loss: float) -> str:
+        path = os.path.join(os.path.abspath(self.work_dir), self._ckpt_name(loss))
+        torch.save({
+            "gen_model_dict": {f"module.{k}": v for k, v in self.gen.state_dict().items()},
+            "dis_model_dict": {f"module.{k}": v for k, v in self.dis.state_dict().items()},
+            "gen_optimizer_dict": self.step.gen_opt.state_dict(),
+            "dis_optimizer_dict": self.step.dis_opt.state_dict(),
+        }, path)
+        self.logger.print_log(f"saved checkpoint {path}")
+        return path
+
+    def load_checkpoint(self, epoch: int | str = "best") -> bool:
+        """Resume from a checkpoint of `work_dir`: weights, BN statistics
+        and both Adam states; training continues at its epoch."""
+        found = find_checkpoint(self.work_dir, epoch)
+        if not found:
+            self.logger.print_log("Warning! No saved model found.")
+            return False
+        name, ckpt_epoch, loss = found
+        blob = torch.load(os.path.join(self.work_dir, name), map_location=self.device,
+                          weights_only=True)
+        self.gen.load_state_dict(strip_module_prefix(blob["gen_model_dict"]), strict=True)
+        self.dis.load_state_dict(strip_module_prefix(blob["dis_model_dict"]), strict=True)
+        self.step.gen_opt.load_state_dict(blob["gen_optimizer_dict"])
+        self.step.dis_opt.load_state_dict(blob["dis_optimizer_dict"])
+        self.epoch = ckpt_epoch
+        self.best_loss, self.best_loss_epoch = loss, ckpt_epoch
+        self.logger.print_log(f"restored {name}")
+        return True
+
+    def load_torch_checkpoint(self, path: str):
+        """Weights of a reference .pth.tar ({'gen_model_dict',
+        'dis_model_dict'}): the port's parameter names are the reference's."""
+        blob = torch.load(path, map_location=self.device, weights_only=True)
+        self.gen.load_state_dict(strip_module_prefix(blob["gen_model_dict"]), strict=True)
+        self.dis.load_state_dict(strip_module_prefix(blob["dis_model_dict"]), strict=True)
+        self.logger.print_log(f"loaded torch checkpoint {path}")
+
+    def load_trimodal_torch_checkpoint(self, path: str):
+        """The frozen TriModal baseline (outputs/trimodal_gen.pth.tar, key
+        'trimodal_gen_dict'; ref processor_v2.py:1033-1034)."""
+        blob = torch.load(path, map_location=self.device, weights_only=True)
+        self.tri.load_state_dict(strip_module_prefix(blob["trimodal_gen_dict"]),
+                                 strict=True)
+        self.logger.print_log(f"loaded trimodal checkpoint {path}")

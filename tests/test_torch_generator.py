@@ -52,7 +52,7 @@ def pair():
 
     variables = dict(variables, batch_stats=perturb(variables["batch_stats"]))
     tgen = TGen(**KW).eval()
-    from_jax.load_jax_generator(tgen, variables)
+    from_jax.load_jax(tgen, from_jax.pose_generator, variables)
     return jgen, variables, tgen
 
 

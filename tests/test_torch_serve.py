@@ -67,7 +67,7 @@ def models():
         {"params": jax.random.key(0), "noise": jax.random.key(1)},
         *zeros, jnp.zeros((1,), jnp.int32)))
     tgen = TGen(**KW).eval()
-    from_jax.load_jax_generator(tgen, variables)
+    from_jax.load_jax(tgen, from_jax.pose_generator, variables)
     apply = jax.jit(jgen.apply)
 
     def eps_of(key, vid, n_windows):
