@@ -12,7 +12,9 @@ toolkit. In order:
    at the serving and training paths' shapes, within a stated tolerance:
    the GRU forward, the mel power, the GRU backward recurrence and its
    dW_hh reduction, and the GRU's autograd Function against autograd
-   through the plain forward;
+   through the plain forward; then the same three GRU kernels in the walk
+   layout of `run_layer` (the v1 layer) against their plain versions and
+   against the model layout's kernels on the same function;
 3. service phase: a full-width s2ag generator (config/multimodal_context_v2.yml:
    hidden 300, 4 GRU layers, embed 300; 1000 words, 100 speakers; random
    weights from seed 0) behind the HTTP server answers /synthesize for a
@@ -20,21 +22,35 @@ toolkit. In order:
    counters are set to 0 just before and read just after: both kernels
    must have run. The same requests through the same weights on the CPU
    (the plain path, same noise) must agree within tolerance;
-4. training phase: `main_v2.main` trains the paper's GAN at full width
+4. v1 path: `gru_cuda.run_layer`, forward and backward under autograd at
+   the generator's training shape; its counters are set to 0 just before
+   and read just after: its three kernels must have run;
+5. embedding phase: `train_embedding.main` trains the FGD embedding net on
+   the card on the synthetic corpus (every loss finite) and writes the
+   `.pth.tar` that the training phase loads;
+6. training phase: `main_v2.main` trains the paper's GAN at full width
    (generator hidden 300 with 4 bi-GRU layers, discriminator hidden 64,
    TriModal comparator hidden 300) at batch 512 for one epoch of a
    synthetic corpus (3 train steps, 1 validation batch), with the GAN terms
    on from the first step (`loss_warmup: -1` in a copy of the config). The
    counters are set to 0 just before and read just after: the GRU forward,
-   backward and dW kernels must have run; every logged loss must be finite;
-5. one train step at full width and batch 16 on the card and on the CPU
+   backward and dW kernels must have run; every logged loss must be finite.
+   After the epoch it scores the test split (~258 windows) with FGD
+   (`--embedding-net-checkpoint`); the counters are set to 0 again just
+   before `generate_gestures` and read just after: the GRU forward must
+   have run; L1, joint MAE, accel, FGD and feat_dist must be finite;
+7. evaluation parity: `generate_gestures` from the same weights, speakers
+   and speaker noise on the card and on the CPU plain path: the generated
+   poses, the embedding features and FGD must agree within tolerance;
+8. one train step at full width and batch 16 on the card and on the CPU
    plain path (in float64, the reference, and in float32), from the same
    weights, batch and noise: the card's metrics, BN running stats and
    Adam's first moments must agree with the float64 step within tolerance;
-6. timing: each kernel's time, its plain version's, a PyTorch library
+9. timing: each kernel's time, its plain version's, a PyTorch library
    call's that computes the same function, and the least time the card
    could take (bound); the service's synthesize p50; the train step's p50,
-   samples/s and its device profile.
+   samples/s and its device profile; `generate_gestures`' wall time and
+   device profile; the embedding train step's p50.
 
 It prints one `{"kernels": [...]}` line before the last, and as the last
 line `{"ok": true, "device": {...}}`. It exits non-zero, with no result
@@ -76,6 +92,17 @@ SERVE_TOL = 1e-3      # absolute, card vs CPU plain path, whole service
 # products; dW_hh and the bias gradients within BWD_TOL of each one's
 # largest value, sums of T*B products in another order
 BWD_TOL = 1e-4
+# the test-split evaluation, card vs the CPU plain path: the generated poses
+# within SERVE_TOL; the embedding features (of order 1) within FEAT_TOL
+# absolute, the embedding of poses that agree within SERVE_TOL through
+# layers of gain near 1 in eval mode; FGD within FGD_RTOL relative: it is a
+# difference of traces (of the two covariances and of their product's
+# root) much larger than itself when the fakes lie near the real windows,
+# so the features' float32 differences reach it amplified by that ratio
+FEAT_TOL = 1e-3
+FGD_RTOL = 1e-2
+# the embedding phase: epochs of the synthetic corpus's windows at batch 64
+EMB_EPOCHS, EMB_BATCH = 5, 64
 # one train step, card vs the CPU plain path in float64: metrics relative
 # (plus 1e-6 absolute for the near-zero difference of two L1 means); BN
 # running stats and Adam's first moments within STEP_TOL of each tensor's
@@ -251,6 +278,158 @@ def bwd_kernel_phase(device) -> dict:
     return errs
 
 
+def v1_inputs(T, B, cin, H, D, seed, device):
+    """`run_layer`'s inputs made from `gru_inputs`' model-layout ones: xp
+    with b_ih added and direction 1 time-reversed (the walk layout), w_hh,
+    b_hh; and the model layout's (xp, b_ih) beside them."""
+    from speech2affective_gestures_torch.ops import gru_cuda
+
+    xp, w_hh, b_ih, b_hh = gru_inputs(T, B, cin, H, D, seed, device)
+    walk = gru_cuda._walk(xp.view(T, B, D, 3 * H) + b_ih, D).contiguous()
+    return walk, w_hh, b_hh, (xp, b_ih)
+
+
+def v1_kernel_phase(device) -> dict:
+    """The walk-layout (`run_layer`) kernels against their plain versions
+    at the generator's training shape (T 34, B 512, H 300, D 2, layer input
+    600; the forward also at B 1), `run_layer` under autograd against
+    autograd through the plain loop, and the same inputs in the model
+    layout through `gru_layer`: the same function, so the same outputs and
+    gradients."""
+    import torch
+    from speech2affective_gestures_torch.ops import gru_cuda
+
+    errs = {"gru_fwd_v1": 0.0, "gru_bwd_v1": 0.0, "gru_dw_v1": 0.0}
+    T, H, D = 34, 300, 2
+    before = (gru_cuda.v1_launches, gru_cuda.v1_bwd_launches, gru_cuda.v1_dw_launches)
+    for B in (1, 512):
+        xw, w_hh, b_hh, (xp, b_ih) = v1_inputs(T, B, 600, H, D, seed=31 + B, device=device)
+        ys = gru_cuda.run_layer_forward(xw, w_hh, b_hh)
+        want = gru_cuda.run_layer_plain(xw, w_hh, b_hh)[0]
+        err = (ys - want).abs().max().item()
+        model_ys = gru_cuda.gru_layer_forward(xp, w_hh, b_ih, b_hh)[0]
+        same = (gru_cuda._unwalk(ys) - model_ys).abs().max().item()
+        log(f"kernel gru_fwd_v1 T={T} B={B} H={H} D={D}: max_abs_err={err:.3e} against "
+            f"run_layer_plain, {same:.3e} against gru_fwd on the model layout (tol {GRU_TOL})")
+        if not (err <= GRU_TOL and same <= GRU_TOL):
+            raise AssertionError(f"gru_fwd_v1 disagrees: {err}, {same}")
+        errs["gru_fwd_v1"] = max(errs["gru_fwd_v1"], err)
+        if B == 1:
+            continue
+        g = torch.Generator().manual_seed(B + H)
+        dys = torch.randn(T, D, B, H, generator=g).to(device)
+        dh = torch.randn(D, B, H, generator=g).to(device)
+        dxp, gn = gru_cuda.run_layer_bwd_recurrence(xw, w_hh, b_hh, want, dys)
+        want_dxp, want_gn = gru_cuda.run_layer_bwd_recurrence_plain(xw, w_hh, b_hh, want, dys)
+        err = max((dxp - want_dxp).abs().max().item(), (gn - want_gn).abs().max().item())
+        dw, db = gru_cuda.run_layer_dw(want, want_dxp, want_gn)
+        want_dw, want_db = gru_cuda.run_layer_dw_plain(want, want_dxp, want_gn)
+        rel = max(_rel(dw, want_dw), _rel(db, want_db))
+        # run_layer's autograd, its plain loop's, and the model layout's
+        grads = []
+        for layer in (gru_cuda.run_layer, gru_cuda.run_layer_plain):
+            leaves = [t.clone().requires_grad_() for t in (xw, w_hh, b_hh)]
+            y1, h1 = layer(*leaves)
+            grads.append(torch.autograd.grad((y1 * dys).sum() + (h1 * dh).sum(), leaves))
+        leaves = [t.clone().requires_grad_() for t in (xp, w_hh, b_ih, b_hh)]
+        y2, h2 = gru_cuda.gru_layer(*leaves)
+        g2 = torch.autograd.grad((y2 * gru_cuda._unwalk(dys)).sum() + (h2 * dh).sum(), leaves)
+        (got_x, got_w, got_b), (want_x, want_w, want_b) = grads
+        fn_err = (got_x - want_x).abs().max().item()
+        fn_rel = max(_rel(got_w, want_w), _rel(got_b, want_b))
+        # the model layout's dxp is run_layer's, laid out; dW_hh and db_hh
+        # are the same tensors
+        model_err = (gru_cuda._unwalk(got_x) - g2[0]).abs().max().item()
+        model_rel = max(_rel(got_w, g2[1]), _rel(got_b, g2[3]))
+        log(f"kernel gru_bwd_v1 T={T} B={B} H={H} D={D}: dxp/gn max_abs_err={err:.3e}; "
+            f"gru_dw_v1 dW_hh/db_hh relative to the largest {rel:.3e}; run_layer's "
+            f"autograd against the plain loop's: dxp {fn_err:.3e}, dW_hh/db_hh {fn_rel:.3e}; "
+            f"against gru_layer on the model layout: dxp {model_err:.3e}, dW_hh/db_hh "
+            f"{model_rel:.3e} (tol {BWD_TOL})")
+        if not all(e <= BWD_TOL for e in (err, rel, fn_err, fn_rel, model_err, model_rel)):
+            raise AssertionError(f"the v1 backward disagrees: {err}, {rel}, {fn_err}, "
+                                 f"{fn_rel}, {model_err}, {model_rel}")
+        errs["gru_bwd_v1"] = max(errs["gru_bwd_v1"], err)
+        errs["gru_dw_v1"] = max(errs["gru_dw_v1"], (dw - want_dw).abs().max().item(),
+                                (db - want_db).abs().max().item())
+    after = (gru_cuda.v1_launches, gru_cuda.v1_bwd_launches, gru_cuda.v1_dw_launches)
+    if not all(a > b for a, b in zip(after, before)):
+        raise AssertionError(f"the v1 launch counters did not rise: {before} -> {after}")
+    return errs
+
+
+def v1_path_phase(device) -> dict:
+    """`gru_cuda.run_layer`, the v1 layer's public entry (a drop-in for one
+    layer of the scan engine), at the generator's training shape: the
+    layer's input projection with b_ih, direction 1 time-reversed, the
+    layer, a loss on ys and h_last, and the backward to the input and every
+    weight. The v1 counters are set to 0 just before and read just after:
+    its three kernels must have run."""
+    import torch
+    from speech2affective_gestures_torch.ops import gru_cuda
+
+    T, B, cin, H, D = 34, 512, 600, 300, 2
+    g = torch.Generator().manual_seed(41)
+    bound = H ** -0.5
+    x = torch.randn(T, B, cin, generator=g).to(device).requires_grad_()
+    w_ih, w_hh, b_ih, b_hh = (
+        torch.empty(shape).uniform_(-bound, bound, generator=g).to(device).requires_grad_()
+        for shape in ((D, 3 * H, cin), (D, H, 3 * H), (D, 3 * H), (D, 3 * H)))
+    gru_cuda.v1_launches = gru_cuda.v1_bwd_launches = gru_cuda.v1_dw_launches = 0
+    xp = torch.einsum("tbc,dkc->tdbk", x, w_ih) + b_ih[:, None, :]
+    xp = torch.stack([xp[:, 0], xp[:, 1].flip(0)], dim=1).contiguous()
+    ys, h_last = gru_cuda.run_layer(xp, w_hh, b_hh)
+    (ys.square().mean() + h_last.sum()).backward()
+    torch.cuda.synchronize()
+    launches = {"gru_fwd_v1": gru_cuda.v1_launches, "gru_bwd_v1": gru_cuda.v1_bwd_launches,
+                "gru_dw_v1": gru_cuda.v1_dw_launches}
+    finite = all(bool(t.grad.isfinite().all()) for t in (x, w_ih, w_hh, b_ih, b_hh))
+    log(f"v1 path (run_layer under autograd, T={T} B={B} H={H} D={D}): launches "
+        f"{launches}; every gradient finite {finite}")
+    if not finite or min(launches.values()) < 1:
+        raise AssertionError(f"run_layer did not run its kernels: {launches}, finite {finite}")
+    return launches
+
+
+def embedding_phase(device, work: pathlib.Path) -> pathlib.Path:
+    """`train_embedding.main` on the card: the FGD embedding net trained on
+    the synthetic corpus's pose windows for EMB_EPOCHS epochs at batch
+    EMB_BATCH, every loss finite; returns the written `.pth.tar`. Then the
+    embedding train step's p50 at that batch."""
+    import torch
+    from speech2affective_gestures_torch import train_embedding
+    from speech2affective_gestures_torch.models.embedding_net import EmbeddingNet
+    from speech2affective_gestures_torch.train.embedding_trainer import embedding_train_step
+
+    out = work / "embedding_net.pth.tar"
+    argv = ["--synthetic-data", "--epochs", str(EMB_EPOCHS), "--batch-size", str(EMB_BATCH),
+            "--out", str(out)]
+    log(f"embedding phase: train_embedding.main({' '.join(argv)})")
+    t0 = time.perf_counter()
+    result = train_embedding.main(argv)
+    log(f"embedding losses per epoch {result['losses']}; "
+        f"{time.perf_counter() - t0:.1f} s in all")
+    if not (out.is_file() and np.isfinite(result["losses"]).all()):
+        raise AssertionError(f"the embedding training failed: {result['losses']}")
+
+    torch.manual_seed(0)
+    net = EmbeddingNet().to(device)
+    opt = torch.optim.Adam(net.parameters(), lr=5e-4)
+    poses = (torch.randn(EMB_BATCH, 34, 27) * 0.3).to(device)
+    for _ in range(3):
+        embedding_train_step(net, opt, poses)
+    times = []
+    for _ in range(20):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        embedding_train_step(net, opt, poses)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    log(f"embedding train step at batch {EMB_BATCH}: p50 {np.median(times):.3f} ms over "
+        f"{len(times)} steps")
+    return out
+
+
 def clip_audio(seconds: float, seed: int) -> np.ndarray:
     rng = np.random.default_rng(seed)
     n = int(seconds * 16000)
@@ -411,14 +590,29 @@ def profile_device(label: str, unit: str, fn, n: int = 3) -> None:
         log(f"  {device_us(e) / 1e3 / n:8.3f} ms {e.count / n:6.1f}x  {e.key[:90]}")
 
 
-def training_phase(device, work: pathlib.Path):
+def _counters() -> dict:
+    from speech2affective_gestures_torch.ops import gru_cuda, mel_cuda
+
+    return {"gru_fwd": gru_cuda.launches, "gru_bwd": gru_cuda.bwd_launches,
+            "gru_dw": gru_cuda.dw_launches, "mel_power": mel_cuda.launches}
+
+
+def _reset_counters() -> None:
+    from speech2affective_gestures_torch.ops import gru_cuda, mel_cuda
+
+    gru_cuda.launches = gru_cuda.bwd_launches = gru_cuda.dw_launches = 0
+    mel_cuda.launches = 0
+
+
+def training_phase(device, work: pathlib.Path, embedding_net: pathlib.Path):
     """`main_v2.main` on the card: the paper's GAN at full width, batch 512,
-    one epoch with the GAN terms on from the first step. Returns the
-    trainer and each kernel's launches in the run."""
+    one epoch with the GAN terms on from the first step, then the test
+    split scored with FGD by the card-trained embedding net. Returns the
+    trainer and each kernel's launches in training and in the scoring."""
     import torch
     import yaml
     from speech2affective_gestures_torch import main_v2
-    from speech2affective_gestures_torch.ops import gru_cuda, mel_cuda
+    from speech2affective_gestures_torch.train.trainer import Trainer
 
     raw = yaml.safe_load(CONFIG.read_text())
     raw["loss_warmup"] = -1       # epoch 0 > -1: the discriminator runs
@@ -428,22 +622,44 @@ def training_phase(device, work: pathlib.Path):
     argv = ["-b", str(base), "-c", str(cfg_path), "--synthetic-data", "true",
             "--synthetic-videos", str(TRAIN_VIDEOS), "--synthetic-seconds",
             str(TRAIN_SECONDS), "--batch-size", str(TRAIN_BATCH),
-            "--s2ag-num-epoch", "1", "--log-interval", "1"]
+            "--s2ag-num-epoch", "1", "--log-interval", "1",
+            "--embedding-net-checkpoint", str(embedding_net)]
     log(f"training phase: main_v2.main({' '.join(argv)})")
-    gru_cuda.launches = gru_cuda.bwd_launches = gru_cuda.dw_launches = 0
-    mel_cuda.launches = 0
+    # the counters are read, and set to 0 again, just before main_v2 scores
+    # the test split, and read just after
+    counts = {}
+    scoring = Trainer.generate_gestures
+
+    def counted(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        counts["training"] = _counters()
+        _reset_counters()
+        t0 = time.perf_counter()
+        result = scoring(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        counts["evaluation"] = _counters()
+        log(f"generate_gestures in main_v2: {(time.perf_counter() - t0) * 1e3:.1f} ms")
+        return result
+
+    _reset_counters()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    trainer = main_v2.main(argv)
+    Trainer.generate_gestures = counted
+    try:
+        trainer = main_v2.main(argv)
+    finally:
+        Trainer.generate_gestures = scoring
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"gru_fwd": gru_cuda.launches, "gru_bwd": gru_cuda.bwd_launches,
-                "gru_dw": gru_cuda.dw_launches, "mel_power": mel_cuda.launches}
-    log(f"training launches: {launches}; main_v2.main took {wall:.1f} s in all")
+    launches, evaluated = counts["training"], counts["evaluation"]
+    log(f"training launches: {launches}; test-split scoring launches: {evaluated}; "
+        f"main_v2.main took {wall:.1f} s in all")
     for name in ("gru_fwd", "gru_bwd", "gru_dw"):
         if launches[name] < 1:
             raise AssertionError(f"kernel {name} was not launched in training")
-    if trainer.device.type != "cuda":
+    if evaluated["gru_fwd"] < 1:
+        raise AssertionError("gru_fwd was not launched in generate_gestures")
+    if trainer.device.type != device.type:
         raise AssertionError(f"main_v2 trained on {trainer.device}, not the card")
 
     log_txt = (base / "models" / "s2ag_v2_mfcc_torch" / "ted_db" / "log.txt").read_text()
@@ -462,7 +678,83 @@ def training_phase(device, work: pathlib.Path):
             log(f"  log: {line}")
     if not list((base / "models" / "s2ag_v2_mfcc_torch" / "ted_db").glob("*.pth.tar")):
         raise AssertionError("main_v2 wrote no checkpoint")
-    return trainer, launches
+    [line] = [x for x in log_txt.splitlines() if "eval: " in x]
+    scores = {k: float(v) for k, v in (tok.split(": ") for tok in
+                                       line.split("eval: ")[1].split(" | "))}
+    log(f"test split ({trainer.test_data.n_samples} windows) scored on the card: {scores}")
+    if (set(scores) != {"l1", "joint_mae", "accel", "FGD", "feat_dist"}
+            or not np.isfinite(list(scores.values())).all()):
+        raise AssertionError(f"bad test-split scores: {scores}")
+    return trainer, {k: launches[k] + evaluated[k] for k in launches}
+
+
+def time_generate_gestures(trainer, n: int = 3) -> None:
+    """Wall time of `generate_gestures` on the whole test split (host clock
+    around each call, ended by a synchronize), then its device profile."""
+    import torch
+
+    n_test = trainer.test_data.n_samples
+
+    def score():
+        return trainer.generate_gestures(batch_size=min(2048, n_test), randomized=False)
+
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        score()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    log(f"generate_gestures ({n_test} windows, FGD on): p50 {np.median(times):.3f} ms over "
+        f"{n} calls; all {[round(t, 3) for t in times]}")
+    profile_device(f"generate_gestures ({n_test} windows)", "call", score, n=2)
+
+
+def eval_parity_phase(trainer, work: pathlib.Path) -> None:
+    """`generate_gestures` on the test split from the same weights, the same
+    speakers (the same numpy draws) and the same speaker noise on the card
+    and on the CPU plain path: the generated poses, the embedding features
+    and FGD must agree."""
+    from speech2affective_gestures_torch.train.evaluator import EmbeddingSpaceEvaluator
+    from speech2affective_gestures_torch.train.trainer import Trainer
+
+    n = trainer.test_data.n_samples
+    eps = np.random.default_rng(7).standard_normal((n, 16)).astype(np.float32)
+    cpu = Trainer(trainer.cfg, str(work / "cpu_eval"), test_data=trainer.test_data,
+                  device="cpu", evaluator=EmbeddingSpaceEvaluator(
+                      copy.deepcopy(trainer.evaluator.net), device="cpu"))
+    for name in ("gen", "dis", "tri"):
+        getattr(cpu, name).load_state_dict(getattr(trainer, name).state_dict())
+    runs = {}
+    for label, tr in (("card", trainer), ("CPU", cpu)):
+        ev, pushed = tr.evaluator, []
+        push = ev.push_samples
+
+        def record(generated, real, ev=ev, push=push, pushed=pushed):
+            push(generated, real)
+            pushed.append((np.asarray(generated.cpu()), ev.generated_feat_list[-1],
+                           ev.real_feat_list[-1]))
+
+        ev.push_samples = record
+        t0 = time.perf_counter()
+        try:
+            scores = tr.generate_gestures(batch_size=n, randomized=False, eps=eps)
+        finally:
+            del ev.push_samples
+        runs[label] = (scores, *(np.vstack(x) for x in zip(*pushed)))
+        log(f"generate_gestures on the {label} ({n} windows, same noise): {scores} in "
+            f"{time.perf_counter() - t0:.1f} s")
+    (card, *card_arrays), (want, *cpu_arrays) = runs["card"], runs["CPU"]
+    pose_err, gen_feat_err, real_feat_err = (
+        float(np.abs(a - b).max()) for a, b in zip(card_arrays, cpu_arrays))
+    fgd_rel = abs(card["FGD"] - want["FGD"]) / abs(want["FGD"])
+    log(f"evaluation card vs CPU plain path: poses max_abs_err={pose_err:.3e} (tol "
+        f"{SERVE_TOL}); embedding features max_abs_err generated {gen_feat_err:.3e}, real "
+        f"{real_feat_err:.3e} (tol {FEAT_TOL}); FGD {card['FGD']:.6f} vs {want['FGD']:.6f}, "
+        f"relative {fgd_rel:.3e} (tol {FGD_RTOL})")
+    if not (pose_err <= SERVE_TOL and max(gen_feat_err, real_feat_err) <= FEAT_TOL
+            and fgd_rel <= FGD_RTOL):
+        raise AssertionError("the card's evaluation disagrees with the CPU path")
 
 
 def time_train_step(trainer, n: int = 6):
@@ -707,7 +999,9 @@ def bwd_timing(device):
     """The backward kernels at the training shapes: (name, source, replaces,
     ms, plain ms, library ms, bytes, FLOP) rows for the generator's shape
     (T 34, B 512, H 300, D 2, a later layer's 600 inputs), and log lines
-    for the discriminator's (H 64) and for the forward kernel at B 512."""
+    for the discriminator's (H 64) and for the forward kernel at B 512;
+    then the walk layout's (`run_layer`) three kernels at the generator's
+    shape, with their forward also at B 1."""
     import torch
     from speech2affective_gestures_torch.ops import gru_cuda
 
@@ -772,6 +1066,61 @@ def bwd_timing(device):
             log(f"gru_fwd T={T} B={B} H={H} D={D}: {f_ms:.4f} ms, plain "
                 f"{f_plain:.4f} ms, cuDNN's recurrent forward "
                 f"{lt['cuDNN recurrent fwd']:.4f} ms, bound {f_bound:.5f} ms ({f_by})")
+            rows += v1_timing(device, lt)
+    return rows
+
+
+def v1_timing(device, lt) -> list:
+    """The walk layout's three kernels at the generator's training shape
+    (T 34, B 512, H 300, D 2): rows as `bwd_timing`'s, the library times
+    cuDNN's recurrent forward and backward from `lt` (the same shape) and
+    cuBLAS's dW product on prepared operands; the forward also at B 1."""
+    import torch
+    from speech2affective_gestures_torch.ops import gru_cuda
+
+    fwd_src = "speech2affective_gestures_torch/csrc/gru_fwd.cu"
+    bwd_src = "speech2affective_gestures_torch/csrc/gru_bwd.cu"
+    tpu = "speech2affective_gestures_tpu/ops/gru_pallas.py"
+    T, H, D = 34, 300, 2
+    rows = []
+    for B in (1, 512):
+        xw, w_hh, b_hh, _ = v1_inputs(T, B, 600, H, D, seed=9, device=device)
+        ys = gru_cuda.run_layer_forward(xw, w_hh, b_hh)
+        fwd_ms = time_ms(lambda: gru_cuda.run_layer_forward(xw, w_hh, b_hh), iters=10)
+        fwd_plain = time_ms(lambda: gru_cuda.run_layer_plain(xw, w_hh, b_hh), iters=5)
+        n_cell = T * D * B * (2 * H * 3 * H + 3 * H + 12 * H)
+        fwd_bytes = 4 * (xw.numel() + w_hh.numel() + b_hh.numel() + ys.numel())
+        if B == 1:
+            b_ms, b_by = bound(fwd_bytes, n_cell)
+            log(f"gru_fwd_v1 T={T} B=1 H={H} D={D}: {fwd_ms:.4f} ms, plain {fwd_plain:.4f} "
+                f"ms, bound {b_ms:.5f} ms ({b_by})")
+            continue
+        g = torch.Generator().manual_seed(9)
+        dys = torch.randn(T, D, B, H, generator=g).to(device)
+        dxp, gn = gru_cuda.run_layer_bwd_recurrence(xw, w_hh, b_hh, ys, dys)
+        args = (xw, w_hh, b_hh, ys, dys)
+        bwd_ms = time_ms(lambda: gru_cuda.run_layer_bwd_recurrence(*args), iters=10)
+        bwd_plain = time_ms(lambda: gru_cuda.run_layer_bwd_recurrence_plain(*args), iters=5)
+        dw_ms = time_ms(lambda: gru_cuda.run_layer_dw(ys, dxp, gn), iters=10)
+        dw_plain = time_ms(lambda: gru_cuda.run_layer_dw_plain(ys, dxp, gn), iters=10)
+        hprev = gru_cuda._walk_prev(ys).contiguous()
+        g_op = torch.cat([dxp[..., :2 * H], gn], dim=-1).contiguous()
+        dw_lib = time_ms(lambda: torch.einsum("tdbk,tdbj->dkj", hprev, g_op), iters=10)
+        n_rec = 2 * T * B * D * H * 3 * H
+        dw_flops = 2 * T * B * D * (H + 1) * 3 * H
+        rows += [
+            ("gru_fwd_v1", fwd_src, f"{tpu}:66", fwd_ms, fwd_plain, lt["cuDNN recurrent fwd"],
+             fwd_bytes, n_cell),
+            ("gru_bwd_v1", bwd_src, f"{tpu}:123", bwd_ms, bwd_plain, lt["cuDNN recurrent bwd"],
+             4 * (2 * xw.numel() + 3 * ys.numel() + w_hh.numel() + b_hh.numel()),
+             n_rec + 30 * T * B * D * H),
+            ("gru_dw_v1", bwd_src, f"{tpu}:178", dw_ms, dw_plain, dw_lib,
+             4 * (ys.numel() + 2 * xw.numel() // 3 + gn.numel() + w_hh.numel()
+                  + b_hh.numel()), dw_flops),
+        ]
+        log(f"gru v1 T={T} B={B} H={H} D={D}: forward {fwd_ms:.4f} ms (plain "
+            f"{fwd_plain:.4f}), recurrence {bwd_ms:.4f} ms (plain {bwd_plain:.4f}), dW "
+            f"{dw_ms:.4f} ms (plain {dw_plain:.4f}, cuBLAS product {dw_lib:.4f})")
     return rows
 
 
@@ -878,15 +1227,22 @@ def main() -> int:
     device = torch.device("cuda", 0)
     errs = kernel_phase(device)
     errs.update(bwd_kernel_phase(device))
+    errs.update(v1_kernel_phase(device))
     served = service_phase(device)
+    v1_path = v1_path_phase(device)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as work:
-        trainer, trained = training_phase(device, pathlib.Path(work))
+        work = pathlib.Path(work)
+        embedding_net = embedding_phase(device, work)
+        trainer, trained = training_phase(device, work, embedding_net)
+        eval_parity_phase(trainer, work)
+        time_generate_gestures(trainer)
         step_parity_phase(device)
         time_train_step(trainer)
         del trainer
     # each kernel's launches on the paths that run it: the service's two
-    # requests and the training run
+    # requests, the training run with its test-split scoring, and run_layer
     launches = {k: served.get(k, 0) + trained.get(k, 0) for k in {*served, *trained}}
+    launches.update(v1_path)
     kernels = timing_phase(device, errs, launches)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 """Weight bridge: the JAX package's model variables (the s2ag
-PoseGenerator, the TriModal generator, the AffDiscriminator) -> this port's
-state dicts.
+PoseGenerator, the TriModal generator, the AffDiscriminator, the FGD
+EmbeddingNet) -> this port's state dicts.
 
 The JAX variables are a nested dict of numpy arrays (`params` plus
 `batch_stats`, what `jax.device_get` returns for a flax variable tree). The
@@ -32,6 +32,15 @@ def linear(p: Mapping[str, Array], prefix: str) -> dict[str, Array]:
 def conv1d(p: Mapping[str, Array], prefix: str) -> dict[str, Array]:
     """(K, Cin, Cout) -> (Cout, Cin, K)."""
     out = {f"{prefix}.weight": np.transpose(np.asarray(p["kernel"]), (2, 1, 0))}
+    if "bias" in p:
+        out[f"{prefix}.bias"] = np.asarray(p["bias"])
+    return out
+
+
+def conv_transpose1d(p: Mapping[str, Array], prefix: str) -> dict[str, Array]:
+    """(K, Cin, Cout), the forward-conv orientation the JAX layer stores ->
+    torch ConvTranspose1d's (Cin, Cout, K)."""
+    out = {f"{prefix}.weight": np.transpose(np.asarray(p["kernel"]), (1, 2, 0))}
     if "bias" in p:
         out[f"{prefix}.bias"] = np.asarray(p["bias"])
     return out
@@ -205,6 +214,37 @@ def aff_discriminator(variables: Mapping[str, Any]) -> dict[str, Array]:
     return out
 
 
+def embedding_net_pose(variables: Mapping[str, Any]) -> dict[str, Array]:
+    """The FGD EmbeddingNet(mode='pose')'s flax variables -> reference
+    state-dict keys (the layout of outputs/embedding_net.pth.tar's
+    `embedding_dict`)."""
+    p, s = variables["params"], variables.get("batch_stats", {})
+    enc, enc_s = p["pose_encoder"], s["pose_encoder"]
+    out: dict[str, Array] = {}
+    for i in range(3):   # conv_norm_relu blocks: net.{i}.0 conv, net.{i}.1 BN
+        out.update(conv1d(enc[f"net{i}"]["conv"], f"pose_encoder.net.{i}.0"))
+        out.update(batch_norm(enc[f"net{i}"]["bn"], enc_s[f"net{i}"]["bn"],
+                              f"pose_encoder.net.{i}.1"))
+    out.update(conv1d(enc["net3"], "pose_encoder.net.3"))
+    for name, i in (("out_net0", 0), ("out_net1", 3), ("out_net2", 6)):
+        out.update(linear(enc[name], f"pose_encoder.out_net.{i}"))
+    for name, i in (("out_bn0", 1), ("out_bn1", 4)):
+        out.update(batch_norm(enc[name], enc_s[name], f"pose_encoder.out_net.{i}"))
+    out.update(linear(enc["fc_mu"], "pose_encoder.fc_mu"))
+    out.update(linear(enc["fc_log_var"], "pose_encoder.fc_log_var"))
+    dec, dec_s = p["decoder"], s["decoder"]
+    out.update(linear(dec["pre0"], "decoder.pre_net.0"))
+    out.update(batch_norm(dec["pre_bn0"], dec_s["pre_bn0"], "decoder.pre_net.1"))
+    out.update(linear(dec["pre1"], "decoder.pre_net.3"))
+    for name, i in (("net0", 0), ("net1", 3)):
+        out.update(conv_transpose1d(dec[name], f"decoder.net.{i}"))
+    for name, i in (("bn0", 1), ("bn1", 4)):
+        out.update(batch_norm(dec[name], dec_s[name], f"decoder.net.{i}"))
+    out.update(conv1d(dec["net2"], "decoder.net.6"))
+    out.update(conv1d(dec["net3"], "decoder.net.7"))
+    return out
+
+
 def to_state_dict(arrays: Mapping[str, Array]) -> dict[str, torch.Tensor]:
     """numpy arrays -> contiguous, writable CPU tensors."""
     return {k: torch.from_numpy(np.array(v, copy=True, order="C"))
@@ -213,8 +253,8 @@ def to_state_dict(arrays: Mapping[str, Array]) -> dict[str, torch.Tensor]:
 
 def load_jax(model: torch.nn.Module, mapper, variables: Mapping[str, Any]) -> None:
     """Load JAX variables into `model` through one of the mappers above
-    (`pose_generator`, `pose_generator_trimodal`, `aff_discriminator`),
-    strict."""
+    (`pose_generator`, `pose_generator_trimodal`, `aff_discriminator`,
+    `embedding_net_pose`), strict."""
     model.load_state_dict(to_state_dict(mapper(variables)), strict=True)
 
 

@@ -1,10 +1,11 @@
 // Backward of one (bi)directional GRU layer: the reverse-time recurrence in
 // one kernel, the recurrent weight's gradient in a second.
 //
-// Replaces the TPU kernel speech2affective_gestures_tpu/ops/gru_pallas.py
-// ::_bwd_kernel_v2 (pallas_call in _bwd_call_v2). The forward
-// (csrc/gru_fwd.cu) saved xp (input projections, no bias) and ys; for each
-// direction this walks time opposite to that direction's forward walk,
+// Replaces the TPU kernels speech2affective_gestures_tpu/ops/gru_pallas.py
+// ::_bwd_kernel_v2 (pallas_call in _bwd_call_v2) and ::_bwd_kernel (v1,
+// pallas_call in _bwd_call). The forward (csrc/gru_fwd.cu) saved xp (input
+// projections) and ys; for each direction this walks time opposite to
+// that direction's forward walk,
 // recomputes r, z, n from h_prev (the neighbouring frame of ys) and xp,
 // and with dh = dys + carry:
 //   dn     = dh (1 - z)          dz     = dh (h_prev - n)
@@ -18,12 +19,19 @@
 // The gradient of b_ih is sum_{t,b} dxp, which the wrapper takes with a
 // plain reduction (the JAX package also sums dxp outside its kernel).
 //
-// Layouts (all float32, row-major, contiguous):
-//   xp, dxp (T, B, D*3H)    ys, dys (T, B, D*H)    gn (T, B, D*H) = dpre_n r
-//   w_hh (D, H, 3H), w_hh_t (D, 3H, H) = its transpose (the wrapper's copy)
-//   b_ih, b_hh, db_hh (D, 3H)    dw_hh (D, H, 3H)
-// dys already holds the gradient of h_last, added by the wrapper at the
-// frame that produced each direction's final state.
+// Layouts (all float32, row-major, contiguous), the forward's two, chosen
+// by the template parameter WALK:
+//   model layout (WALK = false): xp, dxp (T, B, D*3H) without b_ih;
+//     ys, dys, gn (T, B, D*H) in forward time order; dys already holds the
+//     gradient of h_last, added by the wrapper at the frame that produced
+//     each direction's final state
+//   walk layout (WALK = true, `run_layer`): xp, dxp (T, D, B, 3H) with b_ih
+//     folded in (so there is no b_ih); ys, dys, gn (T, D, B, H), row s the
+//     walk's step s for both directions: h_prev of step s is row s - 1
+//   gn = dpre_n r; w_hh (D, H, 3H), w_hh_t (D, 3H, H) = its transpose (the
+//   wrapper's copy); b_ih, b_hh, db_hh (D, 3H); dw_hh (D, H, 3H).
+// In the walk layout db_hh's r and z parts are the sums of dxp's, as the
+// TPU kernel's fold of b_hh_r and b_hh_z into xp gives them.
 //
 // Kernel 1, the recurrence: one block per (batch tile, direction), the time
 // loop inside the block, h_prev, the recomputed h . W_hh, g and the carry
@@ -60,7 +68,16 @@ __device__ __forceinline__ float sigmoid_f(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
-template <int BT>
+// offset of (frame or walk row p, direction d, batch row) in a tensor of C
+// values per row
+template <bool WALK>
+__device__ __forceinline__ size_t row_offset(int p, int d, int row, int B, int D,
+                                             int C) {
+  return WALK ? (((size_t)p * D + d) * B + row) * C
+              : ((size_t)p * B + row) * D * C + (size_t)d * C;
+}
+
+template <int BT, bool WALK>
 __global__ void __launch_bounds__(1024) gru_layer_bwd_kernel(
     const float* __restrict__ xp, const float* __restrict__ w_hh,
     const float* __restrict__ w_hh_t, const float* __restrict__ b_ih,
@@ -79,25 +96,24 @@ __global__ void __launch_bounds__(1024) gru_layer_bwd_kernel(
   const int b0 = blockIdx.x * BT;
   const float* W = w_hh + (size_t)d * H * H3;
   const float* WT = w_hh_t + (size_t)d * H3 * H;
-  const float* bi = b_ih + d * H3;
+  const float* bi = WALK ? nullptr : b_ih + d * H3;
   const float* bh = b_hh + d * H3;
-  const size_t xrow = (size_t)D * H3;   // row stride of xp / dxp
-  const size_t hrow = (size_t)D * H;    // row stride of ys / dys / gn
   const int kmain = H - H % KCHUNK;
 
   for (int i = threadIdx.x; i < BT * H; i += blockDim.x) carry[i] = 0.0f;
 
   for (int step = 0; step < T; ++step) {
-    // the forward walked d = 0 ascending and d = 1 descending
-    const int p = (d == 0) ? T - 1 - step : step;
-    const int q = (d == 0) ? p - 1 : p + 1;   // frame of h_prev
+    // the model layout's forward walked d = 0 ascending and d = 1
+    // descending; the walk layout's rows are already in walk order
+    const int p = (WALK || d == 0) ? T - 1 - step : step;
+    const int q = (WALK || d == 0) ? p - 1 : p + 1;   // frame of h_prev
     const bool has_prev = q >= 0 && q < T;
 
     for (int idx = threadIdx.x; idx < BT * H; idx += blockDim.x) {
       const int bb = idx / H;
       const int row = b0 + bb;
       hprev[idx] = (has_prev && row < B)
-          ? ys[((size_t)q * B + row) * hrow + (size_t)d * H + (idx - bb * H)]
+          ? ys[row_offset<WALK>(q, d, row, B, D, H) + (idx - bb * H)]
           : 0.0f;
     }
     __syncthreads();
@@ -144,14 +160,17 @@ __global__ void __launch_bounds__(1024) gru_layer_bwd_kernel(
         carry[idx] = 0.0f;
         continue;
       }
-      const size_t xo = ((size_t)p * B + row) * xrow + (size_t)d * H3;
-      const size_t ho = ((size_t)p * B + row) * hrow + (size_t)d * H + i;
+      const size_t xo = row_offset<WALK>(p, d, row, B, D, H3);
+      const size_t ho = row_offset<WALK>(p, d, row, B, D, H) + i;
       const float* x = xp + xo;
       const float* hr = hp + bb * H3;
-      const float r = sigmoid_f(x[i] + bi[i] + hr[i]);
-      const float z = sigmoid_f(x[H + i] + bi[H + i] + hr[H + i]);
+      const float xr = WALK ? x[i] : x[i] + bi[i];
+      const float xz = WALK ? x[H + i] : x[H + i] + bi[H + i];
+      const float xn = WALK ? x[2 * H + i] : x[2 * H + i] + bi[2 * H + i];
+      const float r = sigmoid_f(xr + hr[i]);
+      const float z = sigmoid_f(xz + hr[H + i]);
       const float hn = hr[2 * H + i];
-      const float n = tanhf(x[2 * H + i] + bi[2 * H + i] + r * hn);
+      const float n = tanhf(xn + r * hn);
       const float dh = dys[ho] + carry[idx];
       const float dn = dh * (1.0f - z);
       const float dz = dh * (hprev[idx] - n);
@@ -212,7 +231,7 @@ __global__ void __launch_bounds__(1024) gru_layer_bwd_kernel(
   }
 }
 
-template <int BT>
+template <int BT, bool WALK>
 cudaError_t launch_bwd(const float* xp, const float* w_hh, const float* w_hh_t,
                        const float* b_ih, const float* b_hh, const float* ys,
                        const float* dys, float* dxp, float* gn, int T, int B,
@@ -220,14 +239,14 @@ cudaError_t launch_bwd(const float* xp, const float* w_hh, const float* w_hh_t,
   const size_t smem = (size_t)BT * 11 * H * sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        gru_layer_bwd_kernel<BT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        gru_layer_bwd_kernel<BT, WALK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return err;
   }
   int threads = ((3 * H + 31) / 32) * 32;
   if (threads > 1024) threads = 1024;
   const dim3 grid((B + BT - 1) / BT, D);
-  gru_layer_bwd_kernel<BT><<<grid, threads, smem, stream>>>(
+  gru_layer_bwd_kernel<BT, WALK><<<grid, threads, smem, stream>>>(
       xp, w_hh, w_hh_t, b_ih, b_hh, ys, dys, dxp, gn, T, B, H, D);
   return cudaGetLastError();
 }
@@ -248,13 +267,20 @@ int dw_rows_per_split(int M, int S) {
   return ((M + S - 1) / S + TK - 1) / TK * TK;
 }
 
-// part (S, D, H + 1, 3H): split s's partial sums of [dW_hh; db_hh]
+// part (S, D, H + 1, 3H): split s's partial sums of [dW_hh; db_hh]. Row m
+// of the reduction is (t, b) = (m / B, m % B): frame t in the model layout,
+// walk row t in the walk layout. Each stage's TK rows have their offsets
+// computed once, by TK threads, into a table in shared memory.
+template <bool WALK>
 __global__ void __launch_bounds__(256) gru_dw_kernel(
     const float* __restrict__ ys, const float* __restrict__ dxp,
     const float* __restrict__ gn, float* __restrict__ part, int T, int B,
     int H, int D, int rows_per_split) {
   __shared__ float As[TK][TM];   // h_prev (or 1 for the bias row)
   __shared__ float Bs[TK][TN];   // g
+  // offsets of each row of the stage, direction d: h_prev in ys (-1: the
+  // walk's first step, zero), the row in dxp and in gn (-1: past the split)
+  __shared__ long long row_a[TK], row_x[TK], row_h[TK];
   const int d = blockIdx.z % D;
   const int split = blockIdx.z / D;
   const int k0 = blockIdx.y * TM;
@@ -262,8 +288,6 @@ __global__ void __launch_bounds__(256) gru_dw_kernel(
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
   const int H3 = 3 * H;
-  const size_t xrow = (size_t)D * H3;
-  const size_t hrow = (size_t)D * H;
   const int m_lo = split * rows_per_split;
   const int m_hi = min(T * B, m_lo + rows_per_split);
 
@@ -274,18 +298,30 @@ __global__ void __launch_bounds__(256) gru_dw_kernel(
     for (int c = 0; c < 4; ++c) acc[a][c] = 0.0f;
 
   for (int m0 = m_lo; m0 < m_hi; m0 += TK) {
+    if (threadIdx.x < TK) {
+      const int m = m0 + threadIdx.x;
+      long long a = -1, x = -1, h = -1;
+      if (m < m_hi) {
+        const int t = m / B;
+        const int b = m - t * B;
+        const int q = (WALK || d == 0) ? t - 1 : t + 1;
+        if (q >= 0 && q < T) a = (long long)row_offset<WALK>(q, d, b, B, D, H);
+        x = (long long)row_offset<WALK>(t, d, b, B, D, H3);
+        h = (long long)row_offset<WALK>(t, d, b, B, D, H);
+      }
+      row_a[threadIdx.x] = a;
+      row_x[threadIdx.x] = x;
+      row_h[threadIdx.x] = h;
+    }
+    __syncthreads();
     for (int e = threadIdx.x; e < TK * TM; e += blockDim.x) {
       const int r = e / TM;
       const int kk = e - r * TM;
-      const int m = m0 + r;
       const int k = k0 + kk;
       float a = 0.0f;
-      if (m < m_hi) {
+      if (row_x[r] >= 0) {
         if (k < H) {
-          const int t = m / B;
-          const int b = m - t * B;
-          const int q = (d == 0) ? t - 1 : t + 1;
-          if (q >= 0 && q < T) a = ys[((size_t)q * B + b) * hrow + (size_t)d * H + k];
+          if (row_a[r] >= 0) a = ys[row_a[r] + k];
         } else if (k == H) {
           a = 1.0f;
         }
@@ -295,14 +331,13 @@ __global__ void __launch_bounds__(256) gru_dw_kernel(
     for (int e = threadIdx.x; e < TK * TN; e += blockDim.x) {
       const int r = e / TN;
       const int jj = e - r * TN;
-      const int m = m0 + r;
       const int j = j0 + jj;
       float v = 0.0f;
-      if (m < m_hi) {
+      if (row_x[r] >= 0) {
         if (j < 2 * H) {
-          v = dxp[(size_t)m * xrow + (size_t)d * H3 + j];
+          v = dxp[row_x[r] + j];
         } else if (j < H3) {
-          v = gn[(size_t)m * hrow + (size_t)d * H + (j - 2 * H)];
+          v = gn[row_h[r] + (j - 2 * H)];
         }
       }
       Bs[r][jj] = v;
@@ -359,27 +394,64 @@ __global__ void gru_dw_sum_kernel(const float* __restrict__ part,
   }
 }
 
-}  // namespace
-
-// The recurrence. gn may be null (no weight gradient wanted). Returns the
-// CUDA error code of the launch (0 = success).
-extern "C" int s2ag_gru_layer_bwd(const float* xp, const float* w_hh,
-                                  const float* w_hh_t, const float* b_ih,
-                                  const float* b_hh, const float* ys,
-                                  const float* dys, float* dxp, float* gn,
-                                  int T, int B, int H, int D, void* stream) {
+template <bool WALK>
+int launch_bwd_tiles(const float* xp, const float* w_hh, const float* w_hh_t,
+                     const float* b_ih, const float* b_hh, const float* ys,
+                     const float* dys, float* dxp, float* gn, int T, int B,
+                     int H, int D, void* stream) {
   if (T < 1 || B < 1 || H < 1 || D < 1 || D > 2) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // B = 1 gets its own instance; large batches take 8-row tiles (one wave
   // of blocks at B = 512), the rest 4-row tiles; the last tile is masked
   if (B == 1)
-    return (int)launch_bwd<1>(xp, w_hh, w_hh_t, b_ih, b_hh, ys, dys, dxp, gn,
-                              T, B, H, D, s);
+    return (int)launch_bwd<1, WALK>(xp, w_hh, w_hh_t, b_ih, b_hh, ys, dys, dxp,
+                                    gn, T, B, H, D, s);
   if (B >= 256)
-    return (int)launch_bwd<8>(xp, w_hh, w_hh_t, b_ih, b_hh, ys, dys, dxp, gn,
-                              T, B, H, D, s);
-  return (int)launch_bwd<4>(xp, w_hh, w_hh_t, b_ih, b_hh, ys, dys, dxp, gn,
-                            T, B, H, D, s);
+    return (int)launch_bwd<8, WALK>(xp, w_hh, w_hh_t, b_ih, b_hh, ys, dys, dxp,
+                                    gn, T, B, H, D, s);
+  return (int)launch_bwd<4, WALK>(xp, w_hh, w_hh_t, b_ih, b_hh, ys, dys, dxp,
+                                  gn, T, B, H, D, s);
+}
+
+template <bool WALK>
+int launch_dw(const float* ys, const float* dxp, const float* gn, float* part,
+              float* dw_hh, float* db_hh, int T, int B, int H, int D, int S,
+              void* stream) {
+  if (T < 1 || B < 1 || H < 1 || D < 1 || D > 2 || S < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid((3 * H + TN - 1) / TN, (H + 1 + TM - 1) / TM, D * S);
+  gru_dw_kernel<WALK><<<grid, 256, 0, st>>>(ys, dxp, gn, part, T, B, H, D,
+                                            dw_rows_per_split(T * B, S));
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const size_t n = (size_t)D * (H + 1) * 3 * H;
+  const int blocks = (int)((n + 255) / 256);
+  gru_dw_sum_kernel<<<blocks, 256, 0, st>>>(part, dw_hh, db_hh, H, D, S);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// The recurrence, model layout. gn may be null (no weight gradient
+// wanted). Returns the CUDA error code of the launch (0 = success).
+extern "C" int s2ag_gru_layer_bwd(const float* xp, const float* w_hh,
+                                  const float* w_hh_t, const float* b_ih,
+                                  const float* b_hh, const float* ys,
+                                  const float* dys, float* dxp, float* gn,
+                                  int T, int B, int H, int D, void* stream) {
+  return launch_bwd_tiles<false>(xp, w_hh, w_hh_t, b_ih, b_hh, ys, dys, dxp, gn,
+                                 T, B, H, D, stream);
+}
+
+// The recurrence, walk layout (`run_layer`; no b_ih). gn may be null.
+extern "C" int s2ag_gru_layer_bwd_v1(const float* xp, const float* w_hh,
+                                     const float* w_hh_t, const float* b_hh,
+                                     const float* ys, const float* dys,
+                                     float* dxp, float* gn, int T, int B,
+                                     int H, int D, void* stream) {
+  return launch_bwd_tiles<true>(xp, w_hh, w_hh_t, nullptr, b_hh, ys, dys, dxp,
+                                gn, T, B, H, D, stream);
 }
 
 // The number of row splits S of the dW reduction on a card with `sms`
@@ -396,21 +468,18 @@ extern "C" int s2ag_gru_dw_splits(int T, int B, int H, int D, int sms) {
 }
 
 // dW_hh (D, H, 3H) and db_hh (D, 3H) from ys, dxp and gn, through the
-// workspace part (S, D, H + 1, 3H), S from s2ag_gru_dw_splits.
+// workspace part (S, D, H + 1, 3H), S from s2ag_gru_dw_splits; model layout.
 extern "C" int s2ag_gru_layer_dw(const float* ys, const float* dxp,
                                  const float* gn, float* part, float* dw_hh,
                                  float* db_hh, int T, int B, int H, int D,
                                  int S, void* stream) {
-  if (T < 1 || B < 1 || H < 1 || D < 1 || D > 2 || S < 1)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((3 * H + TN - 1) / TN, (H + 1 + TM - 1) / TM, D * S);
-  gru_dw_kernel<<<grid, 256, 0, st>>>(ys, dxp, gn, part, T, B, H, D,
-                                      dw_rows_per_split(T * B, S));
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const size_t n = (size_t)D * (H + 1) * 3 * H;
-  const int blocks = (int)((n + 255) / 256);
-  gru_dw_sum_kernel<<<blocks, 256, 0, st>>>(part, dw_hh, db_hh, H, D, S);
-  return (int)cudaGetLastError();
+  return launch_dw<false>(ys, dxp, gn, part, dw_hh, db_hh, T, B, H, D, S, stream);
+}
+
+// The same in the walk layout (`run_layer`).
+extern "C" int s2ag_gru_layer_dw_v1(const float* ys, const float* dxp,
+                                    const float* gn, float* part, float* dw_hh,
+                                    float* db_hh, int T, int B, int H, int D,
+                                    int S, void* stream) {
+  return launch_dw<true>(ys, dxp, gn, part, dw_hh, db_hh, T, B, H, D, S, stream);
 }

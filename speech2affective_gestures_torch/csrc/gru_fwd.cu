@@ -1,23 +1,28 @@
 // Forward of one (bi)directional GRU layer, the whole time loop in one kernel.
 //
-// Replaces the TPU kernel speech2affective_gestures_tpu/ops/gru_pallas.py
-// ::_fwd_kernel_v2 (pallas_call in _fwd_call_v2). Torch GRU cell, gates
-// ordered (r, z, n):
+// Replaces the TPU kernels speech2affective_gestures_tpu/ops/gru_pallas.py
+// ::_fwd_kernel_v2 (pallas_call in _fwd_call_v2) and ::_fwd_kernel (v1,
+// pallas_call in _fwd_call). Torch GRU cell, gates ordered (r, z, n):
 //   hp = h . W_hh + b_hh
 //   r  = sigmoid(xp_r + b_ih_r + hp_r)
 //   z  = sigmoid(xp_z + b_ih_z + hp_z)
 //   n  = tanh(xp_n + b_ih_n + r * hp_n)
 //   h' = (1 - z) * n + z * h
 // The input projection xp = x . W_ih arrives precomputed (one large product
-// outside the kernel, as in the JAX package). The reverse direction walks
-// time backwards and writes its outputs in forward time order.
+// outside the kernel, as in the JAX package).
 //
-// Layouts (all float32, row-major, contiguous):
-//   xp     (T, B, D*3H)   no bias, no time flip
-//   w_hh   (D, H, 3H)     = torch weight_hh_l{k}[_reverse] transposed
-//   b_ih   (D, 3H), b_hh (D, 3H)
-//   ys     (T, B, D*H)    both directions in forward time order
-//   h_last (D, B, H)
+// Two layouts of the same cell, chosen by the template parameter WALK (all
+// float32, row-major, contiguous):
+//   model layout (WALK = false, `s2ag_gru_layer_fwd`, the layers' engine):
+//     xp (T, B, D*3H) no bias, no time flip; ys (T, B, D*H) both directions
+//     in forward time order (the reverse direction walks time backwards);
+//     h_last (D, B, H)
+//   walk layout (WALK = true, `s2ag_gru_layer_fwd_v1`, `run_layer`'s
+//     contract): xp (T, D, B, 3H) with b_ih already added and direction 1
+//     already time-reversed by the caller; ys (T, D, B, H) in each
+//     direction's walk order; step s reads and writes row s, no b_ih
+//   w_hh (D, H, 3H) = torch weight_hh_l{k}[_reverse] transposed
+//   b_ih (D, 3H) (model layout only), b_hh (D, 3H)
 //
 // Design: one block per (batch tile, direction); the time loop runs inside
 // the block and h stays in shared memory. Each step, the threads own
@@ -42,7 +47,17 @@ __device__ __forceinline__ float sigmoid_f(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
-template <int BT>
+// offset of (step, direction d, batch row) in a tensor of C values per
+// row: the step's frame t in the model layout, the walk's row in the walk
+// layout
+template <bool WALK>
+__device__ __forceinline__ size_t row_offset(int t, int step, int d, int row,
+                                             int B, int D, int C) {
+  return WALK ? (((size_t)step * D + d) * B + row) * C
+              : ((size_t)t * B + row) * D * C + (size_t)d * C;
+}
+
+template <int BT, bool WALK>
 __global__ void __launch_bounds__(1024) gru_layer_fwd_kernel(
     const float* __restrict__ xp, const float* __restrict__ w_hh,
     const float* __restrict__ b_ih, const float* __restrict__ b_hh,
@@ -56,7 +71,7 @@ __global__ void __launch_bounds__(1024) gru_layer_fwd_kernel(
   const int b0 = blockIdx.x * BT;
   const int H3 = 3 * H;
   const float* W = w_hh + (size_t)d * H * H3;
-  const float* bi = b_ih + d * H3;
+  const float* bi = WALK ? nullptr : b_ih + d * H3;
   const float* bh = b_hh + d * H3;
   const int kmain = H - H % KCHUNK;
 
@@ -100,18 +115,22 @@ __global__ void __launch_bounds__(1024) gru_layer_fwd_kernel(
       const int i = idx - bb * H;
       const int row = b0 + bb;
       if (row >= B) continue;
-      const float* x = xp + ((size_t)t * B + row) * D * H3 + (size_t)d * H3;
+      const float* x = xp + row_offset<WALK>(t, step, d, row, B, D, H3);
       const float* g = hp + bb * H3;
-      const float r = sigmoid_f(x[i] + bi[i] + g[i]);
-      const float z = sigmoid_f(x[H + i] + bi[H + i] + g[H + i]);
-      const float n = tanhf(x[2 * H + i] + bi[2 * H + i] + r * g[2 * H + i]);
+      const float xr = WALK ? x[i] : x[i] + bi[i];
+      const float xz = WALK ? x[H + i] : x[H + i] + bi[H + i];
+      const float xn = WALK ? x[2 * H + i] : x[2 * H + i] + bi[2 * H + i];
+      const float r = sigmoid_f(xr + g[i]);
+      const float z = sigmoid_f(xz + g[H + i]);
+      const float n = tanhf(xn + r * g[2 * H + i]);
       const float hn = (1.0f - z) * n + z * h[idx];
       h[idx] = hn;
-      ys[((size_t)t * B + row) * D * H + (size_t)d * H + i] = hn;
+      ys[row_offset<WALK>(t, step, d, row, B, D, H) + i] = hn;
     }
     __syncthreads();
   }
 
+  if (h_last == nullptr) return;  // the walk layout: h_last is ys[T - 1]
   for (int idx = threadIdx.x; idx < BT * H; idx += blockDim.x) {
     const int bb = idx / H;
     const int row = b0 + bb;
@@ -119,41 +138,51 @@ __global__ void __launch_bounds__(1024) gru_layer_fwd_kernel(
   }
 }
 
-template <int BT>
+template <int BT, bool WALK>
 cudaError_t launch(const float* xp, const float* w_hh, const float* b_ih,
                    const float* b_hh, float* ys, float* h_last, int T, int B,
                    int H, int D, cudaStream_t stream) {
   const size_t smem = (size_t)BT * 4 * H * sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        gru_layer_fwd_kernel<BT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        gru_layer_fwd_kernel<BT, WALK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return err;
   }
   int threads = ((3 * H + 31) / 32) * 32;
   if (threads > 1024) threads = 1024;
   const dim3 grid((B + BT - 1) / BT, D);
-  gru_layer_fwd_kernel<BT><<<grid, threads, smem, stream>>>(
+  gru_layer_fwd_kernel<BT, WALK><<<grid, threads, smem, stream>>>(
       xp, w_hh, b_ih, b_hh, ys, h_last, T, B, H, D);
   return cudaGetLastError();
 }
 
+template <bool WALK>
+int launch_tiles(const float* xp, const float* w_hh, const float* b_ih,
+                 const float* b_hh, float* ys, float* h_last, int T, int B, int H,
+                 int D, void* stream) {
+  if (T < 1 || B < 1 || H < 1 || D < 1 || D > 2) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // B = 1 (one /synthesize request) gets its own instance; any other B runs
+  // tiles of 4 rows, the last tile masked
+  if (B == 1) return (int)launch<1, WALK>(xp, w_hh, b_ih, b_hh, ys, h_last, T, B, H, D, s);
+  return (int)launch<4, WALK>(xp, w_hh, b_ih, b_hh, ys, h_last, T, B, H, D, s);
+}
+
 }  // namespace
 
-// Returns the CUDA error code of the launch (0 = success).
+// The model layout. Returns the CUDA error code of the launch (0 = success).
 extern "C" int s2ag_gru_layer_fwd(const float* xp, const float* w_hh,
                                   const float* b_ih, const float* b_hh,
                                   float* ys, float* h_last, int T, int B,
                                   int H, int D, void* stream) {
-  if (T < 1 || B < 1 || H < 1 || D < 1 || D > 2) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  // B = 1 (one /synthesize request) gets its own instance; any other B runs
-  // tiles of 4 rows, the last tile masked
-  if (B == 1) {
-    err = launch<1>(xp, w_hh, b_ih, b_hh, ys, h_last, T, B, H, D, s);
-  } else {
-    err = launch<4>(xp, w_hh, b_ih, b_hh, ys, h_last, T, B, H, D, s);
-  }
-  return (int)err;
+  return launch_tiles<false>(xp, w_hh, b_ih, b_hh, ys, h_last, T, B, H, D, stream);
+}
+
+// The walk layout (`run_layer`): xp (T, D, B, 3H) with b_ih folded in,
+// ys (T, D, B, H); no h_last (it is ys[T - 1]).
+extern "C" int s2ag_gru_layer_fwd_v1(const float* xp, const float* w_hh,
+                                     const float* b_hh, float* ys, int T, int B,
+                                     int H, int D, void* stream) {
+  return launch_tiles<true>(xp, w_hh, nullptr, b_hh, ys, nullptr, T, B, H, D, stream);
 }

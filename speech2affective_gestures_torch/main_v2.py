@@ -3,19 +3,24 @@
 The reference's flag surface (main_v2.py:31-98, as the JAX package's
 `main_v2.py` carries it) and flow: parse the run flags and the YAML model
 config, make the work directory, load the dataset splits, build the
-trainer, load checkpoints, train.
+FGD evaluator and the trainer, load checkpoints, train, then score the
+test split (`Trainer.generate_gestures`: L1, joint MAE, acceleration
+difference, and FGD with `--embedding-net-checkpoint`).
 
     python -m speech2affective_gestures_torch.main_v2 -b BASE_PATH \\
-        -c config/multimodal_context_v2.yml --synthetic-data true
+        -c config/multimodal_context_v2.yml --synthetic-data true \\
+        [--embedding-net-checkpoint emb.pth.tar]
 
 Training runs on the card unless `--device cpu` is given (every kernel's
 plain PyTorch version). The data come from the synthetic corpus
 (`--synthetic-data true`). A flag that selects something not ported yet
 raises and names its ROADMAP.md item: the TED LMDB and exported-archive
 readers, mixed precision, the fused pass, rematerialization, the grain
-loader, several steps per program, gradient clipping, learning-rate decay,
-the FGD embedding net. After training, the JAX package scores and
-synthesizes the test split; that is the next slice of the port.
+loader, several steps per program, gradient clipping, learning-rate decay.
+The embedding net comes from the reference's `embedding_net.pth.tar` or
+from `python -m speech2affective_gestures_torch.train_embedding`. The
+long-clip rendering of the test split (`train/clip_eval.py`) is not ported
+yet (ROADMAP.md, queue 1, item 2).
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ import torch
 from .config import ModelConfig
 from .data import ted_db
 from .device import resolve_device, set_f32_numerics
+from .train.evaluator import EmbeddingSpaceEvaluator
 from .train.trainer import Trainer
 
 _ROADMAP = "not ported yet (ROADMAP.md, queue 1)"
@@ -111,7 +117,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "processor_v2.py:1033); without it the comparator "
                         "metric uses a random-init baseline")
     p.add_argument("--embedding-net-checkpoint", type=str, default="",
-                   help=f"frozen FGD embedding net: {_ROADMAP}")
+                   help="frozen FGD embedding net ({'embedding_dict': ...}, the "
+                        "reference's outputs/embedding_net.pth.tar layout, as "
+                        "train_embedding writes it); without it the test split "
+                        "is scored without FGD")
     p.add_argument("--synthetic-data", type=str2bool, default=False,
                    help="use the synthetic corpus instead of TED lmdb")
     p.add_argument("--synthetic-videos", type=int, default=4,
@@ -160,7 +169,6 @@ def check_ported(args) -> None:
         f"--steps-per-program {args.steps_per_program}": args.steps_per_program > 1,
         "--apply-gradient-clip true": args.apply_gradient_clip,
         "--apply-lr-decay true": args.apply_lr_decay,
-        "--embedding-net-checkpoint": bool(args.embedding_net_checkpoint),
         "--packed-data": bool(args.packed_data),
         "the TED lmdb dataset (no --synthetic-data)": not args.synthetic_data,
     }
@@ -203,13 +211,17 @@ def main(argv=None, variant: str = "s2ag") -> Trainer:
 
     logs: list[str] = []
     train_data, val_data, test_data = load_datasets(args, cfg, device, logs.append)
+    evaluator = None
+    if args.embedding_net_checkpoint:
+        evaluator = EmbeddingSpaceEvaluator.from_torch_checkpoint(
+            args.embedding_net_checkpoint, device=device)
     trainer = Trainer(
         cfg, work_dir, train_data=train_data, val_data=val_data,
         test_data=test_data, device=device, val_interval=args.val_interval,
         save_interval=args.save_interval, seed=cfg.random_seed, variant=variant,
         trimodal_metric_interval=args.trimodal_metric_interval,
         divreg_draw=args.divreg_draw, metrics_lag=args.metrics_lag,
-        log_interval=args.log_interval)
+        log_interval=args.log_interval, evaluator=evaluator)
     trainer.logger.save_arg(vars(args))
     for line in logs:
         trainer.logger.print_log(line)
@@ -236,9 +248,9 @@ def main(argv=None, variant: str = "s2ag") -> Trainer:
 
     if args.train_s2ag:
         trainer.train(epochs=args.s2ag_num_epoch)
-    trainer.logger.print_log(
-        "test-split evaluation and synthesis (generate_gestures, clip_eval) "
-        f"are {_ROADMAP}")
+    if test_data is not None and test_data.n_samples > 0:
+        trainer.generate_gestures(batch_size=min(2048, test_data.n_samples),
+                                  randomized=False)
     return trainer
 
 

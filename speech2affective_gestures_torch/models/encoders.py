@@ -141,8 +141,15 @@ class AffEncoder(nn.Module):
 
     def forward(self, poses: torch.Tensor) -> torch.Tensor:
         b, t, jc = poses.shape
+        # contiguous: the permuted view is channels-last in memory, so the
+        # residual's 1x1 conv would emit channels-last output, and torch's
+        # CPU batch norm sums a channels-last input in per-thread partials
+        # whose order follows the thread count. The seed poses are zero at
+        # 30 of 34 frames, so that batch norm's mean is large against its
+        # deviation and the order moved its output by up to 4e-5 of its
+        # largest value; in NCHW the statistics do not depend on threads.
         x = poses.view(b, t, jc // self.coords, self.coords).permute(0, 3, 1, 2)
-        feat1 = self.st_gcn1(x, self.a1)                        # (B, 16, T, 9)
+        feat1 = self.st_gcn1(x.contiguous(), self.a1)           # (B, 16, T, 9)
         feat1 = _per_node_batchnorm(feat1, self.batch_norm1)
         # body parts: (B, 16*3, T, 3), channel index ch*3 + bone-in-part
         feat2_in = torch.stack(

@@ -20,6 +20,15 @@ bound by float32 FMA throughput). The sources say more.
 `GRULayerFunction` ties them into autograd. Each wrapper takes the plain
 version for a CPU tensor and launches its kernel for a CUDA tensor; there
 is no fallback between the two.
+
+`run_layer` is the JAX package's v1 layer (`gru_pallas.run_layer`, the
+TPU kernels `_fwd_kernel` and `_bwd_kernel`): the same cell in the scan's
+walk layout, xp (T, D, B, 3H) with b_ih added and direction 1 time-reversed
+by the caller, ys (T, D, B, H) in each direction's walk order, h_last =
+ys[-1]. Its kernels are the same sources instantiated for that layout
+(`_v1` entry points), so the cell body and the block design are shared;
+`GRULayerV1Function` ties them into autograd. No model routes to it: the
+models use `gru_layer`, as the JAX models use the v2 kernels.
 """
 
 from __future__ import annotations
@@ -31,10 +40,50 @@ import torch
 from . import _build
 
 # kernel launches since the last reset (chip_smoke.py reads and resets them):
-# the forward, the backward recurrence, the dW_hh reduction
+# the forward, the backward recurrence, the dW_hh reduction; then the same
+# three in the walk layout (`run_layer`)
 launches = 0
 bwd_launches = 0
 dw_launches = 0
+v1_launches = 0
+v1_bwd_launches = 0
+v1_dw_launches = 0
+
+
+def _walk(a: torch.Tensor, D: int) -> torch.Tensor:
+    """(T, B, D, ...) -> (T, D, B, ...), each direction in its walk order
+    (direction 1 flipped in time)."""
+    out = [a[:, :, 0]] + ([a[:, :, 1].flip(0)] if D == 2 else [])
+    return torch.stack(out, dim=1)
+
+
+def _unwalk(a: torch.Tensor) -> torch.Tensor:
+    """(T, D, B, C) in walk order -> (T, B, D*C) in forward time order."""
+    outs = [a[:, 0]] + ([a[:, 1].flip(0)] if a.shape[1] == 2 else [])
+    return torch.cat(outs, dim=-1)
+
+
+def _cell(xt, hp, H):
+    r = torch.sigmoid(xt[..., :H] + hp[..., :H])
+    z = torch.sigmoid(xt[..., H:2 * H] + hp[..., H:2 * H])
+    n = torch.tanh(xt[..., 2 * H:] + r * hp[..., 2 * H:])
+    return r, z, n
+
+
+def _walk_forward(x: torch.Tensor, w_hh: torch.Tensor,
+                  b_hh: torch.Tensor) -> torch.Tensor:
+    """The time loop in walk order: x (T, D, B, 3H) with b_ih included ->
+    ys (T, D, B, H)."""
+    T, D, B, H3 = x.shape
+    H = H3 // 3
+    h = x.new_zeros(D, B, H)
+    ys = []
+    for t in range(T):
+        hp = torch.bmm(h, w_hh) + b_hh[:, None, :]
+        r, z, n = _cell(x[t], hp, H)
+        h = (1.0 - z) * n + z * h
+        ys.append(h)
+    return torch.stack(ys)
 
 
 def gru_layer_plain(xp: torch.Tensor, w_hh: torch.Tensor, b_ih: torch.Tensor,
@@ -48,34 +97,25 @@ def gru_layer_plain(xp: torch.Tensor, w_hh: torch.Tensor, b_ih: torch.Tensor,
     """
     T, B, _ = xp.shape
     D, H, _ = w_hh.shape
-    x = xp.view(T, B, D, 3 * H) + b_ih
-    # direction-major, the reverse direction's inputs flipped in time
-    x = torch.stack([x[:, :, 0]] + ([x[:, :, 1].flip(0)] if D == 2 else []),
-                    dim=1)                                   # (T, D, B, 3H)
-    h = xp.new_zeros(D, B, H)
-    ys = []
-    for t in range(T):
-        hp = torch.bmm(h, w_hh) + b_hh[:, None, :]
-        xt = x[t]
-        r = torch.sigmoid(xt[..., :H] + hp[..., :H])
-        z = torch.sigmoid(xt[..., H:2 * H] + hp[..., H:2 * H])
-        n = torch.tanh(xt[..., 2 * H:] + r * hp[..., 2 * H:])
-        h = (1.0 - z) * n + z * h
-        ys.append(h)
-    ys = torch.stack(ys)                                     # (T, D, B, H)
-    outs = [ys[:, 0]] + ([ys[:, 1].flip(0)] if D == 2 else [])
-    return torch.cat(outs, dim=-1), h
+    ys = _walk_forward(_walk(xp.view(T, B, D, 3 * H) + b_ih, D), w_hh, b_hh)
+    return _unwalk(ys), ys[-1]
+
+
+def _check_tensors(fn: str, tensors: dict) -> None:
+    """Every tensor contiguous float32 on xp's device."""
+    device = tensors["xp"].device
+    for name, t in tensors.items():
+        if t.device != device:
+            raise ValueError(f"{fn}: {name} is on {t.device}, xp on {device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{fn}: {name} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{fn}: {name} must be contiguous")
 
 
 def _check(xp, w_hh, b_ih, b_hh, **more):
-    tensors = {"xp": xp, "w_hh": w_hh, "b_ih": b_ih, "b_hh": b_hh, **more}
-    for name, t in tensors.items():
-        if t.device != xp.device:
-            raise ValueError(f"gru_layer: {name} is on {t.device}, xp on {xp.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"gru_layer: {name} must be float32, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"gru_layer: {name} must be contiguous")
+    _check_tensors("gru_layer", {"xp": xp, "w_hh": w_hh, "b_ih": b_ih, "b_hh": b_hh,
+                                 **more})
     if xp.dim() != 3 or w_hh.dim() != 3:
         raise ValueError("gru_layer: xp must be (T, B, D*3H) and w_hh (D, H, 3H)")
     D, H, H3 = w_hh.shape
@@ -157,24 +197,26 @@ def gru_bwd_recurrence_plain(xp: torch.Tensor, w_hh: torch.Tensor,
     = dpre_n * r, both in forward time order."""
     T, B, _ = xp.shape
     D, H, _ = w_hh.shape
-    x = xp.view(T, B, D, 3 * H) + b_ih
-    hprev = _prev_states(ys, D)
-    dy = dys.view(T, B, D, H)
+    x = _walk(xp.view(T, B, D, 3 * H) + b_ih, D)
+    dx, gn = _walk_backward(x, _walk(_prev_states(ys, D), D),
+                            _walk(dys.view(T, B, D, H), D), w_hh, b_hh)
+    return _unwalk(dx), _unwalk(gn)
 
-    def walk(a):  # (T, B, D, ...) -> (T, D, B, ...) in each direction's walk order
-        out = [a[:, :, 0]] + ([a[:, :, 1].flip(0)] if D == 2 else [])
-        return torch.stack(out, dim=1)
 
-    x, hprev, dy = walk(x), walk(hprev), walk(dy)
+def _walk_backward(x: torch.Tensor, hprev: torch.Tensor, dy: torch.Tensor,
+                   w_hh: torch.Tensor, b_hh: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The reverse-time recurrence in walk order: x (T, D, B, 3H) with b_ih
+    included, hprev and dy (T, D, B, H) -> dx (T, D, B, 3H) = [dpre_r,
+    dpre_z, dpre_n] and gn (T, D, B, H) = dpre_n r."""
+    T, D, B, H3 = x.shape
+    H = H3 // 3
     w_t = w_hh.transpose(1, 2)
-    carry = xp.new_zeros(D, B, H)
+    carry = x.new_zeros(D, B, H)
     dxs, gns = [], []
     for s in range(T - 1, -1, -1):
         hp = torch.bmm(hprev[s], w_hh) + b_hh[:, None, :]
-        xt = x[s]
-        r = torch.sigmoid(xt[..., :H] + hp[..., :H])
-        z = torch.sigmoid(xt[..., H:2 * H] + hp[..., H:2 * H])
-        n = torch.tanh(xt[..., 2 * H:] + r * hp[..., 2 * H:])
+        r, z, n = _cell(x[s], hp, H)
         dh = dy[s] + carry
         dpre_n = dh * (1.0 - z) * (1.0 - n * n)
         dpre_z = dh * (hprev[s] - n) * z * (1.0 - z)
@@ -183,13 +225,7 @@ def gru_bwd_recurrence_plain(xp: torch.Tensor, w_hh: torch.Tensor,
         carry = dh * z + torch.bmm(g, w_t)
         dxs.append(torch.cat([dpre_r, dpre_z, dpre_n], dim=-1))
         gns.append(dpre_n * r)
-
-    def unwalk(seq):  # reversed walk-order list of (D, B, C) -> (T, B, D*C)
-        a = torch.stack(seq[::-1])                           # (T, D, B, C)
-        outs = [a[:, 0]] + ([a[:, 1].flip(0)] if D == 2 else [])
-        return torch.cat(outs, dim=-1)
-
-    return unwalk(dxs), unwalk(gns)
+    return torch.stack(dxs[::-1]), torch.stack(gns[::-1])
 
 
 def gru_bwd_recurrence(xp: torch.Tensor, w_hh: torch.Tensor, b_ih: torch.Tensor,
@@ -249,19 +285,24 @@ def gru_dw(ys: torch.Tensor, dxp: torch.Tensor, gn: torch.Tensor,
                 or not t.is_contiguous() or tuple(t.shape) != shape):
             raise ValueError(f"gru_dw: {name} must be a contiguous float32 "
                              f"{shape} tensor on {ys.device}")
-    lib = _build.load("gru_bwd")
-    splits = lib.s2ag_gru_dw_splits
+    dw, db = _dw_launch("s2ag_gru_layer_dw", ys, dxp, gn, T, B, H, D)
+    dw_launches += 1
+    return dw, db
+
+
+def _dw_launch(symbol, ys, dxp, gn, T, B, H, D):
+    """Launch a dW reduction entry point of `csrc/gru_bwd.cu` (either
+    layout) into fresh (dW_hh, db_hh)."""
+    splits = _build.load("gru_bwd").s2ag_gru_dw_splits
     splits.argtypes, splits.restype = [ctypes.c_int] * 5, ctypes.c_int
     S = splits(T, B, H, D,
                torch.cuda.get_device_properties(ys.device).multi_processor_count)
     part = torch.empty((S, D, H + 1, 3 * H), device=ys.device, dtype=torch.float32)
     dw = torch.empty((D, H, 3 * H), device=ys.device, dtype=torch.float32)
     db = torch.empty((D, 3 * H), device=ys.device, dtype=torch.float32)
-    fn = _lib_fn("gru_bwd", "s2ag_gru_layer_dw", 6, n_int=5)
-    _launch(fn, "gru_dw", ys.device, ys.data_ptr(), dxp.data_ptr(),
-            gn.data_ptr(), part.data_ptr(), dw.data_ptr(), db.data_ptr(),
-            T, B, H, D, S)
-    dw_launches += 1
+    _launch(_lib_fn("gru_bwd", symbol, 6, n_int=5), symbol, ys.device,
+            ys.data_ptr(), dxp.data_ptr(), gn.data_ptr(), part.data_ptr(),
+            dw.data_ptr(), db.data_ptr(), T, B, H, D, S)
     return dw, db
 
 
@@ -329,3 +370,170 @@ def gru_layer(xp: torch.Tensor, w_hh: torch.Tensor, b_ih: torch.Tensor,
     if xp.device.type != "cuda":
         raise ValueError(f"gru_layer: unsupported device {xp.device}")
     return GRULayerFunction.apply(xp, w_hh, b_ih, b_hh)
+
+
+# ---------------------------------------------------------------------------
+# the v1 layer: `gru_pallas.run_layer`'s contract, walk layout
+# ---------------------------------------------------------------------------
+
+def run_layer_plain(xp: torch.Tensor, w_hh: torch.Tensor,
+                    b_hh: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The v1 layer as a plain time loop.
+
+    xp (T, D, B, 3H): the input projections plus b_ih, gates (r, z, n),
+    direction 1 already time-reversed by the caller; w_hh (D, H, 3H); b_hh
+    (D, 3H). Returns ys (T, D, B, H) in each direction's walk order and
+    h_last = ys[-1] (D, B, H)."""
+    ys = _walk_forward(xp, w_hh, b_hh)
+    return ys, ys[-1]
+
+
+def run_layer_bwd_recurrence_plain(xp: torch.Tensor, w_hh: torch.Tensor,
+                                   b_hh: torch.Tensor, ys: torch.Tensor,
+                                   dys: torch.Tensor
+                                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The v1 backward recurrence: dys (T, D, B, H), the gradient of ys
+    (h_last's included, since h_last is ys[-1]) -> dxp (T, D, B, 3H) =
+    [dpre_r, dpre_z, dpre_n] and gn (T, D, B, H) = dpre_n r."""
+    return _walk_backward(xp, _walk_prev(ys), dys, w_hh, b_hh)
+
+
+def _walk_prev(ys: torch.Tensor) -> torch.Tensor:
+    """The state each walk step started from: the previous row of ys (T,
+    D, B, H), zero at step 0."""
+    return torch.cat([torch.zeros_like(ys[:1]), ys[:-1]])
+
+
+def run_layer_dw_plain(ys: torch.Tensor, dxp: torch.Tensor,
+                       gn: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """dW_hh (D, H, 3H) = the sum over (t, b) of h_prev^T g with g =
+    [dpre_r, dpre_z, dpre_n r], and db_hh (D, 3H) = the sum of g: the r and
+    z parts are dxp's sums (JAX folds b_hh_r and b_hh_z into xp), the n
+    part the TPU kernel's db_hn."""
+    H = ys.shape[-1]
+    g = torch.cat([dxp[..., :2 * H], gn], dim=-1)
+    return torch.einsum("tdbk,tdbj->dkj", _walk_prev(ys), g), g.sum(dim=(0, 2))
+
+
+def _check_v1(xp, w_hh, b_hh, **more):
+    _check_tensors("run_layer", {"xp": xp, "w_hh": w_hh, "b_hh": b_hh, **more})
+    if xp.dim() != 4 or w_hh.dim() != 3:
+        raise ValueError("run_layer: xp must be (T, D, B, 3H) and w_hh (D, H, 3H)")
+    T, D, B, H3 = xp.shape
+    if tuple(w_hh.shape) != (D, H3 // 3, H3) or H3 % 3 or D not in (1, 2):
+        raise ValueError(f"run_layer: w_hh shape {tuple(w_hh.shape)} does not "
+                         f"match xp {tuple(xp.shape)}")
+    if tuple(b_hh.shape) != (D, H3) or T < 1 or B < 1:
+        raise ValueError(f"run_layer: b_hh shape {tuple(b_hh.shape)} != {(D, H3)}")
+    for name, t in more.items():
+        if tuple(t.shape) != (T, D, B, H3 // 3):
+            raise ValueError(f"run_layer: {name} shape {tuple(t.shape)} != "
+                             f"{(T, D, B, H3 // 3)}")
+
+
+def run_layer_forward(xp: torch.Tensor, w_hh: torch.Tensor,
+                      b_hh: torch.Tensor) -> torch.Tensor:
+    """ys of `run_layer_plain`; the forward kernel (walk layout) for CUDA
+    tensors. Not differentiable on the card: `run_layer` is the autograd
+    entry."""
+    global v1_launches
+    if xp.device.type == "cpu":
+        return run_layer_plain(xp, w_hh, b_hh)[0]
+    if xp.device.type != "cuda":
+        raise ValueError(f"run_layer: unsupported device {xp.device}")
+    _check_v1(xp, w_hh, b_hh)
+    T, D, B, H3 = xp.shape
+    ys = torch.empty((T, D, B, H3 // 3), device=xp.device, dtype=torch.float32)
+    _launch(_lib_fn("gru_fwd", "s2ag_gru_layer_fwd_v1", 4), "gru_fwd_v1", xp.device,
+            xp.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(), ys.data_ptr(),
+            T, B, H3 // 3, D)
+    v1_launches += 1
+    return ys
+
+
+def run_layer_bwd_recurrence(xp: torch.Tensor, w_hh: torch.Tensor,
+                             b_hh: torch.Tensor, ys: torch.Tensor,
+                             dys: torch.Tensor, want_gn: bool = True
+                             ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """`run_layer_bwd_recurrence_plain`'s contract; the backward kernel
+    (walk layout) for CUDA tensors. With want_gn=False gn is not written
+    and None is returned in its place."""
+    global v1_bwd_launches
+    if xp.device.type == "cpu":
+        dxp, gn = run_layer_bwd_recurrence_plain(xp, w_hh, b_hh, ys, dys)
+        return dxp, gn if want_gn else None
+    if xp.device.type != "cuda":
+        raise ValueError(f"run_layer: unsupported device {xp.device}")
+    _check_v1(xp, w_hh, b_hh, ys=ys, dys=dys)
+    T, D, B, H3 = xp.shape
+    w_hh_t = w_hh.transpose(1, 2).contiguous()
+    dxp = torch.empty_like(xp)
+    gn = torch.empty_like(ys) if want_gn else None
+    _launch(_lib_fn("gru_bwd", "s2ag_gru_layer_bwd_v1", 8), "gru_bwd_v1", xp.device,
+            xp.data_ptr(), w_hh.data_ptr(), w_hh_t.data_ptr(), b_hh.data_ptr(),
+            ys.data_ptr(), dys.data_ptr(), dxp.data_ptr(),
+            0 if gn is None else gn.data_ptr(), T, B, H3 // 3, D)
+    v1_bwd_launches += 1
+    return dxp, gn
+
+
+def run_layer_dw(ys: torch.Tensor, dxp: torch.Tensor,
+                 gn: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """`run_layer_dw_plain`'s contract; the reduction kernel (walk layout)
+    for CUDA tensors."""
+    global v1_dw_launches
+    if ys.device.type == "cpu":
+        return run_layer_dw_plain(ys, dxp, gn)
+    if ys.device.type != "cuda":
+        raise ValueError(f"run_layer: unsupported device {ys.device}")
+    T, D, B, H = ys.shape
+    for name, t, shape in (("ys", ys, (T, D, B, H)), ("gn", gn, (T, D, B, H)),
+                           ("dxp", dxp, (T, D, B, 3 * H))):
+        if (t.device != ys.device or t.dtype != torch.float32
+                or not t.is_contiguous() or tuple(t.shape) != shape):
+            raise ValueError(f"run_layer_dw: {name} must be a contiguous float32 "
+                             f"{shape} tensor on {ys.device}")
+    dw, db = _dw_launch("s2ag_gru_layer_dw_v1", ys, dxp, gn, T, B, H, D)
+    v1_dw_launches += 1
+    return dw, db
+
+
+class GRULayerV1Function(torch.autograd.Function):
+    """The v1 layer with the forward kernel and the backward kernels, both
+    in the walk layout: saves xp, w_hh, b_hh and ys, as the JAX package's
+    `_vjp_fwd` does. The weight gradients are skipped when neither weight
+    needs one."""
+
+    @staticmethod
+    def forward(ctx, xp, w_hh, b_hh):
+        ys = run_layer_forward(xp, w_hh, b_hh)
+        ctx.save_for_backward(xp, w_hh, b_hh, ys)
+        return ys
+
+    @staticmethod
+    def backward(ctx, dys):
+        xp, w_hh, b_hh, ys = ctx.saved_tensors
+        need_x, need_w, need_b = ctx.needs_input_grad
+        dxp, gn = run_layer_bwd_recurrence(xp, w_hh, b_hh, ys, dys.contiguous(),
+                                           want_gn=need_w or need_b)
+        dw = db = None
+        if need_w or need_b:
+            dw, db = run_layer_dw(ys, dxp, gn)
+        return (dxp if need_x else None, dw if need_w else None,
+                db if need_b else None)
+
+
+def run_layer(xp: torch.Tensor, w_hh: torch.Tensor,
+              b_hh: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """`gru_pallas.run_layer`'s contract (see `run_layer_plain`),
+    differentiable in xp, w_hh and b_hh. A CPU tensor runs the plain time
+    loop, which autograd differentiates; a CUDA tensor runs
+    `GRULayerV1Function`. Contiguous float32 only, on either device: bf16
+    storage comes with bf16 serving (ROADMAP.md)."""
+    _check_v1(xp, w_hh, b_hh)
+    if xp.device.type == "cpu":
+        return run_layer_plain(xp, w_hh, b_hh)
+    if xp.device.type != "cuda":
+        raise ValueError(f"run_layer: unsupported device {xp.device}")
+    ys = GRULayerV1Function.apply(xp, w_hh, b_hh)
+    return ys, ys[-1]

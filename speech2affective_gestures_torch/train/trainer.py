@@ -1,7 +1,8 @@
 """Training driver (reference `processor_v2.py` class Processor, as the JAX
 package's `train/trainer.py` rebuilt it): the epoch loop with the GAN terms
-gated by `epoch > loss_warmup`, validation, and checkpoints named
-`epoch_{:06d}_loss_{:.4f}_model.pth.tar`.
+gated by `epoch > loss_warmup`, validation, checkpoints named
+`epoch_{:06d}_loss_{:.4f}_model.pth.tar`, and the test-split evaluation
+(`generate_gestures`: L1, joint MAE, acceleration difference and FGD).
 
 A checkpoint is the reference's save blob (`gen_model_dict`,
 `dis_model_dict`, keys prefixed `module.` as its DataParallel wrapper
@@ -23,9 +24,11 @@ import torch
 
 from ..config import ModelConfig
 from ..convert.from_jax import strip_module_prefix
-from ..data.ted_db import BatchSampler, PackedDataset
+from ..data.ted_db import BatchSampler, PackedDataset, decode_rows
 from . import builder
+from .evaluator import EmbeddingSpaceEvaluator, push_sample_metrics
 from .logger import TrainLogger
+from .losses import AverageMeter
 
 # the best checkpoint is looked for only after this many epochs
 # (ref processor_v2.py, min_train_epochs)
@@ -69,13 +72,16 @@ class Trainer:
                  seed: int = 1234, variant: str = "s2ag",
                  trimodal_metric_interval: int = 1,
                  divreg_draw: str = "permutation", metrics_lag: int = 8,
-                 log_interval: int = 50):
+                 log_interval: int = 50,
+                 evaluator: EmbeddingSpaceEvaluator | None = None):
         self.cfg = cfg
         self.work_dir = work_dir
         self.logger = TrainLogger(work_dir)
         self.train_data, self.val_data, self.test_data = train_data, val_data, test_data
         self.val_interval = val_interval
         self.save_interval = save_interval
+        # the frozen FGD embedding net of generate_gestures (None: no FGD)
+        self.evaluator = evaluator
         # the frozen-trimodal comparison every K-th step (1 = every step,
         # as the reference, processor_v2.py:821)
         self.trimodal_metric_interval = max(1, trimodal_metric_interval)
@@ -226,3 +232,56 @@ class Trainer:
         self.tri.load_state_dict(strip_module_prefix(blob["trimodal_gen_dict"]),
                                  strict=True)
         self.logger.print_log(f"loaded trimodal checkpoint {path}")
+
+    # ------------------------------------------------------------- eval
+    @torch.no_grad()
+    def generate_gestures(self, batch_size: int = 2048, randomized: bool = True,
+                          seed: int = 0, full_test: bool = False,
+                          eps: np.ndarray | None = None) -> dict[str, float]:
+        """The test split's L1, joint MAE, acceleration difference and, with
+        an evaluator, FGD and feat_dist (ref generate_gestures,
+        processor_v2.py:1071-1142, as the JAX trainer scores them).
+
+        One draw of at most `batch_size` samples (the first ones unless
+        `randomized`), or with `full_test` the whole split in `batch_size`
+        chunks; each chunk's speakers are drawn uniformly from the speaker
+        vocabulary (ref processor_v2.py:724-726), with numpy's
+        `default_rng(seed)` in the JAX trainer's order. `eps` (n, 16), when
+        given, is the speaker noise of the scored samples in order (tests
+        inject it); otherwise it comes from the trainer's generator."""
+        ds = self.test_data
+        rng = np.random.default_rng(seed)
+        if full_test:
+            idx_all = np.arange(ds.n_samples)
+        else:
+            n = min(batch_size, ds.n_samples)
+            idx_all = (rng.choice(ds.n_samples, n, replace=False) if randomized
+                       else np.arange(n))
+        speaker_pool = sorted(ds.speaker_model.word2index.values())
+        losses_all, joint_mae, accel = (AverageMeter(k) for k in ("loss", "mae", "accel"))
+        n_scored = 0
+        for start in range(0, len(idx_all), batch_size):
+            idx = idx_all[start:start + batch_size]
+            batch = decode_rows(ds, idx)
+            batch["vid_indices"] = rng.choice(speaker_pool, len(idx)).astype(np.int64)
+            chunk_eps = None
+            if eps is not None:
+                chunk_eps = torch.as_tensor(eps[n_scored:n_scored + len(idx)],
+                                            dtype=torch.float32, device=self.device)
+            out, _ = self.step.eval_step(self._batch(batch), self.generator,
+                                         gan_on=self.epoch > self.gan_cfg.loss_warmup,
+                                         eps=chunk_eps)
+            push_sample_metrics(batch["vec_seq"], out, self.cfg.mean_dir_vec_array,
+                                losses_all, joint_mae, accel, self.cfg.n_pre_poses,
+                                self.evaluator)
+            n_scored += len(idx)
+        if n_scored == 0:
+            raise RuntimeError(f"eval scored 0 samples ({ds.n_samples} in the test "
+                               "split): the metrics would be meaningless")
+        result = {"l1": losses_all.avg, "joint_mae": joint_mae.avg, "accel": accel.avg}
+        if self.evaluator is not None and self.evaluator.get_no_of_samples() > 0:
+            result["FGD"], result["feat_dist"] = self.evaluator.get_scores()
+            self.evaluator.reset()
+        self.logger.print_log(
+            "eval: " + " | ".join(f"{k}: {v:.4f}" for k, v in result.items()))
+        return result

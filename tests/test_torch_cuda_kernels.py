@@ -10,7 +10,9 @@ within 1e-4 of its own magnitude, plus 1e-7 of the largest value for values
 near zero; the GRU forward within 1e-4 absolute after 34 steps (h in
 [-1, 1]); the backward's dxp within 1e-4 absolute (a 34-step chain of
 sums of 3H products), and dW_hh and the bias gradients within 1e-4 of
-each one's largest value (sums of T*B products in another order).
+each one's largest value (sums of T*B products in another order). The
+same for the walk-layout (`run_layer`) entry points; their forward against
+the model layout's kernel within 1e-6, since it is the same arithmetic.
 """
 
 import copy
@@ -163,3 +165,58 @@ def test_gru_module_gradients_on_card_match_cpu(cuda):
     assert set(card) == set(cpu) and all(v is not None for v in card.values())
     for name in cpu:
         assert _rel(card[name], cpu[name]) <= 1e-4, name
+
+
+def _walk_inputs(T, B, cin, H, D, seed, device):
+    """`run_layer`'s inputs from the model layout's: xp with b_ih added,
+    direction 1 time-reversed (the walk layout), and dys in that layout."""
+    xp, w_hh, b_ih, b_hh, _ = _layer_inputs(T, B, cin, H, D, seed, device)
+    xw = gru_cuda._walk(xp.view(T, B, D, 3 * H) + b_ih, D).contiguous()
+    dys = torch.randn(T, D, B, H, generator=torch.Generator().manual_seed(seed)).to(device)
+    return xw, w_hh, b_hh, dys, (xp, b_ih)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [5, 512])
+@pytest.mark.parametrize("H,cin", [(300, 600), (64, 128)])
+def test_gru_v1_kernels_against_plain(cuda, batch, H, cin):
+    """The three walk-layout entry points (`run_layer`'s forward, backward
+    recurrence and dW reduction) against their plain versions, at the
+    training batch and at a batch that is no tile multiple; the forward
+    also against the model-layout kernel on the same function."""
+    T, D = 34, 2
+    xp, w_hh, b_hh, dys, (xp2, b_ih) = _walk_inputs(T, batch, cin, H, D, batch + H, cuda)
+    before = (gru_cuda.v1_launches, gru_cuda.v1_bwd_launches, gru_cuda.v1_dw_launches)
+    ys = gru_cuda.run_layer_forward(xp, w_hh, b_hh)
+    want_ys = gru_cuda.run_layer_plain(xp, w_hh, b_hh)[0]
+    dxp, gn = gru_cuda.run_layer_bwd_recurrence(xp, w_hh, b_hh, want_ys, dys)
+    want_dxp, want_gn = gru_cuda.run_layer_bwd_recurrence_plain(xp, w_hh, b_hh, want_ys, dys)
+    dw, db = gru_cuda.run_layer_dw(want_ys, want_dxp, want_gn)
+    want_dw, want_db = gru_cuda.run_layer_dw_plain(want_ys, want_dxp, want_gn)
+    torch.cuda.synchronize()
+    assert (gru_cuda.v1_launches, gru_cuda.v1_bwd_launches, gru_cuda.v1_dw_launches) == \
+        tuple(b + 1 for b in before)
+    assert (ys - want_ys).abs().max().item() <= 1e-4
+    model_ys, _ = gru_cuda.gru_layer_forward(xp2, w_hh, b_ih, b_hh)
+    assert (gru_cuda._unwalk(ys) - model_ys).abs().max().item() <= 1e-6
+    assert (dxp - want_dxp).abs().max().item() <= 1e-4
+    assert (gn - want_gn).abs().max().item() <= 1e-4
+    assert _rel(dw, want_dw) <= 1e-4 and _rel(db, want_db) <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,cin,batch", [(300, 600, 16), (64, 8, 5)])
+def test_gru_v1_function_against_autograd_of_plain(cuda, H, cin, batch):
+    """`run_layer` on the card (`GRULayerV1Function`) against autograd
+    through the plain loop, with a loss on ys and on h_last (= ys[-1])."""
+    T, D = 34, 2
+    xp, w_hh, b_hh, dys, _ = _walk_inputs(T, batch, cin, H, D, 13, cuda)
+    grads = []
+    for layer in (gru_cuda.run_layer, gru_cuda.run_layer_plain):
+        leaves = [t.clone().requires_grad_() for t in (xp, w_hh, b_hh)]
+        ys, h_last = layer(*leaves)
+        grads.append(torch.autograd.grad((ys * dys).sum() + h_last.sin().sum(), leaves))
+    (got_x, *got_w), (want_x, *want_w) = grads
+    assert (got_x - want_x).abs().max().item() <= 1e-4
+    for g, w in zip(got_w, want_w):
+        assert _rel(g, w) <= 1e-4

@@ -18,7 +18,9 @@ Tolerances, all float32 with sums in another order:
   1e-4 of their own magnitude plus 1e-4 of each tensor's largest value:
   the per-node batch norm after the first ST-GCN normalizes by small
   batch deviations, where JAX's float32 result lies 2e-5 (relative to the
-  largest value) from a float64 run of the port and the port's 5e-6;
+  largest value) from a float64 run of the port and the port's 1e-6 with
+  any number of torch threads (1, 2 or 8; before the AffEncoder's input
+  was made contiguous, 1.6e-4 with one thread);
 - GAN step 1: metrics within 1e-4 relative (plus 1e-6 absolute for the
   near-zero differential metric), the generator's BN stats as above; the
   discriminator's BN stats as step 2's metrics, because its last forward
@@ -176,6 +178,27 @@ def test_models_in_train_mode_match_jax(jax_models, which):
                             tb["vid_indices"], eps)[0]
     np.testing.assert_allclose(got.detach().numpy(), want, atol=5e-5)
     _assert_stats(model, mapper, new_vars, 1e-4)
+
+
+def test_aff_encoder_batch_stats_do_not_depend_on_threads(jax_models):
+    """The generator's train-mode forward with 1 and with 4 torch threads:
+    the AffEncoder's per-node BN running mean within 1e-5 of its largest
+    value (1.6e-4 apart when the first ST-GCN block took a channels-last
+    input, whose batch-norm sums follow the thread count)."""
+    threads = torch.get_num_threads()
+    b = _torch_batch(_batch(1))
+    pre = tstep.build_pre_seq(b["vec_seq"], C.N_PRE_POSES)
+    means = []
+    try:
+        for n in (1, 4):
+            torch.set_num_threads(n)
+            gen = _port_models(jax_models)[0].train()
+            gen(pre, b["extended_word_seq"], b["mfcc_features"], b["vid_indices"],
+                torch.zeros(B, 16))
+            means.append(gen.aff_encoder.batch_norm1.running_mean.clone())
+    finally:
+        torch.set_num_threads(threads)
+    assert ((means[0] - means[1]).abs().max() / means[1].abs().max()).item() <= 1e-5
 
 
 def test_wav_encoder_in_train_mode_matches_jax():
