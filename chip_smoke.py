@@ -166,32 +166,54 @@ def speech_frames(rows, device, n_fft=2048):
     return frames.reshape(-1, n_fft)[:rows].contiguous()
 
 
+def _band_errors(got, oracle):
+    """Each mel band's worst relative error over the rows."""
+    return ((got.double() - oracle).abs() / oracle.abs()).amax(dim=0)
+
+
 def kernel_phase(device) -> dict:
+    import torch
     from speech2affective_gestures_torch.ops import gru_cuda, mel_cuda
 
     errs = {"gru_fwd": 0.0, "mel_power": 0.0}
-    H, T, D = 300, 34, 2
-    for B in (1, 2, 16):
-        for cin in (88, 600):
-            args = gru_inputs(T, B, cin, H, D, seed=B * 1000 + cin, device=device)
-            ys, h_last = gru_cuda.gru_layer(*args)
-            want_ys, want_h = gru_cuda.gru_layer_plain(*args)
-            err = max((ys - want_ys).abs().max().item(),
-                      (h_last - want_h).abs().max().item())
-            log(f"kernel gru_fwd T={T} B={B} cin={cin} H={H} D={D}: "
-                f"max_abs_err={err:.3e} (tol {GRU_TOL})")
-            if not err <= GRU_TOL:
-                raise AssertionError(f"gru_fwd disagrees with its plain version: {err}")
-            errs["gru_fwd"] = max(errs["gru_fwd"], err)
+    T, D = 34, 2
+    # the serving shapes (H 300, B 1-16, layer inputs 88 and 600), the
+    # scoring and training batches (258, 512) and the discriminator's H 64
+    shapes = [(300, B, cin) for B in (1, 2, 16) for cin in (88, 600)]
+    shapes += [(300, 258, 600), (300, 512, 600), (64, 1, 8), (64, 512, 128)]
+    for H, B, cin in shapes:
+        args = gru_inputs(T, B, cin, H, D, seed=B * 1000 + cin, device=device)
+        ys, h_last = gru_cuda.gru_layer(*args)
+        again = gru_cuda.gru_layer_forward(*args)
+        want_ys, want_h = gru_cuda.gru_layer_plain(*args)
+        err = max((ys - want_ys).abs().max().item(),
+                  (h_last - want_h).abs().max().item())
+        same = torch.equal(ys, again[0]) and torch.equal(h_last, again[1])
+        plan = gru_cuda._device_plan(device, B, H, D)
+        log(f"kernel gru_fwd T={T} B={B} cin={cin} H={H} D={D}: "
+            f"max_abs_err={err:.3e} (tol {GRU_TOL}); bitwise repeatable {same}; "
+            f"plan {plan._asdict()} ({D * plan.tiles} clusters, at most "
+            f"{gru_cuda.max_clusters(device, H)} at once)")
+        if not (err <= GRU_TOL and same):
+            raise AssertionError(f"gru_fwd disagrees with its plain version: {err}, "
+                                 f"repeatable {same}")
+        errs["gru_fwd"] = max(errs["gru_fwd"], err)
     for rows, n_fft in MEL_SHAPES:
         frames = speech_frames(rows, device, n_fft)
         got = mel_cuda.mel_power(frames)
+        same = torch.equal(got, mel_cuda.mel_power(frames))
         want = mel_cuda.mel_power_plain(frames)
         diff = (got - want).abs()
         scale = want.abs().max().item()
         ok = bool((diff <= MEL_RTOL * want.abs() + MEL_FLOOR * scale).all())
         band_rel = (diff / want.abs()).amax(dim=0)    # worst of each band
         worst = int(band_rel.argmax())
+        # the float64 oracle: rfft of the frames in float64, its power, the
+        # float32 filterbank's values in a float64 product
+        spec = torch.fft.rfft(frames.double(), dim=-1)
+        fb = torch.from_numpy(mel_cuda.dft_constants(16000, n_fft, 128)[2]).to(device)
+        oracle = (spec.real ** 2 + spec.imag ** 2) @ fb.double()
+        k_err, p_err = _band_errors(got, oracle), _band_errors(want, oracle)
         log(f"kernel mel_power R={rows} n_fft={n_fft}: "
             f"max_abs_err={diff.max().item():.3e} "
             f"(max |mel| {scale:.3e}); worst relative error per band: max "
@@ -199,11 +221,18 @@ def kernel_phase(device) -> dict:
             f"{want[:, worst].abs().min().item():.3e}), median "
             f"{band_rel.median().item():.3e}; smallest |mel| "
             f"{want.abs().min().item():.3e}; tol {MEL_RTOL} |want| + "
-            f"{MEL_FLOOR} max|want|")
-        if not ok:
-            raise AssertionError(f"mel_power disagrees with its plain version at "
-                                 f"R={rows} n_fft={n_fft}: band {worst} off by "
-                                 f"{band_rel[worst].item():.3e}")
+            f"{MEL_FLOOR} max|want|; bitwise repeatable {same}")
+        log(f"  against the float64 rfft oracle, worst relative error of a band: "
+            f"kernel {k_err.max().item():.3e} (band {int(k_err.argmax())}, median "
+            f"{k_err.median().item():.3e}), plain {p_err.max().item():.3e} (band "
+            f"{int(p_err.argmax())}, median {p_err.median().item():.3e}); the kernel "
+            f"is farther in {int((k_err > p_err).sum())} of 128 bands")
+        if not (ok and same and k_err.max() <= p_err.max()):
+            raise AssertionError(f"mel_power disagrees at R={rows} n_fft={n_fft}: "
+                                 f"band {worst} off its plain version by "
+                                 f"{band_rel[worst].item():.3e}; from the oracle "
+                                 f"{k_err.max().item():.3e} against the plain "
+                                 f"version's {p_err.max().item():.3e}; repeatable {same}")
         errs["mel_power"] = max(errs["mel_power"], diff.max().item())
     return errs
 
@@ -559,10 +588,26 @@ def profile_requests(service, audio, words, n: int = 3) -> None:
                    lambda: service.synthesize(audio, words, vid_idx=3), n)
 
 
-def profile_device(label: str, unit: str, fn, n: int = 3) -> None:
-    """Device time by kernel and the device's busy share of the wall time,
-    from torch.profiler over `n` calls of fn (the profiler's own cost is
-    inside the wall time)."""
+def _device_us(e) -> float:
+    return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+
+
+def busy_us(spans) -> float:
+    """The time in which at least one of the (start, end) spans ran: their
+    union, so that kernels running at once on several streams (as cuDNN's
+    two GRU directions do) count once, and gaps between them not at all."""
+    busy, reach = 0.0, float("-inf")
+    for start, end in sorted(spans):
+        if end > reach:
+            busy += end - max(start, reach)
+            reach = end
+    return busy
+
+
+def _profile(fn, n: int):
+    """torch.profiler over n calls of fn; returns the device events' key
+    averages, the device's busy ms per call (`busy_us` of its kernels and
+    copies) and the wall ms per call (the profiler's own cost inside)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -574,20 +619,40 @@ def profile_device(label: str, unit: str, fn, n: int = 3) -> None:
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if getattr(e, "device_type", None) == DeviceType.CUDA
+             and not getattr(e, "is_user_annotation", False)]
+    if not spans:
+        raise RuntimeError("torch.profiler recorded no device activity")
+    return ([e for e in prof.key_averages()
+             if getattr(e, "device_type", None) == DeviceType.CUDA],
+            busy_us(spans) / 1e3 / n, wall_ms)
 
-    def device_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
 
-    kernels = [e for e in prof.key_averages()
-               if getattr(e, "device_type", None) == DeviceType.CUDA]
-    busy_ms = sum(device_us(e) for e in kernels) / 1e3 / n
+def device_ms(fn, n: int = 20) -> float:
+    """Device time per call of fn from torch.profiler over n calls after a
+    warm-up: the time in which any of its kernels (or copies) ran. Unlike
+    `time_ms` it leaves out the host's launch cost and any gap between
+    launches; kernels that overlap count once."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    return _profile(fn, n)[1]
+
+
+def profile_device(label: str, unit: str, fn, n: int = 3) -> None:
+    """Device time by kernel and the device's busy share of the wall time,
+    from torch.profiler over `n` calls of fn (the profiler's own cost is
+    inside the wall time)."""
+    kernels, busy_ms, wall_ms = _profile(fn, n)
     log(f"profile of {label}: wall {wall_ms:.3f} ms/{unit} "
         f"under the profiler, device busy {busy_ms:.3f} ms "
         f"({100 * busy_ms / wall_ms:.1f}%), {sum(e.count for e in kernels) / n:.0f} "
         f"kernel launches/{unit}")
-    for e in sorted(kernels, key=device_us, reverse=True)[:10]:
-        log(f"  {device_us(e) / 1e3 / n:8.3f} ms {e.count / n:6.1f}x  {e.key[:90]}")
+    for e in sorted(kernels, key=_device_us, reverse=True)[:10]:
+        log(f"  {_device_us(e) / 1e3 / n:8.3f} ms {e.count / n:6.1f}x  {e.key[:90]}")
 
 
 def _counters() -> dict:
@@ -935,6 +1000,41 @@ def bound(nbytes, flops):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def cudnn_recurrent_fwd(lib, x) -> tuple[float, float]:
+    """cuDNN's recurrent forward: the forward of the bidirectional
+    `nn.GRU` lib on x (T, B, cin) less its input projection's matmul, in
+    ms by CUDA events and by device time (`device_ms`, which counts the
+    two directions' overlapping kernels once)."""
+    import torch
+
+    w_ih = torch.cat([lib.weight_ih_l0, lib.weight_ih_l0_reverse]).detach()
+    with torch.no_grad():
+        def full():
+            return lib(x)
+
+        def proj():
+            return torch.matmul(x, w_ih.t())
+
+        return (time_ms(full, iters=10) - time_ms(proj, iters=10),
+                device_ms(full, n=10) - device_ms(proj, n=10))
+
+
+def rfft_mel(frames):
+    """The mel kernel's library yardstick on frames (R, n_fft), as a
+    function of no arguments: `torch.fft.rfft`, the power, and the product
+    with the dense filterbank (16 kHz, 128 mels)."""
+    import torch
+    from speech2affective_gestures_torch.ops import dsp_ref
+
+    fb = dsp_ref.mel_filterbank(16000, frames.shape[-1], 128).T.astype(np.float32)
+    fb = torch.from_numpy(np.ascontiguousarray(fb)).to(frames.device)
+
+    def run():
+        spec = torch.fft.rfft(frames, dim=-1)
+        return (spec.real ** 2 + spec.imag ** 2) @ fb
+    return run
+
+
 def layer_times(T, B, cin, H, device, seed=9) -> dict:
     """One bidirectional GRU layer at its real input width, the port's
     (`models.layers.GRU`: the input projection's matmul, then the forward
@@ -984,6 +1084,7 @@ def layer_times(T, B, cin, H, device, seed=9) -> dict:
         torch.matmul(dxp.reshape(-1, 6 * H).t(), xd.reshape(-1, cin))), iters=10)
     out["cuDNN recurrent fwd"] = out["cuDNN fwd"] - out["proj fwd"]
     out["cuDNN recurrent bwd"] = out["cuDNN bwd"] - out["proj bwd"]
+    out["cuDNN recurrent fwd device"] = cudnn_recurrent_fwd(lib, xd)[1]
     log(f"GRU layer T={T} B={B} cin={cin} H={H} D=2, port against cuDNN nn.GRU "
         f"(same weights): outputs max_abs_err={out['max_abs_err']:.3e}, gradients "
         f"relative to each largest {out['grad_rel']:.3e}; forward {out['port fwd']:.4f} "
@@ -991,7 +1092,8 @@ def layer_times(T, B, cin, H, device, seed=9) -> dict:
         f"{out['cuDNN bwd']:.4f} ms; the input projection's matmuls forward "
         f"{out['proj fwd']:.4f} ms, backward {out['proj bwd']:.4f} ms; cuDNN less "
         f"them: forward {out['cuDNN recurrent fwd']:.4f} ms, backward "
-        f"{out['cuDNN recurrent bwd']:.4f} ms")
+        f"{out['cuDNN recurrent bwd']:.4f} ms; cuDNN's recurrent forward by device time "
+        f"{out['cuDNN recurrent fwd device']:.4f} ms")
     return out
 
 
@@ -1051,21 +1153,26 @@ def bwd_timing(device):
         if H == 300:
             src = "speech2affective_gestures_torch/csrc/gru_bwd.cu"
             rows.append(("gru_bwd", src, "speech2affective_gestures_tpu/ops/gru_pallas.py:384",
-                         bwd_ms, bwd_plain, lib_ms, rec_bytes, rec_flops))
+                         bwd_ms, bwd_plain, lib_ms, rec_bytes, rec_flops, None, None))
             rows.append(("gru_dw", src, "speech2affective_gestures_tpu/ops/gru_pallas.py:432",
-                         dw_ms, dw_plain, dw_lib, dw_bytes, dw_flops))
-
-            # the forward kernel at the training batch
-            fargs = (xp, w_hh, b_ih, b_hh)
+                         dw_ms, dw_plain, dw_lib, dw_bytes, dw_flops, None, None))
+        # the forward kernel at the training batch (and, at H 300, the
+        # scoring batch)
+        for fb in (B, 258) if H == 300 else (B,):
+            fargs = gru_inputs(T, fb, cin, H, D, seed=9, device=device)
             f_ms = time_ms(lambda: gru_cuda.gru_layer_forward(*fargs), iters=10)
+            f_dev = device_ms(lambda: gru_cuda.gru_layer_forward(*fargs))
             f_plain = time_ms(lambda: gru_cuda.gru_layer_plain(*fargs), iters=5)
             f_bound, f_by = bound(
-                4 * (xp.numel() + w_hh.numel() + b_ih.numel() + b_hh.numel()
-                     + ys.numel() + D * B * H),
-                T * D * B * (2 * H * 3 * H + 3 * H + 12 * H))
-            log(f"gru_fwd T={T} B={B} H={H} D={D}: {f_ms:.4f} ms, plain "
-                f"{f_plain:.4f} ms, cuDNN's recurrent forward "
-                f"{lt['cuDNN recurrent fwd']:.4f} ms, bound {f_bound:.5f} ms ({f_by})")
+                4 * (fargs[0].numel() + w_hh.numel() + b_ih.numel() + b_hh.numel()
+                     + T * fb * D * H + D * fb * H),
+                T * D * fb * (2 * H * 3 * H + 3 * H + 12 * H))
+            lib = (f"cuDNN's recurrent forward {lt['cuDNN recurrent fwd']:.4f} ms, by device "
+                   f"time {lt['cuDNN recurrent fwd device']:.4f} ms, " if fb == B else "")
+            log(f"gru_fwd T={T} B={fb} H={H} D={D}: {f_ms:.4f} ms, by device time "
+                f"{f_dev:.4f} ms, plain {f_plain:.4f} ms, {lib}bound {f_bound:.5f} ms "
+                f"({f_by}); plan {gru_cuda._device_plan(device, fb, H, D)._asdict()}")
+        if H == 300:
             rows += v1_timing(device, lt)
     return rows
 
@@ -1087,13 +1194,14 @@ def v1_timing(device, lt) -> list:
         xw, w_hh, b_hh, _ = v1_inputs(T, B, 600, H, D, seed=9, device=device)
         ys = gru_cuda.run_layer_forward(xw, w_hh, b_hh)
         fwd_ms = time_ms(lambda: gru_cuda.run_layer_forward(xw, w_hh, b_hh), iters=10)
+        fwd_dev = device_ms(lambda: gru_cuda.run_layer_forward(xw, w_hh, b_hh))
         fwd_plain = time_ms(lambda: gru_cuda.run_layer_plain(xw, w_hh, b_hh), iters=5)
         n_cell = T * D * B * (2 * H * 3 * H + 3 * H + 12 * H)
         fwd_bytes = 4 * (xw.numel() + w_hh.numel() + b_hh.numel() + ys.numel())
         if B == 1:
             b_ms, b_by = bound(fwd_bytes, n_cell)
-            log(f"gru_fwd_v1 T={T} B=1 H={H} D={D}: {fwd_ms:.4f} ms, plain {fwd_plain:.4f} "
-                f"ms, bound {b_ms:.5f} ms ({b_by})")
+            log(f"gru_fwd_v1 T={T} B=1 H={H} D={D}: {fwd_ms:.4f} ms, by device time "
+                f"{fwd_dev:.4f} ms, plain {fwd_plain:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
             continue
         g = torch.Generator().manual_seed(9)
         dys = torch.randn(T, D, B, H, generator=g).to(device)
@@ -1110,15 +1218,16 @@ def v1_timing(device, lt) -> list:
         dw_flops = 2 * T * B * D * (H + 1) * 3 * H
         rows += [
             ("gru_fwd_v1", fwd_src, f"{tpu}:66", fwd_ms, fwd_plain, lt["cuDNN recurrent fwd"],
-             fwd_bytes, n_cell),
+             fwd_bytes, n_cell, fwd_dev, lt["cuDNN recurrent fwd device"]),
             ("gru_bwd_v1", bwd_src, f"{tpu}:123", bwd_ms, bwd_plain, lt["cuDNN recurrent bwd"],
              4 * (2 * xw.numel() + 3 * ys.numel() + w_hh.numel() + b_hh.numel()),
-             n_rec + 30 * T * B * D * H),
+             n_rec + 30 * T * B * D * H, None, None),
             ("gru_dw_v1", bwd_src, f"{tpu}:178", dw_ms, dw_plain, dw_lib,
              4 * (ys.numel() + 2 * xw.numel() // 3 + gn.numel() + w_hh.numel()
-                  + b_hh.numel()), dw_flops),
+                  + b_hh.numel()), dw_flops, None, None),
         ]
-        log(f"gru v1 T={T} B={B} H={H} D={D}: forward {fwd_ms:.4f} ms (plain "
+        log(f"gru v1 T={T} B={B} H={H} D={D}: forward {fwd_ms:.4f} ms (by device time "
+            f"{fwd_dev:.4f}; plain "
             f"{fwd_plain:.4f}), recurrence {bwd_ms:.4f} ms (plain {bwd_plain:.4f}), dW "
             f"{dw_ms:.4f} ms (plain {dw_plain:.4f}, cuBLAS product {dw_lib:.4f})")
     return rows
@@ -1132,63 +1241,68 @@ def timing_phase(device, errs, launches) -> list[dict]:
     T, B, H, D = 34, 1, 300, 2
     args = gru_inputs(T, B, 600, H, D, seed=5, device=device)
     xp, w_hh, b_ih, b_hh = args
-    gru_ms = time_ms(lambda: gru_cuda.gru_layer(*args))
+    gru_ms = time_ms(lambda: gru_cuda.gru_layer_forward(*args))
+    gru_dev = device_ms(lambda: gru_cuda.gru_layer_forward(*args))
     gru_plain_ms = time_ms(lambda: gru_cuda.gru_layer_plain(*args), iters=5)
     # cuDNN's GRU at the layer's real width, less its input projection
-    gru_lib_ms = layer_times(T, B, 600, H, device, seed=5)["cuDNN recurrent fwd"]
+    lt = layer_times(T, B, 600, H, device, seed=5)
+    gru_lib_ms, gru_lib_dev = lt["cuDNN recurrent fwd"], lt["cuDNN recurrent fwd device"]
     gru_bytes = 4 * (xp.numel() + w_hh.numel() + b_ih.numel() + b_hh.numel()
                      + T * B * D * H + D * B * H)
     gru_flops = T * D * B * (2 * H * 3 * H + 3 * H + 12 * H)
     for extra_b in (4, 16):
         a = gru_inputs(T, extra_b, 600, H, D, seed=6, device=device)
-        log(f"gru_fwd B={extra_b}: {time_ms(lambda: gru_cuda.gru_layer(*a)):.4f} ms")
+        log(f"gru_fwd B={extra_b}: {time_ms(lambda: gru_cuda.gru_layer_forward(*a)):.4f} ms, "
+            f"by device time {device_ms(lambda: gru_cuda.gru_layer_forward(*a)):.4f} ms")
 
     # mel at the /synthesize shape: 8 windows x 71 frames
     rows = 568
     frames = speech_frames(rows, device)
-    cos, sin, mel = mel_cuda.device_constants(frames.device, 16000, 2048, 128)
     mel_ms = time_ms(lambda: mel_cuda.mel_power(frames))
+    mel_dev = device_ms(lambda: mel_cuda.mel_power(frames))
     mel_plain_ms = time_ms(lambda: mel_cuda.mel_power_plain(frames))
-    mel_lib = mel[:1025].contiguous()
-
-    def rfft_mel():
-        spec = torch.fft.rfft(frames, dim=-1)
-        return (spec.real ** 2 + spec.imag ** 2) @ mel_lib
-
+    lib_fn = rfft_mel(frames)
     log(f"mel_power vs rfft mel on the same frames: max_abs_err="
-        f"{(rfft_mel() - mel_cuda.mel_power(frames)).abs().max().item():.3e}")
-    mel_lib_ms = time_ms(rfft_mel)
-    # The least work of the function, not of this kernel's dense DFT: a real
-    # FFT of each row (5 (n/2) log2 n operations), the power of each of the
-    # 1025 bins, and a product with the filterbank's nonzeros; the least
-    # bytes: the frames read once, the filterbank's nonzeros, the output.
+        f"{(lib_fn() - mel_cuda.mel_power(frames)).abs().max().item():.3e}")
+    mel_lib_ms = time_ms(lib_fn)
+    mel_lib_dev = device_ms(lib_fn)
+    # The least work of the function: a real FFT of each row (5 (n/2)
+    # log2 n operations), the power of each of the 1025 bins, and a product
+    # with the filterbank's nonzeros; the least bytes: the frames read once,
+    # the filterbank's nonzeros, the output.
     n_fft, n_bins = 2048, 1025
-    nnz = int(np.count_nonzero(mel_cuda.padded_constants(16000, n_fft, 128)[2]))
+    nnz = int(np.count_nonzero(mel_cuda.dft_constants(16000, n_fft, 128)[2]))
     mel_flops = rows * (5 * (n_fft // 2) * int(np.log2(n_fft)) + 3 * n_bins
                         + 2 * nnz)
     mel_bytes = 4 * (frames.numel() + nnz + rows * 128)
     frames_big = speech_frames(2272, device)
     log(f"mel_power R=2272: {time_ms(lambda: mel_cuda.mel_power(frames_big)):.4f} ms, "
+        f"by device time {device_ms(lambda: mel_cuda.mel_power(frames_big)):.4f} ms, "
         f"plain {time_ms(lambda: mel_cuda.mel_power_plain(frames_big)):.4f} ms")
 
     rows_out = []
-    for name, source, replaces, ms, plain, lib_ms, nbytes, flops in (
+    # ms and library_ms are CUDA-event means (the wrapper's host cost
+    # included where the kernel is shorter); device_ms and
+    # library_device_ms the profiler's kernel time per call, where measured
+    for name, source, replaces, ms, plain, lib_ms, nbytes, flops, dev, lib_dev in (
             ("gru_fwd", "speech2affective_gestures_torch/csrc/gru_fwd.cu",
              "speech2affective_gestures_tpu/ops/gru_pallas.py:338",
-             gru_ms, gru_plain_ms, gru_lib_ms, gru_bytes, gru_flops),
+             gru_ms, gru_plain_ms, gru_lib_ms, gru_bytes, gru_flops, gru_dev, gru_lib_dev),
             ("mel_power", "speech2affective_gestures_torch/csrc/mel_power.cu",
              "speech2affective_gestures_tpu/ops/dsp_pallas.py:57",
-             mel_ms, mel_plain_ms, mel_lib_ms, mel_bytes, mel_flops),
+             mel_ms, mel_plain_ms, mel_lib_ms, mel_bytes, mel_flops, mel_dev, mel_lib_dev),
             *bwd_timing(device)):
         b_ms, b_by = bound(nbytes, flops)
         rows_out.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": errs[name], "ms": ms,
             "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": lib_ms,
+            "library_ms": lib_ms, "device_ms": dev, "library_device_ms": lib_dev,
         })
-        log(f"{name}: {ms:.4f} ms, plain {plain:.4f} ms, library {lib_ms:.4f} ms, "
-            f"bound {b_ms:.5f} ms ({b_by}; {nbytes} bytes, {flops} FLOP)")
+        by_device = "" if dev is None else (
+            f" (by device time {dev:.4f} ms, library {lib_dev:.4f} ms)")
+        log(f"{name}: {ms:.4f} ms, plain {plain:.4f} ms, library {lib_ms:.4f} ms"
+            f"{by_device}, bound {b_ms:.5f} ms ({b_by}; {nbytes} bytes, {flops} FLOP)")
     return rows_out
 
 

@@ -3,16 +3,18 @@ their plain versions.
 
 Forward: replaces the TPU kernel `speech2affective_gestures_tpu/ops/
 gru_pallas.py::_fwd_kernel_v2` (reached there through `run_layer_v2`). The
-kernel is `csrc/gru_fwd.cu`: one block per (batch tile, direction) runs the
-whole time loop with h in shared memory. On the H100 it is bound by one
-SM's L2 bandwidth, because W_hh (1.08 MB per direction at H=300) does not
-fit in shared memory and is streamed from L2 every step; the design keeps
-16 loads of W in flight per thread to cover the latency.
+kernel is `csrc/gru_fwd.cu`: one thread-block cluster per (batch tile,
+direction) runs the whole time loop, each block holding its units' slice
+of W_hh in its threads' registers for the whole launch (on the TPU, W_hh
+stays in VMEM; on the H100 it is ~5x one SM's shared memory at H=300) and
+exchanging h with its peers through distributed shared memory, one cluster
+barrier per step. `fwd_plan` chooses the lanes per unit, the cluster size,
+the batch tile and the shared memory of a launch.
 
 Backward: replaces `gru_pallas.py::_bwd_kernel_v2` (the `jax.custom_vjp`
 backward of `_gru_layer_v2`). `csrc/gru_bwd.cu` holds two kernels: the
-reverse-time recurrence (`gru_bwd`, the same block layout as the forward,
-also bound by streaming W_hh from L2 into one SM per step) and the
+reverse-time recurrence (`gru_bwd`: one block per batch tile and direction,
+bound by streaming W_hh from L2 into one SM per step) and the
 deterministic reduction of dW_hh and db_hh over the T*B rows (`gru_dw`:
 partial sums over row splits, then a fixed-order pass that adds them;
 bound by float32 FMA throughput). The sources say more.
@@ -34,6 +36,8 @@ models use `gru_layer`, as the JAX models use the v2 kernels.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -134,10 +138,13 @@ def _check(xp, w_hh, b_ih, b_hh, **more):
                              f"{(T, B, D * H)}")
 
 
-def _lib_fn(name: str, symbol: str, n_ptr: int, n_int: int = 4):
-    """A C entry point taking n_ptr pointers, n_int ints and the stream."""
+@functools.lru_cache(maxsize=None)
+def _lib_fn(name: str, symbol: str, n_ptr: int, n_int: int = 4, stream: bool = True):
+    """A C entry point taking n_ptr pointers, n_int ints and (with `stream`)
+    the stream, resolved once per library."""
     fn = getattr(_build.load(name), symbol)
-    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                   + [ctypes.c_void_p] * stream)
     fn.restype = ctypes.c_int
     return fn
 
@@ -148,6 +155,107 @@ def _launch(fn, name: str, device: torch.device, *args) -> None:
         rc = fn(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+
+
+# The forward kernel's launch plan is decided here and only here; the
+# kernel uses it as given and refuses only a plan its indexing cannot take.
+# Its limits on the H100: a block's shared memory (the most a block may opt
+# into), the largest portable cluster, the largest chunk of k a thread holds
+# in registers. W_hh must fit in the registers of one cluster: H <= 320.
+SMEM_LIMIT = 232448
+MAX_CLUSTER = 8
+MAX_KC = 40
+
+
+class FwdPlan(NamedTuple):
+    """A launch of `csrc/gru_fwd.cu`: `tiles` batch tiles of BT rows per
+    direction, one cluster of C blocks each; a block owns U hidden units,
+    S threads share a unit, each holding a chunk of KC rows of W_hh."""
+    C: int
+    U: int
+    S: int
+    KC: int
+    BT: int
+    tiles: int
+    threads: int
+    smem: int
+
+
+def _max_threads(KC: int) -> int:
+    """The kernel's __launch_bounds__ for a chunk of KC (`max_threads` in
+    `csrc/gru_fwd.cu`; a plan beyond it fails at launch, and the wrapper
+    raises): 3 KC registers of W and ~40 others a thread within an SM's
+    65,536."""
+    return 320 if KC >= 40 else 384 if KC >= 32 else 512
+
+
+def _fwd_smem(S: int, KC: int, BT: int) -> int:
+    """The kernel's shared-memory bytes: two h buffers of BT rows of S
+    chunks padded to KC + 4 floats."""
+    return 4 * 2 * BT * S * (KC + 4)
+
+
+def fwd_shape(H: int) -> tuple[int, int, int, int]:
+    """(S, KC, C, U) for hidden size H: the fewest lanes S a unit that keep
+    a thread's chunk of W within MAX_KC rows (KC rounded up to 8), then the
+    fewest blocks C that hold the units within the thread limit, U units a
+    block (rounded up to 4, for the kernel's float4 exchange). Raises
+    when H is too large for a cluster's registers."""
+    for S in (2, 4, 8):
+        if -(-H // S) <= MAX_KC:
+            KC = -(-H // (8 * S)) * 8
+            C = -(-H // (_max_threads(KC) // S))
+            if C > MAX_CLUSTER:
+                break
+            return S, KC, C, -(-H // (4 * C)) * 4
+    raise ValueError(f"gru_fwd: W_hh of hidden size {H} does not fit in the registers "
+                     f"of a cluster of {MAX_CLUSTER} blocks")
+
+
+def fwd_plan(B: int, H: int, D: int, max_clusters: int) -> FwdPlan:
+    """The forward kernel's launch for batch B, hidden size H and D
+    directions, when the card runs `max_clusters` clusters of C blocks at
+    once: the fewest waves of clusters that hold the batch (a tile at most
+    what shared memory allows), then as many tiles as fill those waves,
+    balanced in size."""
+    S, KC, C, U = fwd_shape(H)
+    rows_max = SMEM_LIMIT // _fwd_smem(S, KC, 1)
+    tiles = -(-B // rows_max)
+    waves = -(-D * tiles // max_clusters)
+    tiles = max(tiles, min(B, waves * max_clusters // D))
+    BT = -(-B // tiles)
+    return FwdPlan(C, U, S, KC, BT, -(-B // BT), -(-U * S // 32) * 32,
+                   _fwd_smem(S, KC, BT))
+
+
+_max_clusters: dict = {}
+
+
+def max_clusters(device: torch.device, H: int) -> int:
+    """How many clusters of the forward kernel at hidden size H the card
+    runs at once, each block with the smem of a one-row tile (so that
+    registers, not shared memory, bound the count); asked once per device
+    and H."""
+    key = (torch.device(device).index, H)
+    if key not in _max_clusters:
+        p = fwd_plan(1, H, 1, 1)  # one row a tile
+        fn = _lib_fn("gru_fwd", "s2ag_gru_fwd_max_clusters", 0, n_int=5, stream=False)
+        with torch.cuda.device(device):
+            n = fn(p.S, p.KC, p.C, p.threads, p.smem)
+        if n < 1:
+            raise RuntimeError(f"gru_fwd: no cluster of {p.C} blocks fits on {device}"
+                               + (f" (CUDA error {-n})" if n < 0 else ""))
+        _max_clusters[key] = n
+    return _max_clusters[key]
+
+
+def _device_plan(device: torch.device, B: int, H: int, D: int) -> FwdPlan:
+    return fwd_plan(B, H, D, max_clusters(device, H))
+
+
+def _plan_args(plan: FwdPlan) -> tuple[int, ...]:
+    """The plan as the forward entry points take it, after (T, B, H, D)."""
+    return plan.C, plan.BT, plan.S, plan.KC, plan.U, plan.threads, plan.smem
 
 
 def gru_layer_forward(xp: torch.Tensor, w_hh: torch.Tensor, b_ih: torch.Tensor,
@@ -162,12 +270,12 @@ def gru_layer_forward(xp: torch.Tensor, w_hh: torch.Tensor, b_ih: torch.Tensor,
     _check(xp, w_hh, b_ih, b_hh)
     T, B, _ = xp.shape
     D, H, _ = w_hh.shape
-    fn = _lib_fn("gru_fwd", "s2ag_gru_layer_fwd", 6)
+    plan = _device_plan(xp.device, B, H, D)
     ys = torch.empty((T, B, D * H), device=xp.device, dtype=torch.float32)
     h_last = torch.empty((D, B, H), device=xp.device, dtype=torch.float32)
-    _launch(fn, "gru_fwd", xp.device, xp.data_ptr(), w_hh.data_ptr(),
-            b_ih.data_ptr(), b_hh.data_ptr(), ys.data_ptr(), h_last.data_ptr(),
-            T, B, H, D)
+    _launch(_lib_fn("gru_fwd", "s2ag_gru_layer_fwd", 6, n_int=11), "gru_fwd", xp.device,
+            xp.data_ptr(), w_hh.data_ptr(), b_ih.data_ptr(), b_hh.data_ptr(),
+            ys.data_ptr(), h_last.data_ptr(), T, B, H, D, *_plan_args(plan))
     launches += 1
     return ys, h_last
 
@@ -293,8 +401,7 @@ def gru_dw(ys: torch.Tensor, dxp: torch.Tensor, gn: torch.Tensor,
 def _dw_launch(symbol, ys, dxp, gn, T, B, H, D):
     """Launch a dW reduction entry point of `csrc/gru_bwd.cu` (either
     layout) into fresh (dW_hh, db_hh)."""
-    splits = _build.load("gru_bwd").s2ag_gru_dw_splits
-    splits.argtypes, splits.restype = [ctypes.c_int] * 5, ctypes.c_int
+    splits = _lib_fn("gru_bwd", "s2ag_gru_dw_splits", 0, n_int=5, stream=False)
     S = splits(T, B, H, D,
                torch.cuda.get_device_properties(ys.device).multi_processor_count)
     part = torch.empty((S, D, H + 1, 3 * H), device=ys.device, dtype=torch.float32)
@@ -443,10 +550,12 @@ def run_layer_forward(xp: torch.Tensor, w_hh: torch.Tensor,
         raise ValueError(f"run_layer: unsupported device {xp.device}")
     _check_v1(xp, w_hh, b_hh)
     T, D, B, H3 = xp.shape
-    ys = torch.empty((T, D, B, H3 // 3), device=xp.device, dtype=torch.float32)
-    _launch(_lib_fn("gru_fwd", "s2ag_gru_layer_fwd_v1", 4), "gru_fwd_v1", xp.device,
-            xp.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(), ys.data_ptr(),
-            T, B, H3 // 3, D)
+    H = H3 // 3
+    plan = _device_plan(xp.device, B, H, D)
+    ys = torch.empty((T, D, B, H), device=xp.device, dtype=torch.float32)
+    _launch(_lib_fn("gru_fwd", "s2ag_gru_layer_fwd_v1", 4, n_int=11), "gru_fwd_v1",
+            xp.device, xp.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(), ys.data_ptr(),
+            T, B, H, D, *_plan_args(plan))
     v1_launches += 1
     return ys
 

@@ -13,6 +13,10 @@ sums of 3H products), and dW_hh and the bias gradients within 1e-4 of
 each one's largest value (sums of T*B products in another order). The
 same for the walk-layout (`run_layer`) entry points; their forward against
 the model layout's kernel within 1e-6, since it is the same arithmetic.
+The mel kernel is also held to a float64 oracle (`torch.fft.rfft` of the
+frames in float64, its power, the float32 filterbank's values in a float64
+product): its worst relative error over the bands must not exceed the
+plain dense products'. Kernels without atomics give the same bits twice.
 """
 
 import copy
@@ -61,20 +65,63 @@ def test_mel_kernel_against_plain(cuda, rows, n_fft):
     assert bool((diff <= allowed).all()), (diff / want.abs()).amax(dim=0)
 
 
+def _band_errors(got, oracle):
+    """Each band's worst relative error over the rows."""
+    return ((got.double() - oracle).abs() / oracle.abs()).amax(dim=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,n_fft", [(568, 2048), (2272, 2048), (601, 2048), (1876, 1024)])
+def test_mel_kernel_against_float64_oracle(cuda, rows, n_fft):
+    """chip_smoke.py's MEL_SHAPES: the kernel's worst band lies no farther
+    from the float64 rfft than the plain version's; a second run gives the
+    same bits."""
+    frames = _frames(rows, n_fft).contiguous().to(cuda)
+    got = mel_cuda.mel_power(frames)
+    again = mel_cuda.mel_power(frames)
+    plain = mel_cuda.mel_power_plain(frames)
+    spec = torch.fft.rfft(frames.double(), dim=-1)
+    mel = torch.from_numpy(mel_cuda.dft_constants(16000, n_fft, 128)[2]).to(cuda).double()
+    oracle = (spec.real ** 2 + spec.imag ** 2) @ mel
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    kernel_err, plain_err = _band_errors(got, oracle), _band_errors(plain, oracle)
+    assert kernel_err.max().item() <= plain_err.max().item(), (kernel_err, plain_err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_fft", [512, 4096])
+def test_mel_kernel_other_sizes(cuda, n_fft):
+    """The smallest and largest n_fft the kernel takes (1 and 8 rows a block)."""
+    frames = _frames(37, n_fft).contiguous().to(cuda)
+    got = mel_cuda.mel_power(frames)
+    want = mel_cuda.mel_power_plain(frames)
+    assert bool(((got - want).abs() <= 1e-4 * want.abs() + 1e-7 * want.abs().max()).all())
+
+
+@pytest.mark.gpu
+def test_mel_kernel_refuses_other_n_fft(cuda):
+    with pytest.raises(ValueError):
+        mel_cuda.mel_power(torch.zeros(4, 1536, device=cuda))
+
+
+def _gru_args(T, B, cin, H, D, seed, device):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(T, B, cin, generator=g)
+    w_ih = torch.empty(D * 3 * H, cin).uniform_(-H ** -0.5, H ** -0.5, generator=g)
+    w_hh = torch.empty(D, H, 3 * H).uniform_(-H ** -0.5, H ** -0.5, generator=g)
+    b_ih = torch.empty(D, 3 * H).uniform_(-H ** -0.5, H ** -0.5, generator=g)
+    b_hh = torch.empty(D, 3 * H).uniform_(-H ** -0.5, H ** -0.5, generator=g)
+    return [t.to(device).contiguous() for t in (x @ w_ih.t(), w_hh, b_ih, b_hh)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("batch", [1, 2, 3, 16])
 @pytest.mark.parametrize("cin", [88, 600])
 def test_gru_kernel_against_plain(cuda, batch, cin):
     """The serving shapes: T=34, H=300, both directions; layer 0 takes 88
     input features (8 + 32 + 32 + 16), later layers 600."""
-    g = torch.Generator().manual_seed(batch * 1000 + cin)
-    T, H, D = 34, 300, 2
-    x = torch.randn(T, batch, cin, generator=g)
-    w_ih = torch.empty(D * 3 * H, cin).uniform_(-H ** -0.5, H ** -0.5, generator=g)
-    w_hh = torch.empty(D, H, 3 * H).uniform_(-H ** -0.5, H ** -0.5, generator=g)
-    b_ih = torch.empty(D, 3 * H).uniform_(-H ** -0.5, H ** -0.5, generator=g)
-    b_hh = torch.empty(D, 3 * H).uniform_(-H ** -0.5, H ** -0.5, generator=g)
-    args = [t.to(cuda) for t in (x @ w_ih.t(), w_hh, b_ih, b_hh)]
+    args = _gru_args(34, batch, cin, 300, 2, batch * 1000 + cin, cuda)
     before = gru_cuda.launches
     ys, h_last = gru_cuda.gru_layer(*args)
     torch.cuda.synchronize()
@@ -82,6 +129,39 @@ def test_gru_kernel_against_plain(cuda, batch, cin):
     assert gru_cuda.launches == before + 1
     assert (ys - want_ys).abs().max().item() <= 1e-4
     assert (h_last - want_h).abs().max().item() <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,cin,batch", [(300, 600, 1), (300, 600, 3), (300, 88, 16),
+                                         (300, 600, 258), (300, 600, 512),
+                                         (64, 8, 1), (64, 8, 258), (64, 128, 512),
+                                         (64, 128, 3), (40, 24, 6)])
+def test_gru_kernel_plans_against_plain(cuda, H, cin, batch):
+    """Each launch plan at the main paths' shapes (the generator's H 300,
+    the discriminator's H 64; batch 1 serving, 258 scoring, 512 training)
+    and a ragged one: within 1e-4 of the plain loop, the same bits twice,
+    and one direction alone."""
+    for D in (2, 1):
+        args = _gru_args(34, batch, cin, H, D, batch + H + cin + D, cuda)
+        ys, h_last = gru_cuda.gru_layer_forward(*args)
+        ys2, h_last2 = gru_cuda.gru_layer_forward(*args)
+        torch.cuda.synchronize()
+        want_ys, want_h = gru_cuda.gru_layer_plain(*args)
+        assert torch.equal(ys, ys2) and torch.equal(h_last, h_last2)
+        assert (ys - want_ys).abs().max().item() <= 1e-4
+        assert (h_last - want_h).abs().max().item() <= 1e-4
+
+
+@pytest.mark.gpu
+def test_gru_kernel_refuses_an_unschedulable_shape(cuda):
+    """H 600: W_hh does not fit in the registers of a cluster of 8 blocks
+    (the kernel holds H <= 320); the wrapper raises rather than run anything
+    else."""
+    args = _gru_args(4, 2, 8, 600, 2, 0, cuda)
+    before = gru_cuda.launches
+    with pytest.raises(ValueError):
+        gru_cuda.gru_layer_forward(*args)
+    assert gru_cuda.launches == before
 
 
 def _layer_inputs(T, B, cin, H, D, seed, device):
@@ -202,6 +282,20 @@ def test_gru_v1_kernels_against_plain(cuda, batch, H, cin):
     assert (dxp - want_dxp).abs().max().item() <= 1e-4
     assert (gn - want_gn).abs().max().item() <= 1e-4
     assert _rel(dw, want_dw) <= 1e-4 and _rel(db, want_db) <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [1, 512])
+def test_gru_v1_forward_against_model_layout(cuda, batch):
+    """The walk layout's forward at the serving and training batch: within
+    1e-4 of its plain loop and 1e-6 of the model layout's kernel."""
+    T, H, D = 34, 300, 2
+    xp, w_hh, b_hh, _, (xp2, b_ih) = _walk_inputs(T, batch, 600, H, D, 3 + batch, cuda)
+    ys = gru_cuda.run_layer_forward(xp, w_hh, b_hh)
+    torch.cuda.synchronize()
+    assert (ys - gru_cuda.run_layer_plain(xp, w_hh, b_hh)[0]).abs().max().item() <= 1e-4
+    model_ys, _ = gru_cuda.gru_layer_forward(xp2, w_hh, b_ih, b_hh)
+    assert (gru_cuda._unwalk(ys) - model_ys).abs().max().item() <= 1e-6
 
 
 @pytest.mark.gpu
