@@ -9,12 +9,15 @@ toolkit. In order:
    kernels from `speech2affective_gestures_torch/csrc/` with nvcc for
    sm_90a (one nvcc per source, started together);
 2. kernel phase: each kernel against its plain PyTorch version on the card
-   at the serving and training paths' shapes, within a stated tolerance:
-   the GRU forward, the mel power, the GRU backward recurrence and its
-   dW_hh reduction, and the GRU's autograd Function against autograd
-   through the plain forward; then the same three GRU kernels in the walk
-   layout of `run_layer` (the v1 layer) against their plain versions and
-   against the model layout's kernels on the same function;
+   at the serving and training paths' shapes, within a stated tolerance,
+   and twice for the same bits: the GRU forward (with and without the hp
+   it saves for the backward: the same ys), the mel power, the GRU
+   backward recurrence and its dW_hh reduction, and the GRU's autograd
+   Function against autograd through the plain forward; the GRU forward
+   and backward also at hidden sizes past 320 (their L2 tier); then the
+   same three GRU kernels in the walk layout of `run_layer` (the v1 layer)
+   against their plain versions and against the model layout's kernels on
+   the same function;
 3. service phase: a full-width s2ag generator (config/multimodal_context_v2.yml:
    hidden 300, 4 GRU layers, embed 300; 1000 words, 100 speakers; random
    weights from seed 0) behind the HTTP server answers /synthesize for a
@@ -48,7 +51,9 @@ toolkit. In order:
    Adam's first moments must agree with the float64 step within tolerance;
 9. timing: each kernel's time, its plain version's, a PyTorch library
    call's that computes the same function, and the least time the card
-   could take (bound); the service's synthesize p50; the train step's p50,
+   could take (bound), by CUDA events and by device time; the GRU
+   backward (recurrence + dW) against cuDNN's recurrent backward; the L2
+   tier's times; the service's synthesize p50; the train step's p50,
    samples/s and its device profile; `generate_gestures`' wall time and
    device profile; the embedding train step's p50.
 
@@ -116,6 +121,9 @@ TRAIN_BATCH, TRAIN_VIDEOS, TRAIN_SECONDS = 512, 20, 60.0
 # the corpus build's log-mel of one training video (n_fft 1024, hop 512)
 MEL_SHAPES = ((568, 2048), (2272, 2048), (601, 2048),
               (1 + int(TRAIN_SECONDS * 16000) // 512, 1024))
+# hidden sizes past what a cluster's registers hold (the GRU kernels' L2
+# tier), checked beside the model's 300 and 64
+L2_HIDDEN = (321, 600, 1024)
 
 
 def log(msg: str) -> None:
@@ -181,22 +189,29 @@ def kernel_phase(device) -> dict:
     # scoring and training batches (258, 512) and the discriminator's H 64
     shapes = [(300, B, cin) for B in (1, 2, 16) for cin in (88, 600)]
     shapes += [(300, 258, 600), (300, 512, 600), (64, 1, 8), (64, 512, 128)]
+    # past H 320: the L2 tier
+    shapes += [(H, B, 64) for H in L2_HIDDEN for B in (5, 512)]
     for H, B, cin in shapes:
         args = gru_inputs(T, B, cin, H, D, seed=B * 1000 + cin, device=device)
         ys, h_last = gru_cuda.gru_layer(*args)
         again = gru_cuda.gru_layer_forward(*args)
-        want_ys, want_h = gru_cuda.gru_layer_plain(*args)
+        # with hp saved (what training runs): the same ys, and hp within
+        # tolerance of the plain loop's
+        with_hp = gru_cuda.gru_layer_forward(*args, save_hp=True)
+        want_ys, want_h, want_hp = gru_cuda.gru_layer_plain(*args, save_hp=True)
         err = max((ys - want_ys).abs().max().item(),
-                  (h_last - want_h).abs().max().item())
+                  (h_last - want_h).abs().max().item(),
+                  (with_hp[2] - want_hp).abs().max().item())
         same = torch.equal(ys, again[0]) and torch.equal(h_last, again[1])
+        same_hp = torch.equal(ys, with_hp[0]) and torch.equal(h_last, with_hp[1])
         plan = gru_cuda._device_plan(device, B, H, D)
         log(f"kernel gru_fwd T={T} B={B} cin={cin} H={H} D={D}: "
-            f"max_abs_err={err:.3e} (tol {GRU_TOL}); bitwise repeatable {same}; "
-            f"plan {plan._asdict()} ({D * plan.tiles} clusters, at most "
-            f"{gru_cuda.max_clusters(device, H)} at once)")
-        if not (err <= GRU_TOL and same):
+            f"max_abs_err={err:.3e} (tol {GRU_TOL}); bitwise repeatable {same}; the "
+            f"same ys with hp saved {same_hp}; plan {plan._asdict()} ({D * plan.tiles} "
+            f"clusters, at most {gru_cuda.max_clusters(device, H)} at once)")
+        if not (err <= GRU_TOL and same and same_hp):
             raise AssertionError(f"gru_fwd disagrees with its plain version: {err}, "
-                                 f"repeatable {same}")
+                                 f"repeatable {same}, same with hp {same_hp}")
         errs["gru_fwd"] = max(errs["gru_fwd"], err)
     for rows, n_fft in MEL_SHAPES:
         frames = speech_frames(rows, device, n_fft)
@@ -245,44 +260,49 @@ def _rel(got, want) -> float:
 def bwd_kernel_phase(device) -> dict:
     """The GRU backward kernels against the plain backward at the training
     shapes (T 34, both directions; the generator's H 300 with layer inputs
-    of 88 and 600 features, the discriminator's H 64 with 8 and 128), and
-    the autograd Function against autograd through the plain forward."""
+    of 88 and 600 features, the discriminator's H 64 with 8 and 128; the
+    L2 tier's hidden sizes past 320), each twice for the same bits, and the
+    autograd Function against autograd through the plain forward."""
     import torch
     from speech2affective_gestures_torch.ops import gru_cuda
 
     errs = {"gru_bwd": 0.0, "gru_dw": 0.0}
     T, D = 34, 2
-    for H, cins in ((300, (88, 600)), (64, (8, 128))):
-        for B in (1, 5, 512):
-            for cin in cins:
-                xp, w_hh, b_ih, b_hh = gru_inputs(T, B, cin, H, D, seed=B + H + cin,
-                                                  device=device)
-                g = torch.Generator().manual_seed(B * H + cin)
-                dys = torch.randn(T, B, D * H, generator=g).to(device)
-                ys, _ = gru_cuda.gru_layer_forward(xp, w_hh, b_ih, b_hh)
-                dxp, gn = gru_cuda.gru_bwd_recurrence(xp, w_hh, b_ih, b_hh, ys, dys)
-                want_dxp, want_gn = gru_cuda.gru_bwd_recurrence_plain(
-                    xp, w_hh, b_ih, b_hh, ys, dys)
-                err = max((dxp - want_dxp).abs().max().item(),
-                          (gn - want_gn).abs().max().item())
-                # the reduction kernel alone, on the plain recurrence's output
-                dw, db = gru_cuda.gru_dw(ys, want_dxp, want_gn, D)
-                want_dw, want_db = gru_cuda.gru_dw_plain(ys, want_dxp, want_gn, D)
-                rel = max(_rel(dw, want_dw), _rel(db, want_db))
-                again = gru_cuda.gru_dw(ys, want_dxp, want_gn, D)
-                same = torch.equal(dw, again[0]) and torch.equal(db, again[1])
-                log(f"kernel gru_bwd T={T} B={B} cin={cin} H={H} D={D}: dxp "
-                    f"max_abs_err={err:.3e} (tol {BWD_TOL}); gru_dw dW_hh/db_hh "
-                    f"max_abs_err={(dw - want_dw).abs().max().item():.3e}, "
-                    f"relative to the largest {rel:.3e} (tol {BWD_TOL}); "
-                    f"bitwise repeatable {same}")
-                if not (err <= BWD_TOL and rel <= BWD_TOL and same):
-                    raise AssertionError(f"gru_bwd/gru_dw disagree with the plain "
-                                         f"backward: {err}, {rel}, repeatable {same}")
-                errs["gru_bwd"] = max(errs["gru_bwd"], err)
-                errs["gru_dw"] = max(errs["gru_dw"],
-                                     (dw - want_dw).abs().max().item(),
-                                     (db - want_db).abs().max().item())
+    cases = [(H, B, cin) for H, cins in ((300, (88, 600)), (64, (8, 128)))
+             for B in (1, 5, 512) for cin in cins]
+    cases += [(H, B, 64) for H in L2_HIDDEN for B in (5, 512)]
+    for H, B, cin in cases:
+        xp, w_hh, b_ih, b_hh = gru_inputs(T, B, cin, H, D, seed=B + H + cin,
+                                          device=device)
+        g = torch.Generator().manual_seed(B * H + cin)
+        dys = torch.randn(T, B, D * H, generator=g).to(device)
+        ys, _, hp = gru_cuda.gru_layer_forward(xp, w_hh, b_ih, b_hh, save_hp=True)
+        dxp, gn = gru_cuda.gru_bwd_recurrence(xp, w_hh, b_ih, b_hh, ys, dys, hp)
+        rec_again = gru_cuda.gru_bwd_recurrence(xp, w_hh, b_ih, b_hh, ys, dys, hp)
+        want_dxp, want_gn = gru_cuda.gru_bwd_recurrence_plain(
+            xp, w_hh, b_ih, b_hh, ys, dys)
+        err = max((dxp - want_dxp).abs().max().item(),
+                  (gn - want_gn).abs().max().item())
+        # the reduction kernel alone, on the plain recurrence's output
+        dw, db = gru_cuda.gru_dw(ys, want_dxp, want_gn, D)
+        want_dw, want_db = gru_cuda.gru_dw_plain(ys, want_dxp, want_gn, D)
+        rel = max(_rel(dw, want_dw), _rel(db, want_db))
+        again = gru_cuda.gru_dw(ys, want_dxp, want_gn, D)
+        same = (torch.equal(dw, again[0]) and torch.equal(db, again[1])
+                and torch.equal(dxp, rec_again[0]) and torch.equal(gn, rec_again[1]))
+        log(f"kernel gru_bwd T={T} B={B} cin={cin} H={H} D={D}: dxp "
+            f"max_abs_err={err:.3e} (tol {BWD_TOL}); gru_dw dW_hh/db_hh "
+            f"max_abs_err={(dw - want_dw).abs().max().item():.3e}, "
+            f"relative to the largest {rel:.3e} (tol {BWD_TOL}); "
+            f"recurrence and dW bitwise repeatable {same}; plan "
+            f"{gru_cuda._device_bwd_plan(device, B, H, D)._asdict()}")
+        if not (err <= BWD_TOL and rel <= BWD_TOL and same):
+            raise AssertionError(f"gru_bwd/gru_dw disagree with the plain "
+                                 f"backward: {err}, {rel}, repeatable {same}")
+        errs["gru_bwd"] = max(errs["gru_bwd"], err)
+        errs["gru_dw"] = max(errs["gru_dw"],
+                             (dw - want_dw).abs().max().item(),
+                             (db - want_db).abs().max().item())
     for H, cin in ((300, 600), (64, 128)):
         for B in (5, 512):
             args = gru_inputs(T, B, cin, H, D, seed=7 * B + H, device=device)
@@ -333,7 +353,7 @@ def v1_kernel_phase(device) -> dict:
     before = (gru_cuda.v1_launches, gru_cuda.v1_bwd_launches, gru_cuda.v1_dw_launches)
     for B in (1, 512):
         xw, w_hh, b_hh, (xp, b_ih) = v1_inputs(T, B, 600, H, D, seed=31 + B, device=device)
-        ys = gru_cuda.run_layer_forward(xw, w_hh, b_hh)
+        ys, hp = gru_cuda.run_layer_forward(xw, w_hh, b_hh, save_hp=True)
         want = gru_cuda.run_layer_plain(xw, w_hh, b_hh)[0]
         err = (ys - want).abs().max().item()
         model_ys = gru_cuda.gru_layer_forward(xp, w_hh, b_ih, b_hh)[0]
@@ -348,8 +368,8 @@ def v1_kernel_phase(device) -> dict:
         g = torch.Generator().manual_seed(B + H)
         dys = torch.randn(T, D, B, H, generator=g).to(device)
         dh = torch.randn(D, B, H, generator=g).to(device)
-        dxp, gn = gru_cuda.run_layer_bwd_recurrence(xw, w_hh, b_hh, want, dys)
-        want_dxp, want_gn = gru_cuda.run_layer_bwd_recurrence_plain(xw, w_hh, b_hh, want, dys)
+        dxp, gn = gru_cuda.run_layer_bwd_recurrence(xw, w_hh, b_hh, ys, dys, hp)
+        want_dxp, want_gn = gru_cuda.run_layer_bwd_recurrence_plain(xw, w_hh, b_hh, ys, dys)
         err = max((dxp - want_dxp).abs().max().item(), (gn - want_gn).abs().max().item())
         dw, db = gru_cuda.run_layer_dw(want, want_dxp, want_gn)
         want_dw, want_db = gru_cuda.run_layer_dw_plain(want, want_dxp, want_gn)
@@ -607,23 +627,31 @@ def busy_us(spans) -> float:
 def _profile(fn, n: int):
     """torch.profiler over n calls of fn; returns the device events' key
     averages, the device's busy ms per call (`busy_us` of its kernels and
-    copies) and the wall ms per call (the profiler's own cost inside)."""
+    copies) and the wall ms per call (the profiler's own cost inside), or
+    None when the profiler recorded no device activity."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / n
-    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
-             if getattr(e, "device_type", None) == DeviceType.CUDA
-             and not getattr(e, "is_user_annotation", False)]
-    if not spans:
-        raise RuntimeError("torch.profiler recorded no device activity")
+    # a profiling session now and then returns no device events at all
+    # (on the H100 machines, in three of four runs of ~50 sessions, at a
+    # different call each time); it is taken again, twice at most, and the
+    # time is then reported as not measured
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / n
+        spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+                 if getattr(e, "device_type", None) == DeviceType.CUDA
+                 and not getattr(e, "is_user_annotation", False)]
+        if spans:
+            break
+    else:
+        return None
     return ([e for e in prof.key_averages()
              if getattr(e, "device_type", None) == DeviceType.CUDA],
             busy_us(spans) / 1e3 / n, wall_ms)
@@ -633,20 +661,30 @@ def device_ms(fn, n: int = 20) -> float:
     """Device time per call of fn from torch.profiler over n calls after a
     warm-up: the time in which any of its kernels (or copies) ran. Unlike
     `time_ms` it leaves out the host's launch cost and any gap between
-    launches; kernels that overlap count once."""
+    launches; kernels that overlap count once. NaN, logged as not
+    measured, when the profiler recorded no device activity (the CUDA-event
+    time beside it stands)."""
     import torch
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    return _profile(fn, n)[1]
+    got = _profile(fn, n)
+    if got is None:
+        log("  device time not measured: torch.profiler recorded no device activity")
+        return float("nan")
+    return got[1]
 
 
 def profile_device(label: str, unit: str, fn, n: int = 3) -> None:
     """Device time by kernel and the device's busy share of the wall time,
     from torch.profiler over `n` calls of fn (the profiler's own cost is
     inside the wall time)."""
-    kernels, busy_ms, wall_ms = _profile(fn, n)
+    got = _profile(fn, n)
+    if got is None:
+        log(f"profile of {label}: not measured (torch.profiler recorded no device activity)")
+        return
+    kernels, busy_ms, wall_ms = got
     log(f"profile of {label}: wall {wall_ms:.3f} ms/{unit} "
         f"under the profiler, device busy {busy_ms:.3f} ms "
         f"({100 * busy_ms / wall_ms:.1f}%), {sum(e.count for e in kernels) / n:.0f} "
@@ -1019,6 +1057,34 @@ def cudnn_recurrent_fwd(lib, x) -> tuple[float, float]:
                 device_ms(full, n=10) - device_ms(proj, n=10))
 
 
+def cudnn_recurrent_bwd(lib, x, dys, dh) -> tuple[float, float]:
+    """cuDNN's recurrent backward, its dW_hh and bias gradients included:
+    the forward + backward of the bidirectional `nn.GRU` lib on x (T, B,
+    cin, requiring grad) with the output gradients (dys, dh), less its
+    forward and less the input projection's two backward products, in ms
+    by CUDA events and by device time."""
+    import torch
+
+    w_ih = torch.cat([lib.weight_ih_l0, lib.weight_ih_l0_reverse]).detach()
+    xd = x.detach()
+    T, B, cin = x.shape
+    dxp = torch.randn(T, B, w_ih.shape[0], device=x.device)
+    leaves = [x, *lib.parameters()]
+
+    def full():
+        return torch.autograd.grad(lib(x), leaves, (dys, dh))
+
+    def fwd():
+        return lib(x)
+
+    def proj_bwd():
+        return (torch.matmul(dxp, w_ih),
+                torch.matmul(dxp.reshape(-1, w_ih.shape[0]).t(), xd.reshape(-1, cin)))
+
+    return (time_ms(full, iters=10) - time_ms(fwd, iters=10) - time_ms(proj_bwd, iters=10),
+            device_ms(full, n=10) - device_ms(fwd, n=10) - device_ms(proj_bwd, n=10))
+
+
 def rfft_mel(frames):
     """The mel kernel's library yardstick on frames (R, n_fft), as a
     function of no arguments: `torch.fft.rfft`, the power, and the product
@@ -1035,7 +1101,7 @@ def rfft_mel(frames):
     return run
 
 
-def layer_times(T, B, cin, H, device, seed=9) -> dict:
+def layer_times(T, B, cin, H, device, seed=9, backward_device=True) -> dict:
     """One bidirectional GRU layer at its real input width, the port's
     (`models.layers.GRU`: the input projection's matmul, then the forward
     kernel; under autograd the backward kernels and the projection's two
@@ -1044,7 +1110,7 @@ def layer_times(T, B, cin, H, device, seed=9) -> dict:
     their outputs and of their gradients, and the input projection's
     products timed alone (its forward matmul; the two matmuls of its
     backward), so that cuDNN's recurrent part reads as its time less
-    theirs."""
+    theirs; with `backward_device` the backward's device times too."""
     import torch
     from speech2affective_gestures_torch.models import layers as L
 
@@ -1072,18 +1138,26 @@ def layer_times(T, B, cin, H, device, seed=9) -> dict:
             torch.autograd.backward((ys, h_last), (dys, dh))
 
         # the backward alone: forward + backward less the forward that
-        # saves for it
+        # saves for it, by events and by device time
         out[f"{name} bwd"] = time_ms(fwd_bwd, iters=10) - time_ms(fn, iters=10)
+        if backward_device:
+            out[f"{name} bwd device"] = device_ms(fwd_bwd, n=10) - device_ms(fn, n=10)
     out["max_abs_err"] = (out.pop("port ys") - out.pop("cuDNN ys")).abs().max().item()
     out["grad_rel"] = max(_rel(a, b) for a, b in zip(grads["port"], grads["cuDNN"]))
     w_ih = torch.cat([lib.weight_ih_l0, lib.weight_ih_l0_reverse]).detach()
     xd = x.detach()
+
+    def proj_bwd():
+        return (torch.matmul(dxp, w_ih),
+                torch.matmul(dxp.reshape(-1, 6 * H).t(), xd.reshape(-1, cin)))
+
     out["proj fwd"] = time_ms(lambda: torch.matmul(xd, w_ih.t()), iters=10)
-    out["proj bwd"] = time_ms(lambda: (
-        torch.matmul(dxp, w_ih),
-        torch.matmul(dxp.reshape(-1, 6 * H).t(), xd.reshape(-1, cin))), iters=10)
+    out["proj bwd"] = time_ms(proj_bwd, iters=10)
     out["cuDNN recurrent fwd"] = out["cuDNN fwd"] - out["proj fwd"]
     out["cuDNN recurrent bwd"] = out["cuDNN bwd"] - out["proj bwd"]
+    if backward_device:
+        out["cuDNN recurrent bwd device"] = (out["cuDNN bwd device"]
+                                             - device_ms(proj_bwd, n=10))
     out["cuDNN recurrent fwd device"] = cudnn_recurrent_fwd(lib, xd)[1]
     log(f"GRU layer T={T} B={B} cin={cin} H={H} D=2, port against cuDNN nn.GRU "
         f"(same weights): outputs max_abs_err={out['max_abs_err']:.3e}, gradients "
@@ -1092,18 +1166,21 @@ def layer_times(T, B, cin, H, device, seed=9) -> dict:
         f"{out['cuDNN bwd']:.4f} ms; the input projection's matmuls forward "
         f"{out['proj fwd']:.4f} ms, backward {out['proj bwd']:.4f} ms; cuDNN less "
         f"them: forward {out['cuDNN recurrent fwd']:.4f} ms, backward "
-        f"{out['cuDNN recurrent bwd']:.4f} ms; cuDNN's recurrent forward by device time "
-        f"{out['cuDNN recurrent fwd device']:.4f} ms")
+        f"{out['cuDNN recurrent bwd']:.4f} ms; by device time: cuDNN's recurrent forward "
+        f"{out['cuDNN recurrent fwd device']:.4f} ms"
+        + (f", backward (its dW_hh included) {out['cuDNN recurrent bwd device']:.4f} ms; "
+           f"the port's backward {out['port bwd device']:.4f} ms" if backward_device else ""))
     return out
 
 
 def bwd_timing(device):
     """The backward kernels at the training shapes: (name, source, replaces,
-    ms, plain ms, library ms, bytes, FLOP) rows for the generator's shape
-    (T 34, B 512, H 300, D 2, a later layer's 600 inputs), and log lines
-    for the discriminator's (H 64) and for the forward kernel at B 512;
-    then the walk layout's (`run_layer`) three kernels at the generator's
-    shape, with their forward also at B 1."""
+    ms, plain ms, library ms, bytes, FLOP, device ms, library device ms)
+    rows for the generator's shape (T 34, B 512, H 300, D 2, a later
+    layer's 600 inputs), and log lines for the discriminator's (H 64), for
+    the forward kernel at B 512 (with and without hp saved) and for the
+    L2 tier's hidden sizes; then the walk layout's (`run_layer`) three
+    kernels at the generator's shape, with their forward also at B 1."""
     import torch
     from speech2affective_gestures_torch.ops import gru_cuda
 
@@ -1113,55 +1190,73 @@ def bwd_timing(device):
         xp, w_hh, b_ih, b_hh = gru_inputs(T, B, cin, H, D, seed=9, device=device)
         g = torch.Generator().manual_seed(9)
         dys = torch.randn(T, B, D * H, generator=g).to(device)
-        ys, _ = gru_cuda.gru_layer_forward(xp, w_hh, b_ih, b_hh)
-        dxp, gn = gru_cuda.gru_bwd_recurrence(xp, w_hh, b_ih, b_hh, ys, dys)
-        args = (xp, w_hh, b_ih, b_hh, ys, dys)
-        bwd_ms = time_ms(lambda: gru_cuda.gru_bwd_recurrence(*args), iters=10)
+        ys, _, hp = gru_cuda.gru_layer_forward(xp, w_hh, b_ih, b_hh, save_hp=True)
+        dxp, gn = gru_cuda.gru_bwd_recurrence(xp, w_hh, b_ih, b_hh, ys, dys, hp)
+        args = (xp, w_hh, b_ih, b_hh, ys, dys, hp)
+
+        def rec():
+            return gru_cuda.gru_bwd_recurrence(*args)
+
+        def dw():
+            return gru_cuda.gru_dw(ys, dxp, gn, D)
+
+        def both():
+            return gru_cuda.gru_layer_bwd(*args[:6], hp=hp)
+
+        bwd_ms, bwd_dev = time_ms(rec, iters=10), device_ms(rec, n=10)
         bwd_plain = time_ms(lambda: gru_cuda.gru_bwd_recurrence_plain(*args), iters=5)
-        dw_ms = time_ms(lambda: gru_cuda.gru_dw(ys, dxp, gn, D), iters=10)
+        dw_ms, dw_dev = time_ms(dw, iters=10), device_ms(dw, n=10)
         dw_plain = time_ms(lambda: gru_cuda.gru_dw_plain(ys, dxp, gn, D), iters=10)
         # cuBLAS's product h_prev^T g on operands laid out for it (their
         # preparation not timed)
         hprev = gru_cuda._prev_states(ys, D).contiguous()
         g_op = torch.cat([dxp.view(T, B, D, 3 * H)[..., :2 * H],
                           gn.view(T, B, D, H)], dim=-1).contiguous()
-        dw_lib = time_ms(lambda: torch.einsum("tbdk,tbdj->dkj", hprev, g_op), iters=10)
-        layer_ms = time_ms(lambda: gru_cuda.gru_layer_bwd(*args), iters=10)
+
+        def cublas():
+            return torch.einsum("tbdk,tbdj->dkj", hprev, g_op)
+
+        dw_lib, dw_lib_dev = time_ms(cublas, iters=10), device_ms(cublas, n=10)
+        layer_ms, layer_dev = time_ms(both, iters=10), device_ms(both, n=10)
         # cuDNN's recurrent backward (its dx of the recurrence, dW_hh and
         # the biases) at the layer's real width: its backward less the input
         # projection's two matmuls
         lt = layer_times(T, B, cin, H, device)
-        lib_ms = lt["cuDNN recurrent bwd"]
+        lib_ms, lib_dev = lt["cuDNN recurrent bwd"], lt["cuDNN recurrent bwd device"]
         n_rec = 2 * T * B * D * H * 3 * H
         rec_flops = n_rec + 30 * T * B * D * H
-        rec_bytes = 4 * (2 * xp.numel() + 3 * ys.numel() + w_hh.numel()
-                         + b_ih.numel() + b_hh.numel())
+        # reads xp, hp, ys, dys and the weights; writes dxp and gn
+        rec_bytes = 4 * (3 * xp.numel() + 3 * ys.numel() + w_hh.numel() + b_ih.numel())
         dw_flops = 2 * T * B * D * (H + 1) * 3 * H
         dw_bytes = 4 * (ys.numel() + 2 * xp.numel() // 3 + gn.numel()
                         + w_hh.numel() + b_hh.numel())
-        # the whole backward reads xp, ys, dys and the weights once and
+        # the whole backward reads xp, hp, ys, dys and the weights once and
         # writes dxp and the weight gradients once
-        both, both_by = bound(4 * (2 * xp.numel() + 2 * ys.numel() + 2 * w_hh.numel()
-                                   + 2 * b_ih.numel() + 2 * b_hh.numel()),
-                              n_rec + dw_flops)
-        log(f"gru backward T={T} B={B} H={H} D={D}: recurrence {bwd_ms:.4f} ms "
-            f"(plain {bwd_plain:.4f}), dW {dw_ms:.4f} ms (plain {dw_plain:.4f}, "
-            f"cuBLAS product {dw_lib:.4f}), the three together (gru_layer_bwd: "
-            f"recurrence, dW_hh, db_ih) {layer_ms:.4f} ms against cuDNN's recurrent "
-            f"backward {lib_ms:.4f} ms; bound of the three {both:.5f} ms ({both_by}; "
-            f"{n_rec + dw_flops} FLOP without the recompute)")
+        both_b, both_by = bound(4 * (3 * xp.numel() + 2 * ys.numel() + 2 * w_hh.numel()
+                                     + 2 * b_ih.numel() + 2 * b_hh.numel()),
+                                n_rec + dw_flops)
+        log(f"gru backward T={T} B={B} H={H} D={D}: recurrence {bwd_ms:.4f} ms, by device "
+            f"time {bwd_dev:.4f} (plain {bwd_plain:.4f}); dW {dw_ms:.4f} ms, by device time "
+            f"{dw_dev:.4f} (plain {dw_plain:.4f}; cuBLAS product {dw_lib:.4f}, by device "
+            f"time {dw_lib_dev:.4f}); recurrence + dW (gru_layer_bwd: recurrence, dW_hh, "
+            f"db_ih) {layer_ms:.4f} ms, by device time {layer_dev:.4f}, against cuDNN's "
+            f"recurrent backward (its dW_hh included) {lib_ms:.4f} ms, by device time "
+            f"{lib_dev:.4f}; bound of the three {both_b:.5f} ms ({both_by}; "
+            f"{n_rec + dw_flops} FLOP); plans {gru_cuda._device_bwd_plan(device, B, H, D)._asdict()}, "
+            f"{gru_cuda.dw_plan(T, B, H, D, torch.cuda.get_device_properties(device).multi_processor_count)._asdict()}")
         if H == 300:
             src = "speech2affective_gestures_torch/csrc/gru_bwd.cu"
             rows.append(("gru_bwd", src, "speech2affective_gestures_tpu/ops/gru_pallas.py:384",
-                         bwd_ms, bwd_plain, lib_ms, rec_bytes, rec_flops, None, None))
+                         bwd_ms, bwd_plain, lib_ms, rec_bytes, rec_flops, bwd_dev, lib_dev))
             rows.append(("gru_dw", src, "speech2affective_gestures_tpu/ops/gru_pallas.py:432",
-                         dw_ms, dw_plain, dw_lib, dw_bytes, dw_flops, None, None))
+                         dw_ms, dw_plain, dw_lib, dw_bytes, dw_flops, dw_dev, dw_lib_dev))
         # the forward kernel at the training batch (and, at H 300, the
-        # scoring batch)
+        # scoring batch), and what saving hp costs it
         for fb in (B, 258) if H == 300 else (B,):
             fargs = gru_inputs(T, fb, cin, H, D, seed=9, device=device)
             f_ms = time_ms(lambda: gru_cuda.gru_layer_forward(*fargs), iters=10)
             f_dev = device_ms(lambda: gru_cuda.gru_layer_forward(*fargs))
+            f_hp = device_ms(lambda: gru_cuda.gru_layer_forward(*fargs, save_hp=True))
             f_plain = time_ms(lambda: gru_cuda.gru_layer_plain(*fargs), iters=5)
             f_bound, f_by = bound(
                 4 * (fargs[0].numel() + w_hh.numel() + b_ih.numel() + b_hh.numel()
@@ -1170,11 +1265,50 @@ def bwd_timing(device):
             lib = (f"cuDNN's recurrent forward {lt['cuDNN recurrent fwd']:.4f} ms, by device "
                    f"time {lt['cuDNN recurrent fwd device']:.4f} ms, " if fb == B else "")
             log(f"gru_fwd T={T} B={fb} H={H} D={D}: {f_ms:.4f} ms, by device time "
-                f"{f_dev:.4f} ms, plain {f_plain:.4f} ms, {lib}bound {f_bound:.5f} ms "
-                f"({f_by}); plan {gru_cuda._device_plan(device, fb, H, D)._asdict()}")
+                f"{f_dev:.4f} ms ({f_hp:.4f} with hp saved), plain {f_plain:.4f} ms, {lib}"
+                f"bound {f_bound:.5f} ms ({f_by}); plan "
+                f"{gru_cuda._device_plan(device, fb, H, D)._asdict()}")
         if H == 300:
             rows += v1_timing(device, lt)
+    l2_timing(device)
     return rows
+
+
+def l2_timing(device) -> None:
+    """The GRU kernels' L2 tier (hidden sizes past 320, W_hh beyond a
+    cluster's registers) at T 34, D 2, layer input 64: the forward at B 1
+    and 512 and the recurrence and dW at B 512, by device time, beside
+    their bounds."""
+    import torch
+    from speech2affective_gestures_torch.ops import gru_cuda
+
+    T, D = 34, 2
+    for H in L2_HIDDEN[1:]:
+        for B in (1, 512):
+            xp, w_hh, b_ih, b_hh = gru_inputs(T, B, 64, H, D, seed=9, device=device)
+            f_dev = device_ms(lambda: gru_cuda.gru_layer_forward(xp, w_hh, b_ih, b_hh), n=5)
+            f_bound, f_by = bound(
+                4 * (xp.numel() + w_hh.numel() + 2 * b_hh.numel() + T * B * D * H),
+                T * D * B * (2 * H * 3 * H + 15 * H))
+            line = (f"L2 tier H={H} B={B} T={T} D={D}: gru_fwd by device time {f_dev:.4f} ms, "
+                    f"bound {f_bound:.5f} ms ({f_by}); plan "
+                    f"{gru_cuda._device_plan(device, B, H, D)._asdict()}")
+            if B > 1:
+                dys = torch.randn(T, B, D * H, generator=torch.Generator().manual_seed(H)
+                                  ).to(device)
+                ys, _, hp = gru_cuda.gru_layer_forward(xp, w_hh, b_ih, b_hh, save_hp=True)
+                dxp, gn = gru_cuda.gru_bwd_recurrence(xp, w_hh, b_ih, b_hh, ys, dys, hp)
+                r_dev = device_ms(lambda: gru_cuda.gru_bwd_recurrence(
+                    xp, w_hh, b_ih, b_hh, ys, dys, hp), n=5)
+                d_dev = device_ms(lambda: gru_cuda.gru_dw(ys, dxp, gn, D), n=5)
+                r_bound, _ = bound(4 * (3 * xp.numel() + 3 * ys.numel() + w_hh.numel()),
+                                   2 * T * B * D * H * 3 * H)
+                d_bound, _ = bound(4 * (ys.numel() + 2 * xp.numel() // 3 + gn.numel()),
+                                   2 * T * B * D * (H + 1) * 3 * H)
+                line += (f"; recurrence {r_dev:.4f} ms (bound {r_bound:.5f}), dW {d_dev:.4f} "
+                         f"ms (bound {d_bound:.5f}); recurrence plan "
+                         f"{gru_cuda._device_bwd_plan(device, B, H, D)._asdict()}")
+            log(line)
 
 
 def v1_timing(device, lt) -> list:
@@ -1192,7 +1326,7 @@ def v1_timing(device, lt) -> list:
     rows = []
     for B in (1, 512):
         xw, w_hh, b_hh, _ = v1_inputs(T, B, 600, H, D, seed=9, device=device)
-        ys = gru_cuda.run_layer_forward(xw, w_hh, b_hh)
+        ys, hp = gru_cuda.run_layer_forward(xw, w_hh, b_hh, save_hp=True)
         fwd_ms = time_ms(lambda: gru_cuda.run_layer_forward(xw, w_hh, b_hh), iters=10)
         fwd_dev = device_ms(lambda: gru_cuda.run_layer_forward(xw, w_hh, b_hh))
         fwd_plain = time_ms(lambda: gru_cuda.run_layer_plain(xw, w_hh, b_hh), iters=5)
@@ -1205,31 +1339,38 @@ def v1_timing(device, lt) -> list:
             continue
         g = torch.Generator().manual_seed(9)
         dys = torch.randn(T, D, B, H, generator=g).to(device)
-        dxp, gn = gru_cuda.run_layer_bwd_recurrence(xw, w_hh, b_hh, ys, dys)
-        args = (xw, w_hh, b_hh, ys, dys)
+        args = (xw, w_hh, b_hh, ys, dys, hp)
+        dxp, gn = gru_cuda.run_layer_bwd_recurrence(*args)
         bwd_ms = time_ms(lambda: gru_cuda.run_layer_bwd_recurrence(*args), iters=10)
+        bwd_dev = device_ms(lambda: gru_cuda.run_layer_bwd_recurrence(*args), n=10)
         bwd_plain = time_ms(lambda: gru_cuda.run_layer_bwd_recurrence_plain(*args), iters=5)
         dw_ms = time_ms(lambda: gru_cuda.run_layer_dw(ys, dxp, gn), iters=10)
+        dw_dev = device_ms(lambda: gru_cuda.run_layer_dw(ys, dxp, gn), n=10)
         dw_plain = time_ms(lambda: gru_cuda.run_layer_dw_plain(ys, dxp, gn), iters=10)
         hprev = gru_cuda._walk_prev(ys).contiguous()
         g_op = torch.cat([dxp[..., :2 * H], gn], dim=-1).contiguous()
-        dw_lib = time_ms(lambda: torch.einsum("tdbk,tdbj->dkj", hprev, g_op), iters=10)
+
+        def cublas():
+            return torch.einsum("tdbk,tdbj->dkj", hprev, g_op)
+
+        dw_lib, dw_lib_dev = time_ms(cublas, iters=10), device_ms(cublas, n=10)
         n_rec = 2 * T * B * D * H * 3 * H
         dw_flops = 2 * T * B * D * (H + 1) * 3 * H
         rows += [
             ("gru_fwd_v1", fwd_src, f"{tpu}:66", fwd_ms, fwd_plain, lt["cuDNN recurrent fwd"],
              fwd_bytes, n_cell, fwd_dev, lt["cuDNN recurrent fwd device"]),
             ("gru_bwd_v1", bwd_src, f"{tpu}:123", bwd_ms, bwd_plain, lt["cuDNN recurrent bwd"],
-             4 * (2 * xw.numel() + 3 * ys.numel() + w_hh.numel() + b_hh.numel()),
-             n_rec + 30 * T * B * D * H, None, None),
+             4 * (3 * xw.numel() + 3 * ys.numel() + w_hh.numel()),
+             n_rec + 30 * T * B * D * H, bwd_dev, lt["cuDNN recurrent bwd device"]),
             ("gru_dw_v1", bwd_src, f"{tpu}:178", dw_ms, dw_plain, dw_lib,
              4 * (ys.numel() + 2 * xw.numel() // 3 + gn.numel() + w_hh.numel()
-                  + b_hh.numel()), dw_flops, None, None),
+                  + b_hh.numel()), dw_flops, dw_dev, dw_lib_dev),
         ]
         log(f"gru v1 T={T} B={B} H={H} D={D}: forward {fwd_ms:.4f} ms (by device time "
             f"{fwd_dev:.4f}; plain "
-            f"{fwd_plain:.4f}), recurrence {bwd_ms:.4f} ms (plain {bwd_plain:.4f}), dW "
-            f"{dw_ms:.4f} ms (plain {dw_plain:.4f}, cuBLAS product {dw_lib:.4f})")
+            f"{fwd_plain:.4f}), recurrence {bwd_ms:.4f} ms (by device time {bwd_dev:.4f}; "
+            f"plain {bwd_plain:.4f}), dW {dw_ms:.4f} ms (by device time {dw_dev:.4f}; plain "
+            f"{dw_plain:.4f}, cuBLAS product {dw_lib:.4f}, by device time {dw_lib_dev:.4f})")
     return rows
 
 
@@ -1245,7 +1386,7 @@ def timing_phase(device, errs, launches) -> list[dict]:
     gru_dev = device_ms(lambda: gru_cuda.gru_layer_forward(*args))
     gru_plain_ms = time_ms(lambda: gru_cuda.gru_layer_plain(*args), iters=5)
     # cuDNN's GRU at the layer's real width, less its input projection
-    lt = layer_times(T, B, 600, H, device, seed=5)
+    lt = layer_times(T, B, 600, H, device, seed=5, backward_device=False)
     gru_lib_ms, gru_lib_dev = lt["cuDNN recurrent fwd"], lt["cuDNN recurrent fwd device"]
     gru_bytes = 4 * (xp.numel() + w_hh.numel() + b_ih.numel() + b_hh.numel()
                      + T * B * D * H + D * B * H)
@@ -1297,10 +1438,10 @@ def timing_phase(device, errs, launches) -> list[dict]:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": errs[name], "ms": ms,
             "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": lib_ms, "device_ms": dev, "library_device_ms": lib_dev,
+            "library_ms": lib_ms, "device_ms": None if np.isnan(dev) else dev,
+            "library_device_ms": None if np.isnan(lib_dev) else lib_dev,
         })
-        by_device = "" if dev is None else (
-            f" (by device time {dev:.4f} ms, library {lib_dev:.4f} ms)")
+        by_device = f" (by device time {dev:.4f} ms, library {lib_dev:.4f} ms)"
         log(f"{name}: {ms:.4f} ms, plain {plain:.4f} ms, library {lib_ms:.4f} ms"
             f"{by_device}, bound {b_ms:.5f} ms ({b_by}; {nbytes} bytes, {flops} FLOP)")
     return rows_out

@@ -1,16 +1,17 @@
 // Backward of one (bi)directional GRU layer: the reverse-time recurrence in
-// one kernel, the recurrent weight's gradient in a second.
+// one kernel, the recurrent weight's gradient in a second (and a fixed-order
+// sum pass).
 //
 // Replaces the TPU kernels speech2affective_gestures_tpu/ops/gru_pallas.py
 // ::_bwd_kernel_v2 (pallas_call in _bwd_call_v2) and ::_bwd_kernel (v1,
 // pallas_call in _bwd_call). The forward (csrc/gru_fwd.cu) saved xp (input
-// projections) and ys; for each direction this walks time opposite to
-// that direction's forward walk,
-// recomputes r, z, n from h_prev (the neighbouring frame of ys) and xp,
-// and with dh = dys + carry:
+// projections), ys and hp = h_prev . W_hh + b_hh; for each direction this
+// walks time opposite to that direction's forward walk, recomputes r, z, n
+// from xp and hp (the forward's expressions on the forward's values, so the
+// same bits), and with dh = dys + carry:
 //   dn     = dh (1 - z)          dz     = dh (h_prev - n)
 //   dpre_n = dn (1 - n^2)        dpre_z = dz z (1 - z)
-//   dpre_r = dpre_n (W_hn h_prev + b_hn) r (1 - r)
+//   dpre_r = dpre_n hp_n r (1 - r)
 //   dxp    = [dpre_r, dpre_z, dpre_n]            (forward time order)
 //   g      = [dpre_r, dpre_z, dpre_n r]          (gradient of h . W_hh + b_hh)
 //   carry  = dh z + g . W_hh^T                   (dh of the previous step)
@@ -21,351 +22,540 @@
 //
 // Layouts (all float32, row-major, contiguous), the forward's two, chosen
 // by the template parameter WALK:
-//   model layout (WALK = false): xp, dxp (T, B, D*3H) without b_ih;
+//   model layout (WALK = false): xp, hp, dxp (T, B, D*3H), xp without b_ih;
 //     ys, dys, gn (T, B, D*H) in forward time order; dys already holds the
 //     gradient of h_last, added by the wrapper at the frame that produced
 //     each direction's final state
-//   walk layout (WALK = true, `run_layer`): xp, dxp (T, D, B, 3H) with b_ih
-//     folded in (so there is no b_ih); ys, dys, gn (T, D, B, H), row s the
-//     walk's step s for both directions: h_prev of step s is row s - 1
-//   gn = dpre_n r; w_hh (D, H, 3H), w_hh_t (D, 3H, H) = its transpose (the
-//   wrapper's copy); b_ih, b_hh, db_hh (D, 3H); dw_hh (D, H, 3H).
+//   walk layout (WALK = true, `run_layer`): xp, hp, dxp (T, D, B, 3H) with
+//     b_ih folded into xp (so there is no b_ih); ys, dys, gn (T, D, B, H),
+//     row s the walk's step s for both directions: h_prev of step s is row
+//     s - 1
+//   gn = dpre_n r; w_hh (D, H, 3H); b_ih (D, 3H); dw_hh (D, H, 3H), db_hh
+//   (D, 3H).
 // In the walk layout db_hh's r and z parts are the sums of dxp's, as the
 // TPU kernel's fold of b_hh_r and b_hh_z into xp gives them.
 //
-// Kernel 1, the recurrence: one block per (batch tile, direction), the time
-// loop inside the block, h_prev, the recomputed h . W_hh, g and the carry
-// in shared memory. Each step makes two products with W_hh: the recompute
-// h_prev . W_hh (thread j owns column j of W_hh) and g . W_hh^T (thread
-// (gate, k) owns column k of the gate's rows of W_hh^T, so both read rows
-// coalesced); the three gates' shares of the second product are added in a
-// fixed order. Bound on the H100: at H = 300 W_hh is 1.08 MB per
-// direction, five times one SM's shared memory, so each step streams it
-// twice from L2 into one SM: the chain is bound by one SM's L2 bandwidth,
-// as the forward kernel is. Batch tiles of 8 rows at B >= 256 read W once
-// for 8 rows and keep the grid to one wave (128 blocks at B = 512, D = 2).
-// At H = 64 (the discriminator) W_hh is 49 KB; it is read the same way.
+// Kernel 1, the recurrence: the forward's cluster design turned round. One
+// cluster of C blocks per (batch tile, direction) runs the time loop; block
+// c owns the units [cU, (c+1)U) and keeps the ROWS of W_hh for its units in
+// its threads' registers, read once: thread (pair of units, lane s) holds
+// W[k][gate H + j] of its two units k for the three gates over its chunk j
+// in [s KC, (s+1) KC), 2 x 3 KC values (KC <= 20). Each step, for each
+// group of S rows: the lanes' chunk sums of g . W^T (each gate's sum in
+// ascending j, then r + z, + n) meet in the forward's reduce-scatter, so
+// that lane s holds row g0 + s's totals of its two units; that lane adds the
+// dh z it kept from the previous step, forms dh, the gate gradients and
+// dxp, gn, and sends its row's g (three gates, four units a float4) into
+// the next g buffer of every block of the cluster through distributed
+// shared memory. g is double-buffered, so one cluster barrier a step is
+// enough (a block alone, at H 64, takes a block barrier). One product with
+// W_hh a step (the forward's saved hp replaces the second), W_hh never
+// streamed. Past H 320 the forward's L2 tier (gru_cluster.cuh): the same
+// sums, W read from device memory once per group of S rows, pairs walked in
+// passes. Bound on the H100: 2 T B D H 3H FLOP of the product (0.283 ms at
+// T 34, B 512, H 300 against 67 TFLOP/s float32). What holds it is shared
+// memory: it gives an SM 32 floats a cycle and the FMA pipes take 128, and
+// each value of g read feeds as many FMAs as a thread has units; hence the
+// pairs (with one unit a thread, as the forward has, the reads take four
+// times the FMAs' issue; PERF.md).
 //
-// Kernels 2 and 3, dW_hh and db_hh: a product over the T*B rows (h_prev
-// extended by a column of ones, whose row of the output is db_hh). The rows
-// are cut into S consecutive splits; one block per (64 x 64 output tile,
-// split) sums its split's rows in order into a partial tile, and a second
-// pass adds the S partials of each output in split order: deterministic,
-// no atomics. S is chosen (s2ag_gru_dw_splits) so that about four blocks
-// per SM are in flight: one block per tile alone left 12 blocks for the
-// card at H = 64 and 150 at H = 300, each walking all 17,408 rows with one
-// stage of loads in flight. It is bound by float32 FMA throughput
-// (2 T B H 3H operations); a register-tiled product, without tensor cores,
-// since the sums stay in plain float32.
+// Kernels 2 and 3, dW_hh and db_hh: a float32 product over the T*B rows,
+// [h_prev | 1]^T (H + 1 rows of k, the ones row giving db_hh) times g (3H
+// columns of j). Block tiles of 64 (k) x 128 (j), 256 threads with 4 x 8
+// outputs each (one float4 of h_prev and two of g from shared memory feed
+// 32 FMAs); the rows come through a 3-stage cp.async ring of 16 rows a
+// stage (16-byte copies where H % 4 == 0, 4-byte otherwise; zero-fill past
+// the data), one barrier a stage; each thread's row offsets advance by
+// arithmetic, with no table. The rows are cut into S consecutive splits;
+// one block per (tile, split) sums its split's rows in order into a partial
+// tile, and a second pass adds the S partials of each output in split
+// order: deterministic, no atomics. The plan (`gru_cuda.dw_plan`) takes S
+// so that about four blocks per SM are in flight. Bound: 2 T B D (H + 1) 3H
+// FLOP against the float32 rate; sums stay plain float32 FMAs (no TF32).
 
-#include <cuda_runtime.h>
+#include "gru_cluster.cuh"
 
 namespace {
 
-constexpr int KCHUNK = 16;
+// The recurrence's thread shape (`gru_cuda.bwd_shape`): a thread owns a
+// PAIR of units, so that each value of g it reads from shared memory feeds
+// two units' FMAs (shared memory gives an SM 32 floats a cycle, its FMA
+// pipes 128, and one unit a thread left the product bound by the reads).
+// The register tier holds the pair's rows of W_hh over a chunk of at most
+// 20 j (2 x 3 x 20 values); S lanes (2 to 16) share a pair. A block takes
+// at most BWD_THREADS threads in the register tier, BWD_L2_THREADS in the
+// L2 tier (whose chunk sums of S rows need the registers).
+constexpr int BWD_THREADS = 320;
+constexpr int BWD_L2_THREADS = 256;
+__host__ __device__ constexpr int bwd_max_threads(int KC) {
+  return KC == 0 ? BWD_L2_THREADS : BWD_THREADS;
+}
+// the register tier's (S, KC) instances: KC = ceil(H / S) rounded up to 4
+// within 20, S the fewest lanes that allow it
+#define S2AG_BWD_REG_INSTANCES                                                       \
+  S2AG_BWD(2, 4) S2AG_BWD(2, 8) S2AG_BWD(2, 12) S2AG_BWD(2, 16) S2AG_BWD(2, 20)      \
+  S2AG_BWD(4, 12) S2AG_BWD(4, 16) S2AG_BWD(4, 20) S2AG_BWD(8, 12) S2AG_BWD(8, 16)     \
+  S2AG_BWD(8, 20) S2AG_BWD(16, 12) S2AG_BWD(16, 16) S2AG_BWD(16, 20)
 
-__device__ __forceinline__ float sigmoid_f(float x) {
-  return 1.0f / (1.0f + expf(-x));
+// a chunk's stride in a row of g: KS / 4 odd, so that the float4 reads of
+// the 8 lanes of a quarter warp hit distinct banks (`gru_cuda._bwd_ks`)
+__host__ __device__ constexpr int bwd_ks(int kc) { return (kc / 4) % 2 ? kc : kc + 4; }
+
+// This lane's chunk sums of one row of g . W^T for its two units: each
+// gate's sum over its KC values of j in ascending j, then (r + z) + n (g:
+// the row's gate-r chunk, gates GS apart; w[u][gate][i]).
+template <int KC>
+__device__ __forceinline__ void bwd_chunk_sums(const float* g, int GS,
+                                               const float (&w)[2][3][KC], float (&out)[2]) {
+  float a[2][3];
+#pragma unroll
+  for (int u = 0; u < 2; ++u) a[u][0] = a[u][1] = a[u][2] = 0.0f;
+#pragma unroll
+  for (int q = 0; q < KC / 4; ++q) {
+    float x[3][4];
+#pragma unroll
+    for (int gt = 0; gt < 3; ++gt) {
+      const float4 v = reinterpret_cast<const float4*>(g + gt * GS)[q];
+      x[gt][0] = v.x;
+      x[gt][1] = v.y;
+      x[gt][2] = v.z;
+      x[gt][3] = v.w;
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int gt = 0; gt < 3; ++gt) a[u][gt] = fmaf(x[gt][e], w[u][gt][4 * q + e], a[u][gt]);
+  }
+#pragma unroll
+  for (int u = 0; u < 2; ++u) out[u] = (a[u][0] + a[u][1]) + a[u][2];
 }
 
-// offset of (frame or walk row p, direction d, batch row) in a tensor of C
-// values per row
-template <bool WALK>
-__device__ __forceinline__ size_t row_offset(int p, int d, int row, int B, int D,
-                                             int C) {
-  return WALK ? (((size_t)p * D + d) * B + row) * C
-              : ((size_t)p * B + row) * D * C + (size_t)d * C;
+// The L2 tier's chunk sums of the group's `rows` rows (gg: row 0's gate-r
+// chunk, rows RS and gates GS apart) in bwd_chunk_sums' order, each W value
+// (W[u]: unit u's row of W_hh at j = j0 of gate r, null when the lane has
+// no such unit) read once per group.
+template <int S>
+__device__ __forceinline__ void bwd_chunk_sums_l2(const float* gg, int rows, int RS, int GS,
+                                                  const float* const (&W)[2], int j0, int kc,
+                                                  int H, float (&tot)[S][2]) {
+  float acc[S][2][3];
+#pragma unroll
+  for (int i = 0; i < S; ++i)
+#pragma unroll
+    for (int u = 0; u < 2; ++u) acc[i][u][0] = acc[i][u][1] = acc[i][u][2] = 0.0f;
+  for (int q = 0; q < kc; q += 4) {
+    float w[2][3][4];
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool ok = W[u] != nullptr && j0 + q + e < H;
+#pragma unroll
+        for (int gt = 0; gt < 3; ++gt) w[u][gt][e] = ok ? __ldg(W[u] + gt * H + q + e) : 0.0f;
+      }
+#pragma unroll
+    for (int i = 0; i < S; ++i) {
+      if (i >= rows) break;  // uniform
+#pragma unroll
+      for (int gt = 0; gt < 3; ++gt) {
+        const float4 v = *reinterpret_cast<const float4*>(gg + i * RS + gt * GS + q);
+        const float x[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+#pragma unroll
+          for (int u = 0; u < 2; ++u) acc[i][u][gt] = fmaf(x[e], w[u][gt][e], acc[i][u][gt]);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < S; ++i)
+#pragma unroll
+    for (int u = 0; u < 2; ++u) tot[i][u] = (acc[i][u][0] + acc[i][u][1]) + acc[i][u][2];
 }
 
-template <int BT, bool WALK>
-__global__ void __launch_bounds__(1024) gru_layer_bwd_kernel(
+template <int S, int KC, bool WALK>
+__global__ void __launch_bounds__(bwd_max_threads(KC), 1) gru_layer_bwd_kernel(
     const float* __restrict__ xp, const float* __restrict__ w_hh,
-    const float* __restrict__ w_hh_t, const float* __restrict__ b_ih,
-    const float* __restrict__ b_hh, const float* __restrict__ ys,
-    const float* __restrict__ dys, float* __restrict__ dxp,
-    float* __restrict__ gn, int T, int B, int H, int D) {
-  extern __shared__ float smem[];
-  const int H3 = 3 * H;
-  float* hprev = smem;              // [BT][H]
-  float* hp = hprev + BT * H;       // [BT][3H]  h_prev . W_hh + b_hh
-  float* g = hp + BT * H3;          // [BT][3H]  [dpre_r, dpre_z, dpre_n r]
-  float* carry = g + BT * H3;       // [BT][H]
-  float* part = carry + BT * H;     // [3][BT][H] each gate's share of g . W^T
+    const float* __restrict__ b_ih, const float* __restrict__ hp,
+    const float* __restrict__ ys, const float* __restrict__ dys,
+    float* __restrict__ dxp, float* __restrict__ gn, int T, int B, int H, int D, int U,
+    int BT, int kc) {
+  constexpr bool L2 = KC == 0;
+  constexpr int P = 32 / S;      // pairs a warp
+  const int KCr = L2 ? kc : KC;  // the chunk (a constant in the register tier)
+  const int KS = bwd_ks(KCr);
+  const int GS = S * KS;  // a gate's stride in a row of g
+  const int RS = 3 * GS;  // a row of g
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int c = (int)cluster.block_rank();
+  float* g_s = smem;                  // [2][BT][3][S][KS]
+  float* dhz_s = smem + 2 * BT * RS;  // [BT][U]: dh z of the last step
 
   const int d = blockIdx.y;
-  const int b0 = blockIdx.x * BT;
-  const float* W = w_hh + (size_t)d * H * H3;
-  const float* WT = w_hh_t + (size_t)d * H3 * H;
-  const float* bi = WALK ? nullptr : b_ih + d * H3;
-  const float* bh = b_hh + d * H3;
-  const int kmain = H - H % KCHUNK;
+  const int b0 = (blockIdx.x / C) * BT;
+  const int nrows = min(BT, B - b0);
+  const int H3 = 3 * H;
+  const int u0 = c * U;
+  const int s = threadIdx.x % S;   // the thread's chunk of j
+  const int pl = threadIdx.x / S;  // the thread's pair in the block's pass
+  const int PP = L2 ? (int)blockDim.x / S : (U + 1) / 2;  // pairs a pass
+  const int npass = L2 ? (U + 2 * PP - 1) / (2 * PP) : 1;
 
-  for (int i = threadIdx.x; i < BT * H; i += blockDim.x) carry[i] = 0.0f;
+  // prologue (register tier): rows k = u0 + 2 pl + u of W_hh, this lane's
+  // chunk of each gate, into registers, read once
+  float w[2][3][L2 ? 1 : KC];
+  if constexpr (!L2) {
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int k = u0 + 2 * pl + u;
+      const bool active = pl < PP && 2 * pl + u < U && k < H;
+      const float* W = w_hh + ((size_t)d * H + k) * H3 + s * KC;
+#pragma unroll
+      for (int i = 0; i < KC; ++i) {
+        const bool ok = active && s * KC + i < H;
+#pragma unroll
+        for (int gt = 0; gt < 3; ++gt) w[u][gt][i] = ok ? __ldg(W + gt * H + i) : 0.0f;
+      }
+    }
+  }
+  for (int i = threadIdx.x; i < 2 * BT * RS / 4; i += blockDim.x)
+    reinterpret_cast<float4*>(g_s)[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (int i = threadIdx.x; i < BT * U; i += blockDim.x) dhz_s[i] = 0.0f;
+
+  // The exchange packs 4 units (2 pairs) of one row into a float4: of the
+  // warp's S rows x 2P units (16 float4s), lanes f and f + 16 gather float4
+  // f (row f % S, pairs 2 (f / S) and + 1 of the warp's) and store it into
+  // peers f / 16, + 2, ...
+  const int lane = threadIdx.x & 31;
+  const int xrow = (lane & 15) % S;
+  const int xq = (lane & 15) / S;
+  const int xa = 2 * xq * S + xrow;  // lane of (row, pair 2 xq)
+  const int xpair = (threadIdx.x >> 5) * P + 2 * xq;  // its first pair in a pass
+  cluster.sync();  // every block has started and cleared its g
 
   for (int step = 0; step < T; ++step) {
     // the model layout's forward walked d = 0 ascending and d = 1
     // descending; the walk layout's rows are already in walk order
     const int p = (WALK || d == 0) ? T - 1 - step : step;
-    const int q = (WALK || d == 0) ? p - 1 : p + 1;   // frame of h_prev
+    const int q = (WALK || d == 0) ? p - 1 : p + 1;  // frame of h_prev
     const bool has_prev = q >= 0 && q < T;
-
-    for (int idx = threadIdx.x; idx < BT * H; idx += blockDim.x) {
-      const int bb = idx / H;
-      const int row = b0 + bb;
-      hprev[idx] = (has_prev && row < B)
-          ? ys[row_offset<WALK>(q, d, row, B, D, H) + (idx - bb * H)]
-          : 0.0f;
-    }
-    __syncthreads();
-
-    // recompute hp = h_prev . W_hh + b_hh, one column j per thread and pass
-    for (int j = threadIdx.x; j < H3; j += blockDim.x) {
-      float acc[BT];
+    const float* gc = g_s + (step & 1) * BT * RS;  // g of the step before
+    float* g_next = g_s + ((step + 1) & 1) * BT * RS;
+    for (int g0 = 0; g0 < nrows; g0 += S) {
+      const int rows = min(S, nrows - g0);
+      for (int pass = 0; pass < npass; ++pass) {
+        const int row = g0 + s;
+        int uk[2];      // the thread's units in the block
+        bool mine[2];   // (row, unit) is this lane's
+        const float* W[2];
+        float x[2][3], hh[2][3], dy[2], h_prev[2];
+        size_t xo[2], ho[2];
+        // the lane's row: loaded before the product hides the latency
 #pragma unroll
-      for (int bb = 0; bb < BT; ++bb) acc[bb] = 0.0f;
-      for (int k0 = 0; k0 < kmain; k0 += KCHUNK) {
-        float w[KCHUNK];
+        for (int u = 0; u < 2; ++u) {
+          uk[u] = 2 * (pass * PP + pl) + u;
+          const int k = u0 + uk[u];
+          const bool active = pl < PP && uk[u] < U && k < H;
+          W[u] = active ? w_hh + ((size_t)d * H + k) * H3 + s * KCr : nullptr;
+          mine[u] = active && row < nrows;
+          xo[u] = mine[u] ? row_offset<WALK>(p, p, d, b0 + row, B, D, H3) + k : 0;
+          ho[u] = mine[u] ? row_offset<WALK>(p, p, d, b0 + row, B, D, H) + k : 0;
+          dy[u] = h_prev[u] = 0.0f;
 #pragma unroll
-        for (int kk = 0; kk < KCHUNK; ++kk)
-          w[kk] = __ldg(W + (size_t)(k0 + kk) * H3 + j);
+          for (int gt = 0; gt < 3; ++gt) x[u][gt] = hh[u][gt] = 0.0f;
+          if (mine[u]) {
 #pragma unroll
-        for (int kk = 0; kk < KCHUNK; ++kk) {
+            for (int gt = 0; gt < 3; ++gt) {
+              x[u][gt] = __ldg(xp + xo[u] + gt * H);
+              if (!WALK) x[u][gt] += __ldg(b_ih + (size_t)d * H3 + gt * H + k);
+              hh[u][gt] = __ldg(hp + xo[u] + gt * H);
+            }
+            dy[u] = __ldg(dys + ho[u]);
+            if (has_prev)
+              h_prev[u] = __ldg(ys + row_offset<WALK>(q, q, d, b0 + row, B, D, H) + k);
+          }
+        }
+        float tot[2] = {0.0f, 0.0f};  // row g0 + s's g . W^T (zero g before the first step)
+        if (step > 0) {
+          if constexpr (L2) {
+            float acc[S][2];
+            bwd_chunk_sums_l2<S>(gc + g0 * RS + s * KS, rows, RS, GS, W, s * kc, kc, H, acc);
+            group_totals_of<S, 2>(acc, rows, s, tot);
+          } else {
+            const float* gg = gc + g0 * RS + s * KS;
+            group_totals<S, 2>(rows, s, [&](int i, float (&out)[2]) {
+              bwd_chunk_sums<KC>(gg + i * RS, GS, w, out);
+            }, tot);
+          }
+        }
+        float g3[2][3];  // 0 past H, where g must stay 0
 #pragma unroll
-          for (int bb = 0; bb < BT; ++bb)
-            acc[bb] = fmaf(hprev[bb * H + k0 + kk], w[kk], acc[bb]);
+        for (int u = 0; u < 2; ++u) {
+          g3[u][0] = g3[u][1] = g3[u][2] = 0.0f;
+          if (!mine[u]) continue;
+          float* dhz = dhz_s + row * U + uk[u];
+          const float dh = dy[u] + (*dhz + tot[u]);
+          const float r = sigmoid_f(x[u][0] + hh[u][0]);
+          const float z = sigmoid_f(x[u][1] + hh[u][1]);
+          const float n = tanhf(x[u][2] + r * hh[u][2]);
+          const float dn = dh * (1.0f - z);
+          const float dz = dh * (h_prev[u] - n);
+          const float dpre_n = dn * (1.0f - n * n);
+          const float dpre_z = dz * z * (1.0f - z);
+          const float dpre_r = dpre_n * hh[u][2] * r * (1.0f - r);
+          dxp[xo[u]] = dpre_r;
+          dxp[xo[u] + H] = dpre_z;
+          dxp[xo[u] + 2 * H] = dpre_n;
+          if (gn != nullptr) gn[ho[u]] = dpre_n * r;
+          g3[u][0] = dpre_r;
+          g3[u][1] = dpre_z;
+          g3[u][2] = dpre_n * r;
+          *dhz = dh * z;
+        }
+        // g into every block's next buffer, this block's included
+        const int xu = 2 * (pass * PP + xpair);  // the float4's first unit in the block
+        const bool send = xpair < PP && xu < U && u0 + xu < H && g0 + xrow < nrows;
+        float* dst = g_next + (g0 + xrow) * RS + ((u0 + xu) / KCr) * KS + (u0 + xu) % KCr;
+#pragma unroll
+        for (int gt = 0; gt < 3; ++gt) {
+          float4 v;
+          v.x = __shfl_sync(0xffffffffu, g3[0][gt], xa);
+          v.y = __shfl_sync(0xffffffffu, g3[1][gt], xa);
+          v.z = __shfl_sync(0xffffffffu, g3[0][gt], xa + S);
+          v.w = __shfl_sync(0xffffffffu, g3[1][gt], xa + S);
+          if (send)
+            for (int peer = lane >> 4; peer < C; peer += 2)
+              *reinterpret_cast<float4*>(cluster.map_shared_rank(dst + gt * GS, peer)) = v;
         }
       }
-      for (int k = kmain; k < H; ++k) {
-        const float wk = __ldg(W + (size_t)k * H3 + j);
-#pragma unroll
-        for (int bb = 0; bb < BT; ++bb)
-          acc[bb] = fmaf(hprev[bb * H + k], wk, acc[bb]);
-      }
-      const float bj = bh[j];
-#pragma unroll
-      for (int bb = 0; bb < BT; ++bb) hp[bb * H3 + j] = acc[bb] + bj;
     }
-    __syncthreads();
-
-    // gates and their gradients; each (row, unit) belongs to one thread
-    for (int idx = threadIdx.x; idx < BT * H; idx += blockDim.x) {
-      const int bb = idx / H;
-      const int i = idx - bb * H;
-      const int row = b0 + bb;
-      float* gr = g + bb * H3;
-      if (row >= B) {
-        gr[i] = 0.0f;
-        gr[H + i] = 0.0f;
-        gr[2 * H + i] = 0.0f;
-        carry[idx] = 0.0f;
-        continue;
-      }
-      const size_t xo = row_offset<WALK>(p, d, row, B, D, H3);
-      const size_t ho = row_offset<WALK>(p, d, row, B, D, H) + i;
-      const float* x = xp + xo;
-      const float* hr = hp + bb * H3;
-      const float xr = WALK ? x[i] : x[i] + bi[i];
-      const float xz = WALK ? x[H + i] : x[H + i] + bi[H + i];
-      const float xn = WALK ? x[2 * H + i] : x[2 * H + i] + bi[2 * H + i];
-      const float r = sigmoid_f(xr + hr[i]);
-      const float z = sigmoid_f(xz + hr[H + i]);
-      const float hn = hr[2 * H + i];
-      const float n = tanhf(xn + r * hn);
-      const float dh = dys[ho] + carry[idx];
-      const float dn = dh * (1.0f - z);
-      const float dz = dh * (hprev[idx] - n);
-      const float dpre_n = dn * (1.0f - n * n);
-      const float dpre_z = dz * z * (1.0f - z);
-      const float dpre_r = dpre_n * hn * r * (1.0f - r);
-      float* dx = dxp + xo;
-      dx[i] = dpre_r;
-      dx[H + i] = dpre_z;
-      dx[2 * H + i] = dpre_n;
-      if (gn != nullptr) gn[ho] = dpre_n * r;
-      gr[i] = dpre_r;
-      gr[H + i] = dpre_z;
-      gr[2 * H + i] = dpre_n * r;
-      carry[idx] = dh * z;
-    }
-    __syncthreads();
-
-    // part[gate][bb][k] = sum over the gate's rows j of g[bb][j] W^T[j][k]
-    for (int idx = threadIdx.x; idx < H3; idx += blockDim.x) {
-      const int gate = idx / H;
-      const int k = idx - gate * H;
-      const float* Wg = WT + (size_t)gate * H * H + k;
-      const float* gg = g + gate * H;
-      float acc[BT];
-#pragma unroll
-      for (int bb = 0; bb < BT; ++bb) acc[bb] = 0.0f;
-      for (int j0 = 0; j0 < kmain; j0 += KCHUNK) {
-        float w[KCHUNK];
-#pragma unroll
-        for (int jj = 0; jj < KCHUNK; ++jj)
-          w[jj] = __ldg(Wg + (size_t)(j0 + jj) * H);
-#pragma unroll
-        for (int jj = 0; jj < KCHUNK; ++jj) {
-#pragma unroll
-          for (int bb = 0; bb < BT; ++bb)
-            acc[bb] = fmaf(gg[bb * H3 + j0 + jj], w[jj], acc[bb]);
-        }
-      }
-      for (int j = kmain; j < H; ++j) {
-        const float wj = __ldg(Wg + (size_t)j * H);
-#pragma unroll
-        for (int bb = 0; bb < BT; ++bb)
-          acc[bb] = fmaf(gg[bb * H3 + j], wj, acc[bb]);
-      }
-#pragma unroll
-      for (int bb = 0; bb < BT; ++bb) part[(gate * BT + bb) * H + k] = acc[bb];
-    }
-    __syncthreads();
-
-    for (int idx = threadIdx.x; idx < BT * H; idx += blockDim.x) {
-      const int bb = idx / H;
-      const int k = idx - bb * H;
-      carry[idx] = carry[idx] + part[bb * H + k] + part[(BT + bb) * H + k] +
-                   part[(2 * BT + bb) * H + k];
-    }
-    __syncthreads();
+    if (C == 1)  // a block alone: the block barrier is enough, and cheaper
+      __syncthreads();
+    else
+      cluster.sync();
   }
 }
 
-template <int BT, bool WALK>
-cudaError_t launch_bwd(const float* xp, const float* w_hh, const float* w_hh_t,
-                       const float* b_ih, const float* b_hh, const float* ys,
-                       const float* dys, float* dxp, float* gn, int T, int B,
-                       int H, int D, cudaStream_t stream) {
-  const size_t smem = (size_t)BT * 11 * H * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        gru_layer_bwd_kernel<BT, WALK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  int threads = ((3 * H + 31) / 32) * 32;
-  if (threads > 1024) threads = 1024;
-  const dim3 grid((B + BT - 1) / BT, D);
-  gru_layer_bwd_kernel<BT, WALK><<<grid, threads, smem, stream>>>(
-      xp, w_hh, w_hh_t, b_ih, b_hh, ys, dys, dxp, gn, T, B, H, D);
-  return cudaGetLastError();
+template <int S, int KC, bool WALK>
+cudaError_t launch_bwd(const float* xp, const float* w_hh, const float* b_ih,
+                       const float* hp, const float* ys, const float* dys, float* dxp,
+                       float* gn, int T, int B, int H, int D, int C, int BT, int kc, int U,
+                       int threads, int smem, cudaStream_t stream) {
+  // what the indexing needs of a plan: every j in a chunk (whole float4s),
+  // every unit in a block (U whole float4s, so whole pairs), whole warps,
+  // the register tier's pairs in one pass, the L2 tier's passes of whole
+  // pairs of pairs; both g buffers of BT rows of 3 gates of S chunks, and
+  // BT x U values of dh z
+  const bool ok = kc >= 4 && kc % 4 == 0 && S * kc >= H && (long long)C * U >= H &&
+                  U % 4 == 0 && threads % 32 == 0 && threads <= bwd_max_threads(KC) &&
+                  (KC == 0 ? threads % (4 * S) == 0 : threads >= (U / 2) * S);
+  if (!ok || smem < 4 * (2 * BT * 3 * S * bwd_ks(kc) + BT * U)) return cudaErrorInvalidValue;
+  const ClusterLaunch launch(C, dim3(C * ((B + BT - 1) / BT), D), threads, smem, stream);
+  auto kernel = gru_layer_bwd_kernel<S, KC, WALK>;
+  cudaError_t err = check_config(kernel, launch);
+  if (err != cudaSuccess) return err;
+  err = cudaLaunchKernelEx(&launch.cfg, kernel, xp, w_hh, b_ih, hp, ys, dys, dxp, gn, T, B,
+                           H, D, U, BT, kc);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// tier 0: the register instance (S, KC); tier 1: the L2 tier (S = 8)
+template <bool WALK>
+int launch_recurrence(const float* xp, const float* w_hh, const float* b_ih,
+                      const float* hp, const float* ys, const float* dys, float* dxp,
+                      float* gn, int T, int B, int H, int D, int C, int BT, int S, int KC,
+                      int U, int threads, int smem, int tier, void* stream) {
+  if (T < 1 || B < 1 || H < 1 || D < 1 || D > 2 || C < 1 || BT < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (tier == 1 && S == L2_S)
+    return (int)launch_bwd<L2_S, 0, WALK>(xp, w_hh, b_ih, hp, ys, dys, dxp, gn, T, B, H, D,
+                                          C, BT, KC, U, threads, smem, st);
+#define S2AG_BWD(SS, KK)                                                                  \
+  if (tier == 0 && S == SS && KC == KK)                                                   \
+    return (int)launch_bwd<SS, KK, WALK>(xp, w_hh, b_ih, hp, ys, dys, dxp, gn, T, B, H, D, \
+                                         C, BT, KK, U, threads, smem, st);
+  S2AG_BWD_REG_INSTANCES
+#undef S2AG_BWD
+  return (int)cudaErrorInvalidValue;
 }
 
 // dW tile: TM rows of k (h_prev units, plus the ones row H) by TN columns
-// of j (gate units), TK rows of (t, b) per shared-memory stage; 256 threads,
-// each owning a 4 x 4 block of outputs strided by 16
+// of j (gate units), TK rows of (t, b) per stage, NSTAGE stages in flight;
+// 256 threads, thread (ty, tx) owning k in [4 ty, 4 ty + 4) and j in
+// [4 tx, 4 tx + 4) and [64 + 4 tx, 64 + 4 tx + 4) of the tile. The same
+// constants are `gru_cuda.DW_TM`, `DW_TN`, `DW_TK`.
 constexpr int TM = 64;
-constexpr int TN = 64;
+constexpr int TN = 128;
 constexpr int TK = 16;
+constexpr int NSTAGE = 3;
+constexpr int DW_THREADS = 256;
 
-int dw_tiles(int H, int D) {
-  return ((3 * H + TN - 1) / TN) * ((H + 1 + TM - 1) / TM) * D;
+__device__ __forceinline__ void cp_async(float* dst, const float* src, int bytes, bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  const int n = valid ? bytes : 0;  // zero-fill what is not read
+  if (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(n));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(n));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// rows of one split: a multiple of TK
-int dw_rows_per_split(int M, int S) {
-  return ((M + S - 1) / S + TK - 1) / TK * TK;
-}
+// A reduction row m = (t, b) = (m / B, m % B), advanced by whole stages
+// without a division: frame t in the model layout, walk row t in the walk
+// layout.
+struct RowCursor {
+  int t, b;
+  __device__ void init(int m, int B) {
+    t = m / B;
+    b = m - t * B;
+  }
+  __device__ void advance(int n, int B) {
+    b += n;
+    while (b >= B) {
+      b -= B;
+      ++t;
+    }
+  }
+};
 
-// part (S, D, H + 1, 3H): split s's partial sums of [dW_hh; db_hh]. Row m
-// of the reduction is (t, b) = (m / B, m % B): frame t in the model layout,
-// walk row t in the walk layout. Each stage's TK rows have their offsets
-// computed once, by TK threads, into a table in shared memory.
-template <bool WALK>
-__global__ void __launch_bounds__(256) gru_dw_kernel(
+// part (S, D, H + 1, 3H): split's partial sums of [dW_hh; db_hh] over its
+// rows [split * rows_per_split, ...) in ascending order. VEC: floats per
+// cp.async (4 when H % 4 == 0 and the tensors are 16-byte aligned).
+template <bool WALK, int VEC>
+__global__ void __launch_bounds__(DW_THREADS) gru_dw_kernel(
     const float* __restrict__ ys, const float* __restrict__ dxp,
-    const float* __restrict__ gn, float* __restrict__ part, int T, int B,
-    int H, int D, int rows_per_split) {
-  __shared__ float As[TK][TM];   // h_prev (or 1 for the bias row)
-  __shared__ float Bs[TK][TN];   // g
-  // offsets of each row of the stage, direction d: h_prev in ys (-1: the
-  // walk's first step, zero), the row in dxp and in gn (-1: past the split)
-  __shared__ long long row_a[TK], row_x[TK], row_h[TK];
+    const float* __restrict__ gn, float* __restrict__ part, int T, int B, int H, int D,
+    int rows_per_split) {
+  __shared__ __align__(16) float As[NSTAGE][TK][TM];  // h_prev (and the ones row)
+  __shared__ __align__(16) float Bs[NSTAGE][TK][TN];  // g
   const int d = blockIdx.z % D;
   const int split = blockIdx.z / D;
   const int k0 = blockIdx.y * TM;
   const int j0 = blockIdx.x * TN;
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
+  const int tid = threadIdx.x;
+  const int tx = tid % 16;
+  const int ty = tid / 16;
   const int H3 = 3 * H;
+  const int M = T * B;
   const int m_lo = split * rows_per_split;
-  const int m_hi = min(T * B, m_lo + rows_per_split);
+  const int m_hi = min(M, m_lo + rows_per_split);
+  const int n_stage = (m_hi - m_lo + TK - 1) / TK;
 
-  float acc[4][4];
+  // this thread's copies each stage: A row ra, floats [4 ca, 4 ca + 4) of
+  // the tile; B rows rb and rb + 8, floats [4 cb, 4 cb + 4)
+  const int ra = tid / 16, ca = tid % 16;
+  const int rb = tid / 32, cb = tid % 32;
+  RowCursor cur_a, cur_b0, cur_b1;
+  cur_a.init(m_lo + ra, B);
+  cur_b0.init(m_lo + rb, B);
+  cur_b1.init(m_lo + rb + 8, B);
+  int m_a = m_lo + ra, m_b0 = m_lo + rb;
+
+  auto load_stage = [&](int buf) {
+    // A: h_prev at frame q (zero at the walk's first frame), 1 at k = H
+    {
+      const int q = (WALK || d == 0) ? cur_a.t - 1 : cur_a.t + 1;
+      const bool row_ok = m_a < m_hi;
+      const bool has_prev = row_ok && q >= 0 && q < T;
+      const float* src = ys + (has_prev ? row_offset<WALK>(q, q, d, cur_a.b, B, D, H) : 0);
+      float* dst = &As[buf][ra][4 * ca];
+#pragma unroll
+      for (int e = 0; e < 4; e += VEC) {
+        const int k = k0 + 4 * ca + e;
+        if (k < H) {
+          cp_async(dst + e, src + (has_prev ? k : 0), 4 * VEC, has_prev);
+        } else {
+#pragma unroll
+          for (int v = 0; v < VEC; ++v) dst[e + v] = (row_ok && k + v == H) ? 1.0f : 0.0f;
+        }
+      }
+    }
+    // B: g = [dxp_r, dxp_z, gn] at frame t
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const RowCursor& cur = h ? cur_b1 : cur_b0;
+      const bool row_ok = m_b0 + 8 * h < m_hi;
+      float* dst = &Bs[buf][rb + 8 * h][4 * cb];
+#pragma unroll
+      for (int e = 0; e < 4; e += VEC) {
+        const int j = j0 + 4 * cb + e;
+        const float* src = ys;
+        bool ok = false;
+        if (row_ok && j < 2 * H) {
+          src = dxp + row_offset<WALK>(cur.t, cur.t, d, cur.b, B, D, H3) + j;
+          ok = true;
+        } else if (row_ok && j < H3) {
+          src = gn + row_offset<WALK>(cur.t, cur.t, d, cur.b, B, D, H) + (j - 2 * H);
+          ok = true;
+        }
+        if (VEC == 4 || j < H3 || ok)
+          cp_async(dst + e, src, 4 * VEC, ok);
+        else
+          dst[e] = 0.0f;
+      }
+    }
+    cp_async_commit();
+    cur_a.advance(TK, B);
+    cur_b0.advance(TK, B);
+    cur_b1.advance(TK, B);
+    m_a += TK;
+    m_b0 += TK;
+  };
+
+  float acc[4][8];
 #pragma unroll
   for (int a = 0; a < 4; ++a)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) acc[a][c] = 0.0f;
+    for (int b = 0; b < 8; ++b) acc[a][b] = 0.0f;
 
-  for (int m0 = m_lo; m0 < m_hi; m0 += TK) {
-    if (threadIdx.x < TK) {
-      const int m = m0 + threadIdx.x;
-      long long a = -1, x = -1, h = -1;
-      if (m < m_hi) {
-        const int t = m / B;
-        const int b = m - t * B;
-        const int q = (WALK || d == 0) ? t - 1 : t + 1;
-        if (q >= 0 && q < T) a = (long long)row_offset<WALK>(q, d, b, B, D, H);
-        x = (long long)row_offset<WALK>(t, d, b, B, D, H3);
-        h = (long long)row_offset<WALK>(t, d, b, B, D, H);
-      }
-      row_a[threadIdx.x] = a;
-      row_x[threadIdx.x] = x;
-      row_h[threadIdx.x] = h;
-    }
-    __syncthreads();
-    for (int e = threadIdx.x; e < TK * TM; e += blockDim.x) {
-      const int r = e / TM;
-      const int kk = e - r * TM;
-      const int k = k0 + kk;
-      float a = 0.0f;
-      if (row_x[r] >= 0) {
-        if (k < H) {
-          if (row_a[r] >= 0) a = ys[row_a[r] + k];
-        } else if (k == H) {
-          a = 1.0f;
-        }
-      }
-      As[r][kk] = a;
-    }
-    for (int e = threadIdx.x; e < TK * TN; e += blockDim.x) {
-      const int r = e / TN;
-      const int jj = e - r * TN;
-      const int j = j0 + jj;
-      float v = 0.0f;
-      if (row_x[r] >= 0) {
-        if (j < 2 * H) {
-          v = dxp[row_x[r] + j];
-        } else if (j < H3) {
-          v = gn[row_h[r] + (j - 2 * H)];
-        }
-      }
-      Bs[r][jj] = v;
-    }
-    __syncthreads();
+#pragma unroll
+  for (int st = 0; st < NSTAGE - 1; ++st) {
+    if (st < n_stage)
+      load_stage(st);
+    else
+      cp_async_commit();  // an empty group keeps the count of groups
+  }
+  for (int it = 0; it < n_stage; ++it) {
+    cp_async_wait<NSTAGE - 2>();  // stage it has landed (this thread's part)
+    __syncthreads();              // everyone's part; stage it - 1's buffer is free
+    if (it + NSTAGE - 1 < n_stage)
+      load_stage((it + NSTAGE - 1) % NSTAGE);
+    else
+      cp_async_commit();
+    const int buf = it % NSTAGE;
 #pragma unroll
     for (int r = 0; r < TK; ++r) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) av[a] = As[r][ty + 16 * a];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) bv[c] = Bs[r][tx + 16 * c];
+      const float4 a4 = *reinterpret_cast<const float4*>(&As[buf][r][4 * ty]);
+      const float4 p4 = *reinterpret_cast<const float4*>(&Bs[buf][r][4 * tx]);
+      const float4 q4 = *reinterpret_cast<const float4*>(&Bs[buf][r][64 + 4 * tx]);
+      const float av[4] = {a4.x, a4.y, a4.z, a4.w};
+      const float bv[8] = {p4.x, p4.y, p4.z, p4.w, q4.x, q4.y, q4.z, q4.w};
 #pragma unroll
       for (int a = 0; a < 4; ++a)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) acc[a][c] = fmaf(av[a], bv[c], acc[a][c]);
+        for (int b = 0; b < 8; ++b) acc[a][b] = fmaf(av[a], bv[b], acc[a][b]);
     }
-    __syncthreads();
   }
+  cp_async_wait<0>();
 
   float* out = part + ((size_t)split * D + d) * (H + 1) * H3;
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
-    const int k = k0 + ty + 16 * a;
+    const int k = k0 + 4 * ty + a;
+    if (k > H) continue;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int j = j0 + tx + 16 * c;
-      if (j < H3 && k <= H) out[(size_t)k * H3 + j] = acc[a][c];
+    for (int b = 0; b < 8; ++b) {
+      const int j = j0 + (b < 4 ? 4 * tx + b : 64 + 4 * tx + b - 4);
+      if (j < H3) out[(size_t)k * H3 + j] = acc[a][b];
     }
   }
 }
@@ -395,34 +585,25 @@ __global__ void gru_dw_sum_kernel(const float* __restrict__ part,
 }
 
 template <bool WALK>
-int launch_bwd_tiles(const float* xp, const float* w_hh, const float* w_hh_t,
-                     const float* b_ih, const float* b_hh, const float* ys,
-                     const float* dys, float* dxp, float* gn, int T, int B,
-                     int H, int D, void* stream) {
-  if (T < 1 || B < 1 || H < 1 || D < 1 || D > 2) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // B = 1 gets its own instance; large batches take 8-row tiles (one wave
-  // of blocks at B = 512), the rest 4-row tiles; the last tile is masked
-  if (B == 1)
-    return (int)launch_bwd<1, WALK>(xp, w_hh, w_hh_t, b_ih, b_hh, ys, dys, dxp,
-                                    gn, T, B, H, D, s);
-  if (B >= 256)
-    return (int)launch_bwd<8, WALK>(xp, w_hh, w_hh_t, b_ih, b_hh, ys, dys, dxp,
-                                    gn, T, B, H, D, s);
-  return (int)launch_bwd<4, WALK>(xp, w_hh, w_hh_t, b_ih, b_hh, ys, dys, dxp,
-                                  gn, T, B, H, D, s);
-}
-
-template <bool WALK>
 int launch_dw(const float* ys, const float* dxp, const float* gn, float* part,
               float* dw_hh, float* db_hh, int T, int B, int H, int D, int S,
-              void* stream) {
-  if (T < 1 || B < 1 || H < 1 || D < 1 || D > 2 || S < 1)
+              int rows_per_split, int vec, void* stream) {
+  // what the indexing needs of the plan: whole stages a split, every row in
+  // a split, 16-byte copies only where H % 4 == 0
+  const long long M = (long long)T * B;
+  if (T < 1 || B < 1 || H < 1 || D < 1 || D > 2 || S < 1 || rows_per_split < TK ||
+      rows_per_split % TK || (long long)S * rows_per_split < M ||
+      (long long)(S - 1) * rows_per_split >= M || (vec != 1 && vec != 4) ||
+      (vec == 4 && H % 4))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid((3 * H + TN - 1) / TN, (H + 1 + TM - 1) / TM, D * S);
-  gru_dw_kernel<WALK><<<grid, 256, 0, st>>>(ys, dxp, gn, part, T, B, H, D,
-                                            dw_rows_per_split(T * B, S));
+  if (vec == 4)
+    gru_dw_kernel<WALK, 4><<<grid, DW_THREADS, 0, st>>>(ys, dxp, gn, part, T, B, H, D,
+                                                        rows_per_split);
+  else
+    gru_dw_kernel<WALK, 1><<<grid, DW_THREADS, 0, st>>>(ys, dxp, gn, part, T, B, H, D,
+                                                        rows_per_split);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const size_t n = (size_t)D * (H + 1) * 3 * H;
@@ -434,52 +615,66 @@ int launch_dw(const float* ys, const float* dxp, const float* gn, float* part,
 }  // namespace
 
 // The recurrence, model layout. gn may be null (no weight gradient
-// wanted). Returns the CUDA error code of the launch (0 = success).
-extern "C" int s2ag_gru_layer_bwd(const float* xp, const float* w_hh,
-                                  const float* w_hh_t, const float* b_ih,
-                                  const float* b_hh, const float* ys,
-                                  const float* dys, float* dxp, float* gn,
-                                  int T, int B, int H, int D, void* stream) {
-  return launch_bwd_tiles<false>(xp, w_hh, w_hh_t, b_ih, b_hh, ys, dys, dxp, gn,
-                                 T, B, H, D, stream);
+// wanted); hp is the forward's. (C, BT, S, KC, U, threads, smem, tier) is
+// the caller's launch plan (`gru_cuda.bwd_plan`). Returns the CUDA error
+// code of the launch (0 = success).
+extern "C" int s2ag_gru_layer_bwd(const float* xp, const float* w_hh, const float* b_ih,
+                                  const float* hp, const float* ys, const float* dys,
+                                  float* dxp, float* gn, int T, int B, int H, int D, int C,
+                                  int BT, int S, int KC, int U, int threads, int smem,
+                                  int tier, void* stream) {
+  return launch_recurrence<false>(xp, w_hh, b_ih, hp, ys, dys, dxp, gn, T, B, H, D, C, BT, S,
+                                  KC, U, threads, smem, tier, stream);
 }
 
 // The recurrence, walk layout (`run_layer`; no b_ih). gn may be null.
-extern "C" int s2ag_gru_layer_bwd_v1(const float* xp, const float* w_hh,
-                                     const float* w_hh_t, const float* b_hh,
-                                     const float* ys, const float* dys,
-                                     float* dxp, float* gn, int T, int B,
-                                     int H, int D, void* stream) {
-  return launch_bwd_tiles<true>(xp, w_hh, w_hh_t, nullptr, b_hh, ys, dys, dxp,
-                                gn, T, B, H, D, stream);
+extern "C" int s2ag_gru_layer_bwd_v1(const float* xp, const float* w_hh, const float* hp,
+                                     const float* ys, const float* dys, float* dxp,
+                                     float* gn, int T, int B, int H, int D, int C, int BT,
+                                     int S, int KC, int U, int threads, int smem, int tier,
+                                     void* stream) {
+  return launch_recurrence<true>(xp, w_hh, nullptr, hp, ys, dys, dxp, gn, T, B, H, D, C, BT,
+                                 S, KC, U, threads, smem, tier, stream);
 }
 
-// The number of row splits S of the dW reduction on a card with `sms`
-// SMs: about four blocks per SM, at least 256 rows a split.
-extern "C" int s2ag_gru_dw_splits(int T, int B, int H, int D, int sms) {
-  const int M = T * B;
-  const int tiles = dw_tiles(H, D);
-  int S = (4 * sms + tiles - 1) / tiles;
-  if (S > M / 256) S = M / 256;
-  if (S < 1) S = 1;
-  // splits that would be empty after rounding rows up to TK
-  const int rows = dw_rows_per_split(M, S);
-  return (M + rows - 1) / rows;
+// How many clusters of C blocks of the recurrence's (tier, S, KC) instance,
+// each block taking `threads` threads and `smem` bytes of shared memory, the
+// current device runs at once (0 when none fits), or minus the CUDA error
+// code.
+extern "C" int s2ag_gru_bwd_max_clusters(int S, int KC, int C, int threads, int smem,
+                                         int tier) {
+  int clusters = 0;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (tier == 1 && S == L2_S) {
+    const ClusterLaunch launch(C, dim3(C), threads, smem, nullptr);
+    err = max_active_clusters(gru_layer_bwd_kernel<L2_S, 0, false>, launch, &clusters);
+  }
+#define S2AG_BWD(SS, KK)                                                                 \
+  if (tier == 0 && S == SS && KC == KK) {                                                \
+    const ClusterLaunch launch(C, dim3(C), threads, smem, nullptr);                      \
+    err = max_active_clusters(gru_layer_bwd_kernel<SS, KK, false>, launch, &clusters);   \
+  }
+  S2AG_BWD_REG_INSTANCES
+#undef S2AG_BWD
+  return err == cudaSuccess ? clusters : -(int)err;
 }
 
 // dW_hh (D, H, 3H) and db_hh (D, 3H) from ys, dxp and gn, through the
-// workspace part (S, D, H + 1, 3H), S from s2ag_gru_dw_splits; model layout.
-extern "C" int s2ag_gru_layer_dw(const float* ys, const float* dxp,
-                                 const float* gn, float* part, float* dw_hh,
-                                 float* db_hh, int T, int B, int H, int D,
-                                 int S, void* stream) {
-  return launch_dw<false>(ys, dxp, gn, part, dw_hh, db_hh, T, B, H, D, S, stream);
+// workspace part (S, D, H + 1, 3H); (S, rows_per_split, vec) is the
+// caller's plan (`gru_cuda.dw_plan`). Model layout.
+extern "C" int s2ag_gru_layer_dw(const float* ys, const float* dxp, const float* gn,
+                                 float* part, float* dw_hh, float* db_hh, int T, int B,
+                                 int H, int D, int S, int rows_per_split, int vec,
+                                 void* stream) {
+  return launch_dw<false>(ys, dxp, gn, part, dw_hh, db_hh, T, B, H, D, S, rows_per_split,
+                          vec, stream);
 }
 
 // The same in the walk layout (`run_layer`).
-extern "C" int s2ag_gru_layer_dw_v1(const float* ys, const float* dxp,
-                                    const float* gn, float* part, float* dw_hh,
-                                    float* db_hh, int T, int B, int H, int D,
-                                    int S, void* stream) {
-  return launch_dw<true>(ys, dxp, gn, part, dw_hh, db_hh, T, B, H, D, S, stream);
+extern "C" int s2ag_gru_layer_dw_v1(const float* ys, const float* dxp, const float* gn,
+                                    float* part, float* dw_hh, float* db_hh, int T, int B,
+                                    int H, int D, int S, int rows_per_split, int vec,
+                                    void* stream) {
+  return launch_dw<true>(ys, dxp, gn, part, dw_hh, db_hh, T, B, H, D, S, rows_per_split,
+                         vec, stream);
 }

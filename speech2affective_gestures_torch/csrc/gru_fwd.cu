@@ -23,6 +23,10 @@
 //     direction's walk order; step s reads and writes row s, no b_ih
 //   w_hh (D, H, 3H) = torch weight_hh_l{k}[_reverse] transposed
 //   b_ih (D, 3H) (model layout only), b_hh (D, 3H)
+//   hp (optional, null for none): h_prev . W_hh + b_hh of every step, laid
+//     out as xp, written when a gradient will be taken so that the backward
+//     (csrc/gru_bwd.cu) need not recompute it; the lane that holds a row's
+//     totals writes them, and ys is the same bits with or without it.
 //
 // Design. On the TPU, W_hh stays in VMEM for the whole time loop. Here W_hh
 // (1.08 MB per direction at H 300) is ~5x one SM's shared memory, so it is
@@ -58,7 +62,16 @@
 // past H hold zero W and zero h; the ragged last unit slice and the ragged
 // last batch tile are masked.
 //
-// The launch plan (S, KC, C, U, BT, the threads and the shared-memory
+// Past H 320 W_hh no longer fits in the registers of a cluster of 8 (3 H^2
+// floats a direction against 8 x 256 KB), and the L2 tier takes over
+// (KC == 0 in the template, gru_cluster.cuh): the same cluster, the same h
+// exchange and the same sums in the same order, but each thread reads its
+// chunk of W from device memory (1/C of W_hh a block, which stays in the
+// 50 MB L2) once per group of S rows, and the block walks its U units in
+// passes of threads / S. Any H whose two h rows fit in a block's shared
+// memory runs.
+//
+// The launch plan (tier, S, KC, C, U, BT, the threads and the shared-memory
 // bytes) is the caller's (`gru_cuda.fwd_plan`), its only owner; the launch
 // refuses a plan that would leave a unit, a chunk of k or a row of h
 // outside what it gives, and a plan the card cannot schedule returns a CUDA
@@ -74,12 +87,7 @@
 // with the FMAs (PERF.md has the measured split). At B 1 a step is one
 // row's chunk products, the shuffles, the gate's latency and the barrier.
 
-#include <cooperative_groups.h>
-#include <cuda_runtime.h>
-
-#include <mutex>
-
-namespace cg = cooperative_groups;
+#include "gru_cluster.cuh"
 
 #ifdef S2AG_FWD_PHASES
 // Built so only by speech2affective_gestures_torch/tools/gru_fwd_phases.py:
@@ -98,25 +106,31 @@ extern "C" int s2ag_phase_read(long long* out) {
 
 namespace {
 
-// threads a block may have for a chunk of KC (`gru_cuda._max_threads`
-// plans with the same table): the 3 KC registers of W and ~40 others per
-// thread within the SM's 65,536
+// threads a forward block may have for a chunk of KC in the register tier
+// (`gru_cuda._max_threads` plans with the same table): the 3 KC registers
+// of W and ~40 others per thread within the SM's 65,536; the L2 tier
+// (KC == 0) holds no W in registers
 __host__ __device__ constexpr int max_threads(int KC) {
-  return KC >= 40 ? 320 : KC >= 32 ? 384 : 512;
+  return KC == 0 ? 512 : KC >= 40 ? 320 : KC >= 32 ? 384 : 512;
 }
 
-__device__ __forceinline__ float sigmoid_f(float x) {
-  return __frcp_rn(1.0f + expf(-x));  // the same bits as 1.0f / (...)
-}
-
-// offset of (step, direction d, batch row) in a tensor of C values per
-// row: the step's frame t in the model layout, the walk's row in the walk
-// layout
-template <bool WALK>
-__device__ __forceinline__ size_t row_offset(int t, int step, int d, int row,
-                                             int B, int D, int C) {
-  return WALK ? (((size_t)step * D + d) * B + row) * C
-              : ((size_t)t * B + row) * D * C + (size_t)d * C;
+// the forward's register-tier (S, KC) instances: S = 2 up to H 80, 4 up to
+// 160, 8 up to 320; KC = ceil(H / S) rounded up to 8. The L2 tier: S = 8.
+#define S2AG_GRU_REG_INSTANCES                                                 \
+  S2AG_GRU(2, 8) S2AG_GRU(2, 16) S2AG_GRU(2, 24) S2AG_GRU(2, 32) S2AG_GRU(2, 40) \
+  S2AG_GRU(4, 24) S2AG_GRU(4, 32) S2AG_GRU(4, 40)                              \
+  S2AG_GRU(8, 24) S2AG_GRU(8, 32) S2AG_GRU(8, 40)
+// What the forward's indexing needs of a plan: every k in a chunk, every
+// unit in a block (U whole float4s), the register tier's units in one pass
+// of whole warps, the L2 tier's passes of a multiple of 4 units; smem the
+// caller's check.
+inline bool plan_ok(int S, int KC, int kc, int H, int C, int U, int threads) {
+  const int chunk = KC == 0 ? kc : KC;
+  if (chunk < 4 || chunk % 4 || S * chunk < H || (long long)C * U < H || U % 4 ||
+      threads % 32)
+    return false;
+  return KC == 0 ? threads % (4 * S) == 0 && threads <= max_threads(0)
+                 : threads >= U * S && threads <= max_threads(KC);
 }
 
 // This lane's chunk sums (hp_r, hp_z, hp_n over its KC rows of W, in
@@ -141,15 +155,11 @@ __device__ __forceinline__ void chunk_sums(const float* h, const float (&wr)[KC]
 }
 
 // The totals of the group's rows: lane s ends with those of row g0 + s in
-// tot. The S lanes' chunk sums are added by a reduce-scatter in log2 S
-// halvings: in each, a lane keeps the half of its rows whose bit matches its
-// own and adds the partner's sums of them to its own. The first halving
-// runs as each pair of rows (i, i + S/2) is computed, so that at most S/2
-// rows' sums are live. A group of one row (the last of a tile) is added by
-// a butterfly instead, which every lane of the unit ends with. Either way a
-// fixed order: the same inputs give the same bits.
+// tot, by `group_totals`' reduce-scatter (gru_cluster.cuh) written out for
+// the three gates' chunk sums from registers (the register tier's product,
+// kept as PR 4 tuned it).
 template <int S, int KC>
-__device__ __forceinline__ void group_totals(const float* hg, int rows, int s,
+__device__ __forceinline__ void reg_group_totals(const float* hg, int rows, int s,
                                              const float (&wr)[KC], const float (&wz)[KC],
                                              const float (&wn)[KC], float (&tot)[3]) {
   constexpr int RS = S * (KC + 4);
@@ -189,11 +199,13 @@ __device__ __forceinline__ void group_totals(const float* hg, int rows, int s,
   for (int g = 0; g < 3; ++g) tot[g] = v[0][g];
 }
 
-template <int S, int KC, bool WALK>
+// The register tier. HP: write hp (a separate instance, so that the
+// forward without it is the same code as before hp existed).
+template <int S, int KC, bool WALK, bool HP>
 __global__ void __launch_bounds__(max_threads(KC), 1) gru_layer_fwd_kernel(
     const float* __restrict__ xp, const float* __restrict__ w_hh,
     const float* __restrict__ b_ih, const float* __restrict__ b_hh,
-    float* __restrict__ ys, float* __restrict__ h_last,
+    float* __restrict__ ys, float* __restrict__ h_last, float* __restrict__ hp_out,
     int T, int B, int H, int D, int U, int BT) {
   constexpr int KS = KC + 4;   // a chunk's stride in h: KS / 4 odd, so the
   constexpr int RS = S * KS;   // S float4 reads of a warp hit distinct banks
@@ -276,7 +288,7 @@ __global__ void __launch_bounds__(max_threads(KC), 1) gru_layer_fwd_kernel(
       }
       PHASE_AT(q_product);
       float hp[3];  // the totals of row g0 + s
-      group_totals<S, KC>(hc + g0 * RS + s * KS, min(S, nrows - g0), s, wr, wz, wn, hp);
+      reg_group_totals<S, KC>(hc + g0 * RS + s * KS, min(S, nrows - g0), s, wr, wz, wn, hp);
       PHASE_AT(q_gate);
       PHASE_ADD(0, q_product, q_gate);
       float hnew = 0.0f;  // 0 past H, where h must stay 0
@@ -288,6 +300,12 @@ __global__ void __launch_bounds__(max_threads(KC), 1) gru_layer_fwd_kernel(
         ys[row_offset<WALK>(t, step, d, b0 + row, B, D, H) + j] = hnew;
         if (h_last != nullptr && step == T - 1)
           h_last[((size_t)d * B + b0 + row) * H + j] = hnew;
+        if constexpr (HP) {
+          float* o = hp_out + row_offset<WALK>(t, step, d, b0 + row, B, D, H3) + j;
+          o[0] = hp[0] + bhr;
+          o[H] = hp[1] + bhz;
+          o[2 * H] = hp[2] + bhn;
+        }
       }
       PHASE_AT(q_exchange);
       PHASE_ADD(1, q_gate, q_exchange);
@@ -320,148 +338,236 @@ __global__ void __launch_bounds__(max_threads(KC), 1) gru_layer_fwd_kernel(
 #endif
 }
 
-// The card's most shared memory a block may opt into (227 KB on the H100):
-// the cap set for every configuration, so that no launch lowers another's.
-cudaError_t set_smem_cap(const void* kernel) {
-  int dev = 0, cap = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&cap, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, cap);
-  return err;
-}
-
-// a launch of clusters of C blocks along x (not copyable: cfg points at attr)
-struct ClusterLaunch {
-  cudaLaunchAttribute attr[1];
-  cudaLaunchConfig_t cfg;
-  ClusterLaunch(int C, dim3 grid, int threads, int smem, cudaStream_t stream) : cfg() {
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = C;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.gridDim = grid;
-    cfg.blockDim = dim3(threads);
-    cfg.dynamicSmemBytes = smem;
-    cfg.stream = stream;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
+// The L2 tier's chunk sums of the group's `rows` rows (hg: row 0's chunk,
+// rows RS apart), in the register tier's order: each W value (W: this
+// unit's column of gate r at k = k0, null when the lane has no unit) read
+// once per group, each row's sums in ascending k.
+template <int S>
+__device__ __forceinline__ void chunk_sums_l2(const float* hg, int rows, int RS,
+                                              const float* W, int k0, int kc, int H,
+                                              float (&acc)[S][3]) {
+  const int H3 = 3 * H;
+#pragma unroll
+  for (int i = 0; i < S; ++i) acc[i][0] = acc[i][1] = acc[i][2] = 0.0f;
+  for (int q = 0; q < kc; q += 4) {
+    float w[3][4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const bool ok = W != nullptr && k0 + q + e < H;
+      const float* wk = W + (size_t)(q + e) * H3;
+#pragma unroll
+      for (int g = 0; g < 3; ++g) w[g][e] = ok ? __ldg(wk + g * H) : 0.0f;
+    }
+#pragma unroll
+    for (int i = 0; i < S; ++i) {
+      if (i >= rows) break;  // uniform
+      const float4 hv = *reinterpret_cast<const float4*>(hg + i * RS + q);
+      const float x[4] = {hv.x, hv.y, hv.z, hv.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+#pragma unroll
+        for (int g = 0; g < 3; ++g) acc[i][g] = fmaf(x[e], w[g][e], acc[i][g]);
+    }
   }
-  ClusterLaunch(const ClusterLaunch&) = delete;
-};
-
-// The attributes and the schedulability check of one (instance, C, smem,
-// threads) configuration are done at its first launch; later launches reuse
-// the answer. A configuration of which no cluster fits on the card is an
-// error.
-struct Checked {
-  const void* kernel;
-  int C, smem, threads, err;
-};
-std::mutex checked_mutex;
-Checked checked[128];
-int n_checked = 0;
-
-template <typename K>
-cudaError_t check_config(K kernel, const ClusterLaunch& launch) {
-  const int C = (int)launch.attr[0].val.clusterDim.x;
-  const int smem = (int)launch.cfg.dynamicSmemBytes;
-  const int threads = (int)launch.cfg.blockDim.x;
-  std::lock_guard<std::mutex> lock(checked_mutex);
-  for (int i = 0; i < n_checked; ++i)
-    if (checked[i].kernel == (const void*)kernel && checked[i].C == C &&
-        checked[i].smem == smem && checked[i].threads == threads)
-      return (cudaError_t)checked[i].err;
-  cudaError_t err = set_smem_cap((const void*)kernel);
-  int clusters = 0;
-  if (err == cudaSuccess) err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &launch.cfg);
-  if (err == cudaSuccess && clusters < 1) err = cudaErrorLaunchOutOfResources;
-  if (n_checked < 128) checked[n_checked++] = {(const void*)kernel, C, smem, threads, (int)err};
-  return err;
 }
 
-template <int S, int KC, bool WALK>
-cudaError_t launch_kc(const float* xp, const float* w_hh, const float* b_ih,
-                      const float* b_hh, float* ys, float* h_last, int T, int B, int H,
-                      int D, int C, int BT, int U, int threads, int smem,
-                      cudaStream_t stream) {
-  // what the kernel's indexing needs of a plan: every k in a chunk, every
-  // unit in a block (U whole float4s), every unit's S lanes in whole warps,
-  // and both h buffers of BT rows of S chunks of KC + 4 floats
-  if (S * KC < H || (long long)C * U < H || U % 4 || threads < U * S || threads % 32 ||
-      smem < 4 * 2 * BT * S * (KC + 4))
-    return cudaErrorInvalidValue;
-  const ClusterLaunch launch(C, dim3(C * ((B + BT - 1) / BT), D), threads, smem, stream);
-  auto kernel = gru_layer_fwd_kernel<S, KC, WALK>;
-  cudaError_t err = check_config(kernel, launch);
-  if (err != cudaSuccess) return err;
-  err = cudaLaunchKernelEx(&launch.cfg, kernel, xp, w_hh, b_ih, b_hh, ys, h_last, T, B,
-                           H, D, U, BT);
-  return err != cudaSuccess ? err : cudaGetLastError();
+// b_hh (r, z, n) then b_ih (r, z, n) of unit j, zeros when not `active`;
+// no b_ih in the walk layout
+template <bool WALK>
+__device__ __forceinline__ void load_biases(const float* b_ih, const float* b_hh, int d,
+                                            int H, int j, bool active, float (&bias)[6]) {
+#pragma unroll
+  for (int g = 0; g < 3; ++g) {
+    bias[g] = active ? __ldg(b_hh + (size_t)d * 3 * H + g * H + j) : 0.0f;
+    bias[3 + g] = active && !WALK ? __ldg(b_ih + (size_t)d * 3 * H + g * H + j) : 0.0f;
+  }
 }
 
-// the (S, KC) instances: S = 2 up to H 80, 4 up to 160, 8 up to 320;
-// KC = ceil(H / S) rounded up to 8
-#define S2AG_FWD_INSTANCES                                                     \
-  S2AG_FWD(2, 8) S2AG_FWD(2, 16) S2AG_FWD(2, 24) S2AG_FWD(2, 32) S2AG_FWD(2, 40) \
-  S2AG_FWD(4, 24) S2AG_FWD(4, 32) S2AG_FWD(4, 40)                              \
-  S2AG_FWD(8, 24) S2AG_FWD(8, 32) S2AG_FWD(8, 40)
+// The L2 tier (H > 320): the register tier's cluster, h exchange and sums
+// in the same order, but each thread reads its chunk of W from device
+// memory once per group of S rows (a block's slice, 1/C of W_hh, stays in
+// L2) and the block walks its U units in passes of threads / S.
+template <bool WALK>
+__global__ void __launch_bounds__(max_threads(0), 1) gru_layer_fwd_l2_kernel(
+    const float* __restrict__ xp, const float* __restrict__ w_hh,
+    const float* __restrict__ b_ih, const float* __restrict__ b_hh,
+    float* __restrict__ ys, float* __restrict__ h_last, float* __restrict__ hp_out,
+    int T, int B, int H, int D, int U, int BT, int kc) {
+  constexpr int S = L2_S;
+  const int KS = kc + 4;  // a chunk's stride in h, as the register tier's
+  const int RS = S * KS;
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int c = (int)cluster.block_rank();
+  float* h_s = smem;  // [2][BT][S][KS]
 
+  const int d = blockIdx.y;
+  const int b0 = (blockIdx.x / C) * BT;
+  const int nrows = min(BT, B - b0);
+  const int H3 = 3 * H;
+  const int u0 = c * U;
+  const int s = threadIdx.x % S;   // the thread's chunk of k
+  const int ul = threadIdx.x / S;  // the thread's unit in the block's pass
+  const int UP = (int)blockDim.x / S;  // units a pass
+  const int npass = (U + UP - 1) / UP;
+  for (int i = threadIdx.x; i < 2 * BT * RS / 4; i += blockDim.x)
+    reinterpret_cast<float4*>(h_s)[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+
+  // the register tier's exchange (S = 8: lane f + 8p gathers float4 f, row
+  // f, four units of the warp's, and stores it into peers p, p + 4, ...)
+  constexpr int UW = 32 / S;
+  const int lane = threadIdx.x & 31;
+  const int xrow = (lane & 7) % S;
+  const int xul = (threadIdx.x >> 5) * UW + 4 * ((lane & 7) / S);
+  const int xsrc = 4 * ((lane & 7) / S) * S + xrow;
+  cluster.sync();  // every block has started and cleared its h
+
+  for (int step = 0; step < T; ++step) {
+    const int t = (d == 0) ? step : T - 1 - step;
+    const float* hc = h_s + (step & 1) * BT * RS;
+    float* hn_buf = h_s + ((step + 1) & 1) * BT * RS;
+    for (int g0 = 0; g0 < nrows; g0 += S) {
+      const int rows = min(S, nrows - g0);
+      for (int pass = 0; pass < npass; ++pass) {
+        const int uj = pass * UP + ul;  // the thread's unit in the block
+        const int j = u0 + uj;
+        const bool active = uj < U && j < H;
+        const int row = g0 + s;
+        const bool mine = active && row < nrows;
+        float xr = 0.0f, xz = 0.0f, xn = 0.0f, bias[6];
+        if (mine) {
+          const float* x = xp + row_offset<WALK>(t, step, d, b0 + row, B, D, H3) + j;
+          xr = __ldg(x);
+          xz = __ldg(x + H);
+          xn = __ldg(x + 2 * H);
+        }
+        load_biases<WALK>(b_ih, b_hh, d, H, j, active, bias);
+        float acc[S][3], hp[3];
+        chunk_sums_l2<S>(hc + g0 * RS + s * KS, rows, RS,
+                         active ? w_hh + ((size_t)d * H + s * kc) * H3 + j : nullptr,
+                         s * kc, kc, H, acc);
+        group_totals_of<S, 3>(acc, rows, s, hp);
+        float hnew = 0.0f;  // 0 past H, where h must stay 0
+        if (mine) {
+          const float hpr = hp[0] + bias[0], hpz = hp[1] + bias[1], hpn = hp[2] + bias[2];
+          const float r = sigmoid_f((WALK ? xr : xr + bias[3]) + hpr);
+          const float z = sigmoid_f((WALK ? xz : xz + bias[4]) + hpz);
+          const float n = tanhf((WALK ? xn : xn + bias[5]) + r * hpn);
+          hnew = (1.0f - z) * n + z * hc[row * RS + (j / kc) * KS + j % kc];
+          ys[row_offset<WALK>(t, step, d, b0 + row, B, D, H) + j] = hnew;
+          if (h_last != nullptr && step == T - 1)
+            h_last[((size_t)d * B + b0 + row) * H + j] = hnew;
+          if (hp_out != nullptr) {
+            float* o = hp_out + row_offset<WALK>(t, step, d, b0 + row, B, D, H3) + j;
+            o[0] = hpr;
+            o[H] = hpz;
+            o[2 * H] = hpn;
+          }
+        }
+        float4 v;
+        v.x = __shfl_sync(0xffffffffu, hnew, xsrc);
+        v.y = __shfl_sync(0xffffffffu, hnew, xsrc + S);
+        v.z = __shfl_sync(0xffffffffu, hnew, xsrc + 2 * S);
+        v.w = __shfl_sync(0xffffffffu, hnew, xsrc + 3 * S);
+        const int xu = u0 + pass * UP + xul;
+        if (xu - u0 < U && xu < H && g0 + xrow < nrows) {
+          float* dst = hn_buf + (g0 + xrow) * RS + (xu / kc) * KS + xu % kc;
+          for (int peer = lane >> 3; peer < C; peer += 4)
+            *reinterpret_cast<float4*>(cluster.map_shared_rank(dst, peer)) = v;
+        }
+      }
+    }
+    if (C == 1)
+      __syncthreads();
+    else
+      cluster.sync();
+  }
+}
+
+// tier 0: the register instance (S, KC), with or without hp; tier 1: the
+// L2 tier (S = L2_S). Both refuse a plan their indexing cannot take: every
+// k in a chunk, every unit in a block (U whole float4s), every unit's S
+// lanes in whole warps, both h buffers of BT rows of S chunks of KC + 4
+// floats.
 template <bool WALK>
 int launch(const float* xp, const float* w_hh, const float* b_ih, const float* b_hh,
-           float* ys, float* h_last, int T, int B, int H, int D, int C, int BT, int S,
-           int KC, int U, int threads, int smem, void* stream) {
-  if (T < 1 || B < 1 || H < 1 || D < 1 || D > 2 || C < 1 || BT < 1)
+           float* ys, float* h_last, float* hp, int T, int B, int H, int D, int C, int BT,
+           int S, int KC, int U, int threads, int smem, int tier, void* stream) {
+  if (T < 1 || B < 1 || H < 1 || D < 1 || D > 2 || C < 1 || BT < 1 ||
+      smem < 4 * 2 * BT * S * (KC + 4))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define S2AG_FWD(SS, KK)                                                                \
-  if (S == SS && KC == KK)                                                              \
-    return (int)launch_kc<SS, KK, WALK>(xp, w_hh, b_ih, b_hh, ys, h_last, T, B, H, D, C, \
-                                        BT, U, threads, smem, st);
-  S2AG_FWD_INSTANCES
-#undef S2AG_FWD
-  return (int)cudaErrorInvalidValue;
+  const ClusterLaunch launch(C, dim3(C * ((B + BT - 1) / BT), D), threads, smem, st);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (tier == 1 && S == L2_S && plan_ok(S, 0, KC, H, C, U, threads)) {
+    auto kernel = gru_layer_fwd_l2_kernel<WALK>;
+    err = check_config(kernel, launch);
+    if (err == cudaSuccess)
+      err = cudaLaunchKernelEx(&launch.cfg, kernel, xp, w_hh, b_ih, b_hh, ys, h_last, hp, T, B,
+                               H, D, U, BT, KC);
+  }
+#define S2AG_FWD_HP(SS, KK, HH)                                                           \
+  {                                                                                      \
+    auto kernel = gru_layer_fwd_kernel<SS, KK, WALK, HH>;                                \
+    err = check_config(kernel, launch);                                                  \
+    if (err == cudaSuccess)                                                              \
+      err = cudaLaunchKernelEx(&launch.cfg, kernel, xp, w_hh, b_ih, b_hh, ys, h_last, hp, \
+                               T, B, H, D, U, BT);                                        \
+  }
+#define S2AG_GRU(SS, KK)                                                                 \
+  if (tier == 0 && S == SS && KC == KK && plan_ok(S, KC, KC, H, C, U, threads)) {        \
+    if (hp != nullptr)                                                                   \
+      S2AG_FWD_HP(SS, KK, true)                                                          \
+    else                                                                                 \
+      S2AG_FWD_HP(SS, KK, false)                                                         \
+  }
+  S2AG_GRU_REG_INSTANCES
+#undef S2AG_GRU
+#undef S2AG_FWD_HP
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 }  // namespace
 
-// The model layout. (C, BT, S, KC, U, threads, smem) is the caller's
-// launch plan. Returns the CUDA error code of the launch (0 = success).
+// The model layout. hp may be null. (C, BT, S, KC, U, threads, smem, tier)
+// is the caller's launch plan. Returns the CUDA error code of the launch
+// (0 = success).
 extern "C" int s2ag_gru_layer_fwd(const float* xp, const float* w_hh,
                                   const float* b_ih, const float* b_hh,
-                                  float* ys, float* h_last, int T, int B,
+                                  float* ys, float* h_last, float* hp, int T, int B,
                                   int H, int D, int C, int BT, int S, int KC, int U,
-                                  int threads, int smem, void* stream) {
-  return launch<false>(xp, w_hh, b_ih, b_hh, ys, h_last, T, B, H, D, C, BT, S, KC, U,
-                       threads, smem, stream);
+                                  int threads, int smem, int tier, void* stream) {
+  return launch<false>(xp, w_hh, b_ih, b_hh, ys, h_last, hp, T, B, H, D, C, BT, S, KC, U,
+                       threads, smem, tier, stream);
 }
 
 // The walk layout (`run_layer`): xp (T, D, B, 3H) with b_ih folded in,
-// ys (T, D, B, H); no h_last (it is ys[T - 1]).
+// ys (T, D, B, H), hp (T, D, B, 3H) or null; no h_last (it is ys[T - 1]).
 extern "C" int s2ag_gru_layer_fwd_v1(const float* xp, const float* w_hh,
-                                     const float* b_hh, float* ys, int T, int B,
-                                     int H, int D, int C, int BT, int S, int KC, int U,
-                                     int threads, int smem, void* stream) {
-  return launch<true>(xp, w_hh, nullptr, b_hh, ys, nullptr, T, B, H, D, C, BT, S, KC, U,
-                      threads, smem, stream);
+                                     const float* b_hh, float* ys, float* hp, int T,
+                                     int B, int H, int D, int C, int BT, int S, int KC,
+                                     int U, int threads, int smem, int tier,
+                                     void* stream) {
+  return launch<true>(xp, w_hh, nullptr, b_hh, ys, nullptr, hp, T, B, H, D, C, BT, S, KC,
+                      U, threads, smem, tier, stream);
 }
 
-// How many clusters of C blocks of the (S, KC) instance, each block taking
-// `threads` threads and `smem` bytes of shared memory, the current device
-// runs at once (0 when none fits), or minus the CUDA error code. The launch
-// plan spreads the batch over about this many.
-extern "C" int s2ag_gru_fwd_max_clusters(int S, int KC, int C, int threads, int smem) {
+// How many clusters of C blocks of the (tier, S, KC) instance, each block
+// taking `threads` threads and `smem` bytes of shared memory, the current
+// device runs at once (0 when none fits), or minus the CUDA error code. The
+// launch plan spreads the batch over about this many.
+extern "C" int s2ag_gru_fwd_max_clusters(int S, int KC, int C, int threads, int smem,
+                                         int tier) {
   int clusters = 0;
   cudaError_t err = cudaErrorInvalidValue;
-#define S2AG_FWD(SS, KK)                                                                  \
-  if (S == SS && KC == KK) {                                                              \
-    auto kernel = gru_layer_fwd_kernel<SS, KK, false>;                                    \
-    const ClusterLaunch launch(C, dim3(C), threads, smem, nullptr);                       \
-    err = set_smem_cap((const void*)kernel);                                              \
-    if (err == cudaSuccess) err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &launch.cfg); \
-  }
-  S2AG_FWD_INSTANCES
-#undef S2AG_FWD
+  const ClusterLaunch launch(C, dim3(C), threads, smem, nullptr);
+  if (tier == 1 && S == L2_S)
+    err = max_active_clusters(gru_layer_fwd_l2_kernel<false>, launch, &clusters);
+#define S2AG_GRU(SS, KK)                                                                 \
+  if (tier == 0 && S == SS && KC == KK)                                                  \
+    err = max_active_clusters(gru_layer_fwd_kernel<SS, KK, false, false>, launch, &clusters);
+  S2AG_GRU_REG_INSTANCES
+#undef S2AG_GRU
   return err == cudaSuccess ? clusters : -(int)err;
 }

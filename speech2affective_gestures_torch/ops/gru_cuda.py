@@ -8,16 +8,21 @@ direction) runs the whole time loop, each block holding its units' slice
 of W_hh in its threads' registers for the whole launch (on the TPU, W_hh
 stays in VMEM; on the H100 it is ~5x one SM's shared memory at H=300) and
 exchanging h with its peers through distributed shared memory, one cluster
-barrier per step. `fwd_plan` chooses the lanes per unit, the cluster size,
-the batch tile and the shared memory of a launch.
+barrier per step. Past H 320 (W_hh beyond a cluster's registers) the same
+kernel reads each block's slice from L2 once per group of rows instead.
+`fwd_plan` chooses the tier, the lanes per unit, the cluster size, the
+batch tile and the shared memory of a launch. When a gradient will be
+taken the forward also saves hp = h_prev . W_hh + b_hh.
 
 Backward: replaces `gru_pallas.py::_bwd_kernel_v2` (the `jax.custom_vjp`
 backward of `_gru_layer_v2`). `csrc/gru_bwd.cu` holds two kernels: the
-reverse-time recurrence (`gru_bwd`: one block per batch tile and direction,
-bound by streaming W_hh from L2 into one SM per step) and the
-deterministic reduction of dW_hh and db_hh over the T*B rows (`gru_dw`:
-partial sums over row splits, then a fixed-order pass that adds them;
-bound by float32 FMA throughput). The sources say more.
+reverse-time recurrence (`gru_bwd`: the forward's cluster design turned
+round, the rows of W_hh in registers, g exchanged through distributed
+shared memory, one product with W_hh a step thanks to the saved hp;
+`bwd_plan`, the forward's tiers) and the deterministic reduction of dW_hh
+and db_hh over the T*B rows (`gru_dw`: a register-tiled float32 product
+fed by a cp.async ring, partial sums over row splits, then a fixed-order
+pass that adds them; `dw_plan`). The sources say more.
 
 `GRULayerFunction` ties them into autograd. Each wrapper takes the plain
 version for a CPU tensor and launches its kernel for a CUDA tensor; there
@@ -75,34 +80,38 @@ def _cell(xt, hp, H):
 
 
 def _walk_forward(x: torch.Tensor, w_hh: torch.Tensor,
-                  b_hh: torch.Tensor) -> torch.Tensor:
+                  b_hh: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """The time loop in walk order: x (T, D, B, 3H) with b_ih included ->
-    ys (T, D, B, H)."""
+    ys (T, D, B, H) and hp (T, D, B, 3H) = h_prev . W_hh + b_hh."""
     T, D, B, H3 = x.shape
     H = H3 // 3
     h = x.new_zeros(D, B, H)
-    ys = []
+    ys, hps = [], []
     for t in range(T):
         hp = torch.bmm(h, w_hh) + b_hh[:, None, :]
         r, z, n = _cell(x[t], hp, H)
         h = (1.0 - z) * n + z * h
         ys.append(h)
-    return torch.stack(ys)
+        hps.append(hp)
+    return torch.stack(ys), torch.stack(hps)
 
 
 def gru_layer_plain(xp: torch.Tensor, w_hh: torch.Tensor, b_ih: torch.Tensor,
-                    b_hh: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+                    b_hh: torch.Tensor, save_hp: bool = False):
     """The kernel's function as a plain time loop.
 
     xp (T, B, D*3H) input projections without bias; w_hh (D, H, 3H);
     b_ih, b_hh (D, 3H). Returns ys (T, B, D*H), both directions in forward
     time order, and h_last (D, B, H): the final state of each direction's
-    walk (the reverse direction ends at forward time 0).
+    walk (the reverse direction ends at forward time 0); with save_hp=True
+    also hp (T, B, D*3H) = h_prev . W_hh + b_hh of each step, at the step's
+    frame.
     """
     T, B, _ = xp.shape
     D, H, _ = w_hh.shape
-    ys = _walk_forward(_walk(xp.view(T, B, D, 3 * H) + b_ih, D), w_hh, b_hh)
-    return _unwalk(ys), ys[-1]
+    ys, hp = _walk_forward(_walk(xp.view(T, B, D, 3 * H) + b_ih, D), w_hh, b_hh)
+    out = (_unwalk(ys), ys[-1])
+    return out + (_unwalk(hp),) if save_hp else out
 
 
 def _check_tensors(fn: str, tensors: dict) -> None:
@@ -157,20 +166,27 @@ def _launch(fn, name: str, device: torch.device, *args) -> None:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 
 
-# The forward kernel's launch plan is decided here and only here; the
-# kernel uses it as given and refuses only a plan its indexing cannot take.
-# Its limits on the H100: a block's shared memory (the most a block may opt
-# into), the largest portable cluster, the largest chunk of k a thread holds
-# in registers. W_hh must fit in the registers of one cluster: H <= 320.
+# The GRU kernels' launch plans are decided here and only here; the
+# kernels use them as given and refuse only a plan their indexing cannot
+# take. Their limits on the H100: a block's shared memory (the most a block
+# may opt into), the largest portable cluster, the largest chunk of k a
+# thread holds in registers (the register tier: W_hh in one cluster's
+# registers, H <= 320), the threads of an L2-tier block.
 SMEM_LIMIT = 232448
 MAX_CLUSTER = 8
 MAX_KC = 40
+L2_S = 8
+L2_MAX_THREADS = 512
 
 
-class FwdPlan(NamedTuple):
-    """A launch of `csrc/gru_fwd.cu`: `tiles` batch tiles of BT rows per
-    direction, one cluster of C blocks each; a block owns U hidden units,
-    S threads share a unit, each holding a chunk of KC rows of W_hh."""
+class ClusterPlan(NamedTuple):
+    """A launch of `csrc/gru_fwd.cu` or of the recurrence of
+    `csrc/gru_bwd.cu`: `tiles` batch tiles of BT rows per direction, one
+    cluster of C blocks each; a block owns U hidden units, S threads share
+    a unit (a pair of units in the recurrence), each with a chunk of KC
+    rows of W_hh (of its columns in the recurrence): in its registers (tier
+    "registers") or read from L2 once per group of S rows (tier "l2", the
+    block's units walked in passes)."""
     C: int
     U: int
     S: int
@@ -179,28 +195,43 @@ class FwdPlan(NamedTuple):
     tiles: int
     threads: int
     smem: int
+    tier: str
 
 
 def _max_threads(KC: int) -> int:
-    """The kernel's __launch_bounds__ for a chunk of KC (`max_threads` in
-    `csrc/gru_fwd.cu`; a plan beyond it fails at launch, and the wrapper
-    raises): 3 KC registers of W and ~40 others a thread within an SM's
-    65,536."""
+    """The register tier's __launch_bounds__ for a chunk of KC
+    (`max_threads` in `csrc/gru_fwd.cu`; a plan beyond it fails at
+    launch, and the wrapper raises): 3 KC registers of W and ~40 others a
+    thread within an SM's 65,536."""
     return 320 if KC >= 40 else 384 if KC >= 32 else 512
 
 
 def _fwd_smem(S: int, KC: int, BT: int) -> int:
-    """The kernel's shared-memory bytes: two h buffers of BT rows of S
-    chunks padded to KC + 4 floats."""
+    """The forward kernel's shared-memory bytes: two h buffers of BT rows
+    of S chunks padded to KC + 4 floats."""
     return 4 * 2 * BT * S * (KC + 4)
 
 
+def _bwd_ks(KC: int) -> int:
+    """A chunk's stride in the recurrence's rows of g: KS / 4 odd, so that
+    a quarter warp's float4 reads hit distinct banks (`bwd_ks`)."""
+    return KC if (KC // 4) % 2 else KC + 4
+
+
+def _bwd_smem(S: int, KC: int, U: int, BT: int) -> int:
+    """The recurrence's shared-memory bytes: two g buffers of BT rows of
+    three gates of S chunks of `_bwd_ks(KC)` floats, and BT x U values of
+    dh z."""
+    return 4 * (2 * BT * 3 * S * _bwd_ks(KC) + BT * U)
+
+
 def fwd_shape(H: int) -> tuple[int, int, int, int]:
-    """(S, KC, C, U) for hidden size H: the fewest lanes S a unit that keep
-    a thread's chunk of W within MAX_KC rows (KC rounded up to 8), then the
-    fewest blocks C that hold the units within the thread limit, U units a
-    block (rounded up to 4, for the kernel's float4 exchange). Raises
-    when H is too large for a cluster's registers."""
+    """(S, KC, C, U) for hidden size H. The register tier: the fewest lanes
+    S a unit that keep a thread's chunk of W within MAX_KC rows (KC rounded
+    up to 8), then the fewest blocks C that hold the units within the
+    thread limit, U units a block (rounded up to 4, for the kernels' float4
+    exchange). Past what a cluster's registers hold (H > 320), the L2 tier:
+    S = L2_S lanes and the largest cluster; KC > MAX_KC names it."""
     for S in (2, 4, 8):
         if -(-H // S) <= MAX_KC:
             KC = -(-H // (8 * S)) * 8
@@ -208,63 +239,148 @@ def fwd_shape(H: int) -> tuple[int, int, int, int]:
             if C > MAX_CLUSTER:
                 break
             return S, KC, C, -(-H // (4 * C)) * 4
-    raise ValueError(f"gru_fwd: W_hh of hidden size {H} does not fit in the registers "
-                     f"of a cluster of {MAX_CLUSTER} blocks")
+    KC = -(-H // (8 * L2_S)) * 8
+    return L2_S, KC, MAX_CLUSTER, -(-H // (4 * MAX_CLUSTER)) * 4
 
 
-def fwd_plan(B: int, H: int, D: int, max_clusters: int) -> FwdPlan:
-    """The forward kernel's launch for batch B, hidden size H and D
-    directions, when the card runs `max_clusters` clusters of C blocks at
-    once: the fewest waves of clusters that hold the batch (a tile at most
-    what shared memory allows), then as many tiles as fill those waves,
+def _tier(KC: int) -> str:
+    return "registers" if KC <= MAX_KC else "l2"
+
+
+def _threads(S: int, KC: int, U: int) -> int:
+    """A block's threads: S lanes for each of the U units in the register
+    tier; in the L2 tier the fewest passes of at most L2_MAX_THREADS, each
+    of a multiple of 4 units."""
+    if _tier(KC) == "registers":
+        return -(-U * S // 32) * 32
+    passes = -(-U * S // L2_MAX_THREADS)
+    return -(-U // (4 * passes)) * 4 * S
+
+
+# The recurrence's thread shape: a thread owns a pair of units (each value
+# of g it reads from shared memory feeds both), its chunk of j at most
+# BWD_MAX_KC in the register tier; a block at most BWD_MAX_THREADS threads
+# (the register tier) or BWD_L2_MAX_THREADS (the L2 tier): `csrc/gru_bwd.cu`.
+BWD_MAX_KC = 20
+BWD_MAX_THREADS = 320
+BWD_L2_MAX_THREADS = 256
+
+
+def bwd_shape(H: int) -> tuple[int, int, int, int]:
+    """(S, KC, C, U) of the backward recurrence for hidden size H. The
+    register tier: the fewest lanes S a pair of units that keep a thread's
+    chunk within BWD_MAX_KC values of j (KC rounded up to 4), then the
+    fewest blocks C that hold the units within the thread limit, U units a
+    block (rounded up to 4: whole pairs, whole float4s of the exchange).
+    Where the forward takes its L2 tier (H > 320), so does this: S = L2_S
+    lanes and the largest cluster; KC > BWD_MAX_KC names it."""
+    if _tier(fwd_shape(H)[1]) == "registers":
+        for S in (2, 4, 8, 16):
+            if -(-H // S) <= BWD_MAX_KC:
+                KC = -(-H // (4 * S)) * 4
+                C = -(-H // (2 * (BWD_MAX_THREADS // S)))
+                return S, KC, C, -(-H // (4 * C)) * 4
+    KC = -(-H // (4 * L2_S)) * 4
+    return L2_S, KC, MAX_CLUSTER, -(-H // (4 * MAX_CLUSTER)) * 4
+
+
+def _bwd_threads(S: int, KC: int, U: int) -> int:
+    """The recurrence's threads: S lanes for each of the U / 2 pairs in the
+    register tier; in the L2 tier the fewest passes of at most
+    BWD_L2_MAX_THREADS, each of a multiple of 4 pairs."""
+    if KC <= BWD_MAX_KC:
+        return -(-U // 2 * S // 32) * 32
+    passes = -(-U // 2 * S // BWD_L2_MAX_THREADS)
+    return -(-U // (8 * passes)) * 4 * S
+
+
+def _tiles(B: int, D: int, rows_max: int, max_clusters: int) -> tuple[int, int]:
+    """(BT, tiles): the fewest waves of clusters that hold the batch (a tile
+    at most `rows_max` rows), then as many tiles as fill those waves,
     balanced in size."""
-    S, KC, C, U = fwd_shape(H)
-    rows_max = SMEM_LIMIT // _fwd_smem(S, KC, 1)
+    if rows_max < 1:
+        raise ValueError(f"gru: one batch row needs more than {SMEM_LIMIT} bytes "
+                         "of shared memory")
     tiles = -(-B // rows_max)
     waves = -(-D * tiles // max_clusters)
     tiles = max(tiles, min(B, waves * max_clusters // D))
     BT = -(-B // tiles)
-    return FwdPlan(C, U, S, KC, BT, -(-B // BT), -(-U * S // 32) * 32,
-                   _fwd_smem(S, KC, BT))
+    return BT, -(-B // BT)
+
+
+def fwd_plan(B: int, H: int, D: int, max_clusters: int) -> ClusterPlan:
+    """The forward kernel's launch for batch B, hidden size H and D
+    directions, when the card runs `max_clusters` clusters of C blocks at
+    once."""
+    S, KC, C, U = fwd_shape(H)
+    BT, tiles = _tiles(B, D, SMEM_LIMIT // _fwd_smem(S, KC, 1), max_clusters)
+    return ClusterPlan(C, U, S, KC, BT, tiles, _threads(S, KC, U), _fwd_smem(S, KC, BT),
+                   _tier(KC))
+
+
+def bwd_plan(B: int, H: int, D: int, max_clusters: int) -> ClusterPlan:
+    """The backward recurrence's launch: `bwd_shape`, the forward's tier
+    (so it takes every H the forward takes), its own tiles (a row of g is
+    three of h)."""
+    S, KC, C, U = bwd_shape(H)
+    BT, tiles = _tiles(B, D, SMEM_LIMIT // _bwd_smem(S, KC, U, 1), max_clusters)
+    return ClusterPlan(C, U, S, KC, BT, tiles, _bwd_threads(S, KC, U),
+                   _bwd_smem(S, KC, U, BT),
+                   "registers" if KC <= BWD_MAX_KC else "l2")
 
 
 _max_clusters: dict = {}
 
 
-def max_clusters(device: torch.device, H: int) -> int:
-    """How many clusters of the forward kernel at hidden size H the card
-    runs at once, each block with the smem of a one-row tile (so that
-    registers, not shared memory, bound the count); asked once per device
-    and H."""
-    key = (torch.device(device).index, H)
+def max_clusters(device: torch.device, H: int, kernel: str = "fwd") -> int:
+    """How many clusters of the forward (`kernel` "fwd") or backward
+    recurrence ("bwd") kernel at hidden size H the card runs at once, each
+    block with the smem of a one-row tile (so that registers, not shared
+    memory, bound the count); asked once per device, kernel and H."""
+    key = (torch.device(device).index, H, kernel)
     if key not in _max_clusters:
-        p = fwd_plan(1, H, 1, 1)  # one row a tile
-        fn = _lib_fn("gru_fwd", "s2ag_gru_fwd_max_clusters", 0, n_int=5, stream=False)
+        p = (fwd_plan if kernel == "fwd" else bwd_plan)(1, H, 1, 1)  # one row a tile
+        fn = _lib_fn(f"gru_{kernel}", f"s2ag_gru_{kernel}_max_clusters", 0, n_int=6,
+                     stream=False)
         with torch.cuda.device(device):
-            n = fn(p.S, p.KC, p.C, p.threads, p.smem)
+            n = fn(p.S, p.KC, p.C, p.threads, p.smem, _TIERS[p.tier])
         if n < 1:
-            raise RuntimeError(f"gru_fwd: no cluster of {p.C} blocks fits on {device}"
+            raise RuntimeError(f"gru_{kernel}: no cluster of {p.C} blocks fits on {device}"
                                + (f" (CUDA error {-n})" if n < 0 else ""))
         _max_clusters[key] = n
     return _max_clusters[key]
 
 
-def _device_plan(device: torch.device, B: int, H: int, D: int) -> FwdPlan:
+_TIERS = {"registers": 0, "l2": 1}
+
+
+def _device_plan(device: torch.device, B: int, H: int, D: int) -> ClusterPlan:
     return fwd_plan(B, H, D, max_clusters(device, H))
 
 
-def _plan_args(plan: FwdPlan) -> tuple[int, ...]:
-    """The plan as the forward entry points take it, after (T, B, H, D)."""
-    return plan.C, plan.BT, plan.S, plan.KC, plan.U, plan.threads, plan.smem
+def _device_bwd_plan(device: torch.device, B: int, H: int, D: int) -> ClusterPlan:
+    return bwd_plan(B, H, D, max_clusters(device, H, "bwd"))
+
+
+def _plan_args(plan: ClusterPlan) -> tuple[int, ...]:
+    """The plan as the GRU entry points take it, after (T, B, H, D)."""
+    return (plan.C, plan.BT, plan.S, plan.KC, plan.U, plan.threads, plan.smem,
+            _TIERS[plan.tier])
+
+
+def _ptr(t: torch.Tensor | None) -> int:
+    return 0 if t is None else t.data_ptr()
 
 
 def gru_layer_forward(xp: torch.Tensor, w_hh: torch.Tensor, b_ih: torch.Tensor,
-                      b_hh: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+                      b_hh: torch.Tensor, save_hp: bool = False):
     """`gru_layer_plain`'s contract; the forward kernel for CUDA tensors.
-    Not differentiable on the card: `gru_layer` is the autograd entry."""
+    Not differentiable on the card: `gru_layer` is the autograd entry. With
+    save_hp=True it also returns hp (T, B, D*3H), h_prev . W_hh + b_hh of
+    every step, which the backward kernel takes instead of recomputing it."""
     global launches
     if xp.device.type == "cpu":
-        return gru_layer_plain(xp, w_hh, b_ih, b_hh)
+        return gru_layer_plain(xp, w_hh, b_ih, b_hh, save_hp=save_hp)
     if xp.device.type != "cuda":
         raise ValueError(f"gru_layer: unsupported device {xp.device}")
     _check(xp, w_hh, b_ih, b_hh)
@@ -273,11 +389,12 @@ def gru_layer_forward(xp: torch.Tensor, w_hh: torch.Tensor, b_ih: torch.Tensor,
     plan = _device_plan(xp.device, B, H, D)
     ys = torch.empty((T, B, D * H), device=xp.device, dtype=torch.float32)
     h_last = torch.empty((D, B, H), device=xp.device, dtype=torch.float32)
-    _launch(_lib_fn("gru_fwd", "s2ag_gru_layer_fwd", 6, n_int=11), "gru_fwd", xp.device,
+    hp = torch.empty_like(xp) if save_hp else None
+    _launch(_lib_fn("gru_fwd", "s2ag_gru_layer_fwd", 7, n_int=12), "gru_fwd", xp.device,
             xp.data_ptr(), w_hh.data_ptr(), b_ih.data_ptr(), b_hh.data_ptr(),
-            ys.data_ptr(), h_last.data_ptr(), T, B, H, D, *_plan_args(plan))
+            ys.data_ptr(), h_last.data_ptr(), _ptr(hp), T, B, H, D, *_plan_args(plan))
     launches += 1
-    return ys, h_last
+    return (ys, h_last, hp) if save_hp else (ys, h_last)
 
 
 def _prev_states(ys: torch.Tensor, D: int) -> torch.Tensor:
@@ -295,35 +412,40 @@ def _prev_states(ys: torch.Tensor, D: int) -> torch.Tensor:
 
 def gru_bwd_recurrence_plain(xp: torch.Tensor, w_hh: torch.Tensor,
                              b_ih: torch.Tensor, b_hh: torch.Tensor,
-                             ys: torch.Tensor, dys: torch.Tensor
+                             ys: torch.Tensor, dys: torch.Tensor,
+                             hp: torch.Tensor | None = None
                              ) -> tuple[torch.Tensor, torch.Tensor]:
     """The backward kernel's recurrence as a plain reverse-time loop.
 
     ys from the forward, dys (T, B, D*H) the gradient of ys (with the
-    gradient of h_last already added at the frame of each final state).
-    Returns dxp (T, B, D*3H) = [dpre_r, dpre_z, dpre_n] and gn (T, B, D*H)
-    = dpre_n * r, both in forward time order."""
+    gradient of h_last already added at the frame of each final state), hp
+    the forward's saved h_prev . W_hh + b_hh (T, B, D*3H), or None to
+    recompute it. Returns dxp (T, B, D*3H) = [dpre_r, dpre_z, dpre_n] and gn
+    (T, B, D*H) = dpre_n * r, both in forward time order."""
     T, B, _ = xp.shape
     D, H, _ = w_hh.shape
     x = _walk(xp.view(T, B, D, 3 * H) + b_ih, D)
     dx, gn = _walk_backward(x, _walk(_prev_states(ys, D), D),
-                            _walk(dys.view(T, B, D, H), D), w_hh, b_hh)
+                            _walk(dys.view(T, B, D, H), D), w_hh, b_hh,
+                            None if hp is None else _walk(hp.view(T, B, D, 3 * H), D))
     return _unwalk(dx), _unwalk(gn)
 
 
 def _walk_backward(x: torch.Tensor, hprev: torch.Tensor, dy: torch.Tensor,
-                   w_hh: torch.Tensor, b_hh: torch.Tensor
+                   w_hh: torch.Tensor, b_hh: torch.Tensor,
+                   hps: torch.Tensor | None = None
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """The reverse-time recurrence in walk order: x (T, D, B, 3H) with b_ih
-    included, hprev and dy (T, D, B, H) -> dx (T, D, B, 3H) = [dpre_r,
-    dpre_z, dpre_n] and gn (T, D, B, H) = dpre_n r."""
+    included, hprev and dy (T, D, B, H), hps (T, D, B, 3H) the forward's
+    h_prev . W_hh + b_hh or None -> dx (T, D, B, 3H) = [dpre_r, dpre_z,
+    dpre_n] and gn (T, D, B, H) = dpre_n r."""
     T, D, B, H3 = x.shape
     H = H3 // 3
     w_t = w_hh.transpose(1, 2)
     carry = x.new_zeros(D, B, H)
     dxs, gns = [], []
     for s in range(T - 1, -1, -1):
-        hp = torch.bmm(hprev[s], w_hh) + b_hh[:, None, :]
+        hp = torch.bmm(hprev[s], w_hh) + b_hh[:, None, :] if hps is None else hps[s]
         r, z, n = _cell(x[s], hp, H)
         dh = dy[s] + carry
         dpre_n = dh * (1.0 - z) * (1.0 - n * n)
@@ -338,28 +460,33 @@ def _walk_backward(x: torch.Tensor, hprev: torch.Tensor, dy: torch.Tensor,
 
 def gru_bwd_recurrence(xp: torch.Tensor, w_hh: torch.Tensor, b_ih: torch.Tensor,
                        b_hh: torch.Tensor, ys: torch.Tensor, dys: torch.Tensor,
-                       want_gn: bool = True
+                       hp: torch.Tensor | None = None, want_gn: bool = True
                        ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """`gru_bwd_recurrence_plain`'s contract; the backward kernel for CUDA
-    tensors. With want_gn=False (no weight gradient wanted) gn is not
-    written and None is returned in its place."""
+    tensors, which takes the forward's saved hp (`gru_layer_forward(...,
+    save_hp=True)`) and raises without it. With want_gn=False (no weight
+    gradient wanted) gn is not written and None is returned in its place."""
     global bwd_launches
     if xp.device.type == "cpu":
-        dxp, gn = gru_bwd_recurrence_plain(xp, w_hh, b_ih, b_hh, ys, dys)
+        dxp, gn = gru_bwd_recurrence_plain(xp, w_hh, b_ih, b_hh, ys, dys, hp)
         return dxp, gn if want_gn else None
     if xp.device.type != "cuda":
         raise ValueError(f"gru_bwd: unsupported device {xp.device}")
+    if hp is None:
+        raise ValueError("gru_bwd: the kernel takes the forward's saved hp "
+                         "(gru_layer_forward(..., save_hp=True))")
     _check(xp, w_hh, b_ih, b_hh, ys=ys, dys=dys)
+    _check_tensors("gru_bwd", {"xp": xp, "hp": hp})
+    if hp.shape != xp.shape:
+        raise ValueError(f"gru_bwd: hp shape {tuple(hp.shape)} != xp's {tuple(xp.shape)}")
     T, B, _ = xp.shape
     D, H, _ = w_hh.shape
-    w_hh_t = w_hh.transpose(1, 2).contiguous()
+    plan = _device_bwd_plan(xp.device, B, H, D)
     dxp = torch.empty_like(xp)
     gn = torch.empty_like(ys) if want_gn else None
-    fn = _lib_fn("gru_bwd", "s2ag_gru_layer_bwd", 9)
-    _launch(fn, "gru_bwd", xp.device, xp.data_ptr(), w_hh.data_ptr(),
-            w_hh_t.data_ptr(), b_ih.data_ptr(), b_hh.data_ptr(), ys.data_ptr(),
-            dys.data_ptr(), dxp.data_ptr(), 0 if gn is None else gn.data_ptr(),
-            T, B, H, D)
+    _launch(_lib_fn("gru_bwd", "s2ag_gru_layer_bwd", 8, n_int=12), "gru_bwd", xp.device,
+            xp.data_ptr(), w_hh.data_ptr(), b_ih.data_ptr(), hp.data_ptr(), ys.data_ptr(),
+            dys.data_ptr(), dxp.data_ptr(), _ptr(gn), T, B, H, D, *_plan_args(plan))
     bwd_launches += 1
     return dxp, gn
 
@@ -398,18 +525,48 @@ def gru_dw(ys: torch.Tensor, dxp: torch.Tensor, gn: torch.Tensor,
     return dw, db
 
 
+# dW's block tile (rows of k by columns of j) and rows a pipeline stage:
+# TM, TN and TK of `csrc/gru_bwd.cu`
+DW_TM, DW_TN, DW_TK = 64, 128, 16
+
+
+class DwPlan(NamedTuple):
+    """A launch of `csrc/gru_bwd.cu`'s dW product: tiles_k x tiles_j block
+    tiles of the (H + 1, 3H) output a direction, each over `splits`
+    consecutive row splits of `rows` rows (a multiple of DW_TK) of the
+    T*B; `vec` floats a cp.async (4: 16-byte copies)."""
+    tiles_k: int
+    tiles_j: int
+    splits: int
+    rows: int
+    vec: int
+
+
+def dw_plan(T: int, B: int, H: int, D: int, sms: int, aligned: bool = True) -> DwPlan:
+    """The dW product's launch on a card of `sms` SMs: about four blocks an
+    SM (splits of at least 256 rows), no split empty after its rows are
+    rounded up to whole stages; 16-byte copies where H % 4 == 0 and the
+    tensors are 16-byte `aligned`."""
+    M = T * B
+    tiles_k, tiles_j = -(-(H + 1) // DW_TM), -(-3 * H // DW_TN)
+    S = max(1, min(-(-4 * sms // (tiles_k * tiles_j * D)), M // 256))
+    rows = -(-(-(-M // S)) // DW_TK) * DW_TK
+    return DwPlan(tiles_k, tiles_j, -(-M // rows), rows, 4 if H % 4 == 0 and aligned else 1)
+
+
 def _dw_launch(symbol, ys, dxp, gn, T, B, H, D):
     """Launch a dW reduction entry point of `csrc/gru_bwd.cu` (either
     layout) into fresh (dW_hh, db_hh)."""
-    splits = _lib_fn("gru_bwd", "s2ag_gru_dw_splits", 0, n_int=5, stream=False)
-    S = splits(T, B, H, D,
-               torch.cuda.get_device_properties(ys.device).multi_processor_count)
-    part = torch.empty((S, D, H + 1, 3 * H), device=ys.device, dtype=torch.float32)
+    plan = dw_plan(T, B, H, D,
+                   torch.cuda.get_device_properties(ys.device).multi_processor_count,
+                   aligned=all(t.data_ptr() % 16 == 0 for t in (ys, dxp, gn)))
+    part = torch.empty((plan.splits, D, H + 1, 3 * H), device=ys.device,
+                       dtype=torch.float32)
     dw = torch.empty((D, H, 3 * H), device=ys.device, dtype=torch.float32)
     db = torch.empty((D, 3 * H), device=ys.device, dtype=torch.float32)
-    _launch(_lib_fn("gru_bwd", symbol, 6, n_int=5), symbol, ys.device,
+    _launch(_lib_fn("gru_bwd", symbol, 6, n_int=7), symbol, ys.device,
             ys.data_ptr(), dxp.data_ptr(), gn.data_ptr(), part.data_ptr(),
-            dw.data_ptr(), db.data_ptr(), T, B, H, D, S)
+            dw.data_ptr(), db.data_ptr(), T, B, H, D, plan.splits, plan.rows, plan.vec)
     return dw, db
 
 
@@ -430,12 +587,13 @@ def fold_h_last(dys: torch.Tensor, dh_last: torch.Tensor | None) -> torch.Tensor
 
 def gru_layer_bwd(xp: torch.Tensor, w_hh: torch.Tensor, b_ih: torch.Tensor,
                   b_hh: torch.Tensor, ys: torch.Tensor, dys: torch.Tensor,
-                  weights: bool = True):
+                  weights: bool = True, hp: torch.Tensor | None = None):
     """Gradients of one layer: (dxp, dw_hh, db_ih, db_hh). The kernels for
-    CUDA tensors, the plain versions for CPU tensors. With weights=False
-    only dxp is computed (the others are None)."""
+    CUDA tensors (which take the forward's hp), the plain versions for CPU
+    tensors. With weights=False only dxp is computed (the others are
+    None)."""
     D, H, _ = w_hh.shape
-    dxp, gn = gru_bwd_recurrence(xp, w_hh, b_ih, b_hh, ys, dys, want_gn=weights)
+    dxp, gn = gru_bwd_recurrence(xp, w_hh, b_ih, b_hh, ys, dys, hp, want_gn=weights)
     if not weights:
         return dxp, None, None, None
     dw, db_hh = gru_dw(ys, dxp, gn, D)
@@ -446,36 +604,44 @@ def gru_layer_bwd(xp: torch.Tensor, w_hh: torch.Tensor, b_ih: torch.Tensor,
 
 class GRULayerFunction(torch.autograd.Function):
     """One layer with the forward kernel and the backward kernels: saves
-    xp, w_hh, b_ih, b_hh and ys, as the JAX package's `_vjp_fwd_v2` does.
-    The weight gradients are skipped when no weight needs one (the
-    discriminator's layers in the generator's step)."""
+    xp, w_hh, b_ih, b_hh and ys, as the JAX package's `_vjp_fwd_v2` does,
+    and the forward's hp, so that the backward makes one product with W_hh
+    a step, not two. The weight gradients are skipped when no weight needs
+    one (the discriminator's layers in the generator's step)."""
 
     @staticmethod
     def forward(ctx, xp, w_hh, b_ih, b_hh):
-        ys, h_last = gru_layer_forward(xp, w_hh, b_ih, b_hh)
-        ctx.save_for_backward(xp, w_hh, b_ih, b_hh, ys)
+        ys, h_last, hp = gru_layer_forward(xp, w_hh, b_ih, b_hh, save_hp=True)
+        ctx.save_for_backward(xp, w_hh, b_ih, b_hh, ys, hp)
         return ys, h_last
 
     @staticmethod
     def backward(ctx, dys, dh_last):
-        xp, w_hh, b_ih, b_hh, ys = ctx.saved_tensors
+        xp, w_hh, b_ih, b_hh, ys, hp = ctx.saved_tensors
         need_x, need_w, need_bi, need_bh = ctx.needs_input_grad
         dxp, dw, db_ih, db_hh = gru_layer_bwd(
             xp, w_hh, b_ih, b_hh, ys, fold_h_last(dys, dh_last),
-            weights=need_w or need_bi or need_bh)
+            weights=need_w or need_bi or need_bh, hp=hp)
         return (dxp if need_x else None, dw if need_w else None,
                 db_ih if need_bi else None, db_hh if need_bh else None)
+
+
+def _differentiated(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def gru_layer(xp: torch.Tensor, w_hh: torch.Tensor, b_ih: torch.Tensor,
               b_hh: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """The layer as models use it. A CPU tensor runs the plain time loop,
     which autograd differentiates; a CUDA tensor runs `GRULayerFunction`
-    (the forward kernel, and the backward kernels under autograd)."""
+    (the forward kernel, and the backward kernels under autograd) when a
+    gradient will be taken, else the forward kernel alone (no hp saved)."""
     if xp.device.type == "cpu":
         return gru_layer_plain(xp, w_hh, b_ih, b_hh)
     if xp.device.type != "cuda":
         raise ValueError(f"gru_layer: unsupported device {xp.device}")
+    if not _differentiated(xp, w_hh, b_ih, b_hh):
+        return gru_layer_forward(xp, w_hh, b_ih, b_hh)
     return GRULayerFunction.apply(xp, w_hh, b_ih, b_hh)
 
 
@@ -491,18 +657,19 @@ def run_layer_plain(xp: torch.Tensor, w_hh: torch.Tensor,
     direction 1 already time-reversed by the caller; w_hh (D, H, 3H); b_hh
     (D, 3H). Returns ys (T, D, B, H) in each direction's walk order and
     h_last = ys[-1] (D, B, H)."""
-    ys = _walk_forward(xp, w_hh, b_hh)
+    ys = _walk_forward(xp, w_hh, b_hh)[0]
     return ys, ys[-1]
 
 
 def run_layer_bwd_recurrence_plain(xp: torch.Tensor, w_hh: torch.Tensor,
                                    b_hh: torch.Tensor, ys: torch.Tensor,
-                                   dys: torch.Tensor
+                                   dys: torch.Tensor, hp: torch.Tensor | None = None
                                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """The v1 backward recurrence: dys (T, D, B, H), the gradient of ys
-    (h_last's included, since h_last is ys[-1]) -> dxp (T, D, B, 3H) =
-    [dpre_r, dpre_z, dpre_n] and gn (T, D, B, H) = dpre_n r."""
-    return _walk_backward(xp, _walk_prev(ys), dys, w_hh, b_hh)
+    (h_last's included, since h_last is ys[-1]), hp (T, D, B, 3H) the
+    forward's saved h_prev . W_hh + b_hh or None to recompute it -> dxp
+    (T, D, B, 3H) = [dpre_r, dpre_z, dpre_n] and gn (T, D, B, H) = dpre_n r."""
+    return _walk_backward(xp, _walk_prev(ys), dys, w_hh, b_hh, hp)
 
 
 def _walk_prev(ys: torch.Tensor) -> torch.Tensor:
@@ -533,19 +700,21 @@ def _check_v1(xp, w_hh, b_hh, **more):
     if tuple(b_hh.shape) != (D, H3) or T < 1 or B < 1:
         raise ValueError(f"run_layer: b_hh shape {tuple(b_hh.shape)} != {(D, H3)}")
     for name, t in more.items():
-        if tuple(t.shape) != (T, D, B, H3 // 3):
-            raise ValueError(f"run_layer: {name} shape {tuple(t.shape)} != "
-                             f"{(T, D, B, H3 // 3)}")
+        want = xp.shape if name == "hp" else (T, D, B, H3 // 3)
+        if t.shape != want:
+            raise ValueError(f"run_layer: {name} shape {tuple(t.shape)} != {tuple(want)}")
 
 
 def run_layer_forward(xp: torch.Tensor, w_hh: torch.Tensor,
-                      b_hh: torch.Tensor) -> torch.Tensor:
+                      b_hh: torch.Tensor, save_hp: bool = False):
     """ys of `run_layer_plain`; the forward kernel (walk layout) for CUDA
     tensors. Not differentiable on the card: `run_layer` is the autograd
-    entry."""
+    entry. With save_hp=True returns (ys, hp), hp (T, D, B, 3H) the
+    h_prev . W_hh + b_hh of each walk step."""
     global v1_launches
     if xp.device.type == "cpu":
-        return run_layer_plain(xp, w_hh, b_hh)[0]
+        ys, hp = _walk_forward(xp, w_hh, b_hh)
+        return (ys, hp) if save_hp else ys
     if xp.device.type != "cuda":
         raise ValueError(f"run_layer: unsupported device {xp.device}")
     _check_v1(xp, w_hh, b_hh)
@@ -553,35 +722,40 @@ def run_layer_forward(xp: torch.Tensor, w_hh: torch.Tensor,
     H = H3 // 3
     plan = _device_plan(xp.device, B, H, D)
     ys = torch.empty((T, D, B, H), device=xp.device, dtype=torch.float32)
-    _launch(_lib_fn("gru_fwd", "s2ag_gru_layer_fwd_v1", 4, n_int=11), "gru_fwd_v1",
+    hp = torch.empty_like(xp) if save_hp else None
+    _launch(_lib_fn("gru_fwd", "s2ag_gru_layer_fwd_v1", 5, n_int=12), "gru_fwd_v1",
             xp.device, xp.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(), ys.data_ptr(),
-            T, B, H, D, *_plan_args(plan))
+            _ptr(hp), T, B, H, D, *_plan_args(plan))
     v1_launches += 1
-    return ys
+    return (ys, hp) if save_hp else ys
 
 
 def run_layer_bwd_recurrence(xp: torch.Tensor, w_hh: torch.Tensor,
                              b_hh: torch.Tensor, ys: torch.Tensor,
-                             dys: torch.Tensor, want_gn: bool = True
+                             dys: torch.Tensor, hp: torch.Tensor | None = None,
+                             want_gn: bool = True
                              ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """`run_layer_bwd_recurrence_plain`'s contract; the backward kernel
-    (walk layout) for CUDA tensors. With want_gn=False gn is not written
-    and None is returned in its place."""
+    (walk layout) for CUDA tensors, which takes the forward's saved hp
+    (`run_layer_forward(..., save_hp=True)`) and raises without it. With
+    want_gn=False gn is not written and None is returned in its place."""
     global v1_bwd_launches
     if xp.device.type == "cpu":
-        dxp, gn = run_layer_bwd_recurrence_plain(xp, w_hh, b_hh, ys, dys)
+        dxp, gn = run_layer_bwd_recurrence_plain(xp, w_hh, b_hh, ys, dys, hp)
         return dxp, gn if want_gn else None
     if xp.device.type != "cuda":
         raise ValueError(f"run_layer: unsupported device {xp.device}")
-    _check_v1(xp, w_hh, b_hh, ys=ys, dys=dys)
+    if hp is None:
+        raise ValueError("run_layer: the backward kernel takes the forward's saved hp "
+                         "(run_layer_forward(..., save_hp=True))")
+    _check_v1(xp, w_hh, b_hh, ys=ys, dys=dys, hp=hp)
     T, D, B, H3 = xp.shape
-    w_hh_t = w_hh.transpose(1, 2).contiguous()
+    plan = _device_bwd_plan(xp.device, B, H3 // 3, D)
     dxp = torch.empty_like(xp)
     gn = torch.empty_like(ys) if want_gn else None
-    _launch(_lib_fn("gru_bwd", "s2ag_gru_layer_bwd_v1", 8), "gru_bwd_v1", xp.device,
-            xp.data_ptr(), w_hh.data_ptr(), w_hh_t.data_ptr(), b_hh.data_ptr(),
-            ys.data_ptr(), dys.data_ptr(), dxp.data_ptr(),
-            0 if gn is None else gn.data_ptr(), T, B, H3 // 3, D)
+    _launch(_lib_fn("gru_bwd", "s2ag_gru_layer_bwd_v1", 7, n_int=12), "gru_bwd_v1",
+            xp.device, xp.data_ptr(), w_hh.data_ptr(), hp.data_ptr(), ys.data_ptr(),
+            dys.data_ptr(), dxp.data_ptr(), _ptr(gn), T, B, H3 // 3, D, *_plan_args(plan))
     v1_bwd_launches += 1
     return dxp, gn
 
@@ -610,20 +784,20 @@ def run_layer_dw(ys: torch.Tensor, dxp: torch.Tensor,
 class GRULayerV1Function(torch.autograd.Function):
     """The v1 layer with the forward kernel and the backward kernels, both
     in the walk layout: saves xp, w_hh, b_hh and ys, as the JAX package's
-    `_vjp_fwd` does. The weight gradients are skipped when neither weight
-    needs one."""
+    `_vjp_fwd` does, and the forward's hp. The weight gradients are skipped
+    when neither weight needs one."""
 
     @staticmethod
     def forward(ctx, xp, w_hh, b_hh):
-        ys = run_layer_forward(xp, w_hh, b_hh)
-        ctx.save_for_backward(xp, w_hh, b_hh, ys)
+        ys, hp = run_layer_forward(xp, w_hh, b_hh, save_hp=True)
+        ctx.save_for_backward(xp, w_hh, b_hh, ys, hp)
         return ys
 
     @staticmethod
     def backward(ctx, dys):
-        xp, w_hh, b_hh, ys = ctx.saved_tensors
+        xp, w_hh, b_hh, ys, hp = ctx.saved_tensors
         need_x, need_w, need_b = ctx.needs_input_grad
-        dxp, gn = run_layer_bwd_recurrence(xp, w_hh, b_hh, ys, dys.contiguous(),
+        dxp, gn = run_layer_bwd_recurrence(xp, w_hh, b_hh, ys, dys.contiguous(), hp,
                                            want_gn=need_w or need_b)
         dw = db = None
         if need_w or need_b:
@@ -637,12 +811,16 @@ def run_layer(xp: torch.Tensor, w_hh: torch.Tensor,
     """`gru_pallas.run_layer`'s contract (see `run_layer_plain`),
     differentiable in xp, w_hh and b_hh. A CPU tensor runs the plain time
     loop, which autograd differentiates; a CUDA tensor runs
-    `GRULayerV1Function`. Contiguous float32 only, on either device: bf16
-    storage comes with bf16 serving (ROADMAP.md)."""
+    `GRULayerV1Function` when a gradient will be taken, else the forward
+    kernel alone. Contiguous float32 only, on either device: bf16 storage
+    comes with bf16 serving (ROADMAP.md)."""
     _check_v1(xp, w_hh, b_hh)
     if xp.device.type == "cpu":
         return run_layer_plain(xp, w_hh, b_hh)
     if xp.device.type != "cuda":
         raise ValueError(f"run_layer: unsupported device {xp.device}")
-    ys = GRULayerV1Function.apply(xp, w_hh, b_hh)
+    if _differentiated(xp, w_hh, b_hh):
+        ys = GRULayerV1Function.apply(xp, w_hh, b_hh)
+    else:
+        ys = run_layer_forward(xp, w_hh, b_hh)
     return ys, ys[-1]

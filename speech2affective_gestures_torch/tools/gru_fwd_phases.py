@@ -48,7 +48,7 @@ def main() -> int:
                    check=True, capture_output=True)
     lib = ctypes.CDLL(str(lib_path))
     fn = lib.s2ag_gru_layer_fwd
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
     device = torch.device("cuda", 0)
     T, D = 34, 2
     for H, B in ((300, 1), (300, 258), (300, 512), (64, 512)):
@@ -61,7 +61,7 @@ def main() -> int:
 
         def run():
             rc = fn(xp.data_ptr(), w_hh.data_ptr(), b_ih.data_ptr(), b_hh.data_ptr(),
-                    ys.data_ptr(), h_last.data_ptr(), T, B, H, D,
+                    ys.data_ptr(), h_last.data_ptr(), None, T, B, H, D,
                     *gru_cuda._plan_args(p), stream)
             if rc:
                 raise RuntimeError(f"instrumented gru_fwd launch failed: CUDA error {rc}")

@@ -6,9 +6,12 @@ Imports `speech2affective_gestures_torch` from ROOT (default: this
 checkout), builds its kernels there, and times, at the main paths' shapes,
 `mel_cuda.mel_power` (R 568 and 2272 rows at n_fft 2048, 1876 rows at
 1024), `gru_cuda.gru_layer_forward` (T 34, H 300, D 2, layer input 600, at
-B 1, 258 and 512; H 64 at B 512) and `gru_cuda.run_layer_forward` (B 1 and
-512), beside two library yardsticks: `torch.fft.rfft` + power + the mel
-product, and cuDNN's `nn.GRU` forward less its input projection. Each
+B 1, 258 and 512; H 64 at B 512), `gru_cuda.run_layer_forward` (B 1 and
+512), and the backward at B 512, H 300 and 64: `GRULayerFunction`'s
+forward + backward, that less its forward, and `gru_cuda.gru_dw`; beside
+the library yardsticks: `torch.fft.rfft` + power + the mel product, and
+cuDNN's `nn.GRU` forward, and forward + backward less forward, less its
+input projection's products. Each
 time is given twice: the CUDA-event mean of a call (the wrapper's host
 cost included) and the device time per call from torch.profiler (the time
 in which any of the call's kernels ran). The timing helpers, the inputs and
@@ -80,6 +83,37 @@ def main() -> int:
         x = torch.randn(T, B, cin, generator=torch.Generator().manual_seed(B)).to(device)
         emit("cuDNN recurrent forward (library)", [T, B, 300, D],
              times=cs.cudnn_recurrent_fwd(lib, x))
+
+    # the backward at the training batch, through entry points every
+    # version of the port has: the layer's autograd Function forward +
+    # backward, that less its forward, and the dW reduction on the plain
+    # recurrence's output
+    B = 512
+    for H, c in ((300, cin), (64, 128)):
+        a = cs.gru_inputs(T, B, c, H, D, seed=9, device=device)
+        g = torch.Generator().manual_seed(9)
+        dys = torch.randn(T, B, D * H, generator=g).to(device)
+        dh = torch.randn(D, B, H, generator=g).to(device)
+        leaves = [t.clone().requires_grad_() for t in a]
+
+        def fwd():
+            return gru_cuda.GRULayerFunction.apply(*leaves)
+
+        def fwd_bwd():
+            return torch.autograd.grad(fwd(), leaves, (dys, dh))
+
+        both = (cs.time_ms(fwd_bwd, iters=10), cs.device_ms(fwd_bwd, n=10))
+        alone = (cs.time_ms(fwd, iters=10), cs.device_ms(fwd, n=10))
+        emit("gru_layer forward + backward", [T, B, H, D], times=both)
+        emit("gru_layer backward (forward + backward less forward)", [T, B, H, D],
+             times=(both[0] - alone[0], both[1] - alone[1]))
+        ys = gru_cuda.gru_layer_forward(*a)[0]
+        dxp, gn = gru_cuda.gru_bwd_recurrence_plain(*a, ys, dys)
+        emit("gru_dw", [T, B, H, D], lambda: gru_cuda.gru_dw(ys, dxp, gn, D))
+        lib = torch.nn.GRU(c, H, bidirectional=True).to(device)
+        x = torch.randn(T, B, c, generator=g).to(device).requires_grad_()
+        emit("cuDNN recurrent backward, dW_hh included (library)", [T, B, H, D],
+             times=cs.cudnn_recurrent_bwd(lib, x, dys, dh))
     return 0
 
 

@@ -11,6 +11,7 @@ near zero; the GRU forward within 1e-4 absolute after 34 steps (h in
 [-1, 1]); the backward's dxp within 1e-4 absolute (a 34-step chain of
 sums of 3H products), and dW_hh and the bias gradients within 1e-4 of
 each one's largest value (sums of T*B products in another order). The
+hidden sizes past 320 run the kernels' L2 tier. The
 same for the walk-layout (`run_layer`) entry points; their forward against
 the model layout's kernel within 1e-6, since it is the same arithmetic.
 The mel kernel is also held to a float64 oracle (`torch.fft.rfft` of the
@@ -153,15 +154,25 @@ def test_gru_kernel_plans_against_plain(cuda, H, cin, batch):
 
 
 @pytest.mark.gpu
-def test_gru_kernel_refuses_an_unschedulable_shape(cuda):
-    """H 600: W_hh does not fit in the registers of a cluster of 8 blocks
-    (the kernel holds H <= 320); the wrapper raises rather than run anything
-    else."""
-    args = _gru_args(4, 2, 8, 600, 2, 0, cuda)
-    before = gru_cuda.launches
-    with pytest.raises(ValueError):
-        gru_cuda.gru_layer_forward(*args)
-    assert gru_cuda.launches == before
+@pytest.mark.parametrize("H", [321, 600, 1024])
+def test_gru_kernel_refuses_an_unschedulable_shape(cuda, H):
+    """Past H 320 W_hh no longer fits in a cluster's registers; the plan
+    takes the L2 tier and the kernel runs (no shape it refuses remains
+    below what a block's shared memory holds): within 1e-4 of the plain
+    loop, the same bits twice, and with hp saved the same ys."""
+    for batch in (5, 512):
+        args = _gru_args(34, batch, 64, H, 2, H + batch, cuda)
+        before = gru_cuda.launches
+        ys, h_last = gru_cuda.gru_layer_forward(*args)
+        ys2, h_last2, hp = gru_cuda.gru_layer_forward(*args, save_hp=True)
+        torch.cuda.synchronize()
+        assert gru_cuda.launches == before + 2
+        assert gru_cuda._device_plan(cuda, batch, H, 2).tier == "l2"
+        want_ys, want_h, want_hp = gru_cuda.gru_layer_plain(*args, save_hp=True)
+        assert torch.equal(ys, ys2) and torch.equal(h_last, h_last2)
+        assert (ys - want_ys).abs().max().item() <= 1e-4
+        assert (h_last - want_h).abs().max().item() <= 1e-4
+        assert (hp - want_hp).abs().max().item() <= 1e-4
 
 
 def _layer_inputs(T, B, cin, H, D, seed, device):
@@ -182,23 +193,30 @@ def _rel(got, want):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("batch", [1, 5, 512])
-@pytest.mark.parametrize("H,cin", [(300, 88), (300, 600), (64, 8), (64, 128)])
+@pytest.mark.parametrize("H,cin", [(300, 88), (300, 600), (64, 8), (64, 128),
+                                   (321, 64), (600, 64), (1024, 64)])
 def test_gru_bwd_kernels_against_plain(cuda, batch, H, cin):
     """The training shapes: T=34, both directions; the generator's GRU
-    (H=300, layer 0 takes 88 features, later layers 600) and the
-    discriminator's (H=64, 8 and 128)."""
+    (H=300, layer 0 takes 88 features, later layers 600), the
+    discriminator's (H=64, 8 and 128), and the L2 tier's H 321, 600 and
+    1024. The recurrence takes the forward's saved hp; both kernels give
+    the same bits twice; the forward writes the same ys with hp as
+    without."""
     T, D = 34, 2
     xp, w_hh, b_ih, b_hh, dys = _layer_inputs(T, batch, cin, H, D,
                                               batch * 7 + H + cin, cuda)
-    ys, _ = gru_cuda.gru_layer_forward(xp, w_hh, b_ih, b_hh)
+    ys, _, hp = gru_cuda.gru_layer_forward(xp, w_hh, b_ih, b_hh, save_hp=True)
+    assert torch.equal(ys, gru_cuda.gru_layer_forward(xp, w_hh, b_ih, b_hh)[0])
     before = (gru_cuda.bwd_launches, gru_cuda.dw_launches)
-    dxp, gn = gru_cuda.gru_bwd_recurrence(xp, w_hh, b_ih, b_hh, ys, dys)
+    dxp, gn = gru_cuda.gru_bwd_recurrence(xp, w_hh, b_ih, b_hh, ys, dys, hp)
     dw, db = gru_cuda.gru_dw(ys, dxp, gn, D)
     torch.cuda.synchronize()
     assert (gru_cuda.bwd_launches, gru_cuda.dw_launches) == (before[0] + 1, before[1] + 1)
     want_dxp, want_gn = gru_cuda.gru_bwd_recurrence_plain(xp, w_hh, b_ih, b_hh, ys, dys)
     assert (dxp - want_dxp).abs().max().item() <= 1e-4
     assert (gn - want_gn).abs().max().item() <= 1e-4
+    dxp2, gn2 = gru_cuda.gru_bwd_recurrence(xp, w_hh, b_ih, b_hh, ys, dys, hp)
+    assert torch.equal(dxp, dxp2) and torch.equal(gn, gn2)
     # the reduction kernel on the plain recurrence's output, alone
     dw, db = gru_cuda.gru_dw(ys, want_dxp, want_gn, D)
     want_dw, want_db = gru_cuda.gru_dw_plain(ys, want_dxp, want_gn, D)
@@ -207,6 +225,18 @@ def test_gru_bwd_kernels_against_plain(cuda, batch, H, cin):
     # deterministic: a second run gives the same bits
     dw2, db2 = gru_cuda.gru_dw(ys, want_dxp, want_gn, D)
     assert torch.equal(dw, dw2) and torch.equal(db, db2)
+
+
+@pytest.mark.gpu
+def test_gru_bwd_kernel_needs_the_saved_hp(cuda):
+    """The recurrence kernel takes the forward's hp; without it the wrapper
+    raises rather than recompute anything."""
+    xp, w_hh, b_ih, b_hh, dys = _layer_inputs(4, 2, 8, 64, 2, 0, cuda)
+    ys, _ = gru_cuda.gru_layer_forward(xp, w_hh, b_ih, b_hh)
+    before = gru_cuda.bwd_launches
+    with pytest.raises(ValueError):
+        gru_cuda.gru_bwd_recurrence(xp, w_hh, b_ih, b_hh, ys, dys)
+    assert gru_cuda.bwd_launches == before
 
 
 @pytest.mark.gpu
@@ -258,7 +288,7 @@ def _walk_inputs(T, B, cin, H, D, seed, device):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("batch", [5, 512])
-@pytest.mark.parametrize("H,cin", [(300, 600), (64, 128)])
+@pytest.mark.parametrize("H,cin", [(300, 600), (64, 128), (600, 64)])
 def test_gru_v1_kernels_against_plain(cuda, batch, H, cin):
     """The three walk-layout entry points (`run_layer`'s forward, backward
     recurrence and dW reduction) against their plain versions, at the
@@ -267,10 +297,10 @@ def test_gru_v1_kernels_against_plain(cuda, batch, H, cin):
     T, D = 34, 2
     xp, w_hh, b_hh, dys, (xp2, b_ih) = _walk_inputs(T, batch, cin, H, D, batch + H, cuda)
     before = (gru_cuda.v1_launches, gru_cuda.v1_bwd_launches, gru_cuda.v1_dw_launches)
-    ys = gru_cuda.run_layer_forward(xp, w_hh, b_hh)
+    ys, hp = gru_cuda.run_layer_forward(xp, w_hh, b_hh, save_hp=True)
     want_ys = gru_cuda.run_layer_plain(xp, w_hh, b_hh)[0]
-    dxp, gn = gru_cuda.run_layer_bwd_recurrence(xp, w_hh, b_hh, want_ys, dys)
-    want_dxp, want_gn = gru_cuda.run_layer_bwd_recurrence_plain(xp, w_hh, b_hh, want_ys, dys)
+    dxp, gn = gru_cuda.run_layer_bwd_recurrence(xp, w_hh, b_hh, ys, dys, hp)
+    want_dxp, want_gn = gru_cuda.run_layer_bwd_recurrence_plain(xp, w_hh, b_hh, ys, dys)
     dw, db = gru_cuda.run_layer_dw(want_ys, want_dxp, want_gn)
     want_dw, want_db = gru_cuda.run_layer_dw_plain(want_ys, want_dxp, want_gn)
     torch.cuda.synchronize()

@@ -175,10 +175,103 @@ def test_gru_fwd_plan_main_shapes():
     assert gru_cuda.fwd_plan(512, 64, 2, 132)[:6] == (1, 64, 2, 32, 8, 64)
 
 
-@pytest.mark.parametrize("H", [321, 1024])
-def test_gru_fwd_refuses_a_hidden_size_too_large(H):
-    with pytest.raises(ValueError):
-        gru_cuda.fwd_shape(H)
+@pytest.mark.parametrize("H", [321, 512, 600, 1024])
+@pytest.mark.parametrize("B", [1, 512])
+def test_gru_fwd_plan_past_the_registers(B, H):
+    """Past H 320 W_hh does not fit in a cluster's registers: the plan names
+    the L2 tier, keeps the largest portable cluster, walks each block's
+    units in passes of whole float4 groups within the thread limit, and
+    covers every unit, chunk of k and batch row exactly once within the
+    shared memory."""
+    D, max_clusters = 2, 15
+    plan = gru_cuda.fwd_plan(B, H, D, max_clusters)
+    assert plan.tier == "l2" and plan.KC > gru_cuda.MAX_KC
+    assert plan.S == gru_cuda.L2_S and plan.C == gru_cuda.MAX_CLUSTER
+    assert plan.KC % 8 == 0 and plan.S * plan.KC >= H > plan.S * (plan.KC - 8)
+    assert plan.smem == gru_cuda._fwd_smem(plan.S, plan.KC, plan.BT) <= gru_cuda.SMEM_LIMIT
+    assert plan.threads <= gru_cuda.L2_MAX_THREADS and plan.threads % (4 * plan.S) == 0
+    per_pass = plan.threads // plan.S
+    passes = -(-plan.U // per_pass)
+    assert passes == -(-plan.U * plan.S // gru_cuda.L2_MAX_THREADS)
+    units = np.concatenate([np.arange(c * plan.U + p * per_pass,
+                                      min(c * plan.U + min((p + 1) * per_pass, plan.U), H))
+                            for c in range(plan.C) for p in range(passes)])
+    np.testing.assert_array_equal(units, np.arange(H))
+    rows = np.concatenate([np.arange(t * plan.BT, min((t + 1) * plan.BT, B))
+                           for t in range(plan.tiles)])
+    np.testing.assert_array_equal(rows, np.arange(B))
+    fewest = -(-D * -(-B // _fwd_rows_max(plan)) // max_clusters)
+    assert -(-D * plan.tiles // max_clusters) == fewest
+
+
+@pytest.mark.parametrize("H", [300, 64, 40, 5, 100, 161, 321, 600, 1024])
+@pytest.mark.parametrize("B", [1, 5, 258, 512])
+@pytest.mark.parametrize("max_clusters", [15, 7, 132])
+def test_gru_bwd_plan(B, H, max_clusters):
+    """The recurrence's launch takes the forward's tier (so it takes every H
+    the forward takes) with two units a thread: every unit, every chunk of
+    j and every batch row covered exactly once, within a block's shared
+    memory (two g buffers of three gates and the dh z values), threads and
+    cluster, in no more waves than the batch needs."""
+    D = 2
+    plan = gru_cuda.bwd_plan(B, H, D, max_clusters)
+    assert plan.tier == gru_cuda.fwd_plan(B, H, D, max_clusters).tier
+    assert (plan.tier == "registers") == (plan.KC <= gru_cuda.BWD_MAX_KC)
+    assert plan.KC % 4 == 0 and plan.S * plan.KC >= H > plan.S * (plan.KC - 4)
+    assert plan.C <= gru_cuda.MAX_CLUSTER and plan.U % 4 == 0
+    assert plan.smem == gru_cuda._bwd_smem(plan.S, plan.KC, plan.U, plan.BT)
+    assert plan.smem <= gru_cuda.SMEM_LIMIT and (gru_cuda._bwd_ks(plan.KC) // 4) % 2 == 1
+    if plan.tier == "registers":
+        assert plan.threads == -(-plan.U // 2 * plan.S // 32) * 32
+        assert plan.threads <= gru_cuda.BWD_MAX_THREADS
+        pairs, passes = plan.U // 2, 1
+    else:
+        assert plan.threads <= gru_cuda.BWD_L2_MAX_THREADS
+        assert plan.threads % (4 * plan.S) == 0
+        pairs = plan.threads // plan.S
+        passes = -(-plan.U // (2 * pairs))
+    units = np.concatenate([np.arange(c * plan.U + 2 * p * pairs,
+                                      min(c * plan.U + min(2 * (p + 1) * pairs, plan.U), H))
+                            for c in range(plan.C) for p in range(passes)])
+    np.testing.assert_array_equal(units, np.arange(H))
+    assert (plan.C - 1) * plan.U < H
+    rows = np.concatenate([np.arange(t * plan.BT, min((t + 1) * plan.BT, B))
+                           for t in range(plan.tiles)])
+    np.testing.assert_array_equal(rows, np.arange(B))
+    rows_max = gru_cuda.SMEM_LIMIT // gru_cuda._bwd_smem(plan.S, plan.KC, plan.U, 1)
+    assert plan.BT <= rows_max
+    assert -(-D * plan.tiles // max_clusters) == -(-D * -(-B // rows_max) // max_clusters)
+
+
+def test_gru_bwd_plan_main_shapes():
+    """H 300: the forward's clusters of 8 blocks of 40 units, 16 lanes a
+    pair of units with 20 values of j each; a row of g (three gates) takes
+    three rows of h, so B 512 runs in 22 tiles of 24 rows, three waves of
+    the H100's 15 clusters; H 64 one block a tile, 4 lanes a pair."""
+    assert gru_cuda.bwd_plan(512, 300, 2, 15)[:7] == (8, 40, 16, 20, 24, 22, 320)
+    assert gru_cuda.bwd_plan(1, 300, 2, 15)[:7] == (8, 40, 16, 20, 1, 1, 320)
+    assert gru_cuda.bwd_plan(512, 64, 2, 132)[:7] == (1, 64, 4, 16, 8, 64, 128)
+
+
+@pytest.mark.parametrize("H", [300, 64, 321, 20, 1024])
+@pytest.mark.parametrize("T,B", [(34, 512), (34, 5), (6, 1), (34, 258)])
+@pytest.mark.parametrize("sms", [132, 16])
+def test_gru_dw_plan(T, B, H, sms):
+    """The dW product's launch: every (t, b) row in exactly one split of
+    whole pipeline stages, no split empty, every output of (H + 1, 3H) in
+    one block tile, 16-byte copies only where H % 4 == 0."""
+    plan = gru_cuda.dw_plan(T, B, H, 2, sms)
+    M = T * B
+    assert plan.rows % gru_cuda.DW_TK == 0 and plan.rows >= gru_cuda.DW_TK
+    splits = [np.arange(s * plan.rows, min((s + 1) * plan.rows, M))
+              for s in range(plan.splits)]
+    assert all(len(s) for s in splits)
+    np.testing.assert_array_equal(np.concatenate(splits), np.arange(M))
+    assert plan.splits == 1 or plan.rows >= 256
+    assert (plan.tiles_k - 1) * gru_cuda.DW_TM < H + 1 <= plan.tiles_k * gru_cuda.DW_TM
+    assert (plan.tiles_j - 1) * gru_cuda.DW_TN < 3 * H <= plan.tiles_j * gru_cuda.DW_TN
+    assert plan.vec == (4 if H % 4 == 0 else 1)
+    assert gru_cuda.dw_plan(T, B, H, 2, sms, aligned=False).vec == 1
 
 
 def _gru_fwd_model(xp, w_hh, b_ih, b_hh, BT):
@@ -226,13 +319,14 @@ def _gru_fwd_model(xp, w_hh, b_ih, b_hh, BT):
 
 
 @pytest.mark.parametrize("H,B,BT", [(300, 10, 10), (300, 9, 9), (64, 5, 5), (40, 3, 2),
-                                    (100, 6, 6)])
+                                    (100, 6, 6), (330, 6, 5)])
 def test_gru_fwd_model_against_plain_and_pallas(H, B, BT):
     """The chunked sums and the reduce-scatter agree with the plain time
     loop and with the JAX package's layer (Pallas in interpret mode) within
     1e-5 after 8 steps: float32 sums of H products in another order.
-    (H, S, KC): (300, 8, 40), (64, 2, 32), (40, 2, 24), (100, 4, 32); the
-    tiles put rows at every place of a group, and groups of one row."""
+    (H, S, KC): (300, 8, 40), (64, 2, 32), (40, 2, 24), (100, 4, 32), and
+    the L2 tier's (330, 8, 48), whose sums keep the register tier's order;
+    the tiles put rows at every place of a group, and groups of one row."""
     from speech2affective_gestures_tpu.ops import gru_pallas
 
     T, D = 8, 2
@@ -255,6 +349,160 @@ def test_gru_fwd_model_against_plain_and_pallas(H, B, BT):
     jys = np.concatenate([np.asarray(jys)[..., d * P:d * P + H] for d in range(D)], -1)
     np.testing.assert_allclose(ys, jys, rtol=0, atol=1e-5)
     np.testing.assert_allclose(h_last, np.asarray(jh), rtol=0, atol=1e-5)
+
+
+def _reduce(part, S, B, BT):
+    """The kernels' reduce-scatter of the S lanes' chunk sums part (S, B,
+    ...): each row's lanes added in the order its place in the group of S
+    rows of a tile of BT gives (see `_gru_fwd_model`)."""
+    b = np.arange(B)
+    place = b % BT % S
+    tile_rows = np.minimum(BT, B - b // BT * BT)
+    alone = (b % BT == tile_rows - 1) & (b % BT % S == 0)
+
+    def butterfly(part, halves):
+        for half in halves:
+            part = part + part[np.arange(S) ^ half]
+        return part
+
+    halves = [S >> i for i in range(1, S.bit_length())]
+    return np.where(alone[:, None], butterfly(part, halves[::-1])[0],
+                    butterfly(part, halves)[place, b])
+
+
+def _gru_bwd_model(xp, w_hh, b_ih, hp, ys, dys, BT):
+    """The backward recurrence kernel's arithmetic in float32 numpy: the
+    cell's gates from xp + b_ih and the forward's hp, then for each unit k
+    the S lanes' chunk sums of g . W^T (each gate's sum over the lane's KC
+    values of j in ascending j, then r + z, + n), added across the lanes by
+    the reduce-scatter, and carry = dh z of the step before + that total;
+    zero g before the first step."""
+    T, B, _ = xp.shape
+    D, H, _ = w_hh.shape
+    S, KC, _, _ = gru_cuda.bwd_shape(H)
+    f32 = np.float32
+    dxp = np.zeros((T, B, D * 3 * H), f32)
+    gn = np.zeros((T, B, D * H), f32)
+    for d in range(D):
+        dhz = np.zeros((B, H), f32)
+        g = None
+        for step in range(T):
+            p = T - 1 - step if d == 0 else step
+            q = p - 1 if d == 0 else p + 1
+            h_prev = ys[q, :, d * H:(d + 1) * H] if 0 <= q < T else np.zeros((B, H), f32)
+            tot = np.zeros((B, H), f32)
+            if g is not None:
+                part = np.zeros((S, B, H), f32)
+                for s in range(S):
+                    acc = np.zeros((3, B, H), f32)
+                    for gate in range(3):
+                        for j in range(s * KC, min((s + 1) * KC, H)):
+                            col = gate * H + j
+                            acc[gate] = acc[gate] + g[:, col:col + 1] * w_hh[d, :, col]
+                    part[s] = (acc[0] + acc[1]) + acc[2]
+                tot = _reduce(part, S, B, BT)
+            dh = dys[p, :, d * H:(d + 1) * H] + (dhz + tot)
+            x = xp[p, :, d * 3 * H:(d + 1) * 3 * H] + b_ih[d]
+            hh = hp[p, :, d * 3 * H:(d + 1) * 3 * H]
+            r = (1 / (1 + np.exp(-(x[:, :H] + hh[:, :H])))).astype(f32)
+            z = (1 / (1 + np.exp(-(x[:, H:2 * H] + hh[:, H:2 * H])))).astype(f32)
+            n = np.tanh(x[:, 2 * H:] + r * hh[:, 2 * H:]).astype(f32)
+            dpre_n = dh * (1 - z) * (1 - n * n)
+            dpre_z = dh * (h_prev - n) * z * (1 - z)
+            dpre_r = dpre_n * hh[:, 2 * H:] * r * (1 - r)
+            dxp[p, :, d * 3 * H:(d + 1) * 3 * H] = np.concatenate([dpre_r, dpre_z, dpre_n], 1)
+            gn[p, :, d * H:(d + 1) * H] = dpre_n * r
+            g = np.concatenate([dpre_r, dpre_z, dpre_n * r], 1).astype(f32)
+            dhz = (dh * z).astype(f32)
+    return dxp, gn
+
+
+def _jax_bwd_v2(xp, w_hh, b_ih, b_hh, ys, dys):
+    """dxp of the JAX package's backward kernel (`_bwd_call_v2`, Pallas in
+    interpret mode) on the inputs padded as `run_layer_v2` pads them (each
+    gate to P = 128 lanes, b_hh's r and z folded into the input bias), in
+    the port's (T, B, D*3H) layout."""
+    from speech2affective_gestures_tpu.ops import gru_pallas
+
+    T, B, _ = xp.shape
+    D, H, _ = w_hh.shape
+    P = gru_pallas._round_up(H, gru_pallas.LANE)
+
+    def pad_lanes(a, groups):  # (..., groups * H) -> (..., groups * P)
+        out = np.zeros(a.shape[:-1] + (groups * P,), np.float32)
+        for i in range(groups):
+            out[..., i * P:i * P + H] = a[..., i * H:(i + 1) * H]
+        return out
+
+    w_cat = np.zeros((D, P, 3 * P), np.float32)
+    w_cat[:, :H] = pad_lanes(w_hh, 3)
+    bi, bh = b_ih.reshape(D, 3, H), b_hh.reshape(D, 3, H)
+    b_all = pad_lanes(np.concatenate([bi[:, 0] + bh[:, 0], bi[:, 1] + bh[:, 1], bi[:, 2]], 1),
+                      3)[:, None]
+    b_hn = pad_lanes(bh[:, 2], 1)[:, None]
+    dxp, _, _ = gru_pallas._bwd_call_v2(
+        jnp.asarray(pad_lanes(xp.reshape(T, B, D, 3 * H), 3).reshape(T, B, D * 3 * P)),
+        jnp.asarray(w_cat), jnp.asarray(b_all), jnp.asarray(b_hn),
+        jnp.asarray(pad_lanes(ys.reshape(T, B, D, H), 1).reshape(T, B, D * P)),
+        jnp.asarray(pad_lanes(dys.reshape(T, B, D, H), 1).reshape(T, B, D * P)),
+        interpret=True)
+    dxp = np.asarray(dxp).reshape(T, B, D, 3 * P)
+    return np.concatenate([dxp[..., g * P:g * P + H] for g in range(3)], -1).reshape(T, B, -1)
+
+
+def _bwd_inputs(H, B, T=8, D=2):
+    rng = np.random.default_rng(7 * H + B)
+    bound = H ** -0.5
+    xp = rng.standard_normal((T, B, D * 3 * H)).astype(np.float32)
+    w_hh, b_ih, b_hh = (rng.uniform(-bound, bound, shape).astype(np.float32)
+                        for shape in ((D, H, 3 * H), (D, 3 * H), (D, 3 * H)))
+    dys = rng.standard_normal((T, B, D * H)).astype(np.float32)
+    return xp, w_hh, b_ih, b_hh, dys
+
+
+@pytest.mark.parametrize("H,B,BT", [(300, 18, 18), (300, 9, 9), (64, 5, 5), (40, 3, 2),
+                                    (100, 6, 6), (330, 6, 5)])
+def test_gru_bwd_model_against_plain_and_pallas(H, B, BT):
+    """The recurrence's chunked sums of g . W^T and the reduce-scatter
+    agree with the plain reverse-time loop and with the JAX package's
+    backward kernel (Pallas in interpret mode) within 1e-5 after 8 steps:
+    float32 sums of 3H products in another order. (H, S, KC): (300, 16,
+    20), (64, 4, 16), (40, 2, 20), (100, 8, 16) and the L2 tier's (330, 8,
+    44); the tiles put rows at every place of a group, and groups of one
+    row."""
+    xp, w_hh, b_ih, b_hh, dys = _bwd_inputs(H, B)
+    ys, _, hp = gru_cuda.gru_layer_plain(*map(torch.from_numpy, (xp, w_hh, b_ih, b_hh)),
+                                         save_hp=True)
+    ys, hp = ys.numpy(), hp.numpy()
+    dxp, gn = _gru_bwd_model(xp, w_hh, b_ih, hp, ys, dys, BT)
+    want_dxp, want_gn = gru_cuda.gru_bwd_recurrence_plain(
+        *map(torch.from_numpy, (xp, w_hh, b_ih, b_hh, ys, dys, hp)))
+    np.testing.assert_allclose(dxp, want_dxp.numpy(), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(gn, want_gn.numpy(), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(dxp, _jax_bwd_v2(xp, w_hh, b_ih, b_hh, ys, dys),
+                               rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("layout", ["model", "walk"])
+@pytest.mark.parametrize("H,B", [(20, 3), (64, 5)])
+def test_plain_recurrence_with_saved_hp_equals_the_recompute(layout, H, B):
+    """The plain backward given the forward's hp gives the same bits as the
+    plain backward that recomputes hp from ys: the same products on the
+    same states."""
+    xp, w_hh, b_ih, b_hh, dys = map(torch.from_numpy, _bwd_inputs(H, B, T=6))
+    if layout == "model":
+        ys, _, hp = gru_cuda.gru_layer_plain(xp, w_hh, b_ih, b_hh, save_hp=True)
+        got = gru_cuda.gru_bwd_recurrence(xp, w_hh, b_ih, b_hh, ys, dys, hp)
+        want = gru_cuda.gru_bwd_recurrence(xp, w_hh, b_ih, b_hh, ys, dys)
+    else:
+        T, D = xp.shape[0], w_hh.shape[0]
+        xw = gru_cuda._walk(xp.view(T, B, D, 3 * H) + b_ih, D).contiguous()
+        ys, hp = gru_cuda.run_layer_forward(xw, w_hh, b_hh, save_hp=True)
+        dyw = gru_cuda._walk(dys.view(T, B, D, H), D).contiguous()
+        got = gru_cuda.run_layer_bwd_recurrence(xw, w_hh, b_hh, ys, dyw, hp)
+        want = gru_cuda.run_layer_bwd_recurrence(xw, w_hh, b_hh, ys, dyw)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
 def _chip_smoke():
