@@ -17,7 +17,11 @@ toolkit. In order:
    and backward also at hidden sizes past 320 (their L2 tier); then the
    same three GRU kernels in the walk layout of `run_layer` (the v1 layer)
    against their plain versions and against the model layout's kernels on
-   the same function;
+   the same function; the mel kernel at shapes past its FFT tier (its DFT
+   tier at n_fft 1000, 1536, 256, 8192; the FFT tier at 64 bands) against
+   its plain version and the float64 oracle; the GRU kernels' bf16
+   instances (forward in both tiers, recurrence, dW; both layouts) against
+   their bf16 twins and against float32;
 3. service phase: a full-width s2ag generator (config/multimodal_context_v2.yml:
    hidden 300, 4 GRU layers, embed 300; 1000 words, 100 speakers; random
    weights from seed 0) behind the HTTP server answers /synthesize for a
@@ -26,8 +30,10 @@ toolkit. In order:
    must have run. The same requests through the same weights on the CPU
    (the plain path, same noise) must agree within tolerance;
 4. v1 path: `gru_cuda.run_layer`, forward and backward under autograd at
-   the generator's training shape; its counters are set to 0 just before
-   and read just after: its three kernels must have run;
+   the generator's training shape, in float32 and in bf16; the counters
+   are set to 0 just before and read just after: the three kernels of that
+   dtype must have run; the mel path: `ops.dsp.mel_power_spectrogram` at
+   n_fft 400, 80 bands (the DFT tier must have run);
 5. embedding phase: `train_embedding.main` trains the FGD embedding net on
    the card on the synthetic corpus (every loss finite) and writes the
    `.pth.tar` that the training phase loads;
@@ -49,13 +55,21 @@ toolkit. In order:
    plain path (in float64, the reference, and in float32), from the same
    weights, batch and noise: the card's metrics, BN running stats and
    Adam's first moments must agree with the float64 step within tolerance;
+   then `main_v2 --mixed-precision true` as in 6 (the bf16 instances of the
+   forward, backward and dW must run in training, only float32 in the
+   scoring) and its step's p50 beside the float32 step's; one
+   mixed-precision step on the card against the CPU bf16 path (weights
+   scaled by 0.3); the service at `--serve-precision bf16` (/healthz and
+   /metrics report bf16, its /synthesize runs the bf16 forward, its output
+   against the CPU bf16 path, its p50 and p90);
 9. timing: each kernel's time, its plain version's, a PyTorch library
    call's that computes the same function, and the least time the card
    could take (bound), by CUDA events and by device time; the GRU
    backward (recurrence + dW) against cuDNN's recurrent backward; the L2
-   tier's times; the service's synthesize p50; the train step's p50,
-   samples/s and its device profile; `generate_gestures`' wall time and
-   device profile; the embedding train step's p50.
+   tier's times; the bf16 instances against cuDNN's bf16 `nn.GRU`; the
+   mel kernel's DFT tier against `rfft`; the service's synthesize p50; the
+   train step's p50, samples/s and its device profile; `generate_gestures`'
+   wall time and device profile; the embedding train step's p50.
 
 It prints one `{"kernels": [...]}` line before the last, and as the last
 line `{"ok": true, "device": {...}}`. It exits non-zero, with no result
@@ -66,6 +80,7 @@ when any phase fails.
 from __future__ import annotations
 
 import base64
+import collections
 import copy
 import http.client
 import json
@@ -121,9 +136,37 @@ TRAIN_BATCH, TRAIN_VIDEOS, TRAIN_SECONDS = 512, 20, 60.0
 # the corpus build's log-mel of one training video (n_fft 1024, hop 512)
 MEL_SHAPES = ((568, 2048), (2272, 2048), (601, 2048),
               (1 + int(TRAIN_SECONDS * 16000) // 512, 1024))
+# the mel kernel's shapes past its FFT tier: the DFT tier's n_fft (no power
+# of two, and powers of two outside [512, 4096]) and another band count,
+# (rows, n_fft, n_mels)
+MEL_OTHER_SHAPES = ((568, 1000, 128), (568, 1536, 128), (568, 256, 128),
+                    (568, 8192, 128), (568, 2048, 64))
+# the mel entry point's other user: a 30 s clip's log-mel front end at 16
+# kHz with 25 ms windows, 10 ms hops and 80 bands (Whisper's settings)
+WHISPER_MEL = dict(seconds=30.0, n_fft=400, hop_length=160, n_mels=80)
 # hidden sizes past what a cluster's registers hold (the GRU kernels' L2
 # tier), checked beside the model's 300 and 64
 L2_HIDDEN = (321, 600, 1024)
+# the bf16 instances against their bf16 twins (the plain versions at the
+# same rounding points, fed the same inputs): ys and h_last absolute, h in
+# [-1, 1]; dxp and gn relative to each one's largest value. The twins' float32
+# sums run in another order, so a rounding to bf16 may land one ulp (2^-8
+# relative) apart and carry into the later steps. dW_hh and db_hh from the
+# same bf16 inputs are held to BWD_TOL (exact products, float32 sums in
+# another order); bf16 against float32 on the same function within
+# BF16_VS_F32 absolute.
+BF16_TOL = 2e-2
+BF16_VS_F32 = 0.05
+# the mixed-precision step and bf16 serving on the card against the CPU bf16
+# path, weights scaled by 0.3 (at raw init the recurrence is expansive and
+# bf16 rounding grows over the window; the JAX package's
+# tests/test_serve.py:409-440): relative to the largest value (the step's
+# metrics each to its own, plus 5e-4 absolute for the near-zero difference
+# of two L1 means)
+MP_TOL = 3e-2
+MP_SCALE = 0.3
+# H100 SXM, NVIDIA data sheet: dense bf16 on the tensor cores
+PEAK_BF16_FLOPS = 989e12
 
 
 def log(msg: str) -> None:
@@ -166,7 +209,7 @@ def speech_frames(rows, device, n_fft=2048):
     from speech2affective_gestures_torch.ops import dsp
 
     rng = np.random.default_rng(0)
-    n = (rows + 8) * 512
+    n = (rows + 8) * 512 + max(0, n_fft - 2048)   # whole frames at any n_fft
     t = np.arange(n) / 16000
     y = (0.4 * np.sin(2 * np.pi * (150 + 60 * np.sin(3 * t)) * t)
          + 0.05 * rng.standard_normal(n)).astype(np.float32)
@@ -249,6 +292,140 @@ def kernel_phase(device) -> dict:
                                  f"{k_err.max().item():.3e} against the plain "
                                  f"version's {p_err.max().item():.3e}; repeatable {same}")
         errs["mel_power"] = max(errs["mel_power"], diff.max().item())
+    errs["mel_dft"] = 0.0
+    for rows, n_fft, n_mels in MEL_OTHER_SHAPES:
+        errs.update(mel_other_shape(device, rows, n_fft, n_mels, errs))
+    return errs
+
+
+def mel_other_shape(device, rows, n_fft, n_mels, errs) -> dict:
+    """The mel kernel at a shape past the FFT tier's (n_fft) or the main
+    paths' (n_mels) against its plain version (MEL_RTOL of each value plus
+    MEL_FLOOR of the largest) and the float64 oracle: the FFT tier's worst
+    band no farther from it than the plain version's, the DFT tier's values
+    within the same tolerance of it (a dense sum, as the plain version's);
+    the same bits twice. Returns the tier's updated largest error."""
+    import torch
+    from speech2affective_gestures_torch.ops import mel_cuda
+
+    frames = speech_frames(rows, device, n_fft)
+    plan = mel_cuda.mel_plan(rows, n_fft, n_mels)
+    got = mel_cuda.mel_power(frames, n_mels=n_mels)
+    same = torch.equal(got, mel_cuda.mel_power(frames, n_mels=n_mels))
+    want = mel_cuda.mel_power_plain(frames, n_mels=n_mels)
+    diff = (got - want).abs()
+    ok = bool((diff <= MEL_RTOL * want.abs() + MEL_FLOOR * want.abs().max()).all())
+    spec = torch.fft.rfft(frames.double(), dim=-1)
+    fb = torch.from_numpy(mel_cuda.dft_constants(16000, n_fft, n_mels)[2]).to(device)
+    oracle = (spec.real ** 2 + spec.imag ** 2) @ fb.double()
+    keep = oracle.abs().amax(dim=0) > 0   # bands without a bin are zero in all three
+    k_err, p_err = _band_errors(got, oracle)[keep], _band_errors(want, oracle)[keep]
+    off = (got.double() - oracle).abs()
+    within = bool((off <= MEL_RTOL * oracle.abs() + MEL_FLOOR * oracle.abs().max()).all())
+    oracle_ok = k_err.max() <= p_err.max() if plan.tier == "fft" else within
+    log(f"kernel mel_power R={rows} n_fft={n_fft} n_mels={n_mels}: {plan.tier} tier "
+        f"{plan._asdict()}; max_abs_err={diff.max().item():.3e} against the plain "
+        f"version (max |mel| {want.abs().max().item():.3e}; within {MEL_RTOL} |want| + "
+        f"{MEL_FLOOR} max|want|: {ok}); against the float64 oracle the worst band's "
+        f"relative error: kernel {k_err.max().item():.3e}, plain {p_err.max().item():.3e}, "
+        f"every value within the tolerance of the oracle {within}; "
+        f"{int((~keep).sum())} bands without a bin; bitwise repeatable {same}")
+    if not (ok and oracle_ok and same):
+        raise AssertionError(f"mel_power disagrees at R={rows} n_fft={n_fft} "
+                             f"n_mels={n_mels}: plain {ok}, oracle {oracle_ok}, "
+                             f"repeatable {same}")
+    name = "mel_dft" if plan.tier == "dft" else "mel_power"
+    return {name: max(errs[name], diff.max().item())}
+
+
+def bf16_kernel_phase(device) -> dict:
+    """The GRU kernels' bf16 instances against their bf16 twins on the card
+    (BF16_TOL; dW_hh and db_hh from the same inputs BWD_TOL), each launch
+    counted under its bf16 name and none under float32; the same bits
+    twice; and bf16 against float32 on the same function (BF16_VS_F32).
+    The model layout at the serving, scoring and training batches (B 1,
+    258, 512) at H 300, the discriminator's H 64, and the L2 tier's H 600;
+    the walk layout (`run_layer`) at H 300 and 64."""
+    import torch
+    from speech2affective_gestures_torch.ops import gru_cuda
+
+    bf16 = torch.bfloat16
+    names = ("gru_fwd", "gru_bwd", "gru_dw")
+    errs = {f"{k}{v}_bf16": 0.0 for v in ("", "_v1") for k in names}
+    T, D = 34, 2
+    for walk, H, B, cin in ((False, 300, 1, 600), (False, 300, 258, 600),
+                            (False, 300, 512, 600), (False, 64, 512, 128),
+                            (False, 600, 512, 64), (True, 300, 512, 600), (True, 64, 5, 128)):
+        f32 = gru_inputs(T, B, cin, H, D, seed=B + 3 * H, device=device)
+        if walk:
+            xp32, w32, bh32, _ = v1_inputs(T, B, cin, H, D, seed=B + 3 * H, device=device)
+            xp, w_hh, b_hh = (t.to(bf16).contiguous() for t in (xp32, w32, bh32))
+            shape = (T, D, B, H)
+            fwd = lambda save_hp=False: gru_cuda.run_layer_forward(xp, w_hh, b_hh, save_hp)
+            plain_fwd = lambda: gru_cuda._walk_forward(*gru_cuda._walk_inputs(xp, w_hh, b_hh))
+            rec = lambda ys, dys, hp: gru_cuda.run_layer_bwd_recurrence(xp, w_hh, b_hh, ys, dys, hp)
+            plain_rec = lambda ys, dys, hp: gru_cuda.run_layer_bwd_recurrence_plain(
+                xp, w_hh, b_hh, ys, dys, hp)
+            dw_fn, dw_plain = gru_cuda.run_layer_dw, gru_cuda.run_layer_dw_plain
+            vs32 = lambda ys: (ys.float() - gru_cuda.run_layer_forward(xp32, w32, bh32)).abs().max()
+            suffix = "_v1"
+        else:
+            xp, w_hh, b_ih, b_hh = (t.to(bf16).contiguous() for t in f32)
+            shape = (T, B, D * H)
+            fwd = lambda save_hp=False: gru_cuda.gru_layer_forward(xp, w_hh, b_ih, b_hh, save_hp)
+            plain_fwd = lambda: gru_cuda.gru_layer_plain(xp, w_hh, b_ih, b_hh, save_hp=True)
+            rec = lambda ys, dys, hp: gru_cuda.gru_bwd_recurrence(xp, w_hh, b_ih, b_hh, ys, dys, hp)
+            plain_rec = lambda ys, dys, hp: gru_cuda.gru_bwd_recurrence_plain(
+                xp, w_hh, b_ih, b_hh, ys, dys, hp)
+            dw_fn = lambda ys, dxp, gn: gru_cuda.gru_dw(ys, dxp, gn, D)
+            dw_plain = lambda ys, dxp, gn: gru_cuda.gru_dw_plain(ys, dxp, gn, D)
+            vs32 = lambda ys: (ys.float() - gru_cuda.gru_layer_forward(*f32)[0]).abs().max()
+            suffix = ""
+        dys = torch.randn(shape, generator=torch.Generator().manual_seed(H + B)).to(device, bf16)
+        before = _counters()
+        out = fwd(save_hp=True)
+        ys, hp = out[0], out[-1]
+        dxp, gn = rec(ys, dys, hp)
+        dw, db = dw_fn(ys, dxp, gn)
+        torch.cuda.synchronize()
+        delta = _counters() - before
+        want_delta = {f"{k}{suffix}_bf16": 1 for k in names}
+        if dict(delta) != want_delta:
+            raise AssertionError(f"bf16 launches {dict(delta)}, expected {want_delta}")
+        if walk:
+            want_ys, want_hp = plain_fwd()
+            fwd_err = (ys.float() - want_ys.float()).abs().max().item()
+        else:
+            want_ys, want_h, want_hp = plain_fwd()
+            fwd_err = max((ys.float() - want_ys.float()).abs().max().item(),
+                          (out[1].float() - want_h.float()).abs().max().item())
+        hp_rel = _rel(hp, want_hp)
+        want_dxp, want_gn = plain_rec(ys, dys, hp)
+        bwd_rel = max(_rel(dxp.float(), want_dxp.float()), _rel(gn.float(), want_gn.float()))
+        dw, db = dw_fn(ys, want_dxp, want_gn)
+        want_dw, want_db = dw_plain(ys, want_dxp, want_gn)
+        dw_rel = max(_rel(dw, want_dw), _rel(db, want_db))
+        again = dw_fn(ys, want_dxp, want_gn)
+        same = (torch.equal(dw, again[0]) and torch.equal(db, again[1])
+                and torch.equal(ys, fwd()[0] if not walk else fwd())
+                and torch.equal(dxp, rec(ys, dys, hp)[0]))
+        f32_err = vs32(ys).item()
+        log(f"kernel bf16 {'walk' if walk else 'model'} layout T={T} B={B} cin={cin} H={H} "
+            f"D={D}: forward ys/h_last max_abs_err={fwd_err:.3e}, hp relative {hp_rel:.3e} "
+            f"(tol {BF16_TOL}); recurrence dxp/gn relative {bwd_rel:.3e} (tol {BF16_TOL}); "
+            f"dW_hh/db_hh relative {dw_rel:.3e} (tol {BWD_TOL}); bitwise repeatable {same}; "
+            f"bf16 against float32 ys {f32_err:.3e} (tol {BF16_VS_F32}); dtypes ys "
+            f"{ys.dtype}, hp {hp.dtype}, dxp {dxp.dtype}, dW {dw.dtype}")
+        if not (fwd_err <= BF16_TOL and hp_rel <= BF16_TOL and bwd_rel <= BF16_TOL
+                and dw_rel <= BWD_TOL and same and f32_err <= BF16_VS_F32):
+            raise AssertionError(f"a bf16 GRU kernel disagrees with its twin: {fwd_err}, "
+                                 f"{hp_rel}, {bwd_rel}, {dw_rel}, {same}, {f32_err}")
+        errs[f"gru_fwd{suffix}_bf16"] = max(errs[f"gru_fwd{suffix}_bf16"], fwd_err)
+        errs[f"gru_bwd{suffix}_bf16"] = max(errs[f"gru_bwd{suffix}_bf16"],
+                                            (dxp.float() - want_dxp.float()).abs().max().item())
+        errs[f"gru_dw{suffix}_bf16"] = max(errs[f"gru_dw{suffix}_bf16"],
+                                           (dw - want_dw).abs().max().item(),
+                                           (db - want_db).abs().max().item())
     return errs
 
 
@@ -350,7 +527,7 @@ def v1_kernel_phase(device) -> dict:
 
     errs = {"gru_fwd_v1": 0.0, "gru_bwd_v1": 0.0, "gru_dw_v1": 0.0}
     T, H, D = 34, 300, 2
-    before = (gru_cuda.v1_launches, gru_cuda.v1_bwd_launches, gru_cuda.v1_dw_launches)
+    before = [_counters()[k] for k in errs]
     for B in (1, 512):
         xw, w_hh, b_hh, (xp, b_ih) = v1_inputs(T, B, 600, H, D, seed=31 + B, device=device)
         ys, hp = gru_cuda.run_layer_forward(xw, w_hh, b_hh, save_hp=True)
@@ -401,41 +578,47 @@ def v1_kernel_phase(device) -> dict:
         errs["gru_bwd_v1"] = max(errs["gru_bwd_v1"], err)
         errs["gru_dw_v1"] = max(errs["gru_dw_v1"], (dw - want_dw).abs().max().item(),
                                 (db - want_db).abs().max().item())
-    after = (gru_cuda.v1_launches, gru_cuda.v1_bwd_launches, gru_cuda.v1_dw_launches)
+    after = [_counters()[k] for k in errs]
     if not all(a > b for a, b in zip(after, before)):
         raise AssertionError(f"the v1 launch counters did not rise: {before} -> {after}")
     return errs
 
 
-def v1_path_phase(device) -> dict:
+def v1_path_phase(device, dtype_name: str = "float32") -> dict:
     """`gru_cuda.run_layer`, the v1 layer's public entry (a drop-in for one
-    layer of the scan engine), at the generator's training shape: the
-    layer's input projection with b_ih, direction 1 time-reversed, the
-    layer, a loss on ys and h_last, and the backward to the input and every
-    weight. The v1 counters are set to 0 just before and read just after:
-    its three kernels must have run."""
+    layer of the scan engine), at the generator's training shape in
+    float32 or bf16 (`dtype_name`): the layer's input projection with b_ih,
+    direction 1 time-reversed, the layer, a loss on ys and h_last, and the
+    backward to the input and every weight. The counters are set to 0 just
+    before and read just after: the three kernels of that dtype must have
+    run."""
     import torch
     from speech2affective_gestures_torch.ops import gru_cuda
 
+    dtype = getattr(torch, dtype_name)
+    suffix = "_bf16" if dtype == torch.bfloat16 else ""
     T, B, cin, H, D = 34, 512, 600, 300, 2
     g = torch.Generator().manual_seed(41)
     bound = H ** -0.5
-    x = torch.randn(T, B, cin, generator=g).to(device).requires_grad_()
+    x = torch.randn(T, B, cin, generator=g).to(device, dtype).requires_grad_()
     w_ih, w_hh, b_ih, b_hh = (
-        torch.empty(shape).uniform_(-bound, bound, generator=g).to(device).requires_grad_()
+        torch.empty(shape).uniform_(-bound, bound, generator=g).to(device, dtype)
+        .requires_grad_()
         for shape in ((D, 3 * H, cin), (D, H, 3 * H), (D, 3 * H), (D, 3 * H)))
-    gru_cuda.v1_launches = gru_cuda.v1_bwd_launches = gru_cuda.v1_dw_launches = 0
+    _reset_counters()
     xp = torch.einsum("tbc,dkc->tdbk", x, w_ih) + b_ih[:, None, :]
     xp = torch.stack([xp[:, 0], xp[:, 1].flip(0)], dim=1).contiguous()
     ys, h_last = gru_cuda.run_layer(xp, w_hh, b_hh)
-    (ys.square().mean() + h_last.sum()).backward()
+    (ys.float().square().mean() + h_last.float().sum()).backward()
     torch.cuda.synchronize()
-    launches = {"gru_fwd_v1": gru_cuda.v1_launches, "gru_bwd_v1": gru_cuda.v1_bwd_launches,
-                "gru_dw_v1": gru_cuda.v1_dw_launches}
-    finite = all(bool(t.grad.isfinite().all()) for t in (x, w_ih, w_hh, b_ih, b_hh))
-    log(f"v1 path (run_layer under autograd, T={T} B={B} H={H} D={D}): launches "
-        f"{launches}; every gradient finite {finite}")
-    if not finite or min(launches.values()) < 1:
+    counts = _counters()
+    launches = {k + suffix: counts[k + suffix] for k in ("gru_fwd_v1", "gru_bwd_v1",
+                                                        "gru_dw_v1")}
+    finite = all(bool(t.grad.isfinite().all()) and t.grad.dtype == dtype
+                 for t in (x, w_ih, w_hh, b_ih, b_hh))
+    log(f"v1 path (run_layer under autograd, {dtype_name}, T={T} B={B} H={H} D={D}): "
+        f"launches {dict(counts)}; every gradient finite and {dtype_name} {finite}")
+    if not finite or min(launches.values()) < 1 or sum(counts.values()) != 3:
         raise AssertionError(f"run_layer did not run its kernels: {launches}, finite {finite}")
     return launches
 
@@ -502,6 +685,19 @@ def post(server, path, payload):
     return data
 
 
+def get(server, path):
+    conn = http.client.HTTPConnection(*server.server_address, timeout=600)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        data = json.loads(resp.read())
+    finally:
+        conn.close()
+    if resp.status != 200:
+        raise AssertionError(f"{path} answered {resp.status}: {data}")
+    return data
+
+
 def unb64(blob, shape):
     return np.frombuffer(base64.b64decode(blob), "<f4").reshape(shape)
 
@@ -512,7 +708,6 @@ def service_phase(device):
     from speech2affective_gestures_torch.config import ModelConfig
     from speech2affective_gestures_torch.data.vocab import placeholder_vocab
     from speech2affective_gestures_torch.models.generator import build_generator
-    from speech2affective_gestures_torch.ops import gru_cuda, mel_cuda
     from speech2affective_gestures_torch.train import synthesis
 
     cfg = ModelConfig.from_yaml(CONFIG)
@@ -532,15 +727,14 @@ def service_phase(device):
     service.warmup()
     server = serve.serve(service, port=0)
     try:
-        gru_cuda.launches = 0
-        mel_cuda.launches = 0
+        _reset_counters()
         one = post(server, "/synthesize", {
             "audio_b64": serve.encode_f32_b64(single), "words": words,
             "vid_idx": 3, "binary": True})
-        after_one = {"gru_fwd": gru_cuda.launches, "mel_power": mel_cuda.launches}
+        after_one = {k: _counters()[k] for k in ("gru_fwd", "mel_power")}
         many = post(server, "/synthesize_batch", {"requests": batch,
                                                   "binary": True})
-        launches = {"gru_fwd": gru_cuda.launches, "mel_power": mel_cuda.launches}
+        launches = {k: _counters()[k] for k in ("gru_fwd", "mel_power")}
     finally:
         server.shutdown()
         server.server_close()
@@ -693,25 +887,152 @@ def profile_device(label: str, unit: str, fn, n: int = 3) -> None:
         log(f"  {_device_us(e) / 1e3 / n:8.3f} ms {e.count / n:6.1f}x  {e.key[:90]}")
 
 
-def _counters() -> dict:
+def _counters() -> collections.Counter:
+    """Each kernel instance's launches since the last reset, under its name
+    in the kernels line: the GRU kernels' float32 instances by kernel
+    ("gru_fwd", "gru_bwd_v1", ...), their bf16 instances with "_bf16"
+    ("gru_fwd_bf16", ...); the mel kernel's FFT tier "mel_power", its DFT
+    tier "mel_dft". Absent names read 0."""
     from speech2affective_gestures_torch.ops import gru_cuda, mel_cuda
 
-    return {"gru_fwd": gru_cuda.launches, "gru_bwd": gru_cuda.bwd_launches,
-            "gru_dw": gru_cuda.dw_launches, "mel_power": mel_cuda.launches}
+    out = collections.Counter()
+    for (kernel, dtype), n in gru_cuda.launches.items():
+        out[kernel + ("_bf16" if dtype == "bfloat16" else "")] += n
+    out["mel_power"] += mel_cuda.launches[("mel_fft", "float32")]
+    out["mel_dft"] += mel_cuda.launches[("mel_dft", "float32")]
+    return out
 
 
 def _reset_counters() -> None:
     from speech2affective_gestures_torch.ops import gru_cuda, mel_cuda
 
-    gru_cuda.launches = gru_cuda.bwd_launches = gru_cuda.dw_launches = 0
-    mel_cuda.launches = 0
+    gru_cuda.launches.clear()
+    mel_cuda.launches.clear()
 
 
-def training_phase(device, work: pathlib.Path, embedding_net: pathlib.Path):
+def mel_path_phase(device) -> dict:
+    """`ops.dsp.mel_power_spectrogram`, the port's mel entry point, on a
+    30 s clip at WHISPER_MEL's settings (n_fft 400: the mel kernel's DFT
+    tier). The counters are set to 0 just before and read just after: the
+    DFT tier must have run. The output against the CPU plain path within
+    MEL_RTOL of each value plus MEL_FLOOR of the largest."""
+    import torch
+    from speech2affective_gestures_torch.ops import dsp
+
+    kw = {k: v for k, v in WHISPER_MEL.items() if k != "seconds"}
+    y = torch.from_numpy(clip_audio(WHISPER_MEL["seconds"], 5))
+    _reset_counters()
+    got = dsp.mel_power_spectrogram(y.to(device), sr=16000, **kw)
+    torch.cuda.synchronize()
+    launches = {"mel_dft": _counters()["mel_dft"]}
+    want = dsp.mel_power_spectrogram(y, sr=16000, **kw)
+    ok = bool(((got.cpu() - want).abs()
+               <= MEL_RTOL * want.abs() + MEL_FLOOR * want.abs().max()).all())
+    log(f"mel path (dsp.mel_power_spectrogram, {WHISPER_MEL}): output {tuple(got.shape)}, "
+        f"launches {dict(_counters())}; against the CPU plain path max_abs_err="
+        f"{(got.cpu() - want).abs().max().item():.3e} (max {want.abs().max().item():.3e}), "
+        f"within tolerance {ok}")
+    if not (ok and launches["mel_dft"] >= 1 and got.isfinite().all()):
+        raise AssertionError(f"the mel entry point failed at n_fft 400: {launches}, {ok}")
+    return launches
+
+
+def _scaled_copy(model, factor: float):
+    """A copy of `model` with every parameter times `factor`."""
+    import torch
+
+    model = copy.deepcopy(model)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.mul_(factor)
+    return model
+
+
+def bf16_service_phase(device) -> dict:
+    """The service at `precision="bf16"` (`serve --serve-precision bf16`):
+    the full-width generator of `service_phase` with its weights scaled by
+    MP_SCALE behind the HTTP server. /healthz and /metrics report bf16; the
+    counters are set to 0 just before a /synthesize of a 10 s clip and read
+    just after: the GRU forward's bf16 instance and the mel kernel (the
+    MFCC front-end stays float32) must have run, the forward's float32
+    instance not. The output against the CPU bf16 path (same weights and
+    noise) within MP_TOL of its largest value; its distance from the
+    card's float32 service is logged. Then the p50 and p90 of /synthesize
+    and its device profile."""
+    from speech2affective_gestures_torch import serve
+    from speech2affective_gestures_torch.config import ModelConfig
+    from speech2affective_gestures_torch.data.vocab import placeholder_vocab
+    from speech2affective_gestures_torch.models.generator import build_generator
+
+    cfg = ModelConfig.from_yaml(CONFIG)
+    vocab = placeholder_vocab(1000)
+    gen = _scaled_copy(build_generator(cfg, vocab.n_words, 100, device=device, seed=0),
+                       MP_SCALE)
+    words = [[f"<w{5 + i}>", 0.4 + 0.9 * i, 0.8 + 0.9 * i] for i in range(12)]
+    single = clip_audio(10.0, 1)
+    service = serve.SynthesisService(cfg, gen, vocab, seed=0, precision="bf16")
+    service.warmup()
+    server = serve.serve(service, port=0)
+    try:
+        health = get(server, "/healthz")
+        _reset_counters()
+        one = post(server, "/synthesize", {
+            "audio_b64": serve.encode_f32_b64(single), "words": words,
+            "vid_idx": 3, "binary": True})
+        counts = _counters()
+        metrics = get(server, "/metrics")
+    finally:
+        server.shutdown()
+        server.server_close()
+    launches = {k: counts[k] for k in ("gru_fwd_bf16", "mel_power")}
+    log(f"bf16 service: /healthz {health}; /synthesize launches {dict(counts)}; "
+        f"/metrics precision {metrics['synthesize']['precision']}")
+    if (health["precision"] != "bf16" or metrics["synthesize"]["precision"] != "bf16"
+            or min(launches.values()) < 1 or counts["gru_fwd"] != 0):
+        raise AssertionError(f"the bf16 service did not run its bf16 kernels: "
+                             f"{health}, {dict(counts)}")
+    dv = unb64(one["dir_vec_b64"], one["dir_vec_shape"])
+    ps = unb64(one["poses_b64"], one["poses_shape"])
+    runs = {}
+    for label, svc in (("CPU bf16", serve.SynthesisService(
+            cfg, copy.deepcopy(gen).cpu(), vocab, seed=0, precision="bf16")),
+            ("card float32", serve.SynthesisService(cfg, gen, vocab, seed=0))):
+        svc.warmup()
+        runs[label] = svc.synthesize(single, words, vid_idx=3)
+    want = runs["CPU bf16"]
+    err = max(_rel_np(dv, want["dir_vec"]), _rel_np(ps, want["poses"]))
+    f32_dev = max(_rel_np(dv, runs["card float32"]["dir_vec"]),
+                  _rel_np(ps, runs["card float32"]["poses"]))
+    log(f"bf16 service card vs CPU bf16 path (weights x{MP_SCALE}): relative to the "
+        f"largest value {err:.3e} (tol {MP_TOL}); card bf16 vs card float32 {f32_dev:.3e}")
+    if not (np.isfinite(dv).all() and err <= MP_TOL):
+        raise AssertionError(f"the bf16 service disagrees with the CPU bf16 path: {err}")
+    times = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        service.synthesize(single, words, vid_idx=3)
+        times.append((time.perf_counter() - t0) * 1e3)
+    log(f"bf16 synthesize 10 s clip (5 windows, bucket 8): p50 {np.median(times):.3f} ms, "
+        f"p90 {np.percentile(times, 90):.3f} ms over {len(times)} requests; all "
+        f"{[round(t, 3) for t in times]}")
+    profile_requests(service, single, words)
+    return launches
+
+
+def _rel_np(got, want) -> float:
+    return float(np.abs(np.asarray(got) - np.asarray(want)).max()
+                 / max(np.abs(np.asarray(want)).max(), 1e-30))
+
+
+def training_phase(device, work: pathlib.Path, embedding_net: pathlib.Path,
+                   mixed_precision: bool = False):
     """`main_v2.main` on the card: the paper's GAN at full width, batch 512,
     one epoch with the GAN terms on from the first step, then the test
-    split scored with FGD by the card-trained embedding net. Returns the
-    trainer and each kernel's launches in training and in the scoring."""
+    split scored with FGD by the card-trained embedding net. With
+    `mixed_precision` (`--mixed-precision true`) the train steps run at
+    bf16: the GRU kernels' bf16 instances must run in training and only
+    the float32 ones in the scoring. Returns the trainer and each kernel's
+    launches in training and in the scoring."""
     import torch
     import yaml
     from speech2affective_gestures_torch import main_v2
@@ -721,12 +1042,13 @@ def training_phase(device, work: pathlib.Path, embedding_net: pathlib.Path):
     raw["loss_warmup"] = -1       # epoch 0 > -1: the discriminator runs
     cfg_path = work / "multimodal_context_v2_gan_on.yml"
     cfg_path.write_text(yaml.safe_dump(raw))
-    base = work / "base"
+    base = work / ("base_bf16" if mixed_precision else "base")
     argv = ["-b", str(base), "-c", str(cfg_path), "--synthetic-data", "true",
             "--synthetic-videos", str(TRAIN_VIDEOS), "--synthetic-seconds",
             str(TRAIN_SECONDS), "--batch-size", str(TRAIN_BATCH),
             "--s2ag-num-epoch", "1", "--log-interval", "1",
-            "--embedding-net-checkpoint", str(embedding_net)]
+            "--embedding-net-checkpoint", str(embedding_net),
+            "--mixed-precision", str(mixed_precision).lower()]
     log(f"training phase: main_v2.main({' '.join(argv)})")
     # the counters are read, and set to 0 again, just before main_v2 scores
     # the test split, and read just after
@@ -755,13 +1077,15 @@ def training_phase(device, work: pathlib.Path, embedding_net: pathlib.Path):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, evaluated = counts["training"], counts["evaluation"]
-    log(f"training launches: {launches}; test-split scoring launches: {evaluated}; "
+    log(f"training launches{' (mixed precision)' if mixed_precision else ''}: "
+        f"{dict(launches)}; test-split scoring launches: {dict(evaluated)}; "
         f"main_v2.main took {wall:.1f} s in all")
+    suffix = "_bf16" if mixed_precision else ""
     for name in ("gru_fwd", "gru_bwd", "gru_dw"):
-        if launches[name] < 1:
-            raise AssertionError(f"kernel {name} was not launched in training")
-    if evaluated["gru_fwd"] < 1:
-        raise AssertionError("gru_fwd was not launched in generate_gestures")
+        if launches[name + suffix] < 1:
+            raise AssertionError(f"kernel {name + suffix} was not launched in training")
+    if evaluated["gru_fwd"] < 1 or any(k.endswith("_bf16") and n for k, n in evaluated.items()):
+        raise AssertionError(f"generate_gestures did not run float32 alone: {evaluated}")
     if trainer.device.type != device.type:
         raise AssertionError(f"main_v2 trained on {trainer.device}, not the card")
 
@@ -788,7 +1112,7 @@ def training_phase(device, work: pathlib.Path, embedding_net: pathlib.Path):
     if (set(scores) != {"l1", "joint_mae", "accel", "FGD", "feat_dist"}
             or not np.isfinite(list(scores.values())).all()):
         raise AssertionError(f"bad test-split scores: {scores}")
-    return trainer, {k: launches[k] + evaluated[k] for k in launches}
+    return trainer, launches + evaluated
 
 
 def time_generate_gestures(trainer, n: int = 3) -> None:
@@ -1031,10 +1355,78 @@ def step_parity_phase(device) -> None:
         raise AssertionError(f"card step disagrees with the CPU step: {errs['card']}")
 
 
-def bound(nbytes, flops):
+def mixed_step_parity_phase(device) -> None:
+    """One mixed-precision train step (`builder.mixed_precision_apply` over
+    the three nets) at full width and batch 16 on the card and on the CPU
+    bf16 path (the GRU's plain versions at the kernels' rounding points),
+    from the same weights scaled by MP_SCALE, batch, speaker noise and
+    div-reg speaker ids, every dropout at zero: the step's metrics within
+    MP_TOL (each relative to its own value, plus 5e-4 absolute); the
+    generator's GRU and head Adam first moments logged. The same at the
+    unscaled weights is logged as information only."""
+    import torch
+    from speech2affective_gestures_torch.config import ModelConfig
+    from speech2affective_gestures_torch.models import layers as L
+    from speech2affective_gestures_torch.train import builder, gan_step
+
+    cfg = ModelConfig.from_yaml(CONFIG, loss_warmup=-1)
+    n_words, n_speakers, B = 1000, 100, 16
+    init = builder.init_training(cfg, 0, n_words, n_speakers, device="cpu")
+    for model in (init["gen"], init["dis"], init["tri"]):
+        for m in model.modules():
+            if isinstance(m, L.Dropout):
+                m.p = 0.0
+            elif isinstance(m, L.GRU):
+                m.dropout = 0.0
+    rng = np.random.default_rng(1)
+    batch = builder.synthetic_batch(rng, B, cfg, n_words, n_speakers)
+    eps = torch.from_numpy(rng.standard_normal((B, 16)).astype(np.float32))
+    other = rng.permutation(batch["vid_indices"])
+
+    def one_step(dev, scale):
+        models = {k: _scaled_copy(init[k], scale).to(dev) for k in ("gen", "dis", "tri")}
+        step = gan_step.GanStep(models["gen"], models["dis"], init["gan_cfg"], models["tri"],
+                                train_apply=builder.mixed_precision_apply)
+        t0 = time.perf_counter()
+        metrics = step.train_step(builder.to_device(batch, dev),
+                                  torch.Generator(device=dev).manual_seed(0),
+                                  gan_on=True, eps=eps.to(dev))
+        metrics = {k: float(v) for k, v in metrics.items()}
+        log(f"one mixed-precision train step, batch {B}, weights x{scale}, on {dev}: "
+            f"{(time.perf_counter() - t0) * 1e3:.1f} ms; {metrics}")
+        return step, metrics
+
+    draw = gan_step.draw_other_speaker_ids
+    gan_step.draw_other_speaker_ids = (
+        lambda g, vids, n: torch.as_tensor(other, device=vids.device))
+    try:
+        for scale in (MP_SCALE, 1.0):
+            card_step, got = one_step(device, scale)
+            cpu_step, want = one_step(torch.device("cpu"), scale)
+            metric = max(abs(got[k] - want[k]) / (abs(want[k]) + 5e-4 / MP_TOL)
+                         for k in want) if set(got) == set(want) else np.inf
+            moments = max(
+                _rel(card_step.gen_opt.state[p]["exp_avg"].cpu(), cpu_step.gen_opt.state[q]["exp_avg"])
+                for (name, p), q in zip(card_step.gen.named_parameters(),
+                                        cpu_step.gen.parameters())
+                if name.startswith(("gru.", "out")))
+            log(f"mixed-precision step card vs CPU bf16 path, weights x{scale}: metrics "
+                f"{metric:.3e} relative (tol {MP_TOL} at x{MP_SCALE}; information only at "
+                f"x1.0); generator GRU and head Adam first moments, worst relative to the "
+                f"tensor's largest {moments:.3e}")
+            if scale == MP_SCALE and not metric <= MP_TOL:
+                raise AssertionError(f"the card's mixed-precision step disagrees with the "
+                                     f"CPU bf16 path: {metric}")
+    finally:
+        gan_step.draw_other_speaker_ids = draw
+
+
+def bound(nbytes, flops, peak_flops=PEAK_F32_FLOPS):
     """The least time of a function on the card: its bytes over the memory
-    rate or its float32 operations over the peak, whichever is larger."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32_FLOPS * 1e3
+    rate or its operations over the peak rate of their type (float32
+    outside the tensor cores; PEAK_BF16_FLOPS for bf16), whichever is
+    larger."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / peak_flops * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -1068,7 +1460,7 @@ def cudnn_recurrent_bwd(lib, x, dys, dh) -> tuple[float, float]:
     w_ih = torch.cat([lib.weight_ih_l0, lib.weight_ih_l0_reverse]).detach()
     xd = x.detach()
     T, B, cin = x.shape
-    dxp = torch.randn(T, B, w_ih.shape[0], device=x.device)
+    dxp = torch.randn(T, B, w_ih.shape[0], device=x.device, dtype=x.dtype)
     leaves = [x, *lib.parameters()]
 
     def full():
@@ -1085,14 +1477,14 @@ def cudnn_recurrent_bwd(lib, x, dys, dh) -> tuple[float, float]:
             device_ms(full, n=10) - device_ms(fwd, n=10) - device_ms(proj_bwd, n=10))
 
 
-def rfft_mel(frames):
+def rfft_mel(frames, n_mels: int = 128):
     """The mel kernel's library yardstick on frames (R, n_fft), as a
     function of no arguments: `torch.fft.rfft`, the power, and the product
-    with the dense filterbank (16 kHz, 128 mels)."""
+    with the dense filterbank (16 kHz, n_mels mels)."""
     import torch
     from speech2affective_gestures_torch.ops import dsp_ref
 
-    fb = dsp_ref.mel_filterbank(16000, frames.shape[-1], 128).T.astype(np.float32)
+    fb = dsp_ref.mel_filterbank(16000, frames.shape[-1], n_mels).T.astype(np.float32)
     fb = torch.from_numpy(np.ascontiguousarray(fb)).to(frames.device)
 
     def run():
@@ -1374,6 +1766,142 @@ def v1_timing(device, lt) -> list:
     return rows
 
 
+def bf16_timing(device) -> list:
+    """The GRU kernels' bf16 instances at the generator's training shape
+    (T 34, B 512, H 300, D 2, layer input 600), model and walk layouts:
+    rows as `bwd_timing`'s with the bf16 peak, bounds of bf16 bytes (hp
+    float32, dW_hh and db_hh float32) and of the products' operations at
+    the tensor-core rate; library times cuDNN's bf16 `nn.GRU` less its
+    input projection (forward; backward with dW_hh) and cuBLAS's bf16 dW
+    product on prepared operands. Log lines for the forward at B 1 and at
+    the discriminator's H 64."""
+    import torch
+    from speech2affective_gestures_torch.ops import gru_cuda
+
+    bf16 = torch.bfloat16
+    fwd_src = "speech2affective_gestures_torch/csrc/gru_fwd.cu"
+    bwd_src = "speech2affective_gestures_torch/csrc/gru_bwd.cu"
+    tpu = "speech2affective_gestures_tpu/ops/gru_pallas.py"
+    T, B, H, D, cin = 34, 512, 300, 2, 600
+    xp, w_hh, b_ih, b_hh = (t.to(bf16).contiguous()
+                            for t in gru_inputs(T, B, cin, H, D, seed=9, device=device))
+    g = torch.Generator().manual_seed(9)
+    dys = torch.randn(T, B, D * H, generator=g).to(device, bf16)
+    dh = torch.randn(D, B, H, generator=g).to(device, bf16)
+    ys, _, hp = gru_cuda.gru_layer_forward(xp, w_hh, b_ih, b_hh, save_hp=True)
+    dxp, gn = gru_cuda.gru_bwd_recurrence(xp, w_hh, b_ih, b_hh, ys, dys, hp)
+    fwd = lambda: gru_cuda.gru_layer_forward(xp, w_hh, b_ih, b_hh)  # noqa: E731
+    rec = lambda: gru_cuda.gru_bwd_recurrence(xp, w_hh, b_ih, b_hh, ys, dys, hp)  # noqa: E731
+    dw = lambda: gru_cuda.gru_dw(ys, dxp, gn, D)  # noqa: E731
+    times = {name: (time_ms(fn, iters=10), device_ms(fn, n=10))
+             for name, fn in (("fwd", fwd), ("rec", rec), ("dw", dw))}
+    plain = {"fwd": time_ms(lambda: gru_cuda.gru_layer_plain(xp, w_hh, b_ih, b_hh), iters=5),
+             "rec": time_ms(lambda: gru_cuda.gru_bwd_recurrence_plain(
+                 xp, w_hh, b_ih, b_hh, ys, dys, hp), iters=5),
+             "dw": time_ms(lambda: gru_cuda.gru_dw_plain(ys, dxp, gn, D), iters=10)}
+    # cuDNN's bf16 GRU at the layer's width, less its input projection
+    torch.manual_seed(9)
+    lib = torch.nn.GRU(cin, H, bidirectional=True).to(device, bf16)
+    x = torch.randn(T, B, cin, generator=g).to(device, bf16)
+    lib_fwd = cudnn_recurrent_fwd(lib, x)
+    lib_bwd = cudnn_recurrent_bwd(lib, x.clone().requires_grad_(), dys, dh)
+    hprev = gru_cuda._prev_states(ys, D).contiguous()
+    g_op = torch.cat([dxp.view(T, B, D, 3 * H)[..., :2 * H], gn.view(T, B, D, H)],
+                     dim=-1).contiguous()
+
+    def cublas():
+        return torch.einsum("tbdk,tbdj->dkj", hprev, g_op)
+
+    lib_dw = (time_ms(cublas, iters=10), device_ms(cublas, n=10))
+    n_prod = 2 * T * B * D * H * 3 * H
+    fwd_flops = n_prod + T * B * D * 15 * H
+    rec_flops = n_prod + 30 * T * B * D * H
+    dw_flops = 2 * T * B * D * (H + 1) * 3 * H
+    # bf16 values 2 bytes, hp and the weight gradients 4
+    fwd_bytes = 2 * (xp.numel() + w_hh.numel() + b_ih.numel() + b_hh.numel()
+                     + ys.numel() + D * B * H)
+    rec_bytes = 2 * (2 * xp.numel() + 3 * ys.numel() + w_hh.numel() + b_ih.numel()) \
+        + 4 * hp.numel()
+    dw_bytes = 2 * (ys.numel() + 2 * xp.numel() // 3 + gn.numel()) \
+        + 4 * (w_hh.numel() + b_hh.numel())
+    rows = [
+        ("gru_fwd_bf16", fwd_src, f"{tpu}:338", times["fwd"][0], plain["fwd"], lib_fwd[0],
+         fwd_bytes, fwd_flops, times["fwd"][1], lib_fwd[1], PEAK_BF16_FLOPS),
+        ("gru_bwd_bf16", bwd_src, f"{tpu}:384", times["rec"][0], plain["rec"], lib_bwd[0],
+         rec_bytes, rec_flops, times["rec"][1], lib_bwd[1], PEAK_BF16_FLOPS),
+        ("gru_dw_bf16", bwd_src, f"{tpu}:432", times["dw"][0], plain["dw"], lib_dw[0],
+         dw_bytes, dw_flops, times["dw"][1], lib_dw[1], PEAK_BF16_FLOPS),
+    ]
+    f32 = gru_inputs(T, B, cin, H, D, seed=9, device=device)
+    log(f"gru bf16 T={T} B={B} H={H} D={D}: forward {times['fwd']} ms (events, device), "
+        f"float32 forward by device time "
+        f"{device_ms(lambda: gru_cuda.gru_layer_forward(*f32), n=10):.4f}; recurrence "
+        f"{times['rec']}; dW {times['dw']}; cuDNN bf16 recurrent forward {lib_fwd}, "
+        f"backward with dW_hh {lib_bwd}; cuBLAS bf16 dW product {lib_dw}")
+    for fb, fh, fc in ((1, 300, 600), (258, 300, 600), (512, 64, 128)):
+        a = [t.to(bf16).contiguous() for t in gru_inputs(T, fb, fc, fh, D, seed=9,
+                                                         device=device)]
+        log(f"gru_fwd_bf16 T={T} B={fb} H={fh} D={D}: "
+            f"{time_ms(lambda: gru_cuda.gru_layer_forward(*a)):.4f} ms, by device time "
+            f"{device_ms(lambda: gru_cuda.gru_layer_forward(*a)):.4f} ms; plan "
+            f"{gru_cuda._device_plan(device, fb, fh, D, bf16)._asdict()}")
+    # the walk layout's instances at the same shape
+    xw, wv, bv = (t.to(bf16).contiguous()
+                  for t in v1_inputs(T, B, cin, H, D, seed=9, device=device)[:3])
+    yw, hpw = gru_cuda.run_layer_forward(xw, wv, bv, save_hp=True)
+    dyw = torch.randn(T, D, B, H, generator=g).to(device, bf16)
+    dxw, gnw = gru_cuda.run_layer_bwd_recurrence(xw, wv, bv, yw, dyw, hpw)
+    v1 = {"fwd": lambda: gru_cuda.run_layer_forward(xw, wv, bv),
+          "rec": lambda: gru_cuda.run_layer_bwd_recurrence(xw, wv, bv, yw, dyw, hpw),
+          "dw": lambda: gru_cuda.run_layer_dw(yw, dxw, gnw)}
+    v1_plain = {"fwd": lambda: gru_cuda.run_layer_plain(xw, wv, bv),
+                "rec": lambda: gru_cuda.run_layer_bwd_recurrence_plain(xw, wv, bv, yw, dyw,
+                                                                       hpw),
+                "dw": lambda: gru_cuda.run_layer_dw_plain(yw, dxw, gnw)}
+    for name, key, replaces, src, nb, fl, lib_t in (
+            ("gru_fwd_v1_bf16", "fwd", f"{tpu}:66", fwd_src, fwd_bytes, fwd_flops, lib_fwd),
+            ("gru_bwd_v1_bf16", "rec", f"{tpu}:123", bwd_src, rec_bytes, rec_flops, lib_bwd),
+            ("gru_dw_v1_bf16", "dw", f"{tpu}:178", bwd_src, dw_bytes, dw_flops, lib_dw)):
+        rows.append((name, src, replaces, time_ms(v1[key], iters=10),
+                     time_ms(v1_plain[key], iters=5), lib_t[0], nb, fl,
+                     device_ms(v1[key], n=10), lib_t[1], PEAK_BF16_FLOPS))
+    return rows
+
+
+def mel_dft_timing(device) -> tuple:
+    """The mel kernel's DFT tier at WHISPER_MEL's shape (a 30 s clip's
+    frames, n_fft 400, 80 bands): a row as `bwd_timing`'s, the library
+    time `rfft` + power + mel product; log lines for the other n_fft."""
+    from speech2affective_gestures_torch.ops import mel_cuda
+
+    n_fft, n_mels = WHISPER_MEL["n_fft"], WHISPER_MEL["n_mels"]
+    rows = int(WHISPER_MEL["seconds"] * 16000) // WHISPER_MEL["hop_length"]
+    frames = speech_frames(rows, device, n_fft)
+    fn = lambda: mel_cuda.mel_power(frames, n_mels=n_mels)  # noqa: E731
+    ms, dev = time_ms(fn), device_ms(fn)
+    plain = time_ms(lambda: mel_cuda.mel_power_plain(frames, n_mels=n_mels))
+    lib = rfft_mel(frames, n_mels)
+    lib_ms, lib_dev = time_ms(lib), device_ms(lib)
+    nnz = int(np.count_nonzero(mel_cuda.dft_constants(16000, n_fft, n_mels)[2]))
+    n_bins = n_fft // 2 + 1
+    # the least work: a real FFT of each row (5 (n/2) log2 n), the power of
+    # each bin, the filterbank's nonzeros; bytes: the frames, the
+    # filterbank's nonzeros, the output
+    flops = rows * (5 * (n_fft // 2) * np.log2(n_fft) + 3 * n_bins + 2 * nnz)
+    nbytes = 4 * (frames.numel() + nnz + rows * n_mels)
+    log(f"mel_dft R={rows} n_fft={n_fft} n_mels={n_mels}: {ms:.4f} ms, by device time "
+        f"{dev:.4f} ms; plain {plain:.4f} ms; rfft mel {lib_ms:.4f} ms, by device time "
+        f"{lib_dev:.4f} ms; plan {mel_cuda.mel_plan(rows, n_fft, n_mels)._asdict()}")
+    for r, nf, nm in MEL_OTHER_SHAPES:
+        f = speech_frames(r, device, nf)
+        log(f"mel_power R={r} n_fft={nf} n_mels={nm} ({mel_cuda.mel_plan(r, nf, nm).tier} "
+            f"tier): by device time {device_ms(lambda: mel_cuda.mel_power(f, n_mels=nm)):.4f}"
+            f" ms, rfft mel {device_ms(rfft_mel(f, nm)):.4f} ms")
+    return ("mel_dft", "speech2affective_gestures_torch/csrc/mel_power.cu",
+            "speech2affective_gestures_tpu/ops/dsp_pallas.py:57", ms, plain, lib_ms,
+            nbytes, float(flops), dev, lib_dev)
+
+
 def timing_phase(device, errs, launches) -> list[dict]:
     import torch
     from speech2affective_gestures_torch.ops import gru_cuda, mel_cuda
@@ -1425,15 +1953,15 @@ def timing_phase(device, errs, launches) -> list[dict]:
     # ms and library_ms are CUDA-event means (the wrapper's host cost
     # included where the kernel is shorter); device_ms and
     # library_device_ms the profiler's kernel time per call, where measured
-    for name, source, replaces, ms, plain, lib_ms, nbytes, flops, dev, lib_dev in (
+    for name, source, replaces, ms, plain, lib_ms, nbytes, flops, dev, lib_dev, *peak in (
             ("gru_fwd", "speech2affective_gestures_torch/csrc/gru_fwd.cu",
              "speech2affective_gestures_tpu/ops/gru_pallas.py:338",
              gru_ms, gru_plain_ms, gru_lib_ms, gru_bytes, gru_flops, gru_dev, gru_lib_dev),
             ("mel_power", "speech2affective_gestures_torch/csrc/mel_power.cu",
              "speech2affective_gestures_tpu/ops/dsp_pallas.py:57",
              mel_ms, mel_plain_ms, mel_lib_ms, mel_bytes, mel_flops, mel_dev, mel_lib_dev),
-            *bwd_timing(device)):
-        b_ms, b_by = bound(nbytes, flops)
+            mel_dft_timing(device), *bwd_timing(device), *bf16_timing(device)):
+        b_ms, b_by = bound(nbytes, flops, *peak)
         rows_out.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": errs[name], "ms": ms,
@@ -1483,21 +2011,33 @@ def main() -> int:
     errs = kernel_phase(device)
     errs.update(bwd_kernel_phase(device))
     errs.update(v1_kernel_phase(device))
-    served = service_phase(device)
-    v1_path = v1_path_phase(device)
+    errs.update(bf16_kernel_phase(device))
+    # each kernel's launches on the paths that run it: the service's two
+    # requests and the bf16 service's one, the training runs (float32 and
+    # mixed precision) with their test-split scoring, run_layer in float32
+    # and bf16, and the mel entry point at n_fft 400
+    launches = collections.Counter(service_phase(device))
+    launches.update(v1_path_phase(device))
+    launches.update(v1_path_phase(device, "bfloat16"))
+    launches.update(mel_path_phase(device))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as work:
         work = pathlib.Path(work)
         embedding_net = embedding_phase(device, work)
         trainer, trained = training_phase(device, work, embedding_net)
+        launches.update(trained)
         eval_parity_phase(trainer, work)
         time_generate_gestures(trainer)
         step_parity_phase(device)
-        time_train_step(trainer)
+        f32_p50 = time_train_step(trainer)
         del trainer
-    # each kernel's launches on the paths that run it: the service's two
-    # requests, the training run with its test-split scoring, and run_layer
-    launches = {k: served.get(k, 0) + trained.get(k, 0) for k in {*served, *trained}}
-    launches.update(v1_path)
+        trainer, trained = training_phase(device, work, embedding_net, mixed_precision=True)
+        launches.update(trained)
+        mp_p50 = time_train_step(trainer)
+        log(f"train step at batch {TRAIN_BATCH}: mixed precision p50 {mp_p50:.3f} ms "
+            f"against float32 {f32_p50:.3f} ms")
+        del trainer
+    mixed_step_parity_phase(device)
+    launches.update(bf16_service_phase(device))
     kernels = timing_phase(device, errs, launches)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

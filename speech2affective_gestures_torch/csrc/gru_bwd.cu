@@ -20,8 +20,8 @@
 // The gradient of b_ih is sum_{t,b} dxp, which the wrapper takes with a
 // plain reduction (the JAX package also sums dxp outside its kernel).
 //
-// Layouts (all float32, row-major, contiguous), the forward's two, chosen
-// by the template parameter WALK:
+// Layouts (row-major, contiguous), the forward's two, chosen by the
+// template parameter WALK:
 //   model layout (WALK = false): xp, hp, dxp (T, B, D*3H), xp without b_ih;
 //     ys, dys, gn (T, B, D*H) in forward time order; dys already holds the
 //     gradient of h_last, added by the wrapper at the frame that produced
@@ -30,10 +30,20 @@
 //     b_ih folded into xp (so there is no b_ih); ys, dys, gn (T, D, B, H),
 //     row s the walk's step s for both directions: h_prev of step s is row
 //     s - 1
-//   gn = dpre_n r; w_hh (D, H, 3H); b_ih (D, 3H); dw_hh (D, H, 3H), db_hh
-//   (D, 3H).
+//   gn = dpre_n r; w_hh (D, H, 3H); b_ih (D, 3H) or null (zero); dw_hh
+//   (D, H, 3H), db_hh (D, 3H).
 // In the walk layout db_hh's r and z parts are the sums of dxp's, as the
 // TPU kernel's fold of b_hh_r and b_hh_z into xp gives them.
+// Storage: float32 or bf16 (the template parameter V: xp, w_hh, b_ih, ys,
+// dys, dxp and gn; hp is the forward's float32). As the TPU kernel at bf16
+// (gru_pallas.py:405-431, :482): r, z, n recomputed as the forward's bf16
+// instance computed them (xp + b_ih rounded to bf16, the bias fold of
+// `gru_cuda.kernel_biases`), dh, the gate gradients, g and the carry in
+// float32 (its dh scratch is f32), g . W^T from float32 g and widened bf16
+// W, dxp and gn rounded to bf16 when stored. dW_hh and db_hh are float32
+// sums of the widened bf16 inputs; the wrapper rounds them to the
+// parameters' dtype. One step differs from the TPU kernel: its dW_hh sums
+// h_prev^T g with g in float32, here g is the stored bf16 dxp and gn.
 //
 // Kernel 1, the recurrence: the forward's cluster design turned round. One
 // cluster of C blocks per (batch tile, direction) runs the time loop; block
@@ -64,14 +74,20 @@
 // columns of j). Block tiles of 64 (k) x 128 (j), 256 threads with 4 x 8
 // outputs each (one float4 of h_prev and two of g from shared memory feed
 // 32 FMAs); the rows come through a 3-stage cp.async ring of 16 rows a
-// stage (16-byte copies where H % 4 == 0, 4-byte otherwise; zero-fill past
-// the data), one barrier a stage; each thread's row offsets advance by
+// stage (float32: 16-byte copies where H % 4 == 0, 4-byte otherwise; bf16:
+// 8-byte copies where H % 4 == 0, 4-byte where H % 2 == 0, else plain
+// loads, since at H 300 the second direction starts 600 bytes into a row;
+// zero-fill past the data), one barrier a stage (bf16: a second, after the
+// stage is widened once into float32 tiles, so that the product reads
+// float4s as the float32 instance does); each thread's row offsets advance by
 // arithmetic, with no table. The rows are cut into S consecutive splits;
 // one block per (tile, split) sums its split's rows in order into a partial
 // tile, and a second pass adds the S partials of each output in split
 // order: deterministic, no atomics. The plan (`gru_cuda.dw_plan`) takes S
 // so that about four blocks per SM are in flight. Bound: 2 T B D (H + 1) 3H
 // FLOP against the float32 rate; sums stay plain float32 FMAs (no TF32).
+
+#include <type_traits>
 
 #include "gru_cluster.cuh"
 
@@ -136,9 +152,9 @@ __device__ __forceinline__ void bwd_chunk_sums(const float* g, int GS,
 // chunk, rows RS and gates GS apart) in bwd_chunk_sums' order, each W value
 // (W[u]: unit u's row of W_hh at j = j0 of gate r, null when the lane has
 // no such unit) read once per group.
-template <int S>
+template <int S, typename V>
 __device__ __forceinline__ void bwd_chunk_sums_l2(const float* gg, int rows, int RS, int GS,
-                                                  const float* const (&W)[2], int j0, int kc,
+                                                  const V* const (&W)[2], int j0, int kc,
                                                   int H, float (&tot)[S][2]) {
   float acc[S][2][3];
 #pragma unroll
@@ -153,7 +169,7 @@ __device__ __forceinline__ void bwd_chunk_sums_l2(const float* gg, int rows, int
       for (int e = 0; e < 4; ++e) {
         const bool ok = W[u] != nullptr && j0 + q + e < H;
 #pragma unroll
-        for (int gt = 0; gt < 3; ++gt) w[u][gt][e] = ok ? __ldg(W[u] + gt * H + q + e) : 0.0f;
+        for (int gt = 0; gt < 3; ++gt) w[u][gt][e] = ok ? ld(W[u] + gt * H + q + e) : 0.0f;
       }
 #pragma unroll
     for (int i = 0; i < S; ++i) {
@@ -175,12 +191,12 @@ __device__ __forceinline__ void bwd_chunk_sums_l2(const float* gg, int rows, int
     for (int u = 0; u < 2; ++u) tot[i][u] = (acc[i][u][0] + acc[i][u][1]) + acc[i][u][2];
 }
 
-template <int S, int KC, bool WALK>
+template <typename V, int S, int KC, bool WALK>
 __global__ void __launch_bounds__(bwd_max_threads(KC), 1) gru_layer_bwd_kernel(
-    const float* __restrict__ xp, const float* __restrict__ w_hh,
-    const float* __restrict__ b_ih, const float* __restrict__ hp,
-    const float* __restrict__ ys, const float* __restrict__ dys,
-    float* __restrict__ dxp, float* __restrict__ gn, int T, int B, int H, int D, int U,
+    const V* __restrict__ xp, const V* __restrict__ w_hh,
+    const V* __restrict__ b_ih, const float* __restrict__ hp,
+    const V* __restrict__ ys, const V* __restrict__ dys,
+    V* __restrict__ dxp, V* __restrict__ gn, int T, int B, int H, int D, int U,
     int BT, int kc) {
   constexpr bool L2 = KC == 0;
   constexpr int P = 32 / S;      // pairs a warp
@@ -213,12 +229,12 @@ __global__ void __launch_bounds__(bwd_max_threads(KC), 1) gru_layer_bwd_kernel(
     for (int u = 0; u < 2; ++u) {
       const int k = u0 + 2 * pl + u;
       const bool active = pl < PP && 2 * pl + u < U && k < H;
-      const float* W = w_hh + ((size_t)d * H + k) * H3 + s * KC;
+      const V* W = w_hh + ((size_t)d * H + k) * H3 + s * KC;
 #pragma unroll
       for (int i = 0; i < KC; ++i) {
         const bool ok = active && s * KC + i < H;
 #pragma unroll
-        for (int gt = 0; gt < 3; ++gt) w[u][gt][i] = ok ? __ldg(W + gt * H + i) : 0.0f;
+        for (int gt = 0; gt < 3; ++gt) w[u][gt][i] = ok ? ld(W + gt * H + i) : 0.0f;
       }
     }
   }
@@ -251,7 +267,7 @@ __global__ void __launch_bounds__(bwd_max_threads(KC), 1) gru_layer_bwd_kernel(
         const int row = g0 + s;
         int uk[2];      // the thread's units in the block
         bool mine[2];   // (row, unit) is this lane's
-        const float* W[2];
+        const V* W[2];
         float x[2][3], hh[2][3], dy[2], h_prev[2];
         size_t xo[2], ho[2];
         // the lane's row: loaded before the product hides the latency
@@ -270,13 +286,13 @@ __global__ void __launch_bounds__(bwd_max_threads(KC), 1) gru_layer_bwd_kernel(
           if (mine[u]) {
 #pragma unroll
             for (int gt = 0; gt < 3; ++gt) {
-              x[u][gt] = __ldg(xp + xo[u] + gt * H);
-              if (!WALK) x[u][gt] += __ldg(b_ih + (size_t)d * H3 + gt * H + k);
+              const float bi = b_ih != nullptr ? ld(b_ih + (size_t)d * H3 + gt * H + k) : 0.0f;
+              x[u][gt] = rounded<V>(ld(xp + xo[u] + gt * H) + bi);
               hh[u][gt] = __ldg(hp + xo[u] + gt * H);
             }
-            dy[u] = __ldg(dys + ho[u]);
+            dy[u] = ld(dys + ho[u]);
             if (has_prev)
-              h_prev[u] = __ldg(ys + row_offset<WALK>(q, q, d, b0 + row, B, D, H) + k);
+              h_prev[u] = ld(ys + row_offset<WALK>(q, q, d, b0 + row, B, D, H) + k);
           }
         }
         float tot[2] = {0.0f, 0.0f};  // row g0 + s's g . W^T (zero g before the first step)
@@ -307,10 +323,10 @@ __global__ void __launch_bounds__(bwd_max_threads(KC), 1) gru_layer_bwd_kernel(
           const float dpre_n = dn * (1.0f - n * n);
           const float dpre_z = dz * z * (1.0f - z);
           const float dpre_r = dpre_n * hh[u][2] * r * (1.0f - r);
-          dxp[xo[u]] = dpre_r;
-          dxp[xo[u] + H] = dpre_z;
-          dxp[xo[u] + 2 * H] = dpre_n;
-          if (gn != nullptr) gn[ho[u]] = dpre_n * r;
+          dxp[xo[u]] = narrow<V>(dpre_r);
+          dxp[xo[u] + H] = narrow<V>(dpre_z);
+          dxp[xo[u] + 2 * H] = narrow<V>(dpre_n);
+          if (gn != nullptr) gn[ho[u]] = narrow<V>(dpre_n * r);
           g3[u][0] = dpre_r;
           g3[u][1] = dpre_z;
           g3[u][2] = dpre_n * r;
@@ -340,11 +356,11 @@ __global__ void __launch_bounds__(bwd_max_threads(KC), 1) gru_layer_bwd_kernel(
   }
 }
 
-template <int S, int KC, bool WALK>
-cudaError_t launch_bwd(const float* xp, const float* w_hh, const float* b_ih,
-                       const float* hp, const float* ys, const float* dys, float* dxp,
-                       float* gn, int T, int B, int H, int D, int C, int BT, int kc, int U,
-                       int threads, int smem, cudaStream_t stream) {
+template <typename V, int S, int KC, bool WALK>
+cudaError_t launch_bwd(const V* xp, const V* w_hh, const V* b_ih, const float* hp,
+                       const V* ys, const V* dys, V* dxp, V* gn, int T, int B, int H, int D,
+                       int C, int BT, int kc, int U, int threads, int smem,
+                       cudaStream_t stream) {
   // what the indexing needs of a plan: every j in a chunk (whole float4s),
   // every unit in a block (U whole float4s, so whole pairs), whole warps,
   // the register tier's pairs in one pass, the L2 tier's passes of whole
@@ -355,7 +371,7 @@ cudaError_t launch_bwd(const float* xp, const float* w_hh, const float* b_ih,
                   (KC == 0 ? threads % (4 * S) == 0 : threads >= (U / 2) * S);
   if (!ok || smem < 4 * (2 * BT * 3 * S * bwd_ks(kc) + BT * U)) return cudaErrorInvalidValue;
   const ClusterLaunch launch(C, dim3(C * ((B + BT - 1) / BT), D), threads, smem, stream);
-  auto kernel = gru_layer_bwd_kernel<S, KC, WALK>;
+  auto kernel = gru_layer_bwd_kernel<V, S, KC, WALK>;
   cudaError_t err = check_config(kernel, launch);
   if (err != cudaSuccess) return err;
   err = cudaLaunchKernelEx(&launch.cfg, kernel, xp, w_hh, b_ih, hp, ys, dys, dxp, gn, T, B,
@@ -364,21 +380,28 @@ cudaError_t launch_bwd(const float* xp, const float* w_hh, const float* b_ih,
 }
 
 // tier 0: the register instance (S, KC); tier 1: the L2 tier (S = 8)
-template <bool WALK>
-int launch_recurrence(const float* xp, const float* w_hh, const float* b_ih,
-                      const float* hp, const float* ys, const float* dys, float* dxp,
-                      float* gn, int T, int B, int H, int D, int C, int BT, int S, int KC,
+template <typename V, bool WALK>
+int launch_recurrence(const void* xp_, const void* w_hh_, const void* b_ih_,
+                      const float* hp, const void* ys_, const void* dys_, void* dxp_,
+                      void* gn_, int T, int B, int H, int D, int C, int BT, int S, int KC,
                       int U, int threads, int smem, int tier, void* stream) {
   if (T < 1 || B < 1 || H < 1 || D < 1 || D > 2 || C < 1 || BT < 1)
     return (int)cudaErrorInvalidValue;
+  const V* xp = static_cast<const V*>(xp_);
+  const V* w_hh = static_cast<const V*>(w_hh_);
+  const V* b_ih = static_cast<const V*>(b_ih_);
+  const V* ys = static_cast<const V*>(ys_);
+  const V* dys = static_cast<const V*>(dys_);
+  V* dxp = static_cast<V*>(dxp_);
+  V* gn = static_cast<V*>(gn_);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (tier == 1 && S == L2_S)
-    return (int)launch_bwd<L2_S, 0, WALK>(xp, w_hh, b_ih, hp, ys, dys, dxp, gn, T, B, H, D,
-                                          C, BT, KC, U, threads, smem, st);
+    return (int)launch_bwd<V, L2_S, 0, WALK>(xp, w_hh, b_ih, hp, ys, dys, dxp, gn, T, B, H,
+                                             D, C, BT, KC, U, threads, smem, st);
 #define S2AG_BWD(SS, KK)                                                                  \
   if (tier == 0 && S == SS && KC == KK)                                                   \
-    return (int)launch_bwd<SS, KK, WALK>(xp, w_hh, b_ih, hp, ys, dys, dxp, gn, T, B, H, D, \
-                                         C, BT, KK, U, threads, smem, st);
+    return (int)launch_bwd<V, SS, KK, WALK>(xp, w_hh, b_ih, hp, ys, dys, dxp, gn, T, B, H, \
+                                            D, C, BT, KK, U, threads, smem, st);
   S2AG_BWD_REG_INSTANCES
 #undef S2AG_BWD
   return (int)cudaErrorInvalidValue;
@@ -395,18 +418,53 @@ constexpr int TK = 16;
 constexpr int NSTAGE = 3;
 constexpr int DW_THREADS = 256;
 
-__device__ __forceinline__ void cp_async(float* dst, const float* src, int bytes, bool valid) {
+// One cp.async of BYTES (4, 8 or 16) into shared memory, zero-filled when
+// not `valid`.
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src, bool valid) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  const int n = valid ? bytes : 0;  // zero-fill what is not read
-  if (bytes == 16)
+  const int n = valid ? BYTES : 0;  // zero-fill what is not read
+  if constexpr (BYTES == 16)
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(n));
   else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(n));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d), "l"(src),
+                 "n"(BYTES), "r"(n));
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// VEC values from src to the shared dst (zeros when not `valid`): one
+// cp.async where they make at least 4 bytes (float32: 4 or 16 bytes; bf16:
+// 4 or 8), else a plain load (a single bf16, which cp.async cannot copy).
+template <typename V, int VEC>
+__device__ __forceinline__ void copy_in(V* dst, const V* src, bool valid) {
+  if constexpr (sizeof(V) * VEC >= 4) {
+    cp_async<sizeof(V) * VEC>(dst, src, valid);
+  } else {
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) dst[v] = valid ? src[v] : narrow<V>(0.0f);
+  }
+}
+
+// Four consecutive shared values, widened.
+__device__ __forceinline__ void load4(const float* p, float (&o)[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  o[0] = v.x;
+  o[1] = v.y;
+  o[2] = v.z;
+  o[3] = v.w;
+}
+__device__ __forceinline__ void load4(const bf16_t* p, float (&o)[4]) {
+  const uint2 v = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
+  o[0] = a.x;
+  o[1] = a.y;
+  o[2] = b.x;
+  o[3] = b.y;
 }
 
 // A reduction row m = (t, b) = (m / B, m % B), advanced by whole stages
@@ -428,15 +486,23 @@ struct RowCursor {
 };
 
 // part (S, D, H + 1, 3H): split's partial sums of [dW_hh; db_hh] over its
-// rows [split * rows_per_split, ...) in ascending order. VEC: floats per
-// cp.async (4 when H % 4 == 0 and the tensors are 16-byte aligned).
-template <bool WALK, int VEC>
+// rows [split * rows_per_split, ...) in ascending order. V: the storage
+// type of ys, dxp and gn, and of the shared tiles (a bf16 tile is widened
+// as it is read); VEC: values per copy (`gru_cuda.dw_plan`: 4 when H % 4 ==
+// 0 and the tensors are aligned to 4 values, bf16 also 2 when H % 2 == 0;
+// else 1).
+template <typename V, bool WALK, int VEC>
 __global__ void __launch_bounds__(DW_THREADS) gru_dw_kernel(
-    const float* __restrict__ ys, const float* __restrict__ dxp,
-    const float* __restrict__ gn, float* __restrict__ part, int T, int B, int H, int D,
-    int rows_per_split) {
-  __shared__ __align__(16) float As[NSTAGE][TK][TM];  // h_prev (and the ones row)
-  __shared__ __align__(16) float Bs[NSTAGE][TK][TN];  // g
+    const V* __restrict__ ys, const V* __restrict__ dxp, const V* __restrict__ gn,
+    float* __restrict__ part, int T, int B, int H, int D, int rows_per_split) {
+  // the cp.async ring of V values; at bf16 each stage is widened once, when
+  // it is consumed, into the float32 tiles Af and Bf that the product reads
+  // (so the product's loop is the float32 instance's)
+  constexpr bool WIDEN = !std::is_same_v<V, float>;
+  __shared__ __align__(16) V As[NSTAGE][TK][TM];  // h_prev (and the ones row)
+  __shared__ __align__(16) V Bs[NSTAGE][TK][TN];  // g
+  __shared__ __align__(16) float Af[WIDEN ? TK : 1][TM];
+  __shared__ __align__(16) float Bf[WIDEN ? TK : 1][TN];
   const int d = blockIdx.z % D;
   const int split = blockIdx.z / D;
   const int k0 = blockIdx.y * TM;
@@ -450,8 +516,8 @@ __global__ void __launch_bounds__(DW_THREADS) gru_dw_kernel(
   const int m_hi = min(M, m_lo + rows_per_split);
   const int n_stage = (m_hi - m_lo + TK - 1) / TK;
 
-  // this thread's copies each stage: A row ra, floats [4 ca, 4 ca + 4) of
-  // the tile; B rows rb and rb + 8, floats [4 cb, 4 cb + 4)
+  // this thread's copies each stage: A row ra, values [4 ca, 4 ca + 4) of
+  // the tile; B rows rb and rb + 8, values [4 cb, 4 cb + 4)
   const int ra = tid / 16, ca = tid % 16;
   const int rb = tid / 32, cb = tid % 32;
   RowCursor cur_a, cur_b0, cur_b1;
@@ -466,16 +532,17 @@ __global__ void __launch_bounds__(DW_THREADS) gru_dw_kernel(
       const int q = (WALK || d == 0) ? cur_a.t - 1 : cur_a.t + 1;
       const bool row_ok = m_a < m_hi;
       const bool has_prev = row_ok && q >= 0 && q < T;
-      const float* src = ys + (has_prev ? row_offset<WALK>(q, q, d, cur_a.b, B, D, H) : 0);
-      float* dst = &As[buf][ra][4 * ca];
+      const V* src = ys + (has_prev ? row_offset<WALK>(q, q, d, cur_a.b, B, D, H) : 0);
+      V* dst = &As[buf][ra][4 * ca];
 #pragma unroll
       for (int e = 0; e < 4; e += VEC) {
         const int k = k0 + 4 * ca + e;
         if (k < H) {
-          cp_async(dst + e, src + (has_prev ? k : 0), 4 * VEC, has_prev);
+          copy_in<V, VEC>(dst + e, src + (has_prev ? k : 0), has_prev);
         } else {
 #pragma unroll
-          for (int v = 0; v < VEC; ++v) dst[e + v] = (row_ok && k + v == H) ? 1.0f : 0.0f;
+          for (int v = 0; v < VEC; ++v)
+            dst[e + v] = narrow<V>((row_ok && k + v == H) ? 1.0f : 0.0f);
         }
       }
     }
@@ -484,11 +551,11 @@ __global__ void __launch_bounds__(DW_THREADS) gru_dw_kernel(
     for (int h = 0; h < 2; ++h) {
       const RowCursor& cur = h ? cur_b1 : cur_b0;
       const bool row_ok = m_b0 + 8 * h < m_hi;
-      float* dst = &Bs[buf][rb + 8 * h][4 * cb];
+      V* dst = &Bs[buf][rb + 8 * h][4 * cb];
 #pragma unroll
       for (int e = 0; e < 4; e += VEC) {
         const int j = j0 + 4 * cb + e;
-        const float* src = ys;
+        const V* src = ys;
         bool ok = false;
         if (row_ok && j < 2 * H) {
           src = dxp + row_offset<WALK>(cur.t, cur.t, d, cur.b, B, D, H3) + j;
@@ -497,10 +564,7 @@ __global__ void __launch_bounds__(DW_THREADS) gru_dw_kernel(
           src = gn + row_offset<WALK>(cur.t, cur.t, d, cur.b, B, D, H) + (j - 2 * H);
           ok = true;
         }
-        if (VEC == 4 || j < H3 || ok)
-          cp_async(dst + e, src, 4 * VEC, ok);
-        else
-          dst[e] = 0.0f;
+        copy_in<V, VEC>(dst + e, src, ok);
       }
     }
     cp_async_commit();
@@ -532,13 +596,35 @@ __global__ void __launch_bounds__(DW_THREADS) gru_dw_kernel(
     else
       cp_async_commit();
     const int buf = it % NSTAGE;
+    const float* a_tile = reinterpret_cast<const float*>(As[buf]);
+    const float* b_tile = reinterpret_cast<const float*>(Bs[buf]);
+    if constexpr (WIDEN) {
+      // stage it into Af, Bf: four values a thread of each row-block of
+      // 4 * DW_THREADS (the last product is done: the barrier above)
+      for (int i = 4 * tid; i < TK * TM; i += 4 * DW_THREADS) {
+        float v[4];
+        load4(&As[buf][0][0] + i, v);
+        *reinterpret_cast<float4*>(&Af[0][0] + i) = make_float4(v[0], v[1], v[2], v[3]);
+      }
+      for (int i = 4 * tid; i < TK * TN; i += 4 * DW_THREADS) {
+        float v[4];
+        load4(&Bs[buf][0][0] + i, v);
+        *reinterpret_cast<float4*>(&Bf[0][0] + i) = make_float4(v[0], v[1], v[2], v[3]);
+      }
+      __syncthreads();
+      a_tile = &Af[0][0];
+      b_tile = &Bf[0][0];
+    }
 #pragma unroll
     for (int r = 0; r < TK; ++r) {
-      const float4 a4 = *reinterpret_cast<const float4*>(&As[buf][r][4 * ty]);
-      const float4 p4 = *reinterpret_cast<const float4*>(&Bs[buf][r][4 * tx]);
-      const float4 q4 = *reinterpret_cast<const float4*>(&Bs[buf][r][64 + 4 * tx]);
-      const float av[4] = {a4.x, a4.y, a4.z, a4.w};
-      const float bv[8] = {p4.x, p4.y, p4.z, p4.w, q4.x, q4.y, q4.z, q4.w};
+      float av[4], bv[8], bw[4];
+      load4(a_tile + r * TM + 4 * ty, av);
+      load4(b_tile + r * TN + 4 * tx, bw);
+#pragma unroll
+      for (int b = 0; b < 4; ++b) bv[b] = bw[b];
+      load4(b_tile + r * TN + 64 + 4 * tx, bw);
+#pragma unroll
+      for (int b = 0; b < 4; ++b) bv[4 + b] = bw[b];
 #pragma unroll
       for (int a = 0; a < 4; ++a)
 #pragma unroll
@@ -584,26 +670,32 @@ __global__ void gru_dw_sum_kernel(const float* __restrict__ part,
   }
 }
 
-template <bool WALK>
-int launch_dw(const float* ys, const float* dxp, const float* gn, float* part,
+template <typename V, bool WALK>
+int launch_dw(const void* ys_, const void* dxp_, const void* gn_, float* part,
               float* dw_hh, float* db_hh, int T, int B, int H, int D, int S,
               int rows_per_split, int vec, void* stream) {
   // what the indexing needs of the plan: whole stages a split, every row in
-  // a split, 16-byte copies only where H % 4 == 0
+  // a split, copies of VEC values only where H % VEC == 0
   const long long M = (long long)T * B;
+  const bool vec_ok = sizeof(V) == 4 ? (vec == 1 || vec == 4) : (vec == 1 || vec == 2 || vec == 4);
   if (T < 1 || B < 1 || H < 1 || D < 1 || D > 2 || S < 1 || rows_per_split < TK ||
       rows_per_split % TK || (long long)S * rows_per_split < M ||
-      (long long)(S - 1) * rows_per_split >= M || (vec != 1 && vec != 4) ||
-      (vec == 4 && H % 4))
+      (long long)(S - 1) * rows_per_split >= M || !vec_ok || H % vec)
     return (int)cudaErrorInvalidValue;
+  const V* ys = static_cast<const V*>(ys_);
+  const V* dxp = static_cast<const V*>(dxp_);
+  const V* gn = static_cast<const V*>(gn_);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid((3 * H + TN - 1) / TN, (H + 1 + TM - 1) / TM, D * S);
   if (vec == 4)
-    gru_dw_kernel<WALK, 4><<<grid, DW_THREADS, 0, st>>>(ys, dxp, gn, part, T, B, H, D,
-                                                        rows_per_split);
+    gru_dw_kernel<V, WALK, 4><<<grid, DW_THREADS, 0, st>>>(ys, dxp, gn, part, T, B, H, D,
+                                                           rows_per_split);
+  else if (vec == 2)
+    gru_dw_kernel<V, WALK, 2><<<grid, DW_THREADS, 0, st>>>(ys, dxp, gn, part, T, B, H, D,
+                                                           rows_per_split);
   else
-    gru_dw_kernel<WALK, 1><<<grid, DW_THREADS, 0, st>>>(ys, dxp, gn, part, T, B, H, D,
-                                                        rows_per_split);
+    gru_dw_kernel<V, WALK, 1><<<grid, DW_THREADS, 0, st>>>(ys, dxp, gn, part, T, B, H, D,
+                                                           rows_per_split);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const size_t n = (size_t)D * (H + 1) * 3 * H;
@@ -612,69 +704,79 @@ int launch_dw(const float* ys, const float* dxp, const float* gn, float* part,
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// The recurrence, model layout. gn may be null (no weight gradient
-// wanted); hp is the forward's. (C, BT, S, KC, U, threads, smem, tier) is
-// the caller's launch plan (`gru_cuda.bwd_plan`). Returns the CUDA error
-// code of the launch (0 = success).
-extern "C" int s2ag_gru_layer_bwd(const float* xp, const float* w_hh, const float* b_ih,
-                                  const float* hp, const float* ys, const float* dys,
-                                  float* dxp, float* gn, int T, int B, int H, int D, int C,
-                                  int BT, int S, int KC, int U, int threads, int smem,
-                                  int tier, void* stream) {
-  return launch_recurrence<false>(xp, w_hh, b_ih, hp, ys, dys, dxp, gn, T, B, H, D, C, BT, S,
-                                  KC, U, threads, smem, tier, stream);
-}
-
-// The recurrence, walk layout (`run_layer`; no b_ih). gn may be null.
-extern "C" int s2ag_gru_layer_bwd_v1(const float* xp, const float* w_hh, const float* hp,
-                                     const float* ys, const float* dys, float* dxp,
-                                     float* gn, int T, int B, int H, int D, int C, int BT,
-                                     int S, int KC, int U, int threads, int smem, int tier,
-                                     void* stream) {
-  return launch_recurrence<true>(xp, w_hh, nullptr, hp, ys, dys, dxp, gn, T, B, H, D, C, BT,
-                                 S, KC, U, threads, smem, tier, stream);
-}
-
-// How many clusters of C blocks of the recurrence's (tier, S, KC) instance,
-// each block taking `threads` threads and `smem` bytes of shared memory, the
-// current device runs at once (0 when none fits), or minus the CUDA error
-// code.
-extern "C" int s2ag_gru_bwd_max_clusters(int S, int KC, int C, int threads, int smem,
-                                         int tier) {
+template <typename V>
+int max_clusters(int S, int KC, int C, int threads, int smem, int tier) {
   int clusters = 0;
   cudaError_t err = cudaErrorInvalidValue;
   if (tier == 1 && S == L2_S) {
     const ClusterLaunch launch(C, dim3(C), threads, smem, nullptr);
-    err = max_active_clusters(gru_layer_bwd_kernel<L2_S, 0, false>, launch, &clusters);
+    err = max_active_clusters(gru_layer_bwd_kernel<V, L2_S, 0, false>, launch, &clusters);
   }
-#define S2AG_BWD(SS, KK)                                                                 \
-  if (tier == 0 && S == SS && KC == KK) {                                                \
-    const ClusterLaunch launch(C, dim3(C), threads, smem, nullptr);                      \
-    err = max_active_clusters(gru_layer_bwd_kernel<SS, KK, false>, launch, &clusters);   \
+#define S2AG_BWD(SS, KK)                                                                  \
+  if (tier == 0 && S == SS && KC == KK) {                                                 \
+    const ClusterLaunch launch(C, dim3(C), threads, smem, nullptr);                       \
+    err = max_active_clusters(gru_layer_bwd_kernel<V, SS, KK, false>, launch, &clusters); \
   }
   S2AG_BWD_REG_INSTANCES
 #undef S2AG_BWD
   return err == cudaSuccess ? clusters : -(int)err;
 }
 
-// dW_hh (D, H, 3H) and db_hh (D, 3H) from ys, dxp and gn, through the
-// workspace part (S, D, H + 1, 3H); (S, rows_per_split, vec) is the
-// caller's plan (`gru_cuda.dw_plan`). Model layout.
-extern "C" int s2ag_gru_layer_dw(const float* ys, const float* dxp, const float* gn,
+}  // namespace
+
+// The recurrence, model layout. gn may be null (no weight gradient
+// wanted); hp is the forward's (float32). (C, BT, S, KC, U, threads, smem,
+// tier) is the caller's launch plan (`gru_cuda.bwd_plan`); bf16 != 0 takes
+// the bf16 instance. Returns the CUDA error code of the launch (0 =
+// success).
+extern "C" int s2ag_gru_layer_bwd(const void* xp, const void* w_hh, const void* b_ih,
+                                  const float* hp, const void* ys, const void* dys,
+                                  void* dxp, void* gn, int T, int B, int H, int D, int C,
+                                  int BT, int S, int KC, int U, int threads, int smem,
+                                  int tier, int bf16, void* stream) {
+  return (bf16 ? launch_recurrence<bf16_t, false> : launch_recurrence<float, false>)(
+      xp, w_hh, b_ih, hp, ys, dys, dxp, gn, T, B, H, D, C, BT, S, KC, U, threads, smem, tier,
+      stream);
+}
+
+// The recurrence, walk layout (`run_layer`; b_ih null in float32, the bf16
+// fold's xp part in bf16). gn may be null.
+extern "C" int s2ag_gru_layer_bwd_v1(const void* xp, const void* w_hh, const void* b_ih,
+                                     const float* hp, const void* ys, const void* dys,
+                                     void* dxp, void* gn, int T, int B, int H, int D, int C,
+                                     int BT, int S, int KC, int U, int threads, int smem,
+                                     int tier, int bf16, void* stream) {
+  return (bf16 ? launch_recurrence<bf16_t, true> : launch_recurrence<float, true>)(
+      xp, w_hh, b_ih, hp, ys, dys, dxp, gn, T, B, H, D, C, BT, S, KC, U, threads, smem, tier,
+      stream);
+}
+
+// How many clusters of C blocks of the recurrence's (tier, S, KC) instance
+// (bf16 != 0: its bf16 instance), each block taking `threads` threads and
+// `smem` bytes of shared memory, the current device runs at once (0 when
+// none fits), or minus the CUDA error code.
+extern "C" int s2ag_gru_bwd_max_clusters(int S, int KC, int C, int threads, int smem,
+                                         int tier, int bf16) {
+  return (bf16 ? max_clusters<bf16_t> : max_clusters<float>)(S, KC, C, threads, smem, tier);
+}
+
+// dW_hh (D, H, 3H) and db_hh (D, 3H), float32, from ys, dxp and gn (bf16 !=
+// 0: bf16), through the float32 workspace part (S, D, H + 1, 3H); (S,
+// rows_per_split, vec) is the caller's plan (`gru_cuda.dw_plan`). Model
+// layout.
+extern "C" int s2ag_gru_layer_dw(const void* ys, const void* dxp, const void* gn,
                                  float* part, float* dw_hh, float* db_hh, int T, int B,
-                                 int H, int D, int S, int rows_per_split, int vec,
+                                 int H, int D, int S, int rows_per_split, int vec, int bf16,
                                  void* stream) {
-  return launch_dw<false>(ys, dxp, gn, part, dw_hh, db_hh, T, B, H, D, S, rows_per_split,
-                          vec, stream);
+  return (bf16 ? launch_dw<bf16_t, false> : launch_dw<float, false>)(
+      ys, dxp, gn, part, dw_hh, db_hh, T, B, H, D, S, rows_per_split, vec, stream);
 }
 
 // The same in the walk layout (`run_layer`).
-extern "C" int s2ag_gru_layer_dw_v1(const float* ys, const float* dxp, const float* gn,
+extern "C" int s2ag_gru_layer_dw_v1(const void* ys, const void* dxp, const void* gn,
                                     float* part, float* dw_hh, float* db_hh, int T, int B,
                                     int H, int D, int S, int rows_per_split, int vec,
-                                    void* stream) {
-  return launch_dw<true>(ys, dxp, gn, part, dw_hh, db_hh, T, B, H, D, S, rows_per_split,
-                         vec, stream);
+                                    int bf16, void* stream) {
+  return (bf16 ? launch_dw<bf16_t, true> : launch_dw<float, true>)(
+      ys, dxp, gn, part, dw_hh, db_hh, T, B, H, D, S, rows_per_split, vec, stream);
 }

@@ -16,10 +16,20 @@
 //     walks its units in passes.
 // Every sum is plain float32 FMA in a fixed order: the same inputs give the
 // same bits.
+//
+// Storage types: every kernel has a float and a bf16 (__nv_bfloat16)
+// instance, chosen by the tensors' dtype. A bf16 value is widened to float
+// when it is loaded and the arithmetic is float, so a product of two bf16
+// values is exact and the FMA chains are the TPU kernels' f32-accumulated
+// products (`preferred_element_type=jnp.float32`); a value is rounded to
+// bf16 (to nearest even) where the TPU kernel stores it at the input's
+// dtype. The float instance rounds nowhere (`rounded<float>` is the
+// identity).
 
 #pragma once
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <mutex>
@@ -30,6 +40,25 @@ namespace {
 
 // the L2 tier's lanes a unit (a pair of units in the recurrence)
 constexpr int L2_S = 8;
+
+using bf16_t = __nv_bfloat16;
+
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(bf16_t x) { return __bfloat162float(x); }
+template <typename V>
+__device__ __forceinline__ V narrow(float x);
+template <>
+__device__ __forceinline__ float narrow<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ bf16_t narrow<bf16_t>(float x) { return __float2bfloat16_rn(x); }
+// x as the storage type V holds it, widened back
+template <typename V>
+__device__ __forceinline__ float rounded(float x) { return widen(narrow<V>(x)); }
+// a read-only value of the storage type, widened
+__device__ __forceinline__ float ld(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ld(const bf16_t* p) {
+  return widen(__ushort_as_bfloat16(__ldg(reinterpret_cast<const unsigned short*>(p))));
+}
 
 __device__ __forceinline__ float sigmoid_f(float x) {
   return __frcp_rn(1.0f + expf(-x));  // the same bits as 1.0f / (...)

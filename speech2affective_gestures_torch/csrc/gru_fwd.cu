@@ -12,7 +12,7 @@
 // outside the kernel, as in the JAX package).
 //
 // Two layouts of the same cell, chosen by the template parameter WALK (all
-// float32, row-major, contiguous):
+// row-major, contiguous):
 //   model layout (WALK = false, `s2ag_gru_layer_fwd`, the layers' engine):
 //     xp (T, B, D*3H) no bias, no time flip; ys (T, B, D*H) both directions
 //     in forward time order (the reverse direction walks time backwards);
@@ -20,13 +20,26 @@
 //   walk layout (WALK = true, `s2ag_gru_layer_fwd_v1`, `run_layer`'s
 //     contract): xp (T, D, B, 3H) with b_ih already added and direction 1
 //     already time-reversed by the caller; ys (T, D, B, H) in each
-//     direction's walk order; step s reads and writes row s, no b_ih
+//     direction's walk order; step s reads and writes row s
 //   w_hh (D, H, 3H) = torch weight_hh_l{k}[_reverse] transposed
-//   b_ih (D, 3H) (model layout only), b_hh (D, 3H)
-//   hp (optional, null for none): h_prev . W_hh + b_hh of every step, laid
-//     out as xp, written when a gradient will be taken so that the backward
-//     (csrc/gru_bwd.cu) need not recompute it; the lane that holds a row's
-//     totals writes them, and ys is the same bits with or without it.
+//   b_ih (D, 3H) or null (zero), b_hh (D, 3H)
+//   hp (optional, null for none, always float32): h_prev . W_hh + b_hh of
+//     every step, laid out as xp, written when a gradient will be taken so
+//     that the backward (csrc/gru_bwd.cu) need not recompute it; the lane
+//     that holds a row's totals writes them, and ys is the same bits with or
+//     without it.
+// Storage: float32 or bf16 (the template parameter V, the same for xp,
+// w_hh, the biases, ys and h_last). The cell computes
+//   r = sigmoid(round(xp_r + b_ih_r) + (hp_r + b_hh_r)), likewise z,
+//   n = tanh(round(xp_n + b_ih_n) + r (hp_n + b_hh_n)),
+//   h' = round((1 - z) n + z h),
+// with round() the identity in float32 and a rounding to bf16 in bf16: the
+// TPU kernel's `xp_ref + ball_ref` (bf16 + bf16) and its carry scratch of
+// xp's dtype (gru_pallas.py:348, :352-354, :379). The wrapper hands the bf16
+// instance the TPU kernel's bias fold (`gru_cuda.kernel_biases`: b_ih_r +
+// b_hh_r, b_ih_z + b_hh_z, b_ih_n in bf16 as b_ih; 0, 0, b_hh_n as b_hh),
+// so hp_r and hp_z take no bias there. h stays float in shared memory
+// (holding the rounded value) and hp stays float32.
 //
 // Design. On the TPU, W_hh stays in VMEM for the whole time loop. Here W_hh
 // (1.08 MB per direction at H 300) is ~5x one SM's shared memory, so it is
@@ -201,11 +214,11 @@ __device__ __forceinline__ void reg_group_totals(const float* hg, int rows, int 
 
 // The register tier. HP: write hp (a separate instance, so that the
 // forward without it is the same code as before hp existed).
-template <int S, int KC, bool WALK, bool HP>
+template <typename V, int S, int KC, bool WALK, bool HP>
 __global__ void __launch_bounds__(max_threads(KC), 1) gru_layer_fwd_kernel(
-    const float* __restrict__ xp, const float* __restrict__ w_hh,
-    const float* __restrict__ b_ih, const float* __restrict__ b_hh,
-    float* __restrict__ ys, float* __restrict__ h_last, float* __restrict__ hp_out,
+    const V* __restrict__ xp, const V* __restrict__ w_hh,
+    const V* __restrict__ b_ih, const V* __restrict__ b_hh,
+    V* __restrict__ ys, V* __restrict__ h_last, float* __restrict__ hp_out,
     int T, int B, int H, int D, int U, int BT) {
   constexpr int KS = KC + 4;   // a chunk's stride in h: KS / 4 odd, so the
   constexpr int RS = S * KS;   // S float4 reads of a warp hit distinct banks
@@ -229,27 +242,27 @@ __global__ void __launch_bounds__(max_threads(KC), 1) gru_layer_fwd_kernel(
   // prologue: the W chunk into registers, read once; h = 0
   float wr[KC], wz[KC], wn[KC];
   {
-    const float* W = w_hh + (size_t)d * H * H3 + j;
+    const V* W = w_hh + (size_t)d * H * H3 + j;
 #pragma unroll
     for (int i = 0; i < KC; ++i) {
       const int k = s * KC + i;
       const bool ok = active && k < H;
-      wr[i] = ok ? __ldg(W + (size_t)k * H3) : 0.0f;
-      wz[i] = ok ? __ldg(W + (size_t)k * H3 + H) : 0.0f;
-      wn[i] = ok ? __ldg(W + (size_t)k * H3 + 2 * H) : 0.0f;
+      wr[i] = ok ? ld(W + (size_t)k * H3) : 0.0f;
+      wz[i] = ok ? ld(W + (size_t)k * H3 + H) : 0.0f;
+      wn[i] = ok ? ld(W + (size_t)k * H3 + 2 * H) : 0.0f;
     }
   }
   float bhr = 0.0f, bhz = 0.0f, bhn = 0.0f, bir = 0.0f, biz = 0.0f, bin = 0.0f;
   if (active) {
-    const float* bh = b_hh + (size_t)d * H3;
-    bhr = bh[j];
-    bhz = bh[H + j];
-    bhn = bh[2 * H + j];
-    if (!WALK) {
-      const float* bi = b_ih + (size_t)d * H3;
-      bir = bi[j];
-      biz = bi[H + j];
-      bin = bi[2 * H + j];
+    const V* bh = b_hh + (size_t)d * H3;
+    bhr = ld(bh + j);
+    bhz = ld(bh + H + j);
+    bhn = ld(bh + 2 * H + j);
+    if (b_ih != nullptr) {
+      const V* bi = b_ih + (size_t)d * H3;
+      bir = ld(bi + j);
+      biz = ld(bi + H + j);
+      bin = ld(bi + 2 * H + j);
     }
   }
   for (int i = threadIdx.x; i < 2 * BT * RS / 4; i += blockDim.x)
@@ -281,10 +294,10 @@ __global__ void __launch_bounds__(max_threads(KC), 1) gru_layer_fwd_kernel(
       const bool mine = active && row < nrows;
       float xr = 0.0f, xz = 0.0f, xn = 0.0f;
       if (mine) {
-        const float* x = xp + row_offset<WALK>(t, step, d, b0 + row, B, D, H3) + j;
-        xr = __ldg(x);
-        xz = __ldg(x + H);
-        xn = __ldg(x + 2 * H);
+        const V* x = xp + row_offset<WALK>(t, step, d, b0 + row, B, D, H3) + j;
+        xr = ld(x);
+        xz = ld(x + H);
+        xn = ld(x + 2 * H);
       }
       PHASE_AT(q_product);
       float hp[3];  // the totals of row g0 + s
@@ -293,13 +306,13 @@ __global__ void __launch_bounds__(max_threads(KC), 1) gru_layer_fwd_kernel(
       PHASE_ADD(0, q_product, q_gate);
       float hnew = 0.0f;  // 0 past H, where h must stay 0
       if (mine) {
-        const float r = sigmoid_f((WALK ? xr : xr + bir) + (hp[0] + bhr));
-        const float z = sigmoid_f((WALK ? xz : xz + biz) + (hp[1] + bhz));
-        const float n = tanhf((WALK ? xn : xn + bin) + r * (hp[2] + bhn));
-        hnew = (1.0f - z) * n + z * hc[row * RS + hpos];
-        ys[row_offset<WALK>(t, step, d, b0 + row, B, D, H) + j] = hnew;
+        const float r = sigmoid_f(rounded<V>(xr + bir) + (hp[0] + bhr));
+        const float z = sigmoid_f(rounded<V>(xz + biz) + (hp[1] + bhz));
+        const float n = tanhf(rounded<V>(xn + bin) + r * (hp[2] + bhn));
+        hnew = rounded<V>((1.0f - z) * n + z * hc[row * RS + hpos]);
+        ys[row_offset<WALK>(t, step, d, b0 + row, B, D, H) + j] = narrow<V>(hnew);
         if (h_last != nullptr && step == T - 1)
-          h_last[((size_t)d * B + b0 + row) * H + j] = hnew;
+          h_last[((size_t)d * B + b0 + row) * H + j] = narrow<V>(hnew);
         if constexpr (HP) {
           float* o = hp_out + row_offset<WALK>(t, step, d, b0 + row, B, D, H3) + j;
           o[0] = hp[0] + bhr;
@@ -342,9 +355,9 @@ __global__ void __launch_bounds__(max_threads(KC), 1) gru_layer_fwd_kernel(
 // rows RS apart), in the register tier's order: each W value (W: this
 // unit's column of gate r at k = k0, null when the lane has no unit) read
 // once per group, each row's sums in ascending k.
-template <int S>
+template <int S, typename V>
 __device__ __forceinline__ void chunk_sums_l2(const float* hg, int rows, int RS,
-                                              const float* W, int k0, int kc, int H,
+                                              const V* W, int k0, int kc, int H,
                                               float (&acc)[S][3]) {
   const int H3 = 3 * H;
 #pragma unroll
@@ -354,9 +367,9 @@ __device__ __forceinline__ void chunk_sums_l2(const float* hg, int rows, int RS,
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const bool ok = W != nullptr && k0 + q + e < H;
-      const float* wk = W + (size_t)(q + e) * H3;
+      const V* wk = W + (size_t)(q + e) * H3;
 #pragma unroll
-      for (int g = 0; g < 3; ++g) w[g][e] = ok ? __ldg(wk + g * H) : 0.0f;
+      for (int g = 0; g < 3; ++g) w[g][e] = ok ? ld(wk + g * H) : 0.0f;
     }
 #pragma unroll
     for (int i = 0; i < S; ++i) {
@@ -372,14 +385,15 @@ __device__ __forceinline__ void chunk_sums_l2(const float* hg, int rows, int RS,
 }
 
 // b_hh (r, z, n) then b_ih (r, z, n) of unit j, zeros when not `active`;
-// no b_ih in the walk layout
-template <bool WALK>
-__device__ __forceinline__ void load_biases(const float* b_ih, const float* b_hh, int d,
-                                            int H, int j, bool active, float (&bias)[6]) {
+// b_ih zero when null
+template <typename V>
+__device__ __forceinline__ void load_biases(const V* b_ih, const V* b_hh, int d, int H,
+                                            int j, bool active, float (&bias)[6]) {
 #pragma unroll
   for (int g = 0; g < 3; ++g) {
-    bias[g] = active ? __ldg(b_hh + (size_t)d * 3 * H + g * H + j) : 0.0f;
-    bias[3 + g] = active && !WALK ? __ldg(b_ih + (size_t)d * 3 * H + g * H + j) : 0.0f;
+    bias[g] = active ? ld(b_hh + (size_t)d * 3 * H + g * H + j) : 0.0f;
+    bias[3 + g] =
+        active && b_ih != nullptr ? ld(b_ih + (size_t)d * 3 * H + g * H + j) : 0.0f;
   }
 }
 
@@ -387,11 +401,11 @@ __device__ __forceinline__ void load_biases(const float* b_ih, const float* b_hh
 // in the same order, but each thread reads its chunk of W from device
 // memory once per group of S rows (a block's slice, 1/C of W_hh, stays in
 // L2) and the block walks its U units in passes of threads / S.
-template <bool WALK>
+template <typename V, bool WALK>
 __global__ void __launch_bounds__(max_threads(0), 1) gru_layer_fwd_l2_kernel(
-    const float* __restrict__ xp, const float* __restrict__ w_hh,
-    const float* __restrict__ b_ih, const float* __restrict__ b_hh,
-    float* __restrict__ ys, float* __restrict__ h_last, float* __restrict__ hp_out,
+    const V* __restrict__ xp, const V* __restrict__ w_hh,
+    const V* __restrict__ b_ih, const V* __restrict__ b_hh,
+    V* __restrict__ ys, V* __restrict__ h_last, float* __restrict__ hp_out,
     int T, int B, int H, int D, int U, int BT, int kc) {
   constexpr int S = L2_S;
   const int KS = kc + 4;  // a chunk's stride in h, as the register tier's
@@ -437,12 +451,12 @@ __global__ void __launch_bounds__(max_threads(0), 1) gru_layer_fwd_l2_kernel(
         const bool mine = active && row < nrows;
         float xr = 0.0f, xz = 0.0f, xn = 0.0f, bias[6];
         if (mine) {
-          const float* x = xp + row_offset<WALK>(t, step, d, b0 + row, B, D, H3) + j;
-          xr = __ldg(x);
-          xz = __ldg(x + H);
-          xn = __ldg(x + 2 * H);
+          const V* x = xp + row_offset<WALK>(t, step, d, b0 + row, B, D, H3) + j;
+          xr = ld(x);
+          xz = ld(x + H);
+          xn = ld(x + 2 * H);
         }
-        load_biases<WALK>(b_ih, b_hh, d, H, j, active, bias);
+        load_biases<V>(b_ih, b_hh, d, H, j, active, bias);
         float acc[S][3], hp[3];
         chunk_sums_l2<S>(hc + g0 * RS + s * KS, rows, RS,
                          active ? w_hh + ((size_t)d * H + s * kc) * H3 + j : nullptr,
@@ -451,13 +465,13 @@ __global__ void __launch_bounds__(max_threads(0), 1) gru_layer_fwd_l2_kernel(
         float hnew = 0.0f;  // 0 past H, where h must stay 0
         if (mine) {
           const float hpr = hp[0] + bias[0], hpz = hp[1] + bias[1], hpn = hp[2] + bias[2];
-          const float r = sigmoid_f((WALK ? xr : xr + bias[3]) + hpr);
-          const float z = sigmoid_f((WALK ? xz : xz + bias[4]) + hpz);
-          const float n = tanhf((WALK ? xn : xn + bias[5]) + r * hpn);
-          hnew = (1.0f - z) * n + z * hc[row * RS + (j / kc) * KS + j % kc];
-          ys[row_offset<WALK>(t, step, d, b0 + row, B, D, H) + j] = hnew;
+          const float r = sigmoid_f(rounded<V>(xr + bias[3]) + hpr);
+          const float z = sigmoid_f(rounded<V>(xz + bias[4]) + hpz);
+          const float n = tanhf(rounded<V>(xn + bias[5]) + r * hpn);
+          hnew = rounded<V>((1.0f - z) * n + z * hc[row * RS + (j / kc) * KS + j % kc]);
+          ys[row_offset<WALK>(t, step, d, b0 + row, B, D, H) + j] = narrow<V>(hnew);
           if (h_last != nullptr && step == T - 1)
-            h_last[((size_t)d * B + b0 + row) * H + j] = hnew;
+            h_last[((size_t)d * B + b0 + row) * H + j] = narrow<V>(hnew);
           if (hp_out != nullptr) {
             float* o = hp_out + row_offset<WALK>(t, step, d, b0 + row, B, D, H3) + j;
             o[0] = hpr;
@@ -490,10 +504,16 @@ __global__ void __launch_bounds__(max_threads(0), 1) gru_layer_fwd_l2_kernel(
 // k in a chunk, every unit in a block (U whole float4s), every unit's S
 // lanes in whole warps, both h buffers of BT rows of S chunks of KC + 4
 // floats.
-template <bool WALK>
-int launch(const float* xp, const float* w_hh, const float* b_ih, const float* b_hh,
-           float* ys, float* h_last, float* hp, int T, int B, int H, int D, int C, int BT,
+template <typename V, bool WALK>
+int launch(const void* xp_, const void* w_hh_, const void* b_ih_, const void* b_hh_,
+           void* ys_, void* h_last_, float* hp, int T, int B, int H, int D, int C, int BT,
            int S, int KC, int U, int threads, int smem, int tier, void* stream) {
+  const V* xp = static_cast<const V*>(xp_);
+  const V* w_hh = static_cast<const V*>(w_hh_);
+  const V* b_ih = static_cast<const V*>(b_ih_);
+  const V* b_hh = static_cast<const V*>(b_hh_);
+  V* ys = static_cast<V*>(ys_);
+  V* h_last = static_cast<V*>(h_last_);
   if (T < 1 || B < 1 || H < 1 || D < 1 || D > 2 || C < 1 || BT < 1 ||
       smem < 4 * 2 * BT * S * (KC + 4))
     return (int)cudaErrorInvalidValue;
@@ -501,7 +521,7 @@ int launch(const float* xp, const float* w_hh, const float* b_ih, const float* b
   const ClusterLaunch launch(C, dim3(C * ((B + BT - 1) / BT), D), threads, smem, st);
   cudaError_t err = cudaErrorInvalidValue;
   if (tier == 1 && S == L2_S && plan_ok(S, 0, KC, H, C, U, threads)) {
-    auto kernel = gru_layer_fwd_l2_kernel<WALK>;
+    auto kernel = gru_layer_fwd_l2_kernel<V, WALK>;
     err = check_config(kernel, launch);
     if (err == cudaSuccess)
       err = cudaLaunchKernelEx(&launch.cfg, kernel, xp, w_hh, b_ih, b_hh, ys, h_last, hp, T, B,
@@ -509,7 +529,7 @@ int launch(const float* xp, const float* w_hh, const float* b_ih, const float* b
   }
 #define S2AG_FWD_HP(SS, KK, HH)                                                           \
   {                                                                                      \
-    auto kernel = gru_layer_fwd_kernel<SS, KK, WALK, HH>;                                \
+    auto kernel = gru_layer_fwd_kernel<V, SS, KK, WALK, HH>;                             \
     err = check_config(kernel, launch);                                                  \
     if (err == cudaSuccess)                                                              \
       err = cudaLaunchKernelEx(&launch.cfg, kernel, xp, w_hh, b_ih, b_hh, ys, h_last, hp, \
@@ -530,44 +550,60 @@ int launch(const float* xp, const float* w_hh, const float* b_ih, const float* b
 
 }  // namespace
 
-// The model layout. hp may be null. (C, BT, S, KC, U, threads, smem, tier)
-// is the caller's launch plan. Returns the CUDA error code of the launch
-// (0 = success).
-extern "C" int s2ag_gru_layer_fwd(const float* xp, const float* w_hh,
-                                  const float* b_ih, const float* b_hh,
-                                  float* ys, float* h_last, float* hp, int T, int B,
-                                  int H, int D, int C, int BT, int S, int KC, int U,
-                                  int threads, int smem, int tier, void* stream) {
-  return launch<false>(xp, w_hh, b_ih, b_hh, ys, h_last, hp, T, B, H, D, C, BT, S, KC, U,
-                       threads, smem, tier, stream);
+// The model layout. b_ih and hp may be null. (C, BT, S, KC, U, threads,
+// smem, tier) is the caller's launch plan; bf16 != 0 takes the bf16
+// instance (xp, w_hh, the biases, ys and h_last bf16; hp float32). Returns
+// the CUDA error code of the launch (0 = success).
+extern "C" int s2ag_gru_layer_fwd(const void* xp, const void* w_hh, const void* b_ih,
+                                  const void* b_hh, void* ys, void* h_last, float* hp,
+                                  int T, int B, int H, int D, int C, int BT, int S, int KC,
+                                  int U, int threads, int smem, int tier, int bf16,
+                                  void* stream) {
+  return (bf16 ? launch<bf16_t, false> : launch<float, false>)(
+      xp, w_hh, b_ih, b_hh, ys, h_last, hp, T, B, H, D, C, BT, S, KC, U, threads, smem, tier,
+      stream);
 }
 
 // The walk layout (`run_layer`): xp (T, D, B, 3H) with b_ih folded in,
 // ys (T, D, B, H), hp (T, D, B, 3H) or null; no h_last (it is ys[T - 1]).
-extern "C" int s2ag_gru_layer_fwd_v1(const float* xp, const float* w_hh,
-                                     const float* b_hh, float* ys, float* hp, int T,
-                                     int B, int H, int D, int C, int BT, int S, int KC,
-                                     int U, int threads, int smem, int tier,
+// b_ih (null in float32) is the part of the bf16 bias fold that is added to
+// xp and rounded (b_hh_r, b_hh_z, 0).
+extern "C" int s2ag_gru_layer_fwd_v1(const void* xp, const void* w_hh, const void* b_ih,
+                                     const void* b_hh, void* ys, float* hp, int T, int B,
+                                     int H, int D, int C, int BT, int S, int KC, int U,
+                                     int threads, int smem, int tier, int bf16,
                                      void* stream) {
-  return launch<true>(xp, w_hh, nullptr, b_hh, ys, nullptr, hp, T, B, H, D, C, BT, S, KC,
-                      U, threads, smem, tier, stream);
+  return (bf16 ? launch<bf16_t, true> : launch<float, true>)(
+      xp, w_hh, b_ih, b_hh, ys, nullptr, hp, T, B, H, D, C, BT, S, KC, U, threads, smem, tier,
+      stream);
 }
 
-// How many clusters of C blocks of the (tier, S, KC) instance, each block
-// taking `threads` threads and `smem` bytes of shared memory, the current
-// device runs at once (0 when none fits), or minus the CUDA error code. The
-// launch plan spreads the batch over about this many.
-extern "C" int s2ag_gru_fwd_max_clusters(int S, int KC, int C, int threads, int smem,
-                                         int tier) {
+namespace {
+
+template <typename V>
+int max_clusters(int S, int KC, int C, int threads, int smem, int tier) {
   int clusters = 0;
   cudaError_t err = cudaErrorInvalidValue;
   const ClusterLaunch launch(C, dim3(C), threads, smem, nullptr);
   if (tier == 1 && S == L2_S)
-    err = max_active_clusters(gru_layer_fwd_l2_kernel<false>, launch, &clusters);
-#define S2AG_GRU(SS, KK)                                                                 \
-  if (tier == 0 && S == SS && KC == KK)                                                  \
-    err = max_active_clusters(gru_layer_fwd_kernel<SS, KK, false, false>, launch, &clusters);
+    err = max_active_clusters(gru_layer_fwd_l2_kernel<V, false>, launch, &clusters);
+#define S2AG_GRU(SS, KK)                                                                   \
+  if (tier == 0 && S == SS && KC == KK)                                                    \
+    err = max_active_clusters(gru_layer_fwd_kernel<V, SS, KK, false, false>, launch,        \
+                              &clusters);
   S2AG_GRU_REG_INSTANCES
 #undef S2AG_GRU
   return err == cudaSuccess ? clusters : -(int)err;
+}
+
+}  // namespace
+
+// How many clusters of C blocks of the (tier, S, KC) instance (bf16 != 0:
+// its bf16 instance), each block taking `threads` threads and `smem` bytes
+// of shared memory, the current device runs at once (0 when none fits), or
+// minus the CUDA error code. The launch plan spreads the batch over about
+// this many.
+extern "C" int s2ag_gru_fwd_max_clusters(int S, int KC, int C, int threads, int smem,
+                                         int tier, int bf16) {
+  return (bf16 ? max_clusters<bf16_t> : max_clusters<float>)(S, KC, C, threads, smem, tier);
 }

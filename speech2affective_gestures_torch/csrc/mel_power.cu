@@ -7,15 +7,21 @@
 // unit; here that would be ~137x an FFT's operations and a read of both
 // matrices (17 MB at n_fft 2048) per row tile, so the spectrum is an FFT.
 //
-// Layouts (float32 unless said, row-major, contiguous):
-//   frames (R, N)            N = n_fft, a power of two in [512, 4096]
-//   fft_tw (M) float2        e^{-2 pi i k / M}, M = N / 2
-//   split_tw (M/2 + 1) float2  (cos, sin) of 2 pi k / N
-//   bands (NMEL, 3) int      each band's first bin, bin count, weight offset
-//   weights                  each band's run of filterbank entries
-//   out (R, NMEL)
+// Two tiers, chosen by the caller's plan (`mel_cuda.mel_plan`): the FFT
+// tier for n_fft a power of two in [512, 4096] (the serving and corpus
+// shapes, 2048 and 1024), the DFT tier for every other n_fft. Both take any
+// band count n_mels.
 //
-// Design: one block of 256 threads owns 2048 / M whole rows (2 at N 2048,
+// Layouts (float32 unless said, row-major, contiguous):
+//   frames (R, N)            N = n_fft
+//   fft_tw (M) float2        e^{-2 pi i k / M}, M = N / 2 (FFT tier)
+//   split_tw (M/2 + 1) float2  (cos, sin) of 2 pi k / N (FFT tier)
+//   dft_tw (N) float2        (cos, sin) of 2 pi m / N (DFT tier)
+//   bands (n_mels, 3) int    each band's first bin, bin count, weight offset
+//   weights                  each band's run of filterbank entries
+//   out (R, n_mels)
+//
+// FFT tier: one block of 256 threads owns 2048 / M whole rows (2 at N 2048,
 // 4 at N 1024), so a request's few hundred rows still give a block per SM.
 // For each row the block
 //   1. loads the row with float4 reads into shared memory as the M-point
@@ -37,12 +43,30 @@
 // far below the float32 rate. What bounds this kernel is its block's chain
 // of shared-memory passes, each behind a __syncthreads, with 8 to 16 rows'
 // worth of blocks per SM.
+//
+// DFT tier (any N; the TPU kernel's own design): the real DFT as a product
+// of the frames with the cos and sin of 2 pi n k / N, squared and summed in
+// registers, then multiplied by the filterbank; the power spectrum never
+// reaches device memory. One block of 256 threads owns DFT_ROWS rows and
+// walks the 1 + N/2 bins in tiles of 256, one bin a thread: the thread
+// keeps re and im of its bin for the block's rows in registers while the
+// block streams the rows' samples through shared memory in stages of
+// DFT_KT; the twiddle of (n, k) is entry (n k) mod N of dft_tw, stepped by
+// k per sample (the table in shared memory where it fits, else read from
+// device memory through L1). The products are summed in chunks of
+// DFT_KC, the chunks' sums into the stage's, the stages' into the bin's
+// total, so a sum of N products rounds like one of DFT_KC + DFT_KT / DFT_KC
+// + N / DFT_KT (72 at N 8192), not of N. The tile's power goes to shared memory, and
+// each (row, band) adds its bins of the tile to its running sum in
+// ascending bin order (deterministic). Bound: its work is 4 N (1 + N/2)
+// operations a row against the float32 rate, the least work of the
+// function an FFT's (the caller's `bound_ms`); a simple kernel, far from
+// that.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int NMEL = 128;       // mel bands
 constexpr int THREADS = 256;
 constexpr int POINTS = 2048;    // complex points per block: rows x M
 
@@ -63,7 +87,8 @@ __device__ __forceinline__ float bin_power(float2 a, float2 b, float c, float s)
 __global__ void __launch_bounds__(THREADS) mel_fft_kernel(
     const float* __restrict__ frames, const float2* __restrict__ fft_tw,
     const float2* __restrict__ split_tw, const int* __restrict__ bands,
-    const float* __restrict__ weights, float* __restrict__ out, int R, int log2m) {
+    const float* __restrict__ weights, float* __restrict__ out, int R, int log2m,
+    int n_mels) {
   __shared__ __align__(16) float2 buf[2][POINTS];
   const int M = 1 << log2m;
   const int rows = POINTS >> log2m;
@@ -156,33 +181,160 @@ __global__ void __launch_bounds__(THREADS) mel_fft_kernel(
   __syncthreads();
 
   // 4. each (row, band): its run of bins in order
-  for (int idx = tid; idx < rows * NMEL; idx += THREADS) {
-    const int row = idx / NMEL;
-    const int m = idx - row * NMEL;
+  for (int idx = tid; idx < rows * n_mels; idx += THREADS) {
+    const int row = idx / n_mels;
+    const int m = idx - row * n_mels;
     if (r0 + row >= R) break;
     const float* pr = p + row * (M + 1) + __ldg(bands + 3 * m);
     const int n = __ldg(bands + 3 * m + 1);
     const float* w = weights + __ldg(bands + 3 * m + 2);
     float acc = 0.0f;
     for (int i = 0; i < n; ++i) acc = fmaf(__ldg(w + i), pr[i], acc);
-    out[(size_t)(r0 + row) * NMEL + m] = acc;
+    out[(size_t)(r0 + row) * n_mels + m] = acc;
+  }
+}
+
+constexpr int DFT_ROWS = 8;
+constexpr int DFT_KT = 256;  // samples a stage
+constexpr int DFT_KC = 32;   // samples a chunk of a stage's sums
+
+// dynamic shared memory: the stage's samples [DFT_KT][DFT_ROWS], the bin
+// tile's power [DFT_ROWS][THREADS], the bands' running sums
+// [DFT_ROWS][n_mels], then (TW_SMEM) the N twiddles
+template <bool TW_SMEM>
+__global__ void __launch_bounds__(THREADS) mel_dft_kernel(
+    const float* __restrict__ frames, const float2* __restrict__ dft_tw,
+    const int* __restrict__ bands, const float* __restrict__ weights,
+    float* __restrict__ out, int R, int N, int n_mels) {
+  extern __shared__ __align__(16) float sm[];
+  float* xs = sm;
+  float* pw = xs + DFT_KT * DFT_ROWS;
+  float* acc = pw + DFT_ROWS * THREADS;
+  float2* tws = reinterpret_cast<float2*>(acc + ((DFT_ROWS * n_mels + 3) & ~3));
+  const int r0 = blockIdx.x * DFT_ROWS;
+  const int rows = min(DFT_ROWS, R - r0);
+  const int nbins = N / 2 + 1;
+  const int tid = threadIdx.x;
+  const float2* tw = TW_SMEM ? tws : dft_tw;
+  if (TW_SMEM)
+    for (int i = tid; i < N; i += THREADS) tws[i] = __ldg(dft_tw + i);
+  for (int i = tid; i < DFT_ROWS * n_mels; i += THREADS) acc[i] = 0.0f;
+
+  for (int kb = 0; kb < nbins; kb += THREADS) {
+    const int k = kb + tid;
+    const int step = k < nbins ? k : 0;  // (n k) mod N advances by k a sample
+    float re[DFT_ROWS], im[DFT_ROWS];
+#pragma unroll
+    for (int r = 0; r < DFT_ROWS; ++r) re[r] = im[r] = 0.0f;
+    int m = 0;
+    for (int n0 = 0; n0 < N; n0 += DFT_KT) {
+      __syncthreads();  // the previous stage's samples (and tile's power) are read
+      for (int i = tid; i < DFT_KT * DFT_ROWS; i += THREADS) {
+        const int r = i / DFT_KT, n = i - r * DFT_KT;  // coalesced along n
+        xs[n * DFT_ROWS + r] =
+            r < rows && n0 + n < N ? __ldg(frames + (size_t)(r0 + r) * N + n0 + n) : 0.0f;
+      }
+      __syncthreads();
+      const int nn = min(DFT_KT, N - n0);
+      float sr[DFT_ROWS], si[DFT_ROWS];
+#pragma unroll
+      for (int r = 0; r < DFT_ROWS; ++r) sr[r] = si[r] = 0.0f;
+      for (int c0 = 0; c0 < nn; c0 += DFT_KC) {
+        float cr[DFT_ROWS], ci[DFT_ROWS];
+#pragma unroll
+        for (int r = 0; r < DFT_ROWS; ++r) cr[r] = ci[r] = 0.0f;
+        const int c1 = min(nn, c0 + DFT_KC);
+        for (int n = c0; n < c1; ++n) {
+          const float2 c = tw[m];
+          const float4 a = *reinterpret_cast<const float4*>(xs + n * DFT_ROWS);
+          const float4 b = *reinterpret_cast<const float4*>(xs + n * DFT_ROWS + 4);
+          const float x[DFT_ROWS] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+#pragma unroll
+          for (int r = 0; r < DFT_ROWS; ++r) {
+            cr[r] = fmaf(x[r], c.x, cr[r]);
+            ci[r] = fmaf(x[r], c.y, ci[r]);
+          }
+          m += step;
+          if (m >= N) m -= N;
+        }
+#pragma unroll
+        for (int r = 0; r < DFT_ROWS; ++r) {
+          sr[r] += cr[r];
+          si[r] += ci[r];
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < DFT_ROWS; ++r) {
+        re[r] += sr[r];
+        im[r] += si[r];
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < DFT_ROWS; ++r)
+      pw[r * THREADS + tid] = k < nbins ? re[r] * re[r] + im[r] * im[r] : 0.0f;
+    __syncthreads();
+    // each (row, band): its bins in this tile, in order, onto its sum
+    const int k_end = min(nbins, kb + THREADS);
+    for (int i = tid; i < rows * n_mels; i += THREADS) {
+      const int r = i / n_mels;
+      const int mb = i - r * n_mels;
+      const int lo = __ldg(bands + 3 * mb), cnt = __ldg(bands + 3 * mb + 1);
+      const float* w = weights + __ldg(bands + 3 * mb + 2);
+      const int q0 = max(lo, kb), q1 = min(lo + cnt, k_end);
+      float s = acc[i];
+      for (int q = q0; q < q1; ++q) s = fmaf(__ldg(w + q - lo), pw[r * THREADS + q - kb], s);
+      acc[i] = s;
+    }
+  }
+  for (int i = tid; i < rows * n_mels; i += THREADS) {
+    const int r = i / n_mels;
+    out[(size_t)(r0 + r) * n_mels + i - r * n_mels] = acc[i];
   }
 }
 
 }  // namespace
 
-// Returns the CUDA error code of the launch (0 = success).
+// The FFT tier. Returns the CUDA error code of the launch (0 = success).
 extern "C" int s2ag_mel_power(const float* frames, const float* fft_tw,
                               const float* split_tw, const int* bands,
                               const float* weights, float* out, int R, int n_fft,
-                              void* stream) {
+                              int n_mels, void* stream) {
   int log2m = -1;
   for (int m = n_fft / 2; m > 0; m >>= 1) ++log2m;
-  if (R < 1 || n_fft < 512 || n_fft > 2 * POINTS || (n_fft & (n_fft - 1)))
+  if (R < 1 || n_mels < 1 || n_fft < 512 || n_fft > 2 * POINTS || (n_fft & (n_fft - 1)))
     return (int)cudaErrorInvalidValue;
   const int rows = POINTS >> log2m;
   mel_fft_kernel<<<(R + rows - 1) / rows, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       frames, reinterpret_cast<const float2*>(fft_tw),
-      reinterpret_cast<const float2*>(split_tw), bands, weights, out, R, log2m);
+      reinterpret_cast<const float2*>(split_tw), bands, weights, out, R, log2m, n_mels);
+  return (int)cudaGetLastError();
+}
+
+// The DFT tier, any n_fft >= 1: DFT_ROWS rows a block, `smem` bytes of
+// dynamic shared memory (the caller's plan, `mel_cuda.mel_plan`), the
+// twiddle table in it when tw_in_smem != 0. Returns the CUDA error code of
+// the launch (0 = success).
+extern "C" int s2ag_mel_power_dft(const float* frames, const float* dft_tw,
+                                  const int* bands, const float* weights, float* out,
+                                  int R, int n_fft, int n_mels, int smem, int tw_in_smem,
+                                  void* stream) {
+  const long long need = 4LL * (DFT_KT * DFT_ROWS + DFT_ROWS * THREADS +
+                                ((DFT_ROWS * n_mels + 3) & ~3)) +
+                         (tw_in_smem ? 8LL * n_fft : 0);
+  if (R < 1 || n_fft < 1 || n_mels < 1 || smem < need) return (int)cudaErrorInvalidValue;
+  const void* kernel = tw_in_smem ? (const void*)mel_dft_kernel<true>
+                                  : (const void*)mel_dft_kernel<false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((R + DFT_ROWS - 1) / DFT_ROWS);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float2* tw = reinterpret_cast<const float2*>(dft_tw);
+  if (tw_in_smem)
+    mel_dft_kernel<true><<<grid, THREADS, smem, st>>>(frames, tw, bands, weights, out, R,
+                                                      n_fft, n_mels);
+  else
+    mel_dft_kernel<false><<<grid, THREADS, smem, st>>>(frames, tw, bands, weights, out, R,
+                                                       n_fft, n_mels);
   return (int)cudaGetLastError();
 }

@@ -15,8 +15,11 @@ Training runs on the card unless `--device cpu` is given (every kernel's
 plain PyTorch version). The data come from the synthetic corpus
 (`--synthetic-data true`). A flag that selects something not ported yet
 raises and names its ROADMAP.md item: the TED LMDB and exported-archive
-readers, mixed precision, the fused pass, rematerialization, the grain
-loader, several steps per program, gradient clipping, learning-rate decay.
+readers, the fused pass, rematerialization, the grain loader, several
+steps per program, gradient clipping, learning-rate decay.
+`--mixed-precision true` runs the train steps at bf16 (the GRU kernels'
+bf16 instances on the card); validation and the test-split scoring stay
+float32.
 The embedding net comes from the reference's `embedding_net.pth.tar` or
 from `python -m speech2affective_gestures_torch.train_embedding`. The
 long-clip rendering of the test split (`train/clip_eval.py`) is not ported
@@ -84,7 +87,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help=f"'device' samples batches on the host and copies them "
                         f"to the card; 'grain' is {_ROADMAP}")
     p.add_argument("--mixed-precision", type=str2bool, default=False,
-                   help=f"bf16 training step: {_ROADMAP}")
+                   help="bf16 train steps (parameters cast per call, float32 "
+                        "master weights, losses and BatchNorm statistics)")
     p.add_argument("--fused-pass", type=str2bool, default=False,
                    help=f"double-batch forwards: {_ROADMAP}")
     p.add_argument("--divreg-draw", type=str, default="permutation",
@@ -162,7 +166,6 @@ def build_parser() -> argparse.ArgumentParser:
 def check_ported(args) -> None:
     """Raise for a flag that selects something this port does not have."""
     unported = {
-        "--mixed-precision true": args.mixed_precision,
         "--fused-pass true": args.fused_pass,
         f"--remat {args.remat}": args.remat != "none",
         "--loader grain": args.loader == "grain",
@@ -221,7 +224,8 @@ def main(argv=None, variant: str = "s2ag") -> Trainer:
         save_interval=args.save_interval, seed=cfg.random_seed, variant=variant,
         trimodal_metric_interval=args.trimodal_metric_interval,
         divreg_draw=args.divreg_draw, metrics_lag=args.metrics_lag,
-        log_interval=args.log_interval, evaluator=evaluator)
+        log_interval=args.log_interval, evaluator=evaluator,
+        mixed_precision=args.mixed_precision)
     trainer.logger.save_arg(vars(args))
     for line in logs:
         trainer.logger.print_log(line)

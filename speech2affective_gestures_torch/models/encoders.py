@@ -10,7 +10,7 @@ from torch import nn
 
 from .. import constants as C
 from ..ops import graph as graph_ops
-from .layers import Dropout, leaky_relu
+from .layers import BatchNorm1d, Dropout, leaky_relu
 from .stgcn import STGraphConv
 from .tcn import TemporalConvNet
 
@@ -23,11 +23,11 @@ class WavEncoder(nn.Module):
         super().__init__()
         self.feat_extractor = nn.Sequential(
             nn.Conv1d(1, 16, 15, stride=5, padding=1600),
-            nn.BatchNorm1d(16), nn.LeakyReLU(0.3),
+            BatchNorm1d(16), nn.LeakyReLU(0.3),
             nn.Conv1d(16, 32, 15, stride=6),
-            nn.BatchNorm1d(32), nn.LeakyReLU(0.3),
+            BatchNorm1d(32), nn.LeakyReLU(0.3),
             nn.Conv1d(32, 64, 15, stride=6),
-            nn.BatchNorm1d(64), nn.LeakyReLU(0.3),
+            BatchNorm1d(64), nn.LeakyReLU(0.3),
             nn.Conv1d(64, 32, 15, stride=6),
         )
 
@@ -47,13 +47,13 @@ class MFCCEncoder(nn.Module):
                  num_mfcc: int = C.NUM_MFCC_COMBINED, time_steps: int = C.N_POSES):
         super().__init__()
         self.conv1 = nn.Conv1d(mfcc_length, 64, 5, padding=2)
-        self.batch_norm1 = nn.BatchNorm1d(64)
+        self.batch_norm1 = BatchNorm1d(64)
         self.conv2 = nn.Conv1d(64, 64, 5, padding=2)
-        self.batch_norm2 = nn.BatchNorm1d(64)
+        self.batch_norm2 = BatchNorm1d(64)
         self.conv3 = nn.Conv1d(64, 48, 3, padding=1)
-        self.batch_norm3 = nn.BatchNorm1d(48)
+        self.batch_norm3 = BatchNorm1d(48)
         self.conv4 = nn.Conv1d(48, time_steps, 3, padding=1)
-        self.batch_norm4 = nn.BatchNorm1d(time_steps)
+        self.batch_norm4 = BatchNorm1d(time_steps)
         self.linear1 = nn.Linear(num_mfcc, 32)
 
     def forward(self, mfcc: torch.Tensor) -> torch.Tensor:
@@ -95,7 +95,7 @@ class TextEncoderTCN(nn.Module):
         return self.decoder(y.transpose(1, 2)), 0
 
 
-def _per_node_batchnorm(x: torch.Tensor, bn: nn.BatchNorm1d) -> torch.Tensor:
+def _per_node_batchnorm(x: torch.Tensor, bn: BatchNorm1d) -> torch.Tensor:
     """BatchNorm1d(C*V) over flattened (channel, node) pairs, index
     ch*V + node (ref net/multimodal_context_net_v2.py:159-160)."""
     b, c, t, v = x.shape
@@ -132,12 +132,12 @@ class AffEncoder(nn.Module):
         part = len(C.BODY_PARTS_EDGE_IDX[0])
         self.st_gcn1 = STGraphConv(coords, 16, a1.shape[0], (9, 5), padding=(4, 2))
         self.st_gcn2 = STGraphConv(16 * part, 16, a2.shape[0], (9, 3), padding=(4, 1))
-        self.batch_norm1 = nn.BatchNorm1d(16 * C.NUM_BONES)
-        self.batch_norm2 = nn.BatchNorm1d(16 * n_parts)
+        self.batch_norm1 = BatchNorm1d(16 * C.NUM_BONES)
+        self.batch_norm2 = BatchNorm1d(16 * n_parts)
         self.conv3 = nn.Conv1d(16 * n_parts, 16, 5, padding=2)
-        self.batch_norm3 = nn.BatchNorm1d(16)
+        self.batch_norm3 = BatchNorm1d(16)
         self.conv4 = nn.Conv1d(16, 8, 3, padding=1)
-        self.batch_norm4 = nn.BatchNorm1d(8)
+        self.batch_norm4 = BatchNorm1d(8)
 
     def forward(self, poses: torch.Tensor) -> torch.Tensor:
         b, t, jc = poses.shape

@@ -69,9 +69,10 @@ class _SpeakerGRUGenerator(nn.Module):
         log_var = self.speaker_log_var(h)
         if eps is None:
             gen_device = generator.device if generator is not None else mu.device
-            eps = torch.randn(mu.shape, generator=generator,
-                              device=gen_device).to(mu.device)
-        return re_parametrize(mu, log_var, eps), mu, log_var
+            eps = torch.randn(mu.shape, generator=generator, device=gen_device)
+        # at mu's dtype: bf16 under mixed precision, where JAX draws the
+        # noise in mu's dtype (generator.py:31)
+        return re_parametrize(mu, log_var, eps.to(mu)), mu, log_var
 
     def features(self, pre_seq, in_audio) -> list[torch.Tensor]:
         raise NotImplementedError

@@ -7,17 +7,18 @@ layers are those semantics, and the models use them directly:
 - its `Linear`, `Embed`, `Conv1d`, `Conv2d` are `nn.Linear`,
   `nn.Embedding`, `nn.Conv1d`, `nn.Conv2d` (torch default init: kaiming
   uniform a=sqrt(5), i.e. U(+-1/sqrt(fan_in)); N(0, 1) for the embedding);
-- its `BatchNorm` is `nn.BatchNorm1d`/`nn.BatchNorm2d` over the channel
-  axis: eval normalizes with the running stats, eps 1e-5; train with the
-  biased batch variance, updating the running stats with momentum 0.1 and
-  the unbiased variance.
+- its `BatchNorm` is `BatchNorm1d`/`BatchNorm2d` below: torch's own over
+  the channel axis (eval normalizes with the running stats, eps 1e-5;
+  train with the biased batch variance, updating the running stats with
+  momentum 0.1 and the unbiased variance), which at bf16 activations keeps
+  the JAX layer's float32 statistics.
 
-What torch lacks is below: `WNConv1d` (weight norm under torch
-`weight_norm`'s parameter names, so reference checkpoints load), `GRU`
-(nn.GRU's parameter names, its recurrence in `ops/gru_cuda.py`), the
-activation helpers, and `Dropout`, whose masks come from an explicit
-`torch.Generator` set with `dropout_rng` (the JAX package draws them from
-flax's 'dropout' stream).
+What torch lacks is below: the bf16 behaviour of `BatchNorm`, `WNConv1d`
+(weight norm under torch `weight_norm`'s parameter names, so reference
+checkpoints load), `GRU` (nn.GRU's parameter names, its recurrence in
+`ops/gru_cuda.py`), the activation helpers, and `Dropout`, whose masks come
+from an explicit `torch.Generator` set with `dropout_rng` (the JAX package
+draws them from flax's 'dropout' stream).
 """
 
 from __future__ import annotations
@@ -83,6 +84,41 @@ class Dropout(nn.Module):
 def sum_bidirectional(out: torch.Tensor, hidden_size: int) -> torch.Tensor:
     """Sum the forward and backward halves of a bi-GRU output."""
     return out[..., :hidden_size] + out[..., hidden_size:]
+
+
+def _batch_norm_f32(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor) -> torch.Tensor:
+    """JAX `layers.BatchNorm` at a bf16 activation (its :186-209): the
+    statistics from x in float32, the running stats (float32 buffers)
+    updated in float32, the scale and bias at the parameters' dtype (bf16
+    under mixed precision) applied in float32, the output in x's dtype."""
+    if bn.training:
+        bn.num_batches_tracked.add_(1)
+    weight = None if bn.weight is None else bn.weight.float()
+    bias = None if bn.bias is None else bn.bias.float()
+    return F.batch_norm(x.float(), bn.running_mean, bn.running_var, weight, bias,
+                        bn.training, bn.momentum, bn.eps).to(x.dtype)
+
+
+class BatchNorm1d(nn.BatchNorm1d):
+    """nn.BatchNorm1d (its state-dict names), with float32 statistics at a
+    bf16 input (`_batch_norm_f32`)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype != torch.bfloat16:
+            return super().forward(x)
+        self._check_input_dim(x)
+        return _batch_norm_f32(self, x)
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """nn.BatchNorm2d (its state-dict names), with float32 statistics at a
+    bf16 input (`_batch_norm_f32`)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype != torch.bfloat16:
+            return super().forward(x)
+        self._check_input_dim(x)
+        return _batch_norm_f32(self, x)
 
 
 class WNConv1d(nn.Module):

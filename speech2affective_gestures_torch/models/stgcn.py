@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .layers import Dropout, leaky_relu
+from .layers import BatchNorm2d, Dropout, leaky_relu
 
 
 class ConvTemporalGraphical(nn.Module):
@@ -32,7 +32,9 @@ class ConvTemporalGraphical(nn.Module):
         y = self.conv(x)
         b, kc, t, v = y.shape
         y = y.view(b, self.a_channels, kc // self.a_channels, t, v)
-        return torch.einsum("bkctv,kvw->bctw", y, adjacency)
+        # the adjacency is a float32 constant; it follows the activations'
+        # dtype, as in the JAX package (stgcn.py:52-54)
+        return torch.einsum("bkctv,kvw->bctw", y, adjacency.to(y.dtype))
 
 
 class STGraphConv(nn.Module):
@@ -49,15 +51,15 @@ class STGraphConv(nn.Module):
         self.gcn = ConvTemporalGraphical(in_channels, out_channels, a_channels,
                                          kernel_size[0], stride[0], padding[0])
         self.tcn = nn.Sequential(
-            nn.BatchNorm2d(out_channels),
+            BatchNorm2d(out_channels),
             nn.ReLU(),
             nn.Conv2d(out_channels, out_channels, kernel_size, stride, padding),
-            nn.BatchNorm2d(out_channels),
+            BatchNorm2d(out_channels),
             Dropout(dropout),
         )
         self.residual = nn.Sequential(
             nn.Conv2d(in_channels, out_channels, 1, stride=stride),
-            nn.BatchNorm2d(out_channels),
+            BatchNorm2d(out_channels),
         )
 
     def forward(self, x: torch.Tensor, adjacency: torch.Tensor) -> torch.Tensor:

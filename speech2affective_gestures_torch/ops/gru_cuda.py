@@ -28,6 +28,21 @@ pass that adds them; `dw_plan`). The sources say more.
 version for a CPU tensor and launches its kernel for a CUDA tensor; there
 is no fallback between the two.
 
+Storage: float32 or bfloat16, as the TPU kernels store at the input's
+dtype. Every kernel has an instance of each; a bf16 tensor on the card
+runs the bf16 instance, never the float32 one. At bf16 the kernels and
+their plain versions round where the TPU kernels do (`kernel_biases` and
+`csrc/gru_fwd.cu`, `csrc/gru_bwd.cu`): the r/z bias fold and xp + b in
+bf16, the products and gates in float32, the forward's carry h rounded to
+bf16 every step, ys, dxp and gn bf16, the backward's carry dh float32, dW_hh
+and the bias gradients float32 sums rounded to the parameters' dtype when
+`GRULayerFunction` returns them; hp, saved by the forward for the
+backward, is float32. On the CPU a bf16 layer runs through
+`GRULayerFunction` too (its forward and backward the plain versions at
+those rounding points), since autograd through the bf16 loop would carry
+dh in bf16; float32 and float64 run the plain loop under autograd.
+float16 and mixed dtypes raise TypeError.
+
 `run_layer` is the JAX package's v1 layer (`gru_pallas.run_layer`, the
 TPU kernels `_fwd_kernel` and `_bwd_kernel`): the same cell in the scan's
 walk layout, xp (T, D, B, 3H) with b_ih added and direction 1 time-reversed
@@ -40,6 +55,7 @@ models use `gru_layer`, as the JAX models use the v2 kernels.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 from typing import NamedTuple
@@ -48,15 +64,58 @@ import torch
 
 from . import _build
 
-# kernel launches since the last reset (chip_smoke.py reads and resets them):
-# the forward, the backward recurrence, the dW_hh reduction; then the same
-# three in the walk layout (`run_layer`)
-launches = 0
-bwd_launches = 0
-dw_launches = 0
-v1_launches = 0
-v1_bwd_launches = 0
-v1_dw_launches = 0
+# kernel launches since the last reset, by (kernel, dtype): the forward
+# ("gru_fwd"), the backward recurrence ("gru_bwd"), the dW_hh reduction
+# ("gru_dw"), the same three in the walk layout (`run_layer`: "gru_fwd_v1",
+# ...), each at "float32" or "bfloat16" (chip_smoke.py reads and resets it)
+launches: collections.Counter = collections.Counter()
+
+# the kernels' storage dtypes; the plain versions also take float64
+STORAGE = (torch.float32, torch.bfloat16)
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).removeprefix("torch.")
+
+
+def _count(kernel: str, dtype: torch.dtype) -> None:
+    launches[(kernel, _dtype_name(dtype))] += 1
+
+
+def _compute_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The plain versions' arithmetic: float32 for bf16 storage (as the
+    kernels widen it), the storage dtype otherwise."""
+    return torch.float32 if dtype == torch.bfloat16 else dtype
+
+
+def _check_dtypes(fn: str, tensors: dict, device: torch.device) -> torch.dtype:
+    """The one dtype of `tensors`: float32 or bfloat16, on the CPU also
+    float64; TypeError for float16, other dtypes and mixed dtypes."""
+    dtypes = {t.dtype for t in tensors.values() if t is not None}
+    if len(dtypes) != 1:
+        raise TypeError(f"{fn}: mixed dtypes " + ", ".join(
+            f"{n} {t.dtype}" for n, t in tensors.items() if t is not None))
+    dtype = dtypes.pop()
+    if dtype not in STORAGE + ((torch.float64,) if device.type == "cpu" else ()):
+        raise TypeError(f"{fn}: dtype {dtype} is not one the GRU kernels store "
+                        f"({', '.join(map(_dtype_name, STORAGE))})")
+    return dtype
+
+
+def kernel_biases(b_ih: torch.Tensor | None, b_hh: torch.Tensor,
+                  H: int) -> tuple[torch.Tensor | None, torch.Tensor]:
+    """(b_in, b_rec): b_in (or None for zero) is added to xp and rounded to
+    the storage dtype before the gates, b_rec to h_prev . W_hh in float32.
+    float32 and float64: b_ih and b_hh as given. bf16: the TPU kernels'
+    fold, b_in = b_ih + [b_hh_r, b_hh_z, 0] added in bf16 (b_ih None in the
+    walk layout, whose caller added it to xp) and b_rec = [0, 0, b_hh_n]
+    (`gru_pallas.run_layer_v2` :583-588, `run_layer` :284-289)."""
+    if b_hh.dtype != torch.bfloat16:
+        return b_ih, b_hh
+    zero = torch.zeros_like(b_hh[:, :2 * H])
+    rz = torch.cat([b_hh[:, :2 * H], zero[:, :H]], dim=-1)
+    n = torch.cat([zero, b_hh[:, 2 * H:]], dim=-1)
+    return (rz if b_ih is None else b_ih + rz), n
 
 
 def _walk(a: torch.Tensor, D: int) -> torch.Tensor:
@@ -80,20 +139,24 @@ def _cell(xt, hp, H):
 
 
 def _walk_forward(x: torch.Tensor, w_hh: torch.Tensor,
-                  b_hh: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """The time loop in walk order: x (T, D, B, 3H) with b_ih included ->
-    ys (T, D, B, H) and hp (T, D, B, 3H) = h_prev . W_hh + b_hh."""
+                  b_rec: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The time loop in walk order: x (T, D, B, 3H) with b_in included (at
+    the storage dtype) -> ys (T, D, B, H) at x's dtype and hp (T, D, B, 3H)
+    = h_prev . W_hh + b_rec at the compute dtype; h rounded to the storage
+    dtype every step."""
     T, D, B, H3 = x.shape
     H = H3 // 3
+    dt, cd = x.dtype, _compute_dtype(x.dtype)
+    x, w_hh, b_rec = x.to(cd), w_hh.to(cd), b_rec.to(cd)
     h = x.new_zeros(D, B, H)
     ys, hps = [], []
     for t in range(T):
-        hp = torch.bmm(h, w_hh) + b_hh[:, None, :]
+        hp = torch.bmm(h, w_hh) + b_rec[:, None, :]
         r, z, n = _cell(x[t], hp, H)
-        h = (1.0 - z) * n + z * h
+        h = ((1.0 - z) * n + z * h).to(dt).to(cd)
         ys.append(h)
         hps.append(hp)
-    return torch.stack(ys), torch.stack(hps)
+    return torch.stack(ys).to(dt), torch.stack(hps)
 
 
 def gru_layer_plain(xp: torch.Tensor, w_hh: torch.Tensor, b_ih: torch.Tensor,
@@ -104,31 +167,40 @@ def gru_layer_plain(xp: torch.Tensor, w_hh: torch.Tensor, b_ih: torch.Tensor,
     b_ih, b_hh (D, 3H). Returns ys (T, B, D*H), both directions in forward
     time order, and h_last (D, B, H): the final state of each direction's
     walk (the reverse direction ends at forward time 0); with save_hp=True
-    also hp (T, B, D*3H) = h_prev . W_hh + b_hh of each step, at the step's
-    frame.
+    also hp (T, B, D*3H) = h_prev . W_hh + b_rec of each step, at the
+    step's frame (`kernel_biases`; float32 at bf16 storage).
     """
     T, B, _ = xp.shape
     D, H, _ = w_hh.shape
-    ys, hp = _walk_forward(_walk(xp.view(T, B, D, 3 * H) + b_ih, D), w_hh, b_hh)
+    b_in, b_rec = kernel_biases(b_ih, b_hh, H)
+    ys, hp = _walk_forward(_walk(xp.view(T, B, D, 3 * H) + b_in, D), w_hh, b_rec)
     out = (_unwalk(ys), ys[-1])
     return out + (_unwalk(hp),) if save_hp else out
 
 
-def _check_tensors(fn: str, tensors: dict) -> None:
-    """Every tensor contiguous float32 on xp's device."""
+def _check_tensors(fn: str, tensors: dict) -> torch.dtype:
+    """Every tensor contiguous, on xp's device, of one storage dtype (which
+    is returned)."""
     device = tensors["xp"].device
     for name, t in tensors.items():
         if t.device != device:
             raise ValueError(f"{fn}: {name} is on {t.device}, xp on {device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{fn}: {name} must be float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{fn}: {name} must be contiguous")
+    return _check_dtypes(fn, tensors, device)
 
 
-def _check(xp, w_hh, b_ih, b_hh, **more):
-    _check_tensors("gru_layer", {"xp": xp, "w_hh": w_hh, "b_ih": b_ih, "b_hh": b_hh,
-                                 **more})
+def _check_hp(fn: str, hp: torch.Tensor, xp: torch.Tensor) -> None:
+    """The forward's saved hp on the card: contiguous float32 of xp's shape."""
+    if hp.device != xp.device or hp.dtype != torch.float32 or not hp.is_contiguous():
+        raise TypeError(f"{fn}: hp must be a contiguous float32 tensor on {xp.device}")
+    if hp.shape != xp.shape:
+        raise ValueError(f"{fn}: hp shape {tuple(hp.shape)} != xp's {tuple(xp.shape)}")
+
+
+def _check(xp, w_hh, b_ih, b_hh, **more) -> torch.dtype:
+    dtype = _check_tensors("gru_layer", {"xp": xp, "w_hh": w_hh, "b_ih": b_ih,
+                                         "b_hh": b_hh, **more})
     if xp.dim() != 3 or w_hh.dim() != 3:
         raise ValueError("gru_layer: xp must be (T, B, D*3H) and w_hh (D, H, 3H)")
     D, H, H3 = w_hh.shape
@@ -145,6 +217,7 @@ def _check(xp, w_hh, b_ih, b_hh, **more):
         if tuple(t.shape) != (T, B, D * H):
             raise ValueError(f"gru_layer: {name} shape {tuple(t.shape)} != "
                              f"{(T, B, D * H)}")
+    return dtype
 
 
 @functools.lru_cache(maxsize=None)
@@ -332,18 +405,21 @@ def bwd_plan(B: int, H: int, D: int, max_clusters: int) -> ClusterPlan:
 _max_clusters: dict = {}
 
 
-def max_clusters(device: torch.device, H: int, kernel: str = "fwd") -> int:
+def max_clusters(device: torch.device, H: int, kernel: str = "fwd",
+                 dtype: torch.dtype = torch.float32) -> int:
     """How many clusters of the forward (`kernel` "fwd") or backward
-    recurrence ("bwd") kernel at hidden size H the card runs at once, each
-    block with the smem of a one-row tile (so that registers, not shared
-    memory, bound the count); asked once per device, kernel and H."""
-    key = (torch.device(device).index, H, kernel)
+    recurrence ("bwd") kernel's `dtype` instance at hidden size H the card
+    runs at once, each block with the smem of a one-row tile (so that
+    registers, not shared memory, bound the count); asked once per device,
+    kernel, dtype and H."""
+    key = (torch.device(device).index, H, kernel, dtype)
     if key not in _max_clusters:
         p = (fwd_plan if kernel == "fwd" else bwd_plan)(1, H, 1, 1)  # one row a tile
-        fn = _lib_fn(f"gru_{kernel}", f"s2ag_gru_{kernel}_max_clusters", 0, n_int=6,
+        fn = _lib_fn(f"gru_{kernel}", f"s2ag_gru_{kernel}_max_clusters", 0, n_int=7,
                      stream=False)
         with torch.cuda.device(device):
-            n = fn(p.S, p.KC, p.C, p.threads, p.smem, _TIERS[p.tier])
+            n = fn(p.S, p.KC, p.C, p.threads, p.smem, _TIERS[p.tier],
+                   int(dtype == torch.bfloat16))
         if n < 1:
             raise RuntimeError(f"gru_{kernel}: no cluster of {p.C} blocks fits on {device}"
                                + (f" (CUDA error {-n})" if n < 0 else ""))
@@ -354,18 +430,21 @@ def max_clusters(device: torch.device, H: int, kernel: str = "fwd") -> int:
 _TIERS = {"registers": 0, "l2": 1}
 
 
-def _device_plan(device: torch.device, B: int, H: int, D: int) -> ClusterPlan:
-    return fwd_plan(B, H, D, max_clusters(device, H))
+def _device_plan(device: torch.device, B: int, H: int, D: int,
+                 dtype: torch.dtype = torch.float32) -> ClusterPlan:
+    return fwd_plan(B, H, D, max_clusters(device, H, "fwd", dtype))
 
 
-def _device_bwd_plan(device: torch.device, B: int, H: int, D: int) -> ClusterPlan:
-    return bwd_plan(B, H, D, max_clusters(device, H, "bwd"))
+def _device_bwd_plan(device: torch.device, B: int, H: int, D: int,
+                     dtype: torch.dtype = torch.float32) -> ClusterPlan:
+    return bwd_plan(B, H, D, max_clusters(device, H, "bwd", dtype))
 
 
-def _plan_args(plan: ClusterPlan) -> tuple[int, ...]:
-    """The plan as the GRU entry points take it, after (T, B, H, D)."""
+def _plan_args(plan: ClusterPlan, dtype: torch.dtype = torch.float32) -> tuple[int, ...]:
+    """The plan as the GRU entry points take it, after (T, B, H, D), and the
+    instance (1: bf16)."""
     return (plan.C, plan.BT, plan.S, plan.KC, plan.U, plan.threads, plan.smem,
-            _TIERS[plan.tier])
+            _TIERS[plan.tier], int(dtype == torch.bfloat16))
 
 
 def _ptr(t: torch.Tensor | None) -> int:
@@ -374,26 +453,30 @@ def _ptr(t: torch.Tensor | None) -> int:
 
 def gru_layer_forward(xp: torch.Tensor, w_hh: torch.Tensor, b_ih: torch.Tensor,
                       b_hh: torch.Tensor, save_hp: bool = False):
-    """`gru_layer_plain`'s contract; the forward kernel for CUDA tensors.
-    Not differentiable on the card: `gru_layer` is the autograd entry. With
-    save_hp=True it also returns hp (T, B, D*3H), h_prev . W_hh + b_hh of
-    every step, which the backward kernel takes instead of recomputing it."""
-    global launches
+    """`gru_layer_plain`'s contract; the forward kernel for CUDA tensors
+    (the instance of their dtype). Not differentiable on the card:
+    `gru_layer` is the autograd entry. With save_hp=True it also returns hp
+    (T, B, D*3H) float32, h_prev . W_hh + b_rec of every step, which the
+    backward kernel takes instead of recomputing it."""
     if xp.device.type == "cpu":
+        _check_dtypes("gru_layer", {"xp": xp, "w_hh": w_hh, "b_ih": b_ih, "b_hh": b_hh},
+                      xp.device)
         return gru_layer_plain(xp, w_hh, b_ih, b_hh, save_hp=save_hp)
     if xp.device.type != "cuda":
         raise ValueError(f"gru_layer: unsupported device {xp.device}")
-    _check(xp, w_hh, b_ih, b_hh)
+    dtype = _check(xp, w_hh, b_ih, b_hh)
     T, B, _ = xp.shape
     D, H, _ = w_hh.shape
-    plan = _device_plan(xp.device, B, H, D)
-    ys = torch.empty((T, B, D * H), device=xp.device, dtype=torch.float32)
-    h_last = torch.empty((D, B, H), device=xp.device, dtype=torch.float32)
-    hp = torch.empty_like(xp) if save_hp else None
-    _launch(_lib_fn("gru_fwd", "s2ag_gru_layer_fwd", 7, n_int=12), "gru_fwd", xp.device,
-            xp.data_ptr(), w_hh.data_ptr(), b_ih.data_ptr(), b_hh.data_ptr(),
-            ys.data_ptr(), h_last.data_ptr(), _ptr(hp), T, B, H, D, *_plan_args(plan))
-    launches += 1
+    b_in, b_rec = kernel_biases(b_ih, b_hh, H)
+    plan = _device_plan(xp.device, B, H, D, dtype)
+    ys = torch.empty((T, B, D * H), device=xp.device, dtype=dtype)
+    h_last = torch.empty((D, B, H), device=xp.device, dtype=dtype)
+    hp = torch.empty(xp.shape, device=xp.device, dtype=torch.float32) if save_hp else None
+    _launch(_lib_fn("gru_fwd", "s2ag_gru_layer_fwd", 7, n_int=13), "gru_fwd", xp.device,
+            xp.data_ptr(), w_hh.data_ptr(), b_in.data_ptr(), b_rec.data_ptr(),
+            ys.data_ptr(), h_last.data_ptr(), _ptr(hp), T, B, H, D,
+            *_plan_args(plan, dtype))
+    _count("gru_fwd", dtype)
     return (ys, h_last, hp) if save_hp else (ys, h_last)
 
 
@@ -419,33 +502,37 @@ def gru_bwd_recurrence_plain(xp: torch.Tensor, w_hh: torch.Tensor,
 
     ys from the forward, dys (T, B, D*H) the gradient of ys (with the
     gradient of h_last already added at the frame of each final state), hp
-    the forward's saved h_prev . W_hh + b_hh (T, B, D*3H), or None to
+    the forward's saved h_prev . W_hh + b_rec (T, B, D*3H), or None to
     recompute it. Returns dxp (T, B, D*3H) = [dpre_r, dpre_z, dpre_n] and gn
-    (T, B, D*H) = dpre_n * r, both in forward time order."""
+    (T, B, D*H) = dpre_n * r, both in forward time order, at xp's dtype."""
     T, B, _ = xp.shape
     D, H, _ = w_hh.shape
-    x = _walk(xp.view(T, B, D, 3 * H) + b_ih, D)
+    b_in, b_rec = kernel_biases(b_ih, b_hh, H)
+    x = _walk(xp.view(T, B, D, 3 * H) + b_in, D)
     dx, gn = _walk_backward(x, _walk(_prev_states(ys, D), D),
-                            _walk(dys.view(T, B, D, H), D), w_hh, b_hh,
+                            _walk(dys.view(T, B, D, H), D), w_hh, b_rec,
                             None if hp is None else _walk(hp.view(T, B, D, 3 * H), D))
     return _unwalk(dx), _unwalk(gn)
 
 
 def _walk_backward(x: torch.Tensor, hprev: torch.Tensor, dy: torch.Tensor,
-                   w_hh: torch.Tensor, b_hh: torch.Tensor,
+                   w_hh: torch.Tensor, b_rec: torch.Tensor,
                    hps: torch.Tensor | None = None
                    ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The reverse-time recurrence in walk order: x (T, D, B, 3H) with b_ih
-    included, hprev and dy (T, D, B, H), hps (T, D, B, 3H) the forward's
-    h_prev . W_hh + b_hh or None -> dx (T, D, B, 3H) = [dpre_r, dpre_z,
-    dpre_n] and gn (T, D, B, H) = dpre_n r."""
+    """The reverse-time recurrence in walk order: x (T, D, B, 3H) with b_in
+    included (at the storage dtype), hprev and dy (T, D, B, H), hps (T, D,
+    B, 3H) the forward's h_prev . W_hh + b_rec or None -> dx (T, D, B, 3H)
+    = [dpre_r, dpre_z, dpre_n] and gn (T, D, B, H) = dpre_n r, at x's dtype;
+    the carry, the gate gradients and g . W^T at the compute dtype."""
     T, D, B, H3 = x.shape
     H = H3 // 3
+    dt, cd = x.dtype, _compute_dtype(x.dtype)
+    x, hprev, dy, w_hh, b_rec = (a.to(cd) for a in (x, hprev, dy, w_hh, b_rec))
     w_t = w_hh.transpose(1, 2)
     carry = x.new_zeros(D, B, H)
     dxs, gns = [], []
     for s in range(T - 1, -1, -1):
-        hp = torch.bmm(hprev[s], w_hh) + b_hh[:, None, :] if hps is None else hps[s]
+        hp = torch.bmm(hprev[s], w_hh) + b_rec[:, None, :] if hps is None else hps[s].to(cd)
         r, z, n = _cell(x[s], hp, H)
         dh = dy[s] + carry
         dpre_n = dh * (1.0 - z) * (1.0 - n * n)
@@ -453,8 +540,8 @@ def _walk_backward(x: torch.Tensor, hprev: torch.Tensor, dy: torch.Tensor,
         dpre_r = dpre_n * hp[..., 2 * H:] * r * (1.0 - r)
         g = torch.cat([dpre_r, dpre_z, dpre_n * r], dim=-1)
         carry = dh * z + torch.bmm(g, w_t)
-        dxs.append(torch.cat([dpre_r, dpre_z, dpre_n], dim=-1))
-        gns.append(dpre_n * r)
+        dxs.append(torch.cat([dpre_r, dpre_z, dpre_n], dim=-1).to(dt))
+        gns.append((dpre_n * r).to(dt))
     return torch.stack(dxs[::-1]), torch.stack(gns[::-1])
 
 
@@ -463,10 +550,10 @@ def gru_bwd_recurrence(xp: torch.Tensor, w_hh: torch.Tensor, b_ih: torch.Tensor,
                        hp: torch.Tensor | None = None, want_gn: bool = True
                        ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """`gru_bwd_recurrence_plain`'s contract; the backward kernel for CUDA
-    tensors, which takes the forward's saved hp (`gru_layer_forward(...,
-    save_hp=True)`) and raises without it. With want_gn=False (no weight
-    gradient wanted) gn is not written and None is returned in its place."""
-    global bwd_launches
+    tensors (the instance of their dtype), which takes the forward's saved
+    float32 hp (`gru_layer_forward(..., save_hp=True)`) and raises without
+    it. With want_gn=False (no weight gradient wanted) gn is not written and
+    None is returned in its place."""
     if xp.device.type == "cpu":
         dxp, gn = gru_bwd_recurrence_plain(xp, w_hh, b_ih, b_hh, ys, dys, hp)
         return dxp, gn if want_gn else None
@@ -475,54 +562,62 @@ def gru_bwd_recurrence(xp: torch.Tensor, w_hh: torch.Tensor, b_ih: torch.Tensor,
     if hp is None:
         raise ValueError("gru_bwd: the kernel takes the forward's saved hp "
                          "(gru_layer_forward(..., save_hp=True))")
-    _check(xp, w_hh, b_ih, b_hh, ys=ys, dys=dys)
-    _check_tensors("gru_bwd", {"xp": xp, "hp": hp})
-    if hp.shape != xp.shape:
-        raise ValueError(f"gru_bwd: hp shape {tuple(hp.shape)} != xp's {tuple(xp.shape)}")
+    dtype = _check(xp, w_hh, b_ih, b_hh, ys=ys, dys=dys)
+    _check_hp("gru_bwd", hp, xp)
     T, B, _ = xp.shape
     D, H, _ = w_hh.shape
-    plan = _device_bwd_plan(xp.device, B, H, D)
+    b_in, _ = kernel_biases(b_ih, b_hh, H)
+    plan = _device_bwd_plan(xp.device, B, H, D, dtype)
     dxp = torch.empty_like(xp)
     gn = torch.empty_like(ys) if want_gn else None
-    _launch(_lib_fn("gru_bwd", "s2ag_gru_layer_bwd", 8, n_int=12), "gru_bwd", xp.device,
-            xp.data_ptr(), w_hh.data_ptr(), b_ih.data_ptr(), hp.data_ptr(), ys.data_ptr(),
-            dys.data_ptr(), dxp.data_ptr(), _ptr(gn), T, B, H, D, *_plan_args(plan))
-    bwd_launches += 1
+    _launch(_lib_fn("gru_bwd", "s2ag_gru_layer_bwd", 8, n_int=13), "gru_bwd", xp.device,
+            xp.data_ptr(), w_hh.data_ptr(), b_in.data_ptr(), hp.data_ptr(), ys.data_ptr(),
+            dys.data_ptr(), dxp.data_ptr(), _ptr(gn), T, B, H, D, *_plan_args(plan, dtype))
+    _count("gru_bwd", dtype)
     return dxp, gn
 
 
 def gru_dw_plain(ys: torch.Tensor, dxp: torch.Tensor, gn: torch.Tensor,
                  D: int) -> tuple[torch.Tensor, torch.Tensor]:
     """dW_hh (D, H, 3H) = the sum over (t, b) of h_prev^T g with
-    g = [dpre_r, dpre_z, dpre_n r], and db_hh (D, 3H) = the sum of g."""
+    g = [dpre_r, dpre_z, dpre_n r], and db_hh (D, 3H) = the sum of g, at the
+    compute dtype (float32 for bf16 inputs)."""
     T, B, _ = ys.shape
     H = ys.shape[2] // D
-    d = dxp.view(T, B, D, 3 * H)
-    g = torch.cat([d[..., :2 * H], gn.view(T, B, D, H)], dim=-1)
-    hprev = _prev_states(ys, D)
+    cd = _compute_dtype(ys.dtype)
+    d = dxp.view(T, B, D, 3 * H).to(cd)
+    g = torch.cat([d[..., :2 * H], gn.view(T, B, D, H).to(cd)], dim=-1)
+    hprev = _prev_states(ys, D).to(cd)
     dw = torch.einsum("tbdk,tbdj->dkj", hprev, g)
     return dw, g.sum(dim=(0, 1))
 
 
 def gru_dw(ys: torch.Tensor, dxp: torch.Tensor, gn: torch.Tensor,
            D: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """`gru_dw_plain`'s contract; the reduction kernel for CUDA tensors."""
-    global dw_launches
+    """`gru_dw_plain`'s contract; the reduction kernel for CUDA tensors (the
+    instance of their dtype), float32 out."""
     if ys.device.type == "cpu":
         return gru_dw_plain(ys, dxp, gn, D)
     if ys.device.type != "cuda":
         raise ValueError(f"gru_dw: unsupported device {ys.device}")
     T, B, DH = ys.shape
     H = DH // D
-    for name, t, shape in (("ys", ys, (T, B, D * H)), ("gn", gn, (T, B, D * H)),
-                           ("dxp", dxp, (T, B, D * 3 * H))):
-        if (t.device != ys.device or t.dtype != torch.float32
-                or not t.is_contiguous() or tuple(t.shape) != shape):
-            raise ValueError(f"gru_dw: {name} must be a contiguous float32 "
-                             f"{shape} tensor on {ys.device}")
+    dtype = _check_dw("gru_dw", ((ys, (T, B, D * H)), (gn, (T, B, D * H)),
+                                 (dxp, (T, B, D * 3 * H))))
     dw, db = _dw_launch("s2ag_gru_layer_dw", ys, dxp, gn, T, B, H, D)
-    dw_launches += 1
+    _count("gru_dw", dtype)
     return dw, db
+
+
+def _check_dw(fn: str, tensors) -> torch.dtype:
+    """ys, gn and dxp of the dW reduction: contiguous, of their shapes, on
+    ys's device, of one storage dtype (returned)."""
+    names = ("ys", "gn", "dxp")
+    device = tensors[0][0].device
+    for name, (t, shape) in zip(names, tensors):
+        if t.device != device or not t.is_contiguous() or tuple(t.shape) != shape:
+            raise ValueError(f"{fn}: {name} must be a contiguous {shape} tensor on {device}")
+    return _check_dtypes(fn, {n: t for n, (t, _) in zip(names, tensors)}, device)
 
 
 # dW's block tile (rows of k by columns of j) and rows a pipeline stage:
@@ -534,7 +629,8 @@ class DwPlan(NamedTuple):
     """A launch of `csrc/gru_bwd.cu`'s dW product: tiles_k x tiles_j block
     tiles of the (H + 1, 3H) output a direction, each over `splits`
     consecutive row splits of `rows` rows (a multiple of DW_TK) of the
-    T*B; `vec` floats a cp.async (4: 16-byte copies)."""
+    T*B; `vec` values a copy (float32: 4 is a 16-byte cp.async, 1 a 4-byte
+    one; bf16: 4 an 8-byte cp.async, 2 a 4-byte one, 1 a plain load)."""
     tiles_k: int
     tiles_j: int
     splits: int
@@ -542,31 +638,44 @@ class DwPlan(NamedTuple):
     vec: int
 
 
-def dw_plan(T: int, B: int, H: int, D: int, sms: int, aligned: bool = True) -> DwPlan:
-    """The dW product's launch on a card of `sms` SMs: about four blocks an
-    SM (splits of at least 256 rows), no split empty after its rows are
-    rounded up to whole stages; 16-byte copies where H % 4 == 0 and the
-    tensors are 16-byte `aligned`."""
+def dw_plan(T: int, B: int, H: int, D: int, sms: int, align: int = 16,
+            itemsize: int = 4) -> DwPlan:
+    """The dW product's launch on a card of `sms` SMs for inputs of
+    `itemsize` bytes a value (4: float32, 2: bf16) whose pointers are all
+    multiples of `align` bytes: about four blocks an SM (splits of at least
+    256 rows), no split empty after its rows are rounded up to whole stages;
+    the widest copy of `vec` values with H % vec == 0 (then every row and
+    direction of the layouts starts on a multiple of vec values) and vec *
+    itemsize dividing `align`: float32 copies 4 values or 1, bf16 4, 2 or
+    1."""
     M = T * B
     tiles_k, tiles_j = -(-(H + 1) // DW_TM), -(-3 * H // DW_TN)
     S = max(1, min(-(-4 * sms // (tiles_k * tiles_j * D)), M // 256))
     rows = -(-(-(-M // S)) // DW_TK) * DW_TK
-    return DwPlan(tiles_k, tiles_j, -(-M // rows), rows, 4 if H % 4 == 0 and aligned else 1)
+    vec = next(v for v in ((4, 1) if itemsize == 4 else (4, 2, 1))
+               if H % v == 0 and align % (v * itemsize) == 0)
+    return DwPlan(tiles_k, tiles_j, -(-M // rows), rows, vec)
+
+
+def _alignment(*tensors: torch.Tensor) -> int:
+    """The largest power of two up to 16 that divides every data pointer."""
+    return next(a for a in (16, 8, 4, 2, 1) if all(t.data_ptr() % a == 0 for t in tensors))
 
 
 def _dw_launch(symbol, ys, dxp, gn, T, B, H, D):
     """Launch a dW reduction entry point of `csrc/gru_bwd.cu` (either
-    layout) into fresh (dW_hh, db_hh)."""
+    layout) into fresh float32 (dW_hh, db_hh)."""
     plan = dw_plan(T, B, H, D,
                    torch.cuda.get_device_properties(ys.device).multi_processor_count,
-                   aligned=all(t.data_ptr() % 16 == 0 for t in (ys, dxp, gn)))
+                   align=_alignment(ys, dxp, gn), itemsize=ys.element_size())
     part = torch.empty((plan.splits, D, H + 1, 3 * H), device=ys.device,
                        dtype=torch.float32)
     dw = torch.empty((D, H, 3 * H), device=ys.device, dtype=torch.float32)
     db = torch.empty((D, 3 * H), device=ys.device, dtype=torch.float32)
-    _launch(_lib_fn("gru_bwd", symbol, 6, n_int=7), symbol, ys.device,
+    _launch(_lib_fn("gru_bwd", symbol, 6, n_int=8), symbol, ys.device,
             ys.data_ptr(), dxp.data_ptr(), gn.data_ptr(), part.data_ptr(),
-            dw.data_ptr(), db.data_ptr(), T, B, H, D, plan.splits, plan.rows, plan.vec)
+            dw.data_ptr(), db.data_ptr(), T, B, H, D, plan.splits, plan.rows, plan.vec,
+            int(ys.dtype == torch.bfloat16))
     return dw, db
 
 
@@ -598,16 +707,18 @@ def gru_layer_bwd(xp: torch.Tensor, w_hh: torch.Tensor, b_ih: torch.Tensor,
         return dxp, None, None, None
     dw, db_hh = gru_dw(ys, dxp, gn, D)
     T, B, _ = xp.shape
-    db_ih = dxp.view(T, B, D, 3 * H).sum(dim=(0, 1))
+    db_ih = dxp.view(T, B, D, 3 * H).sum(dim=(0, 1), dtype=_compute_dtype(dxp.dtype))
     return dxp, dw, db_ih, db_hh
 
 
 class GRULayerFunction(torch.autograd.Function):
-    """One layer with the forward kernel and the backward kernels: saves
-    xp, w_hh, b_ih, b_hh and ys, as the JAX package's `_vjp_fwd_v2` does,
-    and the forward's hp, so that the backward makes one product with W_hh
-    a step, not two. The weight gradients are skipped when no weight needs
-    one (the discriminator's layers in the generator's step)."""
+    """One layer with the forward kernel and the backward kernels (their
+    plain versions for CPU tensors): saves xp, w_hh, b_ih, b_hh and ys, as
+    the JAX package's `_vjp_fwd_v2` does, and the forward's hp, so that the
+    backward makes one product with W_hh a step, not two. The weight
+    gradients are skipped when no weight needs one (the discriminator's
+    layers in the generator's step); they are float32 sums returned in the
+    parameters' dtype (`_vjp_bwd_v2`'s casts)."""
 
     @staticmethod
     def forward(ctx, xp, w_hh, b_ih, b_hh):
@@ -622,8 +733,9 @@ class GRULayerFunction(torch.autograd.Function):
         dxp, dw, db_ih, db_hh = gru_layer_bwd(
             xp, w_hh, b_ih, b_hh, ys, fold_h_last(dys, dh_last),
             weights=need_w or need_bi or need_bh, hp=hp)
-        return (dxp if need_x else None, dw if need_w else None,
-                db_ih if need_bi else None, db_hh if need_bh else None)
+        return (dxp if need_x else None, dw.to(w_hh.dtype) if need_w else None,
+                db_ih.to(b_ih.dtype) if need_bi else None,
+                db_hh.to(b_hh.dtype) if need_bh else None)
 
 
 def _differentiated(*tensors) -> bool:
@@ -632,13 +744,17 @@ def _differentiated(*tensors) -> bool:
 
 def gru_layer(xp: torch.Tensor, w_hh: torch.Tensor, b_ih: torch.Tensor,
               b_hh: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """The layer as models use it. A CPU tensor runs the plain time loop,
-    which autograd differentiates; a CUDA tensor runs `GRULayerFunction`
-    (the forward kernel, and the backward kernels under autograd) when a
-    gradient will be taken, else the forward kernel alone (no hp saved)."""
-    if xp.device.type == "cpu":
+    """The layer as models use it. A float32 or float64 CPU tensor runs the
+    plain time loop, which autograd differentiates; a CUDA tensor, or a
+    bf16 one on the CPU, runs `GRULayerFunction` (the forward kernel, and
+    the backward kernels under autograd, or their plain versions on the
+    CPU) when a gradient will be taken, else the forward alone (no hp
+    saved)."""
+    dtype = _check_dtypes("gru_layer", {"xp": xp, "w_hh": w_hh, "b_ih": b_ih,
+                                        "b_hh": b_hh}, xp.device)
+    if xp.device.type == "cpu" and dtype != torch.bfloat16:
         return gru_layer_plain(xp, w_hh, b_ih, b_hh)
-    if xp.device.type != "cuda":
+    if xp.device.type not in ("cpu", "cuda"):
         raise ValueError(f"gru_layer: unsupported device {xp.device}")
     if not _differentiated(xp, w_hh, b_ih, b_hh):
         return gru_layer_forward(xp, w_hh, b_ih, b_hh)
@@ -657,8 +773,15 @@ def run_layer_plain(xp: torch.Tensor, w_hh: torch.Tensor,
     direction 1 already time-reversed by the caller; w_hh (D, H, 3H); b_hh
     (D, 3H). Returns ys (T, D, B, H) in each direction's walk order and
     h_last = ys[-1] (D, B, H)."""
-    ys = _walk_forward(xp, w_hh, b_hh)[0]
+    ys = _walk_forward(*_walk_inputs(xp, w_hh, b_hh))[0]
     return ys, ys[-1]
+
+
+def _walk_inputs(xp, w_hh, b_hh):
+    """(x, w_hh, b_rec) of the walk layout's loops: xp with `kernel_biases`'
+    b_in added (none in float32; b_hh_r and b_hh_z in bf16)."""
+    b_in, b_rec = kernel_biases(None, b_hh, w_hh.shape[1])
+    return (xp if b_in is None else xp + b_in[:, None, :]), w_hh, b_rec
 
 
 def run_layer_bwd_recurrence_plain(xp: torch.Tensor, w_hh: torch.Tensor,
@@ -667,9 +790,10 @@ def run_layer_bwd_recurrence_plain(xp: torch.Tensor, w_hh: torch.Tensor,
                                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """The v1 backward recurrence: dys (T, D, B, H), the gradient of ys
     (h_last's included, since h_last is ys[-1]), hp (T, D, B, 3H) the
-    forward's saved h_prev . W_hh + b_hh or None to recompute it -> dxp
+    forward's saved h_prev . W_hh + b_rec or None to recompute it -> dxp
     (T, D, B, 3H) = [dpre_r, dpre_z, dpre_n] and gn (T, D, B, H) = dpre_n r."""
-    return _walk_backward(xp, _walk_prev(ys), dys, w_hh, b_hh, hp)
+    x, w_hh, b_rec = _walk_inputs(xp, w_hh, b_hh)
+    return _walk_backward(x, _walk_prev(ys), dys, w_hh, b_rec, hp)
 
 
 def _walk_prev(ys: torch.Tensor) -> torch.Tensor:
@@ -683,14 +807,15 @@ def run_layer_dw_plain(ys: torch.Tensor, dxp: torch.Tensor,
     """dW_hh (D, H, 3H) = the sum over (t, b) of h_prev^T g with g =
     [dpre_r, dpre_z, dpre_n r], and db_hh (D, 3H) = the sum of g: the r and
     z parts are dxp's sums (JAX folds b_hh_r and b_hh_z into xp), the n
-    part the TPU kernel's db_hn."""
+    part the TPU kernel's db_hn. At the compute dtype (float32 for bf16)."""
     H = ys.shape[-1]
-    g = torch.cat([dxp[..., :2 * H], gn], dim=-1)
-    return torch.einsum("tdbk,tdbj->dkj", _walk_prev(ys), g), g.sum(dim=(0, 2))
+    cd = _compute_dtype(ys.dtype)
+    g = torch.cat([dxp[..., :2 * H], gn], dim=-1).to(cd)
+    return torch.einsum("tdbk,tdbj->dkj", _walk_prev(ys).to(cd), g), g.sum(dim=(0, 2))
 
 
-def _check_v1(xp, w_hh, b_hh, **more):
-    _check_tensors("run_layer", {"xp": xp, "w_hh": w_hh, "b_hh": b_hh, **more})
+def _check_v1(xp, w_hh, b_hh, **more) -> torch.dtype:
+    dtype = _check_tensors("run_layer", {"xp": xp, "w_hh": w_hh, "b_hh": b_hh, **more})
     if xp.dim() != 4 or w_hh.dim() != 3:
         raise ValueError("run_layer: xp must be (T, D, B, 3H) and w_hh (D, H, 3H)")
     T, D, B, H3 = xp.shape
@@ -700,33 +825,35 @@ def _check_v1(xp, w_hh, b_hh, **more):
     if tuple(b_hh.shape) != (D, H3) or T < 1 or B < 1:
         raise ValueError(f"run_layer: b_hh shape {tuple(b_hh.shape)} != {(D, H3)}")
     for name, t in more.items():
-        want = xp.shape if name == "hp" else (T, D, B, H3 // 3)
-        if t.shape != want:
-            raise ValueError(f"run_layer: {name} shape {tuple(t.shape)} != {tuple(want)}")
+        if t.shape != (T, D, B, H3 // 3):
+            raise ValueError(f"run_layer: {name} shape {tuple(t.shape)} != "
+                             f"{(T, D, B, H3 // 3)}")
+    return dtype
 
 
 def run_layer_forward(xp: torch.Tensor, w_hh: torch.Tensor,
                       b_hh: torch.Tensor, save_hp: bool = False):
-    """ys of `run_layer_plain`; the forward kernel (walk layout) for CUDA
-    tensors. Not differentiable on the card: `run_layer` is the autograd
-    entry. With save_hp=True returns (ys, hp), hp (T, D, B, 3H) the
-    h_prev . W_hh + b_hh of each walk step."""
-    global v1_launches
+    """ys of `run_layer_plain`; the forward kernel (walk layout, the
+    instance of their dtype) for CUDA tensors. Not differentiable on the
+    card: `run_layer` is the autograd entry. With save_hp=True returns (ys,
+    hp), hp (T, D, B, 3H) the h_prev . W_hh + b_rec of each walk step
+    (float32 at bf16 storage)."""
     if xp.device.type == "cpu":
-        ys, hp = _walk_forward(xp, w_hh, b_hh)
+        ys, hp = _walk_forward(*_walk_inputs(xp, w_hh, b_hh))
         return (ys, hp) if save_hp else ys
     if xp.device.type != "cuda":
         raise ValueError(f"run_layer: unsupported device {xp.device}")
-    _check_v1(xp, w_hh, b_hh)
+    dtype = _check_v1(xp, w_hh, b_hh)
     T, D, B, H3 = xp.shape
     H = H3 // 3
-    plan = _device_plan(xp.device, B, H, D)
-    ys = torch.empty((T, D, B, H), device=xp.device, dtype=torch.float32)
-    hp = torch.empty_like(xp) if save_hp else None
-    _launch(_lib_fn("gru_fwd", "s2ag_gru_layer_fwd_v1", 5, n_int=12), "gru_fwd_v1",
-            xp.device, xp.data_ptr(), w_hh.data_ptr(), b_hh.data_ptr(), ys.data_ptr(),
-            _ptr(hp), T, B, H, D, *_plan_args(plan))
-    v1_launches += 1
+    b_in, b_rec = kernel_biases(None, b_hh, H)
+    plan = _device_plan(xp.device, B, H, D, dtype)
+    ys = torch.empty((T, D, B, H), device=xp.device, dtype=dtype)
+    hp = torch.empty(xp.shape, device=xp.device, dtype=torch.float32) if save_hp else None
+    _launch(_lib_fn("gru_fwd", "s2ag_gru_layer_fwd_v1", 6, n_int=13), "gru_fwd_v1",
+            xp.device, xp.data_ptr(), w_hh.data_ptr(), _ptr(b_in), b_rec.data_ptr(),
+            ys.data_ptr(), _ptr(hp), T, B, H, D, *_plan_args(plan, dtype))
+    _count("gru_fwd_v1", dtype)
     return (ys, hp) if save_hp else ys
 
 
@@ -736,10 +863,10 @@ def run_layer_bwd_recurrence(xp: torch.Tensor, w_hh: torch.Tensor,
                              want_gn: bool = True
                              ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """`run_layer_bwd_recurrence_plain`'s contract; the backward kernel
-    (walk layout) for CUDA tensors, which takes the forward's saved hp
-    (`run_layer_forward(..., save_hp=True)`) and raises without it. With
-    want_gn=False gn is not written and None is returned in its place."""
-    global v1_bwd_launches
+    (walk layout, the instance of their dtype) for CUDA tensors, which takes
+    the forward's saved float32 hp (`run_layer_forward(..., save_hp=True)`)
+    and raises without it. With want_gn=False gn is not written and None is
+    returned in its place."""
     if xp.device.type == "cpu":
         dxp, gn = run_layer_bwd_recurrence_plain(xp, w_hh, b_hh, ys, dys, hp)
         return dxp, gn if want_gn else None
@@ -748,44 +875,43 @@ def run_layer_bwd_recurrence(xp: torch.Tensor, w_hh: torch.Tensor,
     if hp is None:
         raise ValueError("run_layer: the backward kernel takes the forward's saved hp "
                          "(run_layer_forward(..., save_hp=True))")
-    _check_v1(xp, w_hh, b_hh, ys=ys, dys=dys, hp=hp)
+    dtype = _check_v1(xp, w_hh, b_hh, ys=ys, dys=dys)
+    _check_hp("run_layer", hp, xp)
     T, D, B, H3 = xp.shape
-    plan = _device_bwd_plan(xp.device, B, H3 // 3, D)
+    b_in, _ = kernel_biases(None, b_hh, H3 // 3)
+    plan = _device_bwd_plan(xp.device, B, H3 // 3, D, dtype)
     dxp = torch.empty_like(xp)
     gn = torch.empty_like(ys) if want_gn else None
-    _launch(_lib_fn("gru_bwd", "s2ag_gru_layer_bwd_v1", 7, n_int=12), "gru_bwd_v1",
-            xp.device, xp.data_ptr(), w_hh.data_ptr(), hp.data_ptr(), ys.data_ptr(),
-            dys.data_ptr(), dxp.data_ptr(), _ptr(gn), T, B, H3 // 3, D, *_plan_args(plan))
-    v1_bwd_launches += 1
+    _launch(_lib_fn("gru_bwd", "s2ag_gru_layer_bwd_v1", 8, n_int=13), "gru_bwd_v1",
+            xp.device, xp.data_ptr(), w_hh.data_ptr(), _ptr(b_in), hp.data_ptr(),
+            ys.data_ptr(), dys.data_ptr(), dxp.data_ptr(), _ptr(gn), T, B, H3 // 3, D,
+            *_plan_args(plan, dtype))
+    _count("gru_bwd_v1", dtype)
     return dxp, gn
 
 
 def run_layer_dw(ys: torch.Tensor, dxp: torch.Tensor,
                  gn: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """`run_layer_dw_plain`'s contract; the reduction kernel (walk layout)
-    for CUDA tensors."""
-    global v1_dw_launches
+    """`run_layer_dw_plain`'s contract; the reduction kernel (walk layout,
+    the instance of their dtype) for CUDA tensors, float32 out."""
     if ys.device.type == "cpu":
         return run_layer_dw_plain(ys, dxp, gn)
     if ys.device.type != "cuda":
         raise ValueError(f"run_layer: unsupported device {ys.device}")
     T, D, B, H = ys.shape
-    for name, t, shape in (("ys", ys, (T, D, B, H)), ("gn", gn, (T, D, B, H)),
-                           ("dxp", dxp, (T, D, B, 3 * H))):
-        if (t.device != ys.device or t.dtype != torch.float32
-                or not t.is_contiguous() or tuple(t.shape) != shape):
-            raise ValueError(f"run_layer_dw: {name} must be a contiguous float32 "
-                             f"{shape} tensor on {ys.device}")
+    dtype = _check_dw("run_layer_dw", ((ys, (T, D, B, H)), (gn, (T, D, B, H)),
+                                       (dxp, (T, D, B, 3 * H))))
     dw, db = _dw_launch("s2ag_gru_layer_dw_v1", ys, dxp, gn, T, B, H, D)
-    v1_dw_launches += 1
+    _count("gru_dw_v1", dtype)
     return dw, db
 
 
 class GRULayerV1Function(torch.autograd.Function):
     """The v1 layer with the forward kernel and the backward kernels, both
-    in the walk layout: saves xp, w_hh, b_hh and ys, as the JAX package's
-    `_vjp_fwd` does, and the forward's hp. The weight gradients are skipped
-    when neither weight needs one."""
+    in the walk layout (their plain versions for CPU tensors): saves xp,
+    w_hh, b_hh and ys, as the JAX package's `_vjp_fwd` does, and the
+    forward's hp. The weight gradients are skipped when neither weight
+    needs one, and returned in the parameters' dtype."""
 
     @staticmethod
     def forward(ctx, xp, w_hh, b_hh):
@@ -802,22 +928,22 @@ class GRULayerV1Function(torch.autograd.Function):
         dw = db = None
         if need_w or need_b:
             dw, db = run_layer_dw(ys, dxp, gn)
-        return (dxp if need_x else None, dw if need_w else None,
-                db if need_b else None)
+        return (dxp if need_x else None, dw.to(w_hh.dtype) if need_w else None,
+                db.to(b_hh.dtype) if need_b else None)
 
 
 def run_layer(xp: torch.Tensor, w_hh: torch.Tensor,
               b_hh: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """`gru_pallas.run_layer`'s contract (see `run_layer_plain`),
-    differentiable in xp, w_hh and b_hh. A CPU tensor runs the plain time
-    loop, which autograd differentiates; a CUDA tensor runs
-    `GRULayerV1Function` when a gradient will be taken, else the forward
-    kernel alone. Contiguous float32 only, on either device: bf16 storage
-    comes with bf16 serving (ROADMAP.md)."""
-    _check_v1(xp, w_hh, b_hh)
-    if xp.device.type == "cpu":
+    differentiable in xp, w_hh and b_hh. Contiguous float32 or bf16 (on the
+    CPU also float64). A float32 or float64 CPU tensor runs the plain time
+    loop, which autograd differentiates; a CUDA tensor, or a bf16 one on
+    the CPU, runs `GRULayerV1Function` when a gradient will be taken, else
+    the forward alone."""
+    dtype = _check_v1(xp, w_hh, b_hh)
+    if xp.device.type == "cpu" and dtype != torch.bfloat16:
         return run_layer_plain(xp, w_hh, b_hh)
-    if xp.device.type != "cuda":
+    if xp.device.type not in ("cpu", "cuda"):
         raise ValueError(f"run_layer: unsupported device {xp.device}")
     if _differentiated(xp, w_hh, b_hh):
         ys = GRULayerV1Function.apply(xp, w_hh, b_hh)

@@ -11,30 +11,43 @@ samples is packed as an n_fft/2-point complex sequence, transformed by a
 Stockham radix-4 FFT, split into the 1 + n_fft/2 real-FFT bins and squared,
 and each mel band sums its own contiguous run of bins from a packed table
 (`kernel_tables`). One launch, no workspace; each band's sum runs in a
-fixed order, so the result is deterministic. The plain version keeps the
+fixed order, so the result is deterministic. That is the FFT tier, for
+n_fft a power of two in [MIN_N_FFT, MAX_N_FFT] (the serving and corpus
+shapes). Every other n_fft takes the DFT tier, the TPU kernel's own design:
+a tiled product of the frames with the cos and sin of the real DFT (from
+one table of N twiddles, `dft_tables`), squared and summed in registers and
+multiplied by the filterbank in the same launch. Both tiers take any band
+count; `mel_plan` names the tier of a shape. The plain version keeps the
 dense products (`dft_constants`).
 
-`mel_power` takes the plain version for a CPU tensor and launches the
-kernel for a CUDA tensor; there is no fallback between the two.
+`mel_power` takes the plain version for a CPU tensor and launches a kernel
+for a CUDA tensor; there is no fallback between the two.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from . import _build, dsp_ref
 
-N_MELS = 128     # the kernel's NMEL
-# the n_fft the kernel takes: powers of two whose n_fft/2 complex points
+N_MELS = 128     # the serving and corpus band count
+# the n_fft of the FFT tier: powers of two whose n_fft/2 complex points
 # fill its 2048-point shared-memory buffer with whole rows
 MIN_N_FFT, MAX_N_FFT = 512, 4096
+# the DFT tier's rows a block, samples a stage and threads, and the most
+# shared memory a block may opt into on the H100 (`csrc/mel_power.cu`)
+DFT_ROWS, DFT_KT, DFT_THREADS = 8, 256, 256
+SMEM_LIMIT = 232448
 
-# kernel launches since the last reset (chip_smoke.py reads and resets it)
-launches = 0
+# kernel launches since the last reset, by (kernel, dtype): ("mel_fft",
+# "float32") and ("mel_dft", "float32") (chip_smoke.py reads and resets it)
+launches: collections.Counter = collections.Counter()
 
 
 @functools.lru_cache(maxsize=None)
@@ -66,6 +79,27 @@ def kernel_tables(sr: int, n_fft: int, n_mels: int):
     k = np.arange(m // 2 + 1)
     split_tw = np.stack([np.cos(2.0 * np.pi * k / n_fft),
                          np.sin(2.0 * np.pi * k / n_fft)], -1)
+    return (fft_tw.astype(np.float32), split_tw.astype(np.float32)) + band_tables(
+        sr, n_fft, n_mels)
+
+
+@functools.lru_cache(maxsize=None)
+def dft_tables(sr: int, n_fft: int, n_mels: int):
+    """The DFT tier's constants: tw (N, 2), (cos, sin) of 2 pi m / N for m <
+    N = n_fft, float64 rounded once to float32 (entry (n k) mod N is the
+    dense matrices' (n, k) value), and `kernel_tables`' band table and
+    weights."""
+    m = np.arange(n_fft)
+    tw = np.stack([np.cos(2.0 * np.pi * m / n_fft), np.sin(2.0 * np.pi * m / n_fft)], -1)
+    return (tw.astype(np.float32),) + band_tables(sr, n_fft, n_mels)
+
+
+@functools.lru_cache(maxsize=None)
+def band_tables(sr: int, n_fft: int, n_mels: int):
+    """bands (n_mels, 3) int32: each band's first bin, its bin count and the
+    offset of its weights; weights: the dense filterbank's float32 entries
+    from each band's first to its last nonzero bin, band after band (so the
+    table rebuilds the filterbank exactly)."""
     mel = dft_constants(sr, n_fft, n_mels)[2]
     bands, weights = [], []
     for col in mel.T:
@@ -73,8 +107,35 @@ def kernel_tables(sr: int, n_fft: int, n_mels: int):
         lo, n = (int(nz[0]), int(nz[-1] - nz[0] + 1)) if nz.size else (0, 0)
         bands.append((lo, n, sum(len(w) for w in weights)))
         weights.append(col[lo:lo + n])
-    return (fft_tw.astype(np.float32), split_tw.astype(np.float32),
-            np.asarray(bands, np.int32), np.concatenate(weights).astype(np.float32))
+    return np.asarray(bands, np.int32), np.concatenate(weights).astype(np.float32)
+
+
+class MelPlan(NamedTuple):
+    """A launch of `csrc/mel_power.cu`: its tier ("fft" or "dft"), rows a
+    block, blocks, dynamic shared-memory bytes (0 for the FFT tier's static
+    buffers) and whether the DFT tier's twiddle table sits in it."""
+    tier: str
+    rows: int
+    blocks: int
+    smem: int
+    tw_in_smem: bool
+
+
+def mel_plan(R: int, n_fft: int, n_mels: int) -> MelPlan:
+    """The kernel's launch for R frames of n_fft samples into n_mels bands:
+    the FFT tier for a power of two in [MIN_N_FFT, MAX_N_FFT], else the DFT
+    tier, with its twiddles in shared memory where they fit."""
+    if R < 1 or n_fft < 1 or n_mels < 1:
+        raise ValueError(f"mel_power: no launch for R={R}, n_fft={n_fft}, n_mels={n_mels}")
+    if not n_fft & (n_fft - 1) and MIN_N_FFT <= n_fft <= MAX_N_FFT:
+        rows = 2048 // (n_fft // 2)
+        return MelPlan("fft", rows, -(-R // rows), 0, False)
+    base = 4 * (DFT_KT * DFT_ROWS + DFT_ROWS * DFT_THREADS + -(-DFT_ROWS * n_mels // 4) * 4)
+    if base > SMEM_LIMIT:
+        raise ValueError(f"mel_power: {n_mels} bands need more than {SMEM_LIMIT} bytes "
+                         "of shared memory in the DFT tier")
+    in_smem = base + 8 * n_fft <= SMEM_LIMIT
+    return MelPlan("dft", DFT_ROWS, -(-R // DFT_ROWS), base + 8 * n_fft * in_smem, in_smem)
 
 
 _device_tensors: dict = {}
@@ -100,19 +161,14 @@ def mel_power_plain(frames: torch.Tensor, sr: int = 16000,
     return (re * re + im * im) @ mel
 
 
-def check_kernel_shape(n_fft: int, n_mels: int) -> None:
-    """Raise unless the kernel takes this n_fft and n_mels."""
-    if (n_fft & (n_fft - 1) or not MIN_N_FFT <= n_fft <= MAX_N_FFT
-            or n_mels != N_MELS):
-        raise ValueError(f"mel_power: the kernel takes n_fft a power of two in "
-                         f"[{MIN_N_FFT}, {MAX_N_FFT}] and n_mels={N_MELS}, got "
-                         f"n_fft={n_fft}, n_mels={n_mels}")
-
-
 @functools.lru_cache(maxsize=None)
-def _kernel():
-    fn = _build.load("mel_power").s2ag_mel_power
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+def _kernel(tier: str):
+    if tier == "fft":
+        fn = _build.load("mel_power").s2ag_mel_power
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    else:
+        fn = _build.load("mel_power").s2ag_mel_power_dft
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -129,20 +185,26 @@ def mel_power(frames: torch.Tensor, sr: int = 16000,
         raise TypeError(f"mel_power: frames must be float32, got {frames.dtype}")
     if frames.dim() != 2 or frames.shape[0] < 1:
         raise ValueError(f"mel_power: frames must be (R, n_fft), got {tuple(frames.shape)}")
-    if not frames.is_contiguous() or frames.data_ptr() % 16:
-        raise ValueError("mel_power: frames must be contiguous and 16-byte "
-                         "aligned (the kernel loads float4)")
     R, n_fft = frames.shape
-    check_kernel_shape(n_fft, n_mels)
-    fft_tw, split_tw, bands, weights = _on_device(kernel_tables, frames.device, sr,
-                                                  n_fft, n_mels)
+    plan = mel_plan(R, n_fft, n_mels)
+    if not frames.is_contiguous() or (plan.tier == "fft" and frames.data_ptr() % 16):
+        raise ValueError("mel_power: frames must be contiguous, and 16-byte aligned "
+                         "for the FFT tier (it loads float4)")
     out = torch.empty((R, n_mels), device=frames.device, dtype=torch.float32)
     with torch.cuda.device(frames.device):
         stream = torch.cuda.current_stream(frames.device).cuda_stream
-        rc = _kernel()(frames.data_ptr(), fft_tw.data_ptr(), split_tw.data_ptr(),
-                       bands.data_ptr(), weights.data_ptr(), out.data_ptr(), R, n_fft,
-                       stream)
+        if plan.tier == "fft":
+            fft_tw, split_tw, bands, weights = _on_device(kernel_tables, frames.device, sr,
+                                                          n_fft, n_mels)
+            rc = _kernel("fft")(frames.data_ptr(), fft_tw.data_ptr(), split_tw.data_ptr(),
+                                bands.data_ptr(), weights.data_ptr(), out.data_ptr(), R,
+                                n_fft, n_mels, stream)
+        else:
+            tw, bands, weights = _on_device(dft_tables, frames.device, sr, n_fft, n_mels)
+            rc = _kernel("dft")(frames.data_ptr(), tw.data_ptr(), bands.data_ptr(),
+                                weights.data_ptr(), out.data_ptr(), R, n_fft, n_mels,
+                                plan.smem, int(plan.tw_in_smem), stream)
     if rc != 0:
         raise RuntimeError(f"mel_power kernel launch failed: CUDA error {rc}")
-    launches += 1
+    launches[(f"mel_{plan.tier}", "float32")] += 1
     return out

@@ -3,8 +3,9 @@
 Loads a generator once and serves synthesis requests over HTTP, with the
 same JSON contract as the JAX package's `serve.py`:
 
-  GET  /healthz           -> {"status": "ok", "device": ..., "n_poses": ...}
-  GET  /metrics           -> per-endpoint latency aggregates
+  GET  /healthz           -> {"status": "ok", "device": ..., "n_poses": ...,
+                              "precision": "f32" | "bf16"}
+  GET  /metrics           -> per-endpoint latency aggregates and precision
   POST /synthesize        body: {
         "audio": [float, ...] | null,   # 16 kHz waveform; null = silence
                                         # covering the words' time range
@@ -94,8 +95,13 @@ class SynthesisService:
 
     def __init__(self, cfg: ModelConfig, gen: torch.nn.Module, lang_model: Vocab,
                  seed: int = 0, auto_batch_ms: float = 0.0,
-                 auto_batch_max: int = 16):
+                 auto_batch_max: int = 16, precision: str = "f32"):
+        if precision not in synthesis.PRECISIONS:
+            raise ValueError(f"unknown precision {precision!r} (expected 'f32' or 'bf16')")
         self.cfg = cfg
+        # the generator's precision (`synthesis.precision_wrap`): "f32", or
+        # "bf16" forwards with the MFCC front-end, crossfade and FK float32
+        self.precision = precision
         self.gen = gen.eval()
         self.lang = lang_model
         self.device = next(gen.parameters()).device
@@ -155,6 +161,7 @@ class SynthesisService:
                     "max_ms": round(m["max_ms"], 2),
                     "p50_ms": recent[len(recent) // 2] if recent else None,
                     "p90_ms": recent[int(len(recent) * 0.9)] if recent else None,
+                    "precision": self.precision,
                 }
                 if m["phase_ms"]:
                     n = max(m["requests"], 1)
@@ -218,7 +225,7 @@ class SynthesisService:
         with self._lock:
             outs = synthesis.synthesize_clips_batched(
                 self.gen, clips, self.lang, self.cfg, eps=eps,
-                fade_out=fades, timings=phases)
+                fade_out=fades, timings=phases, precision=self.precision)
         elapsed = (time.perf_counter() - t0) * 1e3
         self._record(endpoint, elapsed, clips=len(clips), phases=phases)
         return [{"dir_vec": dv, "poses": ps, "frames": int(len(dv)),
@@ -297,7 +304,7 @@ def make_handler(service: SynthesisService):
                     "status": "ok",
                     "device": str(service.device),
                     "n_poses": service.cfg.n_poses,
-                    "precision": "f32",
+                    "precision": service.precision,
                 })
             else:
                 self._send(404, {"error": "unknown path"})
@@ -399,6 +406,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--auto-batch-ms", type=float, default=0.0,
                    help="coalesce concurrent /synthesize requests arriving "
                    "within this window into one batch (0 = off)")
+    p.add_argument("--serve-precision", choices=synthesis.PRECISIONS, default="f32",
+                   help="the generator's precision: 'f32' (default), or 'bf16' "
+                   "(parameters and activations bf16, the GRU kernels' bf16 "
+                   "instances; the MFCC front-end, crossfade and FK stay f32). "
+                   "Its drift depends on the model's recurrent dynamics: check "
+                   "the checkpoint being served against 'f32' first")
     return p
 
 
@@ -416,7 +429,8 @@ def main(argv=None):
     if sd is not None:
         gen.load_state_dict(sd, strict=True)
     service = SynthesisService(cfg, gen, placeholder_vocab(n_words),
-                               seed=args.seed, auto_batch_ms=args.auto_batch_ms)
+                               seed=args.seed, auto_batch_ms=args.auto_batch_ms,
+                               precision=args.serve_precision)
     print("warming up (builds the CUDA kernels)...", flush=True)
     service.warmup()
     server = serve(service, port=args.port, host=args.host)

@@ -48,7 +48,7 @@ def main() -> int:
                    check=True, capture_output=True)
     lib = ctypes.CDLL(str(lib_path))
     fn = lib.s2ag_gru_layer_fwd
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
     device = torch.device("cuda", 0)
     T, D = 34, 2
     for H, B in ((300, 1), (300, 258), (300, 512), (64, 512)):

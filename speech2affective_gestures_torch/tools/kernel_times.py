@@ -11,7 +11,10 @@ B 1, 258 and 512; H 64 at B 512), `gru_cuda.run_layer_forward` (B 1 and
 forward + backward, that less its forward, and `gru_cuda.gru_dw`; beside
 the library yardsticks: `torch.fft.rfft` + power + the mel product, and
 cuDNN's `nn.GRU` forward, and forward + backward less forward, less its
-input projection's products. Each
+input projection's products. Where the checkout has the GRU kernels' bf16
+instances, also the bf16 forward (B 1 and 512), backward and dW at H 300
+beside cuDNN's bf16 `nn.GRU`, and the mel kernel's DFT tier (n_fft 400,
+80 bands, 3000 rows; n_fft 1000 at 568 rows) beside `rfft`. Each
 time is given twice: the CUDA-event mean of a call (the wrapper's host
 cost included) and the device time per call from torch.profiler (the time
 in which any of the call's kernels ran). The timing helpers, the inputs and
@@ -114,7 +117,55 @@ def main() -> int:
         x = torch.randn(T, B, c, generator=g).to(device).requires_grad_()
         emit("cuDNN recurrent backward, dW_hh included (library)", [T, B, H, D],
              times=cs.cudnn_recurrent_bwd(lib, x, dys, dh))
+    if hasattr(gru_cuda, "STORAGE"):
+        bf16_times(cs, gru_cuda, mel_cuda, device, emit)
     return 0
+
+
+def bf16_times(cs, gru_cuda, mel_cuda, device, emit) -> None:
+    """The bf16 instances at H 300 (the forward at B 1 and 512, the
+    recurrence and dW at B 512, `GRULayerFunction`'s backward) against
+    cuDNN's bf16 `nn.GRU`; the mel kernel's DFT tier against `rfft`."""
+    import torch
+
+    bf16 = torch.bfloat16
+    T, D, H, cin = 34, 2, 300, 600
+    for B in (1, 512):
+        a = [t.to(bf16).contiguous() for t in cs.gru_inputs(T, B, cin, H, D, seed=9,
+                                                             device=device)]
+        emit("gru_fwd bf16", [T, B, H, D], lambda: gru_cuda.gru_layer_forward(*a))
+        lib = torch.nn.GRU(cin, H, bidirectional=True).to(device, bf16)
+        x = torch.randn(T, B, cin, generator=torch.Generator().manual_seed(B)).to(device, bf16)
+        emit("cuDNN bf16 recurrent forward (library)", [T, B, H, D],
+             times=cs.cudnn_recurrent_fwd(lib, x))
+    g = torch.Generator().manual_seed(9)
+    dys = torch.randn(T, B, D * H, generator=g).to(device, bf16)
+    dh = torch.randn(D, B, H, generator=g).to(device, bf16)
+    leaves = [t.clone().requires_grad_() for t in a]
+
+    def fwd():
+        return gru_cuda.GRULayerFunction.apply(*leaves)
+
+    def fwd_bwd():
+        return torch.autograd.grad(fwd(), leaves, (dys, dh))
+
+    both = (cs.time_ms(fwd_bwd, iters=10), cs.device_ms(fwd_bwd, n=10))
+    alone = (cs.time_ms(fwd, iters=10), cs.device_ms(fwd, n=10))
+    emit("gru_layer bf16 backward (forward + backward less forward)", [T, B, H, D],
+         times=(both[0] - alone[0], both[1] - alone[1]))
+    ys, _, hp = gru_cuda.gru_layer_forward(*a, save_hp=True)
+    emit("gru_bwd bf16 (recurrence)", [T, B, H, D],
+         lambda: gru_cuda.gru_bwd_recurrence(*a, ys, dys, hp))
+    dxp, gn = gru_cuda.gru_bwd_recurrence(*a, ys, dys, hp)
+    emit("gru_dw bf16", [T, B, H, D], lambda: gru_cuda.gru_dw(ys, dxp, gn, D))
+    x = torch.randn(T, B, cin, generator=g).to(device, bf16).requires_grad_()
+    emit("cuDNN bf16 recurrent backward, dW_hh included (library)", [T, B, H, D],
+         times=cs.cudnn_recurrent_bwd(lib, x, dys, dh))
+    for rows, n_fft, n_mels in ((3000, 400, 80), (568, 1000, 128)):
+        f = cs.speech_frames(rows, device, n_fft)
+        emit("mel_power DFT tier", [rows, n_fft, n_mels],
+             lambda: mel_cuda.mel_power(f, n_mels=n_mels))
+        emit("rfft_mel (library)", [rows, n_fft, n_mels], cs.rfft_mel(f, n_mels))
 
 
 if __name__ == "__main__":

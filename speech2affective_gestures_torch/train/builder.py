@@ -4,6 +4,8 @@ PoseGeneratorTriModal as the frozen comparator."""
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -74,6 +76,51 @@ def synthetic_batch(rng: np.random.Generator, batch_size: int,
     }
 
 
+def cast_floats(x, src: torch.dtype, dst: torch.dtype):
+    """x at dst if it is a tensor of dtype src; tuples and lists walked."""
+    if isinstance(x, (tuple, list)):
+        return type(x)(cast_floats(v, src, dst) for v in x)
+    return x.to(dst) if isinstance(x, torch.Tensor) and x.dtype == src else x
+
+
+@contextlib.contextmanager
+def bf16_parameters(module: torch.nn.Module):
+    """Inside the block every float32 parameter of `module` is its bf16
+    cast (differentiable, so gradients reach the float32 parameter as
+    float32); after it the parameters are put back. The casts stand in the
+    modules' parameter slots, so a module held under two names (the TCN
+    blocks hold their convs so) sees them under both; buffers are not
+    cast."""
+    swapped = []
+    try:
+        for m in module.modules():
+            for name, p in m._parameters.items():
+                if p is not None and p.dtype == torch.float32:
+                    swapped.append((m, name, p))
+                    m._parameters[name] = p.to(torch.bfloat16)
+        yield module
+    finally:
+        for m, name, p in swapped:
+            m._parameters[name] = p
+
+
+def mixed_precision_apply(module: torch.nn.Module):
+    """The module's forward at bf16, as the JAX package's
+    `mixed_precision_apply` (train/builder.py:87-113) wraps an apply
+    function: for each call every float32 parameter is cast to bf16
+    (`bf16_parameters`) and the float32 positional inputs too; every bf16
+    output is cast back to float32. The BatchNorm running stats, buffers,
+    stay float32 (`layers.BatchNorm1d`). Not torch.autocast, which picks a
+    precision per op; here everything that the wrapper casts runs at
+    bf16."""
+    def wrapped(*args, **kwargs):
+        with bf16_parameters(module):
+            out = module(*cast_floats(args, torch.float32, torch.bfloat16), **kwargs)
+        return cast_floats(out, torch.bfloat16, torch.float32)
+
+    return wrapped
+
+
 def to_device(batch: dict, device: torch.device) -> dict:
     """numpy batch -> tensors on `device` (integer arrays as int64)."""
     out = {}
@@ -89,9 +136,12 @@ def init_training(cfg: ModelConfig, seed: int, n_words: int = 1000,
                   n_speakers: int = 100,
                   word_embeddings: np.ndarray | None = None,
                   device: str | torch.device | None = None, variant: str = "s2ag",
-                  divreg_draw: str = "permutation") -> dict:
+                  divreg_draw: str = "permutation",
+                  mixed_precision: bool = False) -> dict:
     """Models with weights drawn from `seed` on `device` (the card unless
-    `device="cpu"`), and the step over them."""
+    `device="cpu"`), and the step over them: with `mixed_precision` its
+    train step runs the three nets through `mixed_precision_apply` (JAX
+    `init_training`, builder.py:204-215); its eval step stays float32."""
     dev = resolve_device(device)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
@@ -100,4 +150,5 @@ def init_training(cfg: ModelConfig, seed: int, n_words: int = 1000,
     gen, dis, tri = gen.to(dev), dis.to(dev), tri.to(dev).requires_grad_(False)
     gan_cfg = gan_config(cfg, n_speakers, divreg_draw)
     return dict(gen=gen, dis=dis, tri=tri, gan_cfg=gan_cfg, device=dev,
-                step=GanStep(gen, dis, gan_cfg, tri))
+                step=GanStep(gen, dis, gan_cfg, tri,
+                             train_apply=mixed_precision_apply if mixed_precision else None))

@@ -21,6 +21,13 @@ stop-gradient placement and BatchNorm running-stat order:
 The speaker noise and the dropout masks come from the `torch.Generator`
 passed to each step, on the step's device. Optimizers are Adam with betas
 (0.5, 0.999), D's learning rate 0.2 times G's (ref processor_v2.py:215-220).
+
+The train step calls the generator, the discriminator and the comparator
+through `train_apply(module)` when one is given: for mixed precision,
+`builder.mixed_precision_apply` (bf16 parameters, inputs and activations
+per call; the JAX package's builder.py:204-212). The losses, Adam and the
+BatchNorm running stats stay float32, and the eval step calls the nets
+themselves (builder.py:214).
 """
 
 from __future__ import annotations
@@ -92,12 +99,12 @@ def draw_other_speaker_ids(generator: torch.Generator, vids: torch.Tensor,
 
 
 @torch.no_grad()
-def _forward_discarding_stats(model: torch.nn.Module, *args, **kwargs):
-    """A train-mode forward whose BatchNorm running-stat updates are
-    undone afterwards."""
+def _forward_discarding_stats(model: torch.nn.Module, call, *args, **kwargs):
+    """A train-mode forward `call(*args, **kwargs)` of `model` whose
+    BatchNorm running-stat updates are undone afterwards."""
     saved = [(b, b.clone()) for b in model.buffers()]
     try:
-        return model(*args, **kwargs)
+        return call(*args, **kwargs)
     finally:
         for b, old in saved:
             b.copy_(old)
@@ -114,10 +121,16 @@ class GanStep:
     (tests inject it); without it the noise comes from `generator`."""
 
     def __init__(self, gen: torch.nn.Module, dis: torch.nn.Module,
-                 cfg: GanConfig, tri: torch.nn.Module | None = None):
+                 cfg: GanConfig, tri: torch.nn.Module | None = None,
+                 train_apply=None):
         self.gen, self.dis, self.tri, self.cfg = gen, dis, tri, cfg
         self.gen_opt, self.dis_opt = make_optimizers(gen, dis, cfg)
+        self.train_apply = train_apply
         self.step = 0
+
+    def _train_fn(self, module: torch.nn.Module):
+        """The train step's call of `module`."""
+        return module if self.train_apply is None else self.train_apply(module)
 
     def _other_speakers(self, generator, vids):
         n = 0 if self.cfg.divreg_draw == "permutation" else self.cfg.n_speakers
@@ -127,7 +140,9 @@ class GanStep:
                    gan_on: bool = True, tri_metric: bool = True,
                    eps: torch.Tensor | None = None) -> dict[str, torch.Tensor]:
         cfg = self.cfg
-        gen, dis = self.gen.train(), self.dis.train()
+        self.gen.train()
+        self.dis.train()
+        gen, dis = self._train_fn(self.gen), self._train_fn(self.dis)
         text, target = batch["extended_word_seq"], batch["vec_seq"]
         mfcc, vids = batch["mfcc_features"], batch["vid_indices"]
         pre_seq = build_pre_seq(target, cfg.n_pre_poses)
@@ -164,11 +179,11 @@ class GanStep:
                     loss = loss + kld
                     metrics["KLD"] = kld.detach()
             if use_gan:
-                dis.requires_grad_(False)
+                self.dis.requires_grad_(False)
                 try:
                     gen_err = cfg.loss_gan_weight * losses.gen_ns_gan(dis(out, text))
                 finally:
-                    dis.requires_grad_(True)
+                    self.dis.requires_grad_(True)
                 loss = loss + gen_err
                 metrics["gen"] = gen_err.detach()
             self.gen_opt.zero_grad(set_to_none=True)
@@ -181,8 +196,8 @@ class GanStep:
             s2ag_l1 = losses.l1(out, target)
             if tri_metric and self.tri is not None:
                 tri_out = _forward_discarding_stats(
-                    self.tri.train(), pre_seq, text, batch["audio"], vids, eps,
-                    generator)[0]
+                    self.tri.train(), self._train_fn(self.tri), pre_seq, text,
+                    batch["audio"], vids, eps, generator)[0]
                 metrics["s2ag_vs_trimodal_l1"] = s2ag_l1 - losses.l1(tri_out, target)
             metrics["s2ag_l1"] = s2ag_l1
         self.step += 1

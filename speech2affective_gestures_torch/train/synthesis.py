@@ -12,11 +12,14 @@ front-end for every window of every clip in one call (the fused mel kernel
 on the card), then a Python loop over windows with the clips as the
 generator batch, then the validity-masked crossfade and assembly, the mean
 re-add and forward kinematics. `synthesize_clip_fused` is that body at one
-clip, `synthesize_clips_batched` at many.
+clip, `synthesize_clips_batched` at many. `precision` "bf16" runs the
+generator's forwards at bf16 (`precision_wrap`); the MFCC front-end, the
+crossfade and FK stay float32.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 import time
 
@@ -27,6 +30,7 @@ from .. import constants as C
 from ..config import ModelConfig
 from ..ops import dsp
 from ..ops import pose as pose_ops
+from .builder import bf16_parameters, cast_floats
 
 
 def get_words_in_time_range(word_list, start_time, end_time):
@@ -154,6 +158,33 @@ def fade_out_poses(out_dir_vec: np.ndarray, end_padding_samples: int,
     return polyfit_smooth(out_dir_vec, start_frame, end_frame)
 
 
+PRECISIONS = ("f32", "bf16")
+
+
+@contextlib.contextmanager
+def precision_wrap(gen: torch.nn.Module, precision: str):
+    """The generator's call at a serving precision, for the block, as the
+    JAX package's `precision_wrap` (train/synthesis.py:260-300): "f32" the
+    generator itself (float32, TF32 off on the card); "bf16" the generator
+    with its parameters cast to bf16 (`builder.bf16_parameters`, once for
+    the block: a request's windows share them, where JAX's program casts
+    them once per request too), its float32 inputs cast to bf16 per call
+    (the GRU kernels' bf16 instances on the card) and its outputs cast back
+    to float32. The drift of bf16 depends on the model's recurrent
+    dynamics (the JAX package's tests/test_serve.py measured 63% relative
+    on an expansive random GRU, a few % on a contractive one), so it is
+    opt-in."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"unknown precision {precision!r} (expected 'f32' or 'bf16')")
+    if precision == "f32":
+        yield gen
+        return
+    with bf16_parameters(gen):
+        yield lambda *args, **kwargs: cast_floats(
+            gen(*cast_floats(args, torch.float32, torch.bfloat16), **kwargs),
+            torch.bfloat16, torch.float32)
+
+
 def _device_of(gen: torch.nn.Module) -> torch.device:
     return next(gen.parameters()).device
 
@@ -162,8 +193,9 @@ def _device_of(gen: torch.nn.Module) -> torch.device:
 def clip_body(gen, cfg: ModelConfig, audio_windows: torch.Tensor,
               text_windows: torch.Tensor, vid_idx: torch.Tensor,
               seed: torch.Tensor, n_valid, eps: torch.Tensor | None = None,
-              generator: torch.Generator | None = None):
-    """The serving computation for B clips at once.
+              generator: torch.Generator | None = None, precision: str = "f32"):
+    """The serving computation for B clips at once, the generator at
+    `precision` (`precision_wrap`).
 
     audio_windows (B, S, L) float32, text_windows (B, S, T) int64, vid_idx
     (B,), seed (B, n_pre, D), n_valid: each clip's real window count (a
@@ -190,14 +222,15 @@ def clip_body(gen, cfg: ModelConfig, audio_windows: torch.Tensor,
 
     outs = []
     sd = seed
-    for i in range(s_run):
-        pre = torch.zeros(b, t, C.POSE_DIM + 1, device=device)
-        pre[:, :n_pre, :-1] = sd
-        pre[:, :n_pre, -1] = 1.0
-        out, *_ = gen(pre, text_windows[:, i], feat[:, i], vid_idx,
-                      eps=None if eps is None else eps[i], generator=generator)
-        outs.append(out)
-        sd = out[:, -n_pre:]
+    with precision_wrap(gen, precision) as run:
+        for i in range(s_run):
+            pre = torch.zeros(b, t, C.POSE_DIM + 1, device=device)
+            pre[:, :n_pre, :-1] = sd
+            pre[:, :n_pre, -1] = 1.0
+            out, *_ = run(pre, text_windows[:, i], feat[:, i], vid_idx,
+                          eps=None if eps is None else eps[i], generator=generator)
+            outs.append(out)
+            sd = out[:, -n_pre:]
     outs = torch.stack(outs, dim=1)                            # (B, S', T, D)
 
     # each window's first n_pre frames mixed with the previous window's
@@ -228,14 +261,16 @@ def synthesize_clips_batched(gen, clips, lang_model, cfg: ModelConfig,
                              eps: torch.Tensor | None = None,
                              generator: torch.Generator | None = None,
                              sample_rate: int = C.AUDIO_SR, fade_out=False,
-                             seeds=None, timings: dict | None = None):
+                             seeds=None, timings: dict | None = None,
+                             precision: str = "f32"):
     """Synthesize many clips in one pass, the clips as the generator batch.
 
     clips: iterable of (clip_audio, clip_words, vid_idx). All clips are
     padded to one window-count bucket (`window_bucket` of the longest).
     eps: optional (S, B, z_size) per-window noise; seeds: optional per-clip
     (n_pre, D) seed vectors (default zeros, the mean pose); fade_out: a
-    bool or one per clip. Returns a list of (dir_vec (F_i, D), poses
+    bool or one per clip; precision: the generator's, "f32" or "bf16"
+    (`precision_wrap`). Returns a list of (dir_vec (F_i, D), poses
     (F_i, J, 3)) numpy pairs. timings, if given, receives prep_ms (host
     window planning), device_ms (the body and the copy back) and post_ms
     (host slicing and fades).
@@ -268,7 +303,8 @@ def synthesize_clips_batched(gen, clips, lang_model, cfg: ModelConfig,
         gen, cfg,
         torch.from_numpy(audio_w).to(device), torch.from_numpy(text_w).to(device),
         vids, torch.from_numpy(seed_arr).to(device), n_windows,
-        eps=None if eps is None else eps.to(device), generator=generator)
+        eps=None if eps is None else eps.to(device), generator=generator,
+        precision=precision)
     dir_vec_full = dir_vec_full.cpu().numpy()
     poses_full = poses_full.cpu().numpy()
     t_device = time.perf_counter()
@@ -295,10 +331,10 @@ def synthesize_clip_fused(gen, clip_audio: np.ndarray, clip_words, lang_model,
                           eps: torch.Tensor | None = None,
                           generator: torch.Generator | None = None,
                           sample_rate: int = C.AUDIO_SR, fade_out: bool = False,
-                          timings: dict | None = None):
+                          timings: dict | None = None, precision: str = "f32"):
     """One clip through `clip_body` (generator batch 1). eps: optional
     (S, 1, z_size). Returns (dir_vec (F, D), poses (F, J, 3)) numpy arrays."""
     return synthesize_clips_batched(
         gen, [(clip_audio, clip_words, vid_idx)], lang_model, cfg, eps=eps,
         generator=generator, sample_rate=sample_rate, fade_out=fade_out,
-        timings=timings)[0]
+        timings=timings, precision=precision)[0]

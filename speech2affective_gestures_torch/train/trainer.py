@@ -61,7 +61,10 @@ def find_checkpoint(work_dir: str, epoch: int | str = "best"):
 
 class Trainer:
     """GAN training on packed datasets, on `device` (the card unless
-    `device="cpu"`)."""
+    `device="cpu"`). With `mixed_precision` the train steps run at bf16
+    (`builder.mixed_precision_apply`, the JAX trainer's
+    `mixed_precision`); validation, `generate_gestures` and the FGD scoring
+    stay float32."""
 
     def __init__(self, cfg: ModelConfig, work_dir: str,
                  train_data: PackedDataset | None = None,
@@ -73,7 +76,8 @@ class Trainer:
                  trimodal_metric_interval: int = 1,
                  divreg_draw: str = "permutation", metrics_lag: int = 8,
                  log_interval: int = 50,
-                 evaluator: EmbeddingSpaceEvaluator | None = None):
+                 evaluator: EmbeddingSpaceEvaluator | None = None,
+                 mixed_precision: bool = False):
         self.cfg = cfg
         self.work_dir = work_dir
         self.logger = TrainLogger(work_dir)
@@ -99,7 +103,7 @@ class Trainer:
         setup = builder.init_training(
             cfg, max(seed, 0), n_words=n_words, n_speakers=n_speakers,
             word_embeddings=word_embeddings, device=device, variant=variant,
-            divreg_draw=divreg_draw)
+            divreg_draw=divreg_draw, mixed_precision=mixed_precision)
         self.device = setup["device"]
         self.gen, self.dis, self.tri = setup["gen"], setup["dis"], setup["tri"]
         self.step = setup["step"]

@@ -56,11 +56,11 @@ def test_mel_kernel_against_plain(cuda, rows, n_fft):
     log-mel of one 60 s video (`ted_db.extract_mel_spectrogram`: n_fft
     1024, 513 bins in 17 chunks, 1876 frames)."""
     frames = _frames(rows, n_fft).contiguous().to(cuda)
-    before = mel_cuda.launches
+    before = mel_cuda.launches[("mel_fft", "float32")]
     got = mel_cuda.mel_power(frames)
     torch.cuda.synchronize()
     want = mel_cuda.mel_power_plain(frames)
-    assert mel_cuda.launches == before + 1
+    assert mel_cuda.launches[("mel_fft", "float32")] == before + 1
     diff = (got - want).abs()
     allowed = 1e-4 * want.abs() + 1e-7 * want.abs().max()
     assert bool((diff <= allowed).all()), (diff / want.abs()).amax(dim=0)
@@ -101,9 +101,37 @@ def test_mel_kernel_other_sizes(cuda, n_fft):
 
 
 @pytest.mark.gpu
-def test_mel_kernel_refuses_other_n_fft(cuda):
-    with pytest.raises(ValueError):
-        mel_cuda.mel_power(torch.zeros(4, 1536, device=cuda))
+@pytest.mark.parametrize("n_fft,n_mels", [(1000, 128), (1536, 128), (256, 128), (8192, 128),
+                                          (2048, 64), (1000, 40), (400, 80)])
+def test_mel_kernel_every_shape(cuda, n_fft, n_mels):
+    """Every n_fft and band count: the DFT tier for the n_fft the FFT tier
+    does not take, the FFT tier at other band counts; each value within
+    1e-4 of its own magnitude (plus 1e-7 of the largest) of the plain
+    dense products; against the float64 oracle the FFT tier's worst band no
+    farther than theirs, the DFT tier's values within the same tolerance;
+    the same bits twice."""
+    frames = _frames(37, n_fft).contiguous().to(cuda)
+    tier = mel_cuda.mel_plan(37, n_fft, n_mels).tier
+    key = (f"mel_{tier}", "float32")
+    before = mel_cuda.launches[key]
+    got = mel_cuda.mel_power(frames, n_mels=n_mels)
+    again = mel_cuda.mel_power(frames, n_mels=n_mels)
+    torch.cuda.synchronize()
+    assert mel_cuda.launches[key] == before + 2 and torch.equal(got, again)
+    want = mel_cuda.mel_power_plain(frames, n_mels=n_mels)
+    assert bool(((got - want).abs() <= 1e-4 * want.abs() + 1e-7 * want.abs().max()).all())
+    spec = torch.fft.rfft(frames.double(), dim=-1)
+    mel = torch.from_numpy(mel_cuda.dft_constants(16000, n_fft, n_mels)[2]).to(cuda).double()
+    oracle = (spec.real ** 2 + spec.imag ** 2) @ mel
+    keep = oracle.abs().amax(dim=0) > 0   # bands with no bin are zero in all three
+    kernel_err = _band_errors(got, oracle)[keep].max().item()
+    plain_err = _band_errors(want, oracle)[keep].max().item()
+    if tier == "fft":
+        assert kernel_err <= plain_err, (kernel_err, plain_err)
+    else:   # a dense sum of n_fft products, as the plain version's
+        off = (got.double() - oracle).abs()
+        assert bool((off <= 1e-4 * oracle.abs() + 1e-7 * oracle.abs().max()).all()), \
+            (kernel_err, plain_err)
 
 
 def _gru_args(T, B, cin, H, D, seed, device):
@@ -123,11 +151,11 @@ def test_gru_kernel_against_plain(cuda, batch, cin):
     """The serving shapes: T=34, H=300, both directions; layer 0 takes 88
     input features (8 + 32 + 32 + 16), later layers 600."""
     args = _gru_args(34, batch, cin, 300, 2, batch * 1000 + cin, cuda)
-    before = gru_cuda.launches
+    before = gru_cuda.launches[("gru_fwd", "float32")]
     ys, h_last = gru_cuda.gru_layer(*args)
     torch.cuda.synchronize()
     want_ys, want_h = gru_cuda.gru_layer_plain(*args)
-    assert gru_cuda.launches == before + 1
+    assert gru_cuda.launches[("gru_fwd", "float32")] == before + 1
     assert (ys - want_ys).abs().max().item() <= 1e-4
     assert (h_last - want_h).abs().max().item() <= 1e-4
 
@@ -162,11 +190,11 @@ def test_gru_kernel_refuses_an_unschedulable_shape(cuda, H):
     loop, the same bits twice, and with hp saved the same ys."""
     for batch in (5, 512):
         args = _gru_args(34, batch, 64, H, 2, H + batch, cuda)
-        before = gru_cuda.launches
+        before = gru_cuda.launches[("gru_fwd", "float32")]
         ys, h_last = gru_cuda.gru_layer_forward(*args)
         ys2, h_last2, hp = gru_cuda.gru_layer_forward(*args, save_hp=True)
         torch.cuda.synchronize()
-        assert gru_cuda.launches == before + 2
+        assert gru_cuda.launches[("gru_fwd", "float32")] == before + 2
         assert gru_cuda._device_plan(cuda, batch, H, 2).tier == "l2"
         want_ys, want_h, want_hp = gru_cuda.gru_layer_plain(*args, save_hp=True)
         assert torch.equal(ys, ys2) and torch.equal(h_last, h_last2)
@@ -188,7 +216,11 @@ def _layer_inputs(T, B, cin, H, D, seed, device):
 
 
 def _rel(got, want):
-    return ((got - want).abs().max() / want.abs().max()).item()
+    return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+
+
+def _counts(*kernels, dtype="float32"):
+    return tuple(gru_cuda.launches[(k, dtype)] for k in kernels)
 
 
 @pytest.mark.gpu
@@ -207,11 +239,11 @@ def test_gru_bwd_kernels_against_plain(cuda, batch, H, cin):
                                               batch * 7 + H + cin, cuda)
     ys, _, hp = gru_cuda.gru_layer_forward(xp, w_hh, b_ih, b_hh, save_hp=True)
     assert torch.equal(ys, gru_cuda.gru_layer_forward(xp, w_hh, b_ih, b_hh)[0])
-    before = (gru_cuda.bwd_launches, gru_cuda.dw_launches)
+    before = _counts("gru_bwd", "gru_dw")
     dxp, gn = gru_cuda.gru_bwd_recurrence(xp, w_hh, b_ih, b_hh, ys, dys, hp)
     dw, db = gru_cuda.gru_dw(ys, dxp, gn, D)
     torch.cuda.synchronize()
-    assert (gru_cuda.bwd_launches, gru_cuda.dw_launches) == (before[0] + 1, before[1] + 1)
+    assert _counts("gru_bwd", "gru_dw") == tuple(b + 1 for b in before)
     want_dxp, want_gn = gru_cuda.gru_bwd_recurrence_plain(xp, w_hh, b_ih, b_hh, ys, dys)
     assert (dxp - want_dxp).abs().max().item() <= 1e-4
     assert (gn - want_gn).abs().max().item() <= 1e-4
@@ -233,10 +265,10 @@ def test_gru_bwd_kernel_needs_the_saved_hp(cuda):
     raises rather than recompute anything."""
     xp, w_hh, b_ih, b_hh, dys = _layer_inputs(4, 2, 8, 64, 2, 0, cuda)
     ys, _ = gru_cuda.gru_layer_forward(xp, w_hh, b_ih, b_hh)
-    before = gru_cuda.bwd_launches
+    before = _counts("gru_bwd")
     with pytest.raises(ValueError):
         gru_cuda.gru_bwd_recurrence(xp, w_hh, b_ih, b_hh, ys, dys)
-    assert gru_cuda.bwd_launches == before
+    assert _counts("gru_bwd") == before
 
 
 @pytest.mark.gpu
@@ -296,7 +328,7 @@ def test_gru_v1_kernels_against_plain(cuda, batch, H, cin):
     also against the model-layout kernel on the same function."""
     T, D = 34, 2
     xp, w_hh, b_hh, dys, (xp2, b_ih) = _walk_inputs(T, batch, cin, H, D, batch + H, cuda)
-    before = (gru_cuda.v1_launches, gru_cuda.v1_bwd_launches, gru_cuda.v1_dw_launches)
+    before = _counts("gru_fwd_v1", "gru_bwd_v1", "gru_dw_v1")
     ys, hp = gru_cuda.run_layer_forward(xp, w_hh, b_hh, save_hp=True)
     want_ys = gru_cuda.run_layer_plain(xp, w_hh, b_hh)[0]
     dxp, gn = gru_cuda.run_layer_bwd_recurrence(xp, w_hh, b_hh, ys, dys, hp)
@@ -304,8 +336,7 @@ def test_gru_v1_kernels_against_plain(cuda, batch, H, cin):
     dw, db = gru_cuda.run_layer_dw(want_ys, want_dxp, want_gn)
     want_dw, want_db = gru_cuda.run_layer_dw_plain(want_ys, want_dxp, want_gn)
     torch.cuda.synchronize()
-    assert (gru_cuda.v1_launches, gru_cuda.v1_bwd_launches, gru_cuda.v1_dw_launches) == \
-        tuple(b + 1 for b in before)
+    assert _counts("gru_fwd_v1", "gru_bwd_v1", "gru_dw_v1") == tuple(b + 1 for b in before)
     assert (ys - want_ys).abs().max().item() <= 1e-4
     model_ys, _ = gru_cuda.gru_layer_forward(xp2, w_hh, b_ih, b_hh)
     assert (gru_cuda._unwalk(ys) - model_ys).abs().max().item() <= 1e-6
@@ -344,3 +375,136 @@ def test_gru_v1_function_against_autograd_of_plain(cuda, H, cin, batch):
     assert (got_x - want_x).abs().max().item() <= 1e-4
     for g, w in zip(got_w, want_w):
         assert _rel(g, w) <= 1e-4
+
+
+# ------------------------------------------------------------------ bf16
+# The bf16 instances against their plain bf16 twins (`gru_cuda`'s plain
+# versions at the same rounding points, fed the same inputs): ys and h_last
+# within BF16_TOL absolute (the twin's float32 sums run in another order, so
+# a rounding to bf16 may land one ulp (2^-8 at |h| < 1) apart and carry
+# through the later steps); dxp and gn within BF16_TOL of each one's
+# largest value; dW_hh and db_hh from the same bf16 inputs within 1e-4 of
+# each one's largest value (exact products, float32 sums in another
+# order). bf16 against float32 on the same function within 0.05.
+BF16_TOL = 2e-2
+
+
+def _bf16(*tensors):
+    return [t.to(torch.bfloat16).contiguous() for t in tensors]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [1, 258, 512])
+@pytest.mark.parametrize("H,cin", [(300, 600), (64, 128), (600, 64)])
+def test_gru_bf16_kernels_against_plain(cuda, batch, H, cin):
+    """The bf16 forward (register tier at H 300 and 64, L2 tier at 600),
+    recurrence and dW in the model layout at the serving, scoring and
+    training batches: each launch counted under bfloat16 and none under
+    float32, against the bf16 twins, against float32, and the same bits
+    twice."""
+    T, D = 34, 2
+    f32 = _layer_inputs(T, batch, cin, H, D, batch + 3 * H, cuda)
+    xp, w_hh, b_ih, b_hh, dys = _bf16(*f32)
+    before = (_counts("gru_fwd", "gru_bwd", "gru_dw", dtype="bfloat16"),
+              _counts("gru_fwd", "gru_bwd", "gru_dw"))
+    ys, h_last, hp = gru_cuda.gru_layer_forward(xp, w_hh, b_ih, b_hh, save_hp=True)
+    dxp, gn = gru_cuda.gru_bwd_recurrence(xp, w_hh, b_ih, b_hh, ys, dys, hp)
+    dw, db = gru_cuda.gru_dw(ys, dxp, gn, D)
+    torch.cuda.synchronize()
+    assert _counts("gru_fwd", "gru_bwd", "gru_dw", dtype="bfloat16") == \
+        tuple(b + 1 for b in before[0])
+    assert _counts("gru_fwd", "gru_bwd", "gru_dw") == before[1]
+    assert ys.dtype == h_last.dtype == dxp.dtype == gn.dtype == torch.bfloat16
+    assert hp.dtype == dw.dtype == db.dtype == torch.float32
+    want_ys, want_h, want_hp = gru_cuda.gru_layer_plain(xp, w_hh, b_ih, b_hh, save_hp=True)
+    assert (ys.float() - want_ys.float()).abs().max().item() <= BF16_TOL
+    assert (h_last.float() - want_h.float()).abs().max().item() <= BF16_TOL
+    assert _rel(hp, want_hp) <= BF16_TOL
+    want_dxp, want_gn = gru_cuda.gru_bwd_recurrence_plain(xp, w_hh, b_ih, b_hh, ys, dys, hp)
+    assert _rel(dxp, want_dxp) <= BF16_TOL and _rel(gn, want_gn) <= BF16_TOL
+    dw, db = gru_cuda.gru_dw(ys, want_dxp, want_gn, D)
+    want_dw, want_db = gru_cuda.gru_dw_plain(ys, want_dxp, want_gn, D)
+    assert _rel(dw, want_dw) <= 1e-4 and _rel(db, want_db) <= 1e-4
+    dw2, db2 = gru_cuda.gru_dw(ys, want_dxp, want_gn, D)
+    assert torch.equal(dw, dw2) and torch.equal(db, db2)
+    ys2 = gru_cuda.gru_layer_forward(xp, w_hh, b_ih, b_hh)[0]
+    dxp2, gn2 = gru_cuda.gru_bwd_recurrence(xp, w_hh, b_ih, b_hh, ys, dys, hp)
+    assert torch.equal(ys, ys2) and torch.equal(dxp, dxp2) and torch.equal(gn, gn2)
+    ys32 = gru_cuda.gru_layer_forward(*f32[:4])[0]
+    assert (ys.float() - ys32).abs().max().item() <= 0.05
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [5, 512])
+@pytest.mark.parametrize("H,cin", [(300, 600), (64, 128), (600, 64)])
+def test_gru_v1_bf16_kernels_against_plain(cuda, batch, H, cin):
+    """The walk layout's bf16 instances (`run_layer`) against their bf16
+    twins, counted under bfloat16."""
+    T, D = 34, 2
+    xp, w_hh, b_hh, dys, _ = _walk_inputs(T, batch, cin, H, D, batch + H + 1, cuda)
+    xp, w_hh, b_hh, dys = _bf16(xp, w_hh, b_hh, dys)
+    before = _counts("gru_fwd_v1", "gru_bwd_v1", "gru_dw_v1", dtype="bfloat16")
+    ys, hp = gru_cuda.run_layer_forward(xp, w_hh, b_hh, save_hp=True)
+    dxp, gn = gru_cuda.run_layer_bwd_recurrence(xp, w_hh, b_hh, ys, dys, hp)
+    want_ys = gru_cuda.run_layer_plain(xp, w_hh, b_hh)[0]
+    want_dxp, want_gn = gru_cuda.run_layer_bwd_recurrence_plain(xp, w_hh, b_hh, ys, dys, hp)
+    dw, db = gru_cuda.run_layer_dw(ys, want_dxp, want_gn)
+    want_dw, want_db = gru_cuda.run_layer_dw_plain(ys, want_dxp, want_gn)
+    torch.cuda.synchronize()
+    assert _counts("gru_fwd_v1", "gru_bwd_v1", "gru_dw_v1", dtype="bfloat16") == \
+        tuple(b + 1 for b in before)
+    assert ys.dtype == dxp.dtype == torch.bfloat16
+    assert (ys.float() - want_ys.float()).abs().max().item() <= BF16_TOL
+    assert _rel(dxp, want_dxp) <= BF16_TOL and _rel(gn, want_gn) <= BF16_TOL
+    assert _rel(dw, want_dw) <= 1e-4 and _rel(db, want_db) <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,cin,batch", [(300, 600, 16), (64, 8, 5)])
+def test_gru_bf16_function_against_cpu(cuda, H, cin, batch):
+    """`GRULayerFunction` at bf16 on the card against the same Function on
+    the CPU (the plain bf16 twins): values and gradients in bf16, within
+    BF16_TOL of each one's largest value."""
+    T, D = 34, 2
+    inputs = _bf16(*_layer_inputs(T, batch, cin, H, D, 17, cuda))
+    grads = []
+    for dev in (cuda, "cpu"):
+        leaves = [t.to(dev).clone().requires_grad_() for t in inputs[:4]]
+        ys, h_last = gru_cuda.gru_layer(*leaves)
+        loss = (ys.float() * inputs[4].to(dev).float()).sum() + h_last.float().sin().sum()
+        grads.append([ys.cpu()] + [g.cpu() for g in torch.autograd.grad(loss, leaves)])
+    for got, want in zip(*grads):
+        assert got.dtype == want.dtype == torch.bfloat16
+        assert _rel(got, want) <= BF16_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H", [300, 64, 301, 302])
+def test_gru_dw_bf16_copy_widths(cuda, H):
+    """The bf16 dW product at each copy width of its plan: 8-byte copies
+    (H % 4 == 0, the tensors 8-byte aligned), 4-byte (H % 2 == 0), plain
+    loads (odd H), and plain loads again for views that start 2 bytes into
+    an allocation."""
+    T, B, D = 34, 64, 2
+    g = torch.Generator().manual_seed(H)
+    ys, gn = (torch.randn(T, B, D * H, generator=g).to(cuda, torch.bfloat16) for _ in range(2))
+    dxp = torch.randn(T, B, D * 3 * H, generator=g).to(cuda, torch.bfloat16)
+    want = gru_cuda.gru_dw_plain(ys, dxp, gn, D)
+    got = gru_cuda.gru_dw(ys, dxp, gn, D)
+    assert _rel(got[0], want[0]) <= 1e-4 and _rel(got[1], want[1]) <= 1e-4
+    shifted = [torch.empty(t.numel() + 1, device=cuda, dtype=torch.bfloat16)[1:].view(t.shape)
+               for t in (ys, dxp, gn)]
+    for s, t in zip(shifted, (ys, dxp, gn)):
+        s.copy_(t)
+    assert gru_cuda._alignment(*shifted) == 2
+    got = gru_cuda.gru_dw(shifted[0], shifted[1], shifted[2], D)
+    assert _rel(got[0], want[0]) <= 1e-4 and _rel(got[1], want[1]) <= 1e-4
+
+
+@pytest.mark.gpu
+def test_gru_kernels_refuse_float16_and_mixed(cuda):
+    xp, w_hh, b_ih, b_hh, _ = _layer_inputs(4, 2, 8, 64, 2, 0, cuda)
+    with pytest.raises(TypeError):
+        gru_cuda.gru_layer_forward(*(t.half() for t in (xp, w_hh, b_ih, b_hh)))
+    with pytest.raises(TypeError):
+        gru_cuda.gru_layer_forward(xp.to(torch.bfloat16), w_hh, b_ih, b_hh)

@@ -138,4 +138,4 @@ def test_run_layer_rejects_what_the_kernels_do_not_take(bad):
         w, err = w[:, :, :-3].contiguous(), ValueError
     with pytest.raises(err):
         gru_cuda.run_layer(xp, w, b)
-    assert gru_cuda.v1_launches == 0   # CPU tensors: the plain version only
+    assert sum(gru_cuda.launches.values()) == 0   # CPU tensors: the plain version only

@@ -1,7 +1,7 @@
 """The host side of the redesigned kernels, on the CPU: the mel kernel's
-tables and a numpy model of its data flow, and the GRU forward's launch
-plan. The kernels themselves run only on the card
-(tests/test_torch_cuda_kernels.py).
+tables, its tier choice and numpy models of both tiers' data flow, and the
+GRU kernels' launch plans (the bf16 dW copy widths among them). The
+kernels themselves run only on the card (tests/test_torch_cuda_kernels.py).
 
 Tolerances: the numpy model runs the kernel's float32 arithmetic in
 another order than the plain dense products and Pallas, so it is held as
@@ -121,16 +121,86 @@ def test_mel_kernel_model_other_sizes(n_fft):
     _close(_mel_model(frames.numpy()), mel_cuda.mel_power_plain(frames).numpy())
 
 
-@pytest.mark.parametrize("n_fft,n_mels", [(1000, 128), (1536, 128), (256, 128),
-                                          (8192, 128), (2048, 64)])
-def test_mel_kernel_refuses_other_shapes(n_fft, n_mels):
-    with pytest.raises(ValueError):
-        mel_cuda.check_kernel_shape(n_fft, n_mels)
+@pytest.mark.parametrize("n_fft,n_mels,tier", [(1000, 128, "dft"), (1536, 128, "dft"),
+                                               (256, 128, "dft"), (8192, 128, "dft"),
+                                               (2048, 64, "fft"), (512, 40, "fft"),
+                                               (4096, 256, "fft"), (400, 80, "dft"),
+                                               (30000, 128, "dft")])
+def test_mel_plan_picks_the_tier(n_fft, n_mels, tier):
+    """Every shape has a launch: the FFT tier for a power of two in [512,
+    4096] at any band count, the DFT tier otherwise, its twiddle table in
+    shared memory while it fits (a 30000-point table does not)."""
+    plan = mel_cuda.mel_plan(601, n_fft, n_mels)
+    assert plan.tier == tier
+    assert plan.blocks * plan.rows >= 601 > (plan.blocks - 1) * plan.rows
+    if tier == "dft":
+        assert plan.rows == mel_cuda.DFT_ROWS and plan.smem <= mel_cuda.SMEM_LIMIT
+        assert plan.tw_in_smem == (n_fft <= 16384)
+        assert plan.smem >= 4 * (mel_cuda.DFT_KT * plan.rows + plan.rows * mel_cuda.DFT_THREADS
+                                 + plan.rows * n_mels) + 8 * n_fft * plan.tw_in_smem
 
 
 def test_mel_kernel_takes_the_main_paths_shapes():
-    for n_fft in (1024, 2048):
-        mel_cuda.check_kernel_shape(n_fft, 128)
+    """Serving (n_fft 2048) and the corpus build (1024) at 128 bands keep
+    the FFT tier's plan: 2 and 4 rows a block, no dynamic shared memory."""
+    assert mel_cuda.mel_plan(568, 2048, 128) == mel_cuda.MelPlan("fft", 2, 284, 0, False)
+    assert mel_cuda.mel_plan(1876, 1024, 128) == mel_cuda.MelPlan("fft", 4, 469, 0, False)
+    with pytest.raises(ValueError):
+        mel_cuda.mel_plan(4, 2048, 0)
+
+
+def _mel_dft_model(frames: np.ndarray, sr: int = 16000, n_mels: int = 128) -> np.ndarray:
+    """The DFT tier's data flow in float32 numpy: the dense cos and sin
+    matrices gathered from its N-entry twiddle table at (n k) mod N, the
+    products summed in chunks of DFT_KC, the chunks into stages of DFT_KT
+    and the stages into the total; the power; each band's bins in
+    ascending order."""
+    R, n_fft = frames.shape
+    tw, bands, weights = mel_cuda.dft_tables(sr, n_fft, n_mels)
+    k = np.arange(n_fft // 2 + 1)
+    idx = (np.arange(n_fft)[:, None] * k[None, :]) % n_fft
+    kt, kc = mel_cuda.DFT_KT, 32
+    pad = -n_fft % kt
+    x = np.pad(frames, ((0, 0), (0, pad))).reshape(R, -1, kt // kc, kc)
+    spec = []
+    for col in (0, 1):
+        mat = np.pad(tw[idx, col], ((0, pad), (0, 0))).reshape(-1, kt // kc, kc, len(k))
+        chunks = np.einsum("rsci,scik->rsck", x, mat).astype(np.float32)
+        spec.append(chunks.sum(axis=2, dtype=np.float32).sum(axis=1, dtype=np.float32))
+    power = (spec[0] * spec[0] + spec[1] * spec[1]).astype(np.float32)
+    mel = np.zeros((R, n_mels), np.float32)
+    for band, (lo, n, off) in enumerate(bands):
+        for i in range(n):
+            mel[:, band] += weights[off + i] * power[:, lo + i]
+    return mel
+
+
+@pytest.mark.parametrize("n_fft,n_mels", [(1000, 128), (1536, 64), (256, 40), (400, 80)])
+def test_mel_dft_model_against_plain_and_pallas(n_fft, n_mels):
+    """The DFT tier's arithmetic against the plain dense products and the
+    TPU kernel (`fused_mel_power_frames(interpret=True)`), which take any
+    n_fft and band count."""
+    frames = _frames(9, n_fft)
+    got = _mel_dft_model(frames.numpy(), n_mels=n_mels)
+    _close(got, mel_cuda.mel_power_plain(frames, n_mels=n_mels).numpy())
+    _close(got, np.asarray(dsp_pallas.fused_mel_power_frames(
+        jnp.asarray(frames.numpy()), n_fft=n_fft, n_mels=n_mels, interpret=True)))
+
+
+@pytest.mark.parametrize("n_fft,n_mels", [(1000, 128), (256, 128), (2048, 64)])
+def test_band_tables_at_other_shapes(n_fft, n_mels):
+    """The band table rebuilds the dense filterbank at any shape (bands
+    without a bin hold none); the DFT tier's twiddle table is the float32
+    rounding of (cos, sin) of 2 pi m / N."""
+    tw, bands, weights = mel_cuda.dft_tables(16000, n_fft, n_mels)
+    dense = mel_cuda.dft_constants(16000, n_fft, n_mels)[2]
+    rebuilt = np.zeros_like(dense)
+    for band, (lo, n, off) in enumerate(bands):
+        rebuilt[lo:lo + n, band] = weights[off:off + n]
+    np.testing.assert_array_equal(rebuilt, dense)
+    ang = 2 * np.pi * np.arange(n_fft) / n_fft
+    np.testing.assert_allclose(tw[:, 0], np.cos(ang), rtol=0, atol=2.0 ** -24)
+    np.testing.assert_allclose(tw[:, 1], np.sin(ang), rtol=0, atol=2.0 ** -24)
 
 
 def _fwd_rows_max(plan):
@@ -271,7 +341,45 @@ def test_gru_dw_plan(T, B, H, sms):
     assert (plan.tiles_k - 1) * gru_cuda.DW_TM < H + 1 <= plan.tiles_k * gru_cuda.DW_TM
     assert (plan.tiles_j - 1) * gru_cuda.DW_TN < 3 * H <= plan.tiles_j * gru_cuda.DW_TN
     assert plan.vec == (4 if H % 4 == 0 else 1)
-    assert gru_cuda.dw_plan(T, B, H, 2, sms, aligned=False).vec == 1
+    assert gru_cuda.dw_plan(T, B, H, 2, sms, align=4).vec == 1
+
+
+@pytest.mark.parametrize("H", [300, 64, 302, 301])
+@pytest.mark.parametrize("align", [16, 8, 4, 2])
+def test_gru_dw_plan_bf16_copy_width(H, align):
+    """bf16 copies of 4 values (8 bytes) where H % 4 == 0 and every pointer
+    is 8-byte aligned: at H 300 the second direction starts 600 bytes into
+    a row of ys (900 values, 1800 bytes, into dxp), a multiple of 8 and not
+    of 16, as is every row and tile offset; of 2 values (4 bytes) where
+    H % 2 == 0 and the pointers are 4-byte aligned; else plain loads. The
+    splits are float32's."""
+    plan = gru_cuda.dw_plan(34, 512, H, 2, 132, align=align, itemsize=2)
+    want = 4 if H % 4 == 0 and align % 8 == 0 else 2 if H % 2 == 0 and align % 4 == 0 else 1
+    assert plan.vec == want
+    assert plan[:4] == gru_cuda.dw_plan(34, 512, H, 2, 132)[:4]
+    for v in (H, 3 * H, 2 * H, 2 * 3 * H):   # direction and row offsets, in values
+        assert (v * 2) % (2 * plan.vec) == 0 and v % plan.vec == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_biases_fold(dtype):
+    """float32 passes b_ih and b_hh through; bf16 folds as the TPU kernels
+    do: b_in = b_ih + [b_hh_r, b_hh_z, 0] added in bf16, b_rec = [0, 0,
+    b_hh_n]; the walk layout's b_in (no b_ih) is [b_hh_r, b_hh_z, 0]."""
+    H = 5
+    g = torch.Generator().manual_seed(0)
+    b_ih, b_hh = (torch.randn(2, 3 * H, generator=g).to(dtype) for _ in range(2))
+    b_in, b_rec = gru_cuda.kernel_biases(b_ih, b_hh, H)
+    walk_in, walk_rec = gru_cuda.kernel_biases(None, b_hh, H)
+    if dtype == torch.float32:
+        assert b_in is b_ih and b_rec is b_hh and walk_in is None and walk_rec is b_hh
+        return
+    assert b_in.dtype == b_rec.dtype == dtype
+    assert torch.equal(b_in[:, :2 * H], b_ih[:, :2 * H] + b_hh[:, :2 * H])
+    assert torch.equal(b_in[:, 2 * H:], b_ih[:, 2 * H:])
+    assert torch.equal(b_rec, torch.cat([torch.zeros_like(b_hh[:, :2 * H]), b_hh[:, 2 * H:]], -1))
+    assert torch.equal(walk_in[:, :2 * H], b_hh[:, :2 * H]) and not walk_in[:, 2 * H:].any()
+    assert torch.equal(walk_rec, b_rec)
 
 
 def _gru_fwd_model(xp, w_hh, b_ih, b_hh, BT):

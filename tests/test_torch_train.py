@@ -396,7 +396,7 @@ def test_two_gan_steps_match_jax(jax_models, same_other_speakers):
     loaded = from_jax.pose_generator_trimodal(jax_models["tri_vars"])
     for k, v in step.tri.state_dict().items():
         assert np.array_equal(v.numpy(), np.asarray(loaded[k]).reshape(v.shape)), k
-    assert gru_cuda.bwd_launches == 0  # CPU tensors: plain versions only
+    assert sum(gru_cuda.launches.values()) == 0  # CPU tensors: plain versions only
 
 
 def test_gan_step_float32_matches_float64(jax_models, same_other_speakers):
@@ -492,7 +492,7 @@ def test_main_v2_trains_on_cpu_and_writes_a_checkpoint(tmp_path):
     assert again.epoch == 0 and np.isfinite(again.best_loss)
 
 
-@pytest.mark.parametrize("flag", [["--mixed-precision", "true"], ["--remat", "full"],
+@pytest.mark.parametrize("flag", [["--fused-pass", "true"], ["--remat", "full"],
                                   ["--steps-per-program", "2"], ["--loader", "grain"],
                                   ["--apply-gradient-clip", "true"], []])
 def test_main_v2_rejects_unported_options(tmp_path, flag):
@@ -527,7 +527,9 @@ def _readings(seeds):
 
 
 if __name__ == "__main__":
-    # PYTHONPATH=. python tests/test_torch_train.py [seed ...] prints the readings
+    # PYTHONPATH=. python tests/test_torch_train.py [seed ...] prints the
+    # readings: the float32 step's, then the mixed-precision step's against
+    # JAX's run through its Pallas kernels (tests/test_torch_bf16.py)
     import sys
 
     with pytest.MonkeyPatch.context() as mp:
@@ -538,4 +540,10 @@ if __name__ == "__main__":
                    lambda key, vids, n: jnp.asarray(DIV_IDS, vids.dtype))
         mp.setattr(tstep, "draw_other_speaker_ids",
                    lambda g, vids, n: torch.as_tensor(DIV_IDS, device=vids.device))
-        _readings([int(a) for a in sys.argv[1:]] or range(10, 20))
+        seeds = [int(a) for a in sys.argv[1:]] or range(10, 20)
+        _readings(seeds)
+        mp.setenv("S2AG_GRU_ENGINE", "pallas")
+        mp.setenv("S2AG_GRU_PALLAS_INTERPRET", "1")
+        from test_torch_bf16 import bf16_readings
+
+        bf16_readings(seeds)
