@@ -20,8 +20,11 @@ toolkit. In order:
    the same function; the mel kernel at shapes past its FFT tier (its DFT
    tier at n_fft 1000, 1536, 256, 8192; the FFT tier at 64 bands) against
    its plain version and the float64 oracle; the GRU kernels' bf16
-   instances (forward in both tiers, recurrence, dW; both layouts) against
-   their bf16 twins and against float32;
+   instances (the forward in the tier its plan names: the tensor-core tier
+   at H <= 320 where B·H² reaches `gru_cuda.TENSOR_MIN_WORK`, else the
+   register or L2 tier; the recurrence; dW on the tensor cores; both
+   layouts) against their bf16 twins and against float32, the tensor tier
+   also where the plan takes the register tier;
 3. service phase: a full-width s2ag generator (config/multimodal_context_v2.yml:
    hidden 300, 4 GRU layers, embed 300; 1000 words, 100 speakers; random
    weights from seed 0) behind the HTTP server answers /synthesize for a
@@ -56,18 +59,21 @@ toolkit. In order:
    weights, batch and noise: the card's metrics, BN running stats and
    Adam's first moments must agree with the float64 step within tolerance;
    then `main_v2 --mixed-precision true` as in 6 (the bf16 instances of the
-   forward, backward and dW must run in training, only float32 in the
-   scoring) and its step's p50 beside the float32 step's; one
-   mixed-precision step on the card against the CPU bf16 path (weights
-   scaled by 0.3); the service at `--serve-precision bf16` (/healthz and
+   forward, backward and dW must run in training, the forward's tensor
+   tier and the tensor-core dW among them, only float32 in the scoring)
+   and its step's p50 beside the float32 step's; one mixed-precision step
+   on the card against the CPU bf16 path (weights scaled by 0.3); the
+   service at `--serve-precision bf16` (/healthz and
    /metrics report bf16, its /synthesize runs the bf16 forward, its output
    against the CPU bf16 path, its p50 and p90);
 9. timing: each kernel's time, its plain version's, a PyTorch library
    call's that computes the same function, and the least time the card
    could take (bound), by CUDA events and by device time; the GRU
    backward (recurrence + dW) against cuDNN's recurrent backward; the L2
-   tier's times; the bf16 instances against cuDNN's bf16 `nn.GRU`; the
-   mel kernel's DFT tier against `rfft`; the service's synthesize p50; the
+   tier's times; the bf16 instances against cuDNN's bf16 `nn.GRU` (and the
+   bf16 forward's two register-range tiers against each other at small
+   batches); the mel kernel's DFT tier against `rfft`; the service's
+   synthesize p50; the
    train step's p50, samples/s and its device profile; `generate_gestures`'
    wall time and device profile; the embedding train step's p50.
 
@@ -344,8 +350,15 @@ def bf16_kernel_phase(device) -> dict:
     counted under its bf16 name and none under float32; the same bits
     twice; and bf16 against float32 on the same function (BF16_VS_F32).
     The model layout at the serving, scoring and training batches (B 1,
-    258, 512) at H 300, the discriminator's H 64, and the L2 tier's H 600;
-    the walk layout (`run_layer`) at H 300 and 64."""
+    258, 512) and a batch of 5 at H 300, the discriminator's H 64, H 40,
+    the odd H 301, and the L2 tier's H 600; the walk layout (`run_layer`)
+    at H 300, 64, 40 and 301. The forward runs the tier its plan names
+    (the tensor tier at H <= 320 where B·H² reaches
+    `gru_cuda.TENSOR_MIN_WORK`, the register tier below), dW the tensor
+    cores; each log line names the forward's tier. Where the plan takes
+    the register tier in the model layout, the tensor tier is also held
+    against the twin (partial m16 tiles at B 1 and 5), launched with its
+    own plan."""
     import torch
     from speech2affective_gestures_torch.ops import gru_cuda
 
@@ -353,9 +366,11 @@ def bf16_kernel_phase(device) -> dict:
     names = ("gru_fwd", "gru_bwd", "gru_dw")
     errs = {f"{k}{v}_bf16": 0.0 for v in ("", "_v1") for k in names}
     T, D = 34, 2
-    for walk, H, B, cin in ((False, 300, 1, 600), (False, 300, 258, 600),
+    for walk, H, B, cin in ((False, 300, 1, 600), (False, 300, 5, 600), (False, 300, 258, 600),
                             (False, 300, 512, 600), (False, 64, 512, 128),
-                            (False, 600, 512, 64), (True, 300, 512, 600), (True, 64, 5, 128)):
+                            (False, 40, 512, 128), (False, 301, 258, 600),
+                            (False, 600, 512, 64), (True, 300, 512, 600), (True, 64, 5, 128),
+                            (True, 40, 512, 128), (True, 301, 5, 600)):
         f32 = gru_inputs(T, B, cin, H, D, seed=B + 3 * H, device=device)
         if walk:
             xp32, w32, bh32, _ = v1_inputs(T, B, cin, H, D, seed=B + 3 * H, device=device)
@@ -410,8 +425,24 @@ def bf16_kernel_phase(device) -> dict:
                 and torch.equal(ys, fwd()[0] if not walk else fwd())
                 and torch.equal(dxp, rec(ys, dys, hp)[0]))
         f32_err = vs32(ys).item()
+        tier = gru_cuda._device_plan(device, B, H, D, bf16).tier
+        if not walk and tier == "registers":
+            # the tensor tier at this batch, against the same twin
+            plan = gru_cuda.fwd_plan(B, H, D, gru_cuda.max_clusters(device, H, "fwd", bf16,
+                                                                   "tensor"), "tensor")
+            tys, th, thp = gru_cuda._forward_launch(xp, w_hh, b_ih, b_hh, plan, True)
+            tc_err = max((tys.float() - want_ys.float()).abs().max().item(),
+                         (th.float() - want_h.float()).abs().max().item(), _rel(thp, want_hp))
+            again = gru_cuda._forward_launch(xp, w_hh, b_ih, b_hh, plan, False)[0]
+            log(f"kernel bf16 forward's tensor tier at B={B} H={H} (its plan {plan.BT} rows "
+                f"a tile): ys/h_last/hp error {tc_err:.3e} (tol {BF16_TOL}); bitwise "
+                f"repeatable {torch.equal(tys, again)}")
+            if not (tc_err <= BF16_TOL and torch.equal(tys, again)):
+                raise AssertionError(f"the tensor tier disagrees with its twin at B {B}")
+            errs["gru_fwd_bf16"] = max(errs["gru_fwd_bf16"], tc_err)
         log(f"kernel bf16 {'walk' if walk else 'model'} layout T={T} B={B} cin={cin} H={H} "
-            f"D={D}: forward ys/h_last max_abs_err={fwd_err:.3e}, hp relative {hp_rel:.3e} "
+            f"D={D} (forward tier {tier}, dW tensor cores): forward ys/h_last "
+            f"max_abs_err={fwd_err:.3e}, hp relative {hp_rel:.3e} "
             f"(tol {BF16_TOL}); recurrence dxp/gn relative {bwd_rel:.3e} (tol {BF16_TOL}); "
             f"dW_hh/db_hh relative {dw_rel:.3e} (tol {BWD_TOL}); bitwise repeatable {same}; "
             f"bf16 against float32 ys {f32_err:.3e} (tol {BF16_VS_F32}); dtypes ys "
@@ -611,15 +642,21 @@ def v1_path_phase(device, dtype_name: str = "float32") -> dict:
     ys, h_last = gru_cuda.run_layer(xp, w_hh, b_hh)
     (ys.float().square().mean() + h_last.float().sum()).backward()
     torch.cuda.synchronize()
-    counts = _counters()
+    counts, tiers = _counters(), _tier_counters()
     launches = {k + suffix: counts[k + suffix] for k in ("gru_fwd_v1", "gru_bwd_v1",
                                                         "gru_dw_v1")}
     finite = all(bool(t.grad.isfinite().all()) and t.grad.dtype == dtype
                  for t in (x, w_ih, w_hh, b_ih, b_hh))
+    # bf16: the forward's plan at this batch and dW take the tensor cores
+    want_tiers = ((f"gru_fwd_v1_bf16/{gru_cuda.fwd_tier(B, H, dtype)}", "gru_dw_v1_bf16/tensor")
+                  if suffix else ())
     log(f"v1 path (run_layer under autograd, {dtype_name}, T={T} B={B} H={H} D={D}): "
-        f"launches {dict(counts)}; every gradient finite and {dtype_name} {finite}")
-    if not finite or min(launches.values()) < 1 or sum(counts.values()) != 3:
-        raise AssertionError(f"run_layer did not run its kernels: {launches}, finite {finite}")
+        f"launches {dict(counts)}, by tier {dict(tiers)}; every gradient finite and "
+        f"{dtype_name} {finite}")
+    if (not finite or min(launches.values()) < 1 or sum(counts.values()) != 3
+            or any(tiers[k] < 1 for k in want_tiers)):
+        raise AssertionError(f"run_layer did not run its kernels: {launches}, {dict(tiers)}, "
+                             f"finite {finite}")
     return launches
 
 
@@ -903,10 +940,24 @@ def _counters() -> collections.Counter:
     return out
 
 
+def _tier_counters() -> collections.Counter:
+    """The GRU kernels' launches since the last reset by the tier that ran,
+    under "<name in the kernels line>/<tier>": "gru_fwd_bf16/tensor" (the
+    bf16 forward's tensor-core tier), "gru_fwd_bf16/registers",
+    "gru_dw_bf16/tensor" (the bf16 dW product), "gru_dw/fma", ..."""
+    from speech2affective_gestures_torch.ops import gru_cuda
+
+    out = collections.Counter()
+    for (kernel, dtype, tier), n in gru_cuda.tier_launches.items():
+        out[f"{kernel}{'_bf16' if dtype == 'bfloat16' else ''}/{tier}"] += n
+    return out
+
+
 def _reset_counters() -> None:
     from speech2affective_gestures_torch.ops import gru_cuda, mel_cuda
 
     gru_cuda.launches.clear()
+    gru_cuda.tier_launches.clear()
     mel_cuda.launches.clear()
 
 
@@ -959,10 +1010,12 @@ def bf16_service_phase(device) -> dict:
     noise) within MP_TOL of its largest value; its distance from the
     card's float32 service is logged. Then the p50 and p90 of /synthesize
     and its device profile."""
+    import torch
     from speech2affective_gestures_torch import serve
     from speech2affective_gestures_torch.config import ModelConfig
     from speech2affective_gestures_torch.data.vocab import placeholder_vocab
     from speech2affective_gestures_torch.models.generator import build_generator
+    from speech2affective_gestures_torch.ops import gru_cuda
 
     cfg = ModelConfig.from_yaml(CONFIG)
     vocab = placeholder_vocab(1000)
@@ -979,16 +1032,20 @@ def bf16_service_phase(device) -> dict:
         one = post(server, "/synthesize", {
             "audio_b64": serve.encode_f32_b64(single), "words": words,
             "vid_idx": 3, "binary": True})
-        counts = _counters()
+        counts, tiers = _counters(), _tier_counters()
         metrics = get(server, "/metrics")
     finally:
         server.shutdown()
         server.server_close()
     launches = {k: counts[k] for k in ("gru_fwd_bf16", "mel_power")}
-    log(f"bf16 service: /healthz {health}; /synthesize launches {dict(counts)}; "
-        f"/metrics precision {metrics['synthesize']['precision']}")
+    # the generator runs a window at batch 1: the bf16 forward's plan there
+    tier = f"gru_fwd_bf16/{gru_cuda.fwd_tier(1, cfg.hidden_size_s2eg, torch.bfloat16)}"
+    log(f"bf16 service: /healthz {health}; /synthesize launches {dict(counts)}, by tier "
+        f"{dict(tiers)} (the plan at batch 1: {tier}); /metrics precision "
+        f"{metrics['synthesize']['precision']}")
     if (health["precision"] != "bf16" or metrics["synthesize"]["precision"] != "bf16"
-            or min(launches.values()) < 1 or counts["gru_fwd"] != 0):
+            or min(launches.values()) < 1 or counts["gru_fwd"] != 0
+            or tiers[tier] != counts["gru_fwd_bf16"]):
         raise AssertionError(f"the bf16 service did not run its bf16 kernels: "
                              f"{health}, {dict(counts)}")
     dv = unb64(one["dir_vec_b64"], one["dir_vec_shape"])
@@ -1058,6 +1115,7 @@ def training_phase(device, work: pathlib.Path, embedding_net: pathlib.Path,
     def counted(self, *args, **kwargs):
         torch.cuda.synchronize()
         counts["training"] = _counters()
+        counts["training tiers"] = _tier_counters()
         _reset_counters()
         t0 = time.perf_counter()
         result = scoring(self, *args, **kwargs)
@@ -1077,13 +1135,18 @@ def training_phase(device, work: pathlib.Path, embedding_net: pathlib.Path,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, evaluated = counts["training"], counts["evaluation"]
+    tiers = counts["training tiers"]
     log(f"training launches{' (mixed precision)' if mixed_precision else ''}: "
-        f"{dict(launches)}; test-split scoring launches: {dict(evaluated)}; "
-        f"main_v2.main took {wall:.1f} s in all")
+        f"{dict(launches)}, by tier {dict(tiers)}; test-split scoring launches: "
+        f"{dict(evaluated)}; main_v2.main took {wall:.1f} s in all")
     suffix = "_bf16" if mixed_precision else ""
     for name in ("gru_fwd", "gru_bwd", "gru_dw"):
         if launches[name + suffix] < 1:
             raise AssertionError(f"kernel {name + suffix} was not launched in training")
+    # at batch 512 the bf16 forward and dW run on the tensor cores
+    for name in (("gru_fwd_bf16/tensor", "gru_dw_bf16/tensor") if mixed_precision else ()):
+        if tiers[name] < 1:
+            raise AssertionError(f"{name} was not launched in mixed-precision training")
     if evaluated["gru_fwd"] < 1 or any(k.endswith("_bf16") and n for k, n in evaluated.items()):
         raise AssertionError(f"generate_gestures did not run float32 alone: {evaluated}")
     if trainer.device.type != device.type:
@@ -1833,18 +1896,32 @@ def bf16_timing(device) -> list:
          dw_bytes, dw_flops, times["dw"][1], lib_dw[1], PEAK_BF16_FLOPS),
     ]
     f32 = gru_inputs(T, B, cin, H, D, seed=9, device=device)
-    log(f"gru bf16 T={T} B={B} H={H} D={D}: forward {times['fwd']} ms (events, device), "
+    log(f"gru bf16 T={T} B={B} H={H} D={D}: forward (tier "
+        f"{gru_cuda._device_plan(device, B, H, D, bf16).tier}) {times['fwd']} ms (events, device), "
         f"float32 forward by device time "
         f"{device_ms(lambda: gru_cuda.gru_layer_forward(*f32), n=10):.4f}; recurrence "
         f"{times['rec']}; dW {times['dw']}; cuDNN bf16 recurrent forward {lib_fwd}, "
         f"backward with dW_hh {lib_bwd}; cuBLAS bf16 dW product {lib_dw}")
-    for fb, fh, fc in ((1, 300, 600), (258, 300, 600), (512, 64, 128)):
+    for fb, fh, fc in ((1, 300, 600), (24, 300, 600), (32, 300, 600), (64, 300, 600),
+                       (258, 300, 600), (512, 64, 128)):
         a = [t.to(bf16).contiguous() for t in gru_inputs(T, fb, fc, fh, D, seed=9,
                                                          device=device)]
+        # both register-range tiers at this batch, each with its own plan
+        # (the comparison behind gru_cuda.TENSOR_MIN_WORK)
+        tiers = {}
+        for tier in ("registers", "tensor"):
+            plan = gru_cuda.fwd_plan(fb, fh, D, gru_cuda.max_clusters(device, fh, "fwd", bf16,
+                                                                    tier), tier)
+            run = lambda: gru_cuda._forward_launch(*a, plan, False)  # noqa: E731
+            tiers[tier] = (round(time_ms(run), 4), round(device_ms(run), 4))
+        b_ms, b_by = bound(2 * (sum(t.numel() for t in a) + T * fb * D * fh + D * fb * fh),
+                           2 * T * fb * D * fh * 3 * fh + T * fb * D * 15 * fh, PEAK_BF16_FLOPS)
         log(f"gru_fwd_bf16 T={T} B={fb} H={fh} D={D}: "
             f"{time_ms(lambda: gru_cuda.gru_layer_forward(*a)):.4f} ms, by device time "
-            f"{device_ms(lambda: gru_cuda.gru_layer_forward(*a)):.4f} ms; plan "
-            f"{gru_cuda._device_plan(device, fb, fh, D, bf16)._asdict()}")
+            f"{device_ms(lambda: gru_cuda.gru_layer_forward(*a)):.4f} ms; plain "
+            f"{time_ms(lambda: gru_cuda.gru_layer_plain(*a), iters=5):.4f} ms; bound "
+            f"{b_ms:.5f} ms ({b_by}); plan {gru_cuda._device_plan(device, fb, fh, D, bf16)._asdict()}; "
+            f"each tier (events, device ms) {tiers}")
     # the walk layout's instances at the same shape
     xw, wv, bv = (t.to(bf16).contiguous()
                   for t in v1_inputs(T, B, cin, H, D, seed=9, device=device)[:3])

@@ -17,8 +17,9 @@
 //   carry  = dh z + g . W_hh^T                   (dh of the previous step)
 // and then
 //   dW_hh  = sum_{t,b} h_prev^T g,   db_hh = sum_{t,b} g.
-// The gradient of b_ih is sum_{t,b} dxp, which the wrapper takes with a
-// plain reduction (the JAX package also sums dxp outside its kernel).
+// The gradient of b_ih is sum_{t,b} dxp: its r and z parts are db_hh's,
+// and the wrapper sums dxp's n part with a plain reduction (the JAX
+// package also sums dxp outside its kernel).
 //
 // Layouts (row-major, contiguous), the forward's two, chosen by the
 // template parameter WALK:
@@ -41,8 +42,8 @@
 // `gru_cuda.kernel_biases`), dh, the gate gradients, g and the carry in
 // float32 (its dh scratch is f32), g . W^T from float32 g and widened bf16
 // W, dxp and gn rounded to bf16 when stored. dW_hh and db_hh are float32
-// sums of the widened bf16 inputs; the wrapper rounds them to the
-// parameters' dtype. One step differs from the TPU kernel: its dW_hh sums
+// sums of the bf16 inputs' exact products (on the tensor cores); the
+// wrapper rounds them to the parameters' dtype. One step differs from the TPU kernel: its dW_hh sums
 // h_prev^T g with g in float32, here g is the stored bf16 dxp and gn.
 //
 // Kernel 1, the recurrence: the forward's cluster design turned round. One
@@ -69,23 +70,28 @@
 // pairs (with one unit a thread, as the forward has, the reads take four
 // times the FMAs' issue; PERF.md).
 //
-// Kernels 2 and 3, dW_hh and db_hh: a float32 product over the T*B rows,
+// Kernels 2 and 3, dW_hh and db_hh: a product over the T*B rows,
 // [h_prev | 1]^T (H + 1 rows of k, the ones row giving db_hh) times g (3H
-// columns of j). Block tiles of 64 (k) x 128 (j), 256 threads with 4 x 8
-// outputs each (one float4 of h_prev and two of g from shared memory feed
-// 32 FMAs); the rows come through a 3-stage cp.async ring of 16 rows a
-// stage (float32: 16-byte copies where H % 4 == 0, 4-byte otherwise; bf16:
-// 8-byte copies where H % 4 == 0, 4-byte where H % 2 == 0, else plain
-// loads, since at H 300 the second direction starts 600 bytes into a row;
-// zero-fill past the data), one barrier a stage (bf16: a second, after the
-// stage is widened once into float32 tiles, so that the product reads
-// float4s as the float32 instance does); each thread's row offsets advance by
-// arithmetic, with no table. The rows are cut into S consecutive splits;
-// one block per (tile, split) sums its split's rows in order into a partial
-// tile, and a second pass adds the S partials of each output in split
+// columns of j), cut into S consecutive row splits; one block per (tile,
+// split) sums its split's rows in order into a partial tile, and a second
+// pass (`gru_dw_sum_kernel`) adds the S partials of each output in split
 // order: deterministic, no atomics. The plan (`gru_cuda.dw_plan`) takes S
-// so that about four blocks per SM are in flight. Bound: 2 T B D (H + 1) 3H
-// FLOP against the float32 rate; sums stay plain float32 FMAs (no TF32).
+// so that the blocks fill the card.
+//   float32 (`gru_dw_kernel`): block tiles of 64 (k) x 128 (j), 256 threads
+//   with 4 x 8 outputs each (one float4 of h_prev and two of g from shared
+//   memory feed 32 FMAs); the rows come through a 3-stage cp.async ring of
+//   16 rows a stage (16-byte copies where H % 4 == 0, 4-byte otherwise;
+//   zero-fill past the data), one barrier a stage; each thread's row offsets
+//   advance by arithmetic, with no table. Plain float32 FMAs (no TF32).
+//   Bound: 2 T B D (H + 1) 3H FLOP against the float32 rate.
+//   bf16 (`gru_dw_tc_kernel`): the same sums on the tensor cores (bf16
+//   products, exact, accumulated in float32), block tiles of 128 x 128 that
+//   read each row of g half as often as the float32 tiles, a 4-stage
+//   cp.async ring of 32 rows (8-byte copies where
+//   H % 4 == 0, since at H 300 the second direction starts 600 bytes into a
+//   row; 4-byte where H % 2 == 0, else plain loads), ldmatrix.trans for both
+//   M-major operands. Bound: its bf16 bytes (the inputs once, float32
+//   out), 0.026 ms at T 34, B 512, H 300.
 
 #include <type_traits>
 
@@ -449,22 +455,13 @@ __device__ __forceinline__ void copy_in(V* dst, const V* src, bool valid) {
   }
 }
 
-// Four consecutive shared values, widened.
+// Four consecutive shared values.
 __device__ __forceinline__ void load4(const float* p, float (&o)[4]) {
   const float4 v = *reinterpret_cast<const float4*>(p);
   o[0] = v.x;
   o[1] = v.y;
   o[2] = v.z;
   o[3] = v.w;
-}
-__device__ __forceinline__ void load4(const bf16_t* p, float (&o)[4]) {
-  const uint2 v = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
-  o[0] = a.x;
-  o[1] = a.y;
-  o[2] = b.x;
-  o[3] = b.y;
 }
 
 // A reduction row m = (t, b) = (m / B, m % B), advanced by whole stages
@@ -486,23 +483,16 @@ struct RowCursor {
 };
 
 // part (S, D, H + 1, 3H): split's partial sums of [dW_hh; db_hh] over its
-// rows [split * rows_per_split, ...) in ascending order. V: the storage
-// type of ys, dxp and gn, and of the shared tiles (a bf16 tile is widened
-// as it is read); VEC: values per copy (`gru_cuda.dw_plan`: 4 when H % 4 ==
-// 0 and the tensors are aligned to 4 values, bf16 also 2 when H % 2 == 0;
-// else 1).
-template <typename V, bool WALK, int VEC>
+// rows [split * rows_per_split, ...) in ascending order (float32 inputs);
+// VEC: values per copy (`gru_cuda.dw_plan`: 4 when H % 4 == 0 and the
+// tensors are aligned to 4 values, else 1).
+template <bool WALK, int VEC>
 __global__ void __launch_bounds__(DW_THREADS) gru_dw_kernel(
-    const V* __restrict__ ys, const V* __restrict__ dxp, const V* __restrict__ gn,
+    const float* __restrict__ ys, const float* __restrict__ dxp, const float* __restrict__ gn,
     float* __restrict__ part, int T, int B, int H, int D, int rows_per_split) {
-  // the cp.async ring of V values; at bf16 each stage is widened once, when
-  // it is consumed, into the float32 tiles Af and Bf that the product reads
-  // (so the product's loop is the float32 instance's)
-  constexpr bool WIDEN = !std::is_same_v<V, float>;
+  using V = float;
   __shared__ __align__(16) V As[NSTAGE][TK][TM];  // h_prev (and the ones row)
   __shared__ __align__(16) V Bs[NSTAGE][TK][TN];  // g
-  __shared__ __align__(16) float Af[WIDEN ? TK : 1][TM];
-  __shared__ __align__(16) float Bf[WIDEN ? TK : 1][TN];
   const int d = blockIdx.z % D;
   const int split = blockIdx.z / D;
   const int k0 = blockIdx.y * TM;
@@ -596,25 +586,8 @@ __global__ void __launch_bounds__(DW_THREADS) gru_dw_kernel(
     else
       cp_async_commit();
     const int buf = it % NSTAGE;
-    const float* a_tile = reinterpret_cast<const float*>(As[buf]);
-    const float* b_tile = reinterpret_cast<const float*>(Bs[buf]);
-    if constexpr (WIDEN) {
-      // stage it into Af, Bf: four values a thread of each row-block of
-      // 4 * DW_THREADS (the last product is done: the barrier above)
-      for (int i = 4 * tid; i < TK * TM; i += 4 * DW_THREADS) {
-        float v[4];
-        load4(&As[buf][0][0] + i, v);
-        *reinterpret_cast<float4*>(&Af[0][0] + i) = make_float4(v[0], v[1], v[2], v[3]);
-      }
-      for (int i = 4 * tid; i < TK * TN; i += 4 * DW_THREADS) {
-        float v[4];
-        load4(&Bs[buf][0][0] + i, v);
-        *reinterpret_cast<float4*>(&Bf[0][0] + i) = make_float4(v[0], v[1], v[2], v[3]);
-      }
-      __syncthreads();
-      a_tile = &Af[0][0];
-      b_tile = &Bf[0][0];
-    }
+    const float* a_tile = &As[buf][0][0];
+    const float* b_tile = &Bs[buf][0][0];
 #pragma unroll
     for (int r = 0; r < TK; ++r) {
       float av[4], bv[8], bw[4];
@@ -670,33 +643,223 @@ __global__ void gru_dw_sum_kernel(const float* __restrict__ part,
   }
 }
 
+// The bf16 dW product on the tensor cores (`gru_dw_tc_kernel`): a block
+// tile of DK = 128 rows of k (h_prev units and the ones row) by DJ = 128
+// columns of j, DRK rows of (t, b) a stage, DNST stages in flight, 8 warps
+// of 64 x 32 outputs each (117 registers a thread: two blocks an SM, so
+// that one block's copies overlap the other's products, 10% faster than
+// one block of 128 x 256 tiles on the H100); rows of DK + 8 and DJ + 8
+// values in shared memory (a row's 16-byte segments odd in number: the 8
+// rows of an ldmatrix hit distinct banks). `gru_cuda.DW_TC_K`, `DW_TC_J`,
+// `DW_TC_RK` and `DW_TC_BLOCKS_PER_SM` are the same constants.
+// Warp (wk, wj) of the WK x WJ warps owns DMT m16 tiles of k and DNT n8
+// tiles of j.
+constexpr int DWK = 2, DWJ = 4, DMT = 4, DNT = 4;
+constexpr int DK = 16 * DWK * DMT;
+constexpr int DJ = 8 * DWJ * DNT;
+constexpr int DRK = 32;
+constexpr int DNST = 4;
+constexpr int DW_TC_THREADS = 32 * DWK * DWJ;
+constexpr int DW_TC_MIN_BLOCKS = 2;
+constexpr int DAS = DK + 8;
+constexpr int DBS = DJ + 8;
+constexpr int DW_TC_SMEM = DNST * DRK * (DAS + DBS) * 2;
+
+// part (S, D, H + 1, 3H) as `gru_dw_kernel`'s, from bf16 ys, dxp and gn:
+// out[k][j] = sum over the split's rows m of A[m][k] G[m][j], A = [h_prev |
+// 1 | 0...] and G = [dxp_r, dxp_z, gn], float32 accumulation on the tensor
+// cores. Both operands are M-major (the rows are the reduction), so both
+// come out of shared memory through ldmatrix.trans: A as the m16n8k16
+// product's (k x m) operand, G as its (m x j) one. Each thread copies one
+// row of each stage, 8 threads a row (VEC values a copy: 8-byte cp.async
+// for 4, 4-byte for 2, plain loads for 1), zero past the data. Warp (wk, wj)
+// owns k [64 wk, +64) and j [32 wj, +32) of the tile, 4 x 4 accumulator
+// tiles; m16 and n8 tiles wholly past the output are skipped (uniform in
+// the warp). Fixed order: the same bits every launch.
+template <bool WALK, int VEC>
+__global__ void __launch_bounds__(DW_TC_THREADS, DW_TC_MIN_BLOCKS) gru_dw_tc_kernel(
+    const bf16_t* __restrict__ ys, const bf16_t* __restrict__ dxp,
+    const bf16_t* __restrict__ gn, float* __restrict__ part, int T, int B, int H, int D,
+    int rows_per_split) {
+  extern __shared__ __align__(16) unsigned char dw_smem[];
+  bf16_t* As = reinterpret_cast<bf16_t*>(dw_smem);  // [DNST][DRK][DAS]
+  bf16_t* Bs = As + DNST * DRK * DAS;                // [DNST][DRK][DBS]
+  const int d = blockIdx.z % D;
+  const int split = blockIdx.z / D;
+  const int k0 = blockIdx.y * DK;
+  const int j0 = blockIdx.x * DJ;
+  const int tid = threadIdx.x;
+  const int H3 = 3 * H;
+  const int M = T * B;
+  const int m_lo = split * rows_per_split;
+  const int m_hi = min(M, m_lo + rows_per_split);
+  const int n_stage = (m_hi - m_lo + DRK - 1) / DRK;
+  const int r = tid / 8, q = tid % 8;  // this thread's row of a stage, its part
+
+  auto load_stage = [&](int it, int buf) {
+    const int m = m_lo + it * DRK + r;
+    const bool row_ok = m < m_hi;
+    const int t = row_ok ? m / B : 0;
+    const int b = row_ok ? m - t * B : 0;
+    // A: h_prev at frame qf (zero at the walk's first frame), 1 at k = H
+    const int qf = (WALK || d == 0) ? t - 1 : t + 1;
+    const bool has_prev = row_ok && qf >= 0 && qf < T;
+    const bf16_t* src = ys + (has_prev ? row_offset<WALK>(qf, qf, d, b, B, D, H) : 0);
+    bf16_t* dst = As + (buf * DRK + r) * DAS;
+    for (int e = VEC * q; e < DK; e += 8 * VEC) {
+      const int k = k0 + e;
+      if (k < H) {
+        copy_in<bf16_t, VEC>(dst + e, src + (has_prev ? k : 0), has_prev);
+      } else {
+#pragma unroll
+        for (int v = 0; v < VEC; ++v)
+          dst[e + v] = narrow<bf16_t>((row_ok && k + v == H) ? 1.0f : 0.0f);
+      }
+    }
+    // G: [dxp_r, dxp_z, gn] at frame t
+    const size_t ox = row_ok ? row_offset<WALK>(t, t, d, b, B, D, H3) : 0;
+    const size_t og = row_ok ? row_offset<WALK>(t, t, d, b, B, D, H) : 0;
+    bf16_t* dstb = Bs + (buf * DRK + r) * DBS;
+    for (int e = VEC * q; e < DJ; e += 8 * VEC) {
+      const int j = j0 + e;
+      const bf16_t* sj = ys;
+      bool ok = false;
+      if (row_ok && j < 2 * H) {
+        sj = dxp + ox + j;
+        ok = true;
+      } else if (row_ok && j < H3) {
+        sj = gn + og + (j - 2 * H);
+        ok = true;
+      }
+      copy_in<bf16_t, VEC>(dstb + e, sj, ok);
+    }
+    cp_async_commit();
+  };
+
+  const int warp = tid / 32, lane = tid % 32;
+  const int wk = warp / DWJ, wj = warp % DWJ;
+  const int kw = k0 + 16 * DMT * wk, jw = j0 + 8 * DNT * wj;
+  const bool active = kw <= H && jw < H3;  // uniform in the warp
+  // the lane's ldmatrix.trans rows and columns: A's matrices (m 0-7, k +0),
+  // (m 0-7, k +8), (m 8-15, k +0), (m 8-15, k +8) give a0..a3; G's (m 0-7,
+  // j +0), (m 8-15, j +0), (m 0-7, j +8), (m 8-15, j +8) the b0, b1 of two
+  // n8 tiles
+  const int a_off = ((lane % 8) + 8 * (lane / 16)) * DAS + 16 * DMT * wk + 8 * ((lane / 8) % 2);
+  const int b_off = ((lane % 8) + 8 * ((lane / 8) % 2)) * DBS + 8 * DNT * wj + 8 * (lane / 16);
+  float acc[DMT][DNT][4];
+#pragma unroll
+  for (int mt = 0; mt < DMT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < DNT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.0f;
+
+#pragma unroll
+  for (int st = 0; st < DNST - 1; ++st) {
+    if (st < n_stage)
+      load_stage(st, st);
+    else
+      cp_async_commit();  // an empty group keeps the count of groups
+  }
+  for (int it = 0; it < n_stage; ++it) {
+    cp_async_wait<DNST - 2>();  // stage it has landed (this thread's part)
+    __syncthreads();            // everyone's part; stage it - 1's buffer is free
+    if (it + DNST - 1 < n_stage)
+      load_stage(it + DNST - 1, (it + DNST - 1) % DNST);
+    else
+      cp_async_commit();
+    const int buf = it % DNST;
+    if (active) {
+      const bf16_t* at = As + buf * DRK * DAS + a_off;
+      const bf16_t* bt = Bs + buf * DRK * DBS + b_off;
+#pragma unroll
+      for (int kk = 0; kk < DRK / 16; ++kk) {
+        unsigned a[DMT][4], bq[DNT / 2][4];
+#pragma unroll
+        for (int mt = 0; mt < DMT; ++mt) ldmatrix_x4<true>(a[mt], at + 16 * kk * DAS + 16 * mt);
+#pragma unroll
+        for (int np = 0; np < DNT / 2; ++np)
+          ldmatrix_x4<true>(bq[np], bt + 16 * kk * DBS + 16 * np);
+#pragma unroll
+        for (int mt = 0; mt < DMT; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < DNT; ++nt)
+            if (kw + 16 * mt <= H && jw + 8 * nt < H3)
+              mma_bf16(acc[mt][nt], a[mt], bq[nt / 2][2 * (nt % 2)],
+                       bq[nt / 2][2 * (nt % 2) + 1]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  if (!active) return;
+  float* out = part + ((size_t)split * D + d) * (H + 1) * H3;
+  const int qg = lane / 4, qc = lane % 4;
+#pragma unroll
+  for (int mt = 0; mt < DMT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < DNT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int k = kw + 16 * mt + qg + 8 * (e / 2);
+        const int j = jw + 8 * nt + 2 * qc + e % 2;
+        if (k <= H && j < H3) out[(size_t)k * H3 + j] = acc[mt][nt][e];
+      }
+}
+
+// The bf16 product's shared memory (above 48 KB) is opted into once per
+// instance.
+template <bool WALK, int VEC>
+cudaError_t dw_tc_attr() {
+  static const cudaError_t err =
+      cudaFuncSetAttribute((const void*)gru_dw_tc_kernel<WALK, VEC>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, DW_TC_SMEM);
+  return err;
+}
+
+// dW of either storage type: the float32 FMA product (`gru_dw_kernel`) or
+// the bf16 tensor-core one (`gru_dw_tc_kernel`), then the fixed-order sum.
 template <typename V, bool WALK>
 int launch_dw(const void* ys_, const void* dxp_, const void* gn_, float* part,
               float* dw_hh, float* db_hh, int T, int B, int H, int D, int S,
               int rows_per_split, int vec, void* stream) {
-  // what the indexing needs of the plan: whole stages a split, every row in
-  // a split, copies of VEC values only where H % VEC == 0
+  // what the indexing needs of the plan: whole stages a split (TK rows in
+  // float32, DRK in bf16), every row in a split, copies of VEC values only
+  // where H % VEC == 0
+  constexpr bool BF16 = std::is_same_v<V, bf16_t>;
+  constexpr int RK = BF16 ? DRK : TK;
   const long long M = (long long)T * B;
-  const bool vec_ok = sizeof(V) == 4 ? (vec == 1 || vec == 4) : (vec == 1 || vec == 2 || vec == 4);
-  if (T < 1 || B < 1 || H < 1 || D < 1 || D > 2 || S < 1 || rows_per_split < TK ||
-      rows_per_split % TK || (long long)S * rows_per_split < M ||
+  const bool vec_ok = BF16 ? (vec == 1 || vec == 2 || vec == 4) : (vec == 1 || vec == 4);
+  if (T < 1 || B < 1 || H < 1 || D < 1 || D > 2 || S < 1 || rows_per_split < RK ||
+      rows_per_split % RK || (long long)S * rows_per_split < M ||
       (long long)(S - 1) * rows_per_split >= M || !vec_ok || H % vec)
     return (int)cudaErrorInvalidValue;
   const V* ys = static_cast<const V*>(ys_);
   const V* dxp = static_cast<const V*>(dxp_);
   const V* gn = static_cast<const V*>(gn_);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((3 * H + TN - 1) / TN, (H + 1 + TM - 1) / TM, D * S);
-  if (vec == 4)
-    gru_dw_kernel<V, WALK, 4><<<grid, DW_THREADS, 0, st>>>(ys, dxp, gn, part, T, B, H, D,
-                                                           rows_per_split);
-  else if (vec == 2)
-    gru_dw_kernel<V, WALK, 2><<<grid, DW_THREADS, 0, st>>>(ys, dxp, gn, part, T, B, H, D,
-                                                           rows_per_split);
-  else
-    gru_dw_kernel<V, WALK, 1><<<grid, DW_THREADS, 0, st>>>(ys, dxp, gn, part, T, B, H, D,
-                                                           rows_per_split);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = cudaSuccess;
+  if constexpr (BF16) {
+    const dim3 grid((3 * H + DJ - 1) / DJ, (H + 1 + DK - 1) / DK, D * S);
+#define S2AG_DW_TC(VV)                                                                   \
+  if (vec == VV) {                                                                      \
+    err = dw_tc_attr<WALK, VV>();                                        \
+    if (err == cudaSuccess)                                                              \
+      gru_dw_tc_kernel<WALK, VV><<<grid, DW_TC_THREADS, DW_TC_SMEM, st>>>(                \
+          ys, dxp, gn, part, T, B, H, D, rows_per_split);                                  \
+  }
+    S2AG_DW_TC(4) S2AG_DW_TC(2) S2AG_DW_TC(1)
+#undef S2AG_DW_TC
+  } else {
+    const dim3 grid((3 * H + TN - 1) / TN, (H + 1 + TM - 1) / TM, D * S);
+    if (vec == 4)
+      gru_dw_kernel<WALK, 4><<<grid, DW_THREADS, 0, st>>>(ys, dxp, gn, part, T, B, H, D,
+                                                          rows_per_split);
+    else
+      gru_dw_kernel<WALK, 1><<<grid, DW_THREADS, 0, st>>>(ys, dxp, gn, part, T, B, H, D,
+                                                          rows_per_split);
+  }
+  if (err == cudaSuccess) err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const size_t n = (size_t)D * (H + 1) * 3 * H;
   const int blocks = (int)((n + 255) / 256);

@@ -14,14 +14,18 @@
 //     each thread reads its W values from device memory (L2-resident: a
 //     block's slice is 1/C of W_hh) once per group of S rows, and the block
 //     walks its units in passes.
-// Every sum is plain float32 FMA in a fixed order: the same inputs give the
-// same bits.
+// The forward's bf16 instance has a third, the tensor tier (H <= 320,
+// gru_fwd.cu): W_hh as tensor-core operand fragments in registers, h bf16
+// in shared memory, the product on the tensor cores.
+// Every other sum is plain float32 FMA in a fixed order; all of them give
+// the same bits for the same inputs.
 //
 // Storage types: every kernel has a float and a bf16 (__nv_bfloat16)
 // instance, chosen by the tensors' dtype. A bf16 value is widened to float
 // when it is loaded and the arithmetic is float, so a product of two bf16
-// values is exact and the FMA chains are the TPU kernels' f32-accumulated
-// products (`preferred_element_type=jnp.float32`); a value is rounded to
+// values is exact and the FMA chains (or the tensor cores' float32
+// accumulation) are the TPU kernels' f32-accumulated products
+// (`preferred_element_type=jnp.float32`); a value is rounded to
 // bf16 (to nearest even) where the TPU kernel stores it at the input's
 // dtype. The float instance rounds nowhere (`rounded<float>` is the
 // identity).
@@ -132,6 +136,53 @@ __device__ __forceinline__ void group_totals_of(float (&acc)[S][NV], int rows, i
 #pragma unroll
     for (int g = 0; g < NV; ++g) out[g] = acc[i][g];
   }, tot);
+}
+
+// The tensor cores' bf16 product with float32 accumulation (mma.sync
+// m16n8k16) and its operand loads from shared memory (ldmatrix), used by the
+// bf16 forward's tensor tier (gru_fwd.cu) and the bf16 dW product
+// (gru_bwd.cu). Fragments of lane l (g = l / 4, c = l % 4), two bf16 values
+// a register, the first in the low 16 bits:
+//   A (16 x 16): a0 = A[g][2c, 2c+1], a1 = A[g+8][2c, 2c+1],
+//                a2 = A[g][2c+8, 2c+9], a3 = A[g+8][2c+8, 2c+9]
+//   B (16 x 8):  b0 = B[2c, 2c+1][g], b1 = B[2c+8, 2c+9][g]
+//   C (16 x 8, float): c0, c1 = C[g][2c, 2c+1], c2, c3 = C[g+8][2c, 2c+1]
+// The products of two bf16 values are exact; the hardware adds them in a
+// fixed order, so the same inputs give the same bits.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// Four 8 x 8 bf16 matrices from shared memory: lanes 8i .. 8i + 7 give the
+// addresses of matrix i's 8 rows (16 bytes each, 16-byte aligned); lane l
+// receives in r[i] matrix i's row l / 4, columns 2 (l % 4) and 2 (l % 4) + 1
+// or, with TRANS, its rows 2 (l % 4) and 2 (l % 4) + 1 of column l / 4.
+template <bool TRANS>
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
+  if constexpr (TRANS)
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(s)
+                 : "memory");
+  else
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(s)
+                 : "memory");
+}
+// the raw bits of a bf16 value in device memory
+__device__ __forceinline__ unsigned short bits_of(const bf16_t* p) {
+  return __ldg(reinterpret_cast<const unsigned short*>(p));
+}
+__device__ __forceinline__ float from_bits(unsigned short v) {
+  return __bfloat162float(__ushort_as_bfloat16(v));
+}
+__device__ __forceinline__ unsigned pack2(unsigned short lo, unsigned short hi) {
+  return (unsigned)lo | ((unsigned)hi << 16);
 }
 
 // The card's most shared memory a block may opt into (227 KB on the H100):

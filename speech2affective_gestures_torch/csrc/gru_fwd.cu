@@ -38,8 +38,9 @@
 // xp's dtype (gru_pallas.py:348, :352-354, :379). The wrapper hands the bf16
 // instance the TPU kernel's bias fold (`gru_cuda.kernel_biases`: b_ih_r +
 // b_hh_r, b_ih_z + b_hh_z, b_ih_n in bf16 as b_ih; 0, 0, b_hh_n as b_hh),
-// so hp_r and hp_z take no bias there. h stays float in shared memory
-// (holding the rounded value) and hp stays float32.
+// so hp_r and hp_z take no bias there. hp stays float32. In the register
+// and L2 tiers h stays float in shared memory (holding the rounded value);
+// the bf16 instance's tensor tier (below) keeps it bf16.
 //
 // Design. On the TPU, W_hh stays in VMEM for the whole time loop. Here W_hh
 // (1.08 MB per direction at H 300) is ~5x one SM's shared memory, so it is
@@ -84,6 +85,23 @@
 // passes of threads / S. Any H whose two h rows fit in a block's shared
 // memory runs.
 //
+// The bf16 instance at H <= 320 has a third tier, the tensor tier
+// (`gru_layer_fwd_tc_kernel`), which the plan takes at bf16 in the register
+// range. Its product is the TPU kernel's own, `jnp.dot(h, W)` of bf16 h and
+// W with float32 accumulation (gru_pallas.py:347), on the tensor cores
+// (mma.sync m16n8k16: 989 TFLOP/s bf16 on the H100 against 67 for float32
+// FMA, which took 78% of the register tier's step). The same cluster and
+// exchange; U a multiple of 8 (C 8, U 40 at H 300); each warp holds the
+// B fragments of W_hh for 8 units' r, z and n columns in registers (6 KT
+// registers a lane, 114 at H 300), h is bf16 in shared memory (k padded
+// to 16 KT, rows to 16), read by ldmatrix, and the accumulator layout
+// hands each lane the three gates of the same four (row, unit) positions,
+// so the gate update needs no shuffle; the exchange stores 16 bytes (8
+// units of a row) at a time, half the float tiers' bytes. mma.sync, not
+// wgmma: the 34-step chain of products, gates and barriers, not the
+// tensor-core rate, sets the pace, and batch tiles are rarely the 64 rows
+// wgmma takes.
+//
 // The launch plan (tier, S, KC, C, U, BT, the threads and the shared-memory
 // bytes) is the caller's (`gru_cuda.fwd_plan`), its only owner; the launch
 // refuses a plan that would leave a unit, a chunk of k or a row of h
@@ -99,6 +117,8 @@
 // block's 10 warps; the float4 reads of h and the shuffles share its issue
 // with the FMAs (PERF.md has the measured split). At B 1 a step is one
 // row's chunk products, the shuffles, the gate's latency and the barrier.
+
+#include <type_traits>
 
 #include "gru_cluster.cuh"
 
@@ -499,11 +519,231 @@ __global__ void __launch_bounds__(max_threads(0), 1) gru_layer_fwd_l2_kernel(
   }
 }
 
+// The tensor tier: its instances' k16 steps (k padded with zeros to 16 KT
+// >= H; `gru_cuda.TENSOR_KT`), a block's most threads (8 warps) and the m16
+// tiles a warp takes at once. One block an SM: at H 300 a thread holds 114
+// registers of W_hh and uses all 255; bounded to two blocks an SM (204) it
+// spilled and ran 20% slower on the H100.
+#define S2AG_GRU_TC_INSTANCES \
+  S2AG_TC(2) S2AG_TC(3) S2AG_TC(4) S2AG_TC(5) S2AG_TC(8) S2AG_TC(12) S2AG_TC(16) S2AG_TC(19) S2AG_TC(20)
+constexpr int TC_THREADS = 256;
+constexpr int TC_MT = 2;
+// What the tensor tier's indexing needs of a plan: k padded to KC >= H
+// (KC the instance's 16 KT), whole groups of 8 units covering H, S warps a
+// group.
+inline bool tc_plan_ok(int S, int KC, int H, int C, int U, int threads) {
+  return KC >= H && U > 0 && U % 8 == 0 && (long long)C * U >= H &&
+         threads == 32 * (U / 8) * S && threads <= TC_THREADS;
+}
+
+// The warp's product for one or two m16 tiles of h (a: lane's ldmatrix row
+// address in the first tile, KS the row stride), all three gates, over the
+// KT k16 steps: acc[i][gate] the (16 x 8) tile of tile i. PAIR false: one
+// tile, its even and odd k steps summed in acc[0] and acc[1] (two chains
+// of half the length, added at the end), since alone its chain of KT
+// dependent products would set the step's latency.
+template <int KT, bool PAIR>
+__device__ __forceinline__ void tc_product(const bf16_t* a, int KS,
+                                           const unsigned (&w)[3][KT][2],
+                                           float (&acc)[TC_MT][3][4]) {
+#pragma unroll
+  for (int i = 0; i < TC_MT; ++i)
+#pragma unroll
+    for (int g = 0; g < 3; ++g)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][g][e] = 0.0f;
+#pragma unroll
+  for (int ks = 0; ks < KT; ++ks) {
+    unsigned a0[4];
+    ldmatrix_x4<false>(a0, a + 16 * ks);
+    if constexpr (PAIR) {
+      unsigned a1[4];
+      ldmatrix_x4<false>(a1, a + 16 * KS + 16 * ks);
+#pragma unroll
+      for (int g = 0; g < 3; ++g) {
+        mma_bf16(acc[0][g], a0, w[g][ks][0], w[g][ks][1]);
+        mma_bf16(acc[1][g], a1, w[g][ks][0], w[g][ks][1]);
+      }
+    } else {
+#pragma unroll
+      for (int g = 0; g < 3; ++g) mma_bf16(acc[ks & 1][g], a0, w[g][ks][0], w[g][ks][1]);
+    }
+  }
+  if constexpr (!PAIR) {
+#pragma unroll
+    for (int g = 0; g < 3; ++g)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[0][g][e] += acc[1][g][e];
+  }
+}
+
+// The tensor tier (bf16, H <= 16 KT <= 320). The register tier's cluster,
+// one per (batch tile, direction), block c owning units [cU, (c+1)U) with U
+// a multiple of 8; h' into every block's next h buffer through distributed
+// shared memory, one cluster barrier a step. What differs is the product:
+// hp = h . W_hh on the tensor cores. h is bf16 in shared memory ([2][BTP]
+// [KS] values: BTP the tile's rows rounded up to 16, rows past the tile and
+// k past H zero; KS = 16 KT + 8, so that KS / 8 is odd and the 8 row
+// addresses of an ldmatrix hit distinct banks). Warp w owns unit group grp
+// = w % G (G = U / 8): it holds, for its 8 units, the B fragments of W_hh's
+// r, z and n columns over every k16 step in registers (6 KT a lane, read
+// once), and walks the tile's m16 tiles w / G, w / G + WM, ... (WM = warps
+// / G) two at a time. The m16n8 accumulators of the three gates give lane
+// (g, c) the same four (row, unit) positions (rows g, g + 8 of the m16
+// tile, units 2c, 2c + 1 of the group): it applies the gate update there in
+// registers (xp read before the product), writes ys, h_last and hp, and
+// the quad of lanes g gathers its row's 8 new h values (16 bytes) to store
+// them into the peers' next buffers (lane c into peers c, c + 4).
+template <bool WALK, int KT>
+__global__ void __launch_bounds__(TC_THREADS, 1) gru_layer_fwd_tc_kernel(
+    const bf16_t* __restrict__ xp, const bf16_t* __restrict__ w_hh,
+    const bf16_t* __restrict__ b_ih, const bf16_t* __restrict__ b_hh,
+    bf16_t* __restrict__ ys, bf16_t* __restrict__ h_last, float* __restrict__ hp_out,
+    int T, int B, int H, int D, int U, int BT) {
+  constexpr int KP = 16 * KT;
+  constexpr int KS = KP + 8;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16_t* h_s = reinterpret_cast<bf16_t*>(tc_smem);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int c = (int)cluster.block_rank();
+  const int BTP = (BT + 15) / 16 * 16;
+
+  const int d = blockIdx.y;
+  const int b0 = (blockIdx.x / C) * BT;
+  const int nrows = min(BT, B - b0);
+  const int n_mt = (nrows + 15) / 16;
+  const int H3 = 3 * H;
+  const int G = U / 8;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int grp = warp % G, WM = (int)blockDim.x / 32 / G;
+  const int qg = lane / 4, qc = lane % 4;
+  const int ju = c * U + 8 * grp;  // the group's first unit
+  const int j = ju + 2 * qc;       // this lane's units j, j + 1
+
+  // prologue: the B fragments of W_hh (column ju + qg of each gate), read
+  // once; h = 0
+  unsigned w[3][KT][2];
+  {
+    const int col = ju + qg;
+    const bf16_t* W = w_hh + (size_t)d * H * H3 + col;
+#pragma unroll
+    for (int g = 0; g < 3; ++g)
+#pragma unroll
+      for (int ks = 0; ks < KT; ++ks)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int k = 16 * ks + 8 * half + 2 * qc;
+          const unsigned short lo =
+              col < H && k < H ? bits_of(W + (size_t)k * H3 + g * H) : 0;
+          const unsigned short hi =
+              col < H && k + 1 < H ? bits_of(W + (size_t)(k + 1) * H3 + g * H) : 0;
+          w[g][ks][half] = pack2(lo, hi);
+        }
+  }
+  float bh[3][2], bi[3][2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e)
+#pragma unroll
+    for (int g = 0; g < 3; ++g) {
+      const bool ok = j + e < H;
+      bh[g][e] = ok ? ld(b_hh + (size_t)d * H3 + g * H + j + e) : 0.0f;
+      bi[g][e] = ok && b_ih != nullptr ? ld(b_ih + (size_t)d * H3 + g * H + j + e) : 0.0f;
+    }
+  for (int i = threadIdx.x; i < 2 * BTP * KS / 8; i += blockDim.x)
+    reinterpret_cast<uint4*>(h_s)[i] = make_uint4(0u, 0u, 0u, 0u);
+  // this lane's ldmatrix row in an m16 tile: rows lane % 8 (+ 8 for
+  // matrices 1 and 3), k + 8 for matrices 2 and 3
+  const int a_off = ((lane % 8) + 8 * ((lane / 8) % 2)) * KS + 8 * (lane / 16);
+  cluster.sync();  // every block has started and cleared its h
+
+  for (int step = 0; step < T; ++step) {
+    const int t = (d == 0) ? step : T - 1 - step;
+    const bf16_t* hc = h_s + (step & 1) * BTP * KS;
+    bf16_t* hn = h_s + ((step + 1) & 1) * BTP * KS;
+    for (int mt0 = (warp / G) * TC_MT; mt0 < n_mt; mt0 += WM * TC_MT) {
+      const bool pair = mt0 + 1 < n_mt;  // uniform in the warp
+      // xp at this lane's positions, [tile][row half][gate], units j, j + 1
+      unsigned xv[TC_MT][2][3];
+#pragma unroll
+      for (int i = 0; i < TC_MT; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = 16 * (mt0 + i) + qg + 8 * h;
+          const bool ok = row < nrows;
+          const bf16_t* x = xp + (ok ? row_offset<WALK>(t, step, d, b0 + row, B, D, H3) : 0);
+#pragma unroll
+          for (int g = 0; g < 3; ++g)
+            xv[i][h][g] = pack2(ok && j < H ? bits_of(x + g * H + j) : 0,
+                                ok && j + 1 < H ? bits_of(x + g * H + j + 1) : 0);
+        }
+      float acc[TC_MT][3][4];
+      if (pair)
+        tc_product<KT, true>(hc + 16 * mt0 * KS + a_off, KS, w, acc);
+      else
+        tc_product<KT, false>(hc + 16 * mt0 * KS + a_off, KS, w, acc);
+#pragma unroll
+      for (int i = 0; i < TC_MT; ++i) {
+        if (i > 0 && !pair) break;  // uniform
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = 16 * (mt0 + i) + qg + 8 * h;
+          unsigned short hb[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float hnew = 0.0f;  // 0 past H, where h must stay 0
+            if (row < nrows && j + e < H) {
+              const float hpr = acc[i][0][2 * h + e] + bh[0][e];
+              const float hpz = acc[i][1][2 * h + e] + bh[1][e];
+              const float hpn = acc[i][2][2 * h + e] + bh[2][e];
+              const float xr = from_bits((unsigned short)(xv[i][h][0] >> (16 * e)));
+              const float xz = from_bits((unsigned short)(xv[i][h][1] >> (16 * e)));
+              const float xn = from_bits((unsigned short)(xv[i][h][2] >> (16 * e)));
+              const float r = sigmoid_f(rounded<bf16_t>(xr + bi[0][e]) + hpr);
+              const float z = sigmoid_f(rounded<bf16_t>(xz + bi[1][e]) + hpz);
+              const float n = tanhf(rounded<bf16_t>(xn + bi[2][e]) + r * hpn);
+              hnew = rounded<bf16_t>((1.0f - z) * n + z * widen(hc[row * KS + j + e]));
+              ys[row_offset<WALK>(t, step, d, b0 + row, B, D, H) + j + e] = narrow<bf16_t>(hnew);
+              if (h_last != nullptr && step == T - 1)
+                h_last[((size_t)d * B + b0 + row) * H + j + e] = narrow<bf16_t>(hnew);
+              if (hp_out != nullptr) {
+                float* o = hp_out + row_offset<WALK>(t, step, d, b0 + row, B, D, H3) + j + e;
+                o[0] = hpr;
+                o[H] = hpz;
+                o[2 * H] = hpn;
+              }
+            }
+            hb[e] = __bfloat16_as_ushort(narrow<bf16_t>(hnew));
+          }
+          const unsigned mine = pack2(hb[0], hb[1]);
+          // the row's 8 units of the group, gathered from the quad
+          uint4 v;
+          v.x = __shfl_sync(0xffffffffu, mine, (lane & ~3) + 0);
+          v.y = __shfl_sync(0xffffffffu, mine, (lane & ~3) + 1);
+          v.z = __shfl_sync(0xffffffffu, mine, (lane & ~3) + 2);
+          v.w = __shfl_sync(0xffffffffu, mine, (lane & ~3) + 3);
+          if (row < nrows && ju < KP) {
+            bf16_t* dst = hn + row * KS + ju;
+            for (int peer = qc; peer < C; peer += 4)
+              *reinterpret_cast<uint4*>(cluster.map_shared_rank(dst, peer)) = v;
+          }
+        }
+      }
+    }
+    if (C == 1)
+      __syncthreads();
+    else
+      cluster.sync();
+  }
+}
+
 // tier 0: the register instance (S, KC), with or without hp; tier 1: the
-// L2 tier (S = L2_S). Both refuse a plan their indexing cannot take: every
-// k in a chunk, every unit in a block (U whole float4s), every unit's S
-// lanes in whole warps, both h buffers of BT rows of S chunks of KC + 4
-// floats.
+// L2 tier (S = L2_S); tier 2: the tensor tier (bf16; KC = 16 KT, S = WM
+// warps a unit group). Each refuses a plan its indexing cannot take: every
+// k in a chunk, every unit in a block (U whole float4s; the tensor tier
+// whole groups of 8), every unit's S lanes in whole warps (the tensor
+// tier: G WM warps), both h buffers of BT rows of S chunks of KC + 4 floats
+// (the tensor tier: BT rounded up to 16 rows of KC + 8 bf16 values).
 template <typename V, bool WALK>
 int launch(const void* xp_, const void* w_hh_, const void* b_ih_, const void* b_hh_,
            void* ys_, void* h_last_, float* hp, int T, int B, int H, int D, int C, int BT,
@@ -514,12 +754,25 @@ int launch(const void* xp_, const void* w_hh_, const void* b_ih_, const void* b_
   const V* b_hh = static_cast<const V*>(b_hh_);
   V* ys = static_cast<V*>(ys_);
   V* h_last = static_cast<V*>(h_last_);
-  if (T < 1 || B < 1 || H < 1 || D < 1 || D > 2 || C < 1 || BT < 1 ||
-      smem < 4 * 2 * BT * S * (KC + 4))
+  if (T < 1 || B < 1 || H < 1 || D < 1 || D > 2 || C < 1 || BT < 1 || S < 1 ||
+      smem < (tier == 2 ? 2 * 2 * ((BT + 15) / 16 * 16) * (KC + 8)
+                        : 4 * 2 * BT * S * (KC + 4)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const ClusterLaunch launch(C, dim3(C * ((B + BT - 1) / BT), D), threads, smem, st);
   cudaError_t err = cudaErrorInvalidValue;
+  if constexpr (std::is_same_v<V, bf16_t>) {
+#define S2AG_TC(KK)                                                                      \
+  if (tier == 2 && KC == 16 * KK && tc_plan_ok(S, KC, H, C, U, threads)) {               \
+    auto kernel = gru_layer_fwd_tc_kernel<WALK, KK>;                                     \
+    err = check_config(kernel, launch);                                                  \
+    if (err == cudaSuccess)                                                              \
+      err = cudaLaunchKernelEx(&launch.cfg, kernel, xp, w_hh, b_ih, b_hh, ys, h_last, hp, \
+                               T, B, H, D, U, BT);                                        \
+  }
+    S2AG_GRU_TC_INSTANCES
+#undef S2AG_TC
+  }
   if (tier == 1 && S == L2_S && plan_ok(S, 0, KC, H, C, U, threads)) {
     auto kernel = gru_layer_fwd_l2_kernel<V, WALK>;
     err = check_config(kernel, launch);
@@ -587,6 +840,13 @@ int max_clusters(int S, int KC, int C, int threads, int smem, int tier) {
   const ClusterLaunch launch(C, dim3(C), threads, smem, nullptr);
   if (tier == 1 && S == L2_S)
     err = max_active_clusters(gru_layer_fwd_l2_kernel<V, false>, launch, &clusters);
+  if constexpr (std::is_same_v<V, bf16_t>) {
+#define S2AG_TC(KK)     \
+  if (tier == 2 && KC == 16 * KK) \
+    err = max_active_clusters(gru_layer_fwd_tc_kernel<false, KK>, launch, &clusters);
+    S2AG_GRU_TC_INSTANCES
+#undef S2AG_TC
+  }
 #define S2AG_GRU(SS, KK)                                                                   \
   if (tier == 0 && S == SS && KC == KK)                                                    \
     err = max_active_clusters(gru_layer_fwd_kernel<V, SS, KK, false, false>, launch,        \

@@ -10,7 +10,11 @@ stays in VMEM; on the H100 it is ~5x one SM's shared memory at H=300) and
 exchanging h with its peers through distributed shared memory, one cluster
 barrier per step. Past H 320 (W_hh beyond a cluster's registers) the same
 kernel reads each block's slice from L2 once per group of rows instead.
-`fwd_plan` chooses the tier, the lanes per unit, the cluster size, the
+The bf16 instance has a third tier up to H 320, "tensor", that the plan
+takes where the batch's work is large enough (`fwd_tier`): the product h . W_hh on the tensor cores
+(mma.sync, bf16 operands, float32 accumulation), W_hh as operand
+fragments in each warp's registers, h bf16 in shared memory. `fwd_tier`
+and `fwd_plan` choose the tier, the lanes per unit, the cluster size, the
 batch tile and the shared memory of a launch. When a gradient will be
 taken the forward also saves hp = h_prev . W_hh + b_hh.
 
@@ -21,8 +25,9 @@ round, the rows of W_hh in registers, g exchanged through distributed
 shared memory, one product with W_hh a step thanks to the saved hp;
 `bwd_plan`, the forward's tiers) and the deterministic reduction of dW_hh
 and db_hh over the T*B rows (`gru_dw`: a register-tiled float32 product
-fed by a cp.async ring, partial sums over row splits, then a fixed-order
-pass that adds them; `dw_plan`). The sources say more.
+fed by a cp.async ring, at bf16 the same product on the tensor cores;
+partial sums over row splits, then a fixed-order pass that adds them;
+`dw_plan`). The sources say more.
 
 `GRULayerFunction` ties them into autograd. Each wrapper takes the plain
 version for a CPU tensor and launches its kernel for a CUDA tensor; there
@@ -69,6 +74,10 @@ from . import _build
 # ("gru_dw"), the same three in the walk layout (`run_layer`: "gru_fwd_v1",
 # ...), each at "float32" or "bfloat16" (chip_smoke.py reads and resets it)
 launches: collections.Counter = collections.Counter()
+# the same launches by (kernel, dtype, tier): the plan's tier for the
+# forward and the recurrence ("registers", "l2", the bf16 forward's
+# "tensor"), "fma" or "tensor" for dW
+tier_launches: collections.Counter = collections.Counter()
 
 # the kernels' storage dtypes; the plain versions also take float64
 STORAGE = (torch.float32, torch.bfloat16)
@@ -78,8 +87,9 @@ def _dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).removeprefix("torch.")
 
 
-def _count(kernel: str, dtype: torch.dtype) -> None:
+def _count(kernel: str, dtype: torch.dtype, tier: str) -> None:
     launches[(kernel, _dtype_name(dtype))] += 1
+    tier_launches[(kernel, _dtype_name(dtype), tier)] += 1
 
 
 def _compute_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -259,7 +269,9 @@ class ClusterPlan(NamedTuple):
     a unit (a pair of units in the recurrence), each with a chunk of KC
     rows of W_hh (of its columns in the recurrence): in its registers (tier
     "registers") or read from L2 once per group of S rows (tier "l2", the
-    block's units walked in passes)."""
+    block's units walked in passes). In the bf16 forward's tier "tensor" a
+    warp owns a group of 8 units (U a multiple of 8), S is the warps that
+    share a group (1) and KC the k padded to whole k16 steps."""
     C: int
     U: int
     S: int
@@ -318,6 +330,54 @@ def fwd_shape(H: int) -> tuple[int, int, int, int]:
 
 def _tier(KC: int) -> str:
     return "registers" if KC <= MAX_KC else "l2"
+
+
+# The bf16 forward's tensor tier (`csrc/gru_fwd.cu`,
+# `gru_layer_fwd_tc_kernel`): its instances' k16 steps (k padded with zeros
+# to 16 KT >= H), a block's most unit groups of 8 (one warp each) and
+# threads, and the least work that takes it: B H^2, which the register
+# tier's FMA product grows with, while the tensor tier's step has a floor
+# (its 34 steps take ~0.1 ms on the H100 however few rows: a chain of
+# products, gates and a barrier on one warp per 8 units). By device time
+# on the H100 (PERF.md §6): at H 300 the register tier is faster up to
+# B 16 (0.074 ms at B 1 against 0.108), the tensor tier from about B 24
+# (0.108 against 0.112 at B 24, 0.130 against 0.199 at B 64, 0.43 against
+# 1.08 at B 512); at H 64 and 40 the register tier is faster at every
+# batch up to 512 (H 64, B 512: 0.081 against 0.103), though B H^2 there
+# (2.1e6) is near H 300's at B 24 (2.2e6): the threshold takes H 300 from
+# B 34, between the main paths' batches (1, and 258-512).
+TENSOR_KT = (2, 3, 4, 5, 8, 12, 16, 19, 20)
+TENSOR_MAX_GROUPS = 5
+TENSOR_MAX_THREADS = 256
+TENSOR_MIN_WORK = 3_000_000
+
+
+def tensor_shape(H: int) -> tuple[int, int, int]:
+    """(KC, C, U) of the tensor tier at hidden size H <= 320: k padded to
+    KC = 16 KT, the smallest instance's, then the fewest blocks C of at most
+    TENSOR_MAX_GROUPS groups of 8 units that hold H, U units a block (a
+    multiple of 8)."""
+    KC = 16 * next(kt for kt in TENSOR_KT if 16 * kt >= H)
+    C = -(-H // (8 * TENSOR_MAX_GROUPS))
+    return KC, C, -(-H // (8 * C)) * 8
+
+
+def _tensor_smem(KC: int, BT: int) -> int:
+    """The tensor tier's shared-memory bytes: two bf16 h buffers of BT rows,
+    rounded up to 16 (an m16 tile), of KC + 8 values (a row of 16-byte
+    segments whose count is odd, for ldmatrix)."""
+    return 2 * 2 * (-(-BT // 16) * 16) * (KC + 8)
+
+
+def fwd_tier(B: int, H: int, dtype: torch.dtype) -> str:
+    """The forward's tier at batch B and hidden size H for storage `dtype`:
+    bf16 in the register range (H <= 320) with B H^2 >= TENSOR_MIN_WORK
+    takes the tensor cores (H 300 from B 34: the training and scoring
+    batches); otherwise the register tier (H <= 320) or the L2 tier."""
+    tier = _tier(fwd_shape(H)[1])
+    if dtype == torch.bfloat16 and tier == "registers" and B * H * H >= TENSOR_MIN_WORK:
+        return "tensor"
+    return tier
 
 
 def _threads(S: int, KC: int, U: int) -> int:
@@ -381,10 +441,21 @@ def _tiles(B: int, D: int, rows_max: int, max_clusters: int) -> tuple[int, int]:
     return BT, -(-B // BT)
 
 
-def fwd_plan(B: int, H: int, D: int, max_clusters: int) -> ClusterPlan:
+def fwd_plan(B: int, H: int, D: int, max_clusters: int,
+             tier: str | None = None) -> ClusterPlan:
     """The forward kernel's launch for batch B, hidden size H and D
     directions, when the card runs `max_clusters` clusters of C blocks at
-    once."""
+    once; in `tier` (default: the register or L2 tier H names). The tensor
+    tier ("tensor", bf16, H <= 320): KC = 16 KT the padded k, S = 1 warp a
+    unit group, threads 32 U / 8, rows_max a multiple of 16 (the buffers
+    hold whole m16 tiles)."""
+    if tier == "tensor":
+        if _tier(fwd_shape(H)[1]) != "registers":
+            raise ValueError(f"gru_fwd: the tensor tier takes H <= {8 * MAX_KC}, not {H}")
+        KC, C, U = tensor_shape(H)
+        rows_max = SMEM_LIMIT // _tensor_smem(KC, 16) * 16
+        BT, tiles = _tiles(B, D, rows_max, max_clusters)
+        return ClusterPlan(C, U, 1, KC, BT, tiles, 4 * U, _tensor_smem(KC, BT), "tensor")
     S, KC, C, U = fwd_shape(H)
     BT, tiles = _tiles(B, D, SMEM_LIMIT // _fwd_smem(S, KC, 1), max_clusters)
     return ClusterPlan(C, U, S, KC, BT, tiles, _threads(S, KC, U), _fwd_smem(S, KC, BT),
@@ -406,15 +477,16 @@ _max_clusters: dict = {}
 
 
 def max_clusters(device: torch.device, H: int, kernel: str = "fwd",
-                 dtype: torch.dtype = torch.float32) -> int:
-    """How many clusters of the forward (`kernel` "fwd") or backward
-    recurrence ("bwd") kernel's `dtype` instance at hidden size H the card
-    runs at once, each block with the smem of a one-row tile (so that
-    registers, not shared memory, bound the count); asked once per device,
-    kernel, dtype and H."""
-    key = (torch.device(device).index, H, kernel, dtype)
+                 dtype: torch.dtype = torch.float32, tier: str | None = None) -> int:
+    """How many clusters of the forward (`kernel` "fwd", in `tier`) or
+    backward recurrence ("bwd") kernel's `dtype` instance at hidden size H
+    the card runs at once, each block with the smem of a one-row tile (so
+    that registers, not shared memory, bound the count); asked once per
+    device, kernel, dtype, H and tier."""
+    key = (torch.device(device).index, H, kernel, dtype, tier)
     if key not in _max_clusters:
-        p = (fwd_plan if kernel == "fwd" else bwd_plan)(1, H, 1, 1)  # one row a tile
+        p = (fwd_plan(1, H, 1, 1, tier) if kernel == "fwd"
+             else bwd_plan(1, H, 1, 1))  # one row a tile
         fn = _lib_fn(f"gru_{kernel}", f"s2ag_gru_{kernel}_max_clusters", 0, n_int=7,
                      stream=False)
         with torch.cuda.device(device):
@@ -427,12 +499,13 @@ def max_clusters(device: torch.device, H: int, kernel: str = "fwd",
     return _max_clusters[key]
 
 
-_TIERS = {"registers": 0, "l2": 1}
+_TIERS = {"registers": 0, "l2": 1, "tensor": 2}
 
 
 def _device_plan(device: torch.device, B: int, H: int, D: int,
                  dtype: torch.dtype = torch.float32) -> ClusterPlan:
-    return fwd_plan(B, H, D, max_clusters(device, H, "fwd", dtype))
+    tier = fwd_tier(B, H, dtype)
+    return fwd_plan(B, H, D, max_clusters(device, H, "fwd", dtype, tier), tier)
 
 
 def _device_bwd_plan(device: torch.device, B: int, H: int, D: int,
@@ -467,8 +540,18 @@ def gru_layer_forward(xp: torch.Tensor, w_hh: torch.Tensor, b_ih: torch.Tensor,
     dtype = _check(xp, w_hh, b_ih, b_hh)
     T, B, _ = xp.shape
     D, H, _ = w_hh.shape
+    return _forward_launch(xp, w_hh, b_ih, b_hh, _device_plan(xp.device, B, H, D, dtype),
+                           save_hp)
+
+
+def _forward_launch(xp, w_hh, b_ih, b_hh, plan: ClusterPlan, save_hp: bool):
+    """`gru_layer_forward`'s launch on checked CUDA tensors with `plan`
+    (the caller's: `_device_plan`, or another tier's plan where
+    chip_smoke.py times the tiers against each other)."""
+    dtype = xp.dtype
+    T, B, _ = xp.shape
+    D, H, _ = w_hh.shape
     b_in, b_rec = kernel_biases(b_ih, b_hh, H)
-    plan = _device_plan(xp.device, B, H, D, dtype)
     ys = torch.empty((T, B, D * H), device=xp.device, dtype=dtype)
     h_last = torch.empty((D, B, H), device=xp.device, dtype=dtype)
     hp = torch.empty(xp.shape, device=xp.device, dtype=torch.float32) if save_hp else None
@@ -476,7 +559,7 @@ def gru_layer_forward(xp: torch.Tensor, w_hh: torch.Tensor, b_ih: torch.Tensor,
             xp.data_ptr(), w_hh.data_ptr(), b_in.data_ptr(), b_rec.data_ptr(),
             ys.data_ptr(), h_last.data_ptr(), _ptr(hp), T, B, H, D,
             *_plan_args(plan, dtype))
-    _count("gru_fwd", dtype)
+    _count("gru_fwd", dtype, plan.tier)
     return (ys, h_last, hp) if save_hp else (ys, h_last)
 
 
@@ -573,7 +656,7 @@ def gru_bwd_recurrence(xp: torch.Tensor, w_hh: torch.Tensor, b_ih: torch.Tensor,
     _launch(_lib_fn("gru_bwd", "s2ag_gru_layer_bwd", 8, n_int=13), "gru_bwd", xp.device,
             xp.data_ptr(), w_hh.data_ptr(), b_in.data_ptr(), hp.data_ptr(), ys.data_ptr(),
             dys.data_ptr(), dxp.data_ptr(), _ptr(gn), T, B, H, D, *_plan_args(plan, dtype))
-    _count("gru_bwd", dtype)
+    _count("gru_bwd", dtype, plan.tier)
     return dxp, gn
 
 
@@ -605,7 +688,7 @@ def gru_dw(ys: torch.Tensor, dxp: torch.Tensor, gn: torch.Tensor,
     dtype = _check_dw("gru_dw", ((ys, (T, B, D * H)), (gn, (T, B, D * H)),
                                  (dxp, (T, B, D * 3 * H))))
     dw, db = _dw_launch("s2ag_gru_layer_dw", ys, dxp, gn, T, B, H, D)
-    _count("gru_dw", dtype)
+    _count("gru_dw", dtype, _dw_tier(dtype))
     return dw, db
 
 
@@ -621,16 +704,23 @@ def _check_dw(fn: str, tensors) -> torch.dtype:
 
 
 # dW's block tile (rows of k by columns of j) and rows a pipeline stage:
-# TM, TN and TK of `csrc/gru_bwd.cu`
+# float32 TM, TN and TK of `csrc/gru_bwd.cu`, bf16 (the tensor cores) DK,
+# DJ and DRK, with DW_TC_MIN_BLOCKS blocks an SM
 DW_TM, DW_TN, DW_TK = 64, 128, 16
+DW_TC_K, DW_TC_J, DW_TC_RK, DW_TC_BLOCKS_PER_SM = 128, 128, 32, 2
+
+
+def _dw_tier(dtype: torch.dtype) -> str:
+    return "tensor" if dtype == torch.bfloat16 else "fma"
 
 
 class DwPlan(NamedTuple):
     """A launch of `csrc/gru_bwd.cu`'s dW product: tiles_k x tiles_j block
     tiles of the (H + 1, 3H) output a direction, each over `splits`
-    consecutive row splits of `rows` rows (a multiple of DW_TK) of the
-    T*B; `vec` values a copy (float32: 4 is a 16-byte cp.async, 1 a 4-byte
-    one; bf16: 4 an 8-byte cp.async, 2 a 4-byte one, 1 a plain load)."""
+    consecutive row splits of `rows` rows (a multiple of the rows a stage)
+    of the T*B; `vec` values a copy (float32: 4 is a 16-byte cp.async, 1 a
+    4-byte one; bf16: 4 an 8-byte cp.async, 2 a 4-byte one, 1 a plain
+    load)."""
     tiles_k: int
     tiles_j: int
     splits: int
@@ -641,17 +731,24 @@ class DwPlan(NamedTuple):
 def dw_plan(T: int, B: int, H: int, D: int, sms: int, align: int = 16,
             itemsize: int = 4) -> DwPlan:
     """The dW product's launch on a card of `sms` SMs for inputs of
-    `itemsize` bytes a value (4: float32, 2: bf16) whose pointers are all
-    multiples of `align` bytes: about four blocks an SM (splits of at least
-    256 rows), no split empty after its rows are rounded up to whole stages;
-    the widest copy of `vec` values with H % vec == 0 (then every row and
-    direction of the layouts starts on a multiple of vec values) and vec *
-    itemsize dividing `align`: float32 copies 4 values or 1, bf16 4, 2 or
-    1."""
+    `itemsize` bytes a value whose pointers are all multiples of `align`
+    bytes. float32 (4): the FMA product's 64 x 128 tiles, about four blocks
+    an SM (splits of at least 256 rows), stages of 16 rows; bf16 (2): the
+    tensor-core product's 128 x 128 tiles, two blocks an SM (its registers)
+    in one wave (a second wave's tail cost 1.5x on the H100; splits of at
+    least 512 rows), stages of 32 rows. No split
+    empty after its rows are rounded up to whole stages; the widest copy of
+    `vec` values with H % vec == 0 (then every row and direction of the
+    layouts starts on a multiple of vec values) and vec * itemsize dividing
+    `align`: float32 copies 4 values or 1, bf16 4, 2 or 1."""
     M = T * B
-    tiles_k, tiles_j = -(-(H + 1) // DW_TM), -(-3 * H // DW_TN)
-    S = max(1, min(-(-4 * sms // (tiles_k * tiles_j * D)), M // 256))
-    rows = -(-(-(-M // S)) // DW_TK) * DW_TK
+    if itemsize == 2:
+        tiles_k, tiles_j, rk = -(-(H + 1) // DW_TC_K), -(-3 * H // DW_TC_J), DW_TC_RK
+        S = max(1, min(DW_TC_BLOCKS_PER_SM * sms // (tiles_k * tiles_j * D), M // 512))
+    else:
+        tiles_k, tiles_j, rk = -(-(H + 1) // DW_TM), -(-3 * H // DW_TN), DW_TK
+        S = max(1, min(-(-4 * sms // (tiles_k * tiles_j * D)), M // 256))
+    rows = -(-(-(-M // S)) // rk) * rk
     vec = next(v for v in ((4, 1) if itemsize == 4 else (4, 2, 1))
                if H % v == 0 and align % (v * itemsize) == 0)
     return DwPlan(tiles_k, tiles_j, -(-M // rows), rows, vec)
@@ -706,9 +803,11 @@ def gru_layer_bwd(xp: torch.Tensor, w_hh: torch.Tensor, b_ih: torch.Tensor,
     if not weights:
         return dxp, None, None, None
     dw, db_hh = gru_dw(ys, dxp, gn, D)
+    # db_ih = the sum of dxp: its r and z parts are db_hh's (g_r = dxp_r,
+    # g_z = dxp_z, summed by the dW kernel), so only the n part is summed here
     T, B, _ = xp.shape
-    db_ih = dxp.view(T, B, D, 3 * H).sum(dim=(0, 1), dtype=_compute_dtype(dxp.dtype))
-    return dxp, dw, db_ih, db_hh
+    db_n = dxp.view(T, B, D, 3, H)[:, :, :, 2].sum(dim=(0, 1), dtype=_compute_dtype(dxp.dtype))
+    return dxp, dw, torch.cat([db_hh[:, :2 * H], db_n], dim=-1), db_hh
 
 
 class GRULayerFunction(torch.autograd.Function):
@@ -853,7 +952,7 @@ def run_layer_forward(xp: torch.Tensor, w_hh: torch.Tensor,
     _launch(_lib_fn("gru_fwd", "s2ag_gru_layer_fwd_v1", 6, n_int=13), "gru_fwd_v1",
             xp.device, xp.data_ptr(), w_hh.data_ptr(), _ptr(b_in), b_rec.data_ptr(),
             ys.data_ptr(), _ptr(hp), T, B, H, D, *_plan_args(plan, dtype))
-    _count("gru_fwd_v1", dtype)
+    _count("gru_fwd_v1", dtype, plan.tier)
     return (ys, hp) if save_hp else ys
 
 
@@ -886,7 +985,7 @@ def run_layer_bwd_recurrence(xp: torch.Tensor, w_hh: torch.Tensor,
             xp.device, xp.data_ptr(), w_hh.data_ptr(), _ptr(b_in), hp.data_ptr(),
             ys.data_ptr(), dys.data_ptr(), dxp.data_ptr(), _ptr(gn), T, B, H3 // 3, D,
             *_plan_args(plan, dtype))
-    _count("gru_bwd_v1", dtype)
+    _count("gru_bwd_v1", dtype, plan.tier)
     return dxp, gn
 
 
@@ -902,7 +1001,7 @@ def run_layer_dw(ys: torch.Tensor, dxp: torch.Tensor,
     dtype = _check_dw("run_layer_dw", ((ys, (T, D, B, H)), (gn, (T, D, B, H)),
                                        (dxp, (T, D, B, 3 * H))))
     dw, db = _dw_launch("s2ag_gru_layer_dw_v1", ys, dxp, gn, T, B, H, D)
-    _count("gru_dw_v1", dtype)
+    _count("gru_dw_v1", dtype, _dw_tier(dtype))
     return dw, db
 
 

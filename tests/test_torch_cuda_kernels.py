@@ -11,7 +11,9 @@ near zero; the GRU forward within 1e-4 absolute after 34 steps (h in
 [-1, 1]); the backward's dxp within 1e-4 absolute (a 34-step chain of
 sums of 3H products), and dW_hh and the bias gradients within 1e-4 of
 each one's largest value (sums of T*B products in another order). The
-hidden sizes past 320 run the kernels' L2 tier. The
+hidden sizes past 320 run the kernels' L2 tier; at bf16 the forward's
+tensor tier (where its plan takes it, and by its own plan elsewhere) and
+dW's tensor-core product are held to the same bf16 tolerances. The
 same for the walk-layout (`run_layer`) entry points; their forward against
 the model layout's kernel within 1e-6, since it is the same arithmetic.
 The mel kernel is also held to a float64 oracle (`torch.fft.rfft` of the
@@ -393,20 +395,30 @@ def _bf16(*tensors):
     return [t.to(torch.bfloat16).contiguous() for t in tensors]
 
 
+def _tiers(*keys):
+    return tuple(gru_cuda.tier_launches[k] for k in keys)
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("batch", [1, 258, 512])
-@pytest.mark.parametrize("H,cin", [(300, 600), (64, 128), (600, 64)])
+@pytest.mark.parametrize("batch", [1, 5, 258, 512])
+@pytest.mark.parametrize("H,cin", [(300, 600), (64, 128), (40, 128), (301, 600), (600, 64)])
 def test_gru_bf16_kernels_against_plain(cuda, batch, H, cin):
-    """The bf16 forward (register tier at H 300 and 64, L2 tier at 600),
-    recurrence and dW in the model layout at the serving, scoring and
-    training batches: each launch counted under bfloat16 and none under
-    float32, against the bf16 twins, against float32, and the same bits
-    twice."""
+    """The bf16 forward (the tensor tier at H <= 320 where B·H² reaches
+    `gru_cuda.TENSOR_MIN_WORK`, the register tier below; the L2 tier at
+    600), recurrence and dW (the tensor cores) in the model layout at the
+    serving, scoring and training batches and a tile of 5 rows (a partial
+    m16 tile), H 40 and the odd H 301: each launch counted under bfloat16
+    (the forward under its plan's tier) and none under float32, against the
+    bf16 twins, against float32, and the same bits twice; where the plan
+    takes the register tier, the tensor tier by its own plan as well."""
     T, D = 34, 2
     f32 = _layer_inputs(T, batch, cin, H, D, batch + 3 * H, cuda)
     xp, w_hh, b_ih, b_hh, dys = _bf16(*f32)
+    tier = gru_cuda._device_plan(cuda, batch, H, D, torch.bfloat16).tier
+    assert tier == gru_cuda.fwd_tier(batch, H, torch.bfloat16)
+    keys = (("gru_fwd", "bfloat16", tier), ("gru_dw", "bfloat16", "tensor"))
     before = (_counts("gru_fwd", "gru_bwd", "gru_dw", dtype="bfloat16"),
-              _counts("gru_fwd", "gru_bwd", "gru_dw"))
+              _counts("gru_fwd", "gru_bwd", "gru_dw"), _tiers(*keys))
     ys, h_last, hp = gru_cuda.gru_layer_forward(xp, w_hh, b_ih, b_hh, save_hp=True)
     dxp, gn = gru_cuda.gru_bwd_recurrence(xp, w_hh, b_ih, b_hh, ys, dys, hp)
     dw, db = gru_cuda.gru_dw(ys, dxp, gn, D)
@@ -414,6 +426,7 @@ def test_gru_bf16_kernels_against_plain(cuda, batch, H, cin):
     assert _counts("gru_fwd", "gru_bwd", "gru_dw", dtype="bfloat16") == \
         tuple(b + 1 for b in before[0])
     assert _counts("gru_fwd", "gru_bwd", "gru_dw") == before[1]
+    assert _tiers(*keys) == tuple(b + 1 for b in before[2])
     assert ys.dtype == h_last.dtype == dxp.dtype == gn.dtype == torch.bfloat16
     assert hp.dtype == dw.dtype == db.dtype == torch.float32
     want_ys, want_h, want_hp = gru_cuda.gru_layer_plain(xp, w_hh, b_ih, b_hh, save_hp=True)
@@ -432,14 +445,25 @@ def test_gru_bf16_kernels_against_plain(cuda, batch, H, cin):
     assert torch.equal(ys, ys2) and torch.equal(dxp, dxp2) and torch.equal(gn, gn2)
     ys32 = gru_cuda.gru_layer_forward(*f32[:4])[0]
     assert (ys.float() - ys32).abs().max().item() <= 0.05
+    if tier == "registers":
+        # the tensor tier at this shape too, by its own plan (partial m16
+        # tiles at B 1 and 5, H 64 and 40)
+        plan = gru_cuda.fwd_plan(batch, H, D, gru_cuda.max_clusters(
+            cuda, H, "fwd", torch.bfloat16, "tensor"), "tensor")
+        tys, th, thp = gru_cuda._forward_launch(xp, w_hh, b_ih, b_hh, plan, True)
+        assert (tys.float() - want_ys.float()).abs().max().item() <= BF16_TOL
+        assert (th.float() - want_h.float()).abs().max().item() <= BF16_TOL
+        assert _rel(thp, want_hp) <= BF16_TOL
+        assert torch.equal(tys, gru_cuda._forward_launch(xp, w_hh, b_ih, b_hh, plan, False)[0])
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("batch", [5, 512])
-@pytest.mark.parametrize("H,cin", [(300, 600), (64, 128), (600, 64)])
+@pytest.mark.parametrize("H,cin", [(300, 600), (64, 128), (40, 128), (301, 600), (600, 64)])
 def test_gru_v1_bf16_kernels_against_plain(cuda, batch, H, cin):
-    """The walk layout's bf16 instances (`run_layer`) against their bf16
-    twins, counted under bfloat16."""
+    """The walk layout's bf16 instances (`run_layer`; the forward's tensor
+    tier at H <= 320, B 5 a partial m16 tile, the odd H 301) against their
+    bf16 twins, counted under bfloat16."""
     T, D = 34, 2
     xp, w_hh, b_hh, dys, _ = _walk_inputs(T, batch, cin, H, D, batch + H + 1, cuda)
     xp, w_hh, b_hh, dys = _bf16(xp, w_hh, b_hh, dys)
@@ -479,13 +503,14 @@ def test_gru_bf16_function_against_cpu(cuda, H, cin, batch):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("H", [300, 64, 301, 302])
-def test_gru_dw_bf16_copy_widths(cuda, H):
-    """The bf16 dW product at each copy width of its plan: 8-byte copies
-    (H % 4 == 0, the tensors 8-byte aligned), 4-byte (H % 2 == 0), plain
-    loads (odd H), and plain loads again for views that start 2 bytes into
-    an allocation."""
-    T, B, D = 34, 64, 2
+@pytest.mark.parametrize("B", [64, 5])
+@pytest.mark.parametrize("H", [300, 64, 40, 301, 302])
+def test_gru_dw_bf16_copy_widths(cuda, H, B):
+    """The bf16 dW product (the tensor cores) at each copy width of its
+    plan: 8-byte copies (H % 4 == 0, the tensors 8-byte aligned), 4-byte
+    (H % 2 == 0), plain loads (odd H), and plain loads again for views that
+    start 2 bytes into an allocation; B 5 leaves a ragged last stage."""
+    T, D = 34, 2
     g = torch.Generator().manual_seed(H)
     ys, gn = (torch.randn(T, B, D * H, generator=g).to(cuda, torch.bfloat16) for _ in range(2))
     dxp = torch.randn(T, B, D * 3 * H, generator=g).to(cuda, torch.bfloat16)
@@ -499,6 +524,40 @@ def test_gru_dw_bf16_copy_widths(cuda, H):
     assert gru_cuda._alignment(*shifted) == 2
     got = gru_cuda.gru_dw(shifted[0], shifted[1], shifted[2], D)
     assert _rel(got[0], want[0]) <= 1e-4 and _rel(got[1], want[1]) <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,B,tier", [(300, 512, "tensor"), (300, 258, "tensor"),
+                                      (64, 512, "registers")])
+def test_gru_bf16_main_shapes_take_the_tensor_cores(cuda, H, B, tier):
+    """At the training and scoring shapes the bf16 forward runs the tier
+    its plan names (the tensor tier at the generator's H 300; the register
+    tier, faster there, at the discriminator's H 64) and dW its tensor-core
+    kernel, in both layouts; the launches succeed and are counted under
+    those tiers. float32 keeps its register tier and FMA dW."""
+    T, D = 34, 2
+    cin = 600 if H == 300 else 128
+    f32 = _layer_inputs(T, B, cin, H, D, 3, cuda)
+    xp, w_hh, b_ih, b_hh, dys = _bf16(*f32)
+    assert gru_cuda._device_plan(cuda, B, H, D, torch.bfloat16).tier == tier
+    assert gru_cuda._device_plan(cuda, B, H, D).tier == "registers"
+    keys = [("gru_fwd", "bfloat16", tier), ("gru_dw", "bfloat16", "tensor"),
+            ("gru_fwd_v1", "bfloat16", tier), ("gru_dw_v1", "bfloat16", "tensor"),
+            ("gru_fwd", "float32", "registers"), ("gru_dw", "float32", "fma")]
+    before = _tiers(*keys)
+    ys, _, hp = gru_cuda.gru_layer_forward(xp, w_hh, b_ih, b_hh, save_hp=True)
+    dxp, gn = gru_cuda.gru_bwd_recurrence(xp, w_hh, b_ih, b_hh, ys, dys, hp)
+    gru_cuda.gru_dw(ys, dxp, gn, D)
+    xw = gru_cuda._walk(xp.view(T, B, D, 3 * H), D).contiguous()
+    yw, hpw = gru_cuda.run_layer_forward(xw, w_hh, b_hh, save_hp=True)
+    dyw = gru_cuda._walk(dys.view(T, B, D, H), D).contiguous()
+    dxw, gnw = gru_cuda.run_layer_bwd_recurrence(xw, w_hh, b_hh, yw, dyw, hpw)
+    gru_cuda.run_layer_dw(yw, dxw, gnw)
+    ys32 = gru_cuda.gru_layer_forward(*f32[:4])[0]
+    dxp32, gn32 = gru_cuda.gru_bwd_recurrence_plain(*f32[:4], ys32, f32[4])
+    gru_cuda.gru_dw(ys32, dxp32, gn32, D)
+    torch.cuda.synchronize()
+    assert _tiers(*keys) == tuple(b + 1 for b in before)
 
 
 @pytest.mark.gpu

@@ -352,11 +352,17 @@ def test_gru_dw_plan_bf16_copy_width(H, align):
     a row of ys (900 values, 1800 bytes, into dxp), a multiple of 8 and not
     of 16, as is every row and tile offset; of 2 values (4 bytes) where
     H % 2 == 0 and the pointers are 4-byte aligned; else plain loads. The
-    splits are float32's."""
+    tiles and splits are the tensor-core product's (128 x 128 tiles, two
+    blocks an SM in one wave, stages of 32 rows), whatever the copy
+    width."""
     plan = gru_cuda.dw_plan(34, 512, H, 2, 132, align=align, itemsize=2)
     want = 4 if H % 4 == 0 and align % 8 == 0 else 2 if H % 2 == 0 and align % 4 == 0 else 1
     assert plan.vec == want
-    assert plan[:4] == gru_cuda.dw_plan(34, 512, H, 2, 132)[:4]
+    assert plan[:4] == gru_cuda.dw_plan(34, 512, H, 2, 132, itemsize=2)[:4]
+    assert plan.tiles_k == -(-(H + 1) // gru_cuda.DW_TC_K)
+    assert plan.tiles_j == -(-3 * H // gru_cuda.DW_TC_J)
+    blocks = plan.tiles_k * plan.tiles_j * 2 * plan.splits
+    assert blocks <= gru_cuda.DW_TC_BLOCKS_PER_SM * 132 and plan.rows % gru_cuda.DW_TC_RK == 0
     for v in (H, 3 * H, 2 * H, 2 * 3 * H):   # direction and row offsets, in values
         assert (v * 2) % (2 * plan.vec) == 0 and v % plan.vec == 0
 
@@ -636,3 +642,353 @@ def test_device_busy_time_counts_overlap_once(spans, want):
     spans: a library call that runs kernels on two streams at once (cuDNN's
     bidirectional GRU) is not charged its overlap twice."""
     assert _chip_smoke().busy_us(spans) == want
+
+
+# ------------------------------------------------------------------------
+# The bf16 kernels on the tensor cores: the forward's tensor tier and the
+# dW product (`csrc/gru_fwd.cu` gru_layer_fwd_tc_kernel, `csrc/gru_bwd.cu`
+# gru_dw_tc_kernel). The models below rebuild each warp's operands the way
+# the kernels fetch them (the ldmatrix lane addresses, the W_hh fragments
+# read in the forward's prologue), reassemble the mma.sync m16n8k16
+# operands from the fragment layouts, check that they are the intended
+# tiles, and then take the sums in the kernels' order of k16 steps and
+# splits (float32 sums of exact bf16 products).
+
+BF16 = torch.bfloat16
+
+
+def _bf16(a) -> np.ndarray:
+    """float32 values rounded to bf16 (to nearest even), as float32."""
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(BF16).float().numpy()
+
+
+def _ldmatrix(smem, row, col, trans=False):
+    """The four 8 x 8 matrices an ldmatrix.x4 gives each lane: lanes 8i ..
+    8i + 7 address matrix i's rows at (row[l], col[l]); lane t receives
+    regs[t, i, e] = matrix i's (row t // 4, column 2 (t % 4) + e), or with
+    `trans` its (row 2 (t % 4) + e, column t // 4)."""
+    t = np.arange(32)[:, None, None]
+    i = np.arange(4)[None, :, None]
+    e = np.arange(2)[None, None, :]
+    if trans:
+        src = 8 * i + 2 * (t % 4) + e
+        return smem[row[src], col[src] + t // 4]
+    src = 8 * i + t // 4
+    return smem[row[src], col[src] + 2 * (t % 4) + e]
+
+
+def _mma_a(regs):
+    """The m16n8k16 A operand (16 x 16) from the lanes' a0..a3."""
+    t, i, e = np.meshgrid(np.arange(32), np.arange(4), np.arange(2), indexing="ij")
+    a = np.full((16, 16), np.nan, regs.dtype)
+    a[t // 4 + 8 * (i % 2), 2 * (t % 4) + 8 * (i // 2) + e] = regs
+    return a
+
+
+def _mma_b(regs):
+    """The m16n8k16 B operand (16 x 8) from the lanes' b0, b1."""
+    t, i, e = np.meshgrid(np.arange(32), np.arange(2), np.arange(2), indexing="ij")
+    b = np.full((16, 8), np.nan, regs.dtype)
+    b[2 * (t % 4) + 8 * i + e, t // 4] = regs
+    return b
+
+
+def _mma_c_positions():
+    """(row, column) of each lane's accumulator c0..c3 in the 16 x 8 tile."""
+    t, e = np.meshgrid(np.arange(32), np.arange(4), indexing="ij")
+    return t // 4 + 8 * (e // 2), 2 * (t % 4) + e % 2
+
+
+def _check_tc_fwd_fragments(H, KC, C, U):
+    """The forward's operands as the kernel fetches them, for every block,
+    warp and k16 step, are the tiles the product needs: the h tile (rows
+    of an m16 tile, k of the step) through ldmatrix from the lane address
+    `a_off`, and for each gate the W_hh tile of the warp's 8 units (B
+    fragments read in the prologue: lane (g, c) holds W[16 ks + 8 i + 2c +
+    e][gate H + ju + g]). The lanes own the same (row, unit) positions in
+    the three gates' accumulators, and the quad of lanes 4g .. 4g + 3 holds
+    units 0-7 of rows g and g + 8 in order (the 16-byte exchange)."""
+    KS = KC + 8
+    lane = np.arange(32)
+    h = np.arange(32 * KS, dtype=np.float64).reshape(32, KS)   # two m16 tiles, labelled
+    a_row = (lane % 8) + 8 * ((lane // 8) % 2)
+    a_col = 8 * (lane // 16)
+    for mt in range(2):
+        for ks in range(KC // 16):
+            got = _mma_a(_ldmatrix(h, 16 * mt + a_row, 16 * ks + a_col))
+            np.testing.assert_array_equal(got, h[16 * mt:16 * mt + 16, 16 * ks:16 * ks + 16])
+    w = np.arange(KC * 3 * H, dtype=np.float64).reshape(KC, 3 * H)  # W_hh, k padded
+    g, c = lane // 4, lane % 4
+    for blk in range(C):
+        for grp in range(U // 8):
+            ju = blk * U + 8 * grp
+            col = ju + g
+            for gate in range(3):
+                for ks in range(KC // 16):
+                    regs = np.stack([np.stack([
+                        np.where(col < H, w[16 * ks + 8 * i + 2 * c + e, gate * H + np.minimum(col, H - 1)], 0)
+                        for e in range(2)], -1) for i in range(2)], 1)
+                    want = np.zeros((16, 8))
+                    units = ju + np.arange(8)
+                    want[:, units < H] = w[16 * ks:16 * ks + 16, gate * H + units[units < H]]
+                    np.testing.assert_array_equal(_mma_b(regs), want)
+    rows, cols = _mma_c_positions()
+    np.testing.assert_array_equal(rows, (lane // 4)[:, None] + 8 * (np.arange(4) // 2))
+    np.testing.assert_array_equal(cols, 2 * (lane % 4)[:, None] + np.arange(4) % 2)
+    quad_units = cols[(lane & ~3)[:, None] + np.arange(4)][..., :2].reshape(32, 8)
+    np.testing.assert_array_equal(quad_units, np.tile(np.arange(8), (32, 1)))
+
+
+def _tc_fwd_model(xp, w_hh, b_in, b_rec, plan):
+    """The tensor tier's forward in numpy, bf16 storage as float32 values:
+    per direction and batch tile (BT rows of `plan`), h in a zero-padded
+    (rows rounded up to 16, k to KC) buffer; each step, per m16 tile and
+    warp's 8 units, the three gates' products summed over the k16 steps in
+    order (exact products, float32 sums: each step's 16 products, then the
+    accumulator), two tiles of a warp at once, a tile alone summing its
+    even and odd steps apart and adding the two at the end; then the gate
+    update at the kernel's rounding points, units past H kept zero."""
+    T, B, _ = xp.shape
+    D, H, _ = w_hh.shape
+    KC, BT, C, U = plan.KC, plan.BT, plan.C, plan.U
+    f32 = np.float32
+    wpad = np.zeros((D, KC, 3, C * U), f32)           # columns in the warps' order
+    wpad[:, :H, :, :H] = w_hh.reshape(D, H, 3, H)
+    ys = np.zeros((T, B, D * H), f32)
+    h_last = np.zeros((D, B, H), f32)
+    for d in range(D):
+        for b0 in range(0, B, BT):
+            rows = min(BT, B - b0)
+            n_mt = -(-rows // 16)
+            h = np.zeros((16 * n_mt, KC), f32)
+            for step in range(T):
+                t = step if d == 0 else T - 1 - step
+                hp = np.zeros((16 * n_mt, 3, C * U), f32)
+                for mt0 in range(0, n_mt, 2):
+                    pair = mt0 + 1 < n_mt
+                    tiles = [mt0, mt0 + 1] if pair else [mt0]
+                    for mt in tiles:
+                        acc = np.zeros((2, 16, 3, C * U), f32)
+                        for ks in range(KC // 16):
+                            prod = np.einsum("rk,kgu->rgu", h[16 * mt:16 * mt + 16, 16 * ks:16 * ks + 16],
+                                             wpad[d, 16 * ks:16 * ks + 16]).astype(f32)
+                            acc[0 if pair else ks % 2] += prod
+                        hp[16 * mt:16 * mt + 16] = acc[0] + acc[1]
+                hp = hp[:rows, :, :H] + b_rec[d].reshape(3, H)
+                x = xp[t, b0:b0 + rows, d * 3 * H:(d + 1) * 3 * H].reshape(rows, 3, H)
+                xb = _bf16(x + b_in[d].reshape(3, H))
+                r = (1 / (1 + np.exp(-(xb[:, 0] + hp[:, 0])))).astype(f32)
+                z = (1 / (1 + np.exp(-(xb[:, 1] + hp[:, 1])))).astype(f32)
+                n = np.tanh(xb[:, 2] + r * hp[:, 2]).astype(f32)
+                hn = _bf16((1 - z) * n + z * h[:rows, :H])
+                h[:rows, :H] = hn
+                ys[t, b0:b0 + rows, d * H:(d + 1) * H] = hn
+            h_last[d, b0:b0 + rows] = h[:rows, :H]
+    return ys, h_last
+
+
+@pytest.fixture()
+def pallas_engine(monkeypatch):
+    """JAX's GRU through its Pallas kernels in interpret mode, as
+    tests/test_torch_bf16.py sets it (JAX's CPU scan engine computes its
+    gates in bf16, which the TPU kernels do not)."""
+    monkeypatch.setenv("S2AG_GRU_ENGINE", "pallas")
+    monkeypatch.setenv("S2AG_GRU_PALLAS_INTERPRET", "1")
+
+
+@pytest.mark.parametrize("H", [300, 64, 40, 20])
+@pytest.mark.parametrize("B,max_clusters", [(5, 2), (9, 2), (18, 2), (18, 4)])
+def test_gru_fwd_tensor_model_against_plain_and_pallas(pallas_engine, H, B, max_clusters):
+    """The tensor tier's data flow (fragments, padded k and rows, the
+    interleaved r/z/n tiles of each warp's units, the lanes' positions)
+    against `gru_layer_plain` at bf16 storage and the JAX package's layer
+    (`run_layer_v2`, Pallas in interpret mode) on the same bf16 inputs,
+    within 2e-2 absolute after 8 steps (`chip_smoke.BF16_TOL`: float32 sums
+    in another order can flip one bf16 rounding, which carries into the
+    later steps). `max_clusters` 2 puts B 18 in one tile of two m16 tiles,
+    the second ragged (the pair path), and B 5 and 9 in one tile (a tile
+    alone); 4 cuts B 18 into two ragged batch tiles of 9."""
+    from speech2affective_gestures_tpu.ops import gru_pallas
+
+    T, D = 8, 2
+    plan = gru_cuda.fwd_plan(B, H, D, max_clusters, "tensor")
+    assert plan.tier == "tensor"
+    _check_tc_fwd_fragments(H, plan.KC, plan.C, plan.U)
+    rng = np.random.default_rng(H + 10 * B)
+    bound = H ** -0.5
+    xp = _bf16(rng.standard_normal((T, B, D * 3 * H)))
+    w_hh, b_ih, b_hh = (_bf16(rng.uniform(-bound, bound, shape))
+                        for shape in ((D, H, 3 * H), (D, 3 * H), (D, 3 * H)))
+    tx, tw, tbi, tbh = (torch.from_numpy(a).to(BF16) for a in (xp, w_hh, b_ih, b_hh))
+    b_in, b_rec = (b.float().numpy() for b in gru_cuda.kernel_biases(tbi, tbh, H))
+    ys, h_last = _tc_fwd_model(xp, w_hh, b_in, b_rec, plan)
+    want_ys, want_h = gru_cuda.gru_layer_plain(tx, tw, tbi, tbh)
+    np.testing.assert_allclose(ys, want_ys.float().numpy(), rtol=0, atol=2e-2)
+    np.testing.assert_allclose(h_last, want_h.float().numpy(), rtol=0, atol=2e-2)
+    P = gru_pallas._round_up(H, gru_pallas.LANE)
+    padded = jnp.pad(jnp.asarray(xp).astype(jnp.bfloat16).reshape(T, B, D, 3, H),
+                     [(0, 0)] * 4 + [(0, P - H)]).reshape(T, B, D * 3 * P)
+    jys, jh = gru_pallas.run_layer_v2(padded, *(jnp.asarray(a).astype(jnp.bfloat16)
+                                                for a in (w_hh, b_ih, b_hh)), interpret=True)
+    jys = np.concatenate([np.asarray(jys.astype(jnp.float32))[..., d * P:d * P + H]
+                          for d in range(D)], -1)
+    np.testing.assert_allclose(ys, jys, rtol=0, atol=2e-2)
+    np.testing.assert_allclose(h_last, np.asarray(jh.astype(jnp.float32)), rtol=0, atol=2e-2)
+
+
+@pytest.mark.parametrize("H", [300, 64, 40, 20, 301, 1])
+@pytest.mark.parametrize("B,max_clusters", [(258, 15), (512, 15), (512, 32), (5, 15)])
+def test_gru_fwd_tensor_plan(B, H, max_clusters):
+    """bf16 in the register range (H <= 320) takes the tensor tier where
+    B H^2 reaches TENSOR_MIN_WORK (at H 300 and 301 at B 258 and 512),
+    float32 never, and the L2 tier is untouched. The plan: k padded to an
+    instance's 16 KT >= H, U a multiple of 8 with the C blocks covering H
+    once, one warp a unit group (at most 8 warps), every batch row in
+    exactly one tile, its buffers whole m16 tiles within a block's shared
+    memory, in no more waves than the batch needs; a lane's W_hh fragments
+    (6 KT registers, at most 120) and two m16 tiles' accumulators (24)
+    leave registers within 255."""
+    D = 2
+    tier = gru_cuda.fwd_tier(B, H, BF16)
+    assert tier == ("tensor" if B * H * H >= gru_cuda.TENSOR_MIN_WORK else "registers")
+    assert gru_cuda.fwd_tier(B, H, torch.float32) == "registers"
+    assert gru_cuda.fwd_tier(B, 600, BF16) == gru_cuda.fwd_tier(B, 321, BF16) == "l2"
+    if B >= 258 and H >= 300:
+        assert tier == "tensor"
+    plan = gru_cuda.fwd_plan(B, H, D, max_clusters, "tensor")
+    KT = plan.KC // 16
+    assert plan.KC % 16 == 0 and KT in gru_cuda.TENSOR_KT and plan.KC >= H
+    assert plan.KC - 16 < H or KT == min(gru_cuda.TENSOR_KT)
+    assert plan.U % 8 == 0 and (plan.C - 1) * plan.U < H <= plan.C * plan.U
+    assert plan.C <= gru_cuda.MAX_CLUSTER and plan.U // 8 <= gru_cuda.TENSOR_MAX_GROUPS
+    assert plan.S == 1 and plan.threads == 32 * plan.U // 8 <= gru_cuda.TENSOR_MAX_THREADS
+    assert 6 * KT <= 120 and 6 * KT + 2 * 3 * 4 <= 255 - 64
+    assert plan.smem == gru_cuda._tensor_smem(plan.KC, plan.BT) <= gru_cuda.SMEM_LIMIT
+    assert plan.smem == 2 * 2 * (-(-plan.BT // 16) * 16) * (plan.KC + 8)
+    rows = np.concatenate([np.arange(t * plan.BT, min((t + 1) * plan.BT, B))
+                           for t in range(plan.tiles)])
+    np.testing.assert_array_equal(rows, np.arange(B))
+    rows_max = gru_cuda.SMEM_LIMIT // gru_cuda._tensor_smem(plan.KC, 16) * 16
+    assert -(-D * plan.tiles // max_clusters) == -(-D * -(-B // rows_max) // max_clusters)
+
+
+def test_gru_fwd_tensor_plan_main_shapes():
+    """H 300: clusters of 8 blocks of 40 units (5 warps), k padded to 304;
+    B 512 in 7 tiles of 74 rows (5 m16 tiles) on the H100's 15 clusters;
+    H 64 two blocks of 32 units. The tiers PERF.md records: the bf16
+    forward takes the tensor tier at H 300 from B 64 (the training and
+    scoring batches), the register tier at B 1 (the service) and up to B 32,
+    and at H 64 (the discriminator) at every batch."""
+    assert gru_cuda.fwd_plan(512, 300, 2, 15, "tensor")[:8] == (8, 40, 1, 304, 74, 7, 160,
+                                                               2 * 2 * 80 * 312)
+    assert gru_cuda.fwd_plan(512, 64, 2, 15, "tensor")[:4] == (2, 32, 1, 64)
+    for B, H, tier in ((1, 300, "registers"), (32, 300, "registers"), (64, 300, "tensor"),
+                       (258, 300, "tensor"), (512, 300, "tensor"), (512, 64, "registers")):
+        assert gru_cuda.fwd_tier(B, H, BF16) == tier, (B, H)
+    with pytest.raises(ValueError):
+        gru_cuda.fwd_plan(512, 321, 2, 15, "tensor")
+
+
+def _check_tc_dw_fragments():
+    """The dW product's operands as its warps fetch them with ldmatrix.trans
+    from the M-major stage tiles (As[m][k], Bs[m][j]) are the m16n8k16
+    operands of out[k][j] = sum_m As[m][k] Bs[m][j]: for warp (wk, wj) of
+    the 2 x 4 (64 x 32 outputs each), k16 half kk, m16 tile mt and n8 tile
+    nt, A = As[16 kk + .., 64 wk + 16 mt + ..]^T and B = Bs[16 kk + .., 32
+    wj + 8 nt + ..]."""
+    K, J, RK = gru_cuda.DW_TC_K, gru_cuda.DW_TC_J, gru_cuda.DW_TC_RK
+    WK, WJ = 2, 4
+    MT, NT = K // WK // 16, J // WJ // 8
+    As = np.arange(RK * (K + 8), dtype=np.float64).reshape(RK, K + 8)
+    Bs = np.arange(RK * (J + 8), dtype=np.float64).reshape(RK, J + 8)
+    lane = np.arange(32)
+    for warp in range(WK * WJ):
+        wk, wj = warp // WJ, warp % WJ
+        a_row = (lane % 8) + 8 * (lane // 16)
+        a_col = 16 * MT * wk + 8 * ((lane // 8) % 2)
+        b_row = (lane % 8) + 8 * ((lane // 8) % 2)
+        b_col = 8 * NT * wj + 8 * (lane // 16)
+        for kk in range(RK // 16):
+            for mt in range(MT):
+                got = _mma_a(_ldmatrix(As, 16 * kk + a_row, a_col + 16 * mt, trans=True))
+                k0 = 16 * MT * wk + 16 * mt
+                np.testing.assert_array_equal(got, As[16 * kk:16 * kk + 16, k0:k0 + 16].T)
+            for np_ in range(NT // 2):
+                regs = _ldmatrix(Bs, 16 * kk + b_row, b_col + 16 * np_, trans=True)
+                for half in range(2):
+                    j0 = 8 * NT * wj + 16 * np_ + 8 * half
+                    np.testing.assert_array_equal(_mma_b(regs[:, 2 * half:2 * half + 2]),
+                                                  Bs[16 * kk:16 * kk + 16, j0:j0 + 8])
+
+
+def _tc_dw_model(ys, dxp, gn, D, plan):
+    """The bf16 dW product in numpy (bf16 values as float32): per direction,
+    split and block tile, the stages of DW_TC_RK rows staged as the kernel
+    stages them (A = [h_prev | 1 | 0...] over DW_TC_K columns of k, G = [dxp_r,
+    dxp_z, gn] over DW_TC_J columns of j, rows past the split zero), each k16
+    half's exact products summed in float32 into the accumulators of the
+    m16 x n8 tiles that reach the output (the others skipped), then the
+    splits' partials added in split order."""
+    T, B, _ = ys.shape
+    H = ys.shape[2] // D
+    K, J, RK = gru_cuda.DW_TC_K, gru_cuda.DW_TC_J, gru_cuda.DW_TC_RK
+    f32 = np.float32
+    M = T * B
+    y = ys.reshape(T, B, D, H)
+    prev = np.zeros_like(y)
+    prev[1:, :, 0] = y[:-1, :, 0]
+    if D == 2:
+        prev[:-1, :, 1] = y[1:, :, 1]
+    a_all = np.concatenate([prev.reshape(M, D, H), np.ones((M, D, 1), f32)], -1)
+    g_all = np.concatenate([dxp.reshape(M, D, 3 * H)[..., :2 * H], gn.reshape(M, D, H)], -1)
+    part = np.zeros((plan.splits, D, H + 1, 3 * H), f32)
+    for s in range(plan.splits):
+        lo, hi = s * plan.rows, min(M, (s + 1) * plan.rows)
+        for d in range(D):
+            for tk in range(plan.tiles_k):
+                for tj in range(plan.tiles_j):
+                    k0, j0 = tk * K, tj * J
+                    acc = np.zeros((K, J), f32)
+                    for m0 in range(lo, hi, RK):
+                        At = np.zeros((RK, K), f32)
+                        Gt = np.zeros((RK, J), f32)
+                        m1 = min(hi, m0 + RK)
+                        ka = a_all[m0:m1, d, k0:k0 + K]
+                        At[:m1 - m0, :ka.shape[1]] = ka
+                        gj = g_all[m0:m1, d, j0:j0 + J]
+                        Gt[:m1 - m0, :gj.shape[1]] = gj
+                        for kk in range(RK // 16):
+                            acc += (At[16 * kk:16 * kk + 16].T.astype(np.float64)
+                                    @ Gt[16 * kk:16 * kk + 16]).astype(f32)
+                    live_k = (k0 + 16 * np.arange(K // 16) <= H).repeat(16)
+                    live_j = (j0 + 8 * np.arange(J // 8) < 3 * H).repeat(8)
+                    acc *= live_k[:, None] & live_j[None, :]
+                    kn, jn = min(K, H + 1 - k0), min(J, 3 * H - j0)
+                    part[s, d, k0:k0 + kn, j0:j0 + jn] = acc[:kn, :jn]
+    total = part[0].copy()
+    for s in range(1, plan.splits):
+        total += part[s]
+    return total[:, :H], total[:, H]
+
+
+@pytest.mark.parametrize("H", [300, 301, 64])
+@pytest.mark.parametrize("T,B", [(6, 215), (8, 160)])
+def test_gru_dw_tensor_model_against_plain(H, T, B):
+    """The bf16 dW product's tiling (the splits of whole stages, the 128 x
+    128 tiles that cover the (H + 1, 3H) output once, the ones row giving
+    db_hh, zeros past the data and the ragged last stage and tile, the
+    fragments from ldmatrix.trans) against `gru_dw_plain` on the same bf16
+    inputs, within 1e-5 of each output's largest value: exact products,
+    float32 sums in another order. H 301 is odd (plain loads)."""
+    _check_tc_dw_fragments()
+    D = 2
+    rng = np.random.default_rng(H + B)
+    ys, gn = (_bf16(rng.standard_normal((T, B, D * H))) for _ in range(2))
+    dxp = _bf16(rng.standard_normal((T, B, D * 3 * H)))
+    plan = gru_cuda.dw_plan(T, B, H, D, 132, align=16, itemsize=2)
+    assert plan.splits == 2 and plan.rows % gru_cuda.DW_TC_RK == 0
+    assert plan.vec == (4 if H % 4 == 0 else 1)
+    dw, db = _tc_dw_model(ys, dxp, gn, D, plan)
+    want_dw, want_db = gru_cuda.gru_dw_plain(*(torch.from_numpy(a).to(BF16) for a in (ys, dxp, gn)), D)
+    for got, want in ((dw, want_dw.numpy()), (db, want_db.numpy())):
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * np.abs(want).max())
