@@ -17,14 +17,16 @@ toolkit. In order:
    and backward also at hidden sizes past 320 (their L2 tier); then the
    same three GRU kernels in the walk layout of `run_layer` (the v1 layer)
    against their plain versions and against the model layout's kernels on
-   the same function; the mel kernel at shapes past its FFT tier (its DFT
-   tier at n_fft 1000, 1536, 256, 8192; the FFT tier at 64 bands) against
-   its plain version and the float64 oracle; the GRU kernels' bf16
-   instances (the forward in the tier its plan names: the tensor-core tier
-   at H <= 320 where B·H² reaches `gru_cuda.TENSOR_MIN_WORK`, else the
-   register or L2 tier; the recurrence; dW on the tensor cores; both
-   layouts) against their bf16 twins and against float32, the tensor tier
-   also where the plan takes the register tier;
+   the same function; the mel kernel at shapes past the main paths' (its
+   FFT tier's mixed-radix kernel at n_fft 400, 1000, 1536 and 480, its
+   power-of-two kernel at 256 and at 64 bands, its DFT tier at n_fft 8192
+   and 998) against its plain version and the float64 oracle; the GRU
+   kernels' bf16 instances (the forward and the recurrence in the tier
+   their plans name: the tensor-core tiers at H <= 320 where the batch is
+   large enough, `gru_cuda.fwd_tier` and `bwd_tier`, else the register or
+   L2 tier; dW on the tensor cores; both layouts) against their bf16 twins
+   and against float32, each tensor tier also where its plan takes the
+   register tier;
 3. service phase: a full-width s2ag generator (config/multimodal_context_v2.yml:
    hidden 300, 4 GRU layers, embed 300; 1000 words, 100 speakers; random
    weights from seed 0) behind the HTTP server answers /synthesize for a
@@ -36,7 +38,8 @@ toolkit. In order:
    the generator's training shape, in float32 and in bf16; the counters
    are set to 0 just before and read just after: the three kernels of that
    dtype must have run; the mel path: `ops.dsp.mel_power_spectrogram` at
-   n_fft 400, 80 bands (the DFT tier must have run);
+   n_fft 400, 80 bands (the FFT tier's mixed-radix kernel must have run),
+   and at 44.1 kHz with n_fft 882 (the DFT tier must have run);
 5. embedding phase: `train_embedding.main` trains the FGD embedding net on
    the card on the synthetic corpus (every loss finite) and writes the
    `.pth.tar` that the training phase loads;
@@ -59,8 +62,9 @@ toolkit. In order:
    weights, batch and noise: the card's metrics, BN running stats and
    Adam's first moments must agree with the float64 step within tolerance;
    then `main_v2 --mixed-precision true` as in 6 (the bf16 instances of the
-   forward, backward and dW must run in training, the forward's tensor
-   tier and the tensor-core dW among them, only float32 in the scoring)
+   forward, backward and dW must run in training, the forward's and the
+   recurrence's tensor tiers and the tensor-core dW among them, only
+   float32 in the scoring)
    and its step's p50 beside the float32 step's; one mixed-precision step
    on the card against the CPU bf16 path (weights scaled by 0.3); the
    service at `--serve-precision bf16` (/healthz and
@@ -71,9 +75,9 @@ toolkit. In order:
    could take (bound), by CUDA events and by device time; the GRU
    backward (recurrence + dW) against cuDNN's recurrent backward; the L2
    tier's times; the bf16 instances against cuDNN's bf16 `nn.GRU` (and the
-   bf16 forward's two register-range tiers against each other at small
-   batches); the mel kernel's DFT tier against `rfft`; the service's
-   synthesize p50; the
+   bf16 forward's and recurrence's two register-range tiers against each
+   other across batches); the mel kernel's mixed-radix FFT at n_fft 400
+   and its DFT tier against `rfft`; the service's synthesize p50; the
    train step's p50, samples/s and its device profile; `generate_gestures`'
    wall time and device profile; the embedding train step's p50.
 
@@ -91,6 +95,7 @@ import copy
 import http.client
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import tempfile
@@ -142,14 +147,18 @@ TRAIN_BATCH, TRAIN_VIDEOS, TRAIN_SECONDS = 512, 20, 60.0
 # the corpus build's log-mel of one training video (n_fft 1024, hop 512)
 MEL_SHAPES = ((568, 2048), (2272, 2048), (601, 2048),
               (1 + int(TRAIN_SECONDS * 16000) // 512, 1024))
-# the mel kernel's shapes past its FFT tier: the DFT tier's n_fft (no power
-# of two, and powers of two outside [512, 4096]) and another band count,
-# (rows, n_fft, n_mels)
-MEL_OTHER_SHAPES = ((568, 1000, 128), (568, 1536, 128), (568, 256, 128),
-                    (568, 8192, 128), (568, 2048, 64))
-# the mel entry point's other user: a 30 s clip's log-mel front end at 16
-# kHz with 25 ms windows, 10 ms hops and 80 bands (Whisper's settings)
+# the mel kernel's shapes past the main paths': the FFT tier's mixed-radix
+# n_fft (n_fft/2 = 2^a 3^b 5^c, no power of two), its power-of-two kernel
+# below 512 and at another band count, and the DFT tier's n_fft (past 4096,
+# a prime factor above 5: 998 = 2 x 499), (rows, n_fft, n_mels)
+MEL_OTHER_SHAPES = ((568, 400, 80), (568, 1000, 128), (568, 1536, 128), (568, 480, 40),
+                    (568, 256, 128), (568, 2048, 64), (568, 8192, 128), (568, 998, 128))
+# the mel entry point's other users: a 30 s clip's log-mel front end at 16
+# kHz with 25 ms windows, 10 ms hops and 80 bands (Whisper's settings: the
+# FFT tier's mixed-radix kernel), and a 10 s clip at 44.1 kHz with 20 ms
+# windows and 10 ms hops (n_fft 882 = 2 x 3^2 x 7^2: the DFT tier)
 WHISPER_MEL = dict(seconds=30.0, n_fft=400, hop_length=160, n_mels=80)
+CD_MEL = dict(sr=44100, seconds=10.0, n_fft=882, hop_length=441, n_mels=80)
 # hidden sizes past what a cluster's registers hold (the GRU kernels' L2
 # tier), checked beside the model's 300 and 64
 L2_HIDDEN = (321, 600, 1024)
@@ -298,7 +307,7 @@ def kernel_phase(device) -> dict:
                                  f"{k_err.max().item():.3e} against the plain "
                                  f"version's {p_err.max().item():.3e}; repeatable {same}")
         errs["mel_power"] = max(errs["mel_power"], diff.max().item())
-    errs["mel_dft"] = 0.0
+    errs["mel_dft"] = errs["mel_power_mixed"] = 0.0
     for rows, n_fft, n_mels in MEL_OTHER_SHAPES:
         errs.update(mel_other_shape(device, rows, n_fft, n_mels, errs))
     return errs
@@ -330,6 +339,7 @@ def mel_other_shape(device, rows, n_fft, n_mels, errs) -> dict:
     within = bool((off <= MEL_RTOL * oracle.abs() + MEL_FLOOR * oracle.abs().max()).all())
     oracle_ok = k_err.max() <= p_err.max() if plan.tier == "fft" else within
     log(f"kernel mel_power R={rows} n_fft={n_fft} n_mels={n_mels}: {plan.tier} tier "
+        f"({_mel_name(plan.tier, n_fft)}) "
         f"{plan._asdict()}; max_abs_err={diff.max().item():.3e} against the plain "
         f"version (max |mel| {want.abs().max().item():.3e}; within {MEL_RTOL} |want| + "
         f"{MEL_FLOOR} max|want|: {ok}); against the float64 oracle the worst band's "
@@ -340,8 +350,17 @@ def mel_other_shape(device, rows, n_fft, n_mels, errs) -> dict:
         raise AssertionError(f"mel_power disagrees at R={rows} n_fft={n_fft} "
                              f"n_mels={n_mels}: plain {ok}, oracle {oracle_ok}, "
                              f"repeatable {same}")
-    name = "mel_dft" if plan.tier == "dft" else "mel_power"
+    name = _mel_name(plan.tier, n_fft)
     return {name: max(errs[name], diff.max().item())}
+
+
+def _mel_name(tier: str, n_fft: int) -> str:
+    """The mel kernel's name in the kernels line at this tier and n_fft:
+    "mel_power" (the FFT tier at a power of two), "mel_power_mixed" (its
+    mixed-radix kernel), "mel_dft" (the DFT tier)."""
+    if tier == "dft":
+        return "mel_dft"
+    return "mel_power_mixed" if n_fft & (n_fft - 1) else "mel_power"
 
 
 def bf16_kernel_phase(device) -> dict:
@@ -352,13 +371,15 @@ def bf16_kernel_phase(device) -> dict:
     The model layout at the serving, scoring and training batches (B 1,
     258, 512) and a batch of 5 at H 300, the discriminator's H 64, H 40,
     the odd H 301, and the L2 tier's H 600; the walk layout (`run_layer`)
-    at H 300, 64, 40 and 301. The forward runs the tier its plan names
-    (the tensor tier at H <= 320 where B·H² reaches
-    `gru_cuda.TENSOR_MIN_WORK`, the register tier below), dW the tensor
-    cores; each log line names the forward's tier. Where the plan takes
-    the register tier in the model layout, the tensor tier is also held
-    against the twin (partial m16 tiles at B 1 and 5), launched with its
-    own plan."""
+    at H 300, 64, 40 and 301. The forward and the recurrence run the tiers
+    their plans name (`gru_cuda.fwd_tier`, `bwd_tier`: the tensor tiers at
+    H <= 320 where the batch is large enough, the register tier below), dW
+    the tensor cores; each log line names both tiers. Where the forward's
+    plan takes the register tier in the model layout, its tensor tier is
+    also held against the twin; where the recurrence's does (either
+    layout, H <= 320), its tensor tier is too, the same bits twice: partial
+    m16 tiles at B 1 and 5, H 64 and 40, each launched with its own
+    plan."""
     import torch
     from speech2affective_gestures_torch.ops import gru_cuda
 
@@ -426,6 +447,26 @@ def bf16_kernel_phase(device) -> dict:
                 and torch.equal(dxp, rec(ys, dys, hp)[0]))
         f32_err = vs32(ys).item()
         tier = gru_cuda._device_plan(device, B, H, D, bf16).tier
+        rec_tier = gru_cuda._device_bwd_plan(device, B, H, D, bf16).tier
+        if rec_tier == "registers":
+            # the recurrence's tensor tier at this batch, against the same twin
+            plan = gru_cuda.bwd_plan(B, H, D, gru_cuda.max_clusters(device, H, "bwd", bf16,
+                                                                   "tensor"), "tensor")
+            b_in = gru_cuda.kernel_biases(None if walk else b_ih, b_hh, H)[0]
+            def run():
+                return gru_cuda._recurrence_launch(walk, xp, w_hh, b_in, hp, ys, dys, plan)
+            tdx, tgn = run()
+            again = run()
+            tc_rel = max(_rel(tdx.float(), want_dxp.float()), _rel(tgn.float(), want_gn.float()))
+            same_tc = torch.equal(tdx, again[0]) and torch.equal(tgn, again[1])
+            log(f"kernel bf16 recurrence's tensor tier, {'walk' if walk else 'model'} layout, "
+                f"B={B} H={H} (its plan {plan.BT} rows a tile, {plan.tiles} tiles): dxp/gn "
+                f"relative {tc_rel:.3e} (tol {BF16_TOL}); bitwise repeatable {same_tc}")
+            if not (tc_rel <= BF16_TOL and same_tc):
+                raise AssertionError(f"the recurrence's tensor tier disagrees with its twin at "
+                                     f"B {B} H {H}: {tc_rel}, repeatable {same_tc}")
+            errs[f"gru_bwd{suffix}_bf16"] = max(errs[f"gru_bwd{suffix}_bf16"],
+                                                (tdx.float() - want_dxp.float()).abs().max().item())
         if not walk and tier == "registers":
             # the tensor tier at this batch, against the same twin
             plan = gru_cuda.fwd_plan(B, H, D, gru_cuda.max_clusters(device, H, "fwd", bf16,
@@ -441,7 +482,8 @@ def bf16_kernel_phase(device) -> dict:
                 raise AssertionError(f"the tensor tier disagrees with its twin at B {B}")
             errs["gru_fwd_bf16"] = max(errs["gru_fwd_bf16"], tc_err)
         log(f"kernel bf16 {'walk' if walk else 'model'} layout T={T} B={B} cin={cin} H={H} "
-            f"D={D} (forward tier {tier}, dW tensor cores): forward ys/h_last "
+            f"D={D} (forward tier {tier}, recurrence tier {rec_tier}, dW tensor cores): "
+            f"forward ys/h_last "
             f"max_abs_err={fwd_err:.3e}, hp relative {hp_rel:.3e} "
             f"(tol {BF16_TOL}); recurrence dxp/gn relative {bwd_rel:.3e} (tol {BF16_TOL}); "
             f"dW_hh/db_hh relative {dw_rel:.3e} (tol {BWD_TOL}); bitwise repeatable {same}; "
@@ -928,14 +970,16 @@ def _counters() -> collections.Counter:
     """Each kernel instance's launches since the last reset, under its name
     in the kernels line: the GRU kernels' float32 instances by kernel
     ("gru_fwd", "gru_bwd_v1", ...), their bf16 instances with "_bf16"
-    ("gru_fwd_bf16", ...); the mel kernel's FFT tier "mel_power", its DFT
+    ("gru_fwd_bf16", ...); the mel kernel's FFT tier "mel_power" (at a
+    power of two) and "mel_power_mixed" (its mixed-radix kernel), its DFT
     tier "mel_dft". Absent names read 0."""
     from speech2affective_gestures_torch.ops import gru_cuda, mel_cuda
 
     out = collections.Counter()
     for (kernel, dtype), n in gru_cuda.launches.items():
         out[kernel + ("_bf16" if dtype == "bfloat16" else "")] += n
-    out["mel_power"] += mel_cuda.launches[("mel_fft", "float32")]
+    out["mel_power"] += mel_cuda.fft_launches["power of two"]
+    out["mel_power_mixed"] += mel_cuda.fft_launches["mixed radix"]
     out["mel_dft"] += mel_cuda.launches[("mel_dft", "float32")]
     return out
 
@@ -959,32 +1003,40 @@ def _reset_counters() -> None:
     gru_cuda.launches.clear()
     gru_cuda.tier_launches.clear()
     mel_cuda.launches.clear()
+    mel_cuda.fft_launches.clear()
 
 
 def mel_path_phase(device) -> dict:
     """`ops.dsp.mel_power_spectrogram`, the port's mel entry point, on a
-    30 s clip at WHISPER_MEL's settings (n_fft 400: the mel kernel's DFT
-    tier). The counters are set to 0 just before and read just after: the
-    DFT tier must have run. The output against the CPU plain path within
-    MEL_RTOL of each value plus MEL_FLOOR of the largest."""
+    30 s clip at WHISPER_MEL's settings (n_fft 400: the FFT tier's
+    mixed-radix kernel) and on a 10 s clip at CD_MEL's (44.1 kHz, n_fft
+    882: the DFT tier). For each, the counters are set to 0 just before and
+    read just after: that kernel must have run, no other mel kernel. The
+    output against the CPU plain path within MEL_RTOL of each value plus
+    MEL_FLOOR of the largest."""
     import torch
     from speech2affective_gestures_torch.ops import dsp
 
-    kw = {k: v for k, v in WHISPER_MEL.items() if k != "seconds"}
-    y = torch.from_numpy(clip_audio(WHISPER_MEL["seconds"], 5))
-    _reset_counters()
-    got = dsp.mel_power_spectrogram(y.to(device), sr=16000, **kw)
-    torch.cuda.synchronize()
-    launches = {"mel_dft": _counters()["mel_dft"]}
-    want = dsp.mel_power_spectrogram(y, sr=16000, **kw)
-    ok = bool(((got.cpu() - want).abs()
-               <= MEL_RTOL * want.abs() + MEL_FLOOR * want.abs().max()).all())
-    log(f"mel path (dsp.mel_power_spectrogram, {WHISPER_MEL}): output {tuple(got.shape)}, "
-        f"launches {dict(_counters())}; against the CPU plain path max_abs_err="
-        f"{(got.cpu() - want).abs().max().item():.3e} (max {want.abs().max().item():.3e}), "
-        f"within tolerance {ok}")
-    if not (ok and launches["mel_dft"] >= 1 and got.isfinite().all()):
-        raise AssertionError(f"the mel entry point failed at n_fft 400: {launches}, {ok}")
+    launches = collections.Counter()
+    for settings, name, seed in ((WHISPER_MEL, "mel_power_mixed", 5), (CD_MEL, "mel_dft", 6)):
+        kw = {k: v for k, v in settings.items() if k != "seconds"}
+        kw.setdefault("sr", 16000)
+        # the clip's samples at its rate (clip_audio makes 16 kHz ones)
+        y = torch.from_numpy(clip_audio(settings["seconds"] * kw["sr"] / 16000, seed))
+        _reset_counters()
+        got = dsp.mel_power_spectrogram(y.to(device), **kw)
+        torch.cuda.synchronize()
+        counts = {k: n for k, n in _counters().items() if k.startswith("mel") and n}
+        want = dsp.mel_power_spectrogram(y, **kw)
+        ok = bool(((got.cpu() - want).abs()
+                   <= MEL_RTOL * want.abs() + MEL_FLOOR * want.abs().max()).all())
+        log(f"mel path (dsp.mel_power_spectrogram, {settings}): output {tuple(got.shape)}, "
+            f"launches {counts}; against the CPU plain path max_abs_err="
+            f"{(got.cpu() - want).abs().max().item():.3e} (max {want.abs().max().item():.3e}), "
+            f"within tolerance {ok}")
+        if not (ok and counts == {name: 1} and got.isfinite().all()):
+            raise AssertionError(f"the mel entry point failed at {settings}: {counts}, {ok}")
+        launches[name] += 1
     return launches
 
 
@@ -1143,8 +1195,10 @@ def training_phase(device, work: pathlib.Path, embedding_net: pathlib.Path,
     for name in ("gru_fwd", "gru_bwd", "gru_dw"):
         if launches[name + suffix] < 1:
             raise AssertionError(f"kernel {name + suffix} was not launched in training")
-    # at batch 512 the bf16 forward and dW run on the tensor cores
-    for name in (("gru_fwd_bf16/tensor", "gru_dw_bf16/tensor") if mixed_precision else ()):
+    # at batch 512 the bf16 forward, the generator's recurrence and dW run on
+    # the tensor cores
+    for name in (("gru_fwd_bf16/tensor", "gru_bwd_bf16/tensor", "gru_dw_bf16/tensor")
+                 if mixed_precision else ()):
         if tiers[name] < 1:
             raise AssertionError(f"{name} was not launched in mixed-precision training")
     if evaluated["gru_fwd"] < 1 or any(k.endswith("_bf16") and n for k, n in evaluated.items()):
@@ -1837,7 +1891,9 @@ def bf16_timing(device) -> list:
     the tensor-core rate; library times cuDNN's bf16 `nn.GRU` less its
     input projection (forward; backward with dW_hh) and cuBLAS's bf16 dW
     product on prepared operands. Log lines for the forward at B 1 and at
-    the discriminator's H 64."""
+    the discriminator's H 64, and for both register-range tiers of the
+    forward and of the recurrence across batches (the readings behind
+    `gru_cuda.TENSOR_MIN_WORK` and `BWD_TENSOR_MIN_WORK`)."""
     import torch
     from speech2affective_gestures_torch.ops import gru_cuda
 
@@ -1922,6 +1978,24 @@ def bf16_timing(device) -> list:
             f"{time_ms(lambda: gru_cuda.gru_layer_plain(*a), iters=5):.4f} ms; bound "
             f"{b_ms:.5f} ms ({b_by}); plan {gru_cuda._device_plan(device, fb, fh, D, bf16)._asdict()}; "
             f"each tier (events, device ms) {tiers}")
+    # both register-range tiers of the recurrence, each with its own plan
+    for rb, rh, rc in ((1, 300, 600), (5, 300, 600), (16, 300, 600), (32, 300, 600),
+                       (64, 300, 600), (258, 300, 600), (512, 300, 600), (512, 64, 128),
+                       (512, 40, 128)):
+        a = [t.to(bf16).contiguous() for t in gru_inputs(T, rb, rc, rh, D, seed=9,
+                                                         device=device)]
+        ry, _, rhp = gru_cuda.gru_layer_forward(*a, save_hp=True)
+        rdy = torch.randn(ry.shape, generator=torch.Generator().manual_seed(rb)).to(device, bf16)
+        b_in = gru_cuda.kernel_biases(a[2], a[3], rh)[0]
+        tiers = {}
+        for tier in ("registers", "tensor"):
+            plan = gru_cuda.bwd_plan(rb, rh, D, gru_cuda.max_clusters(device, rh, "bwd", bf16,
+                                                                     tier), tier)
+            def run():
+                return gru_cuda._recurrence_launch(False, a[0], a[1], b_in, rhp, ry, rdy, plan)
+            tiers[tier] = (round(time_ms(run), 4), round(device_ms(run), 4))
+        log(f"gru_bwd_bf16 T={T} B={rb} H={rh} D={D}: plan's tier "
+            f"{gru_cuda.bwd_tier(rb, rh, bf16)}; each tier (events, device ms) {tiers}")
     # the walk layout's instances at the same shape
     xw, wv, bv = (t.to(bf16).contiguous()
                   for t in v1_inputs(T, B, cin, H, D, seed=9, device=device)[:3])
@@ -1945,38 +2019,45 @@ def bf16_timing(device) -> list:
     return rows
 
 
-def mel_dft_timing(device) -> tuple:
-    """The mel kernel's DFT tier at WHISPER_MEL's shape (a 30 s clip's
-    frames, n_fft 400, 80 bands): a row as `bwd_timing`'s, the library
-    time `rfft` + power + mel product; log lines for the other n_fft."""
+def mel_other_timing(device) -> list:
+    """The mel kernel at the mel entry point's other settings: its FFT
+    tier's mixed-radix kernel at WHISPER_MEL's shape (a 30 s clip's frames,
+    n_fft 400, 80 bands) and its DFT tier at CD_MEL's (a 10 s clip at 44.1
+    kHz, n_fft 882): rows as `bwd_timing`'s, the library time `rfft` +
+    power + mel product; log lines for MEL_OTHER_SHAPES."""
     from speech2affective_gestures_torch.ops import mel_cuda
 
-    n_fft, n_mels = WHISPER_MEL["n_fft"], WHISPER_MEL["n_mels"]
-    rows = int(WHISPER_MEL["seconds"] * 16000) // WHISPER_MEL["hop_length"]
-    frames = speech_frames(rows, device, n_fft)
-    fn = lambda: mel_cuda.mel_power(frames, n_mels=n_mels)  # noqa: E731
-    ms, dev = time_ms(fn), device_ms(fn)
-    plain = time_ms(lambda: mel_cuda.mel_power_plain(frames, n_mels=n_mels))
-    lib = rfft_mel(frames, n_mels)
-    lib_ms, lib_dev = time_ms(lib), device_ms(lib)
-    nnz = int(np.count_nonzero(mel_cuda.dft_constants(16000, n_fft, n_mels)[2]))
-    n_bins = n_fft // 2 + 1
-    # the least work: a real FFT of each row (5 (n/2) log2 n), the power of
-    # each bin, the filterbank's nonzeros; bytes: the frames, the
-    # filterbank's nonzeros, the output
-    flops = rows * (5 * (n_fft // 2) * np.log2(n_fft) + 3 * n_bins + 2 * nnz)
-    nbytes = 4 * (frames.numel() + nnz + rows * n_mels)
-    log(f"mel_dft R={rows} n_fft={n_fft} n_mels={n_mels}: {ms:.4f} ms, by device time "
-        f"{dev:.4f} ms; plain {plain:.4f} ms; rfft mel {lib_ms:.4f} ms, by device time "
-        f"{lib_dev:.4f} ms; plan {mel_cuda.mel_plan(rows, n_fft, n_mels)._asdict()}")
+    out = []
+    for settings in (WHISPER_MEL, CD_MEL):
+        sr, n_fft, n_mels = settings.get("sr", 16000), settings["n_fft"], settings["n_mels"]
+        rows = int(settings["seconds"] * sr) // settings["hop_length"]
+        frames = speech_frames(rows, device, n_fft)
+        fn = lambda: mel_cuda.mel_power(frames, sr, n_mels)  # noqa: E731
+        ms, dev = time_ms(fn), device_ms(fn)
+        plain = time_ms(lambda: mel_cuda.mel_power_plain(frames, sr, n_mels))
+        lib = rfft_mel(frames, n_mels)
+        lib_ms, lib_dev = time_ms(lib), device_ms(lib)
+        nnz = int(np.count_nonzero(mel_cuda.dft_constants(sr, n_fft, n_mels)[2]))
+        n_bins = n_fft // 2 + 1
+        # the least work: a real FFT of each row (5 (n/2) log2 n), the power
+        # of each bin, the filterbank's nonzeros; bytes: the frames, the
+        # filterbank's nonzeros, the output
+        flops = rows * (5 * (n_fft // 2) * np.log2(n_fft) + 3 * n_bins + 2 * nnz)
+        nbytes = 4 * (frames.numel() + nnz + rows * n_mels)
+        plan = mel_cuda.mel_plan(rows, n_fft, n_mels)
+        name = _mel_name(plan.tier, n_fft)
+        log(f"{name} R={rows} n_fft={n_fft} n_mels={n_mels}: {ms:.4f} ms, by device time "
+            f"{dev:.4f} ms; plain {plain:.4f} ms; rfft mel {lib_ms:.4f} ms, by device time "
+            f"{lib_dev:.4f} ms; plan {plan._asdict()}")
+        out.append((name, "speech2affective_gestures_torch/csrc/mel_power.cu",
+                    "speech2affective_gestures_tpu/ops/dsp_pallas.py:57", ms, plain, lib_ms,
+                    nbytes, float(flops), dev, lib_dev))
     for r, nf, nm in MEL_OTHER_SHAPES:
         f = speech_frames(r, device, nf)
         log(f"mel_power R={r} n_fft={nf} n_mels={nm} ({mel_cuda.mel_plan(r, nf, nm).tier} "
             f"tier): by device time {device_ms(lambda: mel_cuda.mel_power(f, n_mels=nm)):.4f}"
             f" ms, rfft mel {device_ms(rfft_mel(f, nm)):.4f} ms")
-    return ("mel_dft", "speech2affective_gestures_torch/csrc/mel_power.cu",
-            "speech2affective_gestures_tpu/ops/dsp_pallas.py:57", ms, plain, lib_ms,
-            nbytes, float(flops), dev, lib_dev)
+    return out
 
 
 def timing_phase(device, errs, launches) -> list[dict]:
@@ -2037,7 +2118,7 @@ def timing_phase(device, errs, launches) -> list[dict]:
             ("mel_power", "speech2affective_gestures_torch/csrc/mel_power.cu",
              "speech2affective_gestures_tpu/ops/dsp_pallas.py:57",
              mel_ms, mel_plain_ms, mel_lib_ms, mel_bytes, mel_flops, mel_dev, mel_lib_dev),
-            mel_dft_timing(device), *bwd_timing(device), *bf16_timing(device)):
+            *mel_other_timing(device), *bwd_timing(device), *bf16_timing(device)):
         b_ms, b_by = bound(nbytes, flops, *peak)
         rows_out.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -2080,9 +2161,16 @@ def main() -> int:
     log(f"built {sorted(libs)} with nvcc {' '.join(_build.NVCC_FLAGS)} "
         f"in {time.perf_counter() - t0:.1f} s")
     for name, out in sorted(_build.build_logs.items()):
+        entry = ""
         for line in out.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+            m = re.search(r"Compiling entry function '[^']*?\d((?:gru|mel)_[a-z0-9_]*?kernel)"
+                          r"(?=[IE])([^']*)'", line)
+            if m:  # the kernel and its template arguments, from the mangled name
+                args = re.findall(r"L[a-z](\d+)E", m.group(2))
+                entry = f"{m.group(1)}<{'bf16, ' if 'bfloat16' in m.group(2) else ''}" \
+                        f"{', '.join(args)}>"
+            elif "registers" in line or "spill" in line or "smem" in line:
+                log(f"  ptxas {name} {entry}: {line.strip()}")
 
     device = torch.device("cuda", 0)
     errs = kernel_phase(device)

@@ -41,7 +41,8 @@
 // instance computed them (xp + b_ih rounded to bf16, the bias fold of
 // `gru_cuda.kernel_biases`), dh, the gate gradients, g and the carry in
 // float32 (its dh scratch is f32), g . W^T from float32 g and widened bf16
-// W, dxp and gn rounded to bf16 when stored. dW_hh and db_hh are float32
+// W (the tensor tier: g as bf16 hi + lo, two exact products each), dxp and
+// gn rounded to bf16 when stored. dW_hh and db_hh are float32
 // sums of the bf16 inputs' exact products (on the tensor cores); the
 // wrapper rounds them to the parameters' dtype. One step differs from the TPU kernel: its dW_hh sums
 // h_prev^T g with g in float32, here g is the stored bf16 dxp and gn.
@@ -68,7 +69,11 @@
 // memory: it gives an SM 32 floats a cycle and the FMA pipes take 128, and
 // each value of g read feeds as many FMAs as a thread has units; hence the
 // pairs (with one unit a thread, as the forward has, the reads take four
-// times the FMAs' issue; PERF.md).
+// times the FMAs' issue; PERF.md). The bf16 instance has a third tier at H
+// <= 320, the tensor tier (`gru_layer_bwd_tc_kernel`, below): the product
+// on the tensor cores from a float32 g split into bf16 hi + lo, its K split
+// over the cluster, which the plan takes where the batch is large enough
+// (`gru_cuda.bwd_tier`).
 //
 // Kernels 2 and 3, dW_hh and db_hh: a product over the T*B rows,
 // [h_prev | 1]^T (H + 1 rows of k, the ones row giving db_hh) times g (3H
@@ -385,7 +390,236 @@ cudaError_t launch_bwd(const V* xp, const V* w_hh, const V* b_ih, const float* h
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-// tier 0: the register instance (S, KC); tier 1: the L2 tier (S = 8)
+// The bf16 recurrence's tensor tier (`gru_layer_bwd_tc_kernel`, the plan's
+// tier 2 at H <= 320): the carry's product g . W^T on the tensor cores, its
+// K (the 3H columns of g) split over the cluster. Block c owns the units
+// [cU, (c+1)U) (U even, at most 40; C 8, U 38 at H 300) and the 3U columns
+// of g they produce, [g_r | g_z | g_n] of its units, which never leave it.
+// Each step it multiplies its slice of g by the matching rows of W^T for
+// all H outputs and stores each output pair's float32 partial sums (a
+// float2) into the recv buffer of the block that owns those units, slot c;
+// after one cluster barrier each block adds the C partials of its units in
+// cluster order (fixed: the same bits every launch) and runs the gate
+// update there. recv is double-buffered by step parity, so a fast peer's
+// next partials never meet a slot still being read.
+//
+// The TPU kernel's product takes float32 g (gru_pallas.py:426-431); bf16
+// operands would round it by 2^-9 a step. So each g is stored as two bf16
+// values, hi = rn(g) and lo = rn(g - hi) (g - hi is exact in float32), and
+// both multiply the exact bf16 W: hi + lo keeps g to 2^-17 of itself, far
+// below the bf16 rounding of the stored dxp. Per k16 step the hi product
+// and then the lo product go into the same float32 accumulator.
+//
+// Fragments (gru_cluster.cuh): the block's g slice is KL = 16 KT columns
+// (3U padded with zeros), stored per row as [hi (KL) | lo (KL) | 8 pad] bf16
+// (KRS = 2 KL + 8 values: an odd number of 16-byte segments, so the 8 row
+// addresses of an ldmatrix hit distinct banks). Warp (nw, wm) of NW x WM
+// holds the B fragments of W^T for NT n8 tiles of outputs [8 NT nw, +8 NT)
+// over the KT k16 steps in registers (2 KT NT a lane, read once: lane (g,
+// c) of tile nt holds W[n][j(kk)] for n = 8 (NT nw + nt) + g and kk = 16 ks
+// + 8 half + 2c + e, j(kk) the kk-th column of the slice), and walks the
+// tile's m16 tiles wm, wm + WM, ...; the NT independent accumulators keep
+// the tensor pipe busy. Rows past the batch tile read whatever follows g in
+// shared memory (the recv buffers) and land in accumulator rows that are
+// never sent: an m16n8k16 row depends on its own A row alone.
+//
+// The gate update runs on every thread, (row, unit) positions in turn,
+// with the register tier's expressions and rounding points; hi and lo of
+// g go to the block's own buffer, dh z to shared memory. A block barrier
+// then makes g visible to the next step's product.
+//
+// What bounds it: the 34-step chain of products, partial stores, the
+// cluster barrier and the gate update, not the tensor rate nor the
+// exchange. On the H100 at T 34, B 512, H 300 (`tools/tc_probes.py`,
+// device time, PERF.md) it takes 0.69 ms; without the products 0.56,
+// without the gate update's loads of xp, hp, dys and h_prev 0.55, without
+// the lo product 0.63, without the partials' exchange 0.69. Where g lives:
+// had every block received the whole g row (hi and lo, double-buffered,
+// 7.4 KB a row at H 300), a tile would hold at most 16 rows, B 512 x D 2
+// would take 64 clusters (5 waves of the card's 14-15), and this kernel
+// at 16-row tiles takes 0.94 ms; the K split holds 74 rows a block (3.1 KB
+// a row), one wave.
+// a block's most warps: 10 with 4 n8 tiles a warp (H 320 in one row of
+// warps), else 8 (`gru_cuda.BWD_TENSOR_MAX_WARPS`)
+__host__ __device__ constexpr int bwd_tc_max_threads(int NT) { return 32 * (NT == 4 ? 10 : 8); }
+// the (KT, NT) instances: KT k16 steps of a block's slice of g (3U <= 16
+// KT), NT n8 tiles of outputs a warp (`gru_cuda.bwd_tensor_shape`). NT 4:
+// 10 warps a block at H 300, each with four independent accumulators, ran
+// faster on the H100 than 8 warps of 5 tiles or 5 warps of 8 (PERF.md;
+// `tools/tc_probes.py` builds those instances too)
+#define S2AG_BWD_TC_NT(NN)                                                             \
+  S2AG_BWD_TC(1, NN) S2AG_BWD_TC(2, NN) S2AG_BWD_TC(3, NN) S2AG_BWD_TC(4, NN)         \
+  S2AG_BWD_TC(5, NN) S2AG_BWD_TC(6, NN) S2AG_BWD_TC(7, NN) S2AG_BWD_TC(8, NN)
+#define S2AG_BWD_TC_INSTANCES S2AG_BWD_TC_NT(4)
+
+// the warps across the outputs: NT n8 tiles each over H rounded up to 8
+__host__ __device__ inline int bwd_tc_nw(int H, int NT) { return ((H + 7) / 8 + NT - 1) / NT; }
+
+template <bool WALK, int KT, int NT>
+__global__ void __launch_bounds__(bwd_tc_max_threads(NT), 1) gru_layer_bwd_tc_kernel(
+    const bf16_t* __restrict__ xp, const bf16_t* __restrict__ w_hh,
+    const bf16_t* __restrict__ b_ih, const float* __restrict__ hp,
+    const bf16_t* __restrict__ ys, const bf16_t* __restrict__ dys,
+    bf16_t* __restrict__ dxp, bf16_t* __restrict__ gn, int T, int B, int H, int D, int U,
+    int BT) {
+  constexpr int KL = 16 * KT;
+  constexpr int KRS = 2 * KL + 8;
+  extern __shared__ __align__(16) unsigned char btc_smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int c = (int)cluster.block_rank();
+  bf16_t* g_s = reinterpret_cast<bf16_t*>(btc_smem);              // [BT][KRS]
+  float* recv = reinterpret_cast<float*>(g_s + (size_t)BT * KRS);  // [2][C][BT][U]
+  float* dhz_s = recv + (size_t)2 * C * BT * U;                     // [BT][U]
+
+  const int d = blockIdx.y;
+  const int b0 = (blockIdx.x / C) * BT;
+  const int nrows = min(BT, B - b0);
+  const int n_mt = (nrows + 15) / 16;
+  const int H3 = 3 * H;
+  const int u0 = c * U;
+  const int N8 = (H + 7) / 8;
+  const int NW = bwd_tc_nw(H, NT);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int nw = warp % NW, wm = warp / NW, WM = (int)blockDim.x / 32 / NW;
+  const int qg = lane / 4, qc = lane % 4;
+
+  // prologue: the B fragments of W^T, read once (zero past H and past the
+  // slice's 3U columns)
+  unsigned wf[NT][KT][2];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const int n = 8 * (nw * NT + nt) + qg;
+#pragma unroll
+    for (int ks = 0; ks < KT; ++ks)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        unsigned short v[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int kk = 16 * ks + 8 * half + 2 * qc + e;
+          const int gate = kk / U, u = kk - gate * U;
+          v[e] = n < H && kk < 3 * U && u0 + u < H
+                     ? bits_of(w_hh + ((size_t)d * H + n) * H3 + gate * H + u0 + u)
+                     : 0;
+        }
+        wf[nt][ks][half] = pack2(v[0], v[1]);
+      }
+  }
+  for (int i = threadIdx.x; i < BT * KRS / 8; i += blockDim.x)
+    reinterpret_cast<uint4*>(g_s)[i] = make_uint4(0u, 0u, 0u, 0u);
+  for (int i = threadIdx.x; i < BT * U; i += blockDim.x) dhz_s[i] = 0.0f;
+  // this lane's ldmatrix row in an m16 tile (the forward's tensor tier's)
+  const int a_off = ((lane % 8) + 8 * ((lane / 8) % 2)) * KRS + 8 * (lane / 16);
+  cluster.sync();  // every block has started and cleared its g
+
+  for (int step = 0; step < T; ++step) {
+    const int p = (WALK || d == 0) ? T - 1 - step : step;
+    const int q = (WALK || d == 0) ? p - 1 : p + 1;  // frame of h_prev
+    const bool has_prev = q >= 0 && q < T;
+    const int slot = step & 1;
+    if (step > 0) {  // g is zero before the first step: so is the product
+      for (int mt = wm; mt < n_mt; mt += WM) {
+        float acc[NT][4];
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.0f;
+        const bf16_t* a = g_s + 16 * mt * KRS + a_off;
+#pragma unroll
+        for (int ks = 0; ks < KT; ++ks) {
+          unsigned ahi[4], alo[4];
+          ldmatrix_x4<false>(ahi, a + 16 * ks);
+          ldmatrix_x4<false>(alo, a + KL + 16 * ks);
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+            if (nw * NT + nt < N8) mma_bf16(acc[nt], ahi, wf[nt][ks][0], wf[nt][ks][1]);
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+            if (nw * NT + nt < N8) mma_bf16(acc[nt], alo, wf[nt][ks][0], wf[nt][ks][1]);
+        }
+        // each output pair (n, n + 1) of rows qg and qg + 8 to its owner
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const int n = 8 * (nw * NT + nt) + 2 * qc;
+          if (n >= H) continue;
+          const int owner = n / U, u = n - owner * U;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int row = 16 * mt + qg + 8 * h;
+            if (row >= nrows) continue;
+            float* dst = recv + (((size_t)slot * C + c) * BT + row) * U + u;
+            *reinterpret_cast<float2*>(cluster.map_shared_rank(dst, owner)) =
+                make_float2(acc[nt][2 * h], acc[nt][2 * h + 1]);
+          }
+        }
+      }
+      if (C == 1)  // a block alone: the block barrier is enough, and cheaper
+        __syncthreads();
+      else
+        cluster.sync();
+    }
+    for (int idx = threadIdx.x; idx < nrows * U; idx += blockDim.x) {
+      const int row = idx / U, u = idx - row * U;
+      const int k = u0 + u;
+      if (k >= H) continue;
+      float tot = 0.0f;  // row's g . W^T at unit k: the partials in cluster order
+      if (step > 0)
+        for (int cc = 0; cc < C; ++cc) tot += recv[(((size_t)slot * C + cc) * BT + row) * U + u];
+      const size_t xo = row_offset<WALK>(p, p, d, b0 + row, B, D, H3) + k;
+      const size_t ho = row_offset<WALK>(p, p, d, b0 + row, B, D, H) + k;
+      float x[3], hh[3];
+#pragma unroll
+      for (int gt = 0; gt < 3; ++gt) {
+        const float bi = b_ih != nullptr ? ld(b_ih + (size_t)d * H3 + gt * H + k) : 0.0f;
+        x[gt] = rounded<bf16_t>(ld(xp + xo + gt * H) + bi);
+        hh[gt] = __ldg(hp + xo + gt * H);
+      }
+      const float dy = ld(dys + ho);
+      const float h_prev =
+          has_prev ? ld(ys + row_offset<WALK>(q, q, d, b0 + row, B, D, H) + k) : 0.0f;
+      float* dhz = dhz_s + row * U + u;
+      const float dh = dy + (*dhz + tot);
+      const float r = sigmoid_f(x[0] + hh[0]);
+      const float z = sigmoid_f(x[1] + hh[1]);
+      const float n = tanhf(x[2] + r * hh[2]);
+      const float dn = dh * (1.0f - z);
+      const float dz = dh * (h_prev - n);
+      const float dpre_n = dn * (1.0f - n * n);
+      const float dpre_z = dz * z * (1.0f - z);
+      const float dpre_r = dpre_n * hh[2] * r * (1.0f - r);
+      dxp[xo] = narrow<bf16_t>(dpre_r);
+      dxp[xo + H] = narrow<bf16_t>(dpre_z);
+      dxp[xo + 2 * H] = narrow<bf16_t>(dpre_n);
+      if (gn != nullptr) gn[ho] = narrow<bf16_t>(dpre_n * r);
+      const float g3[3] = {dpre_r, dpre_z, dpre_n * r};
+      bf16_t* gr = g_s + row * KRS + u;
+#pragma unroll
+      for (int gt = 0; gt < 3; ++gt) {
+        const bf16_t hi = narrow<bf16_t>(g3[gt]);
+        gr[gt * U] = hi;
+        gr[KL + gt * U] = narrow<bf16_t>(g3[gt] - widen(hi));
+      }
+      *dhz = dh * z;
+    }
+    __syncthreads();  // this step's g before the next step's product
+  }
+}
+
+// What the tensor tier's indexing needs of a plan: U even (a float2 of
+// partials stays with one owner) covering H in C blocks, the slice's 3U
+// columns within 16 KT, whole rows of NW warps across the outputs; its
+// shared memory: g, both recv slots and dh z for BT rows, and g for the
+// tile's rows rounded up to whole m16 tiles (the last tile's ldmatrix).
+inline bool bwd_tc_plan_ok(int KT, int NT, int H, int C, int U, int BT, int threads,
+                           int smem) {
+  const long long KRS = 32 * KT + 8;
+  const long long need = 2 * BT * KRS + 4LL * BT * U * (2 * C + 1);
+  return U > 0 && U % 2 == 0 && 3 * U <= 16 * KT && (long long)C * U >= H &&
+         threads % (32 * bwd_tc_nw(H, NT)) == 0 && threads <= bwd_tc_max_threads(NT) &&
+         smem >= need && smem >= 2 * ((BT + 15) / 16 * 16) * KRS;
+}
+
+// tier 0: the register instance (S, KC); tier 1: the L2 tier (S = 8);
+// tier 2: the bf16 tensor tier (KC = 16 KT, S = NT)
 template <typename V, bool WALK>
 int launch_recurrence(const void* xp_, const void* w_hh_, const void* b_ih_,
                       const float* hp, const void* ys_, const void* dys_, void* dxp_,
@@ -401,6 +635,25 @@ int launch_recurrence(const void* xp_, const void* w_hh_, const void* b_ih_,
   V* dxp = static_cast<V*>(dxp_);
   V* gn = static_cast<V*>(gn_);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if constexpr (std::is_same_v<V, bf16_t>) {
+    if (tier == 2) {
+      if (!bwd_tc_plan_ok(KC / 16, S, H, C, U, BT, threads, smem) || KC % 16)
+        return (int)cudaErrorInvalidValue;
+      const ClusterLaunch launch(C, dim3(C * ((B + BT - 1) / BT), D), threads, smem, st);
+#define S2AG_BWD_TC(KK, NN)                                                               \
+  if (KC == 16 * KK && S == NN) {                                                         \
+    auto kernel = gru_layer_bwd_tc_kernel<WALK, KK, NN>;                                  \
+    cudaError_t err = check_config(kernel, launch);                                       \
+    if (err == cudaSuccess)                                                               \
+      err = cudaLaunchKernelEx(&launch.cfg, kernel, xp, w_hh, b_ih, hp, ys, dys, dxp, gn, \
+                               T, B, H, D, U, BT);                                        \
+    return (int)(err != cudaSuccess ? err : cudaGetLastError());                          \
+  }
+      S2AG_BWD_TC_INSTANCES
+#undef S2AG_BWD_TC
+      return (int)cudaErrorInvalidValue;
+    }
+  }
   if (tier == 1 && S == L2_S)
     return (int)launch_bwd<V, L2_S, 0, WALK>(xp, w_hh, b_ih, hp, ys, dys, dxp, gn, T, B, H,
                                              D, C, BT, KC, U, threads, smem, st);
@@ -882,6 +1135,15 @@ int max_clusters(int S, int KC, int C, int threads, int smem, int tier) {
   }
   S2AG_BWD_REG_INSTANCES
 #undef S2AG_BWD
+  if constexpr (std::is_same_v<V, bf16_t>) {
+#define S2AG_BWD_TC(KK, NN)                                                           \
+  if (tier == 2 && KC == 16 * KK && S == NN) {                                        \
+    const ClusterLaunch launch(C, dim3(C), threads, smem, nullptr);                   \
+    err = max_active_clusters(gru_layer_bwd_tc_kernel<false, KK, NN>, launch, &clusters); \
+  }
+    S2AG_BWD_TC_INSTANCES
+#undef S2AG_BWD_TC
+  }
   return err == cudaSuccess ? clusters : -(int)err;
 }
 
@@ -890,8 +1152,9 @@ int max_clusters(int S, int KC, int C, int threads, int smem, int tier) {
 // The recurrence, model layout. gn may be null (no weight gradient
 // wanted); hp is the forward's (float32). (C, BT, S, KC, U, threads, smem,
 // tier) is the caller's launch plan (`gru_cuda.bwd_plan`); bf16 != 0 takes
-// the bf16 instance. Returns the CUDA error code of the launch (0 =
-// success).
+// the bf16 instance; tier 2 (bf16 only) the tensor tier, with S the n8
+// tiles a warp and KC the padded columns of a block's slice of g. Returns
+// the CUDA error code of the launch (0 = success).
 extern "C" int s2ag_gru_layer_bwd(const void* xp, const void* w_hh, const void* b_ih,
                                   const float* hp, const void* ys, const void* dys,
                                   void* dxp, void* gn, int T, int B, int H, int D, int C,

@@ -8,9 +8,10 @@
 // matrices (17 MB at n_fft 2048) per row tile, so the spectrum is an FFT.
 //
 // Two tiers, chosen by the caller's plan (`mel_cuda.mel_plan`): the FFT
-// tier for n_fft a power of two in [512, 4096] (the serving and corpus
-// shapes, 2048 and 1024), the DFT tier for every other n_fft. Both take any
-// band count n_mels.
+// tier for even n_fft whose half M = 2^a 3^b 5^c fits a block's 2048
+// points (the serving and corpus shapes, 2048 and 1024; Whisper's 400; 256
+// to 4096), the DFT tier for every other n_fft (odd, a prime factor above
+// 5, M past 2048). Both take any band count n_mels.
 //
 // Layouts (float32 unless said, row-major, contiguous):
 //   frames (R, N)            N = n_fft
@@ -22,12 +23,15 @@
 //   out (R, n_mels)
 //
 // FFT tier: one block of 256 threads owns 2048 / M whole rows (2 at N 2048,
-// 4 at N 1024), so a request's few hundred rows still give a block per SM.
-// For each row the block
-//   1. loads the row with float4 reads into shared memory as the M-point
-//      complex sequence z[n] = x[2n] + i x[2n+1];
+// 4 at N 1024, 10 at N 400), so a request's few hundred rows still give a
+// block per SM. For each row the block
+//   1. loads the row with float4 reads (float2 at a mixed-radix M) into
+//      shared memory as the M-point complex sequence z[n] = x[2n] + i x[2n+1];
 //   2. runs a Stockham (autosort) FFT over two shared-memory buffers: one
-//      radix-2 pass when log2 M is odd, then radix-4 passes;
+//      radix-2 pass when a is odd, then radix-4 passes (`mel_fft_kernel`
+//      at a power of two), then radix-3 and radix-5 passes
+//      (`mel_fft_mixed_kernel`, with the same radix-2 and radix-4
+//      butterflies);
 //   3. splits Z into the real FFT's bins, X[k] = (Z[k] + Z*[M-k]) / 2
 //      - i e^{-2 pi i k / N} (Z[k] - Z*[M-k]) / 2 (Z[M] = Z[0]; the DC and
 //      Nyquist bins are Re Z[0] +- Im Z[0]), one thread per pair (k, M-k),
@@ -82,6 +86,53 @@ __device__ __forceinline__ float bin_power(float2 a, float2 b, float c, float s)
   const float xr = er - s * dr + c * di;
   const float xi = ei - s * di - c * dr;
   return xr * xr + xi * xi;
+}
+
+// Steps 3 and 4 of both FFT kernels, after the passes left the rows'
+// M-point transforms in z (row r at z[r M]): the real-FFT split and power
+// of row r's M + 1 bins into p[r (M + 1) ..] (the free buffer: rows (M +
+// 1) <= 2 POINTS floats), then each (row, band) summed over its run of bins
+// in order.
+__device__ __forceinline__ void split_and_bands(const float2* buf_z, float* p,
+                                                const float2* __restrict__ split_tw,
+                                                const int* __restrict__ bands,
+                                                const float* __restrict__ weights,
+                                                float* __restrict__ out, int R, int r0,
+                                                int rows, int M, int n_mels) {
+  const int tid = threadIdx.x;
+  {
+    const int pairs = M / 2 + 1;
+    for (int b = tid; b < rows * pairs; b += THREADS) {
+      const int row = b / pairs;
+      const int k = b - row * pairs;
+      const float2* z = buf_z + row * M;
+      float* pr = p + row * (M + 1);
+      if (k == 0) {
+        const float2 z0 = z[0];
+        const float dc = z0.x + z0.y, ny = z0.x - z0.y;
+        pr[0] = dc * dc;
+        pr[M] = ny * ny;
+        continue;
+      }
+      const float2 a = z[k], b2 = z[M - k];
+      const float2 tw = __ldg(split_tw + k);
+      pr[k] = bin_power(a, make_float2(b2.x, -b2.y), tw.x, tw.y);
+      if (k != M - k) pr[M - k] = bin_power(b2, make_float2(a.x, -a.y), -tw.x, tw.y);
+    }
+  }
+  __syncthreads();
+
+  for (int idx = tid; idx < rows * n_mels; idx += THREADS) {
+    const int row = idx / n_mels;
+    const int m = idx - row * n_mels;
+    if (r0 + row >= R) break;
+    const float* pr = p + row * (M + 1) + __ldg(bands + 3 * m);
+    const int n = __ldg(bands + 3 * m + 1);
+    const float* w = weights + __ldg(bands + 3 * m + 2);
+    float acc = 0.0f;
+    for (int i = 0; i < n; ++i) acc = fmaf(__ldg(w + i), pr[i], acc);
+    out[(size_t)(r0 + row) * n_mels + m] = acc;
+  }
 }
 
 __global__ void __launch_bounds__(THREADS) mel_fft_kernel(
@@ -155,43 +206,131 @@ __global__ void __launch_bounds__(THREADS) mel_fft_kernel(
   }
   __syncthreads();
 
-  // 3. split and power: row r's M + 1 bins at p[r (M + 1) ..] of the free
-  // buffer (rows (M + 1) <= 2 POINTS floats)
-  float* p = reinterpret_cast<float*>(buf[cur ^ 1]);
-  {
-    const int pairs = M / 2 + 1;
-    for (int b = tid; b < rows * pairs; b += THREADS) {
-      const int row = b / pairs;
-      const int k = b - row * pairs;
-      const float2* z = buf[cur] + row * M;
-      float* pr = p + row * (M + 1);
-      if (k == 0) {
-        const float2 z0 = z[0];
-        const float dc = z0.x + z0.y, ny = z0.x - z0.y;
-        pr[0] = dc * dc;
-        pr[M] = ny * ny;
-        continue;
-      }
-      const float2 a = z[k], b2 = z[M - k];
-      const float2 tw = __ldg(split_tw + k);
-      pr[k] = bin_power(a, make_float2(b2.x, -b2.y), tw.x, tw.y);
-      if (k != M - k) pr[M - k] = bin_power(b2, make_float2(a.x, -a.y), -tw.x, tw.y);
-    }
-  }
-  __syncthreads();
+  split_and_bands(buf[cur], reinterpret_cast<float*>(buf[cur ^ 1]), split_tw, bands, weights,
+                  out, R, r0, rows, M, n_mels);
+}
 
-  // 4. each (row, band): its run of bins in order
-  for (int idx = tid; idx < rows * n_mels; idx += THREADS) {
-    const int row = idx / n_mels;
-    const int m = idx - row * n_mels;
-    if (r0 + row >= R) break;
-    const float* pr = p + row * (M + 1) + __ldg(bands + 3 * m);
-    const int n = __ldg(bands + 3 * m + 1);
-    const float* w = weights + __ldg(bands + 3 * m + 2);
-    float acc = 0.0f;
-    for (int i = 0; i < n; ++i) acc = fmaf(__ldg(w + i), pr[i], acc);
-    out[(size_t)(r0 + row) * n_mels + m] = acc;
+// The DFT of P points in place (y_k = sum_n v_n e^{-2 pi i n k / P}): the
+// power-of-two kernel's radix-2 and radix-4 butterflies, and radix 3 and 5
+// with their constants rounded once to float32.
+template <int P>
+__device__ __forceinline__ void butterfly(float2 (&v)[P]);
+template <>
+__device__ __forceinline__ void butterfly<2>(float2 (&v)[2]) {
+  const float2 v0 = v[0], v1 = v[1];
+  v[0] = make_float2(v0.x + v1.x, v0.y + v1.y);
+  v[1] = make_float2(v0.x - v1.x, v0.y - v1.y);
+}
+template <>
+__device__ __forceinline__ void butterfly<4>(float2 (&v)[4]) {
+  const float2 a = make_float2(v[0].x + v[2].x, v[0].y + v[2].y);
+  const float2 s = make_float2(v[0].x - v[2].x, v[0].y - v[2].y);
+  const float2 c = make_float2(v[1].x + v[3].x, v[1].y + v[3].y);
+  const float2 d = make_float2(v[1].x - v[3].x, v[1].y - v[3].y);
+  v[0] = make_float2(a.x + c.x, a.y + c.y);
+  v[1] = make_float2(s.x + d.y, s.y - d.x);  // s - i d
+  v[2] = make_float2(a.x - c.x, a.y - c.y);
+  v[3] = make_float2(s.x - d.y, s.y + d.x);  // s + i d
+}
+template <>
+__device__ __forceinline__ void butterfly<3>(float2 (&v)[3]) {
+  constexpr float S3 = 0.86602540378443865f;  // sin(2 pi / 3)
+  const float2 t = make_float2(v[1].x + v[2].x, v[1].y + v[2].y);
+  const float2 m = make_float2(v[0].x - 0.5f * t.x, v[0].y - 0.5f * t.y);
+  const float2 s = make_float2(S3 * (v[1].x - v[2].x), S3 * (v[1].y - v[2].y));
+  v[0] = make_float2(v[0].x + t.x, v[0].y + t.y);
+  v[1] = make_float2(m.x + s.y, m.y - s.x);  // m - i s
+  v[2] = make_float2(m.x - s.y, m.y + s.x);  // m + i s
+}
+template <>
+__device__ __forceinline__ void butterfly<5>(float2 (&v)[5]) {
+  constexpr float C1 = 0.30901699437494742f;   // cos(2 pi / 5)
+  constexpr float C2 = -0.80901699437494742f;  // cos(4 pi / 5)
+  constexpr float S1 = 0.95105651629515357f;   // sin(2 pi / 5)
+  constexpr float S2 = 0.58778525229247313f;   // sin(4 pi / 5)
+  const float2 t1 = make_float2(v[1].x + v[4].x, v[1].y + v[4].y);
+  const float2 t2 = make_float2(v[2].x + v[3].x, v[2].y + v[3].y);
+  const float2 t3 = make_float2(v[1].x - v[4].x, v[1].y - v[4].y);
+  const float2 t4 = make_float2(v[2].x - v[3].x, v[2].y - v[3].y);
+  const float2 a1 = make_float2(v[0].x + C1 * t1.x + C2 * t2.x, v[0].y + C1 * t1.y + C2 * t2.y);
+  const float2 a2 = make_float2(v[0].x + C2 * t1.x + C1 * t2.x, v[0].y + C2 * t1.y + C1 * t2.y);
+  const float2 b1 = make_float2(S1 * t3.x + S2 * t4.x, S1 * t3.y + S2 * t4.y);
+  const float2 b2 = make_float2(S2 * t3.x - S1 * t4.x, S2 * t3.y - S1 * t4.y);
+  v[0] = make_float2(v[0].x + t1.x + t2.x, v[0].y + t1.y + t2.y);
+  v[1] = make_float2(a1.x + b1.y, a1.y - b1.x);  // a1 - i b1
+  v[4] = make_float2(a1.x - b1.y, a1.y + b1.x);  // a1 + i b1
+  v[2] = make_float2(a2.x + b2.y, a2.y - b2.x);  // a2 - i b2
+  v[3] = make_float2(a2.x - b2.y, a2.y + b2.x);  // a2 + i b2
+}
+
+// One radix-P Stockham pass after Ns points over the block's rows of M
+// points (the power-of-two kernel's pass, with its indices by division):
+// butterfly j of a row reads in[j + r M/P], twiddles by fft_tw[r (j mod
+// Ns) M / (Ns P)] = e^{-2 pi i r (j mod Ns) / (Ns P)} and writes out[(j -
+// j mod Ns) P + j mod Ns + r Ns].
+template <int P>
+__device__ __forceinline__ void stockham_pass(const float2* in, float2* out,
+                                              const float2* __restrict__ fft_tw, int M,
+                                              int rows, int ns) {
+  const int q = M / P;
+  const int stride = M / (ns * P);
+  for (int b = threadIdx.x; b < rows * q; b += THREADS) {
+    const int row = b / q;
+    const int j = b - row * q;
+    const int base = row * M;
+    float2 v[P];
+#pragma unroll
+    for (int r = 0; r < P; ++r) v[r] = in[base + j + r * q];
+    const int jm = j % ns;
+    if (jm) {
+#pragma unroll
+      for (int r = 1; r < P; ++r) v[r] = cmul(v[r], __ldg(fft_tw + r * jm * stride));
+    }
+    butterfly<P>(v);
+    const int od = base + (j - jm) * P + jm;
+#pragma unroll
+    for (int r = 0; r < P; ++r) out[od + r * ns] = v[r];
   }
+}
+
+// The FFT tier at a mixed-radix size, M = n_fft / 2 = 2^a 3^b 5^c <=
+// POINTS not a power of two: POINTS / M whole rows a block (10 at n_fft
+// 400), each loaded as M complex points (float2: n_fft need only be even),
+// then the passes in a fixed order, radix 2 when a is odd, radix 4 (a / 2
+// times), radix 3 (b times), radix 5 (c times), each after a block barrier;
+// then the same split, power and band sums as the power-of-two kernel.
+__global__ void __launch_bounds__(THREADS) mel_fft_mixed_kernel(
+    const float* __restrict__ frames, const float2* __restrict__ fft_tw,
+    const float2* __restrict__ split_tw, const int* __restrict__ bands,
+    const float* __restrict__ weights, float* __restrict__ out, int R, int M, int n2,
+    int n4, int n3, int n5, int n_mels) {
+  __shared__ __align__(16) float2 buf[2][POINTS];
+  const int rows = POINTS / M;
+  const int r0 = blockIdx.x * rows;
+  {
+    const float2* src = reinterpret_cast<const float2*>(frames) + (size_t)r0 * M;
+    const int valid = min(rows, R - r0) * M;
+    for (int q = threadIdx.x; q < rows * M; q += THREADS)
+      buf[0][q] = q < valid ? __ldg(src + q) : make_float2(0.0f, 0.0f);
+  }
+  int cur = 0, ns = 1;
+  const int radix[4] = {2, 4, 3, 5};
+  const int count[4] = {n2, n4, n3, n5};
+  for (int i = 0; i < 4; ++i)
+    for (int pass = 0; pass < count[i]; ++pass) {
+      __syncthreads();
+      switch (radix[i]) {
+        case 2: stockham_pass<2>(buf[cur], buf[cur ^ 1], fft_tw, M, rows, ns); break;
+        case 4: stockham_pass<4>(buf[cur], buf[cur ^ 1], fft_tw, M, rows, ns); break;
+        case 3: stockham_pass<3>(buf[cur], buf[cur ^ 1], fft_tw, M, rows, ns); break;
+        default: stockham_pass<5>(buf[cur], buf[cur ^ 1], fft_tw, M, rows, ns); break;
+      }
+      cur ^= 1;
+      ns *= radix[i];
+    }
+  __syncthreads();
+  split_and_bands(buf[cur], reinterpret_cast<float*>(buf[cur ^ 1]), split_tw, bands, weights,
+                  out, R, r0, rows, M, n_mels);
 }
 
 constexpr int DFT_ROWS = 8;
@@ -294,19 +433,33 @@ __global__ void __launch_bounds__(THREADS) mel_dft_kernel(
 
 }  // namespace
 
-// The FFT tier. Returns the CUDA error code of the launch (0 = success).
+// The FFT tier: n_fft even with M = n_fft / 2 in [4, POINTS] and no prime
+// factor above 5 (the power-of-two kernel where M is one, else the
+// mixed-radix kernel). Returns the CUDA error code of the launch (0 =
+// success).
 extern "C" int s2ag_mel_power(const float* frames, const float* fft_tw,
                               const float* split_tw, const int* bands,
                               const float* weights, float* out, int R, int n_fft,
                               int n_mels, void* stream) {
-  int log2m = -1;
-  for (int m = n_fft / 2; m > 0; m >>= 1) ++log2m;
-  if (R < 1 || n_mels < 1 || n_fft < 512 || n_fft > 2 * POINTS || (n_fft & (n_fft - 1)))
+  const int M = n_fft / 2;
+  if (R < 1 || n_mels < 1 || n_fft % 2 || M < 4 || M > POINTS)
     return (int)cudaErrorInvalidValue;
-  const int rows = POINTS >> log2m;
-  mel_fft_kernel<<<(R + rows - 1) / rows, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      frames, reinterpret_cast<const float2*>(fft_tw),
-      reinterpret_cast<const float2*>(split_tw), bands, weights, out, R, log2m, n_mels);
+  int a = 0, b = 0, c = 0, m = M;
+  for (; m % 2 == 0; m /= 2) ++a;
+  for (; m % 3 == 0; m /= 3) ++b;
+  for (; m % 5 == 0; m /= 5) ++c;
+  if (m != 1) return (int)cudaErrorInvalidValue;
+  const int rows = POINTS / M;
+  const dim3 grid((R + rows - 1) / rows);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float2* tw = reinterpret_cast<const float2*>(fft_tw);
+  const float2* stw = reinterpret_cast<const float2*>(split_tw);
+  if (b == 0 && c == 0)
+    mel_fft_kernel<<<grid, THREADS, 0, st>>>(frames, tw, stw, bands, weights, out, R, a,
+                                             n_mels);
+  else
+    mel_fft_mixed_kernel<<<grid, THREADS, 0, st>>>(frames, tw, stw, bands, weights, out, R,
+                                                   M, a % 2, a / 2, b, c, n_mels);
   return (int)cudaGetLastError();
 }
 

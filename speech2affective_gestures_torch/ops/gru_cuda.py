@@ -23,7 +23,9 @@ backward of `_gru_layer_v2`). `csrc/gru_bwd.cu` holds two kernels: the
 reverse-time recurrence (`gru_bwd`: the forward's cluster design turned
 round, the rows of W_hh in registers, g exchanged through distributed
 shared memory, one product with W_hh a step thanks to the saved hp;
-`bwd_plan`, the forward's tiers) and the deterministic reduction of dW_hh
+`bwd_plan`, the forward's tiers, and at bf16 a tensor tier, `bwd_tier`: the
+product on the tensor cores from g split into bf16 hi + lo, its K split
+over the cluster) and the deterministic reduction of dW_hh
 and db_hh over the T*B rows (`gru_dw`: a register-tiled float32 product
 fed by a cp.async ring, at bf16 the same product on the tensor cores;
 partial sums over row splits, then a fixed-order pass that adds them;
@@ -75,7 +77,7 @@ from . import _build
 # ...), each at "float32" or "bfloat16" (chip_smoke.py reads and resets it)
 launches: collections.Counter = collections.Counter()
 # the same launches by (kernel, dtype, tier): the plan's tier for the
-# forward and the recurrence ("registers", "l2", the bf16 forward's
+# forward and the recurrence ("registers", "l2", the bf16 instances'
 # "tensor"), "fma" or "tensor" for dW
 tier_launches: collections.Counter = collections.Counter()
 
@@ -271,7 +273,9 @@ class ClusterPlan(NamedTuple):
     "registers") or read from L2 once per group of S rows (tier "l2", the
     block's units walked in passes). In the bf16 forward's tier "tensor" a
     warp owns a group of 8 units (U a multiple of 8), S is the warps that
-    share a group (1) and KC the k padded to whole k16 steps."""
+    share a group (1) and KC the k padded to whole k16 steps; in the bf16
+    recurrence's a block owns U units (U even) and the 3U columns of g they
+    produce, padded to KC, and S is the n8 tiles of outputs a warp holds."""
     C: int
     U: int
     S: int
@@ -462,10 +466,88 @@ def fwd_plan(B: int, H: int, D: int, max_clusters: int,
                    _tier(KC))
 
 
-def bwd_plan(B: int, H: int, D: int, max_clusters: int) -> ClusterPlan:
+# The bf16 recurrence's tensor tier (`csrc/gru_bwd.cu`,
+# `gru_layer_bwd_tc_kernel`): the product g . W^T on the tensor cores from
+# g split into bf16 hi + lo, its K split over the cluster (each block's
+# own units' 3U columns of g, at most 3 x BWD_TENSOR_MAX_U), the outputs'
+# partial sums exchanged. A warp holds NT n8 tiles of outputs (the plan's
+# BWD_TENSOR_NT, the kernel's instances; at most BWD_TENSOR_MAX_WARPS[NT]
+# warps a block, `tools/tc_probes.py` builds NT 5 and 8 too) and its
+# slice's KT k16 steps. Where it runs: at H >= BWD_TENSOR_MIN_H with B H^2
+# >= BWD_TENSOR_MIN_WORK. By device time on the H100 (PERF.md §6,
+# `tc_probes.py`): at H 300 the tiers are level at B 1 and 5 (0.111 and
+# 0.115 ms registers, 0.114 and 0.116 tensor: the tensor tier's 34 steps
+# have a ~0.11 ms floor) and the tensor tier is faster from B 16 (0.116
+# against 0.160; 0.69 against 2.05 at B 512); at H 64 and 40 the register
+# tier is faster at every batch measured (H 64, B 512: 0.106 against
+# 0.148), though B H^2 there (2.1e6) is above H 300's at B 16 (1.4e6).
+# So the tier takes H 300 from B 14; H 65-299 are not measured.
+BWD_TENSOR_MAX_U = 40
+BWD_TENSOR_NT = 4
+BWD_TENSOR_MAX_WARPS = {4: 10, 5: 8, 8: 8}
+BWD_TENSOR_MIN_H = 128
+BWD_TENSOR_MIN_WORK = 1_200_000
+
+
+def bwd_tensor_shape(H: int) -> tuple[int, int, int]:
+    """(C, U, KT) of the recurrence's tensor tier at H <= 320: the fewest
+    blocks C of at most BWD_TENSOR_MAX_U units, U even (a float2 of
+    partials has one owner) and as small as covers H, KT k16 steps that
+    hold a block's 3U columns of g."""
+    C = -(-H // BWD_TENSOR_MAX_U)
+    U = 2 * -(-H // (2 * C))
+    return C, U, -(-3 * U // 16)
+
+
+def _bwd_tensor_warps(H: int, nt: int) -> tuple[int, int]:
+    """(NW, WM): warps across the outputs (nt n8 tiles each over H rounded
+    up to 8), and groups of them that walk the m16 tiles in turn, as many
+    as the block's warp limit allows."""
+    nw = -(-(-(-H // 8)) // nt)
+    return nw, max(1, BWD_TENSOR_MAX_WARPS[nt] // nw)
+
+
+def _bwd_tensor_smem(C: int, U: int, KT: int, BT: int) -> int:
+    """The tensor tier's shared-memory bytes: for BT rows, g as bf16 hi and
+    lo (rows of 32 KT + 8 values), both slots of the C blocks' float32
+    partials of the block's U units, and dh z; at least g for the rows
+    rounded up to whole m16 tiles (the last tile's ldmatrix reads them)."""
+    krs = 32 * KT + 8
+    return max(2 * BT * krs + 4 * BT * U * (2 * C + 1), 2 * (-(-BT // 16) * 16) * krs)
+
+
+def bwd_tier(B: int, H: int, dtype: torch.dtype) -> str:
+    """The recurrence's tier at batch B and hidden size H for storage
+    `dtype`: bf16 in the register range (H <= 320) from H BWD_TENSOR_MIN_H
+    with B H^2 >= BWD_TENSOR_MIN_WORK takes the tensor cores (H 300 from B
+    14: the training batch); otherwise the register tier (H <= 320) or the
+    L2 tier, as the forward's."""
+    tier = _tier(fwd_shape(H)[1])
+    if (dtype == torch.bfloat16 and tier == "registers" and H >= BWD_TENSOR_MIN_H
+            and B * H * H >= BWD_TENSOR_MIN_WORK):
+        return "tensor"
+    return tier
+
+
+def bwd_plan(B: int, H: int, D: int, max_clusters: int, tier: str | None = None,
+             nt: int = BWD_TENSOR_NT) -> ClusterPlan:
     """The backward recurrence's launch: `bwd_shape`, the forward's tier
     (so it takes every H the forward takes), its own tiles (a row of g is
-    three of h)."""
+    three of h). The tensor tier ("tensor", bf16, H <= 320): C, U and KT
+    of `bwd_tensor_shape`, S = nt n8 tiles a warp, KC = 16 KT the padded
+    columns of a block's slice of g, the most rows a block's shared memory
+    holds."""
+    if tier == "tensor":
+        if _tier(fwd_shape(H)[1]) != "registers":
+            raise ValueError(f"gru_bwd: the tensor tier takes H <= {8 * MAX_KC}, not {H}")
+        C, U, KT = bwd_tensor_shape(H)
+        nw, wm = _bwd_tensor_warps(H, nt)
+        rows_max = SMEM_LIMIT // (2 * (32 * KT + 8) + 4 * U * (2 * C + 1))
+        while _bwd_tensor_smem(C, U, KT, rows_max) > SMEM_LIMIT:
+            rows_max -= 1
+        BT, tiles = _tiles(B, D, rows_max, max_clusters)
+        return ClusterPlan(C, U, nt, 16 * KT, BT, tiles, 32 * nw * wm,
+                           _bwd_tensor_smem(C, U, KT, BT), "tensor")
     S, KC, C, U = bwd_shape(H)
     BT, tiles = _tiles(B, D, SMEM_LIMIT // _bwd_smem(S, KC, U, 1), max_clusters)
     return ClusterPlan(C, U, S, KC, BT, tiles, _bwd_threads(S, KC, U),
@@ -485,8 +567,7 @@ def max_clusters(device: torch.device, H: int, kernel: str = "fwd",
     device, kernel, dtype, H and tier."""
     key = (torch.device(device).index, H, kernel, dtype, tier)
     if key not in _max_clusters:
-        p = (fwd_plan(1, H, 1, 1, tier) if kernel == "fwd"
-             else bwd_plan(1, H, 1, 1))  # one row a tile
+        p = (fwd_plan if kernel == "fwd" else bwd_plan)(1, H, 1, 1, tier)  # one row a tile
         fn = _lib_fn(f"gru_{kernel}", f"s2ag_gru_{kernel}_max_clusters", 0, n_int=7,
                      stream=False)
         with torch.cuda.device(device):
@@ -510,7 +591,8 @@ def _device_plan(device: torch.device, B: int, H: int, D: int,
 
 def _device_bwd_plan(device: torch.device, B: int, H: int, D: int,
                      dtype: torch.dtype = torch.float32) -> ClusterPlan:
-    return bwd_plan(B, H, D, max_clusters(device, H, "bwd", dtype))
+    tier = bwd_tier(B, H, dtype)
+    return bwd_plan(B, H, D, max_clusters(device, H, "bwd", dtype, tier), tier)
 
 
 def _plan_args(plan: ClusterPlan, dtype: torch.dtype = torch.float32) -> tuple[int, ...]:
@@ -650,13 +732,28 @@ def gru_bwd_recurrence(xp: torch.Tensor, w_hh: torch.Tensor, b_ih: torch.Tensor,
     T, B, _ = xp.shape
     D, H, _ = w_hh.shape
     b_in, _ = kernel_biases(b_ih, b_hh, H)
-    plan = _device_bwd_plan(xp.device, B, H, D, dtype)
+    return _recurrence_launch(False, xp, w_hh, b_in, hp, ys, dys,
+                              _device_bwd_plan(xp.device, B, H, D, dtype), want_gn)
+
+
+def _recurrence_launch(walk: bool, xp, w_hh, b_in, hp, ys, dys, plan: ClusterPlan,
+                       want_gn: bool = True):
+    """The recurrence's launch on checked CUDA tensors (model layout, or
+    the walk layout's with `walk`) with `plan` (the caller's:
+    `_device_bwd_plan`, or another tier's plan where chip_smoke.py holds
+    and times the tiers against each other); b_in the `kernel_biases`
+    part added to xp, or None. Returns (dxp, gn or None)."""
+    dtype = xp.dtype
+    D, H, _ = w_hh.shape
+    T, B = xp.shape[0], xp.shape[2 if walk else 1]
     dxp = torch.empty_like(xp)
     gn = torch.empty_like(ys) if want_gn else None
-    _launch(_lib_fn("gru_bwd", "s2ag_gru_layer_bwd", 8, n_int=13), "gru_bwd", xp.device,
-            xp.data_ptr(), w_hh.data_ptr(), b_in.data_ptr(), hp.data_ptr(), ys.data_ptr(),
+    kernel = "gru_bwd_v1" if walk else "gru_bwd"
+    symbol = "s2ag_gru_layer_bwd_v1" if walk else "s2ag_gru_layer_bwd"
+    _launch(_lib_fn("gru_bwd", symbol, 8, n_int=13), kernel, xp.device,
+            xp.data_ptr(), w_hh.data_ptr(), _ptr(b_in), hp.data_ptr(), ys.data_ptr(),
             dys.data_ptr(), dxp.data_ptr(), _ptr(gn), T, B, H, D, *_plan_args(plan, dtype))
-    _count("gru_bwd", dtype, plan.tier)
+    _count(kernel, dtype, plan.tier)
     return dxp, gn
 
 
@@ -978,15 +1075,8 @@ def run_layer_bwd_recurrence(xp: torch.Tensor, w_hh: torch.Tensor,
     _check_hp("run_layer", hp, xp)
     T, D, B, H3 = xp.shape
     b_in, _ = kernel_biases(None, b_hh, H3 // 3)
-    plan = _device_bwd_plan(xp.device, B, H3 // 3, D, dtype)
-    dxp = torch.empty_like(xp)
-    gn = torch.empty_like(ys) if want_gn else None
-    _launch(_lib_fn("gru_bwd", "s2ag_gru_layer_bwd_v1", 8, n_int=13), "gru_bwd_v1",
-            xp.device, xp.data_ptr(), w_hh.data_ptr(), _ptr(b_in), hp.data_ptr(),
-            ys.data_ptr(), dys.data_ptr(), dxp.data_ptr(), _ptr(gn), T, B, H3 // 3, D,
-            *_plan_args(plan, dtype))
-    _count("gru_bwd_v1", dtype, plan.tier)
-    return dxp, gn
+    return _recurrence_launch(True, xp, w_hh, b_in, hp, ys, dys,
+                              _device_bwd_plan(xp.device, B, H3 // 3, D, dtype), want_gn)
 
 
 def run_layer_dw(ys: torch.Tensor, dxp: torch.Tensor,

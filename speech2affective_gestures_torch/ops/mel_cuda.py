@@ -8,12 +8,14 @@ reaching device memory. The TPU kernel computes the spectrum as two dense
 products, a fit for its matrix unit; the kernel here, `csrc/mel_power.cu`,
 computes it with a real FFT in shared memory instead: each row of n_fft
 samples is packed as an n_fft/2-point complex sequence, transformed by a
-Stockham radix-4 FFT, split into the 1 + n_fft/2 real-FFT bins and squared,
-and each mel band sums its own contiguous run of bins from a packed table
+Stockham FFT (radix 4 and 2 passes, and radix 3 and 5 where n_fft/2 has
+those factors), split into the 1 + n_fft/2 real-FFT bins and squared, and
+each mel band sums its own contiguous run of bins from a packed table
 (`kernel_tables`). One launch, no workspace; each band's sum runs in a
 fixed order, so the result is deterministic. That is the FFT tier, for
-n_fft a power of two in [MIN_N_FFT, MAX_N_FFT] (the serving and corpus
-shapes). Every other n_fft takes the DFT tier, the TPU kernel's own design:
+even n_fft in [MIN_N_FFT, MAX_N_FFT] with n_fft/2 = 2^a 3^b 5^c (the
+serving and corpus shapes, Whisper's 400; `fft_radices`). Every other
+n_fft takes the DFT tier, the TPU kernel's own design:
 a tiled product of the frames with the cos and sin of the real DFT (from
 one table of N twiddles, `dft_tables`), squared and summed in registers and
 multiplied by the filterbank in the same launch. Both tiers take any band
@@ -37,17 +39,23 @@ import torch
 from . import _build, dsp_ref
 
 N_MELS = 128     # the serving and corpus band count
-# the n_fft of the FFT tier: powers of two whose n_fft/2 complex points
-# fill its 2048-point shared-memory buffer with whole rows
-MIN_N_FFT, MAX_N_FFT = 512, 4096
+# the n_fft of the FFT tier: even, with n_fft/2 = 2^a 3^b 5^c complex
+# points, at most its 2048-point shared-memory buffer (whole rows of it a
+# block) and at least 32 (at most 64 rows a block, so that a request's
+# rows still spread over the SMs)
+FFT_POINTS = 2048
+MIN_N_FFT, MAX_N_FFT = 64, 2 * FFT_POINTS
 # the DFT tier's rows a block, samples a stage and threads, and the most
 # shared memory a block may opt into on the H100 (`csrc/mel_power.cu`)
 DFT_ROWS, DFT_KT, DFT_THREADS = 8, 256, 256
 SMEM_LIMIT = 232448
 
 # kernel launches since the last reset, by (kernel, dtype): ("mel_fft",
-# "float32") and ("mel_dft", "float32") (chip_smoke.py reads and resets it)
+# "float32") and ("mel_dft", "float32") (chip_smoke.py reads and resets it);
+# the FFT tier's by its CUDA kernel, "power of two" (`mel_fft_kernel`) or
+# "mixed radix" (`mel_fft_mixed_kernel`)
 launches: collections.Counter = collections.Counter()
+fft_launches: collections.Counter = collections.Counter()
 
 
 @functools.lru_cache(maxsize=None)
@@ -121,14 +129,34 @@ class MelPlan(NamedTuple):
     tw_in_smem: bool
 
 
+def fft_radices(n_fft: int) -> tuple[int, ...] | None:
+    """The FFT tier's Stockham passes for n_fft, in the kernel's order
+    (radix 2 when n_fft/2 holds an odd power of two, then radix 4, 3, 5),
+    or None where the tier does not take n_fft: odd, outside [MIN_N_FFT,
+    MAX_N_FFT], or n_fft/2 with a prime factor above 5."""
+    if n_fft % 2 or not MIN_N_FFT <= n_fft <= MAX_N_FFT:
+        return None
+    m, count = n_fft // 2, {}
+    for p in (2, 3, 5):
+        count[p] = 0
+        while m % p == 0:
+            m //= p
+            count[p] += 1
+    if m != 1:
+        return None
+    return ((2,) * (count[2] % 2) + (4,) * (count[2] // 2) + (3,) * count[3]
+            + (5,) * count[5])
+
+
 def mel_plan(R: int, n_fft: int, n_mels: int) -> MelPlan:
     """The kernel's launch for R frames of n_fft samples into n_mels bands:
-    the FFT tier for a power of two in [MIN_N_FFT, MAX_N_FFT], else the DFT
-    tier, with its twiddles in shared memory where they fit."""
+    the FFT tier where `fft_radices` takes n_fft (FFT_POINTS // (n_fft/2)
+    whole rows a block), else the DFT tier, with its twiddles in shared
+    memory where they fit."""
     if R < 1 or n_fft < 1 or n_mels < 1:
         raise ValueError(f"mel_power: no launch for R={R}, n_fft={n_fft}, n_mels={n_mels}")
-    if not n_fft & (n_fft - 1) and MIN_N_FFT <= n_fft <= MAX_N_FFT:
-        rows = 2048 // (n_fft // 2)
+    if fft_radices(n_fft) is not None:
+        rows = FFT_POINTS // (n_fft // 2)
         return MelPlan("fft", rows, -(-R // rows), 0, False)
     base = 4 * (DFT_KT * DFT_ROWS + DFT_ROWS * DFT_THREADS + -(-DFT_ROWS * n_mels // 4) * 4)
     if base > SMEM_LIMIT:
@@ -176,7 +204,6 @@ def _kernel(tier: str):
 def mel_power(frames: torch.Tensor, sr: int = 16000,
               n_mels: int = N_MELS) -> torch.Tensor:
     """`mel_power_plain`'s contract; the CUDA kernel for CUDA tensors."""
-    global launches
     if frames.device.type == "cpu":
         return mel_power_plain(frames, sr, n_mels)
     if frames.device.type != "cuda":
@@ -207,4 +234,6 @@ def mel_power(frames: torch.Tensor, sr: int = 16000,
     if rc != 0:
         raise RuntimeError(f"mel_power kernel launch failed: CUDA error {rc}")
     launches[(f"mel_{plan.tier}", "float32")] += 1
+    if plan.tier == "fft":
+        fft_launches["mixed radix" if n_fft & (n_fft - 1) else "power of two"] += 1
     return out

@@ -13,8 +13,9 @@ the library yardsticks: `torch.fft.rfft` + power + the mel product, and
 cuDNN's `nn.GRU` forward, and forward + backward less forward, less its
 input projection's products. Where the checkout has the GRU kernels' bf16
 instances, also the bf16 forward (B 1 and 512), backward and dW at H 300
-beside cuDNN's bf16 `nn.GRU`, and the mel kernel's DFT tier (n_fft 400,
-80 bands, 3000 rows; n_fft 1000 at 568 rows) beside `rfft`. Each
+beside cuDNN's bf16 `nn.GRU`, the bf16 recurrence of the walk layout
+(`run_layer`), and the mel kernel at n_fft 400 (80 bands, 3000 rows),
+1000, 1536 and 256 (568 rows) in the tier its plan names, beside `rfft`. Each
 time is given twice: the CUDA-event mean of a call (the wrapper's host
 cost included) and the device time per call from torch.profiler (the time
 in which any of the call's kernels ran). The timing helpers, the inputs and
@@ -161,9 +162,17 @@ def bf16_times(cs, gru_cuda, mel_cuda, device, emit) -> None:
     x = torch.randn(T, B, cin, generator=g).to(device, bf16).requires_grad_()
     emit("cuDNN bf16 recurrent backward, dW_hh included (library)", [T, B, H, D],
          times=cs.cudnn_recurrent_bwd(lib, x, dys, dh))
-    for rows, n_fft, n_mels in ((3000, 400, 80), (568, 1000, 128)):
+    xw, ww, bw = (t.to(bf16).contiguous()
+                  for t in cs.v1_inputs(T, B, cin, H, D, seed=9, device=device)[:3])
+    yw, hpw = gru_cuda.run_layer_forward(xw, ww, bw, save_hp=True)
+    dyw = torch.randn(yw.shape, generator=g).to(device, bf16)
+    emit("gru_bwd_v1 bf16 (recurrence)", [T, B, H, D],
+         lambda: gru_cuda.run_layer_bwd_recurrence(xw, ww, bw, yw, dyw, hpw))
+    for rows, n_fft, n_mels in ((3000, 400, 80), (568, 1000, 128), (568, 1536, 128),
+                                (568, 256, 128)):
         f = cs.speech_frames(rows, device, n_fft)
-        emit("mel_power DFT tier", [rows, n_fft, n_mels],
+        tier = mel_cuda.mel_plan(rows, n_fft, n_mels).tier
+        emit(f"mel_power {tier} tier", [rows, n_fft, n_mels],
              lambda: mel_cuda.mel_power(f, n_mels=n_mels))
         emit("rfft_mel (library)", [rows, n_fft, n_mels], cs.rfft_mel(f, n_mels))
 

@@ -11,9 +11,10 @@ near zero; the GRU forward within 1e-4 absolute after 34 steps (h in
 [-1, 1]); the backward's dxp within 1e-4 absolute (a 34-step chain of
 sums of 3H products), and dW_hh and the bias gradients within 1e-4 of
 each one's largest value (sums of T*B products in another order). The
-hidden sizes past 320 run the kernels' L2 tier; at bf16 the forward's
-tensor tier (where its plan takes it, and by its own plan elsewhere) and
-dW's tensor-core product are held to the same bf16 tolerances. The
+hidden sizes past 320 run the kernels' L2 tier; at bf16 the forward's and
+the recurrence's tensor tiers (where their plans take them, and by their
+own plans elsewhere) and dW's tensor-core product are held to the same
+bf16 tolerances. The
 same for the walk-layout (`run_layer`) entry points; their forward against
 the model layout's kernel within 1e-6, since it is the same arithmetic.
 The mel kernel is also held to a float64 oracle (`torch.fft.rfft` of the
@@ -104,10 +105,13 @@ def test_mel_kernel_other_sizes(cuda, n_fft):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("n_fft,n_mels", [(1000, 128), (1536, 128), (256, 128), (8192, 128),
-                                          (2048, 64), (1000, 40), (400, 80)])
+                                          (2048, 64), (1000, 40), (400, 80), (480, 40),
+                                          (998, 128), (882, 80)])
 def test_mel_kernel_every_shape(cuda, n_fft, n_mels):
-    """Every n_fft and band count: the DFT tier for the n_fft the FFT tier
-    does not take, the FFT tier at other band counts; each value within
+    """Every n_fft and band count: the FFT tier's mixed-radix kernel (n_fft
+    400, 480, 1000, 1536), its power-of-two kernel at 256 and at other band
+    counts, the DFT tier for the n_fft the FFT tier does not take (8192,
+    998 and 882, prime factors above 5); each value within
     1e-4 of its own magnitude (plus 1e-7 of the largest) of the plain
     dense products; against the float64 oracle the FFT tier's worst band no
     farther than theirs, the DFT tier's values within the same tolerance;
@@ -403,20 +407,25 @@ def _tiers(*keys):
 @pytest.mark.parametrize("batch", [1, 5, 258, 512])
 @pytest.mark.parametrize("H,cin", [(300, 600), (64, 128), (40, 128), (301, 600), (600, 64)])
 def test_gru_bf16_kernels_against_plain(cuda, batch, H, cin):
-    """The bf16 forward (the tensor tier at H <= 320 where B·H² reaches
-    `gru_cuda.TENSOR_MIN_WORK`, the register tier below; the L2 tier at
-    600), recurrence and dW (the tensor cores) in the model layout at the
+    """The bf16 forward and recurrence (each in the tier its plan names:
+    the tensor tiers at H <= 320 where the batch is large enough,
+    `gru_cuda.fwd_tier` and `bwd_tier`, the register tier below; the L2
+    tier at 600) and dW (the tensor cores) in the model layout at the
     serving, scoring and training batches and a tile of 5 rows (a partial
     m16 tile), H 40 and the odd H 301: each launch counted under bfloat16
-    (the forward under its plan's tier) and none under float32, against the
-    bf16 twins, against float32, and the same bits twice; where the plan
-    takes the register tier, the tensor tier by its own plan as well."""
+    (the forward and the recurrence under their plans' tiers) and none
+    under float32, against the bf16 twins, against float32, and the same
+    bits twice; where the forward's plan takes the register tier, its
+    tensor tier by its own plan as well."""
     T, D = 34, 2
     f32 = _layer_inputs(T, batch, cin, H, D, batch + 3 * H, cuda)
     xp, w_hh, b_ih, b_hh, dys = _bf16(*f32)
     tier = gru_cuda._device_plan(cuda, batch, H, D, torch.bfloat16).tier
     assert tier == gru_cuda.fwd_tier(batch, H, torch.bfloat16)
-    keys = (("gru_fwd", "bfloat16", tier), ("gru_dw", "bfloat16", "tensor"))
+    rec_tier = gru_cuda._device_bwd_plan(cuda, batch, H, D, torch.bfloat16).tier
+    assert rec_tier == gru_cuda.bwd_tier(batch, H, torch.bfloat16)
+    keys = (("gru_fwd", "bfloat16", tier), ("gru_bwd", "bfloat16", rec_tier),
+            ("gru_dw", "bfloat16", "tensor"))
     before = (_counts("gru_fwd", "gru_bwd", "gru_dw", dtype="bfloat16"),
               _counts("gru_fwd", "gru_bwd", "gru_dw"), _tiers(*keys))
     ys, h_last, hp = gru_cuda.gru_layer_forward(xp, w_hh, b_ih, b_hh, save_hp=True)
@@ -455,6 +464,43 @@ def test_gru_bf16_kernels_against_plain(cuda, batch, H, cin):
         assert (th.float() - want_h.float()).abs().max().item() <= BF16_TOL
         assert _rel(thp, want_hp) <= BF16_TOL
         assert torch.equal(tys, gru_cuda._forward_launch(xp, w_hh, b_ih, b_hh, plan, False)[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("walk", [False, True])
+@pytest.mark.parametrize("batch", [5, 258, 512])
+@pytest.mark.parametrize("H,cin", [(300, 600), (64, 128), (40, 128), (301, 600)])
+def test_gru_bwd_bf16_tensor_tier_against_plain(cuda, walk, batch, H, cin):
+    """The bf16 recurrence's tensor tier (g split into bf16 hi + lo, the
+    product's K split over the cluster), launched by its own plan whatever
+    tier the default plan names, in the model and the walk layout, against
+    the plain bf16 recurrence on the forward's hp within BF16_TOL of the
+    largest value, counted under its tier, the same bits twice; B 5 a
+    ragged m16 tile, H 64 and 40 one or two blocks, the odd H 301."""
+    T, D = 34, 2
+    bf16 = torch.bfloat16
+    if walk:
+        xp, w_hh, b_hh, dys, _ = _walk_inputs(T, batch, cin, H, D, batch + H + 2, cuda)
+        xp, w_hh, b_hh, dys = _bf16(xp, w_hh, b_hh, dys)
+        ys, hp = gru_cuda.run_layer_forward(xp, w_hh, b_hh, save_hp=True)
+        b_in = gru_cuda.kernel_biases(None, b_hh, H)[0]
+        want = gru_cuda.run_layer_bwd_recurrence_plain(xp, w_hh, b_hh, ys, dys, hp)
+    else:
+        xp, w_hh, b_ih, b_hh, dys = _bf16(*_layer_inputs(T, batch, cin, H, D, batch + 5, cuda))
+        ys, _, hp = gru_cuda.gru_layer_forward(xp, w_hh, b_ih, b_hh, save_hp=True)
+        b_in = gru_cuda.kernel_biases(b_ih, b_hh, H)[0]
+        want = gru_cuda.gru_bwd_recurrence_plain(xp, w_hh, b_ih, b_hh, ys, dys, hp)
+    plan = gru_cuda.bwd_plan(batch, H, D, gru_cuda.max_clusters(cuda, H, "bwd", bf16, "tensor"),
+                             "tensor")
+    key = ("gru_bwd_v1" if walk else "gru_bwd", "bfloat16", "tensor")
+    before = _tiers(key)
+    dxp, gn = gru_cuda._recurrence_launch(walk, xp, w_hh, b_in, hp, ys, dys, plan)
+    dxp2, gn2 = gru_cuda._recurrence_launch(walk, xp, w_hh, b_in, hp, ys, dys, plan)
+    torch.cuda.synchronize()
+    assert _tiers(key) == (before[0] + 2,)
+    assert dxp.dtype == gn.dtype == bf16
+    assert _rel(dxp, want[0]) <= BF16_TOL and _rel(gn, want[1]) <= BF16_TOL
+    assert torch.equal(dxp, dxp2) and torch.equal(gn, gn2)
 
 
 @pytest.mark.gpu
@@ -530,18 +576,22 @@ def test_gru_dw_bf16_copy_widths(cuda, H, B):
 @pytest.mark.parametrize("H,B,tier", [(300, 512, "tensor"), (300, 258, "tensor"),
                                       (64, 512, "registers")])
 def test_gru_bf16_main_shapes_take_the_tensor_cores(cuda, H, B, tier):
-    """At the training and scoring shapes the bf16 forward runs the tier
-    its plan names (the tensor tier at the generator's H 300; the register
-    tier, faster there, at the discriminator's H 64) and dW its tensor-core
-    kernel, in both layouts; the launches succeed and are counted under
-    those tiers. float32 keeps its register tier and FMA dW."""
+    """At the training and scoring shapes the bf16 forward and recurrence
+    run the tiers their plans name (the tensor tiers at the generator's H
+    300; the register tiers, faster there, at the discriminator's H 64) and
+    dW its tensor-core kernel, in both layouts; the launches succeed and
+    are counted under those tiers. float32 keeps its register tier and FMA
+    dW."""
     T, D = 34, 2
     cin = 600 if H == 300 else 128
     f32 = _layer_inputs(T, B, cin, H, D, 3, cuda)
     xp, w_hh, b_ih, b_hh, dys = _bf16(*f32)
     assert gru_cuda._device_plan(cuda, B, H, D, torch.bfloat16).tier == tier
+    assert gru_cuda._device_bwd_plan(cuda, B, H, D, torch.bfloat16).tier == tier
     assert gru_cuda._device_plan(cuda, B, H, D).tier == "registers"
+    assert gru_cuda._device_bwd_plan(cuda, B, H, D).tier == "registers"
     keys = [("gru_fwd", "bfloat16", tier), ("gru_dw", "bfloat16", "tensor"),
+            ("gru_bwd", "bfloat16", tier), ("gru_bwd_v1", "bfloat16", tier),
             ("gru_fwd_v1", "bfloat16", tier), ("gru_dw_v1", "bfloat16", "tensor"),
             ("gru_fwd", "float32", "registers"), ("gru_dw", "float32", "fma")]
     before = _tiers(*keys)

@@ -31,26 +31,44 @@ def _frames(rows, n_fft=2048, seed=0):
     return tdsp.windowed_frames(torch.from_numpy(y), n_fft).reshape(-1, n_fft)[:rows].contiguous()
 
 
+def _butterfly(p: int, v: list) -> list:
+    """The kernel's radix-p butterfly on complex64 columns (its float32
+    constants for radix 3 and 5)."""
+    if p == 2:
+        return [v[0] + v[1], v[0] - v[1]]
+    if p == 4:
+        a, s, c, d = v[0] + v[2], v[0] - v[2], v[1] + v[3], v[1] - v[3]
+        return [a + c, s - 1j * d, a - c, s + 1j * d]
+    if p == 3:
+        t = v[1] + v[2]
+        m = v[0] - np.float32(0.5) * t
+        s = np.float32(np.sin(2 * np.pi / 3)) * (v[1] - v[2])
+        return [v[0] + t, m - 1j * s, m + 1j * s]
+    c1, c2 = np.float32(np.cos(2 * np.pi / 5)), np.float32(np.cos(4 * np.pi / 5))
+    s1, s2 = np.float32(np.sin(2 * np.pi / 5)), np.float32(np.sin(4 * np.pi / 5))
+    t1, t2, t3, t4 = v[1] + v[4], v[2] + v[3], v[1] - v[4], v[2] - v[3]
+    a1, a2 = v[0] + c1 * t1 + c2 * t2, v[0] + c2 * t1 + c1 * t2
+    b1, b2 = s1 * t3 + s2 * t4, s2 * t3 - s1 * t4
+    return [v[0] + t1 + t2, a1 - 1j * b1, a2 - 1j * b2, a2 + 1j * b2, a1 + 1j * b1]
+
+
 def _mel_model(frames: np.ndarray, sr: int = 16000, n_mels: int = 128) -> np.ndarray:
     """The kernel's data flow in float32 numpy: the packed M-point complex
-    sequence, the Stockham passes (radix 2 first when log2 M is odd, then
-    radix 4) with the kernel's twiddle table, the real-FFT split, the power
-    and the band sums over each band's run of bins."""
+    sequence, the Stockham passes in the kernel's order (`mel_cuda.
+    fft_radices`: radix 2 first when M holds an odd power of two, then
+    radix 4, 3, 5) with its twiddle table, the real-FFT split, the power and
+    the band sums over each band's run of bins."""
     R, n_fft = frames.shape
     m = n_fft // 2
     fft_tw, split_tw, bands, weights = mel_cuda.kernel_tables(sr, n_fft, n_mels)
     tw = (fft_tw[:, 0] + 1j * fft_tw[:, 1]).astype(np.complex64)
     z = (frames[:, 0::2] + 1j * frames[:, 1::2]).astype(np.complex64)
     ns = 1
-    for p in ([2] if int(np.log2(m)) % 2 else []) + [4] * (int(np.log2(m)) // 2):
+    for p in mel_cuda.fft_radices(n_fft):
         j = np.arange(m // p)
         jm = j % ns
         v = [z[:, j + r * (m // p)] * tw[r * jm * (m // (ns * p))] for r in range(p)]
-        if p == 2:
-            y = [v[0] + v[1], v[0] - v[1]]
-        else:
-            a, s, c, d = v[0] + v[2], v[0] - v[2], v[1] + v[3], v[1] - v[3]
-            y = [a + c, s - 1j * d, a - c, s + 1j * d]
+        y = [a.astype(np.complex64) for a in _butterfly(p, v)]
         out = np.empty_like(z)
         for r in range(p):
             out[:, (j - jm) * p + jm + r * ns] = y[r]
@@ -121,18 +139,26 @@ def test_mel_kernel_model_other_sizes(n_fft):
     _close(_mel_model(frames.numpy()), mel_cuda.mel_power_plain(frames).numpy())
 
 
-@pytest.mark.parametrize("n_fft,n_mels,tier", [(1000, 128, "dft"), (1536, 128, "dft"),
-                                               (256, 128, "dft"), (8192, 128, "dft"),
+@pytest.mark.parametrize("n_fft,n_mels,tier", [(1000, 128, "fft"), (1536, 128, "fft"),
+                                               (256, 128, "fft"), (8192, 128, "dft"),
                                                (2048, 64, "fft"), (512, 40, "fft"),
-                                               (4096, 256, "fft"), (400, 80, "dft"),
-                                               (30000, 128, "dft")])
+                                               (4096, 256, "fft"), (400, 80, "fft"),
+                                               (30000, 128, "dft"), (998, 128, "dft"),
+                                               (401, 80, "dft"), (480, 40, "fft"),
+                                               (882, 80, "dft"), (62, 40, "dft")])
 def test_mel_plan_picks_the_tier(n_fft, n_mels, tier):
-    """Every shape has a launch: the FFT tier for a power of two in [512,
-    4096] at any band count, the DFT tier otherwise, its twiddle table in
-    shared memory while it fits (a 30000-point table does not)."""
+    """Every shape has a launch: the FFT tier for even n_fft whose half is
+    2^a 3^b 5^c within [MIN_N_FFT, MAX_N_FFT] at any band count (FFT_POINTS
+    // (n_fft/2) whole rows a block), the DFT tier otherwise (a prime factor
+    above 5: 998 = 2 x 499, 882 = 2 x 3^2 x 7^2; odd; past 4096; below 64),
+    its twiddle table in shared memory while it fits (a 30000-point table
+    does not)."""
     plan = mel_cuda.mel_plan(601, n_fft, n_mels)
     assert plan.tier == tier
     assert plan.blocks * plan.rows >= 601 > (plan.blocks - 1) * plan.rows
+    if tier == "fft":
+        assert plan.rows == mel_cuda.FFT_POINTS // (n_fft // 2) and plan.smem == 0
+        assert np.prod(mel_cuda.fft_radices(n_fft)) == n_fft // 2
     if tier == "dft":
         assert plan.rows == mel_cuda.DFT_ROWS and plan.smem <= mel_cuda.SMEM_LIMIT
         assert plan.tw_in_smem == (n_fft <= 16384)
@@ -173,6 +199,24 @@ def _mel_dft_model(frames: np.ndarray, sr: int = 16000, n_mels: int = 128) -> np
         for i in range(n):
             mel[:, band] += weights[off + i] * power[:, lo + i]
     return mel
+
+
+@pytest.mark.parametrize("n_fft", [400, 1000, 1536, 480, 256])
+@pytest.mark.parametrize("n_mels", [80, 128, 40])
+def test_mel_mixed_radix_model_against_plain_and_pallas(n_fft, n_mels):
+    """The FFT tier at mixed-radix sizes (n_fft/2 = 200 = 2 x 4 x 5^2, 500 =
+    4 x 5^3, 768 = 4^4 x 3, 240 = 4^2 x 3 x 5; 128 = 2 x 4^3, a power of two
+    that took the DFT tier before): the passes in the kernel's order, its
+    radix-3 and radix-5 butterflies, the split and the band sums against
+    the plain dense products and the TPU kernel
+    (`fused_mel_power_frames(interpret=True)`), as the power-of-two model is
+    held (`_close`)."""
+    assert mel_cuda.mel_plan(9, n_fft, n_mels).tier == "fft"
+    frames = _frames(9, n_fft)
+    got = _mel_model(frames.numpy(), n_mels=n_mels)
+    _close(got, mel_cuda.mel_power_plain(frames, n_mels=n_mels).numpy())
+    _close(got, np.asarray(dsp_pallas.fused_mel_power_frames(
+        jnp.asarray(frames.numpy()), n_fft=n_fft, n_mels=n_mels, interpret=True)))
 
 
 @pytest.mark.parametrize("n_fft,n_mels", [(1000, 128), (1536, 64), (256, 40), (400, 80)])
@@ -992,3 +1036,325 @@ def test_gru_dw_tensor_model_against_plain(H, T, B):
     want_dw, want_db = gru_cuda.gru_dw_plain(*(torch.from_numpy(a).to(BF16) for a in (ys, dxp, gn)), D)
     for got, want in ((dw, want_dw.numpy()), (db, want_db.numpy())):
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * np.abs(want).max())
+
+
+# ---------------------------------------------------------------------------
+# the bf16 recurrence's tensor tier: g split into bf16 hi + lo, its K split
+# over the cluster (csrc/gru_bwd.cu, gru_layer_bwd_tc_kernel)
+# ---------------------------------------------------------------------------
+
+def _g_split(g: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """The kernel's split of float32 g: hi = rn_bf16(g), lo = rn_bf16(g - hi)
+    (g - hi is exact in float32)."""
+    hi = _bf16(g)
+    return hi, _bf16((g - hi).astype(np.float32))
+
+
+@pytest.mark.parametrize("scale", [1.0, 1e-20, 1e20, 3e-3])
+def test_g_split_keeps_float32_g(scale):
+    """hi + lo lies within 2^-16 of float32 g relative to |g| (2^-17 by
+    construction: lo rounds the rest of g to bf16's 8 bits) over random
+    magnitudes, tiny and large (e^+-8 around 1e-20 .. 1e20; only below
+    ~1e-35, where lo turns subnormal, does the split lose bits, at absolute
+    errors under 1e-38); hi alone, the single bf16 product's operand, lies
+    up to 2^-9 away, which the split avoids."""
+    rng = np.random.default_rng(int(np.log10(scale) + 40))
+    g = (rng.standard_normal(4096) * np.exp(rng.uniform(-8, 8, 4096)) * scale).astype(np.float32)
+    hi, lo = _g_split(g)
+    rel = np.abs((hi.astype(np.float64) + lo) - g) / np.abs(g)
+    assert rel.max() <= 2.0 ** -16
+    assert np.abs(hi.astype(np.float64) - g).max(initial=0) > 0
+    assert (np.abs(hi.astype(np.float64) - g) / np.abs(g)).max() > 2.0 ** -12
+
+
+def _tc_bwd_slices(H: int, C: int, U: int, KT: int) -> np.ndarray:
+    """j(kk) of each block's slice of g: block c's column kk < 3U is gate kk
+    // U of unit cU + kk % U, -1 where the slice holds a zero (past 3U or past
+    H)."""
+    kk = np.arange(16 * KT)
+    gate, u = kk // U, kk % U
+    j = np.full((C, 16 * KT), -1)
+    for c in range(C):
+        ok = (kk < 3 * U) & (c * U + u < H)
+        j[c, ok] = gate[ok] * H + c * U + u[ok]
+    return j
+
+
+def _check_tc_bwd_fragments(H: int, plan):
+    """The tensor tier's operands as the kernel fetches them are the tiles
+    the K-split product needs. A: ldmatrix from a row of g laid out [hi (KL)
+    | lo (KL) | 8 pad] at the lane address `a_off`, for hi and lo. B:
+    lane (g, c) of n8 tile nt of warp nw holds W[n][j(kk)] for n = 8 (NT nw
+    + nt) + g and kk = 16 ks + 8 i + 2c + e (zero past H and past the
+    slice), the (16 x 8) tile W_slice[16 ks.., 8 tile..] of W_slice[kk][n]
+    = W[n][j(kk)]. C: every output n < H is sent once per row, as the pair
+    (n, n + 1) of one owner block n // U, at unit n % U."""
+    C, U, NT, KT = plan.C, plan.U, plan.S, plan.KC // 16
+    KL, KRS = 16 * KT, 32 * KT + 8
+    lane = np.arange(32)
+    g_rows = np.arange(32 * KRS, dtype=np.float64).reshape(32, KRS)  # two m16 tiles
+    a_row = (lane % 8) + 8 * ((lane // 8) % 2)
+    a_col = 8 * (lane // 16)
+    for mt in range(2):
+        for ks in range(KT):
+            for half in (0, KL):
+                got = _mma_a(_ldmatrix(g_rows, 16 * mt + a_row, half + 16 * ks + a_col))
+                np.testing.assert_array_equal(
+                    got, g_rows[16 * mt:16 * mt + 16, half + 16 * ks:half + 16 * ks + 16])
+    nw_count, wm = gru_cuda._bwd_tensor_warps(H, NT)
+    assert plan.threads == 32 * nw_count * wm
+    w = np.arange(H * 3 * H, dtype=np.float64).reshape(H, 3 * H) + 1  # W[n][j], nonzero
+    slices = _tc_bwd_slices(H, C, U, KT)
+    g, c4 = lane // 4, lane % 4
+    sent = np.zeros(H, int)
+    rows, cols = _mma_c_positions()
+    for c in range(C):
+        w_slice = np.zeros((KL, 8 * NT * nw_count))
+        ok = slices[c] >= 0
+        w_slice[ok, :H] = w[:, slices[c][ok]].T
+        for nw in range(nw_count):
+            for nt in range(NT):
+                tile = nw * NT + nt
+                n = 8 * tile + g
+                for ks in range(KT):
+                    regs = np.zeros((32, 2, 2))
+                    for i in range(2):
+                        for e in range(2):
+                            kk = 16 * ks + 8 * i + 2 * c4 + e
+                            jj = slices[c][kk]
+                            valid = (n < H) & (jj >= 0)
+                            regs[:, i, e] = np.where(valid, w[np.minimum(n, H - 1),
+                                                              np.maximum(jj, 0)], 0)
+                    np.testing.assert_array_equal(
+                        _mma_b(regs), w_slice[16 * ks:16 * ks + 16, 8 * tile:8 * tile + 8])
+                if c == 0:
+                    for t in range(32):
+                        n0 = 8 * tile + cols[t, 0]
+                        assert cols[t, 1] == cols[t, 0] + 1 and rows[t, 2] == rows[t, 0] + 8
+                        if n0 < H:
+                            assert n0 // U == (n0 + 1) // U and (n0 + 1) < C * U
+                            if rows[t, 0] == 0:
+                                sent[n0] += 1
+                                if n0 + 1 < H:
+                                    sent[n0 + 1] += 1
+    np.testing.assert_array_equal(sent, np.ones(H, int))
+
+
+def _tc_bwd_walk_model(x, hprev, dy, hps, w_hh, plan):
+    """The tensor tier's recurrence in numpy, in walk order (bf16 storage as
+    float32 values): x (T, D, B, 3H) with b_in added and rounded to bf16,
+    hprev and dy (T, D, B, H), hps (T, D, B, 3H) float32, w_hh (D, H, 3H).
+    Per direction and batch tile (BT rows), walking s = T - 1 .. 0: block
+    c's partial of g . W^T over its slice of g, each k16 step's exact hi
+    products and then its lo products added in float32 to the accumulator,
+    the C partials added in cluster order onto 0, dh = dy + (dh z + that),
+    the gate update at the kernel's rounding points, g split into hi and lo
+    into each block's slice. Returns dx (T, D, B, 3H) and gn (T, D, B, H)
+    (bf16 values)."""
+    T, D, B, H3 = x.shape
+    H = H3 // 3
+    C, U, KT, BT = plan.C, plan.U, plan.KC // 16, plan.BT
+    f32 = np.float32
+    slices = _tc_bwd_slices(H, C, U, KT)
+    dx = np.zeros(x.shape, f32)
+    gn = np.zeros(dy.shape, f32)
+    for d in range(D):
+        w_slices = np.zeros((C, 16 * KT, H))
+        for c in range(C):
+            ok = slices[c] >= 0
+            w_slices[c, ok] = w_hh[d][:, slices[c][ok]].T
+        for b0 in range(0, B, BT):
+            rb = slice(b0, min(B, b0 + BT))
+            rows = rb.stop - b0
+            g_hi = np.zeros((C, rows, 16 * KT), f32)
+            g_lo = np.zeros((C, rows, 16 * KT), f32)
+            dhz = np.zeros((rows, H), f32)
+            for step in range(T):
+                s = T - 1 - step
+                tot = np.zeros((rows, H), f32)
+                if step > 0:
+                    for c in range(C):
+                        acc = np.zeros((rows, H), f32)
+                        for ks in range(KT):
+                            k = slice(16 * ks, 16 * ks + 16)
+                            for part in (g_hi, g_lo):
+                                acc = (acc + (part[c][:, k].astype(np.float64)
+                                              @ w_slices[c, k]).astype(f32)).astype(f32)
+                        tot = (tot + acc).astype(f32)
+                xs, hh = x[s, d, rb], hps[s, d, rb]
+                dh = (dy[s, d, rb] + (dhz + tot)).astype(f32)
+                r = (1 / (1 + np.exp(-(xs[:, :H] + hh[:, :H])))).astype(f32)
+                z = (1 / (1 + np.exp(-(xs[:, H:2 * H] + hh[:, H:2 * H])))).astype(f32)
+                n = np.tanh(xs[:, 2 * H:] + r * hh[:, 2 * H:]).astype(f32)
+                dpre_n = (dh * (1 - z) * (1 - n * n)).astype(f32)
+                dpre_z = (dh * (hprev[s, d, rb] - n) * z * (1 - z)).astype(f32)
+                dpre_r = (dpre_n * hh[:, 2 * H:] * r * (1 - r)).astype(f32)
+                dx[s, d, rb] = _bf16(np.concatenate([dpre_r, dpre_z, dpre_n], 1))
+                gn[s, d, rb] = _bf16(dpre_n * r)
+                hi, lo = _g_split(np.concatenate([dpre_r, dpre_z, dpre_n * r], 1).astype(f32))
+                for c in range(C):
+                    ok = slices[c] >= 0
+                    g_hi[c][:, ok] = hi[:, slices[c][ok]]
+                    g_lo[c][:, ok] = lo[:, slices[c][ok]]
+                dhz = (dh * z).astype(f32)
+    return dx, gn
+
+
+def _tc_bwd_inputs(H, B, T, D, walk):
+    """bf16 inputs (as float32 values) of the recurrence, the layer's
+    forward run by the plain bf16 loop: model layout (xp, w_hh, b_ih, b_hh,
+    ys, dys, hp) or walk layout (xp, w_hh, b_hh, ys, dys, hp)."""
+    rng = np.random.default_rng(H + 10 * B + walk)
+    bound = H ** -0.5
+    w_hh, b_ih, b_hh = (_bf16(rng.uniform(-bound, bound, shape))
+                        for shape in ((D, H, 3 * H), (D, 3 * H), (D, 3 * H)))
+    t = lambda a: torch.from_numpy(a).to(BF16)  # noqa: E731
+    if walk:
+        xp = _bf16(rng.standard_normal((T, D, B, 3 * H)))
+        dys = _bf16(rng.standard_normal((T, D, B, H)))
+        ys, hp = gru_cuda.run_layer_forward(t(xp), t(w_hh), t(b_hh), save_hp=True)
+        return xp, w_hh, None, b_hh, ys.float().numpy(), dys, hp.numpy()
+    xp = _bf16(rng.standard_normal((T, B, D * 3 * H)))
+    dys = _bf16(rng.standard_normal((T, B, D * H)))
+    ys, _, hp = gru_cuda.gru_layer_plain(t(xp), t(w_hh), t(b_ih), t(b_hh), save_hp=True)
+    return xp, w_hh, b_ih, b_hh, ys.float().numpy(), dys, hp.numpy()
+
+
+def _jax_bwd_bf16(walk, xp, w_hh, b_ih, b_hh, dys):
+    """dxp of the JAX package's backward kernel at bf16 (Pallas in interpret
+    mode, the pallas_engine fixture's route): the vjp of `run_layer_v2`
+    (`_bwd_call_v2`) in the model layout, of `run_layer` (`_bwd_call`) in
+    the walk layout, on the same bf16 inputs with cotangent dys, as
+    float32."""
+    import jax
+
+    from speech2affective_gestures_tpu.ops import gru_pallas
+
+    j = lambda a: jnp.asarray(a).astype(jnp.bfloat16)  # noqa: E731
+    if walk:
+        _, vjp = jax.vjp(lambda x: gru_pallas.run_layer(x, j(w_hh), j(b_hh),
+                                                        interpret=True)[0], j(xp))
+        return np.asarray(vjp(j(dys))[0].astype(jnp.float32))
+    T, B, _ = xp.shape
+    D, H, _ = w_hh.shape
+    P = gru_pallas._round_up(H, gru_pallas.LANE)
+
+    def layer(x):
+        padded = jnp.pad(x.reshape(T, B, D, 3, H),
+                         [(0, 0)] * 4 + [(0, P - H)]).reshape(T, B, D * 3 * P)
+        ys, _ = gru_pallas.run_layer_v2(padded, j(w_hh), j(b_ih), j(b_hh), interpret=True)
+        return jnp.concatenate([ys[:, :, d * P:d * P + H] for d in range(D)], -1)
+
+    _, vjp = jax.vjp(layer, j(xp))
+    return np.asarray(vjp(j(dys))[0].astype(jnp.float32))
+
+
+@pytest.mark.parametrize("walk", [False, True])
+@pytest.mark.parametrize("H", [300, 64, 40, 20])
+@pytest.mark.parametrize("B,max_clusters", [(5, 2), (18, 2), (18, 4)])
+def test_gru_bwd_tensor_model_against_plain_and_pallas(pallas_engine, walk, H, B, max_clusters):
+    """The recurrence's tensor tier (the W^T fragments, the hi/lo split of
+    g, g kept in the block that produced it and the outputs' partial sums
+    exchanged, the sums in the kernel's order) against the plain bf16
+    recurrence (`gru_bwd_recurrence_plain`, `run_layer_bwd_recurrence_plain`
+    with the forward's hp) and the JAX package's backward kernel (the vjp of
+    `run_layer_v2` or `run_layer` through Pallas in interpret mode) on the
+    same bf16 inputs, within 2e-2 of the largest value after 8 steps
+    (`chip_smoke.BF16_TOL`: float32 sums in another order can flip a bf16
+    rounding of dxp). `max_clusters` 2 puts B 18 in one tile of two m16
+    tiles, the second ragged, and B 5 in one ragged tile; 4 cuts B 18 into
+    two tiles of 9."""
+    T, D = 8, 2
+    plan = gru_cuda.bwd_plan(B, H, D, max_clusters, "tensor")
+    assert plan.tier == "tensor"
+    _check_tc_bwd_fragments(H, plan)
+    xp, w_hh, b_ih, b_hh, ys, dys, hp = _tc_bwd_inputs(H, B, T, D, walk)
+    t = lambda a: torch.from_numpy(a).to(BF16)  # noqa: E731
+    if walk:
+        b_in, _ = gru_cuda.kernel_biases(None, t(b_hh), H)
+        x = _bf16(xp + b_in.float().numpy()[:, None])
+        hprev = np.concatenate([np.zeros_like(ys[:1]), ys[:-1]])
+        dx, gn = _tc_bwd_walk_model(x, hprev, dys, hp, w_hh, plan)
+        want = gru_cuda.run_layer_bwd_recurrence_plain(t(xp), t(w_hh), t(b_hh), t(ys), t(dys),
+                                                       torch.from_numpy(hp))
+    else:
+        b_in, _ = gru_cuda.kernel_biases(t(b_ih), t(b_hh), H)
+        def walked(a, n):
+            return gru_cuda._walk(torch.from_numpy(a).view(T, B, D, n), D).numpy()
+        x = _bf16(walked(xp, 3 * H) + b_in.float().numpy()[None, :, None])
+        hprev = gru_cuda._walk(gru_cuda._prev_states(torch.from_numpy(ys), D), D).numpy()
+        dxw, gnw = _tc_bwd_walk_model(x, hprev, walked(dys, H), walked(hp, 3 * H), w_hh, plan)
+        dx = gru_cuda._unwalk(torch.from_numpy(dxw)).numpy()
+        gn = gru_cuda._unwalk(torch.from_numpy(gnw)).numpy()
+        want = gru_cuda.gru_bwd_recurrence_plain(t(xp), t(w_hh), t(b_ih), t(b_hh), t(ys), t(dys),
+                                                 torch.from_numpy(hp))
+    for got, ref in ((dx, want[0]), (gn, want[1])):
+        ref = ref.float().numpy()
+        np.testing.assert_allclose(got, ref, rtol=0, atol=2e-2 * np.abs(ref).max())
+    jdx = _jax_bwd_bf16(walk, xp, w_hh, b_ih, b_hh, dys)
+    np.testing.assert_allclose(dx, jdx, rtol=0, atol=2e-2 * np.abs(jdx).max())
+
+
+@pytest.mark.parametrize("H", [300, 301, 64, 40, 20, 1, 320])
+@pytest.mark.parametrize("B,max_clusters", [(258, 15), (512, 15), (512, 16), (512, 32),
+                                            (5, 15)])
+def test_gru_bwd_tensor_plan(B, H, max_clusters):
+    """bf16 in the register range takes the recurrence's tensor tier from H
+    BWD_TENSOR_MIN_H where B H^2 reaches BWD_TENSOR_MIN_WORK (H 300 and 301
+    at B 258 and 512), float32 never, and past H 320 the L2 tier is untouched. The plan: C
+    blocks of U units (U even, at most BWD_TENSOR_MAX_U) covering H once,
+    the slice's 3U columns within 16 KT (an instance, KT <= 8), S = NT n8
+    tiles a warp and warps in whole rows across the outputs within the
+    block's limit, every batch row in exactly one tile, its shared memory
+    (`_bwd_tensor_smem`: g hi and lo, both recv slots, dh z, whole m16
+    tiles of g) within a block's, in no more waves than the batch needs; a
+    lane's W^T fragments (2 KT NT registers) and accumulators (4 NT) leave
+    room within the launch bound's registers."""
+    D = 2
+    tier = gru_cuda.bwd_tier(B, H, BF16)
+    assert tier == ("tensor" if B * H * H >= gru_cuda.BWD_TENSOR_MIN_WORK
+                    and H >= gru_cuda.BWD_TENSOR_MIN_H else "registers")
+    assert gru_cuda.bwd_tier(B, H, torch.float32) == "registers"
+    assert gru_cuda.bwd_tier(B, 321, BF16) == gru_cuda.bwd_tier(B, 600, BF16) == "l2"
+    if B >= 258 and H >= 300:
+        assert tier == "tensor"
+    plan = gru_cuda.bwd_plan(B, H, D, max_clusters, "tensor")
+    C, U, KT = gru_cuda.bwd_tensor_shape(H)
+    assert (plan.C, plan.U, plan.KC, plan.S) == (C, U, 16 * KT, gru_cuda.BWD_TENSOR_NT)
+    assert U % 2 == 0 and U <= gru_cuda.BWD_TENSOR_MAX_U and C <= gru_cuda.MAX_CLUSTER
+    assert (C - 1) * U < H <= C * U and 3 * U <= 16 * KT < 3 * U + 16 and 1 <= KT <= 8
+    nw, wm = gru_cuda._bwd_tensor_warps(H, plan.S)
+    assert nw * plan.S * 8 >= H > (nw - 1) * plan.S * 8
+    assert plan.threads == 32 * nw * wm <= 32 * gru_cuda.BWD_TENSOR_MAX_WARPS[plan.S]
+    assert 2 * KT * plan.S + 4 * plan.S <= 128
+    assert plan.smem == gru_cuda._bwd_tensor_smem(C, U, KT, plan.BT) <= gru_cuda.SMEM_LIMIT
+    krs = 32 * KT + 8
+    assert plan.smem >= 2 * plan.BT * krs + 4 * plan.BT * U * (2 * C + 1)
+    assert plan.smem >= 2 * (-(-plan.BT // 16) * 16) * krs
+    rows = np.concatenate([np.arange(t * plan.BT, min((t + 1) * plan.BT, B))
+                           for t in range(plan.tiles)])
+    np.testing.assert_array_equal(rows, np.arange(B))
+    rows_max = max(r for r in range(1, 1024)
+                   if gru_cuda._bwd_tensor_smem(C, U, KT, r) <= gru_cuda.SMEM_LIMIT)
+    assert -(-D * plan.tiles // max_clusters) == -(-D * -(-B // rows_max) // max_clusters)
+    with pytest.raises(ValueError):
+        gru_cuda.bwd_plan(B, 321, D, max_clusters, "tensor")
+
+
+def test_gru_bwd_tensor_plan_main_shapes():
+    """H 300: clusters of 8 blocks of 38 units, a slice of 114 columns of g
+    in 8 k16 steps, 10 warps of 4 n8 tiles; B 512 in 7 tiles of 74 rows on
+    the H100's 14-15 clusters of 8 (one wave), 8 tiles of 64 on 16; H 64
+    two blocks of 32 units. The tiers: the mixed-precision generator's
+    recurrence (H 300, B 512, D 2) on the tensor cores, the service's
+    batch-1 forward never backward, the discriminator's H 64 on the register
+    tier, H 300 at B 1 and 5 (where the two tiers ran level) on the register
+    tier and from B 16 on the tensor tier."""
+    assert gru_cuda.bwd_plan(512, 300, 2, 15, "tensor")[:8] == (8, 38, 4, 128, 74, 7, 320,
+                                                               74 * 528 + 4 * 74 * 38 * 17)
+    assert gru_cuda.bwd_plan(512, 300, 2, 16, "tensor")[:6] == (8, 38, 4, 128, 64, 8)
+    assert gru_cuda.bwd_plan(512, 64, 2, 15, "tensor")[:4] == (2, 32, 4, 96)
+    for B, H, tier in ((512, 300, "tensor"), (258, 300, "tensor"), (16, 300, "tensor"),
+                       (5, 300, "registers"), (1, 300, "registers"), (512, 64, "registers"),
+                       (512, 40, "registers")):
+        assert gru_cuda.bwd_tier(B, H, BF16) == tier, (B, H)
