@@ -182,6 +182,10 @@ MP_TOL = 3e-2
 MP_SCALE = 0.3
 # H100 SXM, NVIDIA data sheet: dense bf16 on the tensor cores
 PEAK_BF16_FLOPS = 989e12
+# the real-data phase: an export archive of 20 synthetic videos of 60 s in
+# the raw TED schema split 14 / 3 / 3 (~1200 train windows: 2 steps an
+# epoch at batch 512 for the decay, 3 batches), trained for 2 epochs
+REAL_VIDEOS, REAL_SECONDS, REAL_SPLIT, REAL_EPOCHS = 20, 60.0, (14, 3, 3), 2
 
 
 def log(msg: str) -> None:
@@ -1128,6 +1132,297 @@ def bf16_service_phase(device) -> dict:
     return launches
 
 
+def write_export_archive(path: pathlib.Path, splits: dict) -> None:
+    """A raw-level export archive as the JAX package's
+    `tools/export_ted_cache.py` writes it: `manifest.json` and one
+    gzip'd pickle shard (protocol 4) per split (compression level 1: the
+    reader does not care, and level 9 takes long on audio)."""
+    import gzip
+    import pickle
+
+    path.mkdir(parents=True)
+    manifest = {"level": "raw", "num_mfcc": 14, "splits": {}}
+    for split, records in splits.items():
+        with gzip.open(path / f"{split}_0000.pkl.gz", "wb", compresslevel=1) as f:
+            pickle.dump(records, f, protocol=4)
+        manifest["splits"][split] = {"shards": 1, "records": len(records)}
+    (path / "manifest.json").write_text(json.dumps(manifest))
+
+
+def real_data_phase(device, work: pathlib.Path, embedding_net: pathlib.Path):
+    """`main_v2.main` on the TED formats' route at full width, batch 512:
+    a raw-level export archive of REAL_VIDEOS synthetic videos of
+    REAL_SECONDS in the raw TED schema, split REAL_SPLIT, read with
+    `--packed-data`, REAL_EPOCHS epochs with the GAN terms on, gradient
+    clipping at 0.1 and LR decay, then the test split scored with FGD.
+    The counters are set to 0 just before `main_v2.main` and read, and set
+    to 0 again, when the corpus is built (the mel kernel must have run,
+    one launch per clip) and just before the scoring (the GRU forward,
+    recurrence and dW kernels must have run in training); the port's npz
+    caches must sit in the archive under their own names, every logged
+    loss be finite, a checkpoint be written, and each optimizer's learning
+    rate be base * 0.999 ** (n // steps per epoch) at its own update count
+    n. Then `main_v2.main --train-s2ag false` again: it must read the
+    caches, with no mel launch. Returns the launches, the argv that reads
+    the archive and the config file."""
+    import torch
+    from speech2affective_gestures_torch import main_v2
+    from speech2affective_gestures_torch.data import ted_db
+    from speech2affective_gestures_torch.train import gan_step
+    from speech2affective_gestures_torch.train.trainer import Trainer
+
+    t0 = time.perf_counter()
+    videos = ted_db.make_synthetic_videos(REAL_VIDEOS, REAL_SECONDS, device=device)
+    n_train, n_val, _ = REAL_SPLIT
+    archive = work / "ted_archive"
+    write_export_archive(archive, {"train": videos[:n_train],
+                                   "val": videos[n_train:n_train + n_val],
+                                   "test": videos[n_train + n_val:]})
+    del videos
+    log(f"real-data phase: wrote a raw export archive of {REAL_VIDEOS} videos of "
+        f"{REAL_SECONDS} s (split {REAL_SPLIT}) in {time.perf_counter() - t0:.1f} s")
+    cfg_path = work / "multimodal_context_v2_gan_on.yml"
+    base = work / "base_real"
+    reading = ["-b", str(base), "-c", str(cfg_path), "--packed-data", str(archive)]
+    argv = reading + ["--batch-size", str(TRAIN_BATCH), "--s2ag-num-epoch", str(REAL_EPOCHS),
+                      "--log-interval", "1", "--apply-gradient-clip", "true",
+                      "--gradient-clip", "0.1", "--apply-lr-decay", "true",
+                      "--embedding-net-checkpoint", str(embedding_net)]
+    log(f"real-data phase: main_v2.main({' '.join(argv)})")
+    counts = {}
+    load, scoring = main_v2.load_datasets, Trainer.generate_gestures
+
+    def counted_load(*args, **kwargs):
+        t = time.perf_counter()
+        splits = load(*args, **kwargs)
+        torch.cuda.synchronize()
+        counts["build_s"] = time.perf_counter() - t
+        counts["windows"] = sum(ds.n_samples for ds in splits if ds is not None)
+        counts["corpus"] = _counters()
+        _reset_counters()
+        return splits
+
+    def counted_scoring(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        counts["training"] = _counters()
+        _reset_counters()
+        result = scoring(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        counts["evaluation"] = _counters()
+        return result
+
+    main_v2.load_datasets, Trainer.generate_gestures = counted_load, counted_scoring
+    try:
+        _reset_counters()
+        trainer = main_v2.main(argv)
+    finally:
+        main_v2.load_datasets, Trainer.generate_gestures = load, scoring
+    corpus, trained, evaluated = counts["corpus"], counts["training"], counts["evaluation"]
+    log(f"corpus build from the archive (the MFCCs on the card): {counts['build_s']:.3f} s, "
+        f"{counts['windows']} windows, {counts['windows'] / counts['build_s']:.1f} windows/s; "
+        f"launches {dict(corpus)}")
+    log(f"real-data training launches {dict(trained)}; test-split scoring launches "
+        f"{dict(evaluated)}")
+    if corpus["mel_power"] < REAL_VIDEOS or any(
+            n for k, n in corpus.items() if k.startswith("gru")):
+        raise AssertionError(f"the corpus build did not run the mel kernel alone: {corpus}")
+    for name in ("gru_fwd", "gru_bwd", "gru_dw"):
+        if trained[name] < 1:
+            raise AssertionError(f"kernel {name} was not launched in real-data training")
+    if evaluated["gru_fwd"] < 1:
+        raise AssertionError(f"generate_gestures did not run the GRU forward: {evaluated}")
+    caches = sorted(p.name for p in archive.glob("*_s2ag_torch_*"))
+    log(f"the port's caches in the archive: {caches}")
+    if len([c for c in caches if c.endswith("_packed_mfcc_14.npz")]) != 3:
+        raise AssertionError(f"the packed splits were not cached: {caches}")
+
+    work_dir = base / "models" / "s2ag_v2_mfcc_torch" / "ted_db"
+    log_txt = (work_dir / "log.txt").read_text()
+    steps = [line.split("Done. | ")[1] for line in log_txt.splitlines() if "Done. | " in line]
+    values = [dict((k, float(v)) for k, v in (tok.split(": ") for tok in it.split(" | ")))
+              for it in steps]
+    for i, metrics in enumerate(values):
+        log(f"real-data train step {i} losses: {metrics}")
+    if not values or not all("dis" in m and "gen" in m for m in values):
+        raise AssertionError(f"expected steps with the GAN terms, got {steps}")
+    if not all(np.isfinite(list(m.values())).all() for m in values):
+        raise AssertionError("non-finite training loss")
+    if not list(work_dir.glob("*.pth.tar")):
+        raise AssertionError("main_v2 wrote no checkpoint")
+    [line] = [x for x in log_txt.splitlines() if "eval: " in x]
+    if "FGD" not in line:
+        raise AssertionError(f"no FGD in the test-split scores: {line}")
+    log(f"real-data {line.split('] ')[1]}")
+    cfg = trainer.step.cfg
+    rates = {}
+    for who, opt, base_lr in (("gen", trainer.step.gen_opt, cfg.learning_rate),
+                              ("dis", trainer.step.dis_opt, cfg.lr_dis)):
+        n = gan_step.update_count(opt)
+        want = base_lr * 0.999 ** (n // cfg.decay_steps_per_epoch)
+        rates[who] = (n, opt.param_groups[0]["lr"], want)
+        if opt.param_groups[0]["lr"] != want or n < 1:
+            raise AssertionError(f"{who}'s learning rate after {n} updates is "
+                                 f"{opt.param_groups[0]['lr']}, not {want}")
+    log(f"learning rates after training (updates, lr, base * 0.999 ** (n // "
+        f"{cfg.decay_steps_per_epoch})): {rates}; gradient clip {cfg.gradient_clip}, "
+        f"last global norms {({k: float(v) for k, v in trainer.step.grad_norms.items()})}")
+    del trainer
+
+    _reset_counters()
+    t0 = time.perf_counter()
+    again = main_v2.main(reading + ["--train-s2ag", "false", "--embedding-net-checkpoint",
+                                    str(embedding_net)])
+    torch.cuda.synchronize()
+    reread = _counters()
+    log(f"main_v2 --train-s2ag false from the caches: {time.perf_counter() - t0:.1f} s, "
+        f"launches {dict(reread)}")
+    if reread["mel_power"] or reread["mel_power_mixed"] or reread["mel_dft"]:
+        raise AssertionError(f"the second run rebuilt the corpus: {dict(reread)}")
+    if again.train_data is not None or again.test_data.n_samples < 1:
+        raise AssertionError("the second run did not read the test split alone")
+    del again
+    return corpus + trained + evaluated + reread, reading
+
+
+def trained_service_phase(device, reading: list):
+    """`serve.build_service` on the real-data phase's archive and work dir:
+    it must load the best checkpoint (the generator's weights equal the
+    file's) and serve with the corpus's vocabulary. The counters are set
+    to 0 just before a POST /synthesize of a 10 s clip whose words come
+    from that vocabulary (none may map to <UNK>) and read just after: the
+    GRU forward and the mel kernel must have run. The output against a CPU
+    service built from the same checkpoint, its request of the same number
+    (so the same noise), within SERVE_TOL; the p50 and p90 of 20 such
+    requests; `build_service` on an empty work dir must raise SystemExit.
+    Returns the service, the clip, its words and the launches."""
+    import torch
+    from speech2affective_gestures_torch import serve
+    from speech2affective_gestures_torch.convert import from_jax
+    from speech2affective_gestures_torch.data.vocab import Vocab
+    from speech2affective_gestures_torch.train import synthesis
+    from speech2affective_gestures_torch.train.trainer import find_checkpoint
+
+    t0 = time.perf_counter()
+    service = serve.build_service(reading)
+    log(f"trained service: build_service({' '.join(reading)}) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    work_dir = pathlib.Path(reading[1]) / "models" / "s2ag_v2_mfcc_torch" / "ted_db"
+    best = work_dir / find_checkpoint(str(work_dir), "best")[0]
+    want = from_jax.reference_state_dict(str(best))
+    got = service.gen.state_dict()
+    if set(got) != set(want) or not all(torch.equal(got[k].cpu(), want[k]) for k in want):
+        raise AssertionError(f"build_service did not serve {best.name}")
+    vocab = service.lang
+    corpus_words = [w for w in vocab.word2index if not w.startswith("<")]
+    words = [[corpus_words[i % len(corpus_words)], 0.3 + 0.7 * i, 0.6 + 0.7 * i]
+             for i in range(13)]
+    audio = clip_audio(10.0, 21)
+    _, text, _ = synthesis.prepare_window_inputs(audio, words, vocab, service.cfg)
+    ids = set(text[text != 0].tolist())
+    log(f"served {best.name}: {vocab.n_words} words in the vocabulary, "
+        f"{service.gen.speaker_embedding[0].weight.shape[0]} speakers; the request's "
+        f"word ids {sorted(ids)}")
+    if Vocab.UNK_token in ids or ids != {vocab.word2index[w] for w, _, _ in words}:
+        raise AssertionError(f"the request's words did not get their dataset ids: {ids}")
+    request = {"audio_b64": serve.encode_f32_b64(audio), "words": words, "vid_idx": 1,
+               "binary": True}
+    service.warmup()
+    server = serve.serve(service, port=0)
+    try:
+        _reset_counters()
+        one = post(server, "/synthesize", request)
+        launches = {k: _counters()[k] for k in ("gru_fwd", "mel_power")}
+        service.reset_metrics()
+        times = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            post(server, "/synthesize", request)
+            times.append((time.perf_counter() - t0) * 1e3)
+        metrics = get(server, "/metrics")
+    finally:
+        server.shutdown()
+        server.server_close()
+    log(f"trained service /synthesize launches {launches}")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"the trained service did not run its kernels: {launches}")
+    dv = unb64(one["dir_vec_b64"], one["dir_vec_shape"])
+    ps = unb64(one["poses_b64"], one["poses_shape"])
+    # the CPU service's second request, after its warmup, draws the same
+    # noise as the card's first POST after its own
+    cpu_service = serve.build_service(reading + ["--device", "cpu"])
+    cpu_service.warmup()
+    cpu = cpu_service.synthesize(audio, words, vid_idx=1)
+    err = max(np.abs(dv - cpu["dir_vec"]).max(), np.abs(ps - cpu["poses"]).max())
+    log(f"trained service card vs CPU service from the same checkpoint: max_abs_err "
+        f"{err:.3e} (tol {SERVE_TOL})")
+    if not (np.isfinite(dv).all() and err <= SERVE_TOL):
+        raise AssertionError(f"the trained service disagrees with the CPU path: {err}")
+    log(f"trained service /synthesize 10 s clip over HTTP: p50 {np.median(times):.3f} ms, "
+        f"p90 {np.percentile(times, 90):.3f} ms over {len(times)} requests; all "
+        f"{[round(t, 3) for t in times]}; the server's phases {metrics}")
+    empty = ["-b", str(pathlib.Path(reading[1]).parent / "empty_base")] + reading[2:]
+    try:
+        serve.build_service(empty)
+    except SystemExit as e:
+        log(f"build_service on an empty work dir: SystemExit({e})")
+    else:
+        raise AssertionError("build_service served random weights from an empty work dir")
+    return service, audio, words, launches
+
+
+def stream_phase(service, audio, words) -> dict:
+    """The trained service's live stream: /stream/start with seed 5,
+    `trained_service_phase`'s 10 s clip in 0.5 s chunks through
+    /stream/feed (binary), then /stream/flush. The counters are set to 0
+    just before /stream/start and read just after the flush: the GRU
+    forward and the mel kernel must have run; the frames together must
+    equal the service's clip for the same audio, words and speaker, its
+    noise one draw from seed 5, within SERVE_TOL. Then the p50 and p90 of
+    the feed calls that emitted frames."""
+    import torch
+    from speech2affective_gestures_torch import serve
+    from speech2affective_gestures_torch.train import synthesis
+
+    server = serve.serve(service, port=0)
+    try:
+        _reset_counters()
+        sid = post(server, "/stream/start", {"vid_idx": 1, "seed": 5})["stream_id"]
+        frames, emitting, idle = [], [], []
+        chunk = 8000
+        for i in range(0, len(audio), chunk):
+            t0 = time.perf_counter()
+            out = post(server, "/stream/feed", {
+                "stream_id": sid, "audio_b64": serve.encode_f32_b64(audio[i:i + chunk]),
+                "words": words if i == 0 else [], "binary": True})
+            ms = (time.perf_counter() - t0) * 1e3
+            (emitting if out["frames"] else idle).append(ms)
+            frames.append(unb64(out["dir_vec_b64"], out["dir_vec_shape"]))
+        active = get(server, "/metrics")["active_streams"]
+        out = post(server, "/stream/flush", {"stream_id": sid, "binary": True})
+        frames.append(unb64(out["dir_vec_b64"], out["dir_vec_shape"]))
+        launches = {k: _counters()[k] for k in ("gru_fwd", "mel_power")}
+    finally:
+        server.shutdown()
+        server.server_close()
+    n_win = len(synthesis.plan_subdivisions(len(audio) / 16000, service.cfg)[0])
+    eps = torch.randn(n_win, service.gen.z_size, generator=torch.Generator().manual_seed(5))
+    offline = service.synthesize(audio, words, vid_idx=1, eps=eps[:, None])["dir_vec"]
+    got = np.concatenate(frames)
+    err = (np.abs(got - offline).max() if got.shape == offline.shape else np.inf)
+    log(f"stream of the 10 s clip in 0.5 s chunks: {len(frames) - 1} feeds "
+        f"({len(emitting)} emitted frames), frames per call {[len(f) for f in frames]}, "
+        f"active streams while open {active}; launches {launches}; against the service's clip "
+        f"max_abs_err {err:.3e} (tol {SERVE_TOL})")
+    if min(launches.values()) < 1 or active != 1:
+        raise AssertionError(f"the stream did not run its kernels: {launches}, {active}")
+    if not err <= SERVE_TOL:
+        raise AssertionError(f"the stream disagrees with the service's clip: {err}")
+    log(f"stream feeds that emitted frames: p50 {np.median(emitting):.3f} ms, p90 "
+        f"{np.percentile(emitting, 90):.3f} ms over {len(emitting)} calls "
+        f"(the others: p50 {np.median(idle):.3f} ms); all {[round(t, 3) for t in emitting]}")
+    return launches
+
+
 def _rel_np(got, want) -> float:
     return float(np.abs(np.asarray(got) - np.asarray(want)).max()
                  / max(np.abs(np.asarray(want)).max(), 1e-30))
@@ -1380,14 +1675,19 @@ def aff_encoder_probe(gen, batch, eps, device) -> None:
             f"float64 (relative to the largest value): " + "; ".join(errs))
 
 
-def step_parity_phase(device) -> None:
+def step_parity_phase(device, gradient_clip: float = 0.0) -> None:
     """One train step at full width and batch 16 on the card and on the
     CPU plain path, from the same weights, batch, speaker noise and
     div-reg speaker ids, every dropout at zero.
 
     The CPU path runs in float64 as the reference, and in float32 for
     comparison; `aff_encoder_probe` prints where the float32 runs part
-    from float64 in the generator's AffEncoder."""
+    from float64 in the generator's AffEncoder. With `gradient_clip` the
+    step clips each net's gradients by their global norm
+    (`gan_step.clip_by_global_norm_`): both nets' norms must exceed it on
+    this batch, so that both are clipped, and are printed."""
+    import dataclasses
+
     import torch
     from speech2affective_gestures_torch.config import ModelConfig
     from speech2affective_gestures_torch.models import layers as L
@@ -1396,6 +1696,7 @@ def step_parity_phase(device) -> None:
     cfg = ModelConfig.from_yaml(CONFIG, loss_warmup=-1)
     n_words, n_speakers, B = 1000, 100, 16
     init = builder.init_training(cfg, 0, n_words, n_speakers, device="cpu")
+    init["gan_cfg"] = dataclasses.replace(init["gan_cfg"], gradient_clip=gradient_clip)
     for model in (init["gen"], init["dis"], init["tri"]):
         for m in model.modules():
             if isinstance(m, L.Dropout):
@@ -1406,7 +1707,8 @@ def step_parity_phase(device) -> None:
     batch = builder.synthetic_batch(rng, B, cfg, n_words, n_speakers)
     eps = rng.standard_normal((B, 16))
     other = rng.permutation(batch["vid_indices"])
-    aff_encoder_probe(init["gen"], batch, eps, device)
+    if not gradient_clip:
+        aff_encoder_probe(init["gen"], batch, eps, device)
 
     def one_step(dev, dtype):
         models = {k: copy.deepcopy(init[k]).to(dev, dtype) for k in ("gen", "dis", "tri")}
@@ -1418,8 +1720,14 @@ def step_parity_phase(device) -> None:
         metrics = step.train_step(b, torch.Generator(device=dev).manual_seed(0),
                                   gan_on=True, eps=torch.from_numpy(eps).to(dev, dtype))
         metrics = {k: float(v) for k, v in metrics.items()}
-        log(f"one train step, batch {B}, on {dev} in {dtype}: "
-            f"{(time.perf_counter() - t0) * 1e3:.1f} ms; {metrics}")
+        norms = {k: float(v) for k, v in step.grad_norms.items()}
+        log(f"one train step, batch {B}, on {dev} in {dtype}"
+            f"{f', gradient clip {gradient_clip}' if gradient_clip else ''}: "
+            f"{(time.perf_counter() - t0) * 1e3:.1f} ms; {metrics}"
+            f"{f'; global gradient norms {norms}' if gradient_clip else ''}")
+        if gradient_clip and not (set(norms) == {"gen", "dis"}
+                                  and min(norms.values()) > gradient_clip):
+            raise AssertionError(f"the step did not clip both nets: norms {norms}")
         return models, step, metrics
 
     draw = gan_step.draw_other_speaker_ids
@@ -1465,7 +1773,8 @@ def step_parity_phase(device) -> None:
             "dis Adam m": moment_err(ref_step.dis_opt, ref_models["dis"],
                                      step.dis_opt, models["dis"]),
         }
-        log(f"{name} float32 step against the CPU float64 step: "
+        log(f"{name} float32 step{' (clipped)' if gradient_clip else ''} against the "
+            "CPU float64 step: "
             + ", ".join(f"{k} {v:.3e}" for k, v in errs[name].items())
             + f" (tol {STEP_TOL} for the card)")
     if not all(v <= STEP_TOL for v in errs["card"].values()):
@@ -2201,8 +2510,17 @@ def main() -> int:
         log(f"train step at batch {TRAIN_BATCH}: mixed precision p50 {mp_p50:.3f} ms "
             f"against float32 {f32_p50:.3f} ms")
         del trainer
-    mixed_step_parity_phase(device)
-    launches.update(bf16_service_phase(device))
+        mixed_step_parity_phase(device)
+        launches.update(bf16_service_phase(device))
+        # the TED formats' route: the archive, training with clipping and
+        # decay, the trained checkpoint served with its vocabulary, live
+        real, reading = real_data_phase(device, work, embedding_net)
+        launches.update(real)
+        step_parity_phase(device, gradient_clip=0.1)
+        service, audio, words, served = trained_service_phase(device, reading)
+        launches.update(served)
+        launches.update(stream_phase(service, audio, words))
+        del service
     kernels = timing_phase(device, errs, launches)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

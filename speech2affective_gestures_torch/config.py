@@ -25,6 +25,11 @@ class ModelConfig:
     mean_pose: tuple = tuple(C.MEAN_POSE.tolist())
     random_seed: int = -1
 
+    # the TED LMDB splits, relative to the dataset directory
+    train_data_path: str = "data/ted_db/lmdb_train"
+    val_data_path: str = "data/ted_db/lmdb_val"
+    test_data_path: str = "data/ted_db/lmdb_test"
+
     wordembed_path: str | None = None
     wordembed_dim: int = 300
     freeze_wordembed: bool = False

@@ -1,19 +1,40 @@
 """TED Gesture DB pipeline, the part training reads (reference `loader_v2.py`
 and `processor_v2.py`'s npz cache and batch sampler): packed fixed-shape
-datasets, the batch sampler with adversarial speakers, and the synthetic
-corpus.
+datasets, the batch sampler with adversarial speakers, the TED LMDB
+ingestion, the exported-archive reader and the synthetic corpus.
 
 The packed arrays keep the reference cache's schema (processor_v2.py
 :278-283): int64 word ids, float32 dir-vec sequences, int16 audio with a
-per-sample max, float16 MFCC, int64 speaker ids. The LMDB ingestion of the
-real corpus and the exported-archive reader are not ported yet
-(ROADMAP.md, queue 1).
+per-sample max, float16 MFCC, int64 speaker ids. The test split also keeps
+the full preprocessor windows' words, aux info, poses and audio
+(sidecars) for the long-clip rendering.
+
+Two readers build the packed splits, both computing the MFCCs of raw
+videos on `device` (the mel kernel on the card) and caching the result as
+`<split>_s2ag_torch_packed_mfcc_<N>.npz` with a `_vocab.pkl` beside it,
+under one word vocabulary over all of the corpus's splits
+(`s2ag_torch_shared_vocab_mfcc_<N>_e<tag>.pkl`, keyed on the embedding
+config; a split cache packed with another vocabulary is rebuilt):
+- `load_ted_db_data`: the reference's three LMDB splits, whose values are
+  pyarrow-0.14 blobs (`legacy_arrow`, which needs pyarrow);
+- `load_exported_data`: the archive that the JAX package's
+  `tools/export_ted_cache.py` writes (gzip'd pickle shards and a JSON
+  manifest, at level `raw` or `cache`), which needs neither lmdb nor
+  pyarrow.
+The cache files carry the port's own names and classes, so a directory
+where the JAX package left its caches (`_s2ag_tpu_packed_`) is not read.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterator
+import gzip
+import hashlib
+import json
+import logging
+import os
+import pickle
+from typing import Callable, Iterator
 
 import numpy as np
 import torch
@@ -86,18 +107,70 @@ class PackedDataset:
     vid_indices: np.ndarray         # (N,) int64
     speaker_model: Vocab | None = None
     lang_model: Vocab | None = None
+    # sidecars for the rendering paths: the full preprocessor window
+    # (n_poses * 1.25 frames and its audio, the range aux_info's frame and
+    # time fields describe), where the packed arrays stop at n_poses
+    word_seqs: list | None = None
+    aux_info: list | None = None
+    pose_seqs: np.ndarray | None = None        # (N, T_ext, 10, 3)
+    raw_audio: np.ndarray | None = None        # (N, L_ext) int16
+    raw_audio_max: np.ndarray | None = None    # (N,)
 
     @property
     def n_samples(self) -> int:
         return len(self.vec_seq)
 
-    def subset(self, sel) -> "PackedDataset":
-        """The rows `sel`, sharing the vocabularies."""
+    def subset(self, sel, sidecars: bool = False) -> "PackedDataset":
+        """The rows `sel`, sharing the vocabularies; the sidecars too when
+        `sidecars` (the JAX package keeps them on the test split only)."""
+        keep = sidecars and self.aux_info is not None
         return PackedDataset(
             extended_word_seq=self.extended_word_seq[sel], vec_seq=self.vec_seq[sel],
             audio=self.audio[sel], audio_max=self.audio_max[sel],
             mfcc_features=self.mfcc_features[sel], vid_indices=self.vid_indices[sel],
-            speaker_model=self.speaker_model, lang_model=self.lang_model)
+            speaker_model=self.speaker_model, lang_model=self.lang_model,
+            word_seqs=[self.word_seqs[i] for i in sel] if keep else None,
+            aux_info=[self.aux_info[i] for i in sel] if keep else None,
+            pose_seqs=self.pose_seqs[sel] if keep else None,
+            raw_audio=self.raw_audio[sel] if keep else None,
+            raw_audio_max=self.raw_audio_max[sel] if keep else None)
+
+    def save_npz(self, path: str):
+        extras = {}
+        if self.aux_info is not None:
+            extras = {"word_seqs": _object_array(self.word_seqs),
+                      "aux_info": _object_array(self.aux_info),
+                      "pose_seqs": self.pose_seqs, "raw_audio": self.raw_audio,
+                      "raw_audio_max": self.raw_audio_max}
+        np.savez_compressed(
+            path, extended_word_seq=self.extended_word_seq, vec_seq=self.vec_seq,
+            audio=self.audio, audio_max=self.audio_max,
+            mfcc_features=self.mfcc_features, vid_indices=self.vid_indices, **extras)
+
+    @classmethod
+    def load_npz(cls, path: str, speaker_model: Vocab | None = None,
+                 lang_model: Vocab | None = None) -> "PackedDataset":
+        npz = np.load(path, allow_pickle=True)
+        side = "aux_info" in npz.files
+        return cls(
+            extended_word_seq=npz["extended_word_seq"],
+            vec_seq=npz["vec_seq"].astype(np.float32), audio=npz["audio"],
+            audio_max=npz["audio_max"], mfcc_features=npz["mfcc_features"],
+            vid_indices=npz["vid_indices"], speaker_model=speaker_model,
+            lang_model=lang_model,
+            word_seqs=list(npz["word_seqs"]) if side else None,
+            aux_info=list(npz["aux_info"]) if side else None,
+            pose_seqs=npz["pose_seqs"] if side else None,
+            raw_audio=npz["raw_audio"] if side else None,
+            raw_audio_max=npz["raw_audio_max"] if side else None)
+
+
+def _object_array(items: list) -> np.ndarray:
+    """A 1-D object array of `items` (np.asarray would stack word lists of
+    equal length into a 3-D array)."""
+    out = np.empty(len(items), dtype=object)
+    out[:] = items
+    return out
 
 
 def speaker_id_pool(dataset: PackedDataset) -> np.ndarray | None:
@@ -164,12 +237,15 @@ class BatchSampler:
 # --------------------------------------------------------------------------
 
 def pack_samples(samples: list, cfg: ModelConfig, lang_model: Vocab,
-                 speaker_model: Vocab, remove_word_timing: bool = False
-                 ) -> PackedDataset:
+                 speaker_model: Vocab, keep_sidecars: bool = False,
+                 remove_word_timing: bool = False) -> PackedDataset:
     n = len(samples)
     t = cfg.n_poses
     audio_len = cfg.expected_audio_length
     mfcc_len = cfg.mfcc_length
+    # the sidecars keep the full preprocessor window
+    t_ext = int(round(t * 1.25)) if keep_sidecars else 0
+    audio_ext = int(t_ext / cfg.motion_resampling_framerate * C.AUDIO_SR)
     out = PackedDataset(
         extended_word_seq=np.zeros((n, t), np.int64),
         vec_seq=np.zeros((n, t, C.POSE_DIM), np.float32),
@@ -180,8 +256,13 @@ def pack_samples(samples: list, cfg: ModelConfig, lang_model: Vocab,
         speaker_model=speaker_model,
         lang_model=lang_model,
     )
+    if keep_sidecars:
+        out.word_seqs, out.aux_info = [], []
+        out.pose_seqs = np.zeros((n, t_ext, C.NUM_JOINTS, 3), np.float32)
+        out.raw_audio = np.zeros((n, audio_ext), np.int16)
+        out.raw_audio_max = np.zeros(n)
     for k, rec in enumerate(samples):
-        word_seq, _pose_seq, vec_seq, audio, _spec, mfcc, aux = rec
+        word_seq, pose_seq, vec_seq, audio, _spec, mfcc, aux = rec
         duration = aux["end_time"] - aux["start_time"]
         amax = np.max(np.abs(audio))
         out.audio_max[k] = amax
@@ -194,11 +275,20 @@ def pack_samples(samples: list, cfg: ModelConfig, lang_model: Vocab,
                                 / max(amax, 1e-12) * 32767)
         out.mfcc_features[k] = mfcc[:, :mfcc_len]
         out.vid_indices[k] = speaker_model.word2index[aux["vid"]]
+        if keep_sidecars:
+            out.word_seqs.append(word_seq)
+            out.aux_info.append(aux)
+            full = pose_seq.reshape(len(pose_seq), C.NUM_JOINTS, 3)
+            out.pose_seqs[k, :min(len(full), t_ext)] = full[:t_ext]
+            full_audio = make_audio_fixed_length(np.asarray(audio), audio_ext)
+            out.raw_audio_max[k] = amax
+            out.raw_audio[k] = np.int16(full_audio / max(amax, 1e-12) * 32767)
     return out
 
 
 def build_dataset_from_samples(samples, cfg: ModelConfig,
-                               lang_model: Vocab | None = None) -> PackedDataset:
+                               lang_model: Vocab | None = None,
+                               keep_sidecars: bool = False) -> PackedDataset:
     """Preprocessed sample records (the reference cache-lmdb schema
     [words, poses, dir_vec, audio, spectrogram, mfcc, aux],
     utils/data_preprocessor.py:175-178) -> packed arrays."""
@@ -210,12 +300,13 @@ def build_dataset_from_samples(samples, cfg: ModelConfig,
     speaker_model = make_speaker_vocab(sorted({rec[6]["vid"] for rec in samples}))
     # reference: remove_word_timing = (input_context == 'text'),
     # loader_v2.py:596-606
-    return pack_samples(samples, cfg, lang_model, speaker_model,
+    return pack_samples(samples, cfg, lang_model, speaker_model, keep_sidecars,
                         remove_word_timing=(cfg.input_context == "text"))
 
 
 def build_dataset_from_videos(videos, cfg: ModelConfig,
                               lang_model: Vocab | None = None,
+                              keep_sidecars: bool = False,
                               device: str | torch.device = "cpu") -> PackedDataset:
     """Videos (the raw schema) -> windows -> filter -> packed arrays; the
     MFCCs are computed on `device`."""
@@ -228,7 +319,155 @@ def build_dataset_from_videos(videos, cfg: ModelConfig,
         num_mfcc=cfg.num_mfcc,
         device=device,
     )
-    return build_dataset_from_samples(pre.run(videos), cfg, lang_model)
+    return build_dataset_from_samples(pre.run(videos), cfg, lang_model, keep_sidecars)
+
+
+# --------------------------------------------------------------------------
+# the corpus's readers: the TED LMDB and the exported archive
+# --------------------------------------------------------------------------
+
+SPLITS = ("train", "val", "test")
+
+
+def _split_words(records, level: str) -> Iterator[list[str]]:
+    """The words of each clip (`raw` video dicts) or sample (`cache`)."""
+    if level == "raw":
+        for video in records:
+            for clip in video["clips"]:
+                yield [w[0] for w in clip["words"]]
+    else:
+        for rec in records:
+            yield [w[0] for w in rec[0]]
+
+
+def _packed_splits(read_split: Callable[[str], Iterator], all_splits, wanted,
+                   level: str, out_dir: str, cfg: ModelConfig,
+                   device: str | torch.device) -> dict[str, PackedDataset]:
+    """The `wanted` splits packed, from their caches in `out_dir` where
+    those were packed with the shared vocabulary, else from `read_split`'s
+    records (`raw` video dicts, windowed here with the MFCCs on `device`,
+    or `cache` sample records); the test split keeps its sidecars.
+
+    The word vocabulary is one over all of `all_splits`, so word ids never
+    depend on which splits a run asked for (the reference's build_vocab
+    over the three splits, vocab_utils.py:11-35); it is cached beside the
+    splits under a key of the embedding config, since its pickle carries
+    the word vectors. The speaker vocabulary is each split's own."""
+    os.makedirs(out_dir, exist_ok=True)
+    embed_tag = hashlib.sha1(
+        f"{cfg.wordembed_dim}|{cfg.wordembed_path or ''}".encode()).hexdigest()[:8]
+    lang_model = build_vocab(
+        "words", (ws for s in all_splits for ws in _split_words(read_split(s), level)),
+        cache_path=os.path.join(
+            out_dir, f"s2ag_torch_shared_vocab_mfcc_{cfg.num_mfcc}_e{embed_tag}.pkl"),
+        feat_dim=cfg.wordembed_dim, word_vec_path=cfg.wordembed_path)
+    splits = {}
+    for split in wanted:
+        cache = os.path.join(out_dir, f"{split}_s2ag_torch_packed_mfcc_{cfg.num_mfcc}.npz")
+        vocab_cache = cache.replace(".npz", "_vocab.pkl")
+        if os.path.exists(cache) and os.path.exists(vocab_cache):
+            with open(vocab_cache, "rb") as f:
+                cached_lang, speaker_model = pickle.load(f)
+            if cached_lang.word2index == lang_model.word2index:
+                splits[split] = PackedDataset.load_npz(
+                    cache, speaker_model=speaker_model, lang_model=cached_lang)
+                continue
+            logging.warning("packed cache %s was built with another word vocabulary "
+                            "(%d words, the shared one has %d): rebuilding split %r",
+                            cache, cached_lang.n_words, lang_model.n_words, split)
+        keep = split == "test"
+        if level == "raw":
+            ds = build_dataset_from_videos(read_split(split), cfg, lang_model, keep,
+                                           device=device)
+        else:
+            ds = build_dataset_from_samples(read_split(split), cfg, lang_model, keep)
+        ds.save_npz(cache)
+        with open(vocab_cache, "wb") as f:
+            pickle.dump((ds.lang_model, ds.speaker_model), f)
+        splits[split] = ds
+    return splits
+
+
+def legacy_deserialize(value: bytes):
+    """One pyarrow-0.14 `serialize` blob: `pyarrow.deserialize` where the
+    installed pyarrow still has it (< 2), else the `legacy_arrow` reader.
+    Both need pyarrow; without it this raises an ImportError that names
+    the export archive."""
+    from . import legacy_arrow
+
+    pa = legacy_arrow.load_pyarrow()
+    if hasattr(pa, "deserialize"):
+        return pa.deserialize(value)
+    return legacy_arrow.deserialize(value)
+
+
+def iter_lmdb_videos(lmdb_dir: str) -> Iterator[dict]:
+    """Raw-schema videos from one split of the TED LMDB, through the
+    `lmdb` binding where it is installed, else the pure-Python
+    `lmdb_lite`. Its values need pyarrow (`legacy_deserialize`): without
+    it the first step raises, before the environment is opened."""
+    from . import legacy_arrow
+
+    legacy_arrow.load_pyarrow()
+    try:
+        import lmdb
+    except ImportError:
+        from . import lmdb_lite as lmdb
+    env = lmdb.open(lmdb_dir, readonly=True, lock=False)
+    try:
+        with env.begin(write=False) as txn:
+            for _key, value in txn.cursor():
+                yield legacy_deserialize(value)
+    finally:
+        env.close()
+
+
+def load_ted_db_data(base_path: str, cfg: ModelConfig, load_train_val: bool = True,
+                     cache_dir: str | None = None,
+                     device: str | torch.device = "cpu") -> dict[str, PackedDataset]:
+    """The packed splits of the TED LMDB under `base_path` (the config's
+    `<split>_data_path`s; reference loader_v2.load_ted_db_data, :585-639):
+    all three, or the test split alone. The caches go to `cache_dir`, by
+    default the directory that holds the train split's LMDB."""
+    lmdb_dir = {s: os.path.join(base_path, getattr(cfg, f"{s}_data_path")) for s in SPLITS}
+    out_dir = cache_dir or os.path.dirname(lmdb_dir["train"])
+    wanted = list(SPLITS) if load_train_val else ["test"]
+    return _packed_splits(lambda s: iter_lmdb_videos(lmdb_dir[s]), SPLITS, wanted,
+                          "raw", out_dir, cfg, device)
+
+
+EXPORT_MANIFEST = "manifest.json"
+
+
+def read_export_manifest(exported_dir: str) -> dict:
+    with open(os.path.join(exported_dir, EXPORT_MANIFEST)) as f:
+        return json.load(f)
+
+
+def iter_exported_records(exported_dir: str, split: str) -> Iterator:
+    """The records (raw video dicts or preprocessed sample lists) of one
+    split of an export archive: gzip'd pickle shards `<split>_<k>.pkl.gz`."""
+    info = read_export_manifest(exported_dir)["splits"][split]
+    for shard in range(info["shards"]):
+        with gzip.open(os.path.join(exported_dir, f"{split}_{shard:04d}.pkl.gz"), "rb") as f:
+            yield from pickle.load(f)
+
+
+def load_exported_data(exported_dir: str, cfg: ModelConfig, load_train_val: bool = True,
+                       cache_dir: str | None = None,
+                       device: str | torch.device = "cpu") -> dict[str, PackedDataset]:
+    """The packed splits of an export archive (the JAX package's
+    `tools/export_ted_cache.py` writes it where lmdb and pyarrow are
+    installed), at either of its levels: `raw` (video dicts, windowed here
+    with the MFCCs on `device`) or `cache` (the reference's windowed sample
+    records, packed only). The vocabulary spans every split of the
+    manifest; the caches go to `cache_dir`, by default the archive."""
+    manifest = read_export_manifest(exported_dir)
+    all_splits = sorted(manifest["splits"])
+    wanted = [s for s in (SPLITS if load_train_val else ("test",)) if s in manifest["splits"]]
+    return _packed_splits(lambda s: iter_exported_records(exported_dir, s), all_splits,
+                          wanted, manifest.get("level", "raw"),
+                          cache_dir or exported_dir, cfg, device)
 
 
 # --------------------------------------------------------------------------

@@ -12,11 +12,19 @@ difference, and FGD with `--embedding-net-checkpoint`).
         [--embedding-net-checkpoint emb.pth.tar]
 
 Training runs on the card unless `--device cpu` is given (every kernel's
-plain PyTorch version). The data come from the synthetic corpus
-(`--synthetic-data true`). A flag that selects something not ported yet
-raises and names its ROADMAP.md item: the TED LMDB and exported-archive
-readers, the fused pass, rematerialization, the grain loader, several
-steps per program, gradient clipping, learning-rate decay.
+plain PyTorch version). The data come from one of three routes, as the
+JAX package's `load_datasets`: the synthetic corpus (`--synthetic-data
+true`), an export archive (`--packed-data DIR`, which the JAX package's
+`tools/export_ted_cache.py` writes where lmdb and pyarrow are installed),
+or the TED LMDB under `<base>/../data/<dataset_s2ag>` (needs pyarrow to
+decode its values). Raw videos are windowed with their MFCCs computed on
+the device, and the packed splits are cached beside the archive or the
+LMDB. `--apply-gradient-clip true` clips each net's gradients by their
+global norm (`--gradient-clip`), and `--apply-lr-decay true` decays the
+learning rates by `--lr-s2ag-decay` per epoch; the reference parses both
+and applies neither. A flag that selects something not ported yet raises
+and names its ROADMAP.md item: the fused pass, rematerialization, the
+grain loader, several steps per program.
 `--mixed-precision true` runs the train steps at bf16 (the GRU kernels'
 bf16 instances on the card); validation and the test-split scoring stay
 float32.
@@ -37,10 +45,11 @@ import numpy as np
 import torch
 
 from .config import ModelConfig
+from .convert.from_jax import reference_state_dict
 from .data import ted_db
 from .device import resolve_device, set_f32_numerics
 from .train.evaluator import EmbeddingSpaceEvaluator
-from .train.trainer import Trainer
+from .train.trainer import Trainer, find_checkpoint
 
 _ROADMAP = "not ported yet (ROADMAP.md, queue 1)"
 
@@ -73,15 +82,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--num-worker", type=int, default=4)
     p.add_argument("--s2ag-start-epoch", type=int, default=0)
     p.add_argument("--s2ag-num-epoch", type=int, default=500)
-    # parsed for reference-CLI compatibility; the reference applies neither
-    # (its adjust_lr_s2ag call is commented out, processor_v2.py:991, and
-    # gradient-clip is parsed and dropped)
+    # the reference parses these two and applies neither (its
+    # adjust_lr_s2ag call is commented out, processor_v2.py:991, and
+    # gradient-clip is dropped); the --apply-* flags turn them on
     p.add_argument("--lr-s2ag-decay", type=float, default=0.999)
     p.add_argument("--gradient-clip", type=float, default=0.1)
     p.add_argument("--apply-lr-decay", type=str2bool, default=False,
-                   help=f"per-epoch LR decay: {_ROADMAP}")
+                   help="decay both learning rates by --lr-s2ag-decay per epoch "
+                        "of each optimizer's own updates")
     p.add_argument("--apply-gradient-clip", type=str2bool, default=False,
-                   help=f"global-norm gradient clipping: {_ROADMAP}")
+                   help="clip each net's gradients by their global norm to "
+                        "--gradient-clip")
     p.add_argument("--loader", type=str, default="device",
                    choices=("device", "grain"),
                    help=f"'device' samples batches on the host and copies them "
@@ -126,14 +137,16 @@ def build_parser() -> argparse.ArgumentParser:
                         "train_embedding writes it); without it the test split "
                         "is scored without FGD")
     p.add_argument("--synthetic-data", type=str2bool, default=False,
-                   help="use the synthetic corpus instead of TED lmdb")
+                   help="use the synthetic corpus instead of the TED lmdb")
     p.add_argument("--synthetic-videos", type=int, default=4,
                    help="synthetic corpus size: number of videos (~41 windows "
                         "per 30 s of video at the paper's stride)")
     p.add_argument("--synthetic-seconds", type=float, default=12.0,
                    help="synthetic corpus: seconds per video")
     p.add_argument("--packed-data", type=str, default="",
-                   help=f"exported TED archive: {_ROADMAP}")
+                   help="an exported TED archive (tools/export_ted_cache.py), "
+                        "read instead of the lmdb; its packed splits are cached "
+                        "in it")
     p.add_argument("--device", type=str, default=None,
                    help="torch device: the card unless 'cpu' is given, which "
                         "runs every kernel's plain PyTorch version")
@@ -170,10 +183,6 @@ def check_ported(args) -> None:
         f"--remat {args.remat}": args.remat != "none",
         "--loader grain": args.loader == "grain",
         f"--steps-per-program {args.steps_per_program}": args.steps_per_program > 1,
-        "--apply-gradient-clip true": args.apply_gradient_clip,
-        "--apply-lr-decay true": args.apply_lr_decay,
-        "--packed-data": bool(args.packed_data),
-        "the TED lmdb dataset (no --synthetic-data)": not args.synthetic_data,
     }
     chosen = [flag for flag, on in unported.items() if on]
     if chosen:
@@ -181,22 +190,63 @@ def check_ported(args) -> None:
 
 
 def load_datasets(args, cfg: ModelConfig, device: torch.device, log=print):
-    """Train/val/test splits (70/15/15) of the synthetic corpus, its MFCCs
-    computed on `device`."""
+    """(train, val, test) packed splits, the MFCCs of raw videos computed on
+    `device`: the synthetic corpus cut 70/15/15 (`--synthetic-data`), an
+    export archive (`--packed-data`) or the TED LMDB under
+    `<base>/../data/<dataset_s2ag>`; without `--train-s2ag` the archive and
+    the LMDB give the test split alone. The test split keeps its sidecars."""
     t0 = time.perf_counter()
-    videos = ted_db.make_synthetic_videos(n_videos=args.synthetic_videos,
-                                          clip_seconds=args.synthetic_seconds,
-                                          device=device)
-    full = ted_db.build_dataset_from_videos(videos, cfg, device=device)
-    n = full.n_samples
-    cut1, cut2 = int(n * 0.7), int(n * 0.85)
-    idx = np.arange(n)
-    log(f"synthetic corpus: {args.synthetic_videos} videos of "
-        f"{args.synthetic_seconds} s, {n} windows ({cut1} train, "
-        f"{cut2 - cut1} val, {n - cut2} test) built in "
-        f"{time.perf_counter() - t0:.3f} s")
-    return (full.subset(idx[:cut1]), full.subset(idx[cut1:cut2]),
-            full.subset(idx[cut2:]))
+    if args.synthetic_data:
+        videos = ted_db.make_synthetic_videos(n_videos=args.synthetic_videos,
+                                              clip_seconds=args.synthetic_seconds,
+                                              device=device)
+        full = ted_db.build_dataset_from_videos(videos, cfg, keep_sidecars=True,
+                                                device=device)
+        n = full.n_samples
+        cut1, cut2 = int(n * 0.7), int(n * 0.85)
+        idx = np.arange(n)
+        log(f"synthetic corpus: {args.synthetic_videos} videos of "
+            f"{args.synthetic_seconds} s, {n} windows ({cut1} train, "
+            f"{cut2 - cut1} val, {n - cut2} test) built in "
+            f"{time.perf_counter() - t0:.3f} s")
+        return (full.subset(idx[:cut1]), full.subset(idx[cut1:cut2]),
+                full.subset(idx[cut2:], sidecars=True))
+    if args.packed_data:
+        source = f"export archive {args.packed_data}"
+        splits = ted_db.load_exported_data(args.packed_data, cfg,
+                                           load_train_val=args.train_s2ag, device=device)
+    else:
+        lmdb_base = jn(args.base_path, "..", "data", args.dataset_s2ag)
+        source = f"TED lmdb {lmdb_base}"
+        splits = ted_db.load_ted_db_data(lmdb_base, cfg, load_train_val=args.train_s2ag,
+                                         device=device)
+    counts = ", ".join(f"{ds.n_samples} {name}" for name, ds in splits.items())
+    log(f"{source}: {sum(ds.n_samples for ds in splits.values())} windows "
+        f"({counts}) in {time.perf_counter() - t0:.3f} s")
+    return splits.get("train"), splits.get("val"), splits.get("test")
+
+
+def checkpoint_to_load(args, work_dir: str) -> str | None:
+    """The `.pth.tar` whose weights `main` loads: `--torch-checkpoint`, else
+    with `--s2ag-load-last-best` the work dir's best checkpoint (or that of
+    epoch `--s2ag-start-epoch`); None when there is none."""
+    if args.torch_checkpoint:
+        return args.torch_checkpoint
+    if args.s2ag_load_last_best:
+        found = find_checkpoint(work_dir, "best" if args.s2ag_start_epoch == 0
+                                else args.s2ag_start_epoch)
+        if found:
+            return jn(work_dir, found[0])
+    return None
+
+
+def checkpoint_speakers(path: str | None) -> int | None:
+    """The speaker count of a checkpoint's generator. The speaker
+    vocabularies are per split, so a run that loads only the test split
+    sizes the speaker embedding from the weights it loads."""
+    if path is None:
+        return None
+    return reference_state_dict(path)["speaker_embedding.0.weight"].shape[0]
 
 
 def main(argv=None, variant: str = "s2ag") -> Trainer:
@@ -225,10 +275,23 @@ def main(argv=None, variant: str = "s2ag") -> Trainer:
         trimodal_metric_interval=args.trimodal_metric_interval,
         divreg_draw=args.divreg_draw, metrics_lag=args.metrics_lag,
         log_interval=args.log_interval, evaluator=evaluator,
-        mixed_precision=args.mixed_precision)
+        mixed_precision=args.mixed_precision,
+        gradient_clip=args.gradient_clip if args.apply_gradient_clip else 0.0,
+        lr_decay=args.lr_s2ag_decay if args.apply_lr_decay else 1.0,
+        n_speakers=checkpoint_speakers(checkpoint_to_load(args, work_dir)))
     trainer.logger.save_arg(vars(args))
     for line in logs:
         trainer.logger.print_log(line)
+    if not args.apply_lr_decay:
+        trainer.logger.print_log(
+            "--lr-s2ag-decay accepted for compatibility but UNUSED (the "
+            "reference's adjust_lr_s2ag call is commented out, "
+            "processor_v2.py:991); pass --apply-lr-decay true to enable.")
+    if not args.apply_gradient_clip:
+        trainer.logger.print_log(
+            "--gradient-clip accepted for compatibility but UNUSED (the "
+            "reference parses and drops it); pass --apply-gradient-clip "
+            "true to enable.")
     if device.type == "cuda" and torch.cuda.device_count() > 1:
         trainer.logger.print_log(
             f"{torch.cuda.device_count()} cards visible; training on cuda:0 "

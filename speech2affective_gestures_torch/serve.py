@@ -1,11 +1,12 @@
 """Gesture-synthesis serving on the GPU.
 
-Loads a generator once and serves synthesis requests over HTTP, with the
-same JSON contract as the JAX package's `serve.py`:
+Loads a trained generator once and serves synthesis requests over HTTP,
+with the same JSON contract as the JAX package's `serve.py`:
 
   GET  /healthz           -> {"status": "ok", "device": ..., "n_poses": ...,
                               "precision": "f32" | "bf16"}
-  GET  /metrics           -> per-endpoint latency aggregates and precision
+  GET  /metrics           -> per-endpoint latency aggregates and precision,
+                             and "active_streams"
   POST /synthesize        body: {
         "audio": [float, ...] | null,   # 16 kHz waveform; null = silence
                                         # covering the words' time range
@@ -24,10 +25,29 @@ same JSON contract as the JAX package's `serve.py`:
       generator batch; elapsed_ms on each result is the batch wall time.
       With --auto-batch-ms N, /synthesize requests arriving within N ms
       coalesce into one such batch.
+  POST /stream/start      body: {"vid_idx": int?, "seed": int?}
+      -> {"stream_id": str}: a live session (`streaming.py`); at most 256
+      are open, and one idle for 600 s is dropped
+  POST /stream/feed       body: {"stream_id": str, "audio" | "audio_b64":
+      the next chunk, "words": newly known timed words?, "binary": bool?}
+      -> {"dir_vec": [[27 floats] x k], "frames": k} (or dir_vec_b64 and
+      dir_vec_shape): the frames that became final, k >= 0
+  POST /stream/flush      body: {"stream_id": str, "words": ...?}
+      -> the last frames, as /stream/feed; the session closes. A stream's
+      frames together equal /synthesize's dir_vec for the same audio,
+      words, vid_idx and per-window noise. An unknown or flushed
+      stream_id answers 400.
 
-The live-streaming endpoints (/stream/*) are not ported yet and answer 404.
+Run, after `main_v2` has trained into the same base path and config:
 
-Run: python -m speech2affective_gestures_torch.serve -c config/multimodal_context_v2.yml [--port 8787]
+    python -m speech2affective_gestures_torch.serve -b BASE -c CONFIG \
+        [--packed-data ARCH | --synthetic-data true] [--port 8787]
+
+It takes `main_v2`'s flags, reads the test split's vocabulary from the
+same data, and serves the best checkpoint of `main_v2`'s work dir
+(`--torch-checkpoint` a reference `.pth.tar` instead); without either it
+refuses to start, unless `--s2ag-load-last-best false` asks for random
+weights. On the card unless `--device cpu` is given.
 """
 
 from __future__ import annotations
@@ -38,18 +58,22 @@ import binascii
 import json
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from os.path import join as jn
 
 import numpy as np
 import torch
 
 from . import constants as C
+from . import main_v2
 from .config import ModelConfig
-from .convert import from_jax
-from .data.vocab import Vocab, placeholder_vocab
+from .data.vocab import Vocab
 from .device import resolve_device, set_f32_numerics
 from .models.generator import build_generator
+from .streaming import StreamingSynthesizer
 from .train import synthesis
+from .train.trainer import Trainer
 
 
 def encode_f32_b64(arr) -> str:
@@ -87,10 +111,14 @@ class SynthesisService:
     """Owns the generator and the vocabulary and serves synthesis calls.
 
     The generator's device is the service's device; on the card the f32
-    numerics are pinned (`device.set_f32_numerics`). Device work runs under
-    one lock, so concurrent callers are served one at a time; each request
-    draws its noise from its own `torch.Generator` seeded with `seed` plus
-    the request's number.
+    numerics are pinned (`device.set_f32_numerics`). Device work runs on
+    one worker thread that lives as long as the service, so concurrent
+    callers are served one at a time: cuDNN keeps its convolution plans
+    per thread, and the HTTP server's thread per request would otherwise
+    plan every convolution of every request again (about 0.7 ms each on
+    the H100, PERF.md). Each request draws its noise from its own
+    `torch.Generator`, seeded with `seed` plus the request's number; a
+    stream's from its "seed" or else the same.
     """
 
     def __init__(self, cfg: ModelConfig, gen: torch.nn.Module, lang_model: Vocab,
@@ -109,6 +137,7 @@ class SynthesisService:
             set_f32_numerics()
         self.seed = seed
         self._lock = threading.Lock()
+        self._worker = ThreadPoolExecutor(max_workers=1, thread_name_prefix="s2ag-device")
         self._counter = 0
         self.auto_batch_ms = float(auto_batch_ms)
         self.auto_batch_max = int(auto_batch_max)
@@ -116,6 +145,20 @@ class SynthesisService:
         self._ab_pending: list[dict] = []
         self._metrics: dict = {}
         self._metrics_lock = threading.Lock()
+        # live sessions, each a StreamingSynthesizer; idle ones are dropped
+        self._streams: dict[str, StreamingSynthesizer] = {}
+        self._stream_last_used: dict[str, float] = {}
+        self.stream_idle_ttl = 600.0
+        self.max_streams = 256
+
+    @classmethod
+    def from_trainer(cls, trainer: Trainer, precision: str = "f32",
+                     **kwargs) -> "SynthesisService":
+        """A service over a trainer's generator, with the vocabulary of its
+        test split (its train split's when it has none)."""
+        data = trainer.test_data or trainer.train_data
+        return cls(trainer.cfg, trainer.gen, data.lang_model, precision=precision,
+                   **kwargs)
 
     @classmethod
     def from_config(cls, cfg: ModelConfig, lang_model: Vocab, n_speakers: int,
@@ -168,6 +211,7 @@ class SynthesisService:
                     out[endpoint]["phase_mean_ms"] = {
                         k: round(v / n, 2) for k, v in m["phase_ms"].items()
                     }
+        out["active_streams"] = len(self._streams)
         return out
 
     # --------------------------------------------------------- synthesis
@@ -198,6 +242,10 @@ class SynthesisService:
             return np.zeros(int(end * C.AUDIO_SR), np.float32)
         return np.asarray(audio, np.float32)
 
+    def _on_worker(self, fn, *args, **kwargs):
+        """fn(*args, **kwargs) on the service's device thread."""
+        return self._worker.submit(fn, *args, **kwargs).result()
+
     def synthesize(self, audio: np.ndarray | None, words, vid_idx: int = 0,
                    fade_out: bool = False, eps: torch.Tensor | None = None) -> dict:
         """One clip. eps: optional (S, 1, z_size) per-window noise."""
@@ -222,10 +270,9 @@ class SynthesisService:
                 len(a) / C.AUDIO_SR, self.cfg)[0]) for a, _, _ in clips)
             eps = self._eps(self._generators(len(clips)), n_max)
         phases: dict = {}
-        with self._lock:
-            outs = synthesis.synthesize_clips_batched(
-                self.gen, clips, self.lang, self.cfg, eps=eps,
-                fade_out=fades, timings=phases, precision=self.precision)
+        outs = self._on_worker(
+            synthesis.synthesize_clips_batched, self.gen, clips, self.lang, self.cfg,
+            eps=eps, fade_out=fades, timings=phases, precision=self.precision)
         elapsed = (time.perf_counter() - t0) * 1e3
         self._record(endpoint, elapsed, clips=len(clips), phases=phases)
         return [{"dir_vec": dv, "poses": ps, "frames": int(len(dv)),
@@ -282,6 +329,76 @@ class SynthesisService:
             for e in pending:
                 e["event"].set()
 
+    # ---------------------------------------------------- live streaming
+
+    def stream_start(self, vid_idx: int = 0, seed: int | None = None) -> str:
+        """Open a live session; its noise comes from `seed`, else from
+        the service's seed plus the session's number, as a request's does.
+        Window i's noise is then row i of one (S, z_size) draw from a
+        generator with that seed, the `eps` that gives `synthesize` the
+        same clip."""
+        with self._lock:
+            self._prune_streams()
+            if len(self._streams) >= self.max_streams:
+                raise ValueError(f"too many open streams ({self.max_streams}); flush "
+                                 "or let idle sessions expire")
+            self._counter += 1
+            stream_id = f"s{self._counter:06d}"
+            generator = torch.Generator().manual_seed(
+                self.seed + self._counter if seed is None else int(seed))
+            self._streams[stream_id] = StreamingSynthesizer(
+                self.gen, self.lang, self.cfg, vid_idx=vid_idx, generator=generator,
+                precision=self.precision)
+            self._stream_last_used[stream_id] = time.monotonic()
+        return stream_id
+
+    def _prune_streams(self):
+        """Drop sessions idle past stream_idle_ttl (a client that vanished
+        without /stream/flush would keep its audio forever). Caller holds
+        the lock."""
+        cutoff = time.monotonic() - self.stream_idle_ttl
+        for sid in [sid for sid, ts in self._stream_last_used.items() if ts < cutoff]:
+            self._streams.pop(sid, None)
+            self._stream_last_used.pop(sid, None)
+
+    def _stream(self, stream_id: str) -> StreamingSynthesizer:
+        try:
+            stream = self._streams[stream_id]
+        except KeyError:
+            raise ValueError(f"unknown stream_id {stream_id!r}") from None
+        self._stream_last_used[stream_id] = time.monotonic()
+        return stream
+
+    # A session is looked up on the device thread, in the same task as its
+    # feed or flush: a flush that removes it runs wholly before or after a
+    # feed, so a feed after the flush finds no session (ValueError, 400).
+
+    def stream_feed(self, stream_id: str, audio, words=()) -> np.ndarray:
+        def feed():
+            with self._lock:
+                self._prune_streams()
+                stream = self._stream(stream_id)
+            return stream.feed(audio, words)
+
+        t0 = time.perf_counter()
+        audio = np.asarray(audio, np.float32)
+        out = self._on_worker(feed)
+        self._record("stream_feed", (time.perf_counter() - t0) * 1e3)
+        return out
+
+    def stream_flush(self, stream_id: str, words=()) -> np.ndarray:
+        def flush():
+            with self._lock:
+                stream = self._stream(stream_id)
+                del self._streams[stream_id]
+                self._stream_last_used.pop(stream_id, None)
+            return stream.flush(words)
+
+        t0 = time.perf_counter()
+        out = self._on_worker(flush)
+        self._record("stream_flush", (time.perf_counter() - t0) * 1e3)
+        return out
+
 
 def make_handler(service: SynthesisService):
     class Handler(BaseHTTPRequestHandler):
@@ -328,6 +445,13 @@ def make_handler(service: SynthesisService):
                 "elapsed_ms": result["elapsed_ms"],
             }
 
+        @staticmethod
+        def _frames_payload(out: np.ndarray, binary: bool = False) -> dict:
+            if binary:
+                return {"dir_vec_b64": encode_f32_b64(out),
+                        "dir_vec_shape": list(np.shape(out)), "frames": int(len(out))}
+            return {"dir_vec": out.tolist(), "frames": int(len(out))}
+
         def do_POST(self):
             try:
                 t0 = time.perf_counter()
@@ -359,6 +483,18 @@ def make_handler(service: SynthesisService):
                         "results": [self._result_payload(r, binary)
                                     for r in results],
                     })
+                elif self.path == "/stream/start":
+                    self._send(200, {"stream_id": service.stream_start(
+                        vid_idx=int(req.get("vid_idx", 0)), seed=req.get("seed"))})
+                elif self.path == "/stream/feed":
+                    chunk = audio_from_request(req)
+                    out = service.stream_feed(req["stream_id"],
+                                              chunk if chunk is not None else [],
+                                              req.get("words", ()))
+                    self._send(200, self._frames_payload(out, binary))
+                elif self.path == "/stream/flush":
+                    out = service.stream_flush(req["stream_id"], req.get("words", ()))
+                    self._send(200, self._frames_payload(out, binary))
                 else:
                     self._send(404, {"error": "unknown path"})
             except (KeyError, ValueError, TypeError) as e:
@@ -378,31 +514,13 @@ def serve(service: SynthesisService, port: int = 8787,
 
 
 def build_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(
-        description="Serve gesture synthesis over HTTP on the GPU. No dataset "
-        "loader is ported yet, so the vocabulary is --n-words placeholder "
-        "tokens (<PAD>, <SOS>, <EOS>, <UNK>, <w4>, <w5>, ...) and every real "
-        "word of a request maps to <UNK>.")
-    p.add_argument("-c", "--config", default="config/multimodal_context_v2.yml",
-                   help="model YAML config (default: %(default)s)")
+    """`main_v2`'s flags (the base path, the config, the data route, the
+    checkpoint), plus the server's own."""
+    p = main_v2.build_parser()
+    p.description = ("Serve gesture synthesis over HTTP on the GPU, from the "
+                     "checkpoint that main_v2 trained with the same flags")
     p.add_argument("--port", type=int, default=8787)
     p.add_argument("--host", default="127.0.0.1")
-    p.add_argument("--device", default=None,
-                   help="torch device; default the GPU ('cpu' runs the plain "
-                   "PyTorch path)")
-    p.add_argument("--seed", type=int, default=0,
-                   help="seed of the random weights and of the request noise")
-    p.add_argument("--torch-checkpoint", default=None,
-                   help="reference .pth.tar whose gen_model_dict to serve "
-                   "(its 'module.' prefix is stripped); without it the "
-                   "weights are random from --seed")
-    p.add_argument("--n-words", type=int, default=1000,
-                   help="vocabulary size of the placeholder vocabulary "
-                   "(default %(default)s, as bench.py uses); taken from the "
-                   "checkpoint when one is given")
-    p.add_argument("--n-speakers", type=int, default=100,
-                   help="speaker count (default %(default)s); taken from the "
-                   "checkpoint when one is given")
     p.add_argument("--auto-batch-ms", type=float, default=0.0,
                    help="coalesce concurrent /synthesize requests arriving "
                    "within this window into one batch (0 = off)")
@@ -415,22 +533,40 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def build_service(argv=None) -> SynthesisService:
+    """The service `main` serves, on the JAX package's terms (its
+    serve.py:583-628): the test split's vocabulary from `main_v2`'s data
+    route, and the generator of a trainer on `main_v2`'s work dir,
+    `<base>/models/s2ag_v2_mfcc_torch/<dataset_s2ag>`, with the weights of
+    `--torch-checkpoint`, or else of its best checkpoint. Raises
+    SystemExit when neither is there, unless `--s2ag-load-last-best false`
+    asks for random weights. The generator's speaker embedding is sized
+    from the checkpoint: the speaker vocabularies are per split, and the
+    weights were trained with the train split's."""
+    args = build_parser().parse_args(argv)
+    args.train_s2ag = False  # serving needs the test split alone
+    device = resolve_device(args.device)
+    cfg = ModelConfig.from_yaml(args.config, batch_size=args.batch_size)
+    work_dir = jn(args.base_path, "models", "s2ag_v2_mfcc_torch", args.dataset_s2ag)
+    path = main_v2.checkpoint_to_load(args, work_dir)
+    if path is None and args.s2ag_load_last_best:
+        raise SystemExit(f"no checkpoint found in {work_dir}; pass --torch-checkpoint "
+                         "or --s2ag-load-last-best false to serve random weights")
+    _, _, test_data = main_v2.load_datasets(args, cfg, device)
+    trainer = Trainer(cfg, work_dir, test_data=test_data, device=device,
+                      seed=cfg.random_seed, n_speakers=main_v2.checkpoint_speakers(path))
+    if args.torch_checkpoint:
+        trainer.load_torch_checkpoint(args.torch_checkpoint)
+    elif path is not None:
+        trainer.load_checkpoint("best" if args.s2ag_start_epoch == 0
+                                else args.s2ag_start_epoch)
+    return SynthesisService.from_trainer(trainer, precision=args.serve_precision,
+                                         auto_batch_ms=args.auto_batch_ms)
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    cfg = ModelConfig.from_yaml(args.config)
-    device = resolve_device(args.device)
-    n_words, n_speakers = args.n_words, args.n_speakers
-    sd = None
-    if args.torch_checkpoint:
-        sd = from_jax.reference_state_dict(args.torch_checkpoint)
-        n_words = sd["text_encoder.embedding.weight"].shape[0]
-        n_speakers = sd["speaker_embedding.0.weight"].shape[0]
-    gen = build_generator(cfg, n_words, n_speakers, device=device, seed=args.seed)
-    if sd is not None:
-        gen.load_state_dict(sd, strict=True)
-    service = SynthesisService(cfg, gen, placeholder_vocab(n_words),
-                               seed=args.seed, auto_batch_ms=args.auto_batch_ms,
-                               precision=args.serve_precision)
+    service = build_service(argv)
     print("warming up (builds the CUDA kernels)...", flush=True)
     service.warmup()
     server = serve(service, port=args.port, host=args.host)

@@ -44,7 +44,8 @@ def build_models(cfg: ModelConfig, n_words: int, n_speakers: int,
 
 
 def gan_config(cfg: ModelConfig, n_speakers: int,
-               divreg_draw: str = "permutation") -> GanConfig:
+               divreg_draw: str = "permutation", gradient_clip: float = 0.0,
+               lr_decay: float = 1.0, decay_steps_per_epoch: int = 0) -> GanConfig:
     return GanConfig(
         loss_regression_weight=cfg.loss_regression_weight,
         loss_gan_weight=cfg.loss_gan_weight,
@@ -57,6 +58,9 @@ def gan_config(cfg: ModelConfig, n_speakers: int,
         n_pre_poses=cfg.n_pre_poses,
         n_speakers=n_speakers,
         divreg_draw=divreg_draw,
+        gradient_clip=gradient_clip,
+        lr_decay=lr_decay,
+        decay_steps_per_epoch=decay_steps_per_epoch,
     )
 
 
@@ -137,18 +141,22 @@ def init_training(cfg: ModelConfig, seed: int, n_words: int = 1000,
                   word_embeddings: np.ndarray | None = None,
                   device: str | torch.device | None = None, variant: str = "s2ag",
                   divreg_draw: str = "permutation",
-                  mixed_precision: bool = False) -> dict:
+                  mixed_precision: bool = False, gradient_clip: float = 0.0,
+                  lr_decay: float = 1.0, decay_steps_per_epoch: int = 0) -> dict:
     """Models with weights drawn from `seed` on `device` (the card unless
     `device="cpu"`), and the step over them: with `mixed_precision` its
     train step runs the three nets through `mixed_precision_apply` (JAX
-    `init_training`, builder.py:204-215); its eval step stays float32."""
+    `init_training`, builder.py:204-215); its eval step stays float32.
+    `gradient_clip`, `lr_decay` and `decay_steps_per_epoch` go to the
+    step's `GanConfig` (JAX builder.py:120-180)."""
     dev = resolve_device(device)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         gen, dis, tri = build_models(cfg, n_words, n_speakers, word_embeddings,
                                      variant=variant)
     gen, dis, tri = gen.to(dev), dis.to(dev), tri.to(dev).requires_grad_(False)
-    gan_cfg = gan_config(cfg, n_speakers, divreg_draw)
+    gan_cfg = gan_config(cfg, n_speakers, divreg_draw, gradient_clip, lr_decay,
+                         decay_steps_per_epoch)
     return dict(gen=gen, dis=dis, tri=tri, gan_cfg=gan_cfg, device=dev,
                 step=GanStep(gen, dis, gan_cfg, tri,
                              train_apply=mixed_precision_apply if mixed_precision else None))

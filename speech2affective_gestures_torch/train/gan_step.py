@@ -22,6 +22,11 @@ The speaker noise and the dropout masks come from the `torch.Generator`
 passed to each step, on the step's device. Optimizers are Adam with betas
 (0.5, 0.999), D's learning rate 0.2 times G's (ref processor_v2.py:215-220).
 
+With `gradient_clip` each net's gradients are clipped by their global
+norm before its Adam update (optax's `clip_by_global_norm`), and with
+`lr_decay` each optimizer's learning rate decays per epoch of its own
+updates (optax's schedule); both are off by default, as in the reference.
+
 The train step calls the generator, the discriminator and the comparator
 through `train_apply(module)` when one is given: for mixed precision,
 `builder.mixed_precision_apply` (bf16 parameters, inputs and activations
@@ -62,6 +67,20 @@ class GanConfig:
     # (processor_v2.py:902-903); 'fresh' draws each id uniformly from the
     # vocabulary excluding the sample's own
     divreg_draw: str = "permutation"
+    # global-norm clipping of each net's gradients (0 = off; the reference
+    # parses --gradient-clip and drops it)
+    gradient_clip: float = 0.0
+    # per-epoch exponential decay: the n-th update of an optimizer (from 0)
+    # runs at lr * lr_decay ** (n // decay_steps_per_epoch) (1 = off; the
+    # reference's adjust_lr_s2ag call is commented out, processor_v2.py:991).
+    # D updates only with the GAN terms on, so its count lags G's by the
+    # warmup epochs' steps, as optax's count in the JAX package does
+    lr_decay: float = 1.0
+    decay_steps_per_epoch: int = 0
+
+    @property
+    def decays(self) -> bool:
+        return self.lr_decay != 1.0 and self.decay_steps_per_epoch > 0
 
     @property
     def lr_dis(self) -> float:
@@ -69,10 +88,40 @@ class GanConfig:
 
 
 def make_optimizers(gen: torch.nn.Module, dis: torch.nn.Module, cfg: GanConfig):
-    """The G and D Adam pair (ref processor_v2.py:215-220)."""
+    """The G and D Adam pair (ref processor_v2.py:215-220). `GanStep`
+    applies the clipping and the schedule around their updates."""
     return (torch.optim.Adam(gen.parameters(), lr=cfg.learning_rate,
                              betas=(0.5, 0.999)),
             torch.optim.Adam(dis.parameters(), lr=cfg.lr_dis, betas=(0.5, 0.999)))
+
+
+def scheduled_lr(base_lr: float, cfg: GanConfig, count: int) -> float:
+    """The learning rate of an optimizer's update number `count` (from 0),
+    as the JAX package's optax schedule (`_lr_schedule`, gan_step.py:111)."""
+    if cfg.decays:
+        return base_lr * cfg.lr_decay ** (count // cfg.decay_steps_per_epoch)
+    return base_lr
+
+
+def update_count(opt: torch.optim.Optimizer) -> int:
+    """The updates `opt` has made: Adam's `step`, which its state dict
+    (and so the checkpoint) carries, the same in every parameter's state
+    (a host tensor, so reading it does not sync the device)."""
+    state = next(iter(opt.state.values()), {})
+    return int(state.get("step", 0))
+
+
+def clip_by_global_norm_(params, max_norm: float) -> torch.Tensor:
+    """optax's `clip_by_global_norm` on the gradients of `params`, in
+    place: all of them times max_norm / g_norm when their global norm
+    g_norm is max_norm or more, untouched below (no epsilon, unlike
+    `torch.nn.utils.clip_grad_norm_`). Returns g_norm, on the device,
+    without a host sync."""
+    grads = [p.grad for p in params if p.grad is not None]
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
+    torch._foreach_mul_(grads, scale)
+    return norm
 
 
 def build_pre_seq(target_poses: torch.Tensor, n_pre_poses: int) -> torch.Tensor:
@@ -127,6 +176,31 @@ class GanStep:
         self.gen_opt, self.dis_opt = make_optimizers(gen, dis, cfg)
         self.train_apply = train_apply
         self.step = 0
+        # each net's gradient norm before its last clipped update
+        self.grad_norms: dict[str, torch.Tensor] = {}
+
+    def _update(self, who: str):
+        """One Adam update of net `who` ("gen" or "dis"): its gradients
+        clipped, and with decay its learning rate set after the update to
+        the next one's at its own update count, so that the optimizer
+        always holds the rate its next update uses (its base rate before
+        the first)."""
+        if self.cfg.gradient_clip > 0.0:
+            self.grad_norms[who] = clip_by_global_norm_(
+                getattr(self, who).parameters(), self.cfg.gradient_clip)
+        getattr(self, f"{who}_opt").step()
+        if self.cfg.decays:
+            self.sync_lr(who)
+
+    def sync_lr(self, who: str | None = None):
+        """Set the learning rate of net `who`'s optimizer (both without
+        `who`) to its schedule's at its update count."""
+        for w in ((who,) if who else ("gen", "dis")):
+            opt = getattr(self, f"{w}_opt")
+            base = self.cfg.learning_rate if w == "gen" else self.cfg.lr_dis
+            lr = scheduled_lr(base, self.cfg, update_count(opt))
+            for group in opt.param_groups:
+                group["lr"] = lr
 
     def _train_fn(self, module: torch.nn.Module):
         """The train step's call of `module`."""
@@ -157,7 +231,7 @@ class GanStep:
                 d_loss = losses.dis_ns_gan(dis(target, text), dis(fake, text))
                 self.dis_opt.zero_grad(set_to_none=True)
                 d_loss.backward()
-                self.dis_opt.step()
+                self._update("dis")
                 metrics["dis"] = d_loss.detach()
 
             # ---------------------------------------------------- G update
@@ -188,7 +262,7 @@ class GanStep:
                 metrics["gen"] = gen_err.detach()
             self.gen_opt.zero_grad(set_to_none=True)
             loss.backward()
-            self.gen_opt.step()
+            self._update("gen")
             metrics["g_total"] = loss.detach()
 
             # ------------------------------ trimodal comparison (frozen)

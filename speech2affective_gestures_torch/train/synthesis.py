@@ -87,14 +87,20 @@ def prepare_window_inputs(clip_audio: np.ndarray, clip_words, lang_model,
         if len(seg) < audio_len and i == len(windows) - 1:
             end_padding = audio_len - len(seg)
         audio_windows[i, : len(seg)] = seg  # zero ('constant') padding
-
-        word_seq = get_words_in_time_range(clip_words, start, end)
-        frame_duration = (end - start) / n_frames
-        for word in word_seq:
-            idx = max(0, int(np.floor((word[1] - start) / frame_duration)))
-            if idx < n_frames:
-                text_windows[i, idx] = lang_model.get_word_index(word[0])
+        text_windows[i] = window_text(clip_words, start, end, lang_model, n_frames)
     return audio_windows, text_windows, end_padding
+
+
+def window_text(words, start: float, end: float, lang_model, n_frames: int) -> np.ndarray:
+    """(n_frames,) word ids of the window [start, end): each word of the
+    window at the frame where it starts, PAD elsewhere."""
+    text = np.zeros(n_frames, np.int64)
+    frame_duration = (end - start) / n_frames
+    for word in get_words_in_time_range(words, start, end):
+        idx = max(0, int(np.floor((word[1] - start) / frame_duration)))
+        if idx < n_frames:
+            text[idx] = lang_model.get_word_index(word[0])
+    return text
 
 
 def window_bucket(n_windows: int) -> int:
@@ -189,6 +195,30 @@ def _device_of(gen: torch.nn.Module) -> torch.device:
     return next(gen.parameters()).device
 
 
+def window_features(audio_windows: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """(N, L) window audio -> (N, 37, mfcc_length) MFCC features (the fused
+    mel kernel on the card)."""
+    return dsp.get_mfcc_features_fast(
+        audio_windows, sr=C.AUDIO_SR, num_mfcc=cfg.num_mfcc)[..., : cfg.mfcc_length]
+
+
+@torch.no_grad()
+def window_forward(run, cfg: ModelConfig, feat: torch.Tensor, text: torch.Tensor,
+                   vid_idx: torch.Tensor, seed: torch.Tensor,
+                   eps: torch.Tensor | None = None,
+                   generator: torch.Generator | None = None) -> torch.Tensor:
+    """One window of B clips through the generator call `run` (the
+    generator, or `precision_wrap`'s): the pre-sequence holds the `seed`
+    poses (B, n_pre, D) with their constraint bit; returns the raw window
+    output (B, T, D)."""
+    n_pre = cfg.n_pre_poses
+    pre = torch.zeros(feat.shape[0], cfg.n_poses, C.POSE_DIM + 1, device=feat.device)
+    pre[:, :n_pre, :-1] = seed
+    pre[:, :n_pre, -1] = 1.0
+    out, *_ = run(pre, text, feat, vid_idx, eps=eps, generator=generator)
+    return out
+
+
 @torch.no_grad()
 def clip_body(gen, cfg: ModelConfig, audio_windows: torch.Tensor,
               text_windows: torch.Tensor, vid_idx: torch.Tensor,
@@ -215,20 +245,15 @@ def clip_body(gen, cfg: ModelConfig, audio_windows: torch.Tensor,
     n_valid = [int(n) for n in n_valid]
     s_run = max(n_valid)
 
-    feat = dsp.get_mfcc_features_fast(
-        audio_windows.reshape(b * s, -1), sr=C.AUDIO_SR, num_mfcc=cfg.num_mfcc
-    )[..., : cfg.mfcc_length]
+    feat = window_features(audio_windows.reshape(b * s, -1), cfg)
     feat = feat.reshape(b, s, *feat.shape[1:])
 
     outs = []
     sd = seed
     with precision_wrap(gen, precision) as run:
         for i in range(s_run):
-            pre = torch.zeros(b, t, C.POSE_DIM + 1, device=device)
-            pre[:, :n_pre, :-1] = sd
-            pre[:, :n_pre, -1] = 1.0
-            out, *_ = run(pre, text_windows[:, i], feat[:, i], vid_idx,
-                          eps=None if eps is None else eps[i], generator=generator)
+            out = window_forward(run, cfg, feat[:, i], text_windows[:, i], vid_idx, sd,
+                                 eps=None if eps is None else eps[i], generator=generator)
             outs.append(out)
             sd = out[:, -n_pre:]
     outs = torch.stack(outs, dim=1)                            # (B, S', T, D)

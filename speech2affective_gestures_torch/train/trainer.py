@@ -64,7 +64,14 @@ class Trainer:
     `device="cpu"`). With `mixed_precision` the train steps run at bf16
     (`builder.mixed_precision_apply`, the JAX trainer's
     `mixed_precision`); validation, `generate_gestures` and the FGD scoring
-    stay float32."""
+    stay float32. `gradient_clip` (0 = off) clips each net's gradients by
+    their global norm; `lr_decay` (1 = off) decays each optimizer's
+    learning rate by that factor per epoch of its own updates, an epoch
+    being n_train // batch_size updates (JAX trainer.py:163-183).
+    `n_speakers` sizes the speaker embedding when it must differ from the
+    data's speaker vocabulary: the vocabularies are per split, so a
+    checkpoint trained on the train split and served with the test split
+    alone carries the train split's count."""
 
     def __init__(self, cfg: ModelConfig, work_dir: str,
                  train_data: PackedDataset | None = None,
@@ -77,7 +84,8 @@ class Trainer:
                  divreg_draw: str = "permutation", metrics_lag: int = 8,
                  log_interval: int = 50,
                  evaluator: EmbeddingSpaceEvaluator | None = None,
-                 mixed_precision: bool = False):
+                 mixed_precision: bool = False, gradient_clip: float = 0.0,
+                 lr_decay: float = 1.0, n_speakers: int | None = None):
         self.cfg = cfg
         self.work_dir = work_dir
         self.logger = TrainLogger(work_dir)
@@ -97,13 +105,27 @@ class Trainer:
 
         ref = train_data or val_data or test_data
         n_words = ref.lang_model.n_words if ref and ref.lang_model else 1000
-        n_speakers = ref.speaker_model.n_words if ref and ref.speaker_model else 100
+        if n_speakers is None:
+            n_speakers = ref.speaker_model.n_words if ref and ref.speaker_model else 100
         word_embeddings = (ref.lang_model.word_embedding_weights
                            if ref and ref.lang_model else None)
+        steps_per_epoch = 0
+        if train_data is not None:
+            steps_per_epoch = train_data.n_samples // cfg.batch_size
+            if lr_decay != 1.0 and steps_per_epoch == 0:
+                # a split smaller than one batch would otherwise turn off
+                # a decay that was asked for
+                self.logger.print_log(
+                    f"Warning: --apply-lr-decay with a train split of "
+                    f"{train_data.n_samples} samples, less than the batch size "
+                    f"{cfg.batch_size}: each batch counts as an epoch of the decay")
+                steps_per_epoch = 1
         setup = builder.init_training(
             cfg, max(seed, 0), n_words=n_words, n_speakers=n_speakers,
             word_embeddings=word_embeddings, device=device, variant=variant,
-            divreg_draw=divreg_draw, mixed_precision=mixed_precision)
+            divreg_draw=divreg_draw, mixed_precision=mixed_precision,
+            gradient_clip=gradient_clip, lr_decay=lr_decay,
+            decay_steps_per_epoch=steps_per_epoch if lr_decay != 1.0 else 0)
         self.device = setup["device"]
         self.gen, self.dis, self.tri = setup["gen"], setup["dis"], setup["tri"]
         self.step = setup["step"]
@@ -204,7 +226,8 @@ class Trainer:
 
     def load_checkpoint(self, epoch: int | str = "best") -> bool:
         """Resume from a checkpoint of `work_dir`: weights, BN statistics
-        and both Adam states; training continues at its epoch."""
+        and both Adam states (whose update counts carry the learning-rate
+        schedule's); training continues at its epoch."""
         found = find_checkpoint(self.work_dir, epoch)
         if not found:
             self.logger.print_log("Warning! No saved model found.")
@@ -216,6 +239,7 @@ class Trainer:
         self.dis.load_state_dict(strip_module_prefix(blob["dis_model_dict"]), strict=True)
         self.step.gen_opt.load_state_dict(blob["gen_optimizer_dict"])
         self.step.dis_opt.load_state_dict(blob["dis_optimizer_dict"])
+        self.step.sync_lr()  # the schedule's rate at the restored update counts
         self.epoch = ckpt_epoch
         self.best_loss, self.best_loss_epoch = loss, ckpt_epoch
         self.logger.print_log(f"restored {name}")

@@ -11,8 +11,10 @@ writes `{"embedding_dict": state_dict}` to `--out`, the layout of the
 reference's `outputs/embedding_net.pth.tar`: `main_v2
 --embedding-net-checkpoint` and the reference's evaluator load it. That
 file is the port's native format (the JAX tool's `.npz` of flax variables
-is not written). The data come from the synthetic corpus; the TED LMDB
-reader is not ported yet (ROADMAP.md).
+is not written). The windows come from the train split of the TED LMDB
+under `--base-path` (`ted_db.load_ted_db_data`, as the JAX tool reads it),
+or from the synthetic corpus with `--synthetic-data` or without a base
+path.
 """
 
 from __future__ import annotations
@@ -32,8 +34,8 @@ from .train.embedding_trainer import train_pose_embedding
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Train the FGD gesture-embedding net")
     p.add_argument("--base-path", default=None,
-                   help="TED db base path (as main_v2 --base-path); its reader is "
-                        "not ported yet (ROADMAP.md, queue 1)")
+                   help="the TED db's directory, which holds the config's "
+                        "<split>_data_path LMDBs")
     p.add_argument("--config", default="config/multimodal_context_v2.yml")
     p.add_argument("--synthetic-data", action="store_true")
     p.add_argument("--epochs", type=int, default=20)
@@ -51,15 +53,15 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
-    if args.base_path and not args.synthetic_data:
-        raise NotImplementedError(
-            "the TED lmdb reader is not ported yet (ROADMAP.md, queue 1): "
-            "pass --synthetic-data")
     device = resolve_device(args.device)
     cfg = (ModelConfig.from_yaml(args.config) if os.path.exists(args.config)
            else ModelConfig())
-    videos = ted_db.make_synthetic_videos(n_videos=6, clip_seconds=12.0, device=device)
-    ds = ted_db.build_dataset_from_videos(videos, cfg, device=device)
+    if args.synthetic_data or not args.base_path:
+        videos = ted_db.make_synthetic_videos(n_videos=6, clip_seconds=12.0,
+                                              device=device)
+        ds = ted_db.build_dataset_from_videos(videos, cfg, device=device)
+    else:
+        ds = ted_db.load_ted_db_data(args.base_path, cfg, device=device)["train"]
     idx = np.arange(min(args.max_windows, ds.n_samples))
     windows = ted_db.decode_rows(ds, idx)["vec_seq"]
     print(f"training on {len(windows)} pose windows ({args.epochs} epochs, "

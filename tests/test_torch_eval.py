@@ -306,7 +306,8 @@ def test_two_embedding_train_steps_match_jax(jax_net):
 def test_train_pose_embedding_and_cli(tmp_path):
     """The trainer's losses fall on the synthetic corpus's windows, and
     the CLI writes a `{"embedding_dict": ...}` file that the evaluator
-    loads strict."""
+    loads strict; with `--base-path` it trains on the train split of a
+    TED LMDB layout there (pyarrow-0.14 blobs of raw videos)."""
     out = tmp_path / "emb.pth.tar"
     result = ttrain_embedding.main(["--synthetic-data", "--device", "cpu", "--epochs", "3",
                                     "--out", str(out)])
@@ -316,8 +317,19 @@ def test_train_pose_embedding_and_cli(tmp_path):
     assert set(blob) == {"embedding_dict"}
     ev = tev.EmbeddingSpaceEvaluator.from_torch_checkpoint(str(out), device="cpu")
     assert not ev.net.training
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttrain_embedding.main(["--base-path", str(tmp_path), "--device", "cpu"])
+    from speech2affective_gestures_tpu.data import legacy_arrow as jla
+    from speech2affective_gestures_tpu.data import lmdb_lite as jlmdb
+
+    videos = jdb.make_synthetic_videos(3, 6.0)
+    for split, vids in (("train", videos[:2]), ("val", videos[2:]), ("test", videos[2:])):
+        jlmdb.write_env(str(tmp_path / "ted" / getattr(TConfig(), f"{split}_data_path")),
+                        [(f"{i:010}".encode(), jla.serialize_legacy(v))
+                         for i, v in enumerate(vids)])
+    ted = ttrain_embedding.main(["--base-path", str(tmp_path / "ted"), "--device", "cpu",
+                                 "--epochs", "1", "--out", str(tmp_path / "ted.pth.tar")])
+    n_train = tdb.load_ted_db_data(str(tmp_path / "ted"), TConfig())["train"].n_samples
+    assert n_train == 10 and np.isfinite(ted["losses"]).all()
+    assert (tmp_path / "ted.pth.tar").is_file()
     again = tet.train_pose_embedding(_poses(10, 8), epochs=2, batch_size=4, device="cpu",
                                      variational=True)
     assert np.isfinite(again["losses"]).all()

@@ -174,7 +174,7 @@ def test_http_synthesize_batch_roundtrip(server):
 
 def test_http_errors(server):
     assert _request(server, "POST", "/synthesize", {"words": []})[0] == 400
-    assert _request(server, "POST", "/stream/start", {})[0] == 404
+    assert _request(server, "POST", "/stream/feed", {"stream_id": "nope", "audio": []})[0] == 400
     assert _request(server, "GET", "/bogus")[0] == 404
 
 
@@ -207,13 +207,14 @@ def test_auto_batching_coalesces_concurrent_requests(models):
     assert m["clips"] == len(seconds) and m["requests"] < len(seconds)
 
 
-def test_default_device_raises_without_cuda(monkeypatch):
+def test_default_device_raises_without_cuda(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     _, tv = _vocabs()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tserve.SynthesisService.from_config(TCFG, tv, 5)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        tserve.main(["--port", "0"])
+        tserve.main(["-b", str(tmp_path), "-c", str(REPO / "config/multimodal_context_v2.yml"),
+                     "--synthetic-data", "true", "--port", "0"])
 
 
 def test_port_imports_no_jax():
@@ -226,3 +227,139 @@ def test_port_imports_no_jax():
     assert len(files) > 10
     offenders = [str(f) for f in files if pat.search(f.read_text())]
     assert not offenders, offenders
+
+
+# ------------------------------------------- serving a trained checkpoint
+
+@pytest.fixture(scope="module")
+def trained(tmp_path_factory):
+    """`main_v2` on the CPU, one epoch at hidden 32 and word embedding 32
+    with the paper's 4 layers (the JAX package's reader of a torch
+    checkpoint takes 4 TCN levels), from a raw-level export archive of
+    four synthetic videos split 2 / 1 / 1: the train split has 2 speakers
+    (speaker vocabulary of 3), the test split 1 (of 2)."""
+    import gzip
+    import pickle
+
+    import yaml
+    from speech2affective_gestures_torch import main_v2 as tmain
+    from speech2affective_gestures_torch.data import ted_db as tdb
+
+    tmp = tmp_path_factory.mktemp("trained")
+    raw = yaml.safe_load(open(REPO / "config/multimodal_context_v2.yml"))
+    raw.update(hidden_size=32, hidden_size_s2eg=32, n_layers=4, wordembed_dim=32,
+               random_seed=3, loss_warmup=-1)
+    cfg_path = tmp / "cfg.yml"
+    cfg_path.write_text(yaml.safe_dump(raw))
+    arch = tmp / "arch"
+    arch.mkdir()
+    videos = tdb.make_synthetic_videos(4, 6.0)
+    manifest = {"level": "raw", "num_mfcc": 14, "splits": {}}
+    for split, vids in {"train": videos[:2], "val": videos[2:3], "test": videos[3:]}.items():
+        with gzip.open(arch / f"{split}_0000.pkl.gz", "wb") as f:
+            pickle.dump(vids, f, protocol=4)
+        manifest["splits"][split] = {"shards": 1, "records": len(vids)}
+    (arch / "manifest.json").write_text(json.dumps(manifest))
+    base = tmp / "base"
+    trainer = tmain.main(["-b", str(base), "-c", str(cfg_path), "--packed-data", str(arch),
+                          "--device", "cpu", "--batch-size", "8", "--s2ag-num-epoch", "1"])
+    ckpt = next((base / "models/s2ag_v2_mfcc_torch/ted_db").glob("epoch_*.pth.tar"))
+    argv = ["-b", str(base), "-c", str(cfg_path), "--packed-data", str(arch),
+            "--device", "cpu"]
+    return argv, trainer, ckpt, cfg_path, arch
+
+
+def _corpus_words(lang, seconds):
+    """Words of the corpus's vocabulary, one every 0.6 s."""
+    words = [w for w in lang.word2index if not w.startswith("<")]
+    return [[words[i % len(words)], 0.2 + 0.6 * i, 0.5 + 0.6 * i]
+            for i in range(int((seconds - 0.5) / 0.6))]
+
+
+def test_build_service_serves_best_with_the_corpus_vocabulary(trained):
+    """`build_service` loads the best checkpoint of `main_v2`'s work dir
+    into a generator sized from it (3 speakers, where the test split alone
+    has 2) and serves with the corpus's vocabulary: a request's words get
+    their dataset ids, none <UNK>."""
+    argv, trainer, ckpt, _, _ = trained
+    service = tserve.build_service(argv)
+    want = from_jax.strip_module_prefix(torch.load(ckpt, weights_only=True)["gen_model_dict"])
+    got = service.gen.state_dict()
+    assert set(got) == set(want)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    assert service.gen.speaker_embedding[0].weight.shape[0] == 3
+    assert service.lang.word2index == trainer.train_data.lang_model.word2index
+    words = _corpus_words(service.lang, 10.0)
+    _, text, _ = tsyn.prepare_window_inputs(_audio(10.0, 7), words, service.lang, service.cfg)
+    ids = set(text[text != 0].tolist())   # a word in two windows counts once
+    assert TVocab.UNK_token not in ids
+    assert ids == {service.lang.word2index[w] for w, _, _ in words}
+    out = service.synthesize(_audio(10.0, 7), words, vid_idx=2)
+    assert out["dir_vec"].shape == (4 * 30 + 34, C.POSE_DIM) and np.isfinite(out["poses"]).all()
+
+
+def test_build_service_refuses_random_weights(trained, tmp_path):
+    """No checkpoint in the work dir: SystemExit, unless
+    `--s2ag-load-last-best false` asks for random weights."""
+    argv, _, _, cfg_path, arch = trained
+    empty = ["-b", str(tmp_path / "empty"), "-c", str(cfg_path), "--packed-data", str(arch),
+             "--device", "cpu"]
+    with pytest.raises(SystemExit, match="no checkpoint found"):
+        tserve.build_service(empty)
+    service = tserve.build_service(empty + ["--s2ag-load-last-best", "false"])
+    assert service.gen.speaker_embedding[0].weight.shape[0] == 2   # the test split's
+    assert np.isfinite(service.synthesize(_audio(3.0, 8), WORDS)["dir_vec"]).all()
+
+
+def test_trained_checkpoint_served_like_jax(trained):
+    """The port's checkpoint served by the port (`build_service`) and by the
+    JAX package (`Trainer.load_torch_checkpoint`, then
+    `SynthesisService.from_trainer`), with the same noise: the same clip
+    within 1e-4, as `test_synthesize_clip_fused_matches_jax`. The JAX
+    trainer is sized from the train split; sized from the test split alone
+    (as the JAX package's serve.main sizes it) it cannot run the weights
+    (ROADMAP.md, faults: flax's ScopeParamShapeError)."""
+    import flax
+    from speech2affective_gestures_tpu.data import ted_db as jdb
+    from speech2affective_gestures_tpu.serve import SynthesisService as JService
+    from speech2affective_gestures_tpu.train.trainer import Trainer as JTrainer
+
+    argv, _, ckpt, cfg_path, arch = trained
+    jcfg = JConfig.from_yaml(str(cfg_path))
+    jsplits = jdb.load_exported_data(str(arch), jcfg)
+    work = str(ckpt.parent.parent / "jax")
+    # the JAX reader (convert/torch_ckpt.py:420-428) takes every dict of the
+    # blob for a flat state dict, which the Adam states that the port's
+    # checkpoint also carries are not: it gets the weights alone
+    weights = ckpt.parent.parent / "weights.pth.tar"
+    blob = torch.load(ckpt, weights_only=True)
+    torch.save({k: blob[k] for k in ("gen_model_dict", "dis_model_dict")}, weights)
+    jtrainer = JTrainer(jcfg, work, train_data=jsplits["train"], test_data=jsplits["test"])
+    jtrainer.load_torch_checkpoint(str(weights))
+    jsvc = JService.from_trainer(jtrainer)
+    audio = _audio(10.0, 9)
+    words = _corpus_words(jsvc.lang, 10.0)
+    want_dv, want_ps = jsyn.synthesize_clip_fused(jsvc.clip_fn, jsvc.variables, audio, words,
+                                                  jsvc.lang, jcfg, vid_idx=1,
+                                                  rng=jax.random.key(4))
+    apply = jax.jit(jtrainer.gen.apply)
+    zeros = (jnp.zeros((1, C.N_POSES, C.POSE_DIM + 1)), jnp.zeros((1, C.N_POSES), jnp.int32),
+             jnp.zeros((1, C.NUM_MFCC_COMBINED, C.MFCC_LENGTH)))
+    key, eps = jax.random.key(4), []
+    for _ in range(5):
+        key, sub = jax.random.split(key)
+        _, z, mu, lv = jax.device_get(apply(jsvc.variables, *zeros, jnp.asarray([1]),
+                                            rngs={"noise": sub}))
+        eps.append((z - mu) / np.exp(0.5 * lv))
+    service = tserve.build_service(argv)
+    got = service.synthesize(audio, words, vid_idx=1,
+                             eps=torch.from_numpy(np.stack(eps)))
+    assert got["dir_vec"].shape == want_dv.shape
+    np.testing.assert_allclose(got["dir_vec"], want_dv, atol=1e-4)
+    np.testing.assert_allclose(got["poses"], want_ps, atol=1e-4)
+
+    alone = JTrainer(jcfg, work, test_data=jsplits["test"])
+    alone.load_torch_checkpoint(str(weights))
+    with pytest.raises(flax.errors.ScopeParamShapeError):
+        JService.from_trainer(alone).synthesize(audio, words, vid_idx=1)

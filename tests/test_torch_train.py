@@ -291,8 +291,19 @@ def _moment_errors(got, want):
     return worst
 
 
+def _adam_state(opt_state):
+    """The ScaleByAdamState of an optax state: the chain's first, or the
+    first after the clipping's."""
+    if hasattr(opt_state, "mu"):
+        return opt_state
+    for s in opt_state:
+        if isinstance(s, tuple) and (found := _adam_state(s)) is not None:
+            return found
+    return None
+
+
 def _optax_moments(opt_state, mapper, variables):
-    adam = opt_state[0]
+    adam = _adam_state(opt_state)
     m, v = (mapper({"params": jax.device_get(s), "batch_stats": variables["batch_stats"]})
             for s in (adam.mu, adam.nu))
     return {k: (m[k], v[k]) for k in m}
@@ -314,17 +325,18 @@ def _port_step(jm, b, dtype=torch.float32):
     return {k: float(v) for k, v in got.items()}, step
 
 
-def _gan_steps(jm, seeds):
+def _gan_steps(jm, seeds, **options):
     """Runs JAX's `make_train_step` (scan engine) and the port's `GanStep`
-    side by side from the same weights, on one batch per seed; yields,
-    after each step, (step index, JAX metrics, port metrics, JAX state,
-    port step)."""
-    cfg = jstep.GanConfig(loss_warmup=-1, n_speakers=N_SPK)
+    side by side from the same weights and `GanConfig` options, on one
+    batch per seed; yields, after each step, (step index, JAX metrics, port
+    metrics, JAX state, port step)."""
+    cfg = jstep.GanConfig(loss_warmup=-1, n_speakers=N_SPK, **options)
     train_step, _ = jstep.make_train_step(jm["gen"].apply, jm["dis"].apply, cfg,
                                           jm["tri"].apply)
     state = jstep.create_train_state(jm["gen_vars"], jm["dis_vars"], cfg, jm["tri_vars"])
     gen, dis, tri = _port_models(jm)
-    step = tstep.GanStep(gen, dis, tstep.GanConfig(loss_warmup=-1, n_speakers=N_SPK), tri)
+    step = tstep.GanStep(gen, dis, tstep.GanConfig(loss_warmup=-1, n_speakers=N_SPK,
+                                                   **options), tri)
     g = torch.Generator().manual_seed(0)
     eps = torch.zeros(B, 16)
     for i, seed in enumerate(seeds):
@@ -416,6 +428,108 @@ def test_gan_step_float32_matches_float64(jax_models, same_other_speakers):
         assert errs[0][0] <= 1e-4 and errs[1][0] <= 2e-4, (who, errs)
 
 
+@pytest.mark.parametrize("clip", [0.1, 1e4], ids=["clipped", "unclipped"])
+def test_clipped_gan_step_matches_jax(jax_models, same_other_speakers, clip):
+    """One GAN step with global-norm gradient clipping against JAX's
+    (optax's `clip_by_global_norm` before Adam, each net's gradients over
+    its own tree): at 0.1 both nets' gradients are clipped (the port's
+    norms are printed in the message), at 1e4 neither; the metrics within
+    1e-4 relative and both Adam states within MOMENT_TOL, as step 1 of
+    `test_two_gan_steps_match_jax`."""
+    for _, want, got, st, step in _gan_steps(jax_models, STEP_SEEDS[:1], gradient_clip=clip):
+        norms = {k: float(v) for k, v in step.grad_norms.items()}
+        assert set(norms) == {"gen", "dis"}
+        assert all((n > clip) == (clip < 1) for n in norms.values()), norms
+        assert set(got) == set(want)
+        for k in want:
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-4, atol=1e-6, err_msg=k)
+        for who, mapper in (("gen", from_jax.pose_generator),
+                            ("dis", from_jax.aff_discriminator)):
+            errs = _moment_errors(
+                _torch_moments(getattr(step, f"{who}_opt"), getattr(step, who)),
+                _optax_moments(getattr(st, f"{who}_opt"), mapper, _vars(st, who)))
+            assert all(e <= MOMENT_TOL for e, _ in errs), (who, errs, norms)
+
+
+def test_clip_by_global_norm_is_optax():
+    """The clipping function on its own against optax's: a norm above the
+    limit scales every gradient by limit / norm, one below leaves them."""
+    import optax
+
+    rng = np.random.default_rng(0)
+    grads = [rng.standard_normal(s).astype(np.float32) for s in ((3, 4), (5,), (2, 2, 2))]
+    for limit in (0.5, 100.0):
+        params = [torch.nn.Parameter(torch.zeros(g.shape)) for g in grads]
+        for p, g in zip(params, grads):
+            p.grad = torch.from_numpy(g.copy())
+        norm = tstep.clip_by_global_norm_(params, limit)
+        want, _ = optax.clip_by_global_norm(limit).update(
+            [jnp.asarray(g) for g in grads], optax.EmptyState())
+        np.testing.assert_allclose(float(norm), float(optax.global_norm(grads)), rtol=1e-6)
+        for p, w in zip(params, want):
+            np.testing.assert_allclose(p.grad.numpy(), np.asarray(w), rtol=1e-6, atol=0)
+
+
+def _trainer_record(trainer) -> list:
+    """Wrap both optimizers' step to record (net, update count, lr) of
+    every update."""
+    log = []
+    for who in ("gen", "dis"):
+        opt = getattr(trainer.step, f"{who}_opt")
+
+        def step(*args, _opt=opt, _orig=opt.step, _who=who, **kwargs):
+            log.append((_who, tstep.update_count(_opt), _opt.param_groups[0]["lr"]))
+            return _orig(*args, **kwargs)
+
+        opt.step = step
+    return log
+
+
+def test_lr_decay_matches_jax_schedule(tmp_path):
+    """The learning rates of G and D over three epochs, the first two
+    without the GAN terms (so D updates only in the third), against JAX's
+    `_lr_schedule` at each optimizer's own update count, exactly; then
+    again after a reload from the epoch-1 checkpoint (the counts come back
+    from Adam's state) over epochs 1 and 2. Decay 0.5 per epoch of
+    16 // 4 = 4 updates."""
+    from speech2affective_gestures_torch.train.trainer import Trainer
+
+    cfg = TConfig.from_yaml("config/multimodal_context_v2.yml", hidden_size=HID,
+                            hidden_size_s2eg=HID, n_layers=1, wordembed_dim=EMB,
+                            batch_size=4, loss_warmup=1)
+    data = tdb.build_dataset_from_videos(tdb.make_synthetic_videos(2, 8.0), cfg)
+    assert data.n_samples == 16
+    kw = dict(train_data=data, device="cpu", save_interval=1, lr_decay=0.5,
+              trimodal_metric_interval=1000, log_interval=1000)
+    trainer = Trainer(cfg, str(tmp_path), seed=5, **kw)
+    jcfg = jstep.GanConfig(learning_rate=cfg.learning_rate, lr_decay=0.5,
+                           decay_steps_per_epoch=4)
+    assert trainer.gan_cfg.decay_steps_per_epoch == 4
+    schedules = {"gen": jstep._lr_schedule(jcfg.learning_rate, jcfg),
+                 "dis": jstep._lr_schedule(jcfg.lr_dis, jcfg)}
+    log = _trainer_record(trainer)
+    trainer.train(epochs=3)
+    assert [n for who, n, _ in log if who == "gen"] == list(range(12))
+    assert [n for who, n, _ in log if who == "dis"] == list(range(4))
+    for who, n, lr in log:
+        assert lr == schedules[who](n), (who, n, lr)
+
+    again = Trainer(cfg, str(tmp_path), seed=5, **kw)
+    assert again.load_checkpoint(1)
+    assert [tstep.update_count(o) for o in (again.step.gen_opt, again.step.dis_opt)] == [8, 0]
+    log = _trainer_record(again)
+    again.train(epochs=3)
+    # the trainer resumes at the checkpoint's epoch: epoch 1 again, then 2
+    assert [n for who, n, _ in log if who == "gen"] == list(range(8, 16))
+    assert [n for who, n, _ in log if who == "dis"] == list(range(4))
+    for who, n, lr in log:
+        assert lr == schedules[who](n), (who, n, lr)
+    for who, opt in (("gen", again.step.gen_opt), ("dis", again.step.dis_opt)):
+        assert opt.param_groups[0]["lr"] == schedules[who](tstep.update_count(opt))
+        # update_count reads one parameter's state: every state holds the same step
+        assert {int(s["step"]) for s in opt.state.values()} == {tstep.update_count(opt)}
+
+
 def test_other_speaker_draws():
     g = torch.Generator().manual_seed(1)
     vids = torch.tensor([0, 1, 2, 3, 4, 4])
@@ -493,15 +607,74 @@ def test_main_v2_trains_on_cpu_and_writes_a_checkpoint(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [["--fused-pass", "true"], ["--remat", "full"],
-                                  ["--steps-per-program", "2"], ["--loader", "grain"],
-                                  ["--apply-gradient-clip", "true"], []])
+                                  ["--steps-per-program", "2"], ["--loader", "grain"]])
 def test_main_v2_rejects_unported_options(tmp_path, flag):
     argv = ["-b", str(tmp_path), "-c", "config/multimodal_context_v2.yml",
-            "--device", "cpu"] + flag
-    if flag:
-        argv += ["--synthetic-data", "true"]
+            "--device", "cpu", "--synthetic-data", "true"] + flag
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tmain.main(argv)
+
+
+@pytest.mark.parametrize("route", ["archive", "lmdb"])
+def test_main_v2_trains_on_the_ted_formats(tmp_path, route):
+    """`main_v2` on the CPU from a raw-level export archive (`--packed-data`)
+    and from the TED LMDB layout under `<base>/../data/ted_db`, with
+    gradient clipping and LR decay on: the corpus is packed into the port's
+    caches, every loss is finite, a checkpoint is written, the test split
+    scored; a second run without training reads the caches."""
+    import gzip
+    import json
+    import pickle
+
+    import yaml
+    from speech2affective_gestures_tpu.data import legacy_arrow as jla
+    from speech2affective_gestures_tpu.data import lmdb_lite as jlmdb
+
+    raw = yaml.safe_load(open("config/multimodal_context_v2.yml"))
+    raw.update(hidden_size=HID, hidden_size_s2eg=HID, n_layers=1, wordembed_dim=EMB,
+               random_seed=3, loss_warmup=-1)
+    cfg_path = tmp_path / "cfg.yml"
+    cfg_path.write_text(yaml.safe_dump(raw))
+    videos = jdb.make_synthetic_videos(4, 6.0)
+    splits = {"train": videos[:2], "val": videos[2:3], "test": videos[3:]}
+    base = tmp_path / "run" / "base"
+    argv = ["-b", str(base), "-c", str(cfg_path), "--device", "cpu", "--batch-size", "4",
+            "--s2ag-num-epoch", "1", "--log-interval", "1", "--apply-gradient-clip",
+            "true", "--apply-lr-decay", "true"]
+    if route == "archive":
+        cache_dir = tmp_path / "arch"
+        cache_dir.mkdir()
+        manifest = {"level": "raw", "num_mfcc": 14, "splits": {}}
+        for split, vids in splits.items():
+            with gzip.open(cache_dir / f"{split}_0000.pkl.gz", "wb") as f:
+                pickle.dump(vids, f, protocol=4)
+            manifest["splits"][split] = {"shards": 1, "records": len(vids)}
+        (cache_dir / "manifest.json").write_text(json.dumps(manifest))
+        argv += ["--packed-data", str(cache_dir)]
+    else:
+        data = tmp_path / "run" / "data" / "ted_db"
+        for split, vids in splits.items():
+            jlmdb.write_env(str(data / getattr(TConfig(), f"{split}_data_path")),
+                            [(f"{i:010}".encode(), jla.serialize_legacy(v))
+                             for i, v in enumerate(vids)])
+        cache_dir = data / "data" / "ted_db"
+    trainer = tmain.main(argv)
+    assert sorted(p.name for p in cache_dir.glob("*_s2ag_torch_packed_mfcc_14.npz")) == [
+        "test_s2ag_torch_packed_mfcc_14.npz", "train_s2ag_torch_packed_mfcc_14.npz",
+        "val_s2ag_torch_packed_mfcc_14.npz"]
+    assert trainer.gan_cfg.gradient_clip == 0.1 and trainer.gan_cfg.lr_decay == 0.999
+    work = base / "models/s2ag_v2_mfcc_torch/ted_db"
+    log = (work / "log.txt").read_text()
+    iters = [line for line in log.splitlines() if "Done. |" in line]
+    assert iters and all("dis:" in line for line in iters)
+    values = [float(tok.split(": ")[1]) for line in iters
+              for tok in line.split("Done. | ")[1].split(" | ")]
+    assert np.isfinite(values).all()
+    assert "UNUSED" not in log and "eval: l1" in log
+    assert len(list(work.glob("epoch_000000_loss_*_model.pth.tar"))) == 1
+    again = tmain.main(argv + ["--train-s2ag", "false"])
+    assert again.train_data is None and again.test_data.n_samples == trainer.test_data.n_samples
+    np.testing.assert_array_equal(again.test_data.vec_seq, trainer.test_data.vec_seq)
 
 
 def _readings(seeds):
