@@ -70,7 +70,16 @@ toolkit. In order:
    service at `--serve-precision bf16` (/healthz and
    /metrics report bf16, its /synthesize runs the bf16 forward, its output
    against the CPU bf16 path, its p50 and p90);
-9. timing: each kernel's time, its plain version's, a PyTorch library
+9. the TED formats' route: `main_v2 --packed-data` on a raw export archive
+   with clipping and LR decay, the trained checkpoint served over HTTP and
+   streamed (`real_data_phase`, `trained_service_phase`, `stream_phase`);
+10. the long-clip rendering of that archive's test split, of a test split
+   of short clips and of a GENEA clip (`clip_render_phase`): both
+   generators, per clip and batched, the
+   counters set to 0 just before each and read just after (the mel kernel
+   and the GRU forward must have run), batched against per clip, the card
+   against the CPU plain path, the pickles loaded with `pickle` alone;
+11. timing: each kernel's time, its plain version's, a PyTorch library
    call's that computes the same function, and the least time the card
    could take (bound), by CUDA events and by device time; the GRU
    backward (recurrence + dW) against cuDNN's recurrent backward; the L2
@@ -186,6 +195,13 @@ PEAK_BF16_FLOPS = 989e12
 # the raw TED schema split 14 / 3 / 3 (~1200 train windows: 2 steps an
 # epoch at batch 512 for the decay, 3 batches), trained for 2 epochs
 REAL_VIDEOS, REAL_SECONDS, REAL_SPLIT, REAL_EPOCHS = 20, 60.0, (14, 3, 3), 2
+# the clip rendering: the real-data phase's 3 test videos of 60 s stitch
+# into clips of ~59 s (the default range keeps 5-12 s); a test split of
+# SHORT_VIDEOS videos of SHORT_SECONDS, whose clips of ~9.5 s the default
+# range keeps; and a GENEA directory of one 8 s clip of a 31-joint skeleton
+CLIP_RANGE = [1, 120]
+SHORT_VIDEOS, SHORT_SECONDS = 32, 10.0
+GENEA_JOINTS, GENEA_SECONDS = 31, 8.0
 
 
 def log(msg: str) -> None:
@@ -1423,6 +1439,246 @@ def stream_phase(service, audio, words) -> dict:
     return launches
 
 
+def write_genea_dir(root: pathlib.Path) -> None:
+    """A GENEA 2020 layout of one clip (the JAX package's GENEA test's
+    recipe): a 31-joint chain of unit offsets rotating about z written by
+    the port's `save_as_bvh` (8 s at 30 fps), an 8 s wav at 16 kHz and a
+    JSON transcript in Google's speech-to-text shape."""
+    from scipy.io import wavfile
+    from speech2affective_gestures_torch.render import bvh
+
+    for sub in ("audio", "bvh_raw", "transcripts"):
+        (root / sub).mkdir(parents=True)
+    n_joints, n_frames = GENEA_JOINTS, int(GENEA_SECONDS * 30)
+    offsets = np.zeros((n_joints, 3), np.float32)
+    offsets[1:, 1] = 1.0
+    angles = 0.15 * np.sin(np.linspace(0, 6 * np.pi, n_frames)[:, None]
+                           + np.linspace(0, 2, n_joints)[None, :])
+    quats = np.zeros((n_frames, n_joints, 4), np.float32)
+    quats[..., 0], quats[..., 3] = np.cos(angles / 2), np.sin(angles / 2)
+    positions = np.zeros((n_frames, n_joints, 3), np.float32)
+    positions[:, 0, 1] = 10.0
+    out = bvh.save_as_bvh({"joint_names": [f"j{k}" for k in range(n_joints)],
+                           "joint_offsets": offsets,
+                           "joint_parents": [-1] + list(range(n_joints - 1)),
+                           "positions": positions, "rotations": quats},
+                          str(root / "tmp_bvh"), frame_time=1.0 / 30)
+    pathlib.Path(out).replace(root / "bvh_raw" / "clip0.bvh")
+    wavfile.write(root / "audio" / "clip0.wav", 16000,
+                  (clip_audio(GENEA_SECONDS, 31) * 32767).astype(np.int16))
+    words = [{"word": w, "start_time": f"{0.4 + 0.9 * i:.1f}s",
+              "end_time": f"{0.8 + 0.9 * i:.1f}s"}
+             for i, w in enumerate(("so", "we", "went", "there", "and", "then", "left"))]
+    (root / "transcripts" / "clip0.json").write_text(
+        json.dumps([{"alternatives": [{"words": words}]}]))
+
+
+def _max_err(got, want) -> float:
+    """The largest difference of two renders' poses (resampled, TriModal,
+    s2ag per clip), inf when their clips or shapes differ."""
+    if [v for v, _ in got] != [v for v, _ in want]:
+        return float("inf")
+    errs = [np.abs(a - b).max() if a.shape == b.shape else np.inf
+            for (_, g), (_, w) in zip(got, want) for a, b in zip(g, w)]
+    return float(max(errs))
+
+
+def _render_route(trainer, cpu, label: str, dataset: str, kwargs: dict,
+                  out_dir: pathlib.Path, smi: str, launches: collections.Counter) -> None:
+    """One route of `clip_render_phase`: per clip, then batched, each
+    with the counters set to 0 just before and read just after (the GRU
+    forward and the mel kernel must have run), faded out, pickles written;
+    batched against per clip within GRU_TOL, every pickle loaded with
+    `pickle` alone, the card against the CPU copy within SERVE_TOL; then
+    3 warm calls each way (the checked calls were each batch's first,
+    which pays first-use costs such as cuDNN's plans of new shapes)."""
+    import torch
+    from speech2affective_gestures_torch.train import clip_eval
+
+    results = {}
+    for batched in (False, True):
+        way = "batched" if batched else "per clip"
+        _reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = clip_eval.generate_gestures_by_dataset(
+            trainer, dataset, fade_out=True, save_pkl=True,
+            save_path=str(out_dir / way.replace(" ", "_")), batched=batched, **kwargs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _counters()
+        launches.update(counts)
+        results[way] = res
+        log(f"{label} {way}: {len(res)} clips in {wall:.3f} s ({len(res) / wall:.3f} clips/s, "
+            f"{wall / max(len(res), 1) * 1e3:.1f} ms a clip); launches {dict(counts)}; {smi}")
+        if not res or counts["gru_fwd"] < 1 or counts["mel_power"] < 1:
+            raise AssertionError(f"{label} {way} did not run both kernels: {dict(counts)}")
+        for _, (_, tri, s2ag) in res:
+            if tri is None or not (np.isfinite(tri).all() and np.isfinite(s2ag).all()):
+                raise AssertionError(f"{label} {way}: a render is missing or not finite")
+        pickles = sorted((out_dir / way.replace(" ", "_")).glob("*.pkl"))
+        if len(pickles) != 2 * len(res):
+            raise AssertionError(f"{label} {way}: {len(pickles)} pickles for {len(res)} clips")
+    err = _max_err(results["batched"], results["per clip"])
+    log(f"{label} batched against per clip: max_abs_err {err:.3e} (tol {GRU_TOL})")
+    if not err <= GRU_TOL:
+        raise AssertionError(f"{label}: the batched render disagrees with per clip: {err}")
+    check_pickles(pickles)
+    t0 = time.perf_counter()
+    want = clip_eval.generate_gestures_by_dataset(cpu, dataset, fade_out=True, batched=True,
+                                                  **kwargs)
+    err = _max_err(results["per clip"], want)
+    log(f"{label} card against the CPU plain path ({time.perf_counter() - t0:.1f} s, "
+        f"same weights and noise): max_abs_err {err:.3e} (tol {SERVE_TOL})")
+    if not err <= SERVE_TOL:
+        raise AssertionError(f"{label}: the card's render disagrees with the CPU's: {err}")
+
+    p50s = {}
+    for batched in (False, True):
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = clip_eval.generate_gestures_by_dataset(trainer, dataset, fade_out=True,
+                                                         batched=batched, **kwargs)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        p50s[batched] = p50 = float(np.median(walls))
+        log(f"{label} {'batched' if batched else 'per clip'}, warm: p50 {p50:.3f} s for "
+            f"{len(res)} clips ({len(res) / p50:.3f} clips/s) over {len(walls)} calls; "
+            f"all {[round(w, 4) for w in walls]}; {smi}")
+    log(f"{label}: batched {p50s[False] / p50s[True]:.2f}x per clip (warm p50s)")
+
+
+def clip_render_phase(device, reading: list, work: pathlib.Path, smi: str) -> dict:
+    """The long-clip rendering (`train/clip_eval.py`) at full width,
+    float32, with both generators (s2ag on MFCC windows, the TriModal
+    baseline on raw audio), on the trainer that `main_v2 --train-s2ag
+    false` builds from the real-data phase's archive and work dir (its
+    best checkpoint, the test split with its sidecars, a random TriModal
+    baseline: no trimodal_gen.pth.tar). Three routes, each through
+    `_render_route` (per clip and batched, checked against each other and
+    against a CPU copy of the renderer with the same weights and noise,
+    then timed warm):
+    - "ted_db 60 s": that test split, whose 3 videos stitch into clips of
+      ~59 s, past the default 5-12 s: `clip_duration_range` CLIP_RANGE,
+      speakers drawn;
+    - "ted_db 10 s": a test split of SHORT_VIDEOS synthetic videos of
+      SHORT_SECONDS built with the trained corpus's vocabulary and
+      speakers, the default range, speakers drawn: the batch a test split
+      of many short clips gives;
+    - "genea": a synthetic GENEA directory, speakers not drawn.
+    Then one clip's TriModal render alone must add GRU forward launches
+    (n_layers per window) and no mel launch; the device's busy share of
+    one clip and of a batched call. No video: the card's machine has no
+    matplotlib (`create_video_and_save` needs it)."""
+    import dataclasses
+
+    import torch
+    from speech2affective_gestures_torch import main_v2
+    from speech2affective_gestures_torch.data import ted_db
+    from speech2affective_gestures_torch.train import clip_eval, synthesis
+    from speech2affective_gestures_torch.train.trainer import Trainer
+
+    trainer = main_v2.main(reading + ["--train-s2ag", "false"])
+    cfg, long_split = trainer.cfg, trainer.test_data
+    t0 = time.perf_counter()
+    videos = ted_db.make_synthetic_videos(SHORT_VIDEOS, SHORT_SECONDS, seed=11, device=device)
+    short_split = dataclasses.replace(
+        ted_db.build_dataset_from_videos(videos, cfg, lang_model=long_split.lang_model,
+                                         keep_sidecars=True, device=device),
+        speaker_model=long_split.speaker_model)
+    log(f"clip render phase: {SHORT_VIDEOS} videos of {SHORT_SECONDS} s windowed into "
+        f"{short_split.n_samples} test windows in {time.perf_counter() - t0:.1f} s")
+    write_genea_dir(work / "genea")
+    cpu = Trainer(cfg, str(work / "cpu_render"), test_data=long_split, device="cpu",
+                  n_speakers=trainer.gen.speaker_embedding[0].num_embeddings)
+    for name in ("gen", "tri"):
+        getattr(cpu, name).load_state_dict(getattr(trainer, name).state_dict())
+
+    def windows(audio_len):
+        return len(synthesis.plan_subdivisions(audio_len / 16000, cfg)[0])
+
+    clips = {}
+    for label, split in (("ted_db 60 s", long_split), ("ted_db 10 s", short_split)):
+        t0 = time.perf_counter()
+        clips[label] = list(clip_eval.stitch_test_clips(split))
+        lengths = sorted({round(c["time"][1] - c["time"][0], 3) for c in clips[label]})
+        log(f"{label}: {split.n_samples} test windows stitch into {len(clips[label])} clips of "
+            f"{lengths} s in {time.perf_counter() - t0:.4f} s (host), windows per clip "
+            f"{sorted({windows(len(c['audio'])) for c in clips[label]})}")
+    log(f"ted_db 60 s: clip_duration_range {CLIP_RANGE} admits its clips (default 5-12 s); "
+        f"genea: one clip of {GENEA_SECONDS} s, {GENEA_JOINTS} joints, "
+        f"{windows(GENEA_SECONDS * 16000)} windows")
+
+    launches = collections.Counter()
+    routes = (("ted_db 60 s", "ted_db", long_split,
+               dict(data_params={"clip_duration_range": CLIP_RANGE}, randomized=True, seed=3)),
+              ("ted_db 10 s", "ted_db", short_split, dict(randomized=True, seed=3)),
+              ("genea", "genea_challenge_2020", long_split,
+               dict(data_params={"data_path": str(work / "genea")}, randomized=False)))
+    for label, dataset, split, kwargs in routes:
+        trainer.test_data = cpu.test_data = split
+        _render_route(trainer, cpu, label, dataset, kwargs,
+                      work / "render" / label.replace(" ", "_"), smi, launches)
+
+    # the TriModal render alone: raw-audio windows, so no mel launch
+    renderer = clip_eval.ClipRenderer(trainer)
+    c = clips["ted_db 60 s"][0]
+    n_windows = windows(len(c["audio"]))
+    words = [[w, s - c["time"][0], e - c["time"][0]] for w, s, e in c["words"]]
+    eps = clip_eval.clip_noise(0, n_windows, trainer.tri.z_size)[1]
+    _reset_counters()
+    synthesis.synthesize_clip_fused(renderer.tri, c["audio"], words, renderer.lang, cfg,
+                                    eps=eps, use_mfcc=False)
+    torch.cuda.synchronize()
+    tri_counts = _counters()
+    log(f"TriModal render of one clip ({n_windows} windows): launches {dict(tri_counts)}")
+    if (tri_counts["gru_fwd"] != cfg.n_layers * n_windows
+            or tri_counts["mel_power"] or tri_counts["mel_power_mixed"]):
+        raise AssertionError(f"the TriModal render's launches: {dict(tri_counts)}")
+
+    for label, dataset, split, kwargs in routes[:2]:
+        trainer.test_data = split
+        c = clips[label][0]
+        renderer = clip_eval.ClipRenderer(trainer)
+
+        def one_clip(c=c, renderer=renderer):
+            renderer.render_clip(c["vid"], c["poses"], c["audio"], 16000, c["words"],
+                                 c["time"], clip_duration_range=CLIP_RANGE, fade_out=True)
+
+        def all_clips(dataset=dataset, kwargs=kwargs):
+            clip_eval.generate_gestures_by_dataset(trainer, dataset, batched=True,
+                                                   fade_out=True, **kwargs)
+
+        profile_device(f"{label} render_clip, one clip of {windows(len(c['audio']))} "
+                       f"windows, both generators", "clip", one_clip, 2)
+        profile_device(f"{label} generate_gestures_by_dataset batched, {len(clips[label])} "
+                       f"clips", "call", all_clips, 2)
+    del trainer, cpu
+    return launches
+
+
+def check_pickles(paths) -> None:
+    """Load every pickle in a fresh interpreter that has no package of the
+    repo on its path (`-I`, run from the pickles' directory): plain dicts
+    of numpy arrays and strings."""
+    script = ("import pickle, sys\n"
+              "for p in sys.argv[1:]:\n"
+              "    d = pickle.load(open(p, 'rb'))\n"
+              "    assert sorted(d) == ['audio', 'aux_info', 'human_dir_vec', 'out_dir_vec',"
+              " 'out_poses', 'sentence'], sorted(d)\n"
+              "    assert all(type(d[k]).__module__ == 'numpy' for k in "
+              "('audio', 'out_dir_vec', 'out_poses', 'human_dir_vec'))\n"
+              "    assert isinstance(d['sentence'], str) and isinstance(d['aux_info'], str)\n"
+              "print(len(sys.argv) - 1)")
+    out = subprocess.run([sys.executable, "-I", "-c", script, *map(str, paths)],
+                         capture_output=True, text=True, cwd=str(paths[0].parent))
+    if out.returncode != 0:
+        raise AssertionError(f"the pickles do not load with pickle alone: {out.stderr}")
+    log(f"{out.stdout.strip()} pickles loaded with pickle alone (python -I)")
+
+
 def _rel_np(got, want) -> float:
     return float(np.abs(np.asarray(got) - np.asarray(want)).max()
                  / max(np.abs(np.asarray(want)).max(), 1e-30))
@@ -2521,6 +2777,8 @@ def main() -> int:
         launches.update(served)
         launches.update(stream_phase(service, audio, words))
         del service
+        # the long-clip rendering of that test split and of a GENEA clip
+        launches.update(clip_render_phase(device, reading, work, smi))
     kernels = timing_phase(device, errs, launches)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -26,6 +26,7 @@ from scipy.interpolate import interp1d
 
 from .. import constants as C
 from ..ops import dsp
+from ..ops import pose as pose_ops
 from . import motion_filter
 
 
@@ -53,18 +54,6 @@ def get_words_in_time_range(word_list, start_time, end_time):
 def spectrogram_length(n_frames: int, fps: float) -> int:
     """ref utils/ted_db_utils.py:45-47."""
     return int(round((n_frames / fps * 16000 - 1024) / 512 + 1))
-
-
-def pose_seq_to_dir_vec(pose: np.ndarray) -> np.ndarray:
-    """Unit direction vectors of the bones (sklearn normalize semantics;
-    ref utils/ted_db_utils.py:105-124)."""
-    if pose.shape[-1] != 3:
-        pose = pose.reshape(pose.shape[:-1] + (-1, 3))
-    parents = np.array([p for p, _, _ in C.DIR_VEC_PAIRS])
-    children = np.array([c for _, c, _ in C.DIR_VEC_PAIRS])
-    diff = pose[..., children, :] - pose[..., parents, :]
-    norm = np.linalg.norm(diff, axis=-1, keepdims=True)
-    return diff / np.where(norm > 0, norm, 1.0)
 
 
 class DataPreprocessor:
@@ -157,7 +146,8 @@ class DataPreprocessor:
                 self.n_filtered_out[message] += 1
                 continue
             poses = np.asarray(skeletons if is_correct else sample_skeletons)
-            normalized = pose_seq_to_dir_vec(poses) - self.mean_dir_vec
+            normalized = (pose_ops.convert_pose_seq_to_dir_vec(torch.from_numpy(poses))
+                          .numpy() - self.mean_dir_vec)
             pending.append([sample_words, poses, normalized, sample_audio,
                             sample_spectrogram, None, aux_info])
 

@@ -30,8 +30,9 @@ bf16 instances on the card); validation and the test-split scoring stay
 float32.
 The embedding net comes from the reference's `embedding_net.pth.tar` or
 from `python -m speech2affective_gestures_torch.train_embedding`. The
-long-clip rendering of the test split (`train/clip_eval.py`) is not ported
-yet (ROADMAP.md, queue 1, item 2).
+long-clip rendering of the test split is
+`train.clip_eval.generate_gestures_by_dataset(trainer, ...)` on the trainer
+that `main` returns (no flag runs it, as in the JAX package).
 """
 
 from __future__ import annotations

@@ -42,11 +42,14 @@ class StreamingSynthesizer:
     speaker noise is `eps[i]` (1, z_size) when `eps` is given, else a draw
     of (1, z_size) from `generator` (CPU): the same numbers as the offline
     path's one (S, z_size) draw from a generator with the same seed.
+    `seed_dir_vec` (>= n_pre, POSE_DIM) seeds the first window, as the
+    offline path's; without it the seed poses are zeros (the mean pose).
     """
 
     def __init__(self, gen: torch.nn.Module, lang_model, cfg: ModelConfig,
                  vid_idx: int = 0, generator: torch.Generator | None = None,
-                 eps: torch.Tensor | None = None, precision: str = "f32"):
+                 eps: torch.Tensor | None = None, precision: str = "f32",
+                 seed_dir_vec: np.ndarray | None = None):
         self.gen = gen
         self.lang = lang_model
         self.cfg = cfg
@@ -62,8 +65,11 @@ class StreamingSynthesizer:
         self._words: list = []
         self._n_done = 0                          # windows synthesized
         self._prev_raw: np.ndarray | None = None  # the last window's raw output
-        # the first window's seed poses are zeros, as the offline path's
+        # the first window's seed poses, as the offline path's
         self._seed = torch.zeros(1, cfg.n_pre_poses, C.POSE_DIM, device=self.device)
+        if seed_dir_vec is not None:
+            self._seed[0] = torch.as_tensor(
+                np.asarray(seed_dir_vec[:cfg.n_pre_poses], np.float32), device=self.device)
         self._flushed = False
 
     # ---------------------------------------------------------- internals

@@ -14,7 +14,9 @@ generator batch, then the validity-masked crossfade and assembly, the mean
 re-add and forward kinematics. `synthesize_clip_fused` is that body at one
 clip, `synthesize_clips_batched` at many. `precision` "bf16" runs the
 generator's forwards at bf16 (`precision_wrap`); the MFCC front-end, the
-crossfade and FK stay float32.
+crossfade and FK stay float32. With `use_mfcc=False` the windows' raw
+audio goes to the generator as it is (the TriModal baseline's
+WavEncoder), and no MFCC is computed.
 """
 
 from __future__ import annotations
@@ -223,14 +225,16 @@ def window_forward(run, cfg: ModelConfig, feat: torch.Tensor, text: torch.Tensor
 def clip_body(gen, cfg: ModelConfig, audio_windows: torch.Tensor,
               text_windows: torch.Tensor, vid_idx: torch.Tensor,
               seed: torch.Tensor, n_valid, eps: torch.Tensor | None = None,
-              generator: torch.Generator | None = None, precision: str = "f32"):
+              generator: torch.Generator | None = None, precision: str = "f32",
+              use_mfcc: bool = True):
     """The serving computation for B clips at once, the generator at
     `precision` (`precision_wrap`).
 
     audio_windows (B, S, L) float32, text_windows (B, S, T) int64, vid_idx
     (B,), seed (B, n_pre, D), n_valid: each clip's real window count (a
     sequence of B ints), eps: optional per-window noise (>= max(n_valid),
-    B, z_size), else drawn from `generator`.
+    B, z_size), else drawn from `generator`. The generator eats each
+    window's MFCCs, or with `use_mfcc=False` its raw audio (B, L).
 
     Returns dir_vec (B, F, D) and poses (B, F, J, 3) with F = (S' - 1) *
     stride + T, S' = max(n_valid). Rows past a clip's own
@@ -245,8 +249,11 @@ def clip_body(gen, cfg: ModelConfig, audio_windows: torch.Tensor,
     n_valid = [int(n) for n in n_valid]
     s_run = max(n_valid)
 
-    feat = window_features(audio_windows.reshape(b * s, -1), cfg)
-    feat = feat.reshape(b, s, *feat.shape[1:])
+    if use_mfcc:
+        feat = window_features(audio_windows.reshape(b * s, -1), cfg)
+        feat = feat.reshape(b, s, *feat.shape[1:])
+    else:
+        feat = audio_windows
 
     outs = []
     sd = seed
@@ -287,15 +294,17 @@ def synthesize_clips_batched(gen, clips, lang_model, cfg: ModelConfig,
                              generator: torch.Generator | None = None,
                              sample_rate: int = C.AUDIO_SR, fade_out=False,
                              seeds=None, timings: dict | None = None,
-                             precision: str = "f32"):
+                             precision: str = "f32", use_mfcc: bool = True):
     """Synthesize many clips in one pass, the clips as the generator batch.
 
     clips: iterable of (clip_audio, clip_words, vid_idx). All clips are
     padded to one window-count bucket (`window_bucket` of the longest).
-    eps: optional (S, B, z_size) per-window noise; seeds: optional per-clip
-    (n_pre, D) seed vectors (default zeros, the mean pose); fade_out: a
-    bool or one per clip; precision: the generator's, "f32" or "bf16"
-    (`precision_wrap`). Returns a list of (dir_vec (F_i, D), poses
+    eps: optional (S, B, z_size) per-window noise, column b clip b's own
+    (so that a clip draws the same noise alone and in a batch); seeds:
+    optional per-clip (n_pre, D) seed vectors (default zeros, the mean
+    pose); fade_out: a bool or one per clip; precision: the generator's,
+    "f32" or "bf16" (`precision_wrap`); use_mfcc: False for a generator
+    that eats raw audio (`clip_body`). Returns a list of (dir_vec (F_i, D), poses
     (F_i, J, 3)) numpy pairs. timings, if given, receives prep_ms (host
     window planning), device_ms (the body and the copy back) and post_ms
     (host slicing and fades).
@@ -329,7 +338,7 @@ def synthesize_clips_batched(gen, clips, lang_model, cfg: ModelConfig,
         torch.from_numpy(audio_w).to(device), torch.from_numpy(text_w).to(device),
         vids, torch.from_numpy(seed_arr).to(device), n_windows,
         eps=None if eps is None else eps.to(device), generator=generator,
-        precision=precision)
+        precision=precision, use_mfcc=use_mfcc)
     dir_vec_full = dir_vec_full.cpu().numpy()
     poses_full = poses_full.cpu().numpy()
     t_device = time.perf_counter()
@@ -356,10 +365,15 @@ def synthesize_clip_fused(gen, clip_audio: np.ndarray, clip_words, lang_model,
                           eps: torch.Tensor | None = None,
                           generator: torch.Generator | None = None,
                           sample_rate: int = C.AUDIO_SR, fade_out: bool = False,
-                          timings: dict | None = None, precision: str = "f32"):
+                          timings: dict | None = None, precision: str = "f32",
+                          seed_dir_vec: np.ndarray | None = None,
+                          use_mfcc: bool = True):
     """One clip through `clip_body` (generator batch 1). eps: optional
-    (S, 1, z_size). Returns (dir_vec (F, D), poses (F, J, 3)) numpy arrays."""
+    (S, 1, z_size); seed_dir_vec: the first window's seed poses, (>= n_pre,
+    D) mean-normalized direction vectors (default zeros, the mean pose).
+    Returns (dir_vec (F, D), poses (F, J, 3)) numpy arrays."""
     return synthesize_clips_batched(
         gen, [(clip_audio, clip_words, vid_idx)], lang_model, cfg, eps=eps,
         generator=generator, sample_rate=sample_rate, fade_out=fade_out,
-        timings=timings, precision=precision)[0]
+        seeds=None if seed_dir_vec is None else [seed_dir_vec],
+        timings=timings, precision=precision, use_mfcc=use_mfcc)[0]
