@@ -26,7 +26,8 @@ toolkit. In order:
    large enough, `gru_cuda.fwd_tier` and `bwd_tier`, else the register or
    L2 tier; dW on the tensor cores; both layouts) against their bf16 twins
    and against float32, each tensor tier also where its plan takes the
-   register tier;
+   register tier; and the GRU forward, recurrence and dW at the
+   ConvDiscriminator's shape (T 28, B 512, H 64), float32 and bf16;
 3. service phase: a full-width s2ag generator (config/multimodal_context_v2.yml:
    hidden 300, 4 GRU layers, embed 300; 1000 words, 100 speakers; random
    weights from seed 0) behind the HTTP server answers /synthesize for a
@@ -79,14 +80,27 @@ toolkit. In order:
    counters set to 0 just before each and read just after (the mel kernel
    and the GRU forward must have run), batched against per clip, the card
    against the CPU plain path, the pickles loaded with `pickle` alone;
-11. timing: each kernel's time, its plain version's, a PyTorch library
+11. the paper's ablations (`ablation_phase`): `main_v2_abl_audio` and
+   `main_v2_abl_aff` each train one epoch at full width and batch 512 and
+   score the test split with FGD, at float32 and in mixed precision, the
+   counters set to 0 just before each and read just after (the GRU
+   kernels, the bf16 tensor tiers in mixed precision, the mel kernel in
+   the corpus build, abl_aff's ConvDiscriminator at T 28), in their
+   suffixed work dirs, every loss finite; each warm train step's p50 and
+   profile; one train step of each against the CPU (float64, float32 and
+   bf16); each float32 trainer's service against a CPU copy (no mel
+   launch for abl_audio's generator, which eats raw audio); abl_audio's
+   long-clip rendering of a test split of short clips, per clip and
+   batched, with no mel launch;
+12. timing: each kernel's time, its plain version's, a PyTorch library
    call's that computes the same function, and the least time the card
    could take (bound), by CUDA events and by device time; the GRU
    backward (recurrence + dW) against cuDNN's recurrent backward; the L2
    tier's times; the bf16 instances against cuDNN's bf16 `nn.GRU` (and the
    bf16 forward's and recurrence's two register-range tiers against each
    other across batches); the mel kernel's mixed-radix FFT at n_fft 400
-   and its DFT tier against `rfft`; the service's synthesize p50; the
+   and its DFT tier against `rfft`; the GRU kernels at the
+   ConvDiscriminator's shape; the service's synthesize p50; the
    train step's p50, samples/s and its device profile; `generate_gestures`'
    wall time and device profile; the embedding train step's p50.
 
@@ -100,6 +114,7 @@ from __future__ import annotations
 
 import base64
 import collections
+import contextlib
 import copy
 import http.client
 import json
@@ -148,6 +163,12 @@ EMB_EPOCHS, EMB_BATCH = 5, 64
 # running stats and Adam's first moments within STEP_TOL of each tensor's
 # largest value
 STEP_TOL = 1e-3
+# a ReLU or leaky ReLU pre-activation that the card's float32 step puts on
+# the other side of zero than the CPU's float64 step must lie within
+# FLIP_TOL of the largest |pre-activation| of its call: float32 rounding
+# (sums of a few hundred products in another order, ~1e-7 of their
+# operands), not an error of the function
+FLIP_TOL = 1e-5
 # the training phase: 20 synthetic videos of 60 s give ~1720 windows, 70%
 # of them 3 train batches of 512 and 15% one validation batch
 TRAIN_BATCH, TRAIN_VIDEOS, TRAIN_SECONDS = 512, 20, 60.0
@@ -202,6 +223,10 @@ REAL_VIDEOS, REAL_SECONDS, REAL_SPLIT, REAL_EPOCHS = 20, 60.0, (14, 3, 3), 2
 CLIP_RANGE = [1, 120]
 SHORT_VIDEOS, SHORT_SECONDS = 32, 10.0
 GENEA_JOINTS, GENEA_SECONDS = 31, 8.0
+# the paper's ablations and their entry points; the ConvDiscriminator's
+# unpadded convs (kernel 3, three of them) leave its GRU T 34 - 6 frames
+ABLATIONS = ("abl_audio", "abl_aff")
+CONV_DIS_T = 34 - 6
 
 
 def log(msg: str) -> None:
@@ -1017,11 +1042,25 @@ def _tier_counters() -> collections.Counter:
     return out
 
 
+def _conv_dis_counters() -> collections.Counter:
+    """The GRU kernels' launches since the last reset at the
+    ConvDiscriminator's shape (T CONV_DIS_T, H 64), under their names in
+    the kernels line: "gru_fwd_t28", "gru_bwd_t28_bf16", ..."""
+    from speech2affective_gestures_torch.ops import gru_cuda
+
+    out = collections.Counter()
+    for (kernel, dtype, T, H), n in gru_cuda.shape_launches.items():
+        if (T, H) == (CONV_DIS_T, 64) and not kernel.endswith("_v1"):
+            out[f"{kernel}_t{T}{'_bf16' if dtype == 'bfloat16' else ''}"] += n
+    return out
+
+
 def _reset_counters() -> None:
     from speech2affective_gestures_torch.ops import gru_cuda, mel_cuda
 
     gru_cuda.launches.clear()
     gru_cuda.tier_launches.clear()
+    gru_cuda.shape_launches.clear()
     mel_cuda.launches.clear()
     mel_cuda.fft_launches.clear()
 
@@ -1685,31 +1724,43 @@ def _rel_np(got, want) -> float:
 
 
 def training_phase(device, work: pathlib.Path, embedding_net: pathlib.Path,
-                   mixed_precision: bool = False):
+                   mixed_precision: bool = False, variant: str = "s2ag"):
     """`main_v2.main` on the card: the paper's GAN at full width, batch 512,
     one epoch with the GAN terms on from the first step, then the test
     split scored with FGD by the card-trained embedding net. With
     `mixed_precision` (`--mixed-precision true`) the train steps run at
     bf16: the GRU kernels' bf16 instances must run in training and only
-    the float32 ones in the scoring. Returns the trainer and each kernel's
-    launches in training and in the scoring."""
+    the float32 ones in the scoring. An ablation `variant` runs its own
+    entry point (`main_v2_abl_audio`, `main_v2_abl_aff`): the mel kernel
+    must run in its corpus build, it must train in its suffixed work dir,
+    and abl_aff's ConvDiscriminator must run the GRU kernels at T
+    CONV_DIS_T, H 64 in training. Returns the trainer and each kernel's
+    launches in training and in the scoring (for an ablation, with the
+    launches at the ConvDiscriminator's shape under their own names)."""
+    import importlib
+
     import torch
     import yaml
     from speech2affective_gestures_torch import main_v2
     from speech2affective_gestures_torch.train.trainer import Trainer
 
+    entry = importlib.import_module(
+        "speech2affective_gestures_torch." + ("main_v2" if variant == "s2ag"
+                                              else f"main_v2_{variant}"))
     raw = yaml.safe_load(CONFIG.read_text())
     raw["loss_warmup"] = -1       # epoch 0 > -1: the discriminator runs
     cfg_path = work / "multimodal_context_v2_gan_on.yml"
     cfg_path.write_text(yaml.safe_dump(raw))
-    base = work / ("base_bf16" if mixed_precision else "base")
+    base = work / ((f"base_{variant}" if variant != "s2ag" else "base")
+                   + ("_bf16" if mixed_precision else ""))
+    work_dir = base / "models" / f"s2ag_v2_mfcc_torch{main_v2.WORK_DIR_SUFFIX[variant]}" / "ted_db"
     argv = ["-b", str(base), "-c", str(cfg_path), "--synthetic-data", "true",
             "--synthetic-videos", str(TRAIN_VIDEOS), "--synthetic-seconds",
             str(TRAIN_SECONDS), "--batch-size", str(TRAIN_BATCH),
             "--s2ag-num-epoch", "1", "--log-interval", "1",
             "--embedding-net-checkpoint", str(embedding_net),
             "--mixed-precision", str(mixed_precision).lower()]
-    log(f"training phase: main_v2.main({' '.join(argv)})")
+    log(f"training phase: {entry.__name__.rsplit('.', 1)[1]}.main({' '.join(argv)})")
     # the counters are read, and set to 0 again, just before main_v2 scores
     # the test split, and read just after
     counts = {}
@@ -1719,11 +1770,13 @@ def training_phase(device, work: pathlib.Path, embedding_net: pathlib.Path,
         torch.cuda.synchronize()
         counts["training"] = _counters()
         counts["training tiers"] = _tier_counters()
+        counts["training T28"] = _conv_dis_counters()
         _reset_counters()
         t0 = time.perf_counter()
         result = scoring(self, *args, **kwargs)
         torch.cuda.synchronize()
         counts["evaluation"] = _counters()
+        counts["evaluation T28"] = _conv_dis_counters()
         log(f"generate_gestures in main_v2: {(time.perf_counter() - t0) * 1e3:.1f} ms")
         return result
 
@@ -1732,7 +1785,7 @@ def training_phase(device, work: pathlib.Path, embedding_net: pathlib.Path,
     t0 = time.perf_counter()
     Trainer.generate_gestures = counted
     try:
-        trainer = main_v2.main(argv)
+        trainer = entry.main(argv)
     finally:
         Trainer.generate_gestures = scoring
     torch.cuda.synchronize()
@@ -1756,8 +1809,24 @@ def training_phase(device, work: pathlib.Path, embedding_net: pathlib.Path,
         raise AssertionError(f"generate_gestures did not run float32 alone: {evaluated}")
     if trainer.device.type != device.type:
         raise AssertionError(f"main_v2 trained on {trainer.device}, not the card")
+    t28 = counts["training T28"]
+    if variant != "s2ag":
+        log(f"{variant}: trained in {trainer.work_dir}; the corpus build's mel launches "
+            f"{launches['mel_power']}; GRU launches at the ConvDiscriminator's T "
+            f"{CONV_DIS_T}, H 64 in training {dict(t28)}, in the scoring "
+            f"{dict(counts['evaluation T28'])}")
+        if trainer.variant != variant or pathlib.Path(trainer.work_dir) != work_dir:
+            raise AssertionError(f"{variant} trained as {trainer.variant} in {trainer.work_dir}")
+        if launches["mel_power"] < 1:
+            raise AssertionError(f"{variant}: the corpus build ran no mel kernel")
+        # abl_aff's discriminator: its three kernels at the step's dtype (the
+        # float32 forward also runs in the validation); no other net has T 28
+        ran = {k for k, n in t28.items() if n}
+        want_t28 = {f"{k}_t{CONV_DIS_T}{suffix}" for k in ("gru_fwd", "gru_bwd", "gru_dw")}
+        if (variant == "abl_aff" and want_t28 - ran) or (variant != "abl_aff" and ran):
+            raise AssertionError(f"{variant}: GRU launches at T {CONV_DIS_T} {dict(t28)}")
 
-    log_txt = (base / "models" / "s2ag_v2_mfcc_torch" / "ted_db" / "log.txt").read_text()
+    log_txt = (work_dir / "log.txt").read_text()
     iters = [line.split("Done. | ")[1] for line in log_txt.splitlines()
              if "Done. | " in line]
     steps = [dict((k, float(v)) for k, v in (tok.split(": ") for tok in it.split(" | ")))
@@ -1771,7 +1840,7 @@ def training_phase(device, work: pathlib.Path, embedding_net: pathlib.Path,
     for line in log_txt.splitlines():
         if "synthetic corpus" in line or "epoch 0" in line:
             log(f"  log: {line}")
-    if not list((base / "models" / "s2ag_v2_mfcc_torch" / "ted_db").glob("*.pth.tar")):
+    if not list(work_dir.glob("*.pth.tar")):
         raise AssertionError("main_v2 wrote no checkpoint")
     [line] = [x for x in log_txt.splitlines() if "eval: " in x]
     scores = {k: float(v) for k, v in (tok.split(": ") for tok in
@@ -1780,6 +1849,8 @@ def training_phase(device, work: pathlib.Path, embedding_net: pathlib.Path,
     if (set(scores) != {"l1", "joint_mae", "accel", "FGD", "feat_dist"}
             or not np.isfinite(list(scores.values())).all()):
         raise AssertionError(f"bad test-split scores: {scores}")
+    if variant != "s2ag":
+        return trainer, launches + evaluated + t28 + counts["evaluation T28"]
     return trainer, launches + evaluated
 
 
@@ -1931,17 +2002,68 @@ def aff_encoder_probe(gen, batch, eps, device) -> None:
             f"float64 (relative to the largest value): " + "; ".join(errs))
 
 
-def step_parity_phase(device, gradient_clip: float = 0.0) -> None:
-    """One train step at full width and batch 16 on the card and on the
-    CPU plain path, from the same weights, batch, speaker noise and
-    div-reg speaker ids, every dropout at zero.
+@contextlib.contextmanager
+def _branches(replay: list | None = None):
+    """Inside the block every ReLU and leaky ReLU (`torch.relu`, which
+    `nn.ReLU` and the TCN's residual call, and `F.leaky_relu`) records, in
+    call order, its branch (pre-activation > 0) and its pre-activations'
+    magnitudes, on the CPU; with `replay` (another run's record, the same
+    calls in the same order) each takes that run's branch instead of its
+    own: the same function where the branches agree, with the same
+    gradient."""
+    import torch
+    import torch.nn.functional as F
+
+    record: list = []
+    relu, leaky = torch.relu, F.leaky_relu
+
+    def pick(x, slope):
+        own = x > 0
+        record.append((own.cpu(), x.detach().abs().cpu().double()))
+        mask = own if replay is None else replay[len(record) - 1][0].to(x.device)
+        return torch.where(mask, x, x * slope)
+
+    torch.relu = lambda x: pick(x, 0.0)
+    F.leaky_relu = lambda x, negative_slope=0.01, inplace=False: pick(x, negative_slope)
+    try:
+        yield record
+    finally:
+        torch.relu, F.leaky_relu = relu, leaky
+
+
+def _branch_flips(got: list, want: list) -> list:
+    """The calls of `_branches` records `got` and `want` whose branches
+    differ: (call, flips, the largest |pre-activation| of `want` at them
+    over the largest of the call)."""
+    out = []
+    for i, ((mask, _), (ref, pre)) in enumerate(zip(got, want)):
+        flips = mask != ref
+        if flips.any():
+            out.append((i, int(flips.sum()),
+                        pre[flips].max().item() / max(pre.max().item(), 1e-30)))
+    return out
+
+
+def step_parity_phase(device, gradient_clip: float = 0.0, variant: str = "s2ag") -> None:
+    """One train step of `variant`'s nets (`builder.init_training`) at
+    full width and batch 16 on the card and on the CPU plain path, from
+    the same weights, batch, speaker noise (the main forwards' and the
+    diversity regularizer's) and div-reg speaker ids, every dropout at
+    zero.
 
     The CPU path runs in float64 as the reference, and in float32 for
     comparison; `aff_encoder_probe` prints where the float32 runs part
     from float64 in the generator's AffEncoder. With `gradient_clip` the
     step clips each net's gradients by their global norm
     (`gan_step.clip_by_global_norm_`): both nets' norms must exceed it on
-    this batch, so that both are clipped, and are printed."""
+    this batch, so that both are clipped, and are printed.
+
+    Each ReLU and leaky ReLU's branches are recorded (`_branches`). Where
+    the card's float32 step takes the other branch than the float64 step
+    at a pre-activation within FLIP_TOL of its call's largest (float32
+    rounding at zero: one such element can move its weights' gradient far
+    past STEP_TOL), the card is held to the float64 step rerun on the
+    card's branches; a flip past FLIP_TOL fails the phase."""
     import dataclasses
 
     import torch
@@ -1951,7 +2073,7 @@ def step_parity_phase(device, gradient_clip: float = 0.0) -> None:
 
     cfg = ModelConfig.from_yaml(CONFIG, loss_warmup=-1)
     n_words, n_speakers, B = 1000, 100, 16
-    init = builder.init_training(cfg, 0, n_words, n_speakers, device="cpu")
+    init = builder.init_training(cfg, 0, n_words, n_speakers, device="cpu", variant=variant)
     init["gan_cfg"] = dataclasses.replace(init["gan_cfg"], gradient_clip=gradient_clip)
     for model in (init["gen"], init["dis"], init["tri"]):
         for m in model.modules():
@@ -1963,7 +2085,8 @@ def step_parity_phase(device, gradient_clip: float = 0.0) -> None:
     batch = builder.synthetic_batch(rng, B, cfg, n_words, n_speakers)
     eps = rng.standard_normal((B, 16))
     other = rng.permutation(batch["vid_indices"])
-    if not gradient_clip:
+    eps_rand = rng.standard_normal((B, 16))
+    if not gradient_clip and variant == "s2ag":
         aff_encoder_probe(init["gen"], batch, eps, device)
 
     def one_step(dev, dtype):
@@ -1974,10 +2097,11 @@ def step_parity_phase(device, gradient_clip: float = 0.0) -> None:
              for k, v in builder.to_device(batch, dev).items()}
         t0 = time.perf_counter()
         metrics = step.train_step(b, torch.Generator(device=dev).manual_seed(0),
-                                  gan_on=True, eps=torch.from_numpy(eps).to(dev, dtype))
+                                  gan_on=True, eps=torch.from_numpy(eps).to(dev, dtype),
+                                  eps_rand=torch.from_numpy(eps_rand).to(dev, dtype))
         metrics = {k: float(v) for k, v in metrics.items()}
         norms = {k: float(v) for k, v in step.grad_norms.items()}
-        log(f"one train step, batch {B}, on {dev} in {dtype}"
+        log(f"one {variant} train step, batch {B}, on {dev} in {dtype}"
             f"{f', gradient clip {gradient_clip}' if gradient_clip else ''}: "
             f"{(time.perf_counter() - t0) * 1e3:.1f} ms; {metrics}"
             f"{f'; global gradient norms {norms}' if gradient_clip else ''}")
@@ -1990,9 +2114,26 @@ def step_parity_phase(device, gradient_clip: float = 0.0) -> None:
     gan_step.draw_other_speaker_ids = (
         lambda g, vids, n: torch.as_tensor(other, device=vids.device))
     try:
-        ref = one_step(torch.device("cpu"), torch.float64)
-        runs = {"card": one_step(device, torch.float32),
-                "CPU": one_step(torch.device("cpu"), torch.float32)}
+        with _branches() as ref_branches:
+            ref = one_step(torch.device("cpu"), torch.float64)
+        with _branches() as card_branches:
+            card = one_step(device, torch.float32)
+        flips = _branch_flips(card_branches, ref_branches)
+        log(f"ReLU and leaky ReLU branches of the card's float32 {variant} step against the "
+            f"float64 step's: {len(ref_branches)} calls; (call, elements on the other "
+            f"branch, their largest |pre-activation| over the call's largest) {flips} (tol "
+            f"{FLIP_TOL})")
+        if any(rel > FLIP_TOL for _, _, rel in flips):
+            raise AssertionError(f"the card's step takes another branch past float32 "
+                                 f"rounding: {flips}")
+        # (label, run, the float64 step it is held to, whether it must pass)
+        checks = [("card", card, ref, True)]
+        if flips:
+            with _branches(replay=card_branches):
+                ref_card = one_step(torch.device("cpu"), torch.float64)
+            checks = [("card", card, ref_card, True),
+                      ("card (against the float64 step's own branches)", card, ref, False)]
+        checks.append(("CPU", one_step(torch.device("cpu"), torch.float32), ref, False))
     finally:
         gan_step.draw_other_speaker_ids = draw
 
@@ -2013,9 +2154,8 @@ def step_parity_phase(device, gradient_clip: float = 0.0) -> None:
         return max((b - a).abs().max().item() / (s if s >= 1e-4 * top else top)
                    for (a, b), s in zip(pairs, scale))
 
-    (ref_models, ref_step, want) = ref
     errs = {}
-    for name, (models, step, got) in runs.items():
+    for name, (models, step, got), (ref_models, ref_step, want), _ in checks:
         metric = max(abs(got[k] - want[k]) / (abs(want[k]) + 1e-6 / STEP_TOL)
                      for k in want)
         errs[name] = {
@@ -2029,17 +2169,17 @@ def step_parity_phase(device, gradient_clip: float = 0.0) -> None:
             "dis Adam m": moment_err(ref_step.dis_opt, ref_models["dis"],
                                      step.dis_opt, models["dis"]),
         }
-        log(f"{name} float32 step{' (clipped)' if gradient_clip else ''} against the "
-            "CPU float64 step: "
+        log(f"{name} float32 {variant} step{' (clipped)' if gradient_clip else ''} against "
+            f"the CPU float64 step{' on the card'"'"'s branches' if want is not ref[2] else ''}: "
             + ", ".join(f"{k} {v:.3e}" for k, v in errs[name].items())
             + f" (tol {STEP_TOL} for the card)")
     if not all(v <= STEP_TOL for v in errs["card"].values()):
         raise AssertionError(f"card step disagrees with the CPU step: {errs['card']}")
 
 
-def mixed_step_parity_phase(device) -> None:
+def mixed_step_parity_phase(device, variant: str = "s2ag") -> None:
     """One mixed-precision train step (`builder.mixed_precision_apply` over
-    the three nets) at full width and batch 16 on the card and on the CPU
+    `variant`'s three nets) at full width and batch 16 on the card and on the CPU
     bf16 path (the GRU's plain versions at the kernels' rounding points),
     from the same weights scaled by MP_SCALE, batch, speaker noise and
     div-reg speaker ids, every dropout at zero: the step's metrics within
@@ -2053,7 +2193,7 @@ def mixed_step_parity_phase(device) -> None:
 
     cfg = ModelConfig.from_yaml(CONFIG, loss_warmup=-1)
     n_words, n_speakers, B = 1000, 100, 16
-    init = builder.init_training(cfg, 0, n_words, n_speakers, device="cpu")
+    init = builder.init_training(cfg, 0, n_words, n_speakers, device="cpu", variant=variant)
     for model in (init["gen"], init["dis"], init["tri"]):
         for m in model.modules():
             if isinstance(m, L.Dropout):
@@ -2064,6 +2204,7 @@ def mixed_step_parity_phase(device) -> None:
     batch = builder.synthetic_batch(rng, B, cfg, n_words, n_speakers)
     eps = torch.from_numpy(rng.standard_normal((B, 16)).astype(np.float32))
     other = rng.permutation(batch["vid_indices"])
+    eps_rand = torch.from_numpy(rng.standard_normal((B, 16)).astype(np.float32))
 
     def one_step(dev, scale):
         models = {k: _scaled_copy(init[k], scale).to(dev) for k in ("gen", "dis", "tri")}
@@ -2072,9 +2213,9 @@ def mixed_step_parity_phase(device) -> None:
         t0 = time.perf_counter()
         metrics = step.train_step(builder.to_device(batch, dev),
                                   torch.Generator(device=dev).manual_seed(0),
-                                  gan_on=True, eps=eps.to(dev))
+                                  gan_on=True, eps=eps.to(dev), eps_rand=eps_rand.to(dev))
         metrics = {k: float(v) for k, v in metrics.items()}
-        log(f"one mixed-precision train step, batch {B}, weights x{scale}, on {dev}: "
+        log(f"one mixed-precision {variant} train step, batch {B}, weights x{scale}, on {dev}: "
             f"{(time.perf_counter() - t0) * 1e3:.1f} ms; {metrics}")
         return step, metrics
 
@@ -2092,7 +2233,7 @@ def mixed_step_parity_phase(device) -> None:
                 for (name, p), q in zip(card_step.gen.named_parameters(),
                                         cpu_step.gen.parameters())
                 if name.startswith(("gru.", "out")))
-            log(f"mixed-precision step card vs CPU bf16 path, weights x{scale}: metrics "
+            log(f"mixed-precision {variant} step card vs CPU bf16 path, weights x{scale}: metrics "
                 f"{metric:.3e} relative (tol {MP_TOL} at x{MP_SCALE}; information only at "
                 f"x1.0); generator GRU and head Adam first moments, worst relative to the "
                 f"tensor's largest {moments:.3e}")
@@ -2101,6 +2242,245 @@ def mixed_step_parity_phase(device) -> None:
                                      f"CPU bf16 path: {metric}")
     finally:
         gan_step.draw_other_speaker_ids = draw
+
+
+def conv_dis_kernel_phase(device) -> dict:
+    """The GRU kernels at the ConvDiscriminator's shape (abl_aff's D: T
+    CONV_DIS_T after its unpadded convs, B 512, H 64, D 2; layer 0 takes 8
+    features, later layers 128), float32 and bf16, against their plain
+    twins on the same inputs: the forward (ys, h_last; hp relative), the
+    recurrence (dxp and gn; float32 absolute, bf16 relative to the
+    largest) and dW (dW_hh and db_hh from the same inputs, relative to the
+    largest) at the kernel phases' tolerances (float32 GRU_TOL and
+    BWD_TOL, bf16 BF16_TOL; dW BWD_TOL), the same bits twice; at bf16 the
+    forward and the recurrence in the tiers their plans name and, where
+    that is the register tier, the tensor tier by its own plan too, against
+    the same twin. Returns the largest error of each kernel under its name
+    in the kernels line ("gru_fwd_t28", ..., "gru_dw_t28_bf16")."""
+    import torch
+    from speech2affective_gestures_torch.ops import gru_cuda
+
+    T, B, H, D = CONV_DIS_T, 512, 64, 2
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        bf16 = dtype == torch.bfloat16
+        sfx = f"_t{T}" + ("_bf16" if bf16 else "")
+        tol = BF16_TOL if bf16 else GRU_TOL
+        for name in ("gru_fwd", "gru_bwd", "gru_dw"):
+            errs[name + sfx] = 0.0
+        for cin in (8, 128):
+            xp, w_hh, b_ih, b_hh = (t.to(dtype).contiguous() for t in
+                                    gru_inputs(T, B, cin, H, D, seed=T + cin, device=device))
+            dys = torch.randn(T, B, D * H, generator=torch.Generator().manual_seed(cin)
+                              ).to(device, dtype)
+            ys, h_last, hp = gru_cuda.gru_layer_forward(xp, w_hh, b_ih, b_hh, save_hp=True)
+            dxp, gn = gru_cuda.gru_bwd_recurrence(xp, w_hh, b_ih, b_hh, ys, dys, hp)
+            want_ys, want_h, want_hp = gru_cuda.gru_layer_plain(xp, w_hh, b_ih, b_hh,
+                                                                save_hp=True)
+            want_dxp, want_gn = gru_cuda.gru_bwd_recurrence_plain(xp, w_hh, b_ih, b_hh, ys,
+                                                                   dys, hp)
+            dw, db = gru_cuda.gru_dw(ys, want_dxp, want_gn, D)
+            want_dw, want_db = gru_cuda.gru_dw_plain(ys, want_dxp, want_gn, D)
+            fwd_err = max((ys.float() - want_ys.float()).abs().max().item(),
+                          (h_last.float() - want_h.float()).abs().max().item())
+            hp_rel = _rel(hp, want_hp)
+            rec_abs = max((dxp.float() - want_dxp.float()).abs().max().item(),
+                          (gn.float() - want_gn.float()).abs().max().item())
+            rec_rel = max(_rel(dxp.float(), want_dxp.float()), _rel(gn.float(), want_gn.float()))
+            dw_rel = max(_rel(dw, want_dw), _rel(db, want_db))
+            again = gru_cuda.gru_dw(ys, want_dxp, want_gn, D)
+            same = (torch.equal(dw, again[0]) and torch.equal(db, again[1])
+                    and torch.equal(ys, gru_cuda.gru_layer_forward(xp, w_hh, b_ih, b_hh)[0])
+                    and torch.equal(dxp, gru_cuda.gru_bwd_recurrence(
+                        xp, w_hh, b_ih, b_hh, ys, dys, hp)[0]))
+            tiers = (gru_cuda._device_plan(device, B, H, D, dtype).tier,
+                     gru_cuda._device_bwd_plan(device, B, H, D, dtype).tier)
+            rec_ok = rec_rel <= tol if bf16 else rec_abs <= BWD_TOL
+            log(f"kernel {'bf16' if bf16 else 'float32'} at the ConvDiscriminator's shape T={T} "
+                f"B={B} cin={cin} H={H} D={D} (forward tier {tiers[0]}, recurrence tier "
+                f"{tiers[1]}): forward ys/h_last max_abs_err={fwd_err:.3e}, hp relative "
+                f"{hp_rel:.3e} (tol {tol}); recurrence dxp/gn max_abs_err={rec_abs:.3e}, "
+                f"relative {rec_rel:.3e} (tol {BF16_TOL if bf16 else BWD_TOL} "
+                f"{'relative' if bf16 else 'absolute'}); dW_hh/db_hh relative {dw_rel:.3e} "
+                f"(tol {BWD_TOL}); bitwise repeatable {same}")
+            if not (fwd_err <= tol and hp_rel <= tol and rec_ok and dw_rel <= BWD_TOL
+                    and same):
+                raise AssertionError(f"a GRU kernel disagrees with its twin at T {T} H {H} "
+                                     f"{dtype}: {fwd_err}, {hp_rel}, {rec_abs}, {rec_rel}, "
+                                     f"{dw_rel}, {same}")
+            errs["gru_fwd" + sfx] = max(errs["gru_fwd" + sfx], fwd_err)
+            errs["gru_bwd" + sfx] = max(errs["gru_bwd" + sfx], rec_abs)
+            errs["gru_dw" + sfx] = max(errs["gru_dw" + sfx],
+                                       (dw - want_dw).abs().max().item(),
+                                       (db - want_db).abs().max().item())
+            if bf16 and "registers" in tiers:
+                # the tensor tiers at this shape too, each by its own plan
+                fplan = gru_cuda.fwd_plan(B, H, D, gru_cuda.max_clusters(
+                    device, H, "fwd", dtype, "tensor"), "tensor")
+                tys, th, thp = gru_cuda._forward_launch(xp, w_hh, b_ih, b_hh, fplan, True)
+                bplan = gru_cuda.bwd_plan(B, H, D, gru_cuda.max_clusters(
+                    device, H, "bwd", dtype, "tensor"), "tensor")
+                b_in = gru_cuda.kernel_biases(b_ih, b_hh, H)[0]
+                tdx, tgn = gru_cuda._recurrence_launch(False, xp, w_hh, b_in, hp, ys, dys,
+                                                       bplan)
+                t_fwd = max((tys.float() - want_ys.float()).abs().max().item(),
+                            (th.float() - want_h.float()).abs().max().item(),
+                            _rel(thp, want_hp))
+                t_rec = max(_rel(tdx.float(), want_dxp.float()),
+                            _rel(tgn.float(), want_gn.float()))
+                log(f"  the tensor tiers by their own plans: forward error {t_fwd:.3e}, "
+                    f"recurrence relative {t_rec:.3e} (tol {BF16_TOL})")
+                if not (t_fwd <= BF16_TOL and t_rec <= BF16_TOL):
+                    raise AssertionError(f"a tensor tier disagrees at T {T} H {H}: "
+                                         f"{t_fwd}, {t_rec}")
+    return errs
+
+
+def _corpus_words(vocab, n: int = 13):
+    """n timed words of a vocabulary's own (none maps to <UNK>), 0.7 s apart."""
+    words = [w for w in vocab.word2index if not w.startswith("<")]
+    return [[words[i % len(words)], 0.3 + 0.7 * i, 0.6 + 0.7 * i] for i in range(n)]
+
+
+def ablation_service_check(trainer, smi: str) -> collections.Counter:
+    """`SynthesisService.from_trainer` over a trained ablation: a 10 s clip
+    with the counters set to 0 just before and read just after (the GRU
+    forward must run; abl_audio's generator eats raw audio windows, so no
+    mel kernel may run, abl_aff's its MFCCs, so the mel kernel must), the
+    output against a CPU copy of the service with the same noise within
+    SERVE_TOL, then the p50 of 10 warm requests."""
+    import torch
+    from speech2affective_gestures_torch import serve
+    from speech2affective_gestures_torch.train import synthesis
+
+    variant = trainer.variant
+    service = serve.SynthesisService.from_trainer(trainer)
+    if service.use_mfcc != (variant != "abl_audio"):
+        raise AssertionError(f"{variant}: the service's use_mfcc is {service.use_mfcc}")
+    audio, words = clip_audio(10.0, 31), _corpus_words(service.lang)
+    n = len(synthesis.plan_subdivisions(10.0, trainer.cfg)[0])
+    eps = torch.from_numpy(np.random.default_rng(31).standard_normal((n, 1, 16))
+                           .astype(np.float32))
+    service.warmup()
+    _reset_counters()
+    got = service.synthesize(audio, words, vid_idx=1, eps=eps)
+    torch.cuda.synchronize()
+    counts = _counters()
+    mel = counts["mel_power"] + counts["mel_power_mixed"] + counts["mel_dft"]
+    cpu = serve.SynthesisService(trainer.cfg, copy.deepcopy(trainer.gen).cpu(), service.lang,
+                                 use_mfcc=service.use_mfcc)
+    want = cpu.synthesize(audio, words, vid_idx=1, eps=eps)
+    err = max(np.abs(got["dir_vec"] - want["dir_vec"]).max(),
+              np.abs(got["poses"] - want["poses"]).max())
+    times = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        service.synthesize(audio, words, vid_idx=1)
+        times.append((time.perf_counter() - t0) * 1e3)
+    log(f"{variant} service (use_mfcc {service.use_mfcc}), 10 s clip: launches "
+        f"{dict(counts)}; card vs CPU copy max_abs_err {err:.3e} (tol {SERVE_TOL}); warm p50 "
+        f"{np.median(times):.3f} ms over {len(times)} requests; {smi}")
+    if counts["gru_fwd"] < 1 or (mel > 0) != service.use_mfcc:
+        raise AssertionError(f"{variant} service launches {dict(counts)}")
+    if not (np.isfinite(got["dir_vec"]).all() and err <= SERVE_TOL):
+        raise AssertionError(f"{variant}: the card's service disagrees with the CPU's: {err}")
+    return counts
+
+
+def ablation_render_check(trainer, device, smi: str) -> collections.Counter:
+    """`generate_gestures_by_dataset` per clip and batched on the abl_audio
+    trainer over a test split of SHORT_VIDEOS synthetic videos of
+    SHORT_SECONDS (the default 5-12 s range, speakers drawn), with the
+    counters set to 0 just before each and read just after: the GRU
+    forward must run and no mel kernel (both generators eat raw audio
+    windows); batched against per clip within GRU_TOL; the clips/s of each
+    way, warm."""
+    import dataclasses
+
+    import torch
+    from speech2affective_gestures_torch.data import ted_db
+    from speech2affective_gestures_torch.train import clip_eval
+
+    long_split = trainer.test_data
+    videos = ted_db.make_synthetic_videos(SHORT_VIDEOS, SHORT_SECONDS, seed=11, device=device)
+    trainer.test_data = dataclasses.replace(
+        ted_db.build_dataset_from_videos(videos, trainer.cfg, lang_model=long_split.lang_model,
+                                         keep_sidecars=True, device=device),
+        speaker_model=long_split.speaker_model)
+    launches, results = collections.Counter(), {}
+    try:
+        for batched in (False, True):
+            way = "batched" if batched else "per clip"
+            _reset_counters()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = clip_eval.generate_gestures_by_dataset(trainer, "ted_db", fade_out=True,
+                                                         randomized=True, seed=3,
+                                                         batched=batched)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = _counters()
+            launches.update(counts)
+            results[way] = res
+            mel = counts["mel_power"] + counts["mel_power_mixed"] + counts["mel_dft"]
+            log(f"abl_audio render {way}: {len(res)} clips in {wall:.3f} s "
+                f"({len(res) / wall:.3f} clips/s); launches {dict(counts)}; {smi}")
+            if not res or counts["gru_fwd"] < 1 or mel:
+                raise AssertionError(f"abl_audio render {way}: launches {dict(counts)}")
+            if not all(np.isfinite(s2ag).all() and np.isfinite(tri).all()
+                       for _, (_, tri, s2ag) in res):
+                raise AssertionError(f"abl_audio render {way}: a render is not finite")
+        err = _max_err(results["batched"], results["per clip"])
+        log(f"abl_audio render batched against per clip: max_abs_err {err:.3e} (tol {GRU_TOL})")
+        if not err <= GRU_TOL:
+            raise AssertionError(f"the abl_audio batched render disagrees: {err}")
+        for batched in (False, True):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = clip_eval.generate_gestures_by_dataset(trainer, "ted_db", fade_out=True,
+                                                         randomized=True, seed=3,
+                                                         batched=batched)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            log(f"abl_audio render {'batched' if batched else 'per clip'}, warm: {len(res)} "
+                f"clips in {wall:.3f} s ({len(res) / wall:.3f} clips/s); {smi}")
+    finally:
+        trainer.test_data = long_split
+    return launches
+
+
+def ablation_phase(device, work: pathlib.Path, embedding_net: pathlib.Path,
+                   smi: str) -> collections.Counter:
+    """The paper's ablations at full width (`ABLATIONS`): for each, its
+    entry point trains one epoch at batch 512 and scores the test split
+    with FGD (`training_phase`), at float32 and with `--mixed-precision
+    true`; the warm train step's p50, samples/s and device profile of
+    each run; one train step at batch 16 against the CPU in float64 and
+    float32 (`step_parity_phase`) and the mixed step against the CPU bf16
+    path (`mixed_step_parity_phase`); the float32 trainer's service against
+    a CPU copy (`ablation_service_check`); and for abl_audio the long-clip
+    rendering per clip and batched (`ablation_render_check`). Returns each
+    kernel's launches on these paths."""
+    launches = collections.Counter()
+    p50s = {}
+    for variant in ABLATIONS:
+        for mixed in (False, True):
+            trainer, trained = training_phase(device, work, embedding_net,
+                                              mixed_precision=mixed, variant=variant)
+            launches.update(trained)
+            p50s[(variant, mixed)] = time_train_step(trainer)
+            if not mixed:
+                launches.update(ablation_service_check(trainer, smi))
+                if variant == "abl_audio":
+                    launches.update(ablation_render_check(trainer, device, smi))
+            del trainer
+        step_parity_phase(device, variant=variant)
+        mixed_step_parity_phase(device, variant=variant)
+    for (variant, mixed), p50 in p50s.items():
+        log(f"{variant} train step at batch {TRAIN_BATCH}"
+            f"{', mixed precision' if mixed else ''}: p50 {p50:.3f} ms, "
+            f"{TRAIN_BATCH / p50 * 1e3:.1f} samples/s; {smi}")
+    return launches
 
 
 def bound(nbytes, flops, peak_flops=PEAK_F32_FLOPS):
@@ -2625,6 +3005,90 @@ def mel_other_timing(device) -> list:
     return out
 
 
+def conv_dis_timing(device) -> list:
+    """The GRU kernels at the ConvDiscriminator's shape (T CONV_DIS_T, B
+    512, H 64, D 2, layer 0's 8 inputs), float32 and bf16: rows as
+    `bwd_timing`'s and `bf16_timing`'s, with the same bounds (the bf16
+    instances' bytes and the tensor-core rate), and as library times
+    cuDNN's `nn.GRU` at that shape less its input projection (forward;
+    backward with dW_hh) and cuBLAS's dW product on prepared operands."""
+    import torch
+    from speech2affective_gestures_torch.ops import gru_cuda
+
+    fwd_src = "speech2affective_gestures_torch/csrc/gru_fwd.cu"
+    bwd_src = "speech2affective_gestures_torch/csrc/gru_bwd.cu"
+    tpu = "speech2affective_gestures_tpu/ops/gru_pallas.py"
+    T, B, H, D, cin = CONV_DIS_T, 512, 64, 2, 8
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        bf16 = dtype == torch.bfloat16
+        size = 2 if bf16 else 4
+        xp, w_hh, b_ih, b_hh = (t.to(dtype).contiguous()
+                                for t in gru_inputs(T, B, cin, H, D, seed=28, device=device))
+        g = torch.Generator().manual_seed(28)
+        dys = torch.randn(T, B, D * H, generator=g).to(device, dtype)
+        dh = torch.randn(D, B, H, generator=g).to(device, dtype)
+        ys, _, hp = gru_cuda.gru_layer_forward(xp, w_hh, b_ih, b_hh, save_hp=True)
+        dxp, gn = gru_cuda.gru_bwd_recurrence(xp, w_hh, b_ih, b_hh, ys, dys, hp)
+        fns = {"fwd": (lambda: gru_cuda.gru_layer_forward(xp, w_hh, b_ih, b_hh),
+                       lambda: gru_cuda.gru_layer_plain(xp, w_hh, b_ih, b_hh)),
+               "rec": (lambda: gru_cuda.gru_bwd_recurrence(xp, w_hh, b_ih, b_hh, ys, dys, hp),
+                       lambda: gru_cuda.gru_bwd_recurrence_plain(xp, w_hh, b_ih, b_hh, ys,
+                                                                 dys, hp)),
+               "dw": (lambda: gru_cuda.gru_dw(ys, dxp, gn, D),
+                      lambda: gru_cuda.gru_dw_plain(ys, dxp, gn, D))}
+        times = {k: (time_ms(fn, iters=10), device_ms(fn, n=10),
+                     time_ms(plain, iters=5 if k == "rec" else 10))
+                 for k, (fn, plain) in fns.items()}
+        torch.manual_seed(28)
+        lib = torch.nn.GRU(cin, H, bidirectional=True).to(device, dtype)
+        x = torch.randn(T, B, cin, generator=g).to(device, dtype)
+        lib_fwd = cudnn_recurrent_fwd(lib, x)
+        lib_bwd = cudnn_recurrent_bwd(lib, x.clone().requires_grad_(), dys, dh)
+        hprev = gru_cuda._prev_states(ys, D).contiguous()
+        g_op = torch.cat([dxp.view(T, B, D, 3 * H)[..., :2 * H], gn.view(T, B, D, H)],
+                         dim=-1).contiguous()
+
+        def cublas():
+            return torch.einsum("tbdk,tbdj->dkj", hprev, g_op)
+
+        lib_dw = (time_ms(cublas, iters=10), device_ms(cublas, n=10))
+        n_prod = 2 * T * B * D * H * 3 * H
+        dw_flops = 2 * T * B * D * (H + 1) * 3 * H
+        if bf16:
+            fwd_bytes = 2 * (xp.numel() + w_hh.numel() + b_ih.numel() + b_hh.numel()
+                             + ys.numel() + D * B * H)
+            rec_bytes = 2 * (2 * xp.numel() + 3 * ys.numel() + w_hh.numel()
+                             + b_ih.numel()) + 4 * hp.numel()
+            dw_bytes = 2 * (ys.numel() + 2 * xp.numel() // 3 + gn.numel()) \
+                + 4 * (w_hh.numel() + b_hh.numel())
+            fwd_flops, peak = n_prod + T * B * D * 15 * H, (PEAK_BF16_FLOPS,)
+        else:
+            fwd_bytes = 4 * (xp.numel() + w_hh.numel() + b_ih.numel() + b_hh.numel()
+                             + T * B * D * H + D * B * H)
+            rec_bytes = 4 * (3 * xp.numel() + 3 * ys.numel() + w_hh.numel() + b_ih.numel())
+            dw_bytes = 4 * (ys.numel() + 2 * xp.numel() // 3 + gn.numel()
+                            + w_hh.numel() + b_hh.numel())
+            fwd_flops, peak = T * D * B * (2 * H * 3 * H + 3 * H + 12 * H), ()
+        rec_flops = n_prod + 30 * T * B * D * H
+        sfx = f"_t{T}" + ("_bf16" if bf16 else "")
+        for name, key, src, line, nb, fl, lib_t in (
+                ("gru_fwd", "fwd", fwd_src, 338, fwd_bytes, fwd_flops, lib_fwd),
+                ("gru_bwd", "rec", bwd_src, 384, rec_bytes, rec_flops, lib_bwd),
+                ("gru_dw", "dw", bwd_src, 432, dw_bytes, dw_flops, lib_dw)):
+            ms, dev, plain = times[key]
+            rows.append((name + sfx, src, f"{tpu}:{line}", ms, plain, lib_t[0], nb, fl, dev,
+                         lib_t[1], *peak))
+        log(f"gru {'bf16' if bf16 else 'float32'} at the ConvDiscriminator's shape T={T} "
+            f"B={B} cin={cin} H={H} D={D} (forward tier "
+            f"{gru_cuda._device_plan(device, B, H, D, dtype).tier}, recurrence tier "
+            f"{gru_cuda._device_bwd_plan(device, B, H, D, dtype).tier}), (events ms, device "
+            f"ms, plain ms): forward {times['fwd']}, recurrence {times['rec']}, dW "
+            f"{times['dw']}; cuDNN recurrent forward {lib_fwd}, backward with dW_hh "
+            f"{lib_bwd}; cuBLAS dW product {lib_dw}")
+    return rows
+
+
 def timing_phase(device, errs, launches) -> list[dict]:
     import torch
     from speech2affective_gestures_torch.ops import gru_cuda, mel_cuda
@@ -2683,7 +3147,8 @@ def timing_phase(device, errs, launches) -> list[dict]:
             ("mel_power", "speech2affective_gestures_torch/csrc/mel_power.cu",
              "speech2affective_gestures_tpu/ops/dsp_pallas.py:57",
              mel_ms, mel_plain_ms, mel_lib_ms, mel_bytes, mel_flops, mel_dev, mel_lib_dev),
-            *mel_other_timing(device), *bwd_timing(device), *bf16_timing(device)):
+            *mel_other_timing(device), *bwd_timing(device), *bf16_timing(device),
+            *conv_dis_timing(device)):
         b_ms, b_by = bound(nbytes, flops, *peak)
         rows_out.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -2742,6 +3207,7 @@ def main() -> int:
     errs.update(bwd_kernel_phase(device))
     errs.update(v1_kernel_phase(device))
     errs.update(bf16_kernel_phase(device))
+    errs.update(conv_dis_kernel_phase(device))
     # each kernel's launches on the paths that run it: the service's two
     # requests and the bf16 service's one, the training runs (float32 and
     # mixed precision) with their test-split scoring, run_layer in float32
@@ -2779,6 +3245,8 @@ def main() -> int:
         del service
         # the long-clip rendering of that test split and of a GENEA clip
         launches.update(clip_render_phase(device, reading, work, smi))
+        # the paper's ablations: trained, scored, checked, served, rendered
+        launches.update(ablation_phase(device, work, embedding_net, smi))
     kernels = timing_phase(device, errs, launches)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

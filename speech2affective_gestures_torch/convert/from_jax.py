@@ -1,6 +1,7 @@
 """Weight bridge: the JAX package's model variables (the s2ag
-PoseGenerator, the TriModal generator, the AffDiscriminator, the FGD
-EmbeddingNet) -> this port's state dicts.
+PoseGenerator and its ablations, the TriModal generator, the
+AffDiscriminator, the ConvDiscriminator, the FGD EmbeddingNet) -> this
+port's state dicts.
 
 The JAX variables are a nested dict of numpy arrays (`params` plus
 `batch_stats`, what `jax.device_get` returns for a flax variable tree). The
@@ -174,13 +175,19 @@ def speaker_z(p: Mapping[str, Any]) -> dict[str, Array]:
     return out
 
 
-def pose_generator(variables: Mapping[str, Any]) -> dict[str, Array]:
-    """The s2ag PoseGenerator's flax variables -> reference state-dict keys."""
-    p, s = variables["params"], variables.get("batch_stats", {})
-    out = aff_encoder(p["aff_encoder"], s["aff_encoder"], "aff_encoder.")
-    if "audio_encoder" in p:
-        out.update(mfcc_encoder(p["audio_encoder"], s["audio_encoder"],
-                                "audio_encoder."))
+def _audio_encoder(p: Mapping[str, Any], s: Mapping[str, Any]) -> dict[str, Array]:
+    """The audio encoder a generator's variables hold, if any: the
+    MFCCEncoder (its `linear1`) or the WavEncoder."""
+    if "audio_encoder" not in p:
+        return {}
+    enc = mfcc_encoder if "linear1" in p["audio_encoder"] else wav_encoder
+    return enc(p["audio_encoder"], s["audio_encoder"], "audio_encoder.")
+
+
+def _generator_tail(p: Mapping[str, Any]) -> dict[str, Array]:
+    """The text encoder and the speaker z where the variables hold them,
+    the GRU and the head."""
+    out: dict[str, Array] = {}
     if "text_encoder" in p:
         out.update(text_encoder_tcn(p["text_encoder"], "text_encoder."))
     if "speaker_z" in p:
@@ -191,16 +198,27 @@ def pose_generator(variables: Mapping[str, Any]) -> dict[str, Array]:
     return out
 
 
-def pose_generator_trimodal(variables: Mapping[str, Any]) -> dict[str, Array]:
-    """The TriModal generator's flax variables -> reference state-dict keys."""
+def pose_generator(variables: Mapping[str, Any]) -> dict[str, Array]:
+    """A PoseGenerator's flax variables -> reference state-dict keys, for
+    every variant and setting: the AffEncoder (not abl_aff's), the MFCC or
+    (abl_audio) the WavEncoder, the text encoder and the speaker z where
+    the variables hold them."""
     p, s = variables["params"], variables.get("batch_stats", {})
-    out = wav_encoder(p["audio_encoder"], s["audio_encoder"], "audio_encoder.")
-    out.update(text_encoder_tcn(p["text_encoder"], "text_encoder."))
-    if "speaker_z" in p:
-        out.update(speaker_z(p["speaker_z"]))
-    out.update(gru(p["gru"], "gru."))
-    out.update(linear(p["out1"], "out.0"))
-    out.update(linear(p["out2"], "out.2"))
+    out: dict[str, Array] = {}
+    if "aff_encoder" in p:
+        out.update(aff_encoder(p["aff_encoder"], s["aff_encoder"], "aff_encoder."))
+    out.update(_audio_encoder(p, s))
+    out.update(_generator_tail(p))
+    return out
+
+
+def pose_generator_trimodal(variables: Mapping[str, Any]) -> dict[str, Array]:
+    """The TriModal generator's flax variables -> reference state-dict keys
+    (its WavEncoder, text encoder and speaker z where the variables hold
+    them)."""
+    p, s = variables["params"], variables.get("batch_stats", {})
+    out = _audio_encoder(p, s)
+    out.update(_generator_tail(p))
     return out
 
 
@@ -208,6 +226,23 @@ def aff_discriminator(variables: Mapping[str, Any]) -> dict[str, Array]:
     """The AffDiscriminator's flax variables -> reference state-dict keys."""
     p, s = variables["params"], variables.get("batch_stats", {})
     out = aff_encoder(p["aff_encoder"], s["aff_encoder"], "aff_encoder.")
+    out.update(gru(p["gru"], "gru."))
+    out.update(linear(p["out"], "out"))
+    out.update(linear(p["out2"], "out2"))
+    return out
+
+
+def conv_discriminator_trimodal(variables: Mapping[str, Any]) -> dict[str, Array]:
+    """The ConvDiscriminatorTriModal's (and abl_aff's ConvDiscriminator's)
+    flax variables -> reference state-dict keys: `pre_conv` convs at 0, 3,
+    6, batch norms at 1, 4 (the JAX package's convert/torch_ckpt.py
+    :307-323 reads the same names)."""
+    p, s = variables["params"], variables.get("batch_stats", {})
+    out: dict[str, Array] = {}
+    for name, i in (("pre_conv1", 0), ("pre_conv2", 3), ("pre_conv3", 6)):
+        out.update(conv1d(p[name], f"pre_conv.{i}"))
+    for name, i in (("pre_bn1", 1), ("pre_bn2", 4)):
+        out.update(batch_norm(p[name], s[name], f"pre_conv.{i}"))
     out.update(gru(p["gru"], "gru."))
     out.update(linear(p["out"], "out"))
     out.update(linear(p["out2"], "out2"))
@@ -254,7 +289,7 @@ def to_state_dict(arrays: Mapping[str, Array]) -> dict[str, torch.Tensor]:
 def load_jax(model: torch.nn.Module, mapper, variables: Mapping[str, Any]) -> None:
     """Load JAX variables into `model` through one of the mappers above
     (`pose_generator`, `pose_generator_trimodal`, `aff_discriminator`,
-    `embedding_net_pose`), strict."""
+    `conv_discriminator_trimodal`, `embedding_net_pose`), strict."""
     model.load_state_dict(to_state_dict(mapper(variables)), strict=True)
 
 

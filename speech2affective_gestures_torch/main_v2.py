@@ -33,6 +33,12 @@ from `python -m speech2affective_gestures_torch.train_embedding`. The
 long-clip rendering of the test split is
 `train.clip_eval.generate_gestures_by_dataset(trainer, ...)` on the trainer
 that `main` returns (no flag runs it, as in the JAX package).
+
+The paper's two ablations have entry points of their own with the same
+flags, `main_v2_abl_audio` (the generator on the raw audio window through
+a WavEncoder) and `main_v2_abl_aff` (no AffEncoder; the
+ConvDiscriminator), which call `main(argv, variant=...)`; each trains in a
+work dir of its own, `models/s2ag_v2_mfcc_torch{_abl_audio,_abl_aff}/`.
 """
 
 from __future__ import annotations
@@ -53,6 +59,8 @@ from .train.evaluator import EmbeddingSpaceEvaluator
 from .train.trainer import Trainer, find_checkpoint
 
 _ROADMAP = "not ported yet (ROADMAP.md, queue 1)"
+# the work dir's suffix of each variant (JAX main_v2.py:232-234)
+WORK_DIR_SUFFIX = {"s2ag": "", "abl_audio": "_abl_audio", "abl_aff": "_abl_aff"}
 
 
 def str2bool(v):
@@ -244,10 +252,13 @@ def checkpoint_to_load(args, work_dir: str) -> str | None:
 def checkpoint_speakers(path: str | None) -> int | None:
     """The speaker count of a checkpoint's generator. The speaker
     vocabularies are per split, so a run that loads only the test split
-    sizes the speaker embedding from the weights it loads."""
+    sizes the speaker embedding from the weights it loads. None without a
+    checkpoint, or for a generator with no speaker embedding (a `random`
+    or `none` z)."""
     if path is None:
         return None
-    return reference_state_dict(path)["speaker_embedding.0.weight"].shape[0]
+    table = reference_state_dict(path).get("speaker_embedding.0.weight")
+    return None if table is None else table.shape[0]
 
 
 def main(argv=None, variant: str = "s2ag") -> Trainer:
@@ -258,7 +269,8 @@ def main(argv=None, variant: str = "s2ag") -> Trainer:
         set_f32_numerics()
     cfg = ModelConfig.from_yaml(args.config, batch_size=args.batch_size)
 
-    work_dir = jn(args.base_path, "models", "s2ag_v2_mfcc_torch", args.dataset_s2ag)
+    work_dir = jn(args.base_path, "models",
+                  f"s2ag_v2_mfcc_torch{WORK_DIR_SUFFIX[variant]}", args.dataset_s2ag)
     os.makedirs(work_dir, exist_ok=True)
     os.makedirs(jn(args.base_path, "outputs", args.dataset_test,
                    "videos_trimodal_style"), exist_ok=True)

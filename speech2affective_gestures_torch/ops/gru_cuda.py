@@ -80,6 +80,10 @@ launches: collections.Counter = collections.Counter()
 # forward and the recurrence ("registers", "l2", the bf16 instances'
 # "tensor"), "fma" or "tensor" for dW
 tier_launches: collections.Counter = collections.Counter()
+# the same launches by (kernel, dtype, T, H): the sequence length and the
+# hidden size they ran at (the discriminators' T 34 or, after the
+# ConvDiscriminator's unpadded convs, T 28)
+shape_launches: collections.Counter = collections.Counter()
 
 # the kernels' storage dtypes; the plain versions also take float64
 STORAGE = (torch.float32, torch.bfloat16)
@@ -89,9 +93,10 @@ def _dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).removeprefix("torch.")
 
 
-def _count(kernel: str, dtype: torch.dtype, tier: str) -> None:
+def _count(kernel: str, dtype: torch.dtype, tier: str, T: int, H: int) -> None:
     launches[(kernel, _dtype_name(dtype))] += 1
     tier_launches[(kernel, _dtype_name(dtype), tier)] += 1
+    shape_launches[(kernel, _dtype_name(dtype), T, H)] += 1
 
 
 def _compute_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -641,7 +646,7 @@ def _forward_launch(xp, w_hh, b_ih, b_hh, plan: ClusterPlan, save_hp: bool):
             xp.data_ptr(), w_hh.data_ptr(), b_in.data_ptr(), b_rec.data_ptr(),
             ys.data_ptr(), h_last.data_ptr(), _ptr(hp), T, B, H, D,
             *_plan_args(plan, dtype))
-    _count("gru_fwd", dtype, plan.tier)
+    _count("gru_fwd", dtype, plan.tier, T, H)
     return (ys, h_last, hp) if save_hp else (ys, h_last)
 
 
@@ -753,7 +758,7 @@ def _recurrence_launch(walk: bool, xp, w_hh, b_in, hp, ys, dys, plan: ClusterPla
     _launch(_lib_fn("gru_bwd", symbol, 8, n_int=13), kernel, xp.device,
             xp.data_ptr(), w_hh.data_ptr(), _ptr(b_in), hp.data_ptr(), ys.data_ptr(),
             dys.data_ptr(), dxp.data_ptr(), _ptr(gn), T, B, H, D, *_plan_args(plan, dtype))
-    _count(kernel, dtype, plan.tier)
+    _count(kernel, dtype, plan.tier, T, H)
     return dxp, gn
 
 
@@ -785,7 +790,7 @@ def gru_dw(ys: torch.Tensor, dxp: torch.Tensor, gn: torch.Tensor,
     dtype = _check_dw("gru_dw", ((ys, (T, B, D * H)), (gn, (T, B, D * H)),
                                  (dxp, (T, B, D * 3 * H))))
     dw, db = _dw_launch("s2ag_gru_layer_dw", ys, dxp, gn, T, B, H, D)
-    _count("gru_dw", dtype, _dw_tier(dtype))
+    _count("gru_dw", dtype, _dw_tier(dtype), T, H)
     return dw, db
 
 
@@ -1049,7 +1054,7 @@ def run_layer_forward(xp: torch.Tensor, w_hh: torch.Tensor,
     _launch(_lib_fn("gru_fwd", "s2ag_gru_layer_fwd_v1", 6, n_int=13), "gru_fwd_v1",
             xp.device, xp.data_ptr(), w_hh.data_ptr(), _ptr(b_in), b_rec.data_ptr(),
             ys.data_ptr(), _ptr(hp), T, B, H, D, *_plan_args(plan, dtype))
-    _count("gru_fwd_v1", dtype, plan.tier)
+    _count("gru_fwd_v1", dtype, plan.tier, T, H)
     return (ys, hp) if save_hp else ys
 
 
@@ -1091,7 +1096,7 @@ def run_layer_dw(ys: torch.Tensor, dxp: torch.Tensor,
     dtype = _check_dw("run_layer_dw", ((ys, (T, D, B, H)), (gn, (T, D, B, H)),
                                        (dxp, (T, D, B, 3 * H))))
     dw, db = _dw_launch("s2ag_gru_layer_dw_v1", ys, dxp, gn, T, B, H, D)
-    _count("gru_dw_v1", dtype, _dw_tier(dtype))
+    _count("gru_dw_v1", dtype, _dw_tier(dtype), T, H)
     return dw, db
 
 

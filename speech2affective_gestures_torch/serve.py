@@ -118,18 +118,22 @@ class SynthesisService:
     plan every convolution of every request again (about 0.7 ms each on
     the H100, PERF.md). Each request draws its noise from its own
     `torch.Generator`, seeded with `seed` plus the request's number; a
-    stream's from its "seed" or else the same.
+    stream's from its "seed" or else the same. The generator eats each
+    window's MFCCs, or with `use_mfcc=False` (the abl_audio ablation's)
+    its raw audio.
     """
 
     def __init__(self, cfg: ModelConfig, gen: torch.nn.Module, lang_model: Vocab,
                  seed: int = 0, auto_batch_ms: float = 0.0,
-                 auto_batch_max: int = 16, precision: str = "f32"):
+                 auto_batch_max: int = 16, precision: str = "f32",
+                 use_mfcc: bool = True):
         if precision not in synthesis.PRECISIONS:
             raise ValueError(f"unknown precision {precision!r} (expected 'f32' or 'bf16')")
         self.cfg = cfg
         # the generator's precision (`synthesis.precision_wrap`): "f32", or
         # "bf16" forwards with the MFCC front-end, crossfade and FK float32
         self.precision = precision
+        self.use_mfcc = use_mfcc
         self.gen = gen.eval()
         self.lang = lang_model
         self.device = next(gen.parameters()).device
@@ -155,20 +159,22 @@ class SynthesisService:
     def from_trainer(cls, trainer: Trainer, precision: str = "f32",
                      **kwargs) -> "SynthesisService":
         """A service over a trainer's generator, with the vocabulary of its
-        test split (its train split's when it has none)."""
+        test split (its train split's when it has none); raw audio windows
+        for an abl_audio trainer's (`trainer.variant`)."""
         data = trainer.test_data or trainer.train_data
         return cls(trainer.cfg, trainer.gen, data.lang_model, precision=precision,
-                   **kwargs)
+                   use_mfcc=getattr(trainer, "variant", "s2ag") != "abl_audio", **kwargs)
 
     @classmethod
     def from_config(cls, cfg: ModelConfig, lang_model: Vocab, n_speakers: int,
                     device: str | torch.device | None = None, seed: int = 0,
-                    **kwargs) -> "SynthesisService":
-        """A service over a fresh generator with random weights from `seed`,
-        on the card unless `device="cpu"`."""
+                    variant: str = "s2ag", **kwargs) -> "SynthesisService":
+        """A service over a fresh generator of `variant` with random weights
+        from `seed`, on the card unless `device="cpu"`."""
         gen = build_generator(cfg, lang_model.n_words, n_speakers,
-                              device=resolve_device(device), seed=seed)
-        return cls(cfg, gen, lang_model, seed=seed, **kwargs)
+                              device=resolve_device(device), seed=seed, variant=variant)
+        return cls(cfg, gen, lang_model, seed=seed, use_mfcc=variant != "abl_audio",
+                   **kwargs)
 
     # ------------------------------------------------------------ metrics
 
@@ -272,7 +278,8 @@ class SynthesisService:
         phases: dict = {}
         outs = self._on_worker(
             synthesis.synthesize_clips_batched, self.gen, clips, self.lang, self.cfg,
-            eps=eps, fade_out=fades, timings=phases, precision=self.precision)
+            eps=eps, fade_out=fades, timings=phases, precision=self.precision,
+            use_mfcc=self.use_mfcc)
         elapsed = (time.perf_counter() - t0) * 1e3
         self._record(endpoint, elapsed, clips=len(clips), phases=phases)
         return [{"dir_vec": dv, "poses": ps, "frames": int(len(dv)),
@@ -348,7 +355,7 @@ class SynthesisService:
                 self.seed + self._counter if seed is None else int(seed))
             self._streams[stream_id] = StreamingSynthesizer(
                 self.gen, self.lang, self.cfg, vid_idx=vid_idx, generator=generator,
-                precision=self.precision)
+                precision=self.precision, use_mfcc=self.use_mfcc)
             self._stream_last_used[stream_id] = time.monotonic()
         return stream_id
 

@@ -13,7 +13,9 @@ same per-window noise; a frame comes out at most `unit_time` (2.27 s) of
 audio after the audio it depends on.
 
 Each window runs the MFCC front-end on its own audio (the fused mel kernel
-on the card) and one generator forward (the GRU kernels).
+on the card) and one generator forward (the GRU kernels); with
+`use_mfcc=False` (the abl_audio ablation's generator) the window's raw
+audio goes to the generator and no MFCC is computed.
 """
 
 from __future__ import annotations
@@ -44,16 +46,18 @@ class StreamingSynthesizer:
     path's one (S, z_size) draw from a generator with the same seed.
     `seed_dir_vec` (>= n_pre, POSE_DIM) seeds the first window, as the
     offline path's; without it the seed poses are zeros (the mean pose).
+    `use_mfcc` as the offline path's.
     """
 
     def __init__(self, gen: torch.nn.Module, lang_model, cfg: ModelConfig,
                  vid_idx: int = 0, generator: torch.Generator | None = None,
                  eps: torch.Tensor | None = None, precision: str = "f32",
-                 seed_dir_vec: np.ndarray | None = None):
+                 seed_dir_vec: np.ndarray | None = None, use_mfcc: bool = True):
         self.gen = gen
         self.lang = lang_model
         self.cfg = cfg
         self.precision = precision
+        self.use_mfcc = use_mfcc
         self.device = next(gen.parameters()).device
         self.vid_idx = torch.tensor([vid_idx], device=self.device)
         self.generator = generator if generator is not None else torch.Generator()
@@ -88,8 +92,9 @@ class StreamingSynthesizer:
 
     def _run_window(self, audio_window: np.ndarray, start: float, end: float) -> np.ndarray:
         text = synthesis.window_text(self._words, start, end, self.lang, self.cfg.n_poses)
-        feat = synthesis.window_features(
-            torch.from_numpy(audio_window)[None].to(self.device), self.cfg)
+        feat = torch.from_numpy(audio_window)[None].to(self.device)
+        if self.use_mfcc:
+            feat = synthesis.window_features(feat, self.cfg)
         with synthesis.precision_wrap(self.gen, self.precision) as run:
             out = synthesis.window_forward(
                 run, self.cfg, feat, torch.from_numpy(text)[None].to(self.device),

@@ -1,6 +1,10 @@
-"""Model and step assembly for training (reference processor_v2.py:135-177):
-the s2ag PoseGenerator and AffDiscriminator as the trainable pair, the
-PoseGeneratorTriModal as the frozen comparator."""
+"""Model and step assembly for training (reference processor_v2.py:135-177
+and its ablations' processors): the PoseGenerator and its discriminator as
+the trainable pair, the PoseGeneratorTriModal as the frozen comparator. The
+`variant` picks the paper model ("s2ag") or one of its two ablations
+("abl_audio": the generator on the raw audio window through a WavEncoder;
+"abl_aff": the generator without the AffEncoder, and the ConvDiscriminator),
+as the JAX package's train/builder.py:22-71 does."""
 
 from __future__ import annotations
 
@@ -12,40 +16,31 @@ import torch
 from .. import constants as C
 from ..config import ModelConfig
 from ..device import resolve_device
-from ..models.discriminator import AffDiscriminator
-from ..models.generator import PoseGenerator, PoseGeneratorTriModal
+from ..models.discriminator import AffDiscriminator, ConvDiscriminator
+from ..models.generator import PoseGeneratorTriModal, make_pose_generator
 from .gan_step import GanConfig, GanStep
-
-_NOT_PORTED = ("the ablation generators (abl_audio, abl_aff) are not ported "
-               "yet: ROADMAP.md, queue 1")
 
 
 def build_models(cfg: ModelConfig, n_words: int, n_speakers: int,
                  word_embeddings: np.ndarray | None = None,
                  variant: str = "s2ag"):
-    """(generator, discriminator, TriModal comparator) of the paper model."""
-    if variant != "s2ag":
-        raise NotImplementedError(f"variant {variant!r}: {_NOT_PORTED}")
-    if cfg.input_context != "both" or cfg.z_type != "speaker":
-        raise NotImplementedError(
-            f"input_context={cfg.input_context!r}, z_type={cfg.z_type!r}: only "
-            "the paper's 'both' / 'speaker' generator is ported")
-    common = dict(n_words=n_words,
-                  word_embed_size=cfg.wordembed_dim, n_layers=cfg.n_layers,
-                  dropout_prob=cfg.dropout_prob, n_speakers=n_speakers,
-                  word_embeddings=word_embeddings,
-                  freeze_embedding=cfg.freeze_wordembed)
-    gen = PoseGenerator(mfcc_length=cfg.mfcc_length, num_mfcc=cfg.num_mfcc_combined,
-                        time_steps=cfg.n_poses, hidden_size=cfg.hidden_size_s2eg,
-                        **common)
-    dis = AffDiscriminator(n_poses=cfg.n_poses)
-    tri = PoseGeneratorTriModal(hidden_size=cfg.hidden_size, **common)
+    """(generator, discriminator, TriModal comparator) of `variant` at the
+    config's widths, input context and z type."""
+    gen = make_pose_generator(cfg, n_words, n_speakers, variant, word_embeddings)
+    dis = (ConvDiscriminator(n_poses=cfg.n_poses) if variant == "abl_aff"
+           else AffDiscriminator(n_poses=cfg.n_poses))
+    tri = PoseGeneratorTriModal(
+        n_words=n_words, word_embed_size=cfg.wordembed_dim, hidden_size=cfg.hidden_size,
+        n_layers=cfg.n_layers, dropout_prob=cfg.dropout_prob, n_speakers=n_speakers,
+        word_embeddings=word_embeddings, freeze_embedding=cfg.freeze_wordembed,
+        input_context=cfg.input_context, z_type=cfg.z_type)
     return gen, dis, tri
 
 
 def gan_config(cfg: ModelConfig, n_speakers: int,
                divreg_draw: str = "permutation", gradient_clip: float = 0.0,
-               lr_decay: float = 1.0, decay_steps_per_epoch: int = 0) -> GanConfig:
+               lr_decay: float = 1.0, decay_steps_per_epoch: int = 0,
+               variant: str = "s2ag") -> GanConfig:
     return GanConfig(
         loss_regression_weight=cfg.loss_regression_weight,
         loss_gan_weight=cfg.loss_gan_weight,
@@ -57,6 +52,7 @@ def gan_config(cfg: ModelConfig, n_speakers: int,
         z_type=cfg.z_type,
         n_pre_poses=cfg.n_pre_poses,
         n_speakers=n_speakers,
+        generator_input="audio" if variant == "abl_audio" else "mfcc_features",
         divreg_draw=divreg_draw,
         gradient_clip=gradient_clip,
         lr_decay=lr_decay,
@@ -143,8 +139,9 @@ def init_training(cfg: ModelConfig, seed: int, n_words: int = 1000,
                   divreg_draw: str = "permutation",
                   mixed_precision: bool = False, gradient_clip: float = 0.0,
                   lr_decay: float = 1.0, decay_steps_per_epoch: int = 0) -> dict:
-    """Models with weights drawn from `seed` on `device` (the card unless
-    `device="cpu"`), and the step over them: with `mixed_precision` its
+    """Models of `variant` (`build_models`) with weights drawn from `seed`
+    on `device` (the card unless `device="cpu"`), and the step over them,
+    which feeds abl_audio's generator the raw audio: with `mixed_precision` its
     train step runs the three nets through `mixed_precision_apply` (JAX
     `init_training`, builder.py:204-215); its eval step stays float32.
     `gradient_clip`, `lr_decay` and `decay_steps_per_epoch` go to the
@@ -156,7 +153,7 @@ def init_training(cfg: ModelConfig, seed: int, n_words: int = 1000,
                                      variant=variant)
     gen, dis, tri = gen.to(dev), dis.to(dev), tri.to(dev).requires_grad_(False)
     gan_cfg = gan_config(cfg, n_speakers, divreg_draw, gradient_clip, lr_decay,
-                         decay_steps_per_epoch)
+                         decay_steps_per_epoch, variant)
     return dict(gen=gen, dis=dis, tri=tri, gan_cfg=gan_cfg, device=dev,
                 step=GanStep(gen, dis, gan_cfg, tri,
                              train_apply=mixed_precision_apply if mixed_precision else None))

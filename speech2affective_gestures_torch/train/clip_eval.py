@@ -10,8 +10,9 @@ port of the JAX package's `train/clip_eval.py`; reference
   transcript triples.
 - Each clip is synthesized twice, seeded with its own first poses: by the
   s2ag generator on MFCC windows (the mel kernel and the GRU forward on
-  the card) and by the frozen TriModal baseline on raw-audio windows (the
-  GRU forward), then faded out, with the target smoothed over the fade,
+  the card; the abl_audio ablation's on raw-audio windows, no mel) and by
+  the frozen TriModal baseline on raw-audio windows (the GRU forward),
+  then faded out, with the target smoothed over the fade,
   and written as `*_s2ag.pkl` / `*_trimodal.pkl` and a three-panel video.
   `render_clip` runs one clip at generator batch 1;
   `render_clips_batched` runs all clips as one generator batch.
@@ -130,11 +131,14 @@ def _in_range(clip_time, duration_range) -> bool:
 class ClipRenderer:
     """Renders clips with a trainer's generator (`trainer.gen`) and, when
     the trainer has one, its TriModal baseline (`trainer.tri`), in eval
-    mode on their device, with the test split's vocabulary."""
+    mode on their device, with the test split's vocabulary. The generator
+    of an abl_audio trainer (`trainer.variant`) eats raw audio windows,
+    the others MFCCs (JAX clip_eval.py:91-92)."""
 
     def __init__(self, trainer):
         self.cfg = trainer.cfg
         self.gen = trainer.gen.eval()
+        self.use_mfcc = getattr(trainer, "variant", "s2ag") != "abl_audio"
         tri = getattr(trainer, "tri", None)
         self.tri = tri.eval() if tri is not None else None
         self.lang = (trainer.test_data.lang_model
@@ -142,8 +146,11 @@ class ClipRenderer:
 
     def check_speakers(self, ids) -> None:
         """Raise ValueError for a speaker id outside the generator's
-        embedding (the JAX package renders NaN poses there)."""
-        n = self.gen.speaker_embedding[0].num_embeddings
+        embedding (the JAX package renders NaN poses there); a generator
+        without one takes any id (it reads none)."""
+        n = self.gen.n_speakers
+        if n is None:
+            return
         bad = sorted({int(i) for i in ids if not 0 <= int(i) < n})
         if bad:
             raise ValueError(f"speaker id {bad[0]} is out of range: the generator has "
@@ -226,7 +233,8 @@ class ClipRenderer:
         common = dict(vid_idx=speaker_vid_idx, sample_rate=sample_rate, fade_out=fade_out,
                       seed_dir_vec=prep["seed_dir_vec"])
         s2ag = synthesis.synthesize_clip_fused(self.gen, clip_audio, prep["words"], self.lang,
-                                               self.cfg, eps=prep["eps_s2ag"], **common)
+                                               self.cfg, eps=prep["eps_s2ag"],
+                                               use_mfcc=self.use_mfcc, **common)
         tri = None
         if self.tri is not None:
             tri = synthesis.synthesize_clip_fused(self.tri, clip_audio, prep["words"],
@@ -254,7 +262,7 @@ class ClipRenderer:
         seeds = [p["seed_dir_vec"] for p in preps]
         s2ag_out = synthesis.synthesize_clips_batched(
             self.gen, triples, self.lang, self.cfg, fade_out=fade_out, seeds=seeds,
-            eps=_batch_eps([p["eps_s2ag"] for p in preps]))
+            eps=_batch_eps([p["eps_s2ag"] for p in preps]), use_mfcc=self.use_mfcc)
         tri_out = [None] * len(clip_specs)
         if self.tri is not None:
             tri_out = synthesis.synthesize_clips_batched(

@@ -8,7 +8,8 @@ stop-gradient placement and BatchNorm running-stat order:
 - the D step's generator forward runs under `no_grad` (the reference
   `.detach()`es its output);
 - the diversity regularizer's second generator forward runs under
-  `no_grad` (its outputs are constants of the loss);
+  `no_grad` (its outputs are constants of the loss), with noise of its own
+  (JAX draws it from another key than the main forward's);
 - the G step differentiates only the generator: the discriminator's
   parameters stop requiring gradients for it, so D's optimizer never sees
   G-step gradients and its GRU layers skip their weight gradients;
@@ -19,7 +20,12 @@ stop-gradient placement and BatchNorm running-stat order:
   discarded.
 
 The speaker noise and the dropout masks come from the `torch.Generator`
-passed to each step, on the step's device. Optimizers are Adam with betas
+passed to each step, on the step's device. The loss terms follow the
+generator's `z_type` (`GanConfig.z_type`): the KLD only with the speaker
+z, the diversity regularizer with the speaker or the random z, neither
+without a z. The generator's audio input is the batch field
+`GanConfig.generator_input`: the MFCCs, or the raw audio window for the
+abl_audio ablation. Optimizers are Adam with betas
 (0.5, 0.999), D's learning rate 0.2 times G's (ref processor_v2.py:215-220).
 
 With `gradient_clip` each net's gradients are clipped by their global
@@ -60,6 +66,10 @@ class GanConfig:
     discriminator_lr_weight: float = 0.2
     z_type: str = "speaker"
     n_pre_poses: int = C.N_PRE_POSES
+    # the batch field the generator's audio input comes from:
+    # "mfcc_features" for the paper model, "audio" for abl_audio's
+    # WavEncoder
+    generator_input: str = "mfcc_features"
     # speaker vocabulary size, for divreg_draw='fresh'
     n_speakers: int = 0
     # the diversity regularizer's second-pass speaker ids: 'permutation'
@@ -165,9 +175,11 @@ class GanStep:
 
     Batches are dicts of tensors on the models' device: extended_word_seq
     (B, T) int64, vec_seq (B, T, 27), mfcc_features (B, 37, 71), audio
-    (B, L) (for the comparator) and vid_indices (B,) int64. `eps`, when
-    given, is the speaker noise of every generator forward of the step
-    (tests inject it); without it the noise comes from `generator`."""
+    (B, L) (the comparator's, and abl_audio's generator's) and vid_indices
+    (B,) int64. `eps`, when given, is the noise (B, z_size) of every
+    generator forward of the step but the diversity regularizer's, which
+    takes `eps_rand` (tests inject both); either one not given is drawn
+    from `generator`."""
 
     def __init__(self, gen: torch.nn.Module, dis: torch.nn.Module,
                  cfg: GanConfig, tri: torch.nn.Module | None = None,
@@ -207,18 +219,27 @@ class GanStep:
         return module if self.train_apply is None else self.train_apply(module)
 
     def _other_speakers(self, generator, vids):
+        """The diversity regularizer's speaker ids: other speakers for the
+        speaker z; the same (unused) ids for the random z, as JAX draws
+        none there (gan_step.py:346-349)."""
+        if self.cfg.z_type != "speaker":
+            return vids
         n = 0 if self.cfg.divreg_draw == "permutation" else self.cfg.n_speakers
         return draw_other_speaker_ids(generator, vids, n)
 
+    def _div_reg_on(self) -> bool:
+        return self.cfg.z_type in ("speaker", "random") and self.cfg.loss_reg_weight > 0.0
+
     def train_step(self, batch: dict, generator: torch.Generator,
                    gan_on: bool = True, tri_metric: bool = True,
-                   eps: torch.Tensor | None = None) -> dict[str, torch.Tensor]:
+                   eps: torch.Tensor | None = None,
+                   eps_rand: torch.Tensor | None = None) -> dict[str, torch.Tensor]:
         cfg = self.cfg
         self.gen.train()
         self.dis.train()
         gen, dis = self._train_fn(self.gen), self._train_fn(self.dis)
         text, target = batch["extended_word_seq"], batch["vec_seq"]
-        mfcc, vids = batch["mfcc_features"], batch["vid_indices"]
+        mfcc, vids = batch[cfg.generator_input], batch["vid_indices"]
         pre_seq = build_pre_seq(target, cfg.n_pre_poses)
         use_gan = gan_on and cfg.loss_gan_weight > 0.0
         metrics: dict[str, torch.Tensor] = {}
@@ -239,11 +260,11 @@ class GanStep:
             huber = losses.scaled_huber(out, target, beta=0.1)
             loss = cfg.loss_regression_weight * huber
             metrics["loss"] = loss.detach()
-            if cfg.z_type in ("speaker", "random") and cfg.loss_reg_weight > 0.0:
+            if self._div_reg_on():
                 rand_vids = self._other_speakers(generator, vids)
                 with torch.no_grad():
                     out_rand, z_rand, *_ = gen(pre_seq, text, mfcc, rand_vids,
-                                               eps, generator)
+                                               eps_rand, generator)
                 div_reg = cfg.loss_reg_weight * losses.diversity_regularizer(
                     out, out_rand, z, z_rand)
                 loss = loss + div_reg
@@ -279,21 +300,23 @@ class GanStep:
 
     @torch.no_grad()
     def eval_step(self, batch: dict, generator: torch.Generator,
-                  gan_on: bool = True, eps: torch.Tensor | None = None):
+                  gan_on: bool = True, eps: torch.Tensor | None = None,
+                  eps_rand: torch.Tensor | None = None):
         """Validation: eval-mode forwards (running BN stats, no dropout, no
         updates) and the same loss terms (ref per_val_epoch,
-        processor_v2.py:993-1030). Returns (out, metrics)."""
+        processor_v2.py:993-1030); `eps` and `eps_rand` as `train_step`'s.
+        Returns (out, metrics)."""
         cfg = self.cfg
         gen, dis = self.gen.eval(), self.dis.eval()
         text, target = batch["extended_word_seq"], batch["vec_seq"]
-        mfcc, vids = batch["mfcc_features"], batch["vid_indices"]
+        mfcc, vids = batch[cfg.generator_input], batch["vid_indices"]
         pre_seq = build_pre_seq(target, cfg.n_pre_poses)
         out, z, mu, logvar = gen(pre_seq, text, mfcc, vids, eps, generator)
         metrics = {"loss": cfg.loss_regression_weight
                    * losses.scaled_huber(out, target, beta=0.1)}
-        if cfg.z_type in ("speaker", "random") and cfg.loss_reg_weight > 0.0:
+        if self._div_reg_on():
             rand_vids = self._other_speakers(generator, vids)
-            out_rand, z_rand, *_ = gen(pre_seq, text, mfcc, rand_vids, eps,
+            out_rand, z_rand, *_ = gen(pre_seq, text, mfcc, rand_vids, eps_rand,
                                        generator)
             metrics["DIV_REG"] = cfg.loss_reg_weight * losses.diversity_regularizer(
                 out, out_rand, z, z_rand)

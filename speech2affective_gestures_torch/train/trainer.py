@@ -61,7 +61,10 @@ def find_checkpoint(work_dir: str, epoch: int | str = "best"):
 
 class Trainer:
     """GAN training on packed datasets, on `device` (the card unless
-    `device="cpu"`). With `mixed_precision` the train steps run at bf16
+    `device="cpu"`), of the paper model or one of its ablations
+    (`variant`: "s2ag", "abl_audio" or "abl_aff", kept as `self.variant`,
+    which the renderer and the service read to feed abl_audio's generator
+    raw audio). With `mixed_precision` the train steps run at bf16
     (`builder.mixed_precision_apply`, the JAX trainer's
     `mixed_precision`); validation, `generate_gestures` and the FGD scoring
     stay float32. `gradient_clip` (0 = off) clips each net's gradients by
@@ -87,6 +90,7 @@ class Trainer:
                  mixed_precision: bool = False, gradient_clip: float = 0.0,
                  lr_decay: float = 1.0, n_speakers: int | None = None):
         self.cfg = cfg
+        self.variant = variant
         self.work_dir = work_dir
         self.logger = TrainLogger(work_dir)
         self.train_data, self.val_data, self.test_data = train_data, val_data, test_data

@@ -343,7 +343,7 @@ def mixed_precision_steps(jm, seeds):
         b = tt._batch(seed)
         state, want = train_step(state, jax.device_put(b), jax.random.key(i), gan_on=True)
         want = {k: float(v) for k, v in jax.device_get(want).items()}
-        got = step.train_step(tt._torch_batch(b), g, gan_on=True, eps=eps)
+        got = step.train_step(tt._torch_batch(b), g, gan_on=True, eps=eps, eps_rand=eps)
         yield i, want, {k: float(v) for k, v in got.items()}, jax.device_get(state), step
 
 

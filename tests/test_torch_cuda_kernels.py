@@ -617,3 +617,45 @@ def test_gru_kernels_refuse_float16_and_mixed(cuda):
         gru_cuda.gru_layer_forward(*(t.half() for t in (xp, w_hh, b_ih, b_hh)))
     with pytest.raises(TypeError):
         gru_cuda.gru_layer_forward(xp.to(torch.bfloat16), w_hh, b_ih, b_hh)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cin", [8, 128])
+def test_gru_kernels_at_the_conv_discriminator_shape(cuda, dtype, cin):
+    """The ConvDiscriminator's GRU (abl_aff's discriminator): its unpadded
+    convs leave T 28 of the 34 frames; B 512, H 64, both directions, layer
+    0 takes 8 features, later layers 128. The forward, the recurrence and
+    dW against their plain versions (float32 1e-4, bf16 the bf16
+    tolerances; dW 1e-4 of its largest from the same inputs), each launch
+    counted once under its dtype and under T 28, the same bits twice."""
+    T, B, H, D = 28, 512, 64, 2
+    tensors = _layer_inputs(T, B, cin, H, D, 28 + cin, cuda)
+    xp, w_hh, b_ih, b_hh, dys = _bf16(*tensors) if dtype == torch.bfloat16 else tensors
+    name = gru_cuda._dtype_name(dtype)
+    keys = [(k, name, T, H) for k in ("gru_fwd", "gru_bwd", "gru_dw")]
+    before = tuple(gru_cuda.shape_launches[k] for k in keys)
+    ys, h_last, hp = gru_cuda.gru_layer_forward(xp, w_hh, b_ih, b_hh, save_hp=True)
+    dxp, gn = gru_cuda.gru_bwd_recurrence(xp, w_hh, b_ih, b_hh, ys, dys, hp)
+    dw, db = gru_cuda.gru_dw(ys, dxp, gn, D)
+    torch.cuda.synchronize()
+    assert tuple(gru_cuda.shape_launches[k] for k in keys) == tuple(b + 1 for b in before)
+    tol = BF16_TOL if dtype == torch.bfloat16 else 1e-4
+    want_ys, want_h, want_hp = gru_cuda.gru_layer_plain(xp, w_hh, b_ih, b_hh, save_hp=True)
+    assert (ys.float() - want_ys.float()).abs().max().item() <= tol
+    assert (h_last.float() - want_h.float()).abs().max().item() <= tol
+    assert _rel(hp, want_hp) <= tol
+    want_dxp, want_gn = gru_cuda.gru_bwd_recurrence_plain(xp, w_hh, b_ih, b_hh, ys, dys, hp)
+    if dtype == torch.bfloat16:
+        assert _rel(dxp, want_dxp) <= tol and _rel(gn, want_gn) <= tol
+    else:
+        assert (dxp - want_dxp).abs().max().item() <= tol
+        assert (gn - want_gn).abs().max().item() <= tol
+    dw, db = gru_cuda.gru_dw(ys, want_dxp, want_gn, D)
+    want_dw, want_db = gru_cuda.gru_dw_plain(ys, want_dxp, want_gn, D)
+    assert _rel(dw, want_dw) <= 1e-4 and _rel(db, want_db) <= 1e-4
+    again = gru_cuda.gru_dw(ys, want_dxp, want_gn, D)
+    dxp2, gn2 = gru_cuda.gru_bwd_recurrence(xp, w_hh, b_ih, b_hh, ys, dys, hp)
+    assert torch.equal(dw, again[0]) and torch.equal(db, again[1])
+    assert torch.equal(ys, gru_cuda.gru_layer_forward(xp, w_hh, b_ih, b_hh)[0])
+    assert torch.equal(dxp, dxp2) and torch.equal(gn, gn2)

@@ -108,9 +108,18 @@ def test_config_from_yaml_matches_jax():
 
 @pytest.mark.parametrize("field,value", [("input_context", "audio"), ("z_type", "random")])
 def test_build_generator_rejects_unported_variants(field, value):
+    """Every input context and z type of the JAX package is ported (the
+    grid against JAX is tests/test_torch_ablations.py): the setting builds,
+    and a name outside the JAX package's choices, or an unknown variant,
+    raises a ValueError."""
     from speech2affective_gestures_torch.config import ModelConfig as TConfig
     from speech2affective_gestures_torch.models.generator import build_generator
 
     cfg = TConfig(hidden_size_s2eg=32, n_layers=2, **{field: value})
-    with pytest.raises(NotImplementedError):
-        build_generator(cfg, 30, 5, device="cpu")
+    gen = build_generator(cfg, 30, 5, device="cpu")
+    assert getattr(gen, field) == value
+    with pytest.raises(ValueError, match=field):
+        build_generator(TConfig(hidden_size_s2eg=32, n_layers=2, **{field: "other"}),
+                        30, 5, device="cpu")
+    with pytest.raises(ValueError, match="variant"):
+        build_generator(cfg, 30, 5, device="cpu", variant="abl_other")

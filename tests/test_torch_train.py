@@ -4,8 +4,8 @@ in train mode, the losses, two GAN steps, the synthetic corpus and the
 
 Small widths (hidden 16, one generator GRU layer, word embedding 16, 30
 words, 5 speakers, batch 4), every dropout at zero and the speaker noise
-at zero (JAX's `re_parametrize` patched to z = mu, the port given eps = 0),
-so both sides are deterministic. The JAX side runs its CPU default GRU
+at zero (JAX's `re_parametrize` patched to z = mu, the port given eps =
+eps_rand = 0), so both sides are deterministic. The JAX side runs its CPU default GRU
 engine (lax.scan), the reference the Pallas kernel is tested against, and
 its models are initialized with a jitted init. JAX's TriModal generator
 fixes its text encoder's embedding dropout at 0.1; the test builds it with
@@ -320,8 +320,9 @@ def _port_step(jm, b, dtype=torch.float32):
     gen, dis, tri = (m.to(dtype) for m in _port_models(jm))
     step = tstep.GanStep(gen, dis, tstep.GanConfig(loss_warmup=-1, n_speakers=N_SPK), tri)
     tb = {k: v.to(dtype) if v.is_floating_point() else v for k, v in _torch_batch(b).items()}
+    zeros = torch.zeros(B, 16, dtype=dtype)
     got = step.train_step(tb, torch.Generator().manual_seed(0), gan_on=True,
-                          eps=torch.zeros(B, 16, dtype=dtype))
+                          eps=zeros, eps_rand=zeros)
     return {k: float(v) for k, v in got.items()}, step
 
 
@@ -343,7 +344,7 @@ def _gan_steps(jm, seeds, **options):
         b = _batch(seed)
         state, want = train_step(state, jax.device_put(b), jax.random.key(i), gan_on=True)
         want = {k: float(v) for k, v in jax.device_get(want).items()}
-        got = step.train_step(_torch_batch(b), g, gan_on=True, eps=eps)
+        got = step.train_step(_torch_batch(b), g, gan_on=True, eps=eps, eps_rand=eps)
         yield i, want, {k: float(v) for k, v in got.items()}, jax.device_get(state), step
 
 
