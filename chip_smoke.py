@@ -92,7 +92,18 @@ toolkit. In order:
    launch for abl_audio's generator, which eats raw audio); abl_audio's
    long-clip rendering of a test split of short clips, per clip and
    batched, with no mel launch;
-12. timing: each kernel's time, its plain version's, a PyTorch library
+12. the v1 pipeline (`v1_phase`): `main_v1` at its defaults (batch 32)
+   trains the SER net (AttConvRNN at full width on (300, 40, 3) blocks)
+   for one epoch of random blocks, then the emotion-conditioned GAN (the
+   v1 generator at hidden 300, 4 layers; its discriminator at hidden 64)
+   for one epoch of a synthetic corpus, the counters set to 0 just before
+   and read just after (the float32 GRU forward, recurrence and dW, and
+   the mel kernel in the corpus build), every loss and the val accuracy
+   finite; one SER step (batch 4) and one GAN step (batch 16) against the
+   CPU in float64 and float32, max-pool picks and ReLU branches replayed
+   where float32 rounding flips them; each warm step's p50 and profile:
+   the SER step, the GAN step, the SER forward on the zero blocks;
+13. timing: each kernel's time, its plain version's, a PyTorch library
    call's that computes the same function, and the least time the card
    could take (bound), by CUDA events and by device time; the GRU
    backward (recurrence + dW) against cuDNN's recurrent backward; the L2
@@ -227,6 +238,8 @@ GENEA_JOINTS, GENEA_SECONDS = 31, 8.0
 # unpadded convs (kernel 3, three of them) leave its GRU T 34 - 6 frames
 ABLATIONS = ("abl_audio", "abl_aff")
 CONV_DIS_T = 34 - 6
+# main_v1's default batch, at which the v1 phase trains and times its steps
+V1_BATCH = 32
 
 
 def log(msg: str) -> None:
@@ -2007,40 +2020,56 @@ def _branches(replay: list | None = None):
     """Inside the block every ReLU and leaky ReLU (`torch.relu`, which
     `nn.ReLU` and the TCN's residual call, and `F.leaky_relu`) records, in
     call order, its branch (pre-activation > 0) and its pre-activations'
-    magnitudes, on the CPU; with `replay` (another run's record, the same
-    calls in the same order) each takes that run's branch instead of its
-    own: the same function where the branches agree, with the same
-    gradient."""
+    magnitudes, and every max pool (`F.max_pool2d`, which `nn.MaxPool2d`
+    calls) the element each window picks and its input, on the CPU; with
+    `replay` (another run's record, the same calls in the same order) each
+    takes that run's branch or pick instead of its own: the same function
+    where they agree, with the same gradient."""
     import torch
     import torch.nn.functional as F
 
     record: list = []
-    relu, leaky = torch.relu, F.leaky_relu
+    relu, leaky, max_pool = torch.relu, F.leaky_relu, F.max_pool2d
 
     def pick(x, slope):
         own = x > 0
-        record.append((own.cpu(), x.detach().abs().cpu().double()))
-        mask = own if replay is None else replay[len(record) - 1][0].to(x.device)
+        record.append(("branch", own.cpu(), x.detach().abs().cpu().double()))
+        mask = own if replay is None else replay[len(record) - 1][1].to(x.device)
         return torch.where(mask, x, x * slope)
+
+    def pool(x, *args, return_indices=False, **kwargs):
+        out, own = max_pool(x, *args, return_indices=True, **kwargs)
+        record.append(("pool", own.cpu(), x.detach().flatten(2).cpu().double()))
+        if replay is not None:
+            idx = replay[len(record) - 1][1].to(x.device)
+            out = x.flatten(2).gather(2, idx.flatten(2)).view(out.shape)
+        return (out, own) if return_indices else out
 
     torch.relu = lambda x: pick(x, 0.0)
     F.leaky_relu = lambda x, negative_slope=0.01, inplace=False: pick(x, negative_slope)
+    F.max_pool2d = pool
     try:
         yield record
     finally:
-        torch.relu, F.leaky_relu = relu, leaky
+        torch.relu, F.leaky_relu, F.max_pool2d = relu, leaky, max_pool
 
 
 def _branch_flips(got: list, want: list) -> list:
-    """The calls of `_branches` records `got` and `want` whose branches
-    differ: (call, flips, the largest |pre-activation| of `want` at them
-    over the largest of the call)."""
+    """The calls of `_branches` records `got` and `want` whose branches or
+    picks differ: (call, elements, the largest |pre-activation| of `want`
+    at them, or for a pool the largest gap in `want`'s input between the two
+    picks, over the largest |value| of the call)."""
     out = []
-    for i, ((mask, _), (ref, pre)) in enumerate(zip(got, want)):
-        flips = mask != ref
+    for i, ((kind, mine, _), (_, ref, pre)) in enumerate(zip(got, want)):
+        flips = mine != ref
         if flips.any():
-            out.append((i, int(flips.sum()),
-                        pre[flips].max().item() / max(pre.max().item(), 1e-30)))
+            top = max(pre.abs().max().item(), 1e-30)
+            if kind == "pool":
+                gap = pre.gather(2, ref.flatten(2)) - pre.gather(2, mine.flatten(2))
+                worst = gap.abs()[flips.flatten(2)].max().item()
+            else:
+                worst = pre[flips].max().item()
+            out.append((i, int(flips.sum()), worst / top))
     return out
 
 
@@ -2056,14 +2085,10 @@ def step_parity_phase(device, gradient_clip: float = 0.0, variant: str = "s2ag")
     from float64 in the generator's AffEncoder. With `gradient_clip` the
     step clips each net's gradients by their global norm
     (`gan_step.clip_by_global_norm_`): both nets' norms must exceed it on
-    this batch, so that both are clipped, and are printed.
-
-    Each ReLU and leaky ReLU's branches are recorded (`_branches`). Where
-    the card's float32 step takes the other branch than the float64 step
-    at a pre-activation within FLIP_TOL of its call's largest (float32
-    rounding at zero: one such element can move its weights' gradient far
-    past STEP_TOL), the card is held to the float64 step rerun on the
-    card's branches; a flip past FLIP_TOL fails the phase."""
+    this batch, so that both are clipped, and are printed. The card is
+    held to the float64 step by `_held_to_float64` (its metrics, both
+    nets' BN stats and Adam first moments within STEP_TOL, the frozen
+    TriModal's stats unchanged; branch flips at float32 rounding replayed)."""
     import dataclasses
 
     import torch
@@ -2110,71 +2135,114 @@ def step_parity_phase(device, gradient_clip: float = 0.0, variant: str = "s2ag")
             raise AssertionError(f"the step did not clip both nets: norms {norms}")
         return models, step, metrics
 
+    def errors(run, want):
+        (models, step, got), (ref_models, ref_step, ref_metrics) = run, want
+        return {
+            "metrics (relative)": _metric_err(got, ref_metrics),
+            "gen BN stats": _stats_err(ref_models["gen"], models["gen"]),
+            "dis BN stats": _stats_err(ref_models["dis"], models["dis"]),
+            "TriModal BN stats against its initial ones": _stats_err(init["tri"],
+                                                                     models["tri"]),
+            "gen Adam m": _moment_err(ref_step.gen_opt, ref_models["gen"],
+                                      step.gen_opt, models["gen"]),
+            "dis Adam m": _moment_err(ref_step.dis_opt, ref_models["dis"],
+                                      step.dis_opt, models["dis"]),
+        }
+
     draw = gan_step.draw_other_speaker_ids
     gan_step.draw_other_speaker_ids = (
         lambda g, vids, n: torch.as_tensor(other, device=vids.device))
     try:
-        with _branches() as ref_branches:
-            ref = one_step(torch.device("cpu"), torch.float64)
-        with _branches() as card_branches:
-            card = one_step(device, torch.float32)
-        flips = _branch_flips(card_branches, ref_branches)
-        log(f"ReLU and leaky ReLU branches of the card's float32 {variant} step against the "
-            f"float64 step's: {len(ref_branches)} calls; (call, elements on the other "
-            f"branch, their largest |pre-activation| over the call's largest) {flips} (tol "
-            f"{FLIP_TOL})")
-        if any(rel > FLIP_TOL for _, _, rel in flips):
-            raise AssertionError(f"the card's step takes another branch past float32 "
-                                 f"rounding: {flips}")
-        # (label, run, the float64 step it is held to, whether it must pass)
-        checks = [("card", card, ref, True)]
-        if flips:
-            with _branches(replay=card_branches):
-                ref_card = one_step(torch.device("cpu"), torch.float64)
-            checks = [("card", card, ref_card, True),
-                      ("card (against the float64 step's own branches)", card, ref, False)]
-        checks.append(("CPU", one_step(torch.device("cpu"), torch.float32), ref, False))
+        _held_to_float64(device, f"{variant} step{' (clipped)' if gradient_clip else ''}",
+                         one_step, errors)
     finally:
         gan_step.draw_other_speaker_ids = draw
 
-    def stats_err(a, b):
-        sa, sb = a.state_dict(), b.state_dict()
-        return max(_rel(sb[k].cpu().double(), sa[k].double()) for k in sa
-                   if k.endswith(("running_mean", "running_var")))
 
-    # Adam's first moment after step 1 is 0.5 g. The biases ahead of a batch
-    # norm in train mode have a zero gradient up to float noise (the batch
-    # mean removes them): a tensor whose moments all lie below 1e-4 of the
-    # model's largest is held within STEP_TOL of that largest instead.
-    def moment_err(opt_a, model_a, opt_b, model_b):
-        pairs = [(opt_a.state[p]["exp_avg"], opt_b.state[q]["exp_avg"].cpu().double())
-                 for p, q in zip(model_a.parameters(), model_b.parameters())]
-        top = max(a.abs().max().item() for a, _ in pairs)
-        scale = [a.abs().max().item() for a, _ in pairs]
-        return max((b - a).abs().max().item() / (s if s >= 1e-4 * top else top)
-                   for (a, b), s in zip(pairs, scale))
+def _metric_err(got: dict, want: dict) -> float:
+    """The largest difference of a step's metrics, each relative to its
+    float64 value (plus 1e-6 absolute for a near-zero difference of two
+    means); inf where the names differ."""
+    if set(got) != set(want):
+        return np.inf
+    return max(abs(got[k] - want[k]) / (abs(want[k]) + 1e-6 / STEP_TOL) for k in want)
 
+
+def _stats_err(a, b) -> float:
+    """BatchNorm running stats of model b against a's, the largest
+    difference relative to each tensor's largest value."""
+    sa, sb = a.state_dict(), b.state_dict()
+    return max(_rel(sb[k].cpu().double(), sa[k].double()) for k in sa
+               if k.endswith(("running_mean", "running_var")))
+
+
+def _moment_err(opt_a, model_a, opt_b, model_b, key: str = "exp_avg",
+                bn_fed: tuple = ()) -> float:
+    """The optimizer state `key` of model b's parameters (Adam's first
+    moment, 0.5 g after step 1; SGD's momentum buffer) against model a's,
+    the largest difference relative to each tensor's largest. The biases
+    ahead of a batch norm in train mode have a zero gradient up to float
+    noise (the batch mean removes them): a tensor whose states all lie
+    below 1e-4 of the model's largest, or one named in `bn_fed` (where
+    weight decay keeps its state above that), is held relative to the
+    model's largest instead."""
+    names = dict(model_a.named_parameters())
+    pairs = [(n, opt_a.state[p][key], opt_b.state[q][key].cpu().double())
+             for (n, p), q in zip(names.items(), model_b.parameters())]
+    top = max(a.abs().max().item() for _, a, _ in pairs)
+    return max((b - a).abs().max().item()
+               / (a.abs().max().item() if a.abs().max().item() >= 1e-4 * top
+                  and n not in bn_fed else top)
+               for n, a, b in pairs)
+
+
+def _held_to_float64(device, label: str, one_step, errors) -> None:
+    """A train step on the card in float32 held to the same step on the CPU
+    plain path in float64. `one_step(device, dtype)` runs the step from the
+    same weights and inputs and returns what `errors(run, reference)`
+    compares: {name: error}, each within STEP_TOL for the card; the CPU's
+    float32 step is logged beside it.
+
+    Each ReLU and leaky ReLU's branch and each max pool's pick are recorded
+    (`_branches`). Where the card's float32 step takes another branch or
+    pick than the float64 step within FLIP_TOL of its call's largest value
+    (float32 rounding at zero, or at a tie: one such element can move its
+    weights' gradient far past STEP_TOL), the card is held to the float64
+    step rerun on the card's branches; a flip past FLIP_TOL fails the
+    phase."""
+    import torch
+
+    cpu = torch.device("cpu")
+    with _branches() as ref_branches:
+        ref = one_step(cpu, torch.float64)
+    with _branches() as card_branches:
+        card = one_step(device, torch.float32)
+    flips = _branch_flips(card_branches, ref_branches)
+    log(f"ReLU and leaky ReLU branches and max-pool picks of the card's float32 {label} "
+        f"against the float64 one's: {len(ref_branches)} calls; (call, elements on the "
+        f"other branch or pick, their largest |pre-activation| or gap over the call's "
+        f"largest) {flips} (tol {FLIP_TOL})")
+    if any(rel > FLIP_TOL for _, _, rel in flips):
+        raise AssertionError(f"the card's {label} takes another branch past float32 "
+                             f"rounding: {flips}")
+    # (label, run, the float64 step it is held to)
+    checks = [("card", card, ref)]
+    if flips:
+        with _branches(replay=card_branches):
+            ref_card = one_step(cpu, torch.float64)
+        checks = [("card", card, ref_card),
+                  ("card (against the float64 step's own branches)", card, ref)]
+    checks.append(("CPU", one_step(cpu, torch.float32), ref))
     errs = {}
-    for name, (models, step, got), (ref_models, ref_step, want), _ in checks:
-        metric = max(abs(got[k] - want[k]) / (abs(want[k]) + 1e-6 / STEP_TOL)
-                     for k in want)
-        errs[name] = {
-            "metrics (relative)": metric if set(got) == set(want) else np.inf,
-            "gen BN stats": stats_err(ref_models["gen"], models["gen"]),
-            "dis BN stats": stats_err(ref_models["dis"], models["dis"]),
-            "TriModal BN stats against its initial ones": stats_err(init["tri"],
-                                                                    models["tri"]),
-            "gen Adam m": moment_err(ref_step.gen_opt, ref_models["gen"],
-                                     step.gen_opt, models["gen"]),
-            "dis Adam m": moment_err(ref_step.dis_opt, ref_models["dis"],
-                                     step.dis_opt, models["dis"]),
-        }
-        log(f"{name} float32 {variant} step{' (clipped)' if gradient_clip else ''} against "
-            f"the CPU float64 step{' on the card'"'"'s branches' if want is not ref[2] else ''}: "
+    for name, run, want in checks:
+        errs[name] = errors(run, want)
+        on = " on the card's branches" if want is not ref else ""
+        log(f"{name} float32 {label} against the CPU float64 one{on}: "
             + ", ".join(f"{k} {v:.3e}" for k, v in errs[name].items())
             + f" (tol {STEP_TOL} for the card)")
     if not all(v <= STEP_TOL for v in errs["card"].values()):
-        raise AssertionError(f"card step disagrees with the CPU step: {errs['card']}")
+        raise AssertionError(f"card {label} disagrees with the CPU float64 one: "
+                             f"{errs['card']}")
 
 
 def mixed_step_parity_phase(device, variant: str = "s2ag") -> None:
@@ -2480,6 +2548,220 @@ def ablation_phase(device, work: pathlib.Path, embedding_net: pathlib.Path,
         log(f"{variant} train step at batch {TRAIN_BATCH}"
             f"{', mixed precision' if mixed else ''}: p50 {p50:.3f} ms, "
             f"{TRAIN_BATCH / p50 * 1e3:.1f} samples/s; {smi}")
+    return launches
+
+
+def v1_main_phase(device, work: pathlib.Path):
+    """`main_v1.main` on the card at its defaults (batch 32): the SER net
+    at AttConvRNN's widths on (300, 40, 3) blocks for one epoch of the 64
+    random blocks, then the v1 generator at config/multimodal_context_v2.yml
+    (hidden 300, 4 layers) and discriminator for one epoch of the synthetic
+    corpus. The counters are set to 0 just before and read just after: the
+    float32 GRU forward, recurrence and dW, and the mel kernel (the corpus
+    build's MFCCs), must have run; every logged loss and the SER's val
+    accuracy must be finite. Returns what main trained and the launches."""
+    import torch
+    from speech2affective_gestures_torch import main_v1
+    from speech2affective_gestures_torch.ops import gru_cuda
+
+    base = work / "base_v1"
+    argv = ["-b", str(base), "-c", str(CONFIG), "--synthetic-data", "true"]
+    log(f"v1 phase: main_v1.main({' '.join(argv)})")
+    _reset_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run = main_v1.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, tiers = _counters(), _tier_counters()
+    B = V1_BATCH
+    log(f"main_v1 launches: {dict(launches)}, by tier {dict(tiers)}; main_v1.main took "
+        f"{wall:.1f} s in all; the GRU plans at B {B}, float32: forward "
+        f"{gru_cuda.fwd_tier(B, 300, torch.float32)} (H 300), "
+        f"{gru_cuda.fwd_tier(B, 64, torch.float32)} (H 64), recurrence "
+        f"{gru_cuda.bwd_tier(B, 300, torch.float32)} (H 300), "
+        f"{gru_cuda.bwd_tier(B, 64, torch.float32)} (H 64)")
+    for name in ("gru_fwd", "gru_bwd", "gru_dw", "mel_power"):
+        if launches[name] < 1:
+            raise AssertionError(f"kernel {name} was not launched in main_v1")
+    if any(k.endswith("_bf16") and n for k, n in launches.items()):
+        raise AssertionError(f"main_v1 ran bf16 kernels: {dict(launches)}")
+    if {run.device.type, next(run.ser.parameters()).device.type} != {device.type}:
+        raise AssertionError(f"main_v1 ran on {run.device}, not the card")
+    lines = (base / "models" / "v1_ser_s2eg" / "log.txt").read_text().splitlines()
+    for line in lines:
+        log(f"  log: {line}")
+    [ser_line] = [x for x in lines if "SER epoch 0: " in x]
+    [s2eg_line] = [x for x in lines if "s2eg epoch 0: " in x]
+    ser = ser_line.split("SER epoch 0: ")[1].split()
+    numbers = [float(ser[1]), float(ser[3])] + [
+        float(tok.split(": ")[1]) for tok in s2eg_line.split("s2eg epoch 0: ")[1].split(" | ")]
+    if len(numbers) != 8 or not np.isfinite(numbers).all():
+        raise AssertionError(f"main_v1 logged {numbers}")
+    return run, launches
+
+
+def ser_step_parity_phase(device) -> None:
+    """One SER train step (`ser_trainer.ser_train_step`, main_v1's SGD:
+    lr 1e-3, momentum 0.9, Nesterov, weight decay 5e-4) of AttConvRNN at
+    full width with the reference init, batch 4, dropout 0, on the card
+    and on the CPU plain path from the same weights and blocks: the card's
+    loss and accuracy, the row-wise batch norm's running stats and SGD's
+    momentum buffers against the CPU float64 step within STEP_TOL
+    (`_held_to_float64`; linear1's bias, which that batch norm follows, as
+    the BN-fed biases there)."""
+    import torch
+    from speech2affective_gestures_torch.models.ser import AttConvRNN, apply_reference_init
+    from speech2affective_gestures_torch.train import ser_trainer
+
+    torch.manual_seed(0)
+    net = apply_reference_init(AttConvRNN(7, dropout_prob=0.0),
+                               torch.Generator().manual_seed(42))
+    rng = np.random.default_rng(3)
+    data = rng.standard_normal((4, 300, 40, 3))
+    labels = np.eye(7)[rng.integers(0, 7, 4)]
+
+    def one_step(dev, dtype):
+        model = copy.deepcopy(net).to(dev, dtype)
+        opt = ser_trainer.make_ser_optimizer(model.parameters())
+        t0 = time.perf_counter()
+        got = ser_trainer.ser_train_step(
+            model, opt, torch.from_numpy(data).to(dev, dtype),
+            torch.from_numpy(labels).to(dev, dtype), torch.Generator(device=dev))
+        got = {k: float(v) for k, v in got.items()}
+        log(f"one SER train step, batch 4, on {dev} in {dtype}: "
+            f"{(time.perf_counter() - t0) * 1e3:.1f} ms; {got}")
+        return model, opt, got
+
+    def errors(run, want):
+        (model, opt, got), (ref_model, ref_opt, ref_metrics) = run, want
+        return {"metrics (relative)": _metric_err(got, ref_metrics),
+                "BN stats": _stats_err(ref_model, model),
+                "SGD momentum": _moment_err(ref_opt, ref_model, opt, model,
+                                            key="momentum_buffer", bn_fed=("linear1.bias",))}
+
+    _held_to_float64(device, "SER step", one_step, errors)
+
+
+def s2eg_step_parity_phase(device) -> None:
+    """One v1 GAN step (`ser_trainer.S2egStep`) of PoseGeneratorV1 at
+    config/multimodal_context_v2.yml's widths (hidden 300, 4 layers; 1000
+    words, 100 speakers) and AffDiscriminatorV1 (hidden 64), batch 16,
+    every dropout at zero, on the card and on the CPU plain path from the
+    same weights, batch, emotions, speaker noise and div-reg speaker ids:
+    the metrics, both nets' BN stats and Adam first moments against the CPU
+    float64 step within STEP_TOL (`_held_to_float64`)."""
+    import torch
+    from speech2affective_gestures_torch.config import ModelConfig
+    from speech2affective_gestures_torch.models.discriminator import AffDiscriminatorV1
+    from speech2affective_gestures_torch.models.generator import PoseGeneratorV1
+    from speech2affective_gestures_torch.train import builder, gan_step, ser_trainer
+
+    cfg = ModelConfig.from_yaml(CONFIG)
+    n_words, n_speakers, B = 1000, 100, 16
+    torch.manual_seed(0)
+    init = {"gen": PoseGeneratorV1(n_words=n_words, n_speakers=n_speakers,
+                                   hidden_size=cfg.hidden_size, n_layers=cfg.n_layers,
+                                   dropout_prob=0.0, emb_dropout=0.0),
+            "dis": AffDiscriminatorV1(n_poses=cfg.n_poses, dropout_prob=0.0)}
+    gan_cfg = gan_step.GanConfig(learning_rate=cfg.learning_rate, n_speakers=n_speakers)
+    rng = np.random.default_rng(4)
+    batch = builder.synthetic_batch(rng, B, cfg, n_words, n_speakers)
+    batch["emo_labels"] = np.eye(7, dtype=np.float32)[rng.integers(0, 7, B)]
+    eps, eps_rand = rng.standard_normal((B, 16)), rng.standard_normal((B, 16))
+    other = (batch["vid_indices"] + 1 + rng.integers(0, n_speakers - 1, B)) % n_speakers
+
+    def one_step(dev, dtype):
+        models = {k: copy.deepcopy(m).to(dev, dtype) for k, m in init.items()}
+        step = ser_trainer.S2egStep(models["gen"], models["dis"], gan_cfg)
+        b = {k: v.to(dtype) if v.is_floating_point() else v
+             for k, v in builder.to_device(batch, dev).items()}
+        t0 = time.perf_counter()
+        got = step.train_step(b, torch.Generator(device=dev).manual_seed(0),
+                              eps=torch.from_numpy(eps).to(dev, dtype),
+                              eps_rand=torch.from_numpy(eps_rand).to(dev, dtype))
+        got = {k: float(v) for k, v in got.items()}
+        log(f"one s2eg train step, batch {B}, on {dev} in {dtype}: "
+            f"{(time.perf_counter() - t0) * 1e3:.1f} ms; {got}")
+        return models, step, got
+
+    def errors(run, want):
+        (models, step, got), (ref_models, ref_step, ref_metrics) = run, want
+        return {"metrics (relative)": _metric_err(got, ref_metrics),
+                "gen BN stats": _stats_err(ref_models["gen"], models["gen"]),
+                "dis BN stats": _stats_err(ref_models["dis"], models["dis"]),
+                "gen Adam m": _moment_err(ref_step.gen_opt, ref_models["gen"],
+                                          step.gen_opt, models["gen"]),
+                "dis Adam m": _moment_err(ref_step.dis_opt, ref_models["dis"],
+                                          step.dis_opt, models["dis"])}
+
+    draw = gan_step.draw_other_speaker_ids
+    gan_step.draw_other_speaker_ids = (
+        lambda g, vids, n: torch.as_tensor(other, device=vids.device))
+    try:
+        _held_to_float64(device, "s2eg step", one_step, errors)
+    finally:
+        gan_step.draw_other_speaker_ids = draw
+
+
+def _p50_and_profile(label: str, fn, smi: str, n: int = 6) -> float:
+    """p50 of fn on the card (host clock, each call ended by a
+    synchronize) after one warm call, then its device profile."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    p50 = float(np.median(times))
+    log(f"{label}: p50 {p50:.3f} ms over {n}; all {[round(t, 3) for t in times]}; {smi}")
+    profile_device(label, "call", fn, n=3)
+    return p50
+
+
+def v1_phase(device, work: pathlib.Path, smi: str) -> collections.Counter:
+    """The v1 pipeline (`main_v1`): trained on the card at its defaults
+    (`v1_main_phase`); one SER step and one s2eg step against the CPU
+    (`ser_step_parity_phase`, `s2eg_step_parity_phase`); then, on what
+    main_v1 trained, each warm step's p50 and device profile at batch 32:
+    the SER train step, the s2eg step, and the SER forward on the zero
+    blocks that condition the GAN. Returns the kernels' launches in
+    main_v1."""
+    import torch
+    from speech2affective_gestures_torch.data.ted_db import BatchSampler
+    from speech2affective_gestures_torch.train import builder, ser_trainer
+
+    t0 = time.perf_counter()
+    run, launches = v1_main_phase(device, work)
+    ser_step_parity_phase(device)
+    s2eg_step_parity_phase(device)
+
+    B = V1_BATCH
+    g = torch.Generator(device=device).manual_seed(7)
+    rng = np.random.default_rng(7)
+    blocks = torch.from_numpy(rng.standard_normal((B, 300, 40, 3)).astype(np.float32)).to(device)
+    labels = torch.from_numpy(np.eye(7, dtype=np.float32)[rng.integers(0, 7, B)]).to(device)
+    zeros = torch.zeros((B, 300, 40, 3), device=device)
+    no_labels = torch.zeros((B, 7), device=device)
+    batch = builder.to_device(next(iter(BatchSampler(run.dataset, B, seed=5))), device)
+    batch["emo_labels"] = ser_trainer.ser_eval_step(run.ser, zeros, no_labels)[1]
+    p50s = {
+        "SER train step": _p50_and_profile(
+            f"SER train step (batch {B}, full width)",
+            lambda: ser_trainer.ser_train_step(run.ser, run.ser_opt, blocks, labels, g), smi),
+        "s2eg step": _p50_and_profile(
+            f"s2eg train step (batch {B}, full width)",
+            lambda: run.s2eg.train_step(batch, g), smi),
+        "SER forward on the zero blocks": _p50_and_profile(
+            f"SER forward on the zero blocks (batch {B})",
+            lambda: ser_trainer.ser_eval_step(run.ser, zeros, no_labels), smi),
+    }
+    log(f"v1 phase: {', '.join(f'{k} p50 {v:.3f} ms' for k, v in p50s.items())} at batch {B}; "
+        f"{smi}; the phase took {time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -3247,6 +3529,10 @@ def main() -> int:
         launches.update(clip_render_phase(device, reading, work, smi))
         # the paper's ablations: trained, scored, checked, served, rendered
         launches.update(ablation_phase(device, work, embedding_net, smi))
+        # the v1 pipeline: SER, then the emotion-conditioned GAN
+        v1_launches = v1_phase(device, work, smi)
+        log(f"v1 path launches (main_v1): {dict(v1_launches)}")
+        launches.update(v1_launches)
     kernels = timing_phase(device, errs, launches)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

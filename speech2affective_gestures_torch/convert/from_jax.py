@@ -1,7 +1,8 @@
 """Weight bridge: the JAX package's model variables (the s2ag
 PoseGenerator and its ablations, the TriModal generator, the
-AffDiscriminator, the ConvDiscriminator, the FGD EmbeddingNet) -> this
-port's state dicts.
+AffDiscriminator, the ConvDiscriminator, the FGD EmbeddingNet, and the v1
+pipeline's SER net, generator and discriminator) -> this port's state
+dicts.
 
 The JAX variables are a nested dict of numpy arrays (`params` plus
 `batch_stats`, what `jax.device_get` returns for a flax variable tree). The
@@ -78,7 +79,8 @@ def batch_norm(params: Mapping[str, Array], stats: Mapping[str, Array],
 
 
 def gru(p: Mapping[str, Array], prefix: str) -> dict[str, Array]:
-    """layers.GRU params (w_ih_l{k}[_rev] (in, 3H), ...) -> nn.GRU keys."""
+    """layers.GRU params (w_ih_l{k}[_rev] (in, 3H), ...) -> nn.GRU keys;
+    layers.LSTM's (the same names at 4H) -> nn.LSTM keys."""
     num_layers = 1 + max(int(k.split("_l")[-1].removesuffix("_rev"))
                          for k in p if k.startswith("w_ih_l"))
     dirs = ["", "_reverse"] if "w_ih_l0_rev" in p else [""]
@@ -249,6 +251,49 @@ def conv_discriminator_trimodal(variables: Mapping[str, Any]) -> dict[str, Array
     return out
 
 
+def pose_generator_v1(variables: Mapping[str, Any]) -> dict[str, Array]:
+    """The v1 generator's flax variables -> reference state-dict keys: the
+    TriModal's layout (JAX convert/jax_to_torch.py:280), its GRU's layer 0
+    input wider by the emotion one-hot."""
+    return pose_generator_trimodal(variables)
+
+
+def aff_discriminator_v1(variables: Mapping[str, Any]) -> dict[str, Array]:
+    """AffDiscriminatorV1's flax variables -> reference state-dict keys
+    (JAX convert/jax_to_torch.py:310)."""
+    p, s = variables["params"], variables.get("batch_stats", {})
+    out: dict[str, Array] = {}
+    for name in ("st_gcn1", "st_gcn2"):
+        out.update(st_graph_conv(p[name], s[name], f"{name}."))
+    for i in (1, 2):
+        out.update(conv1d(p[f"conv{i}"], f"conv{i}"))
+        out.update(batch_norm(p[f"bn{i}"], s[f"bn{i}"], f"batch_norm{i}"))
+    out.update(gru(p["gru"], "gru."))
+    out.update(linear(p["out"], "out"))
+    out.update(linear(p["out2"], "out2"))
+    return out
+
+
+def att_conv_rnn(variables: Mapping[str, Any]) -> dict[str, Array]:
+    """AttConvRNN's (or AttConvRNNv2's, which has three convs and no LSTM)
+    flax variables -> reference state-dict keys (JAX
+    convert/jax_to_torch.py:325): the LSTM under `gru.`, the attention's
+    two Dense layers as `attention.linear1` and `linear2`."""
+    p, s = variables["params"], variables.get("batch_stats", {})
+    out: dict[str, Array] = {}
+    for name in sorted(k for k in p if k.startswith("conv")):
+        out.update(conv2d(p[name], name))
+    out.update(linear(p["linear1"], "linear1"))
+    out.update(batch_norm(p["bn_linear1"], s["bn_linear1"], "batch_norm_linear1"))
+    if "lstm" in p:
+        out.update(gru(p["lstm"], "gru."))
+    out.update(linear(p["attention"]["Dense_0"], "attention.linear1"))
+    out.update(linear(p["attention"]["Dense_1"], "attention.linear2"))
+    out.update(linear(p["linear2"], "linear2"))
+    out.update(linear(p["linear3"], "linear3"))
+    return out
+
+
 def embedding_net_pose(variables: Mapping[str, Any]) -> dict[str, Array]:
     """The FGD EmbeddingNet(mode='pose')'s flax variables -> reference
     state-dict keys (the layout of outputs/embedding_net.pth.tar's
@@ -289,7 +334,8 @@ def to_state_dict(arrays: Mapping[str, Array]) -> dict[str, torch.Tensor]:
 def load_jax(model: torch.nn.Module, mapper, variables: Mapping[str, Any]) -> None:
     """Load JAX variables into `model` through one of the mappers above
     (`pose_generator`, `pose_generator_trimodal`, `aff_discriminator`,
-    `conv_discriminator_trimodal`, `embedding_net_pose`), strict."""
+    `conv_discriminator_trimodal`, `embedding_net_pose`, `pose_generator_v1`,
+    `aff_discriminator_v1`, `att_conv_rnn`), strict."""
     model.load_state_dict(to_state_dict(mapper(variables)), strict=True)
 
 

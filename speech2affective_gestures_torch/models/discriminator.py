@@ -6,7 +6,9 @@
 - `ConvDiscriminatorTriModal` (:390-435), which is also the abl_aff
   ablation's `ConvDiscriminator` (net/multimodal_context_net_v2_abl_aff.py
   :394-439): three unpadded Conv1d (T -> T - 6) -> the same bi-GRU and
-  heads, the last over T - 6 frames.
+  heads, the last over T - 6 frames;
+- `AffDiscriminatorV1`, the v1 pipeline's emotion-conditioned D
+  (net/multimodal_context_net_v1.py:363-463).
 """
 
 from __future__ import annotations
@@ -16,7 +18,8 @@ from torch import nn
 
 from .. import constants as C
 from . import layers as L
-from .encoders import AffEncoder
+from .encoders import AffEncoder, bone_graphs, channel_major, regroup_body_parts
+from .stgcn import STGraphConv
 
 
 class AffDiscriminator(nn.Module):
@@ -70,3 +73,46 @@ class ConvDiscriminatorTriModal(nn.Module):
 # The abl_aff ablation's discriminator is the same network
 # (net/multimodal_context_net_v2_abl_aff.py:394-439).
 ConvDiscriminator = ConvDiscriminatorTriModal
+
+
+class AffDiscriminatorV1(nn.Module):
+    """poses (B, T, pose_dim), in_emo_labels (B, num_emotions) -> (B, 1) in
+    (0, 1) (JAX `models/discriminator.py:77-120`): the AffEncoder's two
+    ST-GCN blocks without its per-node batch norms, conv1 / batch_norm1 /
+    ReLU and conv2 / batch_norm2 / ReLU over T, the emotion one-hot
+    concatenated to every frame, a 4-layer bi-GRU with summed directions,
+    the per-frame Linear and Linear(T -> 1), sigmoid. The reference fixes
+    the GRU's dropout at 0.3; `dropout_prob` lets tests set it to zero."""
+
+    def __init__(self, num_emotions: int = 7, n_poses: int = C.N_POSES,
+                 hidden_size: int = 64, dropout_prob: float = 0.3, coords: int = 3):
+        super().__init__()
+        self.hidden_size, self.coords = hidden_size, coords
+        a1, a2 = bone_graphs()
+        self.register_buffer("a1", a1, persistent=False)
+        self.register_buffer("a2", a2, persistent=False)
+        n_parts = len(C.BODY_PARTS_EDGE_IDX)
+        part = len(C.BODY_PARTS_EDGE_IDX[0])
+        self.st_gcn1 = STGraphConv(coords, 16, a1.shape[0], (9, 5), padding=(4, 2))
+        self.st_gcn2 = STGraphConv(16 * part, 16, a2.shape[0], (9, 3), padding=(4, 1))
+        self.conv1 = nn.Conv1d(16 * n_parts, 16, 5, padding=2)
+        self.batch_norm1 = L.BatchNorm1d(16)
+        self.conv2 = nn.Conv1d(16, 8, 3, padding=1)
+        self.batch_norm2 = L.BatchNorm1d(8)
+        self.gru = L.GRU(8 + num_emotions, hidden_size, num_layers=4, bidirectional=True,
+                         dropout=dropout_prob)
+        self.out = nn.Linear(hidden_size, 1)
+        self.out2 = nn.Linear(n_poses, 1)
+
+    def forward(self, poses: torch.Tensor, in_emo_labels: torch.Tensor,
+                in_text=None) -> torch.Tensor:
+        b, t, jc = poses.shape
+        x = poses.view(b, t, jc // self.coords, self.coords).permute(0, 3, 1, 2)
+        feat1 = self.st_gcn1(x.contiguous(), self.a1)               # (B, 16, T, 9)
+        feat2 = self.st_gcn2(regroup_body_parts(feat1), self.a2)    # (B, 16, T, 3)
+        y = torch.relu(self.batch_norm1(self.conv1(channel_major(feat2))))
+        y = torch.relu(self.batch_norm2(self.conv2(y)))             # (B, 8, T)
+        emo = in_emo_labels.to(y)[:, :, None].expand(-1, -1, t)
+        out, _ = self.gru(torch.cat([y, emo], dim=1).transpose(1, 2))  # (T, B, 2H)
+        out = self.out(L.sum_bidirectional(out, self.hidden_size))[..., 0]
+        return torch.sigmoid(self.out2(out.t()))                    # (B, 1)

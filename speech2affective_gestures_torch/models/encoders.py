@@ -99,13 +99,30 @@ def _per_node_batchnorm(x: torch.Tensor, bn: BatchNorm1d) -> torch.Tensor:
     """BatchNorm1d(C*V) over flattened (channel, node) pairs, index
     ch*V + node (ref net/multimodal_context_net_v2.py:159-160)."""
     b, c, t, v = x.shape
-    return bn(_channel_major(x)).view(b, c, v, t).permute(0, 1, 3, 2)
+    return bn(channel_major(x)).view(b, c, v, t).permute(0, 1, 3, 2)
 
 
-def _channel_major(x: torch.Tensor) -> torch.Tensor:
+def channel_major(x: torch.Tensor) -> torch.Tensor:
     """(B, C, T, V) -> (B, C*V, T) with index ch*V + node."""
     b, c, t, v = x.shape
     return x.permute(0, 1, 3, 2).reshape(b, c * v, t)
+
+
+def regroup_body_parts(feat: torch.Tensor) -> torch.Tensor:
+    """(B, C, T, 9 bones) -> (B, 3*C, T, 3 body parts): each part's three
+    bones flattened channel-major, channel index ch*3 + bone-in-part (ref
+    net/multimodal_context_net_v2.py:161-167)."""
+    return torch.stack(
+        [channel_major(feat[..., list(idx)]) for idx in C.BODY_PARTS_EDGE_IDX], dim=-1)
+
+
+def bone_graphs() -> tuple[torch.Tensor, torch.Tensor]:
+    """The two ST-GCN stages' adjacencies (K, V, V), float32: the 9-bone
+    graph and the 3-body-part graph, spatial partition, 2 hops."""
+    a1 = graph_ops.build_adjacency(C.NUM_BONES, list(C.DIR_EDGE_PAIRS), "spatial", max_hop=2)
+    a2 = graph_ops.build_adjacency(len(C.BODY_PARTS_EDGE_IDX), list(C.BODY_PARTS_EDGE_PAIRS),
+                                   "spatial", max_hop=2)
+    return (torch.tensor(a1, dtype=torch.float32), torch.tensor(a2, dtype=torch.float32))
 
 
 class AffEncoder(nn.Module):
@@ -118,16 +135,10 @@ class AffEncoder(nn.Module):
     def __init__(self, coords: int = 3):
         super().__init__()
         self.coords = coords
-        a1 = graph_ops.build_adjacency(C.NUM_BONES, list(C.DIR_EDGE_PAIRS),
-                                       "spatial", max_hop=2)
-        a2 = graph_ops.build_adjacency(len(C.BODY_PARTS_EDGE_IDX),
-                                       list(C.BODY_PARTS_EDGE_PAIRS),
-                                       "spatial", max_hop=2)
+        a1, a2 = bone_graphs()
         # constants, not state: kept out of the state dict
-        self.register_buffer("a1", torch.tensor(a1, dtype=torch.float32),
-                             persistent=False)
-        self.register_buffer("a2", torch.tensor(a2, dtype=torch.float32),
-                             persistent=False)
+        self.register_buffer("a1", a1, persistent=False)
+        self.register_buffer("a2", a2, persistent=False)
         n_parts = len(C.BODY_PARTS_EDGE_IDX)
         part = len(C.BODY_PARTS_EDGE_IDX[0])
         self.st_gcn1 = STGraphConv(coords, 16, a1.shape[0], (9, 5), padding=(4, 2))
@@ -151,12 +162,8 @@ class AffEncoder(nn.Module):
         x = poses.view(b, t, jc // self.coords, self.coords).permute(0, 3, 1, 2)
         feat1 = self.st_gcn1(x.contiguous(), self.a1)           # (B, 16, T, 9)
         feat1 = _per_node_batchnorm(feat1, self.batch_norm1)
-        # body parts: (B, 16*3, T, 3), channel index ch*3 + bone-in-part
-        feat2_in = torch.stack(
-            [_channel_major(feat1[..., list(idx)]) for idx in C.BODY_PARTS_EDGE_IDX],
-            dim=-1)
-        feat2 = self.st_gcn2(feat2_in, self.a2)                 # (B, 16, T, 3)
+        feat2 = self.st_gcn2(regroup_body_parts(feat1), self.a2)  # (B, 16, T, 3)
         feat2 = _per_node_batchnorm(feat2, self.batch_norm2)
-        y = leaky_relu(self.batch_norm3(self.conv3(_channel_major(feat2))), 0.01)
+        y = leaky_relu(self.batch_norm3(self.conv3(channel_major(feat2))), 0.01)
         y = leaky_relu(self.batch_norm4(self.conv4(y)), 0.01)
         return y.transpose(1, 2)                                # (B, T, 8)

@@ -1,5 +1,6 @@
-"""Pose generators (reference net/multimodal_context_net_v2.py:247-546 and
-the ablations' net/multimodal_context_net_v2_abl_audio.py, ..._abl_aff.py).
+"""Pose generators (reference net/multimodal_context_net_v2.py:247-546,
+the ablations' net/multimodal_context_net_v2_abl_audio.py, ..._abl_aff.py,
+and the v1 pipeline's net/multimodal_context_net_v1.py:307-360).
 
 The s2ag generator: AffEncoder(seed poses) + MFCCEncoder + TextEncoderTCN +
 speaker z -> 4-layer bi-GRU(300) with summed directions -> Linear 300 ->
@@ -8,7 +9,8 @@ swaps the MFCCEncoder for a WavEncoder on the raw audio window, and
 `use_aff_encoder=False` (abl_aff) feeds the seed poses with their
 constraint bit raw. The TriModal baseline, the frozen comparator of
 training: the seed poses + WavEncoder + TextEncoderTCN + speaker z through
-the same GRU and head.
+the same GRU and head. The v1 generator: the TriModal's structure, with
+the emotion one-hot concatenated onto z before it is broadcast.
 
 Both take the JAX package's `input_context` (which of the audio and text
 encoders run: "both", "audio", "text" or "none") and `z_type` (the latent
@@ -56,13 +58,15 @@ class _GRUGenerator(nn.Module):
     with summed directions and the per-frame head, under the reference's
     state dict names. Subclasses build the seed and audio encoders and
     `features(...)`, the per-frame inputs ahead of the text's; `pre_size`
-    is the width of their seed features."""
+    is the width of their seed features, `cond_size` that of a per-clip
+    vector concatenated onto z (v1's emotion one-hot; 0 without one)."""
 
     def __init__(self, pre_size: int, pose_dim: int, n_words: int,
                  word_embed_size: int, hidden_size: int, n_layers: int,
                  dropout_prob: float, emb_dropout: float, n_speakers: int,
                  z_size: int, head_slope: float, input_context: str, z_type: str,
-                 word_embeddings=None, freeze_embedding: bool = False):
+                 word_embeddings=None, freeze_embedding: bool = False,
+                 cond_size: int = 0):
         super().__init__()
         _check_choice("input_context", input_context, INPUT_CONTEXTS)
         _check_choice("z_type", z_type, Z_TYPES)
@@ -83,7 +87,7 @@ class _GRUGenerator(nn.Module):
             self.speaker_mu = nn.Linear(z_size, z_size)
             self.speaker_log_var = nn.Linear(z_size, z_size)
         in_size = (pre_size + 32 * self.uses_audio + 32 * (self.text_encoder is not None)
-                   + z_size * (z_type != "none"))
+                   + z_size * (z_type != "none") + cond_size)
         self.gru = L.GRU(in_size, hidden_size, num_layers=n_layers,
                          bidirectional=True, dropout=dropout_prob)
         self.out = nn.Sequential(
@@ -135,10 +139,17 @@ class _GRUGenerator(nn.Module):
     def forward(self, pre_seq, in_text, in_audio, vid_indices=None,
                 eps: torch.Tensor | None = None,
                 generator: torch.Generator | None = None):
+        return self._forward(pre_seq, in_text, in_audio, None, vid_indices, eps, generator)
+
+    def _forward(self, pre_seq, in_text, in_audio, cond, vid_indices, eps, generator):
+        """The forward with `cond` (B, cond_size), or None, concatenated onto
+        z: the returned z is that concatenation."""
         feats = self.features(pre_seq, in_audio)
         if self.text_encoder is not None:
             feats.append(self.text_encoder(in_text)[0])
         z, z_mu, z_log_var = self.latent(feats[0], vid_indices, eps, generator)
+        if cond is not None:
+            z = torch.cat([z, cond.to(z)], dim=-1)
         if z is not None:
             feats.append(z[:, None, :].expand(-1, pre_seq.shape[1], -1))
         # time-major from the GRU through the per-frame head; only the final
@@ -211,6 +222,40 @@ class PoseGeneratorTriModal(_GRUGenerator):
         if self.audio_encoder is not None:
             feats.append(self.audio_encoder(in_audio))
         return feats
+
+
+class PoseGeneratorV1(_GRUGenerator):
+    """The v1 emotion-conditioned generator (JAX `models/generator.py:221-285`;
+    ref net/multimodal_context_net_v1.py:307-360): the TriModal's
+    WavEncoder, text encoder and raw seed poses, the emotion one-hot
+    concatenated onto z before it is broadcast over the frames (ref
+    :337-338), the head's nn.LeakyReLU(True) the identity. Only the speaker
+    and the random z: the reference concatenates onto a z that must exist.
+    forward(pre_seq, in_text, in_audio (B, L), in_emo_labels (B,
+    num_emotions), vid_indices, eps, generator) -> (out_dir_vec, z
+    concatenated with the one-hot (B, z_size + num_emotions), z_mu,
+    z_log_var)."""
+
+    def __init__(self, pose_dim: int = C.POSE_DIM, num_emotions: int = 7,
+                 n_words: int = 1000, word_embed_size: int = 300,
+                 hidden_size: int = 300, n_layers: int = 4, dropout_prob: float = 0.3,
+                 emb_dropout: float = 0.1, n_speakers: int = 1, z_size: int = 16,
+                 word_embeddings=None, freeze_embedding: bool = False,
+                 input_context: str = "both", z_type: str = "speaker"):
+        _check_choice("z_type", z_type, Z_TYPES[:2])
+        super().__init__(pose_dim + 1, pose_dim, n_words, word_embed_size, hidden_size,
+                         n_layers, dropout_prob, emb_dropout, n_speakers, z_size, 1.0,
+                         input_context, z_type, word_embeddings, freeze_embedding,
+                         cond_size=num_emotions)
+        self.audio_encoder = WavEncoder() if self.uses_audio else None
+
+    features = PoseGeneratorTriModal.features
+
+    def forward(self, pre_seq, in_text, in_audio, in_emo_labels, vid_indices=None,
+                eps: torch.Tensor | None = None,
+                generator: torch.Generator | None = None):
+        return self._forward(pre_seq, in_text, in_audio, in_emo_labels, vid_indices,
+                             eps, generator)
 
 
 def make_pose_generator(cfg: ModelConfig, n_words: int, n_speakers: int,

@@ -16,9 +16,11 @@ layers are those semantics, and the models use them directly:
 What torch lacks is below: the bf16 behaviour of `BatchNorm`, `WNConv1d`
 (weight norm under torch `weight_norm`'s parameter names, so reference
 checkpoints load), `GRU` (nn.GRU's parameter names, its recurrence in
-`ops/gru_cuda.py`), the activation helpers, and `Dropout`, whose masks come
-from an explicit `torch.Generator` set with `dropout_rng` (the JAX package
-draws them from flax's 'dropout' stream).
+`ops/gru_cuda.py`), `LSTM` (nn.LSTM's parameter names, its recurrence a
+plain time loop: the JAX package's is a `lax.scan`, not a TPU kernel),
+`MaxPool2d` at the JAX layer's stride, the activation helpers, and
+`Dropout`, whose masks come from an explicit `torch.Generator` set with
+`dropout_rng` (the JAX package draws them from flax's 'dropout' stream).
 """
 
 from __future__ import annotations
@@ -60,9 +62,12 @@ def dropout_rng(generator: torch.Generator | None):
 
 def dropout(x: torch.Tensor, p: float, training: bool) -> torch.Tensor:
     """Inverted dropout: zero each value with probability p, scale the rest
-    by 1/(1-p); the identity in eval mode or at p = 0."""
+    by 1/(1-p); the identity in eval mode or at p = 0, zeros at p = 1 (as
+    flax's Dropout: the SER nets' reference default)."""
     if not training or p == 0.0:
         return x
+    if p >= 1.0:
+        return torch.zeros_like(x)
     if _dropout_generator is None:
         return F.dropout(x, p, training=True)
     keep = torch.rand(x.shape, generator=_dropout_generator,
@@ -148,7 +153,39 @@ class WNConv1d(nn.Module):
                         dilation=self.dilation)
 
 
-class GRU(nn.Module):
+class _Recurrent(nn.Module):
+    """The parameters of a multi-layer, optionally bidirectional recurrent
+    net under torch's names (`weight_ih_l{n}[_reverse]`, `weight_hh_...`,
+    `bias_ih_...`, `bias_hh_...`), GATES * H rows each, with torch's
+    U(-1/sqrt(H), 1/sqrt(H)) init."""
+
+    GATES: int
+
+    def __init__(self, input_size: int, hidden_size: int, num_layers: int = 1,
+                 bidirectional: bool = False, dropout: float = 0.0):
+        super().__init__()
+        self.hidden_size = hidden_size
+        self.num_layers = num_layers
+        self.num_dir = 2 if bidirectional else 1
+        self.dropout = dropout
+        self.suffixes = ["", "_reverse"][: self.num_dir]
+        bound = 1.0 / math.sqrt(hidden_size)
+        rows = self.GATES * hidden_size
+        for layer in range(num_layers):
+            cin = input_size if layer == 0 else self.num_dir * hidden_size
+            for sfx in self.suffixes:
+                for name, shape in ((f"weight_ih_l{layer}{sfx}", (rows, cin)),
+                                    (f"weight_hh_l{layer}{sfx}", (rows, hidden_size)),
+                                    (f"bias_ih_l{layer}{sfx}", (rows,)),
+                                    (f"bias_hh_l{layer}{sfx}", (rows,))):
+                    self.register_parameter(name, nn.Parameter(
+                        torch.empty(shape).uniform_(-bound, bound)))
+
+    def _layer(self, name: str, layer: int) -> list[torch.Tensor]:
+        return [getattr(self, f"{name}_l{layer}{sfx}") for sfx in self.suffixes]
+
+
+class GRU(_Recurrent):
     """Multi-layer, optionally bidirectional GRU, torch cell semantics.
 
     Gates ordered (r, z, n); n = tanh(x_n + r * (W_hn h + b_hn)). Each
@@ -162,28 +199,7 @@ class GRU(nn.Module):
     h_last (num_layers*D, B, H)).
     """
 
-    def __init__(self, input_size: int, hidden_size: int, num_layers: int = 1,
-                 bidirectional: bool = False, dropout: float = 0.0):
-        super().__init__()
-        self.hidden_size = hidden_size
-        self.num_layers = num_layers
-        self.num_dir = 2 if bidirectional else 1
-        self.dropout = dropout
-        self.suffixes = ["", "_reverse"][: self.num_dir]
-        bound = 1.0 / math.sqrt(hidden_size)
-        h3 = 3 * hidden_size
-        for layer in range(num_layers):
-            cin = input_size if layer == 0 else self.num_dir * hidden_size
-            for sfx in self.suffixes:
-                for name, shape in ((f"weight_ih_l{layer}{sfx}", (h3, cin)),
-                                    (f"weight_hh_l{layer}{sfx}", (h3, hidden_size)),
-                                    (f"bias_ih_l{layer}{sfx}", (h3,)),
-                                    (f"bias_hh_l{layer}{sfx}", (h3,))):
-                    self.register_parameter(name, nn.Parameter(
-                        torch.empty(shape).uniform_(-bound, bound)))
-
-    def _layer(self, name: str, layer: int) -> list[torch.Tensor]:
-        return [getattr(self, f"{name}_l{layer}{sfx}") for sfx in self.suffixes]
+    GATES = 3
 
     def forward(self, x: torch.Tensor):
         out = x.transpose(0, 1)                              # (T, B, C)
@@ -200,3 +216,67 @@ class GRU(nn.Module):
             if layer < self.num_layers - 1:
                 out = dropout(out, self.dropout, self.training)
         return out, torch.stack(finals)
+
+
+class LSTM(_Recurrent):
+    """Multi-layer, optionally bidirectional LSTM, torch cell semantics
+    (JAX `layers.LSTM`): gates ordered (i, f, g, o), c' = f c + i g,
+    h' = o tanh(c'), under nn.LSTM's parameter names. Each layer's input
+    projection for the whole sequence and both directions is one
+    `torch.matmul`; then one loop over time steps both directions at once
+    (the reverse one on the time-flipped projection), as autograd
+    differentiates it on any device. Dropout between layers, in train mode
+    only.
+
+    forward(x (B, T, C)) -> (out (B, T, D*H); (h_last, c_last), each
+    (num_layers*D, B, H)).
+    """
+
+    GATES = 4
+
+    def _recurrence(self, xp: torch.Tensor, w_hh: torch.Tensor, b_hh: torch.Tensor):
+        """xp (T, D, B, 4H) in each direction's own time order, w_hh (D, H,
+        4H), b_hh (D, 1, 4H) -> (ys (T, D, B, H), h_last, c_last)."""
+        hsz = self.hidden_size
+        h = xp.new_zeros(xp.shape[1], xp.shape[2], hsz)
+        c = torch.zeros_like(h)
+        ys = []
+        for xp_t in xp.unbind(0):
+            gates = xp_t + torch.baddbmm(b_hh, h, w_hh)
+            act = torch.sigmoid(gates)     # its g quarter unused
+            c = (act[..., hsz:2 * hsz] * c
+                 + act[..., :hsz] * torch.tanh(gates[..., 2 * hsz:3 * hsz]))
+            h = act[..., 3 * hsz:] * torch.tanh(c)
+            ys.append(h)
+        return torch.stack(ys), h, c
+
+    def forward(self, x: torch.Tensor):
+        out = x.transpose(0, 1)                              # (T, B, C)
+        t, b = out.shape[:2]
+        h_finals, c_finals = [], []
+        for layer in range(self.num_layers):
+            w_ih = torch.cat(self._layer("weight_ih", layer), dim=0)
+            b_ih = torch.cat(self._layer("bias_ih", layer), dim=0)
+            xp = (torch.matmul(out, w_ih.t()) + b_ih).view(t, b, self.num_dir, -1)
+            xp = xp.permute(0, 2, 1, 3)                      # (T, D, B, 4H)
+            if self.num_dir == 2:
+                xp = torch.stack([xp[:, 0], xp[:, 1].flip(0)], dim=1)
+            w_hh = torch.stack([w.t() for w in self._layer("weight_hh", layer)])
+            b_hh = torch.stack(self._layer("bias_hh", layer))[:, None, :]
+            ys, h_last, c_last = self._recurrence(xp, w_hh, b_hh)
+            outs = [ys[:, 0]] + ([ys[:, 1].flip(0)] if self.num_dir == 2 else [])
+            out = torch.cat(outs, dim=-1)                    # (T, B, D*H)
+            h_finals.extend(h_last.unbind(0))
+            c_finals.extend(c_last.unbind(0))
+            if layer < self.num_layers - 1:
+                out = dropout(out, self.dropout, self.training)
+        return out.transpose(0, 1), (torch.stack(h_finals), torch.stack(c_finals))
+
+
+class MaxPool2d(nn.MaxPool2d):
+    """Max pool over (H, W) of a (B, C, H, W) input with the stride equal
+    to the kernel, floor mode (the JAX `layers.MaxPool2d`, channel-last
+    there)."""
+
+    def __init__(self, kernel: tuple[int, int]):
+        super().__init__(kernel, stride=kernel)
