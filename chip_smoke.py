@@ -27,7 +27,8 @@ toolkit. In order:
    L2 tier; dW on the tensor cores; both layouts) against their bf16 twins
    and against float32, each tensor tier also where its plan takes the
    register tier; and the GRU forward, recurrence and dW at the
-   ConvDiscriminator's shape (T 28, B 512, H 64), float32 and bf16;
+   ConvDiscriminator's shape (T 28, B 512, H 64) and at the fused step's
+   batch (B 1024, H 300 and 64), float32 and bf16;
 3. service phase: a full-width s2ag generator (config/multimodal_context_v2.yml:
    hidden 300, 4 GRU layers, embed 300; 1000 words, 100 speakers; random
    weights from seed 0) behind the HTTP server answers /synthesize for a
@@ -103,7 +104,19 @@ toolkit. In order:
    CPU in float64 and float32, max-pool picks and ReLU branches replayed
    where float32 rounding flips them; each warm step's p50 and profile:
    the SER step, the GAN step, the SER forward on the zero blocks;
-13. timing: each kernel's time, its plain version's, a PyTorch library
+13. `main_v2`'s step options (`step_options_phase`): `main_v2` with
+   `--fused-pass true` (float32 and mixed precision: the GRU kernels must
+   run at B 1024, `gru_cuda.batch_launches`), `--remat full` and `--remat
+   dots --mixed-precision true`, the counters set to 0 just before each
+   and read just after (the GRU kernels at the run's dtype, the mel
+   kernel in the corpus build), every loss finite; remat against the
+   plain step at batch 512 and the config's dropout, bit for bit, in
+   float32 and mixed precision (under `cudnn.deterministic` where the
+   plain step does not repeat itself); the fused s2ag and abl_aff steps
+   at batch 16 against the CPU float64 fused step; each step's p50,
+   profile and peak memory, plain, fused, remat full and dots, float32
+   and mixed;
+14. timing: each kernel's time, its plain version's, a PyTorch library
    call's that computes the same function, and the least time the card
    could take (bound), by CUDA events and by device time; the GRU
    backward (recurrence + dW) against cuDNN's recurrent backward; the L2
@@ -111,7 +124,8 @@ toolkit. In order:
    bf16 forward's and recurrence's two register-range tiers against each
    other across batches); the mel kernel's mixed-radix FFT at n_fft 400
    and its DFT tier against `rfft`; the GRU kernels at the
-   ConvDiscriminator's shape; the service's synthesize p50; the
+   ConvDiscriminator's shape and at the fused batch (B 1024, H 300);
+   the service's synthesize p50; the
    train step's p50, samples/s and its device profile; `generate_gestures`'
    wall time and device profile; the embedding train step's p50.
 
@@ -238,6 +252,12 @@ GENEA_JOINTS, GENEA_SECONDS = 31, 8.0
 # unpadded convs (kernel 3, three of them) leave its GRU T 34 - 6 frames
 ABLATIONS = ("abl_audio", "abl_aff")
 CONV_DIS_T = 34 - 6
+# the fused GAN step (`--fused-pass`) runs its nets at twice the train batch
+FUSED_B = 2 * TRAIN_BATCH
+# main_v2's step options driven on the card (`step_options_phase`): the
+# flags, and whether the run is mixed precision
+STEP_OPTIONS = ((("--fused-pass", "true"), False), (("--remat", "full"), False),
+                (("--remat", "dots"), True), (("--fused-pass", "true"), True))
 # main_v1's default batch, at which the v1 phase trains and times its steps
 V1_BATCH = 32
 
@@ -1068,12 +1088,26 @@ def _conv_dis_counters() -> collections.Counter:
     return out
 
 
+def _fused_batch_counters() -> collections.Counter:
+    """The GRU kernels' launches since the last reset at the fused step's
+    batch (B FUSED_B) and the generator's H 300, under their names in the
+    kernels line: "gru_fwd_b1024", "gru_bwd_b1024_bf16", ..."""
+    from speech2affective_gestures_torch.ops import gru_cuda
+
+    out = collections.Counter()
+    for (kernel, dtype, B, H, _), n in gru_cuda.batch_launches.items():
+        if (B, H) == (FUSED_B, 300) and not kernel.endswith("_v1"):
+            out[f"{kernel}_b{B}{'_bf16' if dtype == 'bfloat16' else ''}"] += n
+    return out
+
+
 def _reset_counters() -> None:
     from speech2affective_gestures_torch.ops import gru_cuda, mel_cuda
 
     gru_cuda.launches.clear()
     gru_cuda.tier_launches.clear()
     gru_cuda.shape_launches.clear()
+    gru_cuda.batch_launches.clear()
     mel_cuda.launches.clear()
     mel_cuda.fft_launches.clear()
 
@@ -1737,7 +1771,8 @@ def _rel_np(got, want) -> float:
 
 
 def training_phase(device, work: pathlib.Path, embedding_net: pathlib.Path,
-                   mixed_precision: bool = False, variant: str = "s2ag"):
+                   mixed_precision: bool = False, variant: str = "s2ag",
+                   options: tuple = ()):
     """`main_v2.main` on the card: the paper's GAN at full width, batch 512,
     one epoch with the GAN terms on from the first step, then the test
     split scored with FGD by the card-trained embedding net. With
@@ -1747,14 +1782,18 @@ def training_phase(device, work: pathlib.Path, embedding_net: pathlib.Path,
     entry point (`main_v2_abl_audio`, `main_v2_abl_aff`): the mel kernel
     must run in its corpus build, it must train in its suffixed work dir,
     and abl_aff's ConvDiscriminator must run the GRU kernels at T
-    CONV_DIS_T, H 64 in training. Returns the trainer and each kernel's
-    launches in training and in the scoring (for an ablation, with the
-    launches at the ConvDiscriminator's shape under their own names)."""
+    CONV_DIS_T, H 64 in training. `options` are more flags of the entry
+    point (those of `STEP_OPTIONS`), in a work dir of their own; the GRU launches
+    at the fused batch FUSED_B are logged by H and tier. Returns the
+    trainer and each kernel's launches in training and in the scoring,
+    with the launches at the ConvDiscriminator's shape and at the fused
+    batch (H 300) also under their own names."""
     import importlib
 
     import torch
     import yaml
     from speech2affective_gestures_torch import main_v2
+    from speech2affective_gestures_torch.ops import gru_cuda
     from speech2affective_gestures_torch.train.trainer import Trainer
 
     entry = importlib.import_module(
@@ -1765,14 +1804,15 @@ def training_phase(device, work: pathlib.Path, embedding_net: pathlib.Path,
     cfg_path = work / "multimodal_context_v2_gan_on.yml"
     cfg_path.write_text(yaml.safe_dump(raw))
     base = work / ((f"base_{variant}" if variant != "s2ag" else "base")
-                   + ("_bf16" if mixed_precision else ""))
+                   + ("_bf16" if mixed_precision else "")
+                   + "".join("_" + o.lstrip("-").replace("-", "_") for o in options))
     work_dir = base / "models" / f"s2ag_v2_mfcc_torch{main_v2.WORK_DIR_SUFFIX[variant]}" / "ted_db"
     argv = ["-b", str(base), "-c", str(cfg_path), "--synthetic-data", "true",
             "--synthetic-videos", str(TRAIN_VIDEOS), "--synthetic-seconds",
             str(TRAIN_SECONDS), "--batch-size", str(TRAIN_BATCH),
             "--s2ag-num-epoch", "1", "--log-interval", "1",
             "--embedding-net-checkpoint", str(embedding_net),
-            "--mixed-precision", str(mixed_precision).lower()]
+            "--mixed-precision", str(mixed_precision).lower(), *options]
     log(f"training phase: {entry.__name__.rsplit('.', 1)[1]}.main({' '.join(argv)})")
     # the counters are read, and set to 0 again, just before main_v2 scores
     # the test split, and read just after
@@ -1784,6 +1824,9 @@ def training_phase(device, work: pathlib.Path, embedding_net: pathlib.Path,
         counts["training"] = _counters()
         counts["training tiers"] = _tier_counters()
         counts["training T28"] = _conv_dis_counters()
+        counts["training B1024"] = _fused_batch_counters()
+        counts["training by batch"] = {k: n for k, n in gru_cuda.batch_launches.items()
+                                       if k[2] == FUSED_B}
         _reset_counters()
         t0 = time.perf_counter()
         result = scoring(self, *args, **kwargs)
@@ -1862,9 +1905,11 @@ def training_phase(device, work: pathlib.Path, embedding_net: pathlib.Path,
     if (set(scores) != {"l1", "joint_mae", "accel", "FGD", "feat_dist"}
             or not np.isfinite(list(scores.values())).all()):
         raise AssertionError(f"bad test-split scores: {scores}")
-    if variant != "s2ag":
-        return trainer, launches + evaluated + t28 + counts["evaluation T28"]
-    return trainer, launches + evaluated
+    if options:
+        log(f"GRU launches at B {FUSED_B} in training with {' '.join(options)}, by (kernel, "
+            f"dtype, B, H, tier): {counts['training by batch']}")
+    return trainer, (launches + evaluated + t28 + counts["evaluation T28"]
+                     + counts["training B1024"])
 
 
 def time_generate_gestures(trainer, n: int = 3) -> None:
@@ -2073,7 +2118,8 @@ def _branch_flips(got: list, want: list) -> list:
     return out
 
 
-def step_parity_phase(device, gradient_clip: float = 0.0, variant: str = "s2ag") -> None:
+def step_parity_phase(device, gradient_clip: float = 0.0, variant: str = "s2ag",
+                      fused_pass: bool = False) -> None:
     """One train step of `variant`'s nets (`builder.init_training`) at
     full width and batch 16 on the card and on the CPU plain path, from
     the same weights, batch, speaker noise (the main forwards' and the
@@ -2085,10 +2131,13 @@ def step_parity_phase(device, gradient_clip: float = 0.0, variant: str = "s2ag")
     from float64 in the generator's AffEncoder. With `gradient_clip` the
     step clips each net's gradients by their global norm
     (`gan_step.clip_by_global_norm_`): both nets' norms must exceed it on
-    this batch, so that both are clipped, and are printed. The card is
-    held to the float64 step by `_held_to_float64` (its metrics, both
-    nets' BN stats and Adam first moments within STEP_TOL, the frozen
-    TriModal's stats unchanged; branch flips at float32 rounding replayed)."""
+    this batch, so that both are clipped, and are printed. With
+    `fused_pass` the step is the fused one (`GanConfig.fused_pass`: D on
+    real and fake, G's main and div-reg forwards, each one 2B forward,
+    the noise eps and eps_rand concatenated). The card is held to the
+    float64 step by `_held_to_float64` (its metrics, both nets' BN stats
+    and Adam first moments within STEP_TOL, the frozen TriModal's stats
+    unchanged; branch flips at float32 rounding replayed)."""
     import dataclasses
 
     import torch
@@ -2099,7 +2148,8 @@ def step_parity_phase(device, gradient_clip: float = 0.0, variant: str = "s2ag")
     cfg = ModelConfig.from_yaml(CONFIG, loss_warmup=-1)
     n_words, n_speakers, B = 1000, 100, 16
     init = builder.init_training(cfg, 0, n_words, n_speakers, device="cpu", variant=variant)
-    init["gan_cfg"] = dataclasses.replace(init["gan_cfg"], gradient_clip=gradient_clip)
+    init["gan_cfg"] = dataclasses.replace(init["gan_cfg"], gradient_clip=gradient_clip,
+                                          fused_pass=fused_pass)
     for model in (init["gen"], init["dis"], init["tri"]):
         for m in model.modules():
             if isinstance(m, L.Dropout):
@@ -2111,7 +2161,7 @@ def step_parity_phase(device, gradient_clip: float = 0.0, variant: str = "s2ag")
     eps = rng.standard_normal((B, 16))
     other = rng.permutation(batch["vid_indices"])
     eps_rand = rng.standard_normal((B, 16))
-    if not gradient_clip and variant == "s2ag":
+    if not gradient_clip and not fused_pass and variant == "s2ag":
         aff_encoder_probe(init["gen"], batch, eps, device)
 
     def one_step(dev, dtype):
@@ -2126,7 +2176,8 @@ def step_parity_phase(device, gradient_clip: float = 0.0, variant: str = "s2ag")
                                   eps_rand=torch.from_numpy(eps_rand).to(dev, dtype))
         metrics = {k: float(v) for k, v in metrics.items()}
         norms = {k: float(v) for k, v in step.grad_norms.items()}
-        log(f"one {variant} train step, batch {B}, on {dev} in {dtype}"
+        log(f"one {variant}{' fused' if fused_pass else ''} train step, batch {B}, on "
+            f"{dev} in {dtype}"
             f"{f', gradient clip {gradient_clip}' if gradient_clip else ''}: "
             f"{(time.perf_counter() - t0) * 1e3:.1f} ms; {metrics}"
             f"{f'; global gradient norms {norms}' if gradient_clip else ''}")
@@ -2153,8 +2204,8 @@ def step_parity_phase(device, gradient_clip: float = 0.0, variant: str = "s2ag")
     gan_step.draw_other_speaker_ids = (
         lambda g, vids, n: torch.as_tensor(other, device=vids.device))
     try:
-        _held_to_float64(device, f"{variant} step{' (clipped)' if gradient_clip else ''}",
-                         one_step, errors)
+        _held_to_float64(device, f"{variant}{' fused' if fused_pass else ''} step"
+                         f"{' (clipped)' if gradient_clip else ''}", one_step, errors)
     finally:
         gan_step.draw_other_speaker_ids = draw
 
@@ -2315,28 +2366,46 @@ def mixed_step_parity_phase(device, variant: str = "s2ag") -> None:
 def conv_dis_kernel_phase(device) -> dict:
     """The GRU kernels at the ConvDiscriminator's shape (abl_aff's D: T
     CONV_DIS_T after its unpadded convs, B 512, H 64, D 2; layer 0 takes 8
-    features, later layers 128), float32 and bf16, against their plain
-    twins on the same inputs: the forward (ys, h_last; hp relative), the
-    recurrence (dxp and gn; float32 absolute, bf16 relative to the
-    largest) and dW (dW_hh and db_hh from the same inputs, relative to the
-    largest) at the kernel phases' tolerances (float32 GRU_TOL and
-    BWD_TOL, bf16 BF16_TOL; dW BWD_TOL), the same bits twice; at bf16 the
-    forward and the recurrence in the tiers their plans name and, where
-    that is the register tier, the tensor tier by its own plan too, against
-    the same twin. Returns the largest error of each kernel under its name
-    in the kernels line ("gru_fwd_t28", ..., "gru_dw_t28_bf16")."""
+    features, later layers 128): `shape_kernel_phase`, under the names
+    "gru_fwd_t28", ..., "gru_dw_t28_bf16"."""
+    return shape_kernel_phase(device, CONV_DIS_T, 512, ((64, 8), (64, 128)),
+                              f"_t{CONV_DIS_T}", "the ConvDiscriminator's shape")
+
+
+def fused_batch_kernel_phase(device) -> dict:
+    """The GRU kernels at the fused step's batch (B FUSED_B, T 34, D 2): the
+    generator's layers (H 300, 88 and 600 features) and the
+    discriminator's (H 64, 8 and 128): `shape_kernel_phase`, under the
+    names "gru_fwd_b1024", ..., "gru_dw_b1024_bf16"."""
+    return shape_kernel_phase(device, 34, FUSED_B,
+                              ((300, 88), (300, 600), (64, 8), (64, 128)),
+                              f"_b{FUSED_B}", "the fused step's batch")
+
+
+def shape_kernel_phase(device, T: int, B: int, shapes, tag: str, what: str) -> dict:
+    """The GRU kernels at T, B and each (H, input width) of `shapes`, D 2,
+    float32 and bf16, against their plain twins on the same inputs: the
+    forward (ys, h_last; hp relative), the recurrence (dxp and gn; float32
+    absolute, bf16 relative to the largest) and dW (dW_hh and db_hh from
+    the same inputs, relative to the largest) at the kernel phases'
+    tolerances (float32 GRU_TOL and BWD_TOL, bf16 BF16_TOL; dW BWD_TOL),
+    the same bits twice; at bf16 the forward and the recurrence in the
+    tiers their plans name and, where that is the register tier, the
+    tensor tier by its own plan too, against the same twin. Returns the
+    largest error of each kernel under its name in the kernels line, the
+    kernel's with `tag` ("_t28": "gru_fwd_t28", ..., "gru_dw_t28_bf16")."""
     import torch
     from speech2affective_gestures_torch.ops import gru_cuda
 
-    T, B, H, D = CONV_DIS_T, 512, 64, 2
+    D = 2
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
         bf16 = dtype == torch.bfloat16
-        sfx = f"_t{T}" + ("_bf16" if bf16 else "")
+        sfx = tag + ("_bf16" if bf16 else "")
         tol = BF16_TOL if bf16 else GRU_TOL
         for name in ("gru_fwd", "gru_bwd", "gru_dw"):
             errs[name + sfx] = 0.0
-        for cin in (8, 128):
+        for H, cin in shapes:
             xp, w_hh, b_ih, b_hh = (t.to(dtype).contiguous() for t in
                                     gru_inputs(T, B, cin, H, D, seed=T + cin, device=device))
             dys = torch.randn(T, B, D * H, generator=torch.Generator().manual_seed(cin)
@@ -2364,7 +2433,7 @@ def conv_dis_kernel_phase(device) -> dict:
             tiers = (gru_cuda._device_plan(device, B, H, D, dtype).tier,
                      gru_cuda._device_bwd_plan(device, B, H, D, dtype).tier)
             rec_ok = rec_rel <= tol if bf16 else rec_abs <= BWD_TOL
-            log(f"kernel {'bf16' if bf16 else 'float32'} at the ConvDiscriminator's shape T={T} "
+            log(f"kernel {'bf16' if bf16 else 'float32'} at {what} T={T} "
                 f"B={B} cin={cin} H={H} D={D} (forward tier {tiers[0]}, recurrence tier "
                 f"{tiers[1]}): forward ys/h_last max_abs_err={fwd_err:.3e}, hp relative "
                 f"{hp_rel:.3e} (tol {tol}); recurrence dxp/gn max_abs_err={rec_abs:.3e}, "
@@ -2762,6 +2831,229 @@ def v1_phase(device, work: pathlib.Path, smi: str) -> collections.Counter:
     }
     log(f"v1 phase: {', '.join(f'{k} p50 {v:.3f} ms' for k, v in p50s.items())} at batch {B}; "
         f"{smi}; the phase took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def _step_differences(a, b) -> list[str]:
+    """What differs, bit for bit, between two train steps' (metrics, step,
+    generator state): the metrics, both nets' parameters and buffers (BN
+    running stats and counts), their Adam states, the generator's state."""
+    import torch
+
+    (ma, sa, ga), (mb, sb, gb) = a, b
+    out = [k for k in ma if k not in mb or not torch.equal(ma[k], mb[k])]
+    for who in ("gen", "dis"):
+        da, db = getattr(sa, who).state_dict(), getattr(sb, who).state_dict()
+        out += [f"{who} {k}" for k in da if not torch.equal(da[k], db[k])]
+        oa, ob = getattr(sa, f"{who}_opt"), getattr(sb, f"{who}_opt")
+        for (name, p), q in zip(getattr(sa, who).named_parameters(), getattr(sb, who).parameters()):
+            out += [f"{who} Adam {k} of {name}" for k in oa.state[p]
+                    if not torch.equal(oa.state[p][k], ob.state[q][k])]
+    if not torch.equal(ga, gb):
+        out.append("the generator's state")
+    return out
+
+
+def _unrepeatable_gradients(init: dict, batch: dict, device) -> dict:
+    """For D (on the batch's poses) and G (with the noise drawn from a
+    generator), one train-mode forward and backward run twice from the
+    same weights, inputs and generator state: the parameters whose
+    gradients differ between the two, by net, each with its module's
+    class (where a repeated step parts, the op that does not repeat)."""
+    import torch
+    from speech2affective_gestures_torch import constants as C
+    from speech2affective_gestures_torch.models import layers as L
+    from speech2affective_gestures_torch.train import gan_step
+
+    out = {}
+    for who in ("dis", "gen"):
+        grads = []
+        for _ in range(2):
+            model = copy.deepcopy(init[who]).train()
+            g = torch.Generator(device=device).manual_seed(14)
+            with L.dropout_rng(g):
+                if who == "dis":
+                    y = model(batch["vec_seq"], batch["extended_word_seq"])
+                else:
+                    y = model(gan_step.build_pre_seq(batch["vec_seq"], C.N_PRE_POSES),
+                              batch["extended_word_seq"], batch["mfcc_features"],
+                              batch["vid_indices"], None, g)[0]
+                y.square().sum().backward()
+            grads.append({n: p.grad for n, p in model.named_parameters()
+                          if p.grad is not None})
+        out[who] = [f"{n} ({type(model.get_submodule(n.rpartition('.')[0])).__name__})"
+                    for n in grads[0] if not torch.equal(grads[0][n], grads[1][n])]
+    return out
+
+
+def remat_parity_phase(device) -> None:
+    """Remat against the plain step on the card: one train step at full
+    width, batch TRAIN_BATCH, the config's dropout (0.3, the text
+    embedding's 0.1), the noise and masks drawn from the step's generator,
+    from the same weights, batch and generator state, under `none`,
+    `full` and `dots` in float32 and under `none` and `full` in mixed
+    precision: each remat step must equal the plain step bit for bit
+    (`_step_differences`). The plain step runs twice first; if the two
+    differ, the comparison is made under `torch.backends.cudnn.deterministic
+    = True`, and fails if they still differ."""
+    import dataclasses
+
+    import torch
+    from speech2affective_gestures_torch.config import ModelConfig
+    from speech2affective_gestures_torch.train import builder, gan_step
+
+    cfg = ModelConfig.from_yaml(CONFIG, loss_warmup=-1)
+    n_words, n_speakers = 1000, 100
+    init = builder.init_training(cfg, 0, n_words, n_speakers, device=device)
+    batch = builder.to_device(builder.synthetic_batch(
+        np.random.default_rng(14), TRAIN_BATCH, cfg, n_words, n_speakers), device)
+
+    def one_step(remat, mixed):
+        models = {k: copy.deepcopy(init[k]) for k in ("gen", "dis", "tri")}
+        step = gan_step.GanStep(
+            models["gen"], models["dis"], dataclasses.replace(init["gan_cfg"], remat=remat),
+            models["tri"], train_apply=builder.mixed_precision_apply if mixed else None)
+        g = torch.Generator(device=device).manual_seed(14)
+        metrics = step.train_step(batch, g, gan_on=True)
+        torch.cuda.synchronize()
+        return metrics, step, g.get_state()
+
+    deterministic = torch.backends.cudnn.deterministic
+    try:
+        for mixed, modes in ((False, ("full", "dots")), (True, ("full",))):
+            label = "mixed-precision" if mixed else "float32"
+            plain = one_step("none", mixed)
+            diff = _step_differences(plain, one_step("none", mixed))
+            if diff and not torch.backends.cudnn.deterministic:
+                log(f"two plain {label} steps differ in {len(diff)} tensors: {diff[:16]}; "
+                    "the parameters whose gradients differ between two identical "
+                    f"backward passes: {_unrepeatable_gradients(init, batch, device)}; "
+                    "again under torch.backends.cudnn.deterministic = True")
+                torch.backends.cudnn.deterministic = True
+                plain = one_step("none", mixed)
+                diff = _step_differences(plain, one_step("none", mixed))
+            setting = ("torch.backends.cudnn.deterministic = True"
+                       if torch.backends.cudnn.deterministic else "the default cuDNN settings")
+            log(f"two plain {label} steps at batch {TRAIN_BATCH} under {setting}: "
+                f"{'the same bits' if not diff else f'{len(diff)} tensors differ: {diff[:16]}'}")
+            if diff:
+                raise AssertionError(f"the plain {label} step is not repeatable on the card")
+            for mode in modes:
+                got = one_step(mode, mixed)
+                diff = _step_differences(plain, got)
+                log(f"remat {mode} {label} step against the plain one at batch {TRAIN_BATCH}, "
+                    f"dropout {cfg.dropout_prob}, under {setting}: "
+                    f"{'the same bits' if not diff else f'{len(diff)} tensors differ: {diff[:16]}'}"
+                    f" (metrics {[(k, float(v)) for k, v in got[0].items()]})")
+                if diff:
+                    raise AssertionError(f"remat {mode} changed the {label} step: {diff[:16]}")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def step_numbers(device, smi: str) -> None:
+    """Each warm train step's p50 over 6 steps, its peak device memory over
+    them (`torch.cuda.max_memory_allocated`) and its device profile over
+    one step (busy share, launches), at full width and batch TRAIN_BATCH,
+    float32 and mixed precision: the plain step beside the fused one and
+    remat full and dots; then the GRU plans at the fused batch FUSED_B."""
+    import dataclasses
+
+    import torch
+    from speech2affective_gestures_torch.config import ModelConfig
+    from speech2affective_gestures_torch.ops import gru_cuda
+    from speech2affective_gestures_torch.train import builder, gan_step
+
+    cfg = ModelConfig.from_yaml(CONFIG, loss_warmup=-1)
+    n_words, n_speakers = 1000, 100
+    init = builder.init_training(cfg, 0, n_words, n_speakers, device=device)
+    batch = builder.to_device(builder.synthetic_batch(
+        np.random.default_rng(15), TRAIN_BATCH, cfg, n_words, n_speakers), device)
+    summary = []
+    for mixed in (False, True):
+        for label, options in (("plain", {}), ("fused", {"fused_pass": True}),
+                               ("remat full", {"remat": "full"}),
+                               ("remat dots", {"remat": "dots"})):
+            label = f"{label} {'mixed-precision' if mixed else 'float32'}"
+            step = gan_step.GanStep(
+                init["gen"], init["dis"], dataclasses.replace(init["gan_cfg"], **options),
+                init["tri"], train_apply=builder.mixed_precision_apply if mixed else None)
+            g = torch.Generator(device=device).manual_seed(15)
+
+            def fn(step=step, g=g):
+                return step.train_step(batch, g, gan_on=True)
+
+            fn()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            times = []
+            for _ in range(6):
+                t1 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t1) * 1e3)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            p50 = float(np.median(times))
+            log(f"{label} train step (batch {TRAIN_BATCH}, full width): p50 {p50:.3f} ms over "
+                f"6; all {[round(t, 3) for t in times]}; peak memory {peak:.3f} GiB; {smi}")
+            profile_device(f"the {label} train step", "step", fn, n=1)
+            summary.append(f"{label} p50 {p50:.3f} ms, peak {peak:.3f} GiB")
+            del step
+    log(f"train steps at batch {TRAIN_BATCH}: {'; '.join(summary)}; {smi}")
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    for dtype in (torch.float32, torch.bfloat16):
+        for H in (300, 64):
+            log(f"GRU plans at B {FUSED_B}, H {H}, {gru_cuda._dtype_name(dtype)}: forward "
+                f"{gru_cuda._device_plan(device, FUSED_B, H, 2, dtype)}, recurrence "
+                f"{gru_cuda._device_bwd_plan(device, FUSED_B, H, 2, dtype)}, dW "
+                f"{gru_cuda.dw_plan(34, FUSED_B, H, 2, sms, itemsize=dtype.itemsize)}")
+
+
+def step_options_phase(device, work: pathlib.Path, embedding_net: pathlib.Path,
+                       smi: str) -> collections.Counter:
+    """`main_v2`'s step options on the card: `main_v2` at full width with
+    each of STEP_OPTIONS (`training_phase`: one epoch of the synthetic
+    corpus, the test split scored; the counters set to 0 just before and
+    read just after each: the GRU forward, recurrence and dW at the run's
+    dtype, and the mel kernel in the corpus build; with the fused pass the
+    three GRU kernels at B FUSED_B, H 300, without it none at B FUSED_B;
+    every logged loss finite); remat against the plain step bit for bit
+    (`remat_parity_phase`); the fused step of s2ag and of abl_aff against
+    the CPU float64 fused step (`step_parity_phase`); each step's p50,
+    profile and peak memory (`step_numbers`). Returns the kernels'
+    launches in the main_v2 runs."""
+    t0 = time.perf_counter()
+    parts = {}
+    launches = collections.Counter()
+    for options, mixed in STEP_OPTIONS:
+        trainer, trained = training_phase(device, work, embedding_net, mixed_precision=mixed,
+                                          options=options)
+        fused = options[0] == "--fused-pass"
+        want = (True, "none") if fused else (False, options[1])
+        if (trainer.gan_cfg.fused_pass, trainer.gan_cfg.remat) != want:
+            raise AssertionError(f"main_v2 {' '.join(options)} trained with {trainer.gan_cfg}")
+        if trained["mel_power"] < 1:
+            raise AssertionError(f"main_v2 {' '.join(options)}: the corpus build ran no mel "
+                                 "kernel")
+        sfx = "_bf16" if mixed else ""
+        at_b = {k: trained[f"{k}_b{FUSED_B}{sfx}"] for k in ("gru_fwd", "gru_bwd", "gru_dw")}
+        log(f"main_v2 {' '.join(options)}{' --mixed-precision true' if mixed else ''}: GRU "
+            f"launches at B {FUSED_B}, H 300 {at_b}; mel {trained['mel_power']}")
+        if (fused and min(at_b.values()) < 1) or (not fused and any(at_b.values())):
+            raise AssertionError(f"main_v2 {' '.join(options)}: GRU launches at B {FUSED_B} "
+                                 f"{at_b}")
+        launches.update(trained)
+        del trainer
+    parts["main_v2 runs"] = time.perf_counter() - t0
+    remat_parity_phase(device)
+    parts["remat parity"] = time.perf_counter() - t0 - sum(parts.values())
+    for variant in ("s2ag", "abl_aff"):
+        step_parity_phase(device, variant=variant, fused_pass=True)
+    parts["fused step parity"] = time.perf_counter() - t0 - sum(parts.values())
+    step_numbers(device, smi)
+    parts["step numbers"] = time.perf_counter() - t0 - sum(parts.values())
+    log(f"step options phase took {time.perf_counter() - t0:.1f} s "
+        f"({', '.join(f'{k} {v:.1f} s' for k, v in parts.items())}); {smi}")
     return launches
 
 
@@ -3289,25 +3581,39 @@ def mel_other_timing(device) -> list:
 
 def conv_dis_timing(device) -> list:
     """The GRU kernels at the ConvDiscriminator's shape (T CONV_DIS_T, B
-    512, H 64, D 2, layer 0's 8 inputs), float32 and bf16: rows as
-    `bwd_timing`'s and `bf16_timing`'s, with the same bounds (the bf16
-    instances' bytes and the tensor-core rate), and as library times
-    cuDNN's `nn.GRU` at that shape less its input projection (forward;
-    backward with dW_hh) and cuBLAS's dW product on prepared operands."""
+    512, H 64, D 2, layer 0's 8 inputs): `shape_timing`."""
+    return shape_timing(device, CONV_DIS_T, 512, 64, 8, f"_t{CONV_DIS_T}",
+                        "the ConvDiscriminator's shape", seed=28)
+
+
+def fused_batch_timing(device) -> list:
+    """The GRU kernels at the fused step's batch with the generator's
+    layers (T 34, B FUSED_B, H 300, D 2, 600 inputs): `shape_timing`."""
+    return shape_timing(device, 34, FUSED_B, 300, 600, f"_b{FUSED_B}",
+                        "the fused step's batch", seed=34)
+
+
+def shape_timing(device, T: int, B: int, H: int, cin: int, tag: str, what: str,
+                 seed: int) -> list:
+    """The GRU kernels at (T, B, H, D 2, cin inputs), float32 and bf16, under
+    their names with `tag`: rows as `bwd_timing`'s and `bf16_timing`'s,
+    with the same bounds (the bf16 instances' bytes and the tensor-core
+    rate), and as library times cuDNN's `nn.GRU` at that shape less its
+    input projection (forward; backward with dW_hh) and cuBLAS's dW
+    product on prepared operands."""
     import torch
     from speech2affective_gestures_torch.ops import gru_cuda
 
     fwd_src = "speech2affective_gestures_torch/csrc/gru_fwd.cu"
     bwd_src = "speech2affective_gestures_torch/csrc/gru_bwd.cu"
     tpu = "speech2affective_gestures_tpu/ops/gru_pallas.py"
-    T, B, H, D, cin = CONV_DIS_T, 512, 64, 2, 8
+    D = 2
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
         bf16 = dtype == torch.bfloat16
-        size = 2 if bf16 else 4
         xp, w_hh, b_ih, b_hh = (t.to(dtype).contiguous()
-                                for t in gru_inputs(T, B, cin, H, D, seed=28, device=device))
-        g = torch.Generator().manual_seed(28)
+                                for t in gru_inputs(T, B, cin, H, D, seed=seed, device=device))
+        g = torch.Generator().manual_seed(seed)
         dys = torch.randn(T, B, D * H, generator=g).to(device, dtype)
         dh = torch.randn(D, B, H, generator=g).to(device, dtype)
         ys, _, hp = gru_cuda.gru_layer_forward(xp, w_hh, b_ih, b_hh, save_hp=True)
@@ -3322,7 +3628,7 @@ def conv_dis_timing(device) -> list:
         times = {k: (time_ms(fn, iters=10), device_ms(fn, n=10),
                      time_ms(plain, iters=5 if k == "rec" else 10))
                  for k, (fn, plain) in fns.items()}
-        torch.manual_seed(28)
+        torch.manual_seed(seed)
         lib = torch.nn.GRU(cin, H, bidirectional=True).to(device, dtype)
         x = torch.randn(T, B, cin, generator=g).to(device, dtype)
         lib_fwd = cudnn_recurrent_fwd(lib, x)
@@ -3353,7 +3659,7 @@ def conv_dis_timing(device) -> list:
                             + w_hh.numel() + b_hh.numel())
             fwd_flops, peak = T * D * B * (2 * H * 3 * H + 3 * H + 12 * H), ()
         rec_flops = n_prod + 30 * T * B * D * H
-        sfx = f"_t{T}" + ("_bf16" if bf16 else "")
+        sfx = tag + ("_bf16" if bf16 else "")
         for name, key, src, line, nb, fl, lib_t in (
                 ("gru_fwd", "fwd", fwd_src, 338, fwd_bytes, fwd_flops, lib_fwd),
                 ("gru_bwd", "rec", bwd_src, 384, rec_bytes, rec_flops, lib_bwd),
@@ -3361,7 +3667,7 @@ def conv_dis_timing(device) -> list:
             ms, dev, plain = times[key]
             rows.append((name + sfx, src, f"{tpu}:{line}", ms, plain, lib_t[0], nb, fl, dev,
                          lib_t[1], *peak))
-        log(f"gru {'bf16' if bf16 else 'float32'} at the ConvDiscriminator's shape T={T} "
+        log(f"gru {'bf16' if bf16 else 'float32'} at {what} T={T} "
             f"B={B} cin={cin} H={H} D={D} (forward tier "
             f"{gru_cuda._device_plan(device, B, H, D, dtype).tier}, recurrence tier "
             f"{gru_cuda._device_bwd_plan(device, B, H, D, dtype).tier}), (events ms, device "
@@ -3430,7 +3736,7 @@ def timing_phase(device, errs, launches) -> list[dict]:
              "speech2affective_gestures_tpu/ops/dsp_pallas.py:57",
              mel_ms, mel_plain_ms, mel_lib_ms, mel_bytes, mel_flops, mel_dev, mel_lib_dev),
             *mel_other_timing(device), *bwd_timing(device), *bf16_timing(device),
-            *conv_dis_timing(device)):
+            *conv_dis_timing(device), *fused_batch_timing(device)):
         b_ms, b_by = bound(nbytes, flops, *peak)
         rows_out.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -3490,6 +3796,7 @@ def main() -> int:
     errs.update(v1_kernel_phase(device))
     errs.update(bf16_kernel_phase(device))
     errs.update(conv_dis_kernel_phase(device))
+    errs.update(fused_batch_kernel_phase(device))
     # each kernel's launches on the paths that run it: the service's two
     # requests and the bf16 service's one, the training runs (float32 and
     # mixed precision) with their test-split scoring, run_layer in float32
@@ -3533,6 +3840,8 @@ def main() -> int:
         v1_launches = v1_phase(device, work, smi)
         log(f"v1 path launches (main_v1): {dict(v1_launches)}")
         launches.update(v1_launches)
+        # main_v2's fused pass and rematerialization
+        launches.update(step_options_phase(device, work, embedding_net, smi))
     kernels = timing_phase(device, errs, launches)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -22,9 +22,15 @@ the device, and the packed splits are cached beside the archive or the
 LMDB. `--apply-gradient-clip true` clips each net's gradients by their
 global norm (`--gradient-clip`), and `--apply-lr-decay true` decays the
 learning rates by `--lr-s2ag-decay` per epoch; the reference parses both
-and applies neither. A flag that selects something not ported yet raises
-and names its ROADMAP.md item: the fused pass, rematerialization, the
-grain loader, several steps per program.
+and applies neither. `--fused-pass true` runs D on real and fake, and G's
+main and diversity-regularizer forwards, each as one forward on the 2B
+concat (BatchNorm statistics over the 2B batch, one 2B noise and dropout
+draw: not the reference's step). `--remat full|dots` rematerializes the
+differentiated forwards inside the backward (`torch.utils.checkpoint`;
+"dots" keeps the `mm`/`addmm` outputs), with the same values, draws and
+BatchNorm updates as `none`. A flag that selects something not ported
+yet raises and names its ROADMAP.md item: the grain loader, several steps
+per program.
 `--mixed-precision true` runs the train steps at bf16 (the GRU kernels'
 bf16 instances on the card); validation and the test-split scoring stay
 float32.
@@ -56,6 +62,7 @@ from .convert.from_jax import reference_state_dict
 from .data import ted_db
 from .device import resolve_device, set_f32_numerics
 from .train.evaluator import EmbeddingSpaceEvaluator
+from .train.gan_step import REMAT_MODES
 from .train.trainer import Trainer, find_checkpoint
 
 _ROADMAP = "not ported yet (ROADMAP.md, queue 1)"
@@ -110,16 +117,21 @@ def build_parser() -> argparse.ArgumentParser:
                    help="bf16 train steps (parameters cast per call, float32 "
                         "master weights, losses and BatchNorm statistics)")
     p.add_argument("--fused-pass", type=str2bool, default=False,
-                   help=f"double-batch forwards: {_ROADMAP}")
+                   help="double-batch forwards: D on real and fake, and G's main "
+                        "and diversity-regularizer passes, each as one 2B forward "
+                        "(BatchNorm statistics over the 2B concat, one 2B noise "
+                        "and dropout draw)")
     p.add_argument("--divreg-draw", type=str, default="permutation",
                    choices=("permutation", "fresh"),
                    help="diversity-regularizer second-pass speaker draw: "
                         "'permutation' = the reference's torch.randperm over "
                         "the batch's ids (processor_v2.py:902-903, default); "
                         "'fresh' = uniform draw excluding each sample's own id")
-    p.add_argument("--remat", type=str, default="none",
-                   choices=("none", "full", "dots"),
-                   help=f"rematerialized forwards: {_ROADMAP}")
+    p.add_argument("--remat", type=str, default="none", choices=REMAT_MODES,
+                   help="rematerialize the differentiated forwards in the "
+                        "backward: 'full' keeps no activation, 'dots' keeps the "
+                        "mm/addmm outputs and recomputes the rest; the same "
+                        "values as 'none'")
     p.add_argument("--metrics-lag", type=int, default=8,
                    help="steps whose metrics may stay on the card unread, so "
                         "the host queues ahead (same logged numbers; 0 = read "
@@ -188,8 +200,6 @@ def build_parser() -> argparse.ArgumentParser:
 def check_ported(args) -> None:
     """Raise for a flag that selects something this port does not have."""
     unported = {
-        "--fused-pass true": args.fused_pass,
-        f"--remat {args.remat}": args.remat != "none",
         "--loader grain": args.loader == "grain",
         f"--steps-per-program {args.steps_per_program}": args.steps_per_program > 1,
     }
@@ -291,7 +301,8 @@ def main(argv=None, variant: str = "s2ag") -> Trainer:
         mixed_precision=args.mixed_precision,
         gradient_clip=args.gradient_clip if args.apply_gradient_clip else 0.0,
         lr_decay=args.lr_s2ag_decay if args.apply_lr_decay else 1.0,
-        n_speakers=checkpoint_speakers(checkpoint_to_load(args, work_dir)))
+        n_speakers=checkpoint_speakers(checkpoint_to_load(args, work_dir)),
+        fused_pass=args.fused_pass, remat=args.remat)
     trainer.logger.save_arg(vars(args))
     for line in logs:
         trainer.logger.print_log(line)

@@ -40,7 +40,8 @@ def build_models(cfg: ModelConfig, n_words: int, n_speakers: int,
 def gan_config(cfg: ModelConfig, n_speakers: int,
                divreg_draw: str = "permutation", gradient_clip: float = 0.0,
                lr_decay: float = 1.0, decay_steps_per_epoch: int = 0,
-               variant: str = "s2ag") -> GanConfig:
+               variant: str = "s2ag", fused_pass: bool = False,
+               remat: str = "none") -> GanConfig:
     return GanConfig(
         loss_regression_weight=cfg.loss_regression_weight,
         loss_gan_weight=cfg.loss_gan_weight,
@@ -57,6 +58,8 @@ def gan_config(cfg: ModelConfig, n_speakers: int,
         gradient_clip=gradient_clip,
         lr_decay=lr_decay,
         decay_steps_per_epoch=decay_steps_per_epoch,
+        fused_pass=fused_pass,
+        remat=remat,
     )
 
 
@@ -138,22 +141,24 @@ def init_training(cfg: ModelConfig, seed: int, n_words: int = 1000,
                   device: str | torch.device | None = None, variant: str = "s2ag",
                   divreg_draw: str = "permutation",
                   mixed_precision: bool = False, gradient_clip: float = 0.0,
-                  lr_decay: float = 1.0, decay_steps_per_epoch: int = 0) -> dict:
+                  lr_decay: float = 1.0, decay_steps_per_epoch: int = 0,
+                  fused_pass: bool = False, remat: str = "none") -> dict:
     """Models of `variant` (`build_models`) with weights drawn from `seed`
     on `device` (the card unless `device="cpu"`), and the step over them,
     which feeds abl_audio's generator the raw audio: with `mixed_precision` its
     train step runs the three nets through `mixed_precision_apply` (JAX
     `init_training`, builder.py:204-215); its eval step stays float32.
-    `gradient_clip`, `lr_decay` and `decay_steps_per_epoch` go to the
-    step's `GanConfig` (JAX builder.py:120-180)."""
+    `gradient_clip`, `lr_decay`, `decay_steps_per_epoch`, `fused_pass` and
+    `remat` go to the step's `GanConfig` (JAX builder.py:120-183); an
+    unknown `remat` raises ValueError before any model is built."""
+    gan_cfg = gan_config(cfg, n_speakers, divreg_draw, gradient_clip, lr_decay,
+                         decay_steps_per_epoch, variant, fused_pass, remat)
     dev = resolve_device(device)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         gen, dis, tri = build_models(cfg, n_words, n_speakers, word_embeddings,
                                      variant=variant)
     gen, dis, tri = gen.to(dev), dis.to(dev), tri.to(dev).requires_grad_(False)
-    gan_cfg = gan_config(cfg, n_speakers, divreg_draw, gradient_clip, lr_decay,
-                         decay_steps_per_epoch, variant)
     return dict(gen=gen, dis=dis, tri=tri, gan_cfg=gan_cfg, device=dev,
                 step=GanStep(gen, dis, gan_cfg, tri,
                              train_apply=mixed_precision_apply if mixed_precision else None))

@@ -39,17 +39,45 @@ through `train_apply(module)` when one is given: for mixed precision,
 per call; the JAX package's builder.py:204-212). The losses, Adam and the
 BatchNorm running stats stay float32, and the eval step calls the nets
 themselves (builder.py:214).
+
+Two options change how the train step calls its nets (JAX
+`GanConfig.fused_pass` and `remat`, gan_step.py:80-103):
+
+- `fused_pass` runs D on real and on fake as one forward on the 2B
+  concat, and, with the diversity regularizer on, G's main and div-reg
+  forwards as one forward on the doubled inputs (the other speakers'
+  ids in the second half; the noise one 2B draw, or eps and eps_rand
+  concatenated); the outputs are split at B. Every loss keeps its
+  formula, but BatchNorm takes its statistics over the 2B concat (one
+  running-stat update in place of two) and the per-sample draws come from
+  one 2B-shaped draw, so the step is not the unfused step's;
+- `remat` ("none", "full" or "dots") rematerializes each differentiated
+  train-mode call (`rematerialize`): the backward reruns its forward
+  instead of keeping its activations ("full"), or keeps only the outputs
+  of the products without a batch dim, `mm` and `addmm`, and reruns the
+  rest ("dots", JAX's `dots_with_no_batch_dims_saveable`). It changes no
+  value: the rerun draws the same masks and noise and leaves the running
+  stats as the forward left them.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 
 import torch
+from torch.utils import checkpoint
 
 from .. import constants as C
 from ..models import layers as L
 from . import losses
+
+
+REMAT_MODES = ("none", "full", "dots")
+# the ops whose outputs "dots" keeps for the backward: the products without
+# a batch dim (JAX's dots_with_no_batch_dims_saveable saves dot_general's)
+DOTS_SAVED = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,6 +115,17 @@ class GanConfig:
     # warmup epochs' steps, as optax's count in the JAX package does
     lr_decay: float = 1.0
     decay_steps_per_epoch: int = 0
+    # one 2B forward of D for real and fake, and of G for its main and
+    # div-reg passes (module docstring)
+    fused_pass: bool = False
+    # rematerialization of the differentiated forwards: "none", "full" or
+    # "dots" (`rematerialize`)
+    remat: str = "none"
+
+    def __post_init__(self):
+        if self.remat not in REMAT_MODES:
+            raise ValueError(f"unknown remat mode {self.remat!r}: expected one of "
+                             f"{REMAT_MODES}")
 
     @property
     def decays(self) -> bool:
@@ -169,6 +208,81 @@ def _forward_discarding_stats(model: torch.nn.Module, call, *args, **kwargs):
             b.copy_(old)
 
 
+def _batch_norm_stats(module: torch.nn.Module) -> list[torch.Tensor]:
+    return [b for m in module.modules() if isinstance(m, torch.nn.modules.batchnorm._BatchNorm)
+            for b in m.buffers()]
+
+
+def _replay_contexts(generator: torch.Generator, module: torch.nn.Module, mode: str):
+    """`checkpoint`'s context_fn for one call of `module`: the forward's
+    context notes `generator`'s state; the recompute's sets it back to
+    that state, so that the rerun draws the forward's dropout masks and
+    noise, and afterwards puts back the generator's state and `module`'s
+    BatchNorm running stats as it found them, so that the step's draws go
+    on where they were and each running stat is updated once a forward.
+    Under "dots" the selective checkpoint's pair runs inside them."""
+    seen = {}
+
+    @contextlib.contextmanager
+    def forward():
+        seen["state"] = generator.get_state()
+        yield
+
+    @contextlib.contextmanager
+    def recompute():
+        state = generator.get_state()
+        stats = [(b, b.clone()) for b in _batch_norm_stats(module)]
+        generator.set_state(seen["state"])
+        try:
+            yield
+        finally:
+            generator.set_state(state)
+            for b, old in stats:
+                b.copy_(old)
+
+    if mode == "full":
+        return forward(), recompute()
+    sac_forward, sac_recompute = checkpoint.create_selective_checkpoint_contexts(
+        list(DOTS_SAVED))
+    return _stacked(forward(), sac_forward), _stacked(recompute(), sac_recompute)
+
+
+@contextlib.contextmanager
+def _stacked(outer, inner):
+    with outer, inner:
+        yield
+
+
+def rematerialize(fn, mode: str, generator: torch.Generator, module: torch.nn.Module,
+                  *args):
+    """fn(*args), a train-mode forward of `module` that draws from
+    `generator`, under `torch.utils.checkpoint` (non-reentrant): "full"
+    keeps nothing of it for the backward, which reruns it; "dots" keeps
+    the outputs of `DOTS_SAVED` and reruns the rest (a selective
+    checkpoint). The rerun sees the forward's draws and leaves no trace
+    (`_replay_contexts`); the global RNG is not drawn from on these paths,
+    and the checkpoint restores it as well."""
+    return checkpoint.checkpoint(
+        fn, *args, use_reentrant=False,
+        context_fn=functools.partial(_replay_contexts, generator, module, mode))
+
+
+def _frozen(module: torch.nn.Module, fn):
+    """fn with `module`'s parameters requiring no gradient while it runs
+    (and so while a recompute reruns it: the rerun must save what the
+    forward saved), their flags restored after."""
+    def call(*args):
+        flags = [(p, p.requires_grad) for p in module.parameters()]
+        module.requires_grad_(False)
+        try:
+            return fn(*args)
+        finally:
+            for p, flag in flags:
+                p.requires_grad_(flag)
+
+    return call
+
+
 class GanStep:
     """The train and eval steps over the generator, the discriminator, the
     optional frozen TriModal comparator and the two Adam optimizers.
@@ -179,7 +293,8 @@ class GanStep:
     (B,) int64. `eps`, when given, is the noise (B, z_size) of every
     generator forward of the step but the diversity regularizer's, which
     takes `eps_rand` (tests inject both); either one not given is drawn
-    from `generator`."""
+    from `generator`. The fused G forward takes both or neither: their
+    concat, or one 2B draw."""
 
     def __init__(self, gen: torch.nn.Module, dis: torch.nn.Module,
                  cfg: GanConfig, tri: torch.nn.Module | None = None,
@@ -218,6 +333,20 @@ class GanStep:
         """The train step's call of `module`."""
         return module if self.train_apply is None else self.train_apply(module)
 
+    def _differentiated_fn(self, module: torch.nn.Module, generator: torch.Generator,
+                           frozen: bool = False):
+        """The train step's call of `module` in a pass that a backward
+        follows: with `frozen`, its parameters take no gradient (`_frozen`);
+        under `cfg.remat`, rematerialized (`rematerialize`, around the
+        `train_apply` call, so that the recompute casts the parameters
+        again)."""
+        fn = self._train_fn(module)
+        if frozen:
+            fn = _frozen(module, fn)
+        if self.cfg.remat == "none":
+            return fn
+        return functools.partial(rematerialize, fn, self.cfg.remat, generator, module)
+
     def _other_speakers(self, generator, vids):
         """The diversity regularizer's speaker ids: other speakers for the
         speaker z; the same (unused) ids for the random z, as JAX draws
@@ -237,10 +366,11 @@ class GanStep:
         cfg = self.cfg
         self.gen.train()
         self.dis.train()
-        gen, dis = self._train_fn(self.gen), self._train_fn(self.dis)
+        gen = self._train_fn(self.gen)
         text, target = batch["extended_word_seq"], batch["vec_seq"]
         mfcc, vids = batch[cfg.generator_input], batch["vid_indices"]
         pre_seq = build_pre_seq(target, cfg.n_pre_poses)
+        bsz = target.shape[0]
         use_gan = gan_on and cfg.loss_gan_weight > 0.0
         metrics: dict[str, torch.Tensor] = {}
 
@@ -249,22 +379,44 @@ class GanStep:
             if use_gan:
                 with torch.no_grad():
                     fake = gen(pre_seq, text, mfcc, vids, eps, generator)[0]
-                d_loss = losses.dis_ns_gan(dis(target, text), dis(fake, text))
+                dis_d = self._differentiated_fn(self.dis, generator)
+                if cfg.fused_pass:
+                    both = dis_d(torch.cat([target, fake]), torch.cat([text, text]))
+                    d_real, d_fake = both[:bsz], both[bsz:]
+                else:
+                    d_real, d_fake = dis_d(target, text), dis_d(fake, text)
+                d_loss = losses.dis_ns_gan(d_real, d_fake)
                 self.dis_opt.zero_grad(set_to_none=True)
                 d_loss.backward()
                 self._update("dis")
                 metrics["dis"] = d_loss.detach()
 
             # ---------------------------------------------------- G update
-            out, z, mu, logvar = gen(pre_seq, text, mfcc, vids, eps, generator)
+            gen_g = self._differentiated_fn(self.gen, generator)
+            fuse_g = cfg.fused_pass and self._div_reg_on()
+            if fuse_g:
+                # JAX draws the other speakers before the fused forward
+                rand_vids = self._other_speakers(generator, vids)
+                if (eps is None) != (eps_rand is None):
+                    raise ValueError("the fused pass takes eps and eps_rand together")
+                noise = None if eps is None else torch.cat([eps, eps_rand])
+                out2, z2, mu2, logvar2 = gen_g(
+                    *(torch.cat([x, x]) for x in (pre_seq, text, mfcc)),
+                    torch.cat([vids, rand_vids]), noise, generator)
+                out, out_rand = out2[:bsz], out2[bsz:]
+                z, z_rand = z2[:bsz], z2[bsz:]
+                mu, logvar = (None if x is None else x[:bsz] for x in (mu2, logvar2))
+            else:
+                out, z, mu, logvar = gen_g(pre_seq, text, mfcc, vids, eps, generator)
             huber = losses.scaled_huber(out, target, beta=0.1)
             loss = cfg.loss_regression_weight * huber
             metrics["loss"] = loss.detach()
             if self._div_reg_on():
-                rand_vids = self._other_speakers(generator, vids)
-                with torch.no_grad():
-                    out_rand, z_rand, *_ = gen(pre_seq, text, mfcc, rand_vids,
-                                               eps_rand, generator)
+                if not fuse_g:
+                    rand_vids = self._other_speakers(generator, vids)
+                    with torch.no_grad():
+                        out_rand, z_rand, *_ = gen(pre_seq, text, mfcc, rand_vids,
+                                                   eps_rand, generator)
                 div_reg = cfg.loss_reg_weight * losses.diversity_regularizer(
                     out, out_rand, z, z_rand)
                 loss = loss + div_reg
@@ -274,11 +426,8 @@ class GanStep:
                     loss = loss + kld
                     metrics["KLD"] = kld.detach()
             if use_gan:
-                self.dis.requires_grad_(False)
-                try:
-                    gen_err = cfg.loss_gan_weight * losses.gen_ns_gan(dis(out, text))
-                finally:
-                    self.dis.requires_grad_(True)
+                dis_g = self._differentiated_fn(self.dis, generator, frozen=True)
+                gen_err = cfg.loss_gan_weight * losses.gen_ns_gan(dis_g(out, text))
                 loss = loss + gen_err
                 metrics["gen"] = gen_err.detach()
             self.gen_opt.zero_grad(set_to_none=True)

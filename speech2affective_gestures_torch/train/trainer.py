@@ -74,7 +74,9 @@ class Trainer:
     `n_speakers` sizes the speaker embedding when it must differ from the
     data's speaker vocabulary: the vocabularies are per split, so a
     checkpoint trained on the train split and served with the test split
-    alone carries the train split's count."""
+    alone carries the train split's count. `fused_pass` and `remat` (none,
+    full or dots) set how the train step calls its nets (`GanConfig`; JAX
+    trainer.py:112-113)."""
 
     def __init__(self, cfg: ModelConfig, work_dir: str,
                  train_data: PackedDataset | None = None,
@@ -88,7 +90,8 @@ class Trainer:
                  log_interval: int = 50,
                  evaluator: EmbeddingSpaceEvaluator | None = None,
                  mixed_precision: bool = False, gradient_clip: float = 0.0,
-                 lr_decay: float = 1.0, n_speakers: int | None = None):
+                 lr_decay: float = 1.0, n_speakers: int | None = None,
+                 fused_pass: bool = False, remat: str = "none"):
         self.cfg = cfg
         self.variant = variant
         self.work_dir = work_dir
@@ -129,7 +132,8 @@ class Trainer:
             word_embeddings=word_embeddings, device=device, variant=variant,
             divreg_draw=divreg_draw, mixed_precision=mixed_precision,
             gradient_clip=gradient_clip, lr_decay=lr_decay,
-            decay_steps_per_epoch=steps_per_epoch if lr_decay != 1.0 else 0)
+            decay_steps_per_epoch=steps_per_epoch if lr_decay != 1.0 else 0,
+            fused_pass=fused_pass, remat=remat)
         self.device = setup["device"]
         self.gen, self.dis, self.tri = setup["gen"], setup["dis"], setup["tri"]
         self.step = setup["step"]

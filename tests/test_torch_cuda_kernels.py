@@ -659,3 +659,50 @@ def test_gru_kernels_at_the_conv_discriminator_shape(cuda, dtype, cin):
     assert torch.equal(dw, again[0]) and torch.equal(db, again[1])
     assert torch.equal(ys, gru_cuda.gru_layer_forward(xp, w_hh, b_ih, b_hh)[0])
     assert torch.equal(dxp, dxp2) and torch.equal(gn, gn2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,cin", [(300, 600), (64, 128)])
+def test_gru_kernels_at_the_fused_batch(cuda, dtype, H, cin):
+    """The fused GAN step (`--fused-pass`) runs the generator's GRU (H 300)
+    and the discriminator's (H 64) at twice the train batch, B 1024: the
+    forward, the recurrence and dW in the tiers their plans name (at bf16,
+    `fwd_tier` and `bwd_tier`), each launch counted once under B 1024, H
+    and that tier (`gru_cuda.batch_launches`), against their plain versions
+    (float32 1e-4, bf16 the bf16 tolerances; dW 1e-4 of its largest from
+    the same inputs), the same bits twice."""
+    T, B, D = 34, 1024, 2
+    tensors = _layer_inputs(T, B, cin, H, D, 1024 + H, cuda)
+    xp, w_hh, b_ih, b_hh, dys = _bf16(*tensors) if dtype == torch.bfloat16 else tensors
+    name = gru_cuda._dtype_name(dtype)
+    tiers = (gru_cuda.fwd_tier(B, H, dtype), gru_cuda.bwd_tier(B, H, dtype),
+             "tensor" if dtype == torch.bfloat16 else "fma")
+    assert gru_cuda._device_plan(cuda, B, H, D, dtype).tier == tiers[0]
+    assert gru_cuda._device_bwd_plan(cuda, B, H, D, dtype).tier == tiers[1]
+    keys = [(k, name, B, H, tier) for k, tier in zip(("gru_fwd", "gru_bwd", "gru_dw"), tiers)]
+    before = tuple(gru_cuda.batch_launches[k] for k in keys)
+    ys, h_last, hp = gru_cuda.gru_layer_forward(xp, w_hh, b_ih, b_hh, save_hp=True)
+    dxp, gn = gru_cuda.gru_bwd_recurrence(xp, w_hh, b_ih, b_hh, ys, dys, hp)
+    dw, db = gru_cuda.gru_dw(ys, dxp, gn, D)
+    torch.cuda.synchronize()
+    assert tuple(gru_cuda.batch_launches[k] for k in keys) == tuple(b + 1 for b in before)
+    tol = BF16_TOL if dtype == torch.bfloat16 else 1e-4
+    want_ys, want_h, want_hp = gru_cuda.gru_layer_plain(xp, w_hh, b_ih, b_hh, save_hp=True)
+    assert (ys.float() - want_ys.float()).abs().max().item() <= tol
+    assert (h_last.float() - want_h.float()).abs().max().item() <= tol
+    assert _rel(hp, want_hp) <= tol
+    want_dxp, want_gn = gru_cuda.gru_bwd_recurrence_plain(xp, w_hh, b_ih, b_hh, ys, dys, hp)
+    if dtype == torch.bfloat16:
+        assert _rel(dxp, want_dxp) <= tol and _rel(gn, want_gn) <= tol
+    else:
+        assert (dxp - want_dxp).abs().max().item() <= tol
+        assert (gn - want_gn).abs().max().item() <= tol
+    dw, db = gru_cuda.gru_dw(ys, want_dxp, want_gn, D)
+    want_dw, want_db = gru_cuda.gru_dw_plain(ys, want_dxp, want_gn, D)
+    assert _rel(dw, want_dw) <= 1e-4 and _rel(db, want_db) <= 1e-4
+    again = gru_cuda.gru_dw(ys, want_dxp, want_gn, D)
+    dxp2, gn2 = gru_cuda.gru_bwd_recurrence(xp, w_hh, b_ih, b_hh, ys, dys, hp)
+    assert torch.equal(dw, again[0]) and torch.equal(db, again[1])
+    assert torch.equal(ys, gru_cuda.gru_layer_forward(xp, w_hh, b_ih, b_hh)[0])
+    assert torch.equal(dxp, dxp2) and torch.equal(gn, gn2)

@@ -252,7 +252,7 @@ def _fwd_rows_max(plan):
 
 
 @pytest.mark.parametrize("H", [300, 64])
-@pytest.mark.parametrize("B", [1, 258, 512])
+@pytest.mark.parametrize("B", [1, 258, 512, 1024])
 @pytest.mark.parametrize("max_clusters", [15, 7, 132])
 def test_gru_fwd_plan(B, H, max_clusters):
     """The launch fits a block's shared memory and threads, covers every
@@ -319,7 +319,7 @@ def test_gru_fwd_plan_past_the_registers(B, H):
 
 
 @pytest.mark.parametrize("H", [300, 64, 40, 5, 100, 161, 321, 600, 1024])
-@pytest.mark.parametrize("B", [1, 5, 258, 512])
+@pytest.mark.parametrize("B", [1, 5, 258, 512, 1024])
 @pytest.mark.parametrize("max_clusters", [15, 7, 132])
 def test_gru_bwd_plan(B, H, max_clusters):
     """The recurrence's launch takes the forward's tier (so it takes every H
@@ -368,7 +368,7 @@ def test_gru_bwd_plan_main_shapes():
 
 
 @pytest.mark.parametrize("H", [300, 64, 321, 20, 1024])
-@pytest.mark.parametrize("T,B", [(34, 512), (34, 5), (6, 1), (34, 258)])
+@pytest.mark.parametrize("T,B", [(34, 512), (34, 5), (6, 1), (34, 258), (34, 1024)])
 @pytest.mark.parametrize("sms", [132, 16])
 def test_gru_dw_plan(T, B, H, sms):
     """The dW product's launch: every (t, b) row in exactly one split of
@@ -881,7 +881,8 @@ def test_gru_fwd_tensor_model_against_plain_and_pallas(pallas_engine, H, B, max_
 
 
 @pytest.mark.parametrize("H", [300, 64, 40, 20, 301, 1])
-@pytest.mark.parametrize("B,max_clusters", [(258, 15), (512, 15), (512, 32), (5, 15)])
+@pytest.mark.parametrize("B,max_clusters", [(258, 15), (512, 15), (512, 32), (5, 15),
+                                            (1024, 15)])
 def test_gru_fwd_tensor_plan(B, H, max_clusters):
     """bf16 in the register range (H <= 320) takes the tensor tier where
     B H^2 reaches TENSOR_MIN_WORK (at H 300 and 301 at B 258 and 512),
@@ -1297,7 +1298,7 @@ def test_gru_bwd_tensor_model_against_plain_and_pallas(pallas_engine, walk, H, B
 
 @pytest.mark.parametrize("H", [300, 301, 64, 40, 20, 1, 320])
 @pytest.mark.parametrize("B,max_clusters", [(258, 15), (512, 15), (512, 16), (512, 32),
-                                            (5, 15)])
+                                            (5, 15), (1024, 15)])
 def test_gru_bwd_tensor_plan(B, H, max_clusters):
     """bf16 in the register range takes the recurrence's tensor tier from H
     BWD_TENSOR_MIN_H where B H^2 reaches BWD_TENSOR_MIN_WORK (H 300 and 301

@@ -607,8 +607,7 @@ def test_main_v2_trains_on_cpu_and_writes_a_checkpoint(tmp_path):
     assert again.epoch == 0 and np.isfinite(again.best_loss)
 
 
-@pytest.mark.parametrize("flag", [["--fused-pass", "true"], ["--remat", "full"],
-                                  ["--steps-per-program", "2"], ["--loader", "grain"]])
+@pytest.mark.parametrize("flag", [["--steps-per-program", "2"], ["--loader", "grain"]])
 def test_main_v2_rejects_unported_options(tmp_path, flag):
     argv = ["-b", str(tmp_path), "-c", "config/multimodal_context_v2.yml",
             "--device", "cpu", "--synthetic-data", "true"] + flag
