@@ -116,7 +116,19 @@ toolkit. In order:
    at batch 16 against the CPU float64 fused step; each step's p50,
    profile and peak memory, plain, fused, remat full and dots, float32
    and mixed;
-14. timing: each kernel's time, its plain version's, a PyTorch library
+14. `main_v2`'s scanned epoch (`scanned_epoch_phase`): `main_v2
+   --steps-per-program 2` at full width, float32, mixed precision,
+   `--fused-pass true` and `--remat full` (3 train steps: a CUDA graph of
+   2 steps and one of 1), the counters set to 0 just before each and read
+   just after: the engine must be "scanned" with no fallback, the GRU
+   recurrence's and dW's training launches the warm-ups' plus each graph's
+   launches per replay times its replays, every loss finite; the K-step
+   graphs against their eager steps at batch 512 under
+   `cudnn.deterministic`, bit for bit (LR decay inside the program, mixed
+   precision, fused, remat full), with their distance from the per-step
+   loop logged; the step's p50, launches, busy share and peak memory one
+   step at a time and as graphs of K 1 and 4, float32 and mixed;
+15. timing: each kernel's time, its plain version's, a PyTorch library
    call's that computes the same function, and the least time the card
    could take (bound), by CUDA events and by device time; the GRU
    backward (recurrence + dW) against cuDNN's recurrent backward; the L2
@@ -141,6 +153,7 @@ import base64
 import collections
 import contextlib
 import copy
+import gc
 import http.client
 import json
 import pathlib
@@ -260,6 +273,30 @@ STEP_OPTIONS = ((("--fused-pass", "true"), False), (("--remat", "full"), False),
                 (("--remat", "dots"), True), (("--fused-pass", "true"), True))
 # main_v1's default batch, at which the v1 phase trains and times its steps
 V1_BATCH = 32
+# main_v2's scanned epoch (`scanned_epoch_phase`): the steps per program of
+# its main_v2 runs, and each run's other flags and whether it is mixed
+# precision; the settings whose K-step graphs are held to their eager
+# steps (the decay's epoch cut to one update, so that the rate changes
+# inside each program); the rows of the random split the graphs gather
+# from; the K of the timed program
+SCAN_SPP = 2
+SCAN_RUNS = (((), False), ((), True), (("--fused-pass", "true"), False),
+             (("--remat", "full"), False))
+SCAN_PARITY = (("float32, LR decay", {"lr_decay": 0.5, "decay_steps_per_epoch": 1}),
+               ("mixed precision", {"mixed": True}), ("fused", {"fused_pass": True}),
+               ("remat full", {"remat": "full"}))
+SCAN_ROWS = 2048
+SCAN_K = 4
+# the capturable Adam against the host Adam on the same gradients: each
+# parameter within n updates x (CAP_ULPS of its tensor's largest value +
+# CAP_LR of the base rate)
+CAP_ULPS, CAP_LR = 2.0 ** -22, 2e-5
+# the GRU kernels' symbols in the profiler's kernel names, by the launch
+# counters' kernel (the dW reduction's second pass, which follows each dW
+# launch, left out)
+GRU_SYMBOLS = {"gru_fwd": r"\bgru_layer_fwd(?:_l2|_tc)?_kernel\b",
+               "gru_bwd": r"\bgru_layer_bwd(?:_tc)?_kernel\b",
+               "gru_dw": r"\bgru_dw(?:_tc)?_kernel\b"}
 
 
 def log(msg: str) -> None:
@@ -1027,21 +1064,24 @@ def device_ms(fn, n: int = 20) -> float:
     return got[1]
 
 
-def profile_device(label: str, unit: str, fn, n: int = 3) -> None:
+def profile_device(label: str, unit: str, fn, n: int = 3):
     """Device time by kernel and the device's busy share of the wall time,
     from torch.profiler over `n` calls of fn (the profiler's own cost is
-    inside the wall time)."""
+    inside the wall time). Returns (kernel launches, busy ms, wall ms) per
+    call and {kernel name: launches per call}, or None when not
+    measured."""
     got = _profile(fn, n)
     if got is None:
         log(f"profile of {label}: not measured (torch.profiler recorded no device activity)")
-        return
+        return None
     kernels, busy_ms, wall_ms = got
+    n_launches = sum(e.count for e in kernels) / n
     log(f"profile of {label}: wall {wall_ms:.3f} ms/{unit} "
         f"under the profiler, device busy {busy_ms:.3f} ms "
-        f"({100 * busy_ms / wall_ms:.1f}%), {sum(e.count for e in kernels) / n:.0f} "
-        f"kernel launches/{unit}")
+        f"({100 * busy_ms / wall_ms:.1f}%), {n_launches:.0f} kernel launches/{unit}")
     for e in sorted(kernels, key=_device_us, reverse=True)[:10]:
         log(f"  {_device_us(e) / 1e3 / n:8.3f} ms {e.count / n:6.1f}x  {e.key[:90]}")
+    return n_launches, busy_ms, wall_ms, {e.key: e.count / n for e in kernels}
 
 
 def _counters() -> collections.Counter:
@@ -2210,13 +2250,13 @@ def step_parity_phase(device, gradient_clip: float = 0.0, variant: str = "s2ag",
         gan_step.draw_other_speaker_ids = draw
 
 
-def _metric_err(got: dict, want: dict) -> float:
+def _metric_err(got: dict, want: dict, tol: float = STEP_TOL) -> float:
     """The largest difference of a step's metrics, each relative to its
-    float64 value (plus 1e-6 absolute for a near-zero difference of two
-    means); inf where the names differ."""
+    float64 value (plus 1e-6 absolute, at `tol`, for a near-zero difference
+    of two means); inf where the names differ."""
     if set(got) != set(want):
         return np.inf
-    return max(abs(got[k] - want[k]) / (abs(want[k]) + 1e-6 / STEP_TOL) for k in want)
+    return max(abs(got[k] - want[k]) / (abs(want[k]) + 1e-6 / tol) for k in want)
 
 
 def _stats_err(a, b) -> float:
@@ -3057,6 +3097,418 @@ def step_options_phase(device, work: pathlib.Path, embedding_net: pathlib.Path,
     return launches
 
 
+def _program_setup(device, options: dict, seed: int = 16):
+    """A train step at full width (`builder.init_training` from seed 0,
+    the GAN terms on) with `options` on its `GanConfig` (and "mixed" for
+    mixed precision), a random packed split of SCAN_ROWS rows on the card
+    (`builder.synthetic_packed`) and a step generator from `seed`."""
+    import dataclasses
+
+    import torch
+    from speech2affective_gestures_torch.config import ModelConfig
+    from speech2affective_gestures_torch.data.ted_db import DeviceDataset
+    from speech2affective_gestures_torch.train import builder
+
+    options = dict(options)
+    mixed = options.pop("mixed", False)
+    cfg = ModelConfig.from_yaml(CONFIG, loss_warmup=-1)
+    setup = builder.init_training(cfg, 0, 1000, 100, device=device, mixed_precision=mixed)
+    step = setup["step"]
+    step.cfg = dataclasses.replace(step.cfg, **options)
+    data = DeviceDataset(builder.synthetic_packed(np.random.default_rng(seed), SCAN_ROWS, cfg),
+                         device)
+    return step, data, torch.Generator(device=device).manual_seed(seed)
+
+
+def _program_draws(rng, k: int):
+    """(k, TRAIN_BATCH) rows of the random split and speakers."""
+    return rng.integers(0, SCAN_ROWS, (k, TRAIN_BATCH)), rng.integers(0, 100, (k, TRAIN_BATCH))
+
+
+def capturable_adam_phase(device) -> None:
+    """Both nets' Adam updates (`GanStep._update`: clipping at 0.1, the
+    update, the next rate; the rate halving every 2 updates) of a
+    capturable train step at full width, captured into one CUDA graph and
+    replayed, against the host Adam of the same step (PyTorch's
+    non-capturable Adam, its rate `scheduled_lr` on the host), over 7
+    updates from the same weights with the same random gradients (the
+    first update eager: the capture's warm-up). After every update the
+    moments must be the same bits (the same ops on the same gradients),
+    the counts equal, the float32 rate the host rate's rounding, and every
+    parameter within n updates x (CAP_ULPS of its tensor's largest value +
+    CAP_LR of the base rate): the two compute the bias corrections in
+    another order, a few roundings of an update, and each update may round
+    to the next float32. A wrong bias correction or a rate off by one
+    decay step moves a parameter by about a rate."""
+    import dataclasses
+
+    import torch
+    from speech2affective_gestures_torch.config import ModelConfig
+    from speech2affective_gestures_torch.train import builder, gan_step
+
+    cfg = ModelConfig.from_yaml(CONFIG, loss_warmup=-1)
+    cap, host = (builder.init_training(cfg, 0, 1000, 100, device=device)["step"]
+                 for _ in range(2))
+    for step in (cap, host):
+        step.cfg = dataclasses.replace(step.cfg, lr_decay=0.5, decay_steps_per_epoch=2,
+                                       gradient_clip=0.1)
+    cap.make_capturable()
+    params = {w: [[p for p in getattr(s, w).parameters() if p.requires_grad]
+                  for s in (cap, host)] for w in ("gen", "dis")}
+    for w in params:
+        for p, q in zip(*params[w]):
+            if not torch.equal(p, q):
+                raise AssertionError(f"the two steps start from other {w} weights")
+            p.grad, q.grad = torch.empty_like(p), torch.empty_like(q)
+    rng = torch.Generator(device=device).manual_seed(5)
+    graph, worst = None, {}
+    for n in range(1, 8):
+        for w in params:
+            for p, q in zip(*params[w]):
+                p.grad.normal_(generator=rng)
+                q.grad.copy_(p.grad)
+        if graph is None:
+            cap._update("gen")
+            cap._update("dis")
+            torch.cuda.synchronize()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                cap._update("gen")
+                cap._update("dis")
+        else:
+            graph.replay()
+        host._update("gen")
+        host._update("dis")
+        torch.cuda.synchronize()
+        for w, base in (("gen", cap.cfg.learning_rate), ("dis", cap.cfg.lr_dis)):
+            opt, ref = getattr(cap, f"{w}_opt"), getattr(host, f"{w}_opt")
+            want = gan_step.scheduled_lr(base, cap.cfg, n)
+            for p, q in zip(*params[w]):
+                same = all(torch.equal(opt.state[p][k], ref.state[q][k])
+                           for k in ("exp_avg", "exp_avg_sq"))
+                counts = (opt.state[p]["step"].item(), ref.state[q]["step"].item())
+                err = (p - q).abs().max().item() / (
+                    n * (CAP_ULPS * q.abs().max().item() + CAP_LR * base))
+                worst[w] = max(worst.get(w, 0.0), err)
+                if not same or counts != (n, n) or err > 1:
+                    raise AssertionError(
+                        f"capturable Adam ({w}, update {n}): moments the same bits {same}, "
+                        f"counts {counts}, parameter distance {err:.3e} of its bound")
+            rates = [float(g["lr"]) for g in opt.param_groups] + [
+                g["lr"] for g in ref.param_groups]
+            if rates != [float(np.float32(want))] * len(opt.param_groups) + [want] * len(
+                    ref.param_groups):
+                raise AssertionError(f"capturable Adam ({w}, update {n}): rates {rates}, "
+                                     f"the schedule's {want}")
+    log(f"capturable Adam captured in a CUDA graph against the host Adam, full width, 7 "
+        f"updates of both nets on the same random gradients (clipped at 0.1, the rate "
+        f"halving every 2 updates): moments the same bits, counts and rates the schedule's; "
+        f"parameters at most {', '.join(f'{w} {v:.3e}' for w, v in worst.items())} of "
+        f"their bound (n x ({CAP_ULPS:.3e} of the tensor's largest + {CAP_LR} lr))")
+
+
+def _optimizer_snapshot(step) -> dict:
+    """Of both nets of `step`: copies of the parameters, of each one's
+    Adam state and of the learning rates."""
+    out = {}
+    for w in ("gen", "dis"):
+        opt, params = getattr(step, f"{w}_opt"), list(getattr(step, w).parameters())
+        out[w] = ([p.detach().clone() for p in params],
+                  [{k: v.clone() for k, v in opt.state.get(p, {}).items()} for p in params],
+                  [float(g["lr"]) for g in opt.param_groups])
+    return out
+
+
+def _first_step_errors(got: dict, want: dict, cfg, mixed: bool) -> tuple[dict, dict]:
+    """The graphs' first step (`_optimizer_snapshot` after it) against the
+    per-step loop's (host Adam): {name: error over its tolerance}. D's
+    gradients are the same bits (the same weights, batch and draws), so
+    its moments must be too and its parameters within one update's
+    rounding (CAP_ULPS, CAP_LR, as `capturable_adam_phase`); G's gradients
+    pass through D's updated weights, so its first moments are held within
+    STEP_TOL (`_moment_err`'s rule for the tensors whose moment is float
+    noise), in float32; in mixed precision, where D's rounding moves its
+    bf16 casts, they are logged (as `mixed_step_parity_phase` does); every
+    count 1 and each rate the schedule's for the next update (its float32
+    where the graph keeps it on the device). Returns ({name: error over
+    its tolerance}, {name: error logged only})."""
+    import torch
+
+    from speech2affective_gestures_torch.train.gan_step import scheduled_lr
+
+    errs, logged = {}, {}
+    for w, base in (("gen", cfg.learning_rate), ("dis", cfg.lr_dis)):
+        (params, states, rates), (ref_params, ref_states, ref_rates) = got[w], want[w]
+        pairs = [(a, b) for a, b in zip(states, ref_states) if b]
+        counts = {float(s["step"]) for pair in pairs for s in pair}
+        errs[f"{w} counts"] = 0.0 if counts == {1.0} else np.inf
+        rate = scheduled_lr(base, cfg, 1)
+        graph_rate = float(np.float32(rate)) if cfg.decays else rate
+        errs[f"{w} rates"] = 0.0 if ref_rates == [rate] * len(ref_rates) and rates == [
+            graph_rate] * len(rates) else np.inf
+        if w == "dis":
+            same = all(torch.equal(a[k], b[k]) for a, b in pairs for k in ("exp_avg",
+                                                                           "exp_avg_sq"))
+            errs["dis Adam moments"] = 0.0 if same else np.inf
+            errs["dis parameters"] = max(
+                (p - q).abs().max().item() / (CAP_ULPS * q.abs().max().item() + CAP_LR * base)
+                for p, q in zip(params, ref_params))
+            continue
+        m = [(a["exp_avg"], b["exp_avg"]) for a, b in pairs]
+        top = max(b.abs().max().item() for _, b in m)
+        (logged if mixed else errs)["gen Adam m"] = max(
+            (a - b).abs().max().item()
+            / (b.abs().max().item() if b.abs().max().item() >= 1e-4 * top else top)
+            for a, b in m) / STEP_TOL
+    return errs, logged
+
+
+def _metrics_errors(got: dict, want: dict, n_steps: int, tol: float) -> float:
+    """The largest `_metric_err` at `tol` of n_steps steps' metrics
+    ({name: (n,)}) over `tol`."""
+    return max(_metric_err({k: float(v[j]) for k, v in got.items()},
+                           {k: float(v[j]) for k, v in want.items()}, tol)
+               for j in range(n_steps)) / tol
+
+
+def graph_parity_phase(device) -> None:
+    """The K-step program's CUDA graphs at full width and batch
+    TRAIN_BATCH, under `cudnn.deterministic`, the partial program of 1
+    step then a program of 2 from the same weights, rows and generator
+    seed, for each of SCAN_PARITY's settings (the config's dropout, the
+    noise drawn from the step's generator):
+    - against the same body run eagerly on the card
+      (`StepProgram(capture=False)`, the same capturable Adams): the
+      metrics, both nets' parameters and buffers, Adam's states and
+      learning rates, the generator's state the same bits
+      (`_step_differences`);
+    - against the per-step loop (`GanStep.train_step` on the same batches,
+      PyTorch's host Adam with the host schedule: the path the CPU tests
+      hold to the JAX package), which rounds Adam's update otherwise:
+      after the first step, D's moments the same bits and its parameters
+      within an update's rounding, G's first moments within STEP_TOL in
+      float32, the counts and rates the schedule's (`_first_step_errors`);
+      every step's metrics within STEP_TOL (MP_TOL in mixed precision, as
+      `mixed_step_parity_phase`). Past the first step the two runs' weights
+      part as Adam amplifies the rounding (the measurements in PERF.md),
+      so the weights after 3 steps are logged, not held."""
+    import torch
+    from speech2affective_gestures_torch.data.ted_db import gather
+    from speech2affective_gestures_torch.train.step_program import StepProgram
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for label, options in SCAN_PARITY:
+            runs, first = {}, {}
+            for how in ("graph", "eager", "per step"):
+                step, data, g = _program_setup(device, options)
+                init = {w: [p.detach().clone() for p in getattr(step, w).parameters()]
+                        for w in ("gen", "dis")}
+                rng = np.random.default_rng(17)
+                program = (StepProgram(step, data, g, capture=how == "graph")
+                           if how != "per step" else None)
+                metrics = collections.defaultdict(list)
+                for k in (1, 2):
+                    idx, adv = _program_draws(rng, k)
+                    if program is not None:
+                        keys, values = program.run(idx, adv, gan_on=True)
+                        for key, v in zip(keys, values.T):
+                            metrics[key].append(v)
+                    else:
+                        for j in range(k):
+                            rows, vids = data.indices(idx[j], adv[j])
+                            out = step.train_step(gather(data.arrays, rows, vids), g,
+                                                  gan_on=True)
+                            for key, v in out.items():
+                                metrics[key].append(v[None])
+                    if k == 1:
+                        first[how] = _optimizer_snapshot(step)
+                torch.cuda.synchronize()
+                runs[how] = ({key: torch.cat(v) for key, v in metrics.items()}, step,
+                             g.get_state())
+                if program is not None:
+                    runs[how] += (program,)
+            diff = _step_differences(runs["graph"][:3], runs["eager"][:3])
+            lrs = [[torch.as_tensor(grp["lr"]) for grp in getattr(r[1], f"{w}_opt").param_groups]
+                   for r in (runs["graph"], runs["eager"]) for w in ("gen", "dis")]
+            if not all(torch.equal(a, b) for a, b in zip(sum(lrs[:2], []), sum(lrs[2:], []))):
+                diff.append("the learning rates")
+            record = runs["graph"][3].launch_record()
+            (got, step, _), (ref, ref_step, _) = runs["graph"][:3], runs["per step"]
+            mixed = options.get("mixed", False)
+            errs, logged = _first_step_errors(first["graph"], first["per step"], step.cfg,
+                                              mixed)
+            errs["metrics of 3 steps"] = _metrics_errors(got, ref, 3,
+                                                         MP_TOL if mixed else STEP_TOL)
+            apart = {w: max((p.detach() - q.detach()).abs().max().item()
+                            / (q.detach() - p0).abs().max().item()
+                            for p, q, p0 in zip(getattr(step, w).parameters(),
+                                                getattr(ref_step, w).parameters(), init[w])
+                            if (q.detach() - p0).abs().max().item() > 0)
+                     for w in ("gen", "dis")}
+            log(f"K-step graph ({label}) against its K eager steps at batch {TRAIN_BATCH}, "
+                f"under cudnn.deterministic: "
+                f"{'the same bits' if not diff else f'{len(diff)} tensors differ: {diff[:16]}'}; "
+                f"graphs {[(key, dict(n), r) for key, (n, r) in record.items()]}; against the "
+                f"per-step loop (host Adam), each of its tolerance: "
+                + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+                + "".join(f", {k} {v:.3e} (logged)" for k, v in logged.items())
+                + "; the parameters after 3 steps apart by at most "
+                + ", ".join(f"{w} {v:.3e}" for w, v in apart.items())
+                + " of their tensor's change from the start (not held)")
+            if diff:
+                raise AssertionError(f"the K-step graph ({label}) is not its eager steps: "
+                                     f"{diff[:16]}")
+            if not all(v <= 1 for v in errs.values()):
+                raise AssertionError(f"the K-step graph ({label}) is not the per-step loop: "
+                                     f"{errs}")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def _replay_launches(label: str, program, k: int, got) -> None:
+    """The GRU kernels' launches that the profiler saw in one replay of
+    the K-step graph (`profile_device`'s kernel names, GRU_SYMBOLS) against
+    those its capture recorded (`StepProgram.launch_record`), which the
+    launch counters add at every replay: they must be equal."""
+    if got is None:
+        raise AssertionError(f"{label}: the profiler saw no device work in a replay; the "
+                             "graph's launches are not measured")
+    per_replay = program.launch_record()[(k, True)][0]
+    seen, want = {}, {}
+    for family, pattern in GRU_SYMBOLS.items():
+        want[family] = sum(n for (kernel, _), n in per_replay.items()
+                           if kernel in (family, f"{family}_v1"))
+        seen[family] = sum(n for name, n in got[3].items() if re.search(pattern, name))
+    log(f"{label}: GRU launches in one replay of the {k}-step graph, seen by the profiler "
+        f"{seen}, recorded at capture {want}")
+    if seen != want:
+        raise AssertionError(f"{label}: a replay launched {seen}, its capture recorded {want}")
+
+
+def scanned_numbers(device, smi: str) -> None:
+    """The train step's p50 at full width and batch TRAIN_BATCH, float32
+    and mixed precision, one step at a time (`GanStep.train_step` on
+    batches gathered on the card, host Adam: the per-step loop) against
+    the K-step program at K 1 and K SCAN_K (one CUDA graph a program):
+    per step, the p50 over 6 programs (host clock, each ended by a
+    synchronize) divided by K; launches per step and the device's busy
+    share from the profiler over one program, whose GRU launches must be
+    those the graph's capture recorded (`_replay_launches`); the peak
+    device memory allocated and reserved, from before the graphs' capture
+    on."""
+    import torch
+    from speech2affective_gestures_torch.data.ted_db import gather
+    from speech2affective_gestures_torch.train.step_program import StepProgram
+
+    summary = []
+    for mixed in (False, True):
+        for k in (0, 1, SCAN_K):
+            label = (f"{'per-step loop' if k == 0 else f'K {k} graph'} "
+                     f"{'mixed-precision' if mixed else 'float32'}")
+            # the last setting's graphs and their pools are gone before the
+            # peaks are reset
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            step, data, g = _program_setup(device, {"mixed": mixed})
+            rng = np.random.default_rng(18)
+            if k == 0:
+                def fn(step=step, data=data, g=g, rng=rng):
+                    idx, adv = _program_draws(rng, 1)
+                    rows, vids = data.indices(idx[0], adv[0])
+                    return step.train_step(gather(data.arrays, rows, vids), g, gan_on=True)
+            else:
+                program = StepProgram(step, data, g)
+
+                def fn(program=program, rng=rng, k=k):
+                    return program.run(*_program_draws(rng, k), gan_on=True)
+            fn()
+            fn()
+            times = []
+            for _ in range(6):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3 / max(k, 1))
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            reserved = torch.cuda.max_memory_reserved() / 2 ** 30
+            p50 = float(np.median(times))
+            log(f"{label} train step (batch {TRAIN_BATCH}, full width): p50 {p50:.3f} ms per "
+                f"step over 6 programs; all {[round(t, 3) for t in times]}; peak memory "
+                f"{peak:.3f} GiB allocated, {reserved:.3f} GiB reserved; {smi}")
+            unit = "step" if k <= 1 else f"program of {k} steps"
+            got = profile_device(f"the {label} train step", unit, fn, n=1)
+            if k:
+                _replay_launches(label, program, k, got)
+            per_step = "" if got is None else (
+                f", {got[0] / max(k, 1):.0f} launches/step, busy {100 * got[1] / got[2]:.1f}%")
+            summary.append(f"{label} p50 {p50:.3f} ms/step{per_step}, peak {peak:.3f} GiB "
+                           f"({reserved:.3f} reserved)")
+            del step, data, g, fn
+            program = None
+    log(f"train steps at batch {TRAIN_BATCH}, one at a time and as K-step graphs: "
+        f"{'; '.join(summary)}; {smi}")
+
+
+def scanned_epoch_phase(device, work: pathlib.Path, embedding_net: pathlib.Path,
+                        smi: str) -> collections.Counter:
+    """`main_v2 --steps-per-program SCAN_SPP` on the card (`training_phase`
+    with each of SCAN_RUNS: one epoch of the synthetic corpus, 3 train
+    steps, so a program of 2 and the partial one of 1, each its own CUDA
+    graph replayed once; the test split scored): the trainer must have run
+    the scanned engine with no fallback and logged it; every logged loss
+    finite; each graph's capture must have recorded the GRU forward,
+    recurrence and dW (the launch counters add those at every replay;
+    `scanned_numbers` holds a replay's launches, seen by the profiler, to
+    its record). Then the capturable Adam against the host Adam
+    (`capturable_adam_phase`), the graphs against their eager steps and the
+    per-step loop (`graph_parity_phase`) and the step's numbers, one at a
+    time and as graphs (`scanned_numbers`). Returns the kernels' launches
+    in the main_v2 runs."""
+    t0 = time.perf_counter()
+    parts = {}
+    launches = collections.Counter()
+    for flags, mixed in SCAN_RUNS:
+        options = ("--steps-per-program", str(SCAN_SPP), *flags)
+        trainer, trained = training_phase(device, work, embedding_net, mixed_precision=mixed,
+                                          options=options)
+        label = f"main_v2 {' '.join(options)}{' --mixed-precision true' if mixed else ''}"
+        log_txt = (pathlib.Path(trainer.work_dir) / "log.txt").read_text()
+        if (trainer.epoch_engine != "scanned" or trainer.epoch_engine_fallback
+                or "engine scanned)" not in log_txt):
+            raise AssertionError(f"{label} did not run the scanned epoch: "
+                                 f"{trainer.epoch_engine} ({trainer.epoch_engine_fallback})")
+        program = trainer._program
+        record = program.launch_record()
+        if sorted(record) != [(1, True), (SCAN_SPP, True)] or any(
+                replays != 1 for _, replays in record.values()):
+            raise AssertionError(f"{label}: graphs {record}")
+        dtype = "bfloat16" if mixed else "float32"
+        sfx = "_bf16" if mixed else ""
+        for kernel in ("gru_fwd", "gru_bwd", "gru_dw"):
+            per_replay = {key: n[(kernel, dtype)] for key, (n, _) in record.items()}
+            log(f"{label}: {kernel}{sfx} launches in training {trained[kernel + sfx]}: "
+                f"warm-ups {program.warmup_launches[(kernel, dtype)]}, per replay {per_replay}")
+            if min(per_replay.values()) < 1:
+                raise AssertionError(f"{label}: a graph holds no {kernel}{sfx}: {per_replay}")
+        launches.update(trained)
+        del trainer, program
+    parts["main_v2 runs"] = time.perf_counter() - t0
+    capturable_adam_phase(device)
+    parts["capturable Adam"] = time.perf_counter() - t0 - sum(parts.values())
+    graph_parity_phase(device)
+    parts["graph parity"] = time.perf_counter() - t0 - sum(parts.values())
+    scanned_numbers(device, smi)
+    parts["step numbers"] = time.perf_counter() - t0 - sum(parts.values())
+    log(f"scanned epoch phase took {time.perf_counter() - t0:.1f} s "
+        f"({', '.join(f'{k} {v:.1f} s' for k, v in parts.items())}); {smi}")
+    return launches
+
+
 def bound(nbytes, flops, peak_flops=PEAK_F32_FLOPS):
     """The least time of a function on the card: its bytes over the memory
     rate or its operations over the peak rate of their type (float32
@@ -3842,6 +4294,8 @@ def main() -> int:
         launches.update(v1_launches)
         # main_v2's fused pass and rematerialization
         launches.update(step_options_phase(device, work, embedding_net, smi))
+        # main_v2's scanned epoch: K train steps a CUDA graph
+        launches.update(scanned_epoch_phase(device, work, embedding_net, smi))
     kernels = timing_phase(device, errs, launches)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 """TED Gesture DB pipeline, the part training reads (reference `loader_v2.py`
 and `processor_v2.py`'s npz cache and batch sampler): packed fixed-shape
-datasets, the batch sampler with adversarial speakers, the TED LMDB
+datasets, the batch sampler with adversarial speakers, the split resident
+on the device with its batch gather (the trainer's loader), the TED LMDB
 ingestion, the exported-archive reader and the synthetic corpus.
 
 The packed arrays keep the reference cache's schema (processor_v2.py
@@ -222,14 +223,92 @@ class BatchSampler:
         return sample_adversarial_speakers(self.all_speaker_ids, own, self.rng,
                                            self.batch_size)
 
+    def draw(self) -> tuple[np.ndarray, np.ndarray | None]:
+        """One batch's draws, in the reference's order: the rows, then the
+        adversarial speakers (None for a split without a speaker model)."""
+        idx = self.sample_indices()
+        if self.all_speaker_ids is None:
+            return idx, None
+        return idx, self.adversarial_speakers(self.ds.vid_indices[idx]).astype(np.int64)
+
     def __iter__(self) -> Iterator[dict]:
         for _ in range(self.pseudo_passes()):
-            idx = self.sample_indices()
+            idx, adv = self.draw()
             batch = decode_rows(self.ds, idx)
-            if self.all_speaker_ids is not None:
-                batch["vid_indices"] = self.adversarial_speakers(
-                    self.ds.vid_indices[idx]).astype(np.int64)
+            if adv is not None:
+                batch["vid_indices"] = adv
             yield batch
+
+
+def gather(arrays: dict, idx: torch.Tensor, adv_vids: torch.Tensor) -> dict:
+    """A batch of the rows `idx` of a `DeviceDataset`'s arrays, assembled
+    where they live, in the JAX package's operations and order
+    (data/ted_db.py:276-282): MFCC float16 -> float32, the int16 audio
+    rescaled in float32 as audio * audio_max / 32767 (`decode_rows` does
+    it in float64); the words as int64, the speakers `adv_vids`."""
+    return {
+        "extended_word_seq": arrays["extended_word_seq"][idx].long(),
+        "vec_seq": arrays["vec_seq"][idx],
+        "mfcc_features": arrays["mfcc_features"][idx].float(),
+        "vid_indices": adv_vids,
+        "audio": arrays["audio"][idx].float() * arrays["audio_max"][idx, None] / 32767.0,
+    }
+
+
+def host_indices(idx: np.ndarray, adv_vids: np.ndarray) -> torch.Tensor:
+    """The row indices and speakers stacked, (2, ...) int64 on the host:
+    what crosses to the device for a batch (or a program's batches)."""
+    return torch.from_numpy(np.stack([idx, adv_vids]).astype(np.int64))
+
+
+class DeviceDataset:
+    """A packed split resident on `device` in its compact dtypes (int32
+    words, float32 poses, float16 MFCC, int16 audio with its float32 max),
+    uploaded once; `batch` gathers a batch there from the (B,) row indices
+    and adversarial speakers, the only data that crosses per step (JAX
+    data/ted_db.py:227-294; the reference re-uploads every batch,
+    processor_v2.py:602-621). A split larger than the card's free memory
+    raises MemoryError: there is no host fallback."""
+
+    def __init__(self, dataset: PackedDataset, device: torch.device):
+        self.device = torch.device(device)
+        arrays = {"extended_word_seq": dataset.extended_word_seq.astype(np.int32),
+                  "vec_seq": dataset.vec_seq.astype(np.float32),
+                  "mfcc_features": dataset.mfcc_features, "audio": dataset.audio,
+                  "audio_max": dataset.audio_max.astype(np.float32)}
+        nbytes = sum(a.nbytes for a in arrays.values())
+        if self.device.type == "cuda":
+            free, _ = torch.cuda.mem_get_info(self.device)
+            if nbytes > free:
+                raise MemoryError(
+                    f"the device loader keeps the whole train split on {self.device}: "
+                    f"{nbytes / 2**30:.2f} GiB of packed arrays, {free / 2**30:.2f} GiB "
+                    "free (a streaming loader is ROADMAP.md item 1.4)")
+        self.arrays = {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+                       for k, v in arrays.items()}
+
+    def indices(self, idx: np.ndarray, adv_vids: np.ndarray) -> torch.Tensor:
+        """(2, ...) int64 on the device: the row indices and the speakers,
+        in one host->device copy."""
+        return host_indices(idx, adv_vids).to(self.device, non_blocking=True)
+
+    def batch(self, idx: np.ndarray, adv_vids: np.ndarray) -> dict:
+        rows, vids = self.indices(idx, adv_vids)
+        return gather(self.arrays, rows, vids)
+
+
+class DeviceBatchSampler(BatchSampler):
+    """`BatchSampler`'s draws, in its order (the rows, then the adversarial
+    speakers), with each batch gathered on the device (`DeviceDataset`)."""
+
+    def __init__(self, dataset: PackedDataset, batch_size: int, seed: int,
+                 device_dataset: DeviceDataset):
+        super().__init__(dataset, batch_size, seed)
+        self.device_ds = device_dataset
+
+    def __iter__(self) -> Iterator[dict]:
+        for _ in range(self.pseudo_passes()):
+            yield self.device_ds.batch(*self.draw())
 
 
 # --------------------------------------------------------------------------

@@ -28,9 +28,13 @@ concat (BatchNorm statistics over the 2B batch, one 2B noise and dropout
 draw: not the reference's step). `--remat full|dots` rematerializes the
 differentiated forwards inside the backward (`torch.utils.checkpoint`;
 "dots" keeps the `mm`/`addmm` outputs), with the same values, draws and
-BatchNorm updates as `none`. A flag that selects something not ported
-yet raises and names its ROADMAP.md item: the grain loader, several steps
-per program.
+BatchNorm updates as `none`. The train split lives on the card and each
+batch is gathered there (`--loader device`, the default); `--steps-per-program
+K` runs each epoch as programs of K train steps, one CUDA graph each (the
+JAX package's scanned epoch; the log names the engine that ran, and why
+it fell back to one step at a time if it did). A flag that selects
+something not ported yet raises and names its ROADMAP.md item: the grain
+loader.
 `--mixed-precision true` runs the train steps at bf16 (the GRU kernels'
 bf16 instances on the card); validation and the test-split scoring stay
 float32.
@@ -63,7 +67,7 @@ from .data import ted_db
 from .device import resolve_device, set_f32_numerics
 from .train.evaluator import EmbeddingSpaceEvaluator
 from .train.gan_step import REMAT_MODES
-from .train.trainer import Trainer, find_checkpoint
+from .train.trainer import Trainer, check_loader, find_checkpoint
 
 _ROADMAP = "not ported yet (ROADMAP.md, queue 1)"
 # the work dir's suffix of each variant (JAX main_v2.py:232-234)
@@ -111,8 +115,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "--gradient-clip")
     p.add_argument("--loader", type=str, default="device",
                    choices=("device", "grain"),
-                   help=f"'device' samples batches on the host and copies them "
-                        f"to the card; 'grain' is {_ROADMAP}")
+                   help=f"'device' keeps the train split on the card and gathers "
+                        f"each batch there from the host's row draws; 'grain' is "
+                        f"{_ROADMAP}")
     p.add_argument("--mixed-precision", type=str2bool, default=False,
                    help="bf16 train steps (parameters cast per call, float32 "
                         "master weights, losses and BatchNorm statistics)")
@@ -137,7 +142,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "the host queues ahead (same logged numbers; 0 = read "
                         "every step)")
     p.add_argument("--steps-per-program", type=int, default=1,
-                   help=f"several steps per program: {_ROADMAP}")
+                   help="train steps per program: K > 1 captures K steps (their "
+                        "batch gathers included) in one CUDA graph and replays it; "
+                        "needs --loader device and --trimodal-metric-interval 1, "
+                        "else the per-step loop runs (logged)")
     p.add_argument("--trimodal-metric-interval", type=int, default=1,
                    help="compute the frozen-trimodal comparison metric "
                         "every K-th train step (1 = every step = reference "
@@ -199,13 +207,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def check_ported(args) -> None:
     """Raise for a flag that selects something this port does not have."""
-    unported = {
-        "--loader grain": args.loader == "grain",
-        f"--steps-per-program {args.steps_per_program}": args.steps_per_program > 1,
-    }
-    chosen = [flag for flag, on in unported.items() if on]
-    if chosen:
-        raise NotImplementedError(f"{', '.join(chosen)}: {_ROADMAP}")
+    check_loader(args.loader)
 
 
 def load_datasets(args, cfg: ModelConfig, device: torch.device, log=print):
@@ -302,10 +304,15 @@ def main(argv=None, variant: str = "s2ag") -> Trainer:
         gradient_clip=args.gradient_clip if args.apply_gradient_clip else 0.0,
         lr_decay=args.lr_s2ag_decay if args.apply_lr_decay else 1.0,
         n_speakers=checkpoint_speakers(checkpoint_to_load(args, work_dir)),
-        fused_pass=args.fused_pass, remat=args.remat)
+        fused_pass=args.fused_pass, remat=args.remat, loader=args.loader,
+        steps_per_program=args.steps_per_program)
     trainer.logger.save_arg(vars(args))
     for line in logs:
         trainer.logger.print_log(line)
+    trainer.logger.print_log(
+        f"epoch engine: {trainer.epoch_engine} ({trainer.steps_per_program} train steps a "
+        f"program, loader {args.loader})"
+        + (f"; {trainer.epoch_engine_fallback}" if trainer.epoch_engine_fallback else ""))
     if not args.apply_lr_decay:
         trainer.logger.print_log(
             "--lr-s2ag-decay accepted for compatibility but UNUSED (the "

@@ -112,8 +112,11 @@ def regroup_body_parts(feat: torch.Tensor) -> torch.Tensor:
     """(B, C, T, 9 bones) -> (B, 3*C, T, 3 body parts): each part's three
     bones flattened channel-major, channel index ch*3 + bone-in-part (ref
     net/multimodal_context_net_v2.py:161-167)."""
-    return torch.stack(
-        [channel_major(feat[..., list(idx)]) for idx in C.BODY_PARTS_EDGE_IDX], dim=-1)
+    # each part's bones are consecutive, so a slice takes them: a list index
+    # would copy an index tensor from the host at every call, which a CUDA
+    # graph capture refuses
+    return torch.stack([channel_major(feat[..., idx[0]:idx[-1] + 1])
+                        for idx in C.BODY_PARTS_EDGE_IDX], dim=-1)
 
 
 def bone_graphs() -> tuple[torch.Tensor, torch.Tensor]:

@@ -109,7 +109,8 @@ class _GRUGenerator(nn.Module):
         own device, at `like`'s dtype and device."""
         if eps is None:
             gen_device = generator.device if generator is not None else like.device
-            eps = torch.randn(shape, generator=generator, device=gen_device)
+            eps = L.draw(generator, lambda: torch.randn(shape, generator=generator,
+                                                        device=gen_device))
         return eps.to(like)
 
     def speaker_z(self, vid_indices: torch.Tensor, eps: torch.Tensor | None = None,

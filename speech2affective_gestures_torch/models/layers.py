@@ -20,7 +20,9 @@ checkpoints load), `GRU` (nn.GRU's parameter names, its recurrence in
 plain time loop: the JAX package's is a `lax.scan`, not a TPU kernel),
 `MaxPool2d` at the JAX layer's stride, the activation helpers, and
 `Dropout`, whose masks come from an explicit `torch.Generator` set with
-`dropout_rng` (the JAX package draws them from flax's 'dropout' stream).
+`dropout_rng` (the JAX package draws them from flax's 'dropout' stream),
+and `DrawTape`, which records a block's draws from a generator and hands
+them back in a rerun of the block.
 """
 
 from __future__ import annotations
@@ -70,9 +72,58 @@ def dropout(x: torch.Tensor, p: float, training: bool) -> torch.Tensor:
         return torch.zeros_like(x)
     if _dropout_generator is None:
         return F.dropout(x, p, training=True)
-    keep = torch.rand(x.shape, generator=_dropout_generator,
-                      device=_dropout_generator.device) >= p
+    gen = _dropout_generator
+    keep = draw(gen, lambda: torch.rand(x.shape, generator=gen, device=gen.device) >= p)
     return x * keep.to(x.device) / (1.0 - p)
+
+
+class DrawTape:
+    """The draws from one generator inside a block: recorded in order
+    while `recording`, handed back in that order while `replaying`
+    instead of drawing again (`draw`). A rematerialized forward records
+    its dropout masks and noise and its recompute replays them
+    (`gan_step.rematerialize`), with no host access to the generator's
+    state, so that the pair also runs inside a CUDA graph capture."""
+
+    def __init__(self, generator: torch.Generator):
+        self.generator = generator
+        self.draws: list = []
+        self.position: int | None = None   # None while recording
+
+    @contextlib.contextmanager
+    def recording(self):
+        with self._active(None):
+            yield
+
+    @contextlib.contextmanager
+    def replaying(self):
+        with self._active(0):
+            yield
+
+    @contextlib.contextmanager
+    def _active(self, position):
+        global _tape
+        prev, _tape, self.position = _tape, self, position
+        try:
+            yield
+        finally:
+            _tape = prev
+
+
+_tape: DrawTape | None = None
+
+
+def draw(generator: torch.Generator | None, fn):
+    """fn(), a tensor drawn from `generator`; inside a `DrawTape` block of
+    that generator, recorded or replayed."""
+    tape = _tape
+    if tape is None or generator is not tape.generator:
+        return fn()
+    if tape.position is None:
+        tape.draws.append(fn())
+        return tape.draws[-1]
+    tape.position += 1
+    return tape.draws[tape.position - 1]
 
 
 class Dropout(nn.Module):

@@ -86,10 +86,17 @@ def build(names) -> dict[str, Path]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of `csrc/<name>.cu`, built first if needed."""
+    """The loaded library of `csrc/<name>.cu`, built first if needed; not
+    for the first time inside a CUDA graph capture, whose first launch
+    would set the kernels' attributes there."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
+            import torch
+
+            if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(f"csrc/{name}.cu is first loaded inside a CUDA graph "
+                                   "capture: run its kernels eagerly before capturing them")
             lib = ctypes.CDLL(str(build([name])[name]))
             _libs[name] = lib
         return lib

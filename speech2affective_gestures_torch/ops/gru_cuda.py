@@ -88,6 +88,9 @@ shape_launches: collections.Counter = collections.Counter()
 # size they ran at (the fused GAN step runs its nets at twice the batch)
 # and the plan's tier
 batch_launches: collections.Counter = collections.Counter()
+# all four; a launch recorded into a CUDA graph is counted at each replay
+# (`train.step_program`), not at the capture
+COUNTERS = (launches, tier_launches, shape_launches, batch_launches)
 
 # the kernels' storage dtypes; the plain versions also take float64
 STORAGE = (torch.float32, torch.bfloat16)
@@ -577,6 +580,10 @@ def max_clusters(device: torch.device, H: int, kernel: str = "fwd",
     device, kernel, dtype, H and tier."""
     key = (torch.device(device).index, H, kernel, dtype, tier)
     if key not in _max_clusters:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"gru_{kernel}: the plan at H {H} ({dtype}, {tier}) is first "
+                               "asked for inside a CUDA graph capture: run the step eagerly "
+                               "before capturing it")
         p = (fwd_plan if kernel == "fwd" else bwd_plan)(1, H, 1, 1, tier)  # one row a tile
         fn = _lib_fn(f"gru_{kernel}", f"s2ag_gru_{kernel}_max_clusters", 0, n_int=7,
                      stream=False)

@@ -56,6 +56,8 @@ SMEM_LIMIT = 232448
 # "mixed radix" (`mel_fft_mixed_kernel`)
 launches: collections.Counter = collections.Counter()
 fft_launches: collections.Counter = collections.Counter()
+# both; a launch recorded into a CUDA graph is counted at each replay
+COUNTERS = (launches, fft_launches)
 
 
 @functools.lru_cache(maxsize=None)
@@ -174,6 +176,10 @@ def _on_device(fn, device: torch.device, sr: int, n_fft: int, n_mels: int):
     once per device."""
     key = (fn.__name__, str(device), sr, n_fft, n_mels)
     if key not in _device_tensors:
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"mel_power: the tables of n_fft {n_fft}, {n_mels} bands are "
+                               "first asked for inside a CUDA graph capture: run the call "
+                               "eagerly before capturing it")
         _device_tensors[key] = tuple(torch.from_numpy(a).to(device)
                                      for a in fn(sr, n_fft, n_mels))
     return _device_tensors[key]

@@ -15,6 +15,7 @@ import torch
 
 from .. import constants as C
 from ..config import ModelConfig
+from ..data.ted_db import PackedDataset
 from ..device import resolve_device
 from ..models.discriminator import AffDiscriminator, ConvDiscriminator
 from ..models.generator import PoseGeneratorTriModal, make_pose_generator
@@ -77,6 +78,22 @@ def synthetic_batch(rng: np.random.Generator, batch_size: int,
             (batch_size, cfg.num_mfcc_combined, cfg.mfcc_length)).astype(np.float32),
         "vid_indices": rng.integers(0, n_speakers, (batch_size,)).astype(np.int64),
     }
+
+
+def synthetic_packed(rng: np.random.Generator, n: int, cfg: ModelConfig,
+                     n_words: int = 1000, n_speakers: int = 100) -> PackedDataset:
+    """A packed split of n random rows in the cache's dtypes (int16 audio
+    with its per-row max, float16 MFCC; processor_v2.py:278-283), for smoke
+    runs and timing of the device loader."""
+    t = cfg.n_poses
+    return PackedDataset(
+        extended_word_seq=rng.integers(0, n_words, (n, t)),
+        vec_seq=(rng.standard_normal((n, t, C.POSE_DIM)) * 0.1).astype(np.float32),
+        audio=rng.integers(-32767, 32768, (n, cfg.expected_audio_length)).astype(np.int16),
+        audio_max=rng.uniform(0.05, 0.5, n),
+        mfcc_features=rng.standard_normal(
+            (n, cfg.num_mfcc_combined, cfg.mfcc_length)).astype(np.float16),
+        vid_indices=rng.integers(0, n_speakers, n))
 
 
 def cast_floats(x, src: torch.dtype, dst: torch.dtype):

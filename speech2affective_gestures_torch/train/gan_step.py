@@ -56,8 +56,13 @@ Two options change how the train step calls its nets (JAX
   instead of keeping its activations ("full"), or keeps only the outputs
   of the products without a batch dim, `mm` and `addmm`, and reruns the
   rest ("dots", JAX's `dots_with_no_batch_dims_saveable`). It changes no
-  value: the rerun draws the same masks and noise and leaves the running
-  stats as the forward left them.
+  value: the rerun sees the forward's masks and noise and leaves the
+  running stats as the forward left them.
+
+The step runs inside a CUDA graph capture (`train.step_program`) once
+`GanStep.make_capturable` has put both Adams' update counts, and with
+decay their learning rates, on the device; a checkpoint keeps Adam's
+state in the reference's host form (`reference_optimizer_state`).
 """
 
 from __future__ import annotations
@@ -155,9 +160,36 @@ def scheduled_lr(base_lr: float, cfg: GanConfig, count: int) -> float:
 def update_count(opt: torch.optim.Optimizer) -> int:
     """The updates `opt` has made: Adam's `step`, which its state dict
     (and so the checkpoint) carries, the same in every parameter's state
-    (a host tensor, so reading it does not sync the device)."""
+    (a host tensor, so reading it does not sync the device, unless the
+    optimizer is capturable)."""
     state = next(iter(opt.state.values()), {})
     return int(state.get("step", 0))
+
+
+def _step_tensor(opt: torch.optim.Optimizer) -> torch.Tensor:
+    """The update count of a capturable optimizer: Adam's `step` on the
+    device (`GanStep.make_capturable` made every parameter's state)."""
+    return next(iter(opt.state.values()))["step"]
+
+
+def scheduled_lr_tensor(base_lr: float, cfg: GanConfig, count: torch.Tensor) -> torch.Tensor:
+    """`scheduled_lr` at a device count (float32), computed on the device
+    in float64 as the host computes it: no host sync, so it runs inside a
+    CUDA graph, where the decay may cross an epoch boundary in the middle
+    of a program."""
+    epochs = torch.div(count.double(), cfg.decay_steps_per_epoch, rounding_mode="floor")
+    return base_lr * torch.pow(cfg.lr_decay, epochs)
+
+
+def reference_optimizer_state(opt: torch.optim.Optimizer) -> dict:
+    """`opt`'s state dict as the reference's non-capturable Adam writes it:
+    `step` a float32 host tensor, each group's `lr` a float and
+    `capturable` off, whether or not `opt` was made capturable."""
+    sd = opt.state_dict()
+    state = {i: {k: v.detach().to("cpu", torch.float32) if k == "step" else v
+                 for k, v in s.items()} for i, s in sd["state"].items()}
+    groups = [{**g, "lr": float(g["lr"]), "capturable": False} for g in sd["param_groups"]]
+    return {"state": state, "param_groups": groups}
 
 
 def clip_by_global_norm_(params, max_norm: float) -> torch.Tensor:
@@ -215,36 +247,31 @@ def _batch_norm_stats(module: torch.nn.Module) -> list[torch.Tensor]:
 
 def _replay_contexts(generator: torch.Generator, module: torch.nn.Module, mode: str):
     """`checkpoint`'s context_fn for one call of `module`: the forward's
-    context notes `generator`'s state; the recompute's sets it back to
-    that state, so that the rerun draws the forward's dropout masks and
-    noise, and afterwards puts back the generator's state and `module`'s
-    BatchNorm running stats as it found them, so that the step's draws go
-    on where they were and each running stat is updated once a forward.
-    Under "dots" the selective checkpoint's pair runs inside them."""
-    seen = {}
-
-    @contextlib.contextmanager
-    def forward():
-        seen["state"] = generator.get_state()
-        yield
+    context records the dropout masks and noise it draws from `generator`
+    (`layers.DrawTape`); the recompute's replays them, so that the rerun
+    sees the forward's draws and the generator is not drawn from again,
+    and afterwards puts back `module`'s BatchNorm running stats as it
+    found them, so that each running stat is updated once a forward.
+    Neither touches the generator's state on the host, so the pair also
+    runs inside a CUDA graph capture. Under "dots" the selective
+    checkpoint's pair runs inside them."""
+    tape = L.DrawTape(generator)
 
     @contextlib.contextmanager
     def recompute():
-        state = generator.get_state()
         stats = [(b, b.clone()) for b in _batch_norm_stats(module)]
-        generator.set_state(seen["state"])
         try:
-            yield
+            with tape.replaying():
+                yield
         finally:
-            generator.set_state(state)
             for b, old in stats:
                 b.copy_(old)
 
     if mode == "full":
-        return forward(), recompute()
+        return tape.recording(), recompute()
     sac_forward, sac_recompute = checkpoint.create_selective_checkpoint_contexts(
         list(DOTS_SAVED))
-    return _stacked(forward(), sac_forward), _stacked(recompute(), sac_recompute)
+    return _stacked(tape.recording(), sac_forward), _stacked(recompute(), sac_recompute)
 
 
 @contextlib.contextmanager
@@ -260,10 +287,11 @@ def rematerialize(fn, mode: str, generator: torch.Generator, module: torch.nn.Mo
     keeps nothing of it for the backward, which reruns it; "dots" keeps
     the outputs of `DOTS_SAVED` and reruns the rest (a selective
     checkpoint). The rerun sees the forward's draws and leaves no trace
-    (`_replay_contexts`); the global RNG is not drawn from on these paths,
-    and the checkpoint restores it as well."""
+    (`_replay_contexts`). The global RNG is not drawn from on these paths,
+    so the checkpoint does not save it (reading a CUDA generator's state is
+    not allowed inside a graph capture)."""
     return checkpoint.checkpoint(
-        fn, *args, use_reentrant=False,
+        fn, *args, use_reentrant=False, preserve_rng_state=False,
         context_fn=functools.partial(_replay_contexts, generator, module, mode))
 
 
@@ -321,13 +349,57 @@ class GanStep:
 
     def sync_lr(self, who: str | None = None):
         """Set the learning rate of net `who`'s optimizer (both without
-        `who`) to its schedule's at its update count."""
+        `who`) to its schedule's at its update count: on the device, from
+        the device count, where `make_capturable` made the rate a tensor."""
         for w in ((who,) if who else ("gen", "dis")):
             opt = getattr(self, f"{w}_opt")
             base = self.cfg.learning_rate if w == "gen" else self.cfg.lr_dis
-            lr = scheduled_lr(base, self.cfg, update_count(opt))
             for group in opt.param_groups:
-                group["lr"] = lr
+                if isinstance(group["lr"], torch.Tensor):
+                    group["lr"].copy_(scheduled_lr_tensor(base, self.cfg, _step_tensor(opt)))
+                else:
+                    group["lr"] = scheduled_lr(base, self.cfg, update_count(opt))
+
+    def make_capturable(self):
+        """Both Adams as a CUDA graph can capture them (`capturable`): the
+        update count on the device, every state made now (zero moments,
+        count 0, as Adam makes them at a first update) so that none is
+        made inside a capture, and with decay the learning rate a device
+        tensor that `sync_lr` sets from the device count. The arithmetic
+        of a capturable update differs from the host one's by rounding.
+        `reference_optimizer_state` writes the state back in the host
+        form; `load_optimizer_states` reads it into the host form again."""
+        for who in ("gen", "dis"):
+            opt = getattr(self, f"{who}_opt")
+            for group in opt.param_groups:
+                group["capturable"] = True
+                for p in group["params"]:
+                    if not p.requires_grad:
+                        continue
+                    state = opt.state[p]
+                    if not state:
+                        state["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+                        state["exp_avg_sq"] = torch.zeros_like(
+                            p, memory_format=torch.preserve_format)
+                        state["step"] = torch.zeros((), dtype=torch.float32, device=p.device)
+                    else:
+                        state["step"] = state["step"].to(p.device, torch.float32)
+                if self.cfg.decays and not isinstance(group["lr"], torch.Tensor):
+                    group["lr"] = torch.tensor(group["lr"], dtype=torch.float32,
+                                               device=group["params"][0].device)
+        if self.cfg.decays:
+            self.sync_lr()
+
+    def load_optimizer_states(self, gen_state: dict, dis_state: dict):
+        """Both Adams from state dicts in the reference's form (a
+        checkpoint's), non-capturable, their counts on the host, and their
+        learning rates the schedule's at those counts."""
+        for opt, sd in ((self.gen_opt, gen_state), (self.dis_opt, dis_state)):
+            opt.load_state_dict(sd)
+            for state in opt.state.values():
+                if "step" in state:
+                    state["step"] = state["step"].to("cpu", torch.float32)
+        self.sync_lr()
 
     def _train_fn(self, module: torch.nn.Module):
         """The train step's call of `module`."""

@@ -4,12 +4,20 @@ gated by `epoch > loss_warmup`, validation, checkpoints named
 `epoch_{:06d}_loss_{:.4f}_model.pth.tar`, and the test-split evaluation
 (`generate_gestures`: L1, joint MAE, acceleration difference and FGD).
 
+The train split lives on the trainer's device (`ted_db.DeviceDataset`,
+the JAX trainer's default `loader="device"`): the host draws each step's
+rows and adversarial speakers, and the batch is gathered on the device.
+An epoch runs one step at a time, or, with `steps_per_program` K > 1, as
+programs of K steps (`train.step_program`: one CUDA graph a program on the
+card), the JAX trainer's scanned epoch; `epoch_engine` says which.
+
 A checkpoint is the reference's save blob (`gen_model_dict`,
 `dis_model_dict`, keys prefixed `module.` as its DataParallel wrapper
-writes them) plus both Adam states, so the reference loads the weights and
-this trainer resumes from them (epoch-granular: the RNG state is not
-saved). The best-checkpoint choice takes the minimum positive loss, as the
-JAX package's does.
+writes them) plus both Adam states, in the form the reference's Adam
+writes whichever engine trained them, so the reference loads the weights
+and this trainer resumes from them with either engine (epoch-granular:
+the RNG state is not saved). The best-checkpoint choice takes the minimum
+positive loss, as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -24,17 +32,31 @@ import torch
 
 from ..config import ModelConfig
 from ..convert.from_jax import strip_module_prefix
-from ..data.ted_db import BatchSampler, PackedDataset, decode_rows
+from ..data.ted_db import (BatchSampler, DeviceBatchSampler, DeviceDataset, PackedDataset,
+                           decode_rows)
 from . import builder
 from .evaluator import EmbeddingSpaceEvaluator, push_sample_metrics
+from .gan_step import reference_optimizer_state
 from .logger import TrainLogger
 from .losses import AverageMeter
+from .step_program import StepProgram
 
 # the best checkpoint is looked for only after this many epochs
 # (ref processor_v2.py, min_train_epochs)
 MIN_TRAIN_EPOCHS = 20
 
 _CKPT_RE = re.compile(r"epoch_(\d+)_loss_(-?[\d.]+|nan|-?inf)_model\.pth\.tar$")
+
+
+def check_loader(loader: str) -> None:
+    """Raise for a loader this port does not have: "device" is the only
+    one; "grain" is not ported yet, another name is unknown (as JAX's
+    trainer.py:108)."""
+    if loader == "grain":
+        raise NotImplementedError("loader 'grain': not ported yet (ROADMAP.md, queue 1, "
+                                  "item 1.4)")
+    if loader != "device":
+        raise ValueError(f"unknown loader {loader!r} (device|grain)")
 
 
 def parse_checkpoint_name(name: str):
@@ -76,7 +98,11 @@ class Trainer:
     checkpoint trained on the train split and served with the test split
     alone carries the train split's count. `fused_pass` and `remat` (none,
     full or dots) set how the train step calls its nets (`GanConfig`; JAX
-    trainer.py:112-113)."""
+    trainer.py:112-113). `loader` is "device" (the split on the device);
+    "grain" is not ported yet. `steps_per_program` K > 1 runs the epoch K
+    steps a program where it can (`_use_scanned_epoch`); where it cannot,
+    `epoch_engine_fallback` says why and K drops to 1, as in JAX
+    (trainer.py:244-270)."""
 
     def __init__(self, cfg: ModelConfig, work_dir: str,
                  train_data: PackedDataset | None = None,
@@ -91,7 +117,9 @@ class Trainer:
                  evaluator: EmbeddingSpaceEvaluator | None = None,
                  mixed_precision: bool = False, gradient_clip: float = 0.0,
                  lr_decay: float = 1.0, n_speakers: int | None = None,
-                 fused_pass: bool = False, remat: str = "none"):
+                 fused_pass: bool = False, remat: str = "none", loader: str = "device",
+                 steps_per_program: int = 1):
+        check_loader(loader)
         self.cfg = cfg
         self.variant = variant
         self.work_dir = work_dir
@@ -109,6 +137,7 @@ class Trainer:
         # are the same for any lag
         self.metrics_lag = max(0, metrics_lag)
         self.log_interval = log_interval
+        self.steps_per_program = max(1, steps_per_program)
 
         ref = train_data or val_data or test_data
         n_words = ref.lang_model.n_words if ref and ref.lang_model else 1000
@@ -144,21 +173,56 @@ class Trainer:
         self.best_loss = np.inf
         self.best_loss_epoch = 0
         self.epoch = 0
+        # the train split on the device, and the K-step program over it
+        # (made at the first scanned epoch, dropped when a checkpoint loads)
+        self._device_train = (DeviceDataset(train_data, self.device)
+                              if train_data is not None else None)
+        self._program: StepProgram | None = None
+        self.epoch_engine_fallback: str | None = None
+        if (self.steps_per_program > 1 and train_data is not None
+                and not self._use_scanned_epoch()):
+            self.epoch_engine_fallback = (
+                f"steps_per_program={self.steps_per_program} requested but the scanned "
+                "epoch needs trimodal_metric_interval=1; fell back to the per-step loop")
+            self.logger.print_log(f"Warning: {self.epoch_engine_fallback}")
+            self.steps_per_program = 1
 
     # ------------------------------------------------------------- epochs
+    @property
+    def epoch_engine(self) -> str:
+        """The epoch loop that runs: "scanned" (K steps a program) or
+        "per_step"."""
+        return "scanned" if self._use_scanned_epoch() else "per_step"
+
+    def _use_scanned_epoch(self) -> bool:
+        """K steps a program need K > 1, a train split (the program
+        gathers its batches from the resident one) and the trimodal
+        comparison on every step (the body's gate is fixed), as JAX's
+        (trainer.py:317-336, less its loader condition, since the device
+        loader is the only one, and its mesh condition: multi-GPU training
+        is ROADMAP.md item 5)."""
+        return (self.steps_per_program > 1 and self._device_train is not None
+                and self.trimodal_metric_interval == 1)
+
     def _batch(self, batch: dict) -> dict:
         return builder.to_device(batch, self.device)
 
-    def per_train_epoch(self) -> float:
+    def _step_program(self) -> StepProgram:
+        if self._program is None:
+            self._program = StepProgram(self.step, self._device_train, self.generator)
+        return self._program
+
+    def per_train_epoch(self, max_iters: int | None = None) -> float:
+        """One epoch of ceil(n / B) steps (the first `max_iters` of them
+        when given), per step or K steps a program; every `log_interval`-th
+        step's metrics logged, the epoch's mean returned."""
         gan_on = self.epoch > self.gan_cfg.loss_warmup
         tri_every = self.trimodal_metric_interval
         total, n, total_l1, n_l1 = 0.0, 0, 0.0, 0
         start = time.time()
 
-        def consume(i, metrics):
+        def consume(i, values: dict[str, float]):
             nonlocal total, n, total_l1, n_l1
-            # one device->host copy for all of the step's metrics
-            values = dict(zip(metrics, torch.stack(list(metrics.values())).tolist()))
             # halt on a non-finite loss instead of training on garbage
             if not np.isfinite(values["s2ag_l1"]):
                 raise FloatingPointError(
@@ -172,24 +236,77 @@ class Trainer:
                 line = " | ".join(f"{k}: {v:.4f}" for k, v in values.items())
                 self.logger.print_log(f"\tIter {i} Done. | {line}")
 
-        pending: deque = deque()
-        sampler = BatchSampler(self.train_data, self.cfg.batch_size,
-                               seed=self.epoch * 7919 + 1)
-        for i, batch in enumerate(sampler):
-            metrics = self.step.train_step(
-                self._batch(batch), self.generator, gan_on=gan_on,
-                tri_metric=(tri_every == 1 or i % tri_every == 0))
-            pending.append((i, metrics))
-            if len(pending) > self.metrics_lag:
-                consume(*pending.popleft())
-        while pending:
-            consume(*pending.popleft())
+        if self._use_scanned_epoch():
+            self._run_scanned_epoch(gan_on, consume, max_iters)
+        else:
+            def read(i, metrics):
+                # one device->host copy for all of the step's metrics
+                consume(i, dict(zip(metrics, torch.stack(list(metrics.values())).tolist())))
+
+            pending: deque = deque()
+            sampler = DeviceBatchSampler(self.train_data, self.cfg.batch_size,
+                                         seed=self.epoch * 7919 + 1,
+                                         device_dataset=self._device_train)
+            for i, batch in enumerate(sampler):
+                if max_iters is not None and i >= max_iters:
+                    break
+                metrics = self.step.train_step(
+                    batch, self.generator, gan_on=gan_on,
+                    tri_metric=(tri_every == 1 or i % tri_every == 0))
+                pending.append((i, metrics))
+                if len(pending) > self.metrics_lag:
+                    read(*pending.popleft())
+            while pending:
+                read(*pending.popleft())
         if n == 0:  # no comparator this epoch
             total, n = total_l1, n_l1
         self.logger.print_log(
             f"epoch {self.epoch} train: mean_s2ag_loss {total / max(n, 1):.4f} "
-            f"({time.time() - start:.1f}s, {n_l1} iters)")
+            f"({time.time() - start:.1f}s, {n_l1} iters, engine {self.epoch_engine})")
         return total / max(n, 1)
+
+    def _run_scanned_epoch(self, gan_on: bool, consume, max_iters: int | None):
+        """The epoch as programs of K steps (JAX trainer.py:396-464): the
+        host draws each step's rows, then its adversarial speakers, in the
+        per-step loop's order from its sampler, K steps at a time; each
+        program's metrics are read `metrics_lag` steps later (at lag 0 at
+        once; otherwise the newest program stays pending while the older
+        ones are read), and `consume`d step by step, so the logged lines
+        and the finite check are the per-step loop's, the check naming the
+        step."""
+        bs = self.cfg.batch_size
+        sampler = BatchSampler(self.train_data, bs, seed=self.epoch * 7919 + 1)
+        steps = sampler.pseudo_passes()
+        if max_iters is not None:
+            steps = min(steps, max_iters)
+        program = self._step_program()
+        pending: deque = deque()   # (first step, K, metric names, (K, n) metrics)
+        pend_steps = 0
+
+        def drain(keep: int = 0):
+            nonlocal pend_steps
+            items = [pending.popleft() for _ in range(len(pending) - keep)]
+            pend_steps = sum(k for _, k, _, _ in pending)
+            for first, k, keys, values in items:
+                for j, row in enumerate(values.tolist()):
+                    consume(first + j, dict(zip(keys, row)))
+
+        done = 0
+        while done < steps:
+            k = min(self.steps_per_program, steps - done)
+            idx = np.empty((k, bs), np.int64)
+            adv = np.empty((k, bs), np.int64)
+            for j in range(k):
+                idx[j], adv[j] = sampler.draw()
+            keys, values = program.run(idx, adv, gan_on)
+            pending.append((done, k, keys, values))
+            pend_steps += k
+            done += k
+            if self.metrics_lag == 0:
+                drain()
+            elif len(pending) > 1 and pend_steps - k > self.metrics_lag:
+                drain(keep=1)
+        drain()
 
     def per_val_epoch(self) -> float:
         sampler = BatchSampler(self.val_data, self.cfg.batch_size, seed=999)
@@ -226,8 +343,8 @@ class Trainer:
         torch.save({
             "gen_model_dict": {f"module.{k}": v for k, v in self.gen.state_dict().items()},
             "dis_model_dict": {f"module.{k}": v for k, v in self.dis.state_dict().items()},
-            "gen_optimizer_dict": self.step.gen_opt.state_dict(),
-            "dis_optimizer_dict": self.step.dis_opt.state_dict(),
+            "gen_optimizer_dict": reference_optimizer_state(self.step.gen_opt),
+            "dis_optimizer_dict": reference_optimizer_state(self.step.dis_opt),
         }, path)
         self.logger.print_log(f"saved checkpoint {path}")
         return path
@@ -245,9 +362,12 @@ class Trainer:
                           weights_only=True)
         self.gen.load_state_dict(strip_module_prefix(blob["gen_model_dict"]), strict=True)
         self.dis.load_state_dict(strip_module_prefix(blob["dis_model_dict"]), strict=True)
-        self.step.gen_opt.load_state_dict(blob["gen_optimizer_dict"])
-        self.step.dis_opt.load_state_dict(blob["dis_optimizer_dict"])
-        self.step.sync_lr()  # the schedule's rate at the restored update counts
+        # the schedule's rate at the restored update counts; a K-step
+        # program captured the old states, so the next scanned epoch makes
+        # a new one
+        self.step.load_optimizer_states(blob["gen_optimizer_dict"],
+                                        blob["dis_optimizer_dict"])
+        self._program = None
         self.epoch = ckpt_epoch
         self.best_loss, self.best_loss_epoch = loss, ckpt_epoch
         self.logger.print_log(f"restored {name}")

@@ -706,3 +706,276 @@ def test_gru_kernels_at_the_fused_batch(cuda, dtype, H, cin):
     assert torch.equal(dw, again[0]) and torch.equal(db, again[1])
     assert torch.equal(ys, gru_cuda.gru_layer_forward(xp, w_hh, b_ih, b_hh)[0])
     assert torch.equal(dxp, dxp2) and torch.equal(gn, gn2)
+
+
+def _program_run(cuda, options: dict, capture: bool):
+    """Three train steps at a small width (hidden 32, one GRU layer, batch
+    8, dropout 0.3 and the speaker noise drawn from the step's generator)
+    as a program of two and one of one (`StepProgram`), captured into CUDA
+    graphs or run eagerly on the card, from the same weights, rows and
+    generator seed: (metrics of each program, the step, the generator's
+    state, the program)."""
+    import dataclasses
+
+    from speech2affective_gestures_torch.config import ModelConfig
+    from speech2affective_gestures_torch.data.ted_db import DeviceDataset
+    from speech2affective_gestures_torch.train import builder
+    from speech2affective_gestures_torch.train.step_program import StepProgram
+
+    cfg = ModelConfig.from_yaml("config/multimodal_context_v2.yml", hidden_size=32,
+                                hidden_size_s2eg=32, n_layers=1, wordembed_dim=16,
+                                batch_size=8, loss_warmup=-1)
+    mixed = options.pop("mixed", False)
+    setup = builder.init_training(cfg, 0, 50, 6, device=cuda, mixed_precision=mixed)
+    step = setup["step"]
+    step.cfg = dataclasses.replace(step.cfg, **options)
+    rng = np.random.default_rng(3)
+    data = DeviceDataset(builder.synthetic_packed(rng, 40, cfg, 50, 6), cuda)
+    g = torch.Generator(device=cuda).manual_seed(8)
+    program = StepProgram(step, data, g, capture=capture)
+    out = []
+    for k in (2, 1):
+        keys, values = program.run(rng.integers(0, 40, (k, 8)), rng.integers(0, 6, (k, 8)),
+                                   gan_on=True)
+        out.append(dict(zip(keys, values.T)))
+    torch.cuda.synchronize()
+    return out, step, g.get_state(), program
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("options", [
+    {"lr_decay": 0.5, "decay_steps_per_epoch": 1}, {"mixed": True}, {"fused_pass": True},
+    {"remat": "full"}, {"remat": "dots", "gradient_clip": 0.1}],
+    ids=["decay", "mixed", "fused", "remat_full", "remat_dots_clipped"])
+def test_step_program_graph_equals_eager_steps(cuda, options):
+    """The K-step program captured into CUDA graphs (K 2, then the partial
+    program of 1) against the same body run eagerly on the card, under
+    `cudnn.deterministic`: the metrics, both nets' parameters and buffers
+    (BatchNorm statistics), both Adam states (moments, device counts and,
+    with decay, the learning rates, which halve at every update here, so
+    inside the program), the generator's state and the step count, bit for
+    bit. The GRU kernels' launches: the warm-up's plus each graph's per
+    replay."""
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        gru_cuda.launches.clear()
+        graph = _program_run(cuda, dict(options), capture=True)
+        counted = gru_cuda.launches.copy()
+        eager = _program_run(cuda, dict(options), capture=False)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    (got, step, state, program), (want, ref, ref_state, _) = graph, eager
+    for g, w in zip(got, want):
+        assert g.keys() == w.keys()
+        for k in w:
+            assert torch.equal(g[k], w[k]), (k, g[k], w[k])
+    for who in ("gen", "dis"):
+        for (name, v), w in zip(getattr(step, who).state_dict().items(),
+                                getattr(ref, who).state_dict().values()):
+            assert torch.equal(v, w), (who, name)
+        opt, ref_opt = getattr(step, f"{who}_opt"), getattr(ref, f"{who}_opt")
+        for p, q in zip(getattr(step, who).parameters(), getattr(ref, who).parameters()):
+            for k in ref_opt.state[q]:
+                assert torch.equal(opt.state[p][k], ref_opt.state[q][k]), (who, k)
+        for a, b in zip(opt.param_groups, ref_opt.param_groups):
+            assert torch.equal(torch.as_tensor(a["lr"]), torch.as_tensor(b["lr"])), who
+    assert torch.equal(state, ref_state) and step.step == ref.step == 3
+    record = program.launch_record()
+    assert sorted(record) == [(1, True), (2, True)]
+    dtype = "bfloat16" if options.get("mixed") else "float32"
+    for kernel in ("gru_fwd", "gru_bwd", "gru_dw"):
+        per_replay = {key: n[(kernel, dtype)] for key, (n, _) in record.items()}
+        assert per_replay[(2, True)] == 2 * per_replay[(1, True)] > 0, (kernel, per_replay)
+        assert counted[(kernel, dtype)] == program.warmup_launches[(kernel, dtype)] + sum(
+            n[(kernel, dtype)] * replays for n, replays in record.values()), kernel
+
+
+def _small_config(**kw):
+    from speech2affective_gestures_torch.config import ModelConfig
+
+    return ModelConfig.from_yaml("config/multimodal_context_v2.yml", hidden_size=32,
+                                 hidden_size_s2eg=32, n_layers=1, wordembed_dim=16,
+                                 batch_size=8, loss_warmup=-1, **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lr_decay,steps_per_epoch", [(0.5, 3), (0.97, 7), (0.999, 1)])
+def test_scheduled_lr_tensor_on_the_card(cuda, lr_decay, steps_per_epoch):
+    """A capturable trainer's learning rates on the card (`sync_lr` from
+    the device counts, `scheduled_lr_tensor`) against the host schedule
+    (`scheduled_lr`) at every count across the decay's epoch boundaries:
+    the float64 rate within one double rounding (the device's `pow`), the
+    float32 rate the optimizer holds the same bits as the host rate's."""
+    import dataclasses
+
+    from speech2affective_gestures_torch.train import builder, gan_step
+
+    step = builder.init_training(_small_config(), 0, 50, 6, device=cuda)["step"]
+    step.cfg = dataclasses.replace(step.cfg, lr_decay=lr_decay,
+                                   decay_steps_per_epoch=steps_per_epoch)
+    step.make_capturable()
+    for count in range(4 * steps_per_epoch + 3):
+        for w, base in (("gen", step.cfg.learning_rate), ("dis", step.cfg.lr_dis)):
+            opt = getattr(step, f"{w}_opt")
+            for state in opt.state.values():
+                state["step"].fill_(count)
+            step.sync_lr(w)
+            want = gan_step.scheduled_lr(base, step.cfg, count)
+            got = gan_step.scheduled_lr_tensor(
+                base, step.cfg, torch.tensor(float(count), device=cuda))
+            assert abs(got.item() - want) <= 2.0 ** -52 * want, (w, count, got.item(), want)
+            assert all(g["lr"].item() == np.float32(want) for g in opt.param_groups), (w, count)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("options", [
+    {}, {"lr_decay": 0.5, "decay_steps_per_epoch": 2},
+    {"lr_decay": 0.9, "decay_steps_per_epoch": 3, "gradient_clip": 0.1}],
+    ids=["constant", "decay", "decay_clipped"])
+def test_capturable_adam_update_equals_host_adam(cuda, options):
+    """Both nets' Adam updates (`GanStep._update`: clipping, the update,
+    the next rate) of a capturable trainer, captured into one CUDA graph
+    and replayed, against the host Adam of the same trainer (PyTorch's
+    non-capturable Adam, its rate `scheduled_lr` on the host), over 7
+    updates from the same weights with the same random gradients (the
+    first update run eagerly, the capture's warm-up): after every update
+    the moments the same bits (the same ops on the same gradients), the
+    counts equal, the float32 rate the host rate's, and every parameter
+    within n updates x (2^-22 of its tensor's largest value + 2e-5 of the
+    base rate): the two compute the bias corrections and the step in
+    another order (float32 on the device against float64 scalars), a
+    few roundings of an update, and each update's result may round to
+    the next float32. A wrong bias correction or a rate off by one
+    decay step moves a parameter by about a rate."""
+    import dataclasses
+
+    from speech2affective_gestures_torch.train import builder, gan_step
+
+    steps = []
+    for _ in range(2):
+        step = builder.init_training(_small_config(), 0, 50, 6, device=cuda)["step"]
+        step.cfg = dataclasses.replace(step.cfg, **options)
+        steps.append(step)
+    cap, host = steps
+    cap.make_capturable()
+    params = {w: [[p for p in getattr(s, w).parameters() if p.requires_grad] for s in steps]
+              for w in ("gen", "dis")}
+    for w in params:
+        for p, q in zip(*params[w]):
+            assert torch.equal(p, q)
+            p.grad, q.grad = torch.empty_like(p), torch.empty_like(q)
+    rng = torch.Generator(device=cuda).manual_seed(5)
+
+    def fill():
+        for w in params:
+            for p, q in zip(*params[w]):
+                p.grad.normal_(generator=rng)
+                q.grad.copy_(p.grad)
+
+    def update(s):
+        s._update("gen")
+        s._update("dis")
+
+    graph = None
+    for n in range(1, 8):
+        fill()
+        if graph is None:
+            update(cap)
+            torch.cuda.synchronize()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                update(cap)
+        else:
+            graph.replay()
+        update(host)
+        torch.cuda.synchronize()
+        for w, base in (("gen", cap.cfg.learning_rate), ("dis", cap.cfg.lr_dis)):
+            opt, ref = getattr(cap, f"{w}_opt"), getattr(host, f"{w}_opt")
+            for p, q in zip(*params[w]):
+                for k in ("exp_avg", "exp_avg_sq"):
+                    assert torch.equal(opt.state[p][k], ref.state[q][k]), (n, w, k)
+                assert opt.state[p]["step"].item() == ref.state[q]["step"].item() == n
+                tol = n * (2.0 ** -22 * q.abs().max().item() + 2e-5 * base)
+                assert (p - q).abs().max().item() <= tol, (n, w, (p - q).abs().max().item(), tol)
+            want = gan_step.scheduled_lr(base, cap.cfg, n)
+            for g, h in zip(opt.param_groups, ref.param_groups):
+                assert h["lr"] == want
+                assert float(g["lr"]) == np.float32(want), (n, w)
+
+
+@pytest.mark.gpu
+def test_checkpoint_from_a_capturable_trainer_on_the_card(cuda, tmp_path):
+    """A trainer that ran a scanned epoch on the card (K 2 over 3 steps:
+    CUDA graphs, capturable Adams, the rate halving every update) saves a
+    checkpoint in the reference's host Adam form (counts float32 on the
+    host, rates floats, `capturable` off); it loads into a per-step
+    trainer on the card, into one on the CPU and into a scanned trainer
+    on the card with the same weights, statistics, moments and counts
+    (the same bits) and the host schedule's rate (the graph's float32 rate
+    rounded from it); the loaded scanned trainer's next epoch equals the
+    writer's next epoch, bit for bit, under `cudnn.deterministic`."""
+    import dataclasses
+
+    from speech2affective_gestures_torch.data import ted_db
+    from speech2affective_gestures_torch.train import gan_step
+    from speech2affective_gestures_torch.train.trainer import Trainer
+
+    cfg = _small_config()
+    ds = ted_db.build_dataset_from_videos(ted_db.make_synthetic_videos(2, 12.0), cfg)
+
+    def trainer(device, spp):
+        t = Trainer(cfg, str(tmp_path), train_data=ds, device=device, seed=3,
+                    steps_per_program=spp, lr_decay=0.5, log_interval=1)
+        t.step.cfg = t.gan_cfg = dataclasses.replace(t.gan_cfg, decay_steps_per_epoch=1)
+        return t
+
+    def nets(t):
+        return {f"{w} {k}": v.cpu() for w in ("gen", "dis", "tri")
+                for k, v in getattr(t, w).state_dict().items()}
+
+    def adam(t):
+        return {f"{w} {i} {k}": v.cpu() for w in ("gen", "dis")
+                for i, s in enumerate(getattr(t.step, f"{w}_opt").state.values())
+                for k, v in s.items()}
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        a = trainer(cuda, 2)
+        a.per_train_epoch(max_iters=3)
+        assert a.epoch_engine == "scanned" and sorted(a._program.graphs) == [(1, True),
+                                                                             (2, True)]
+        blob = torch.load(a.save_checkpoint(0.5), weights_only=True)
+        for key in ("gen_optimizer_dict", "dis_optimizer_dict"):
+            assert all(g["capturable"] is False and isinstance(g["lr"], float)
+                       for g in blob[key]["param_groups"])
+            assert all(s["step"].device.type == "cpu" and s["step"].dtype == torch.float32
+                       for s in blob[key]["state"].values())
+        loaded = {}
+        for name, device, spp in (("per step", cuda, 1), ("CPU", "cpu", 1),
+                                  ("scanned", cuda, 2)):
+            b = loaded[name] = trainer(device, spp)
+            assert b.load_checkpoint(0)
+            for got, want in ((nets(b), nets(a)), (adam(b), adam(a))):
+                assert got.keys() == want.keys()
+                diff = [k for k in want if not torch.equal(got[k], want[k])]
+                assert not diff, (name, diff[:8])
+            for w, base in (("gen", a.gan_cfg.learning_rate), ("dis", a.gan_cfg.lr_dis)):
+                want = gan_step.scheduled_lr(base, a.gan_cfg, 3)
+                for g, ga in zip(getattr(b.step, f"{w}_opt").param_groups,
+                                 getattr(a.step, f"{w}_opt").param_groups):
+                    assert g["lr"] == want and float(ga["lr"]) == np.float32(want), (name, w)
+        b = loaded["scanned"]
+        b.generator.set_state(a.generator.get_state())
+        b.step.step = a.step.step
+        for t in (a, b):
+            t.epoch = 1
+            t.per_train_epoch(max_iters=3)
+        torch.cuda.synchronize()
+        for got, want in ((nets(b), nets(a)), (adam(b), adam(a))):
+            diff = [k for k in want if not torch.equal(got[k], want[k])]
+            assert not diff, diff[:8]
+        assert torch.equal(b.generator.get_state(), a.generator.get_state())
+    finally:
+        torch.backends.cudnn.deterministic = deterministic

@@ -609,10 +609,37 @@ def test_main_v2_trains_on_cpu_and_writes_a_checkpoint(tmp_path):
 
 @pytest.mark.parametrize("flag", [["--steps-per-program", "2"], ["--loader", "grain"]])
 def test_main_v2_rejects_unported_options(tmp_path, flag):
-    argv = ["-b", str(tmp_path), "-c", "config/multimodal_context_v2.yml",
-            "--device", "cpu", "--synthetic-data", "true"] + flag
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tmain.main(argv)
+    """The two options main_v2 once refused: `--loader grain` still raises
+    and names ROADMAP.md; `--steps-per-program 2` is ported and trains
+    (hidden 16, batch 4, the smallest corpus: one step, a partial program;
+    tests/test_torch_scanned_epoch.py runs whole ones), its log naming
+    the scanned engine, every loss finite."""
+    if flag[0] == "--loader":
+        argv = ["-b", str(tmp_path), "-c", "config/multimodal_context_v2.yml",
+                "--device", "cpu", "--synthetic-data", "true"] + flag
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            tmain.main(argv)
+        return
+    import yaml
+
+    raw = yaml.safe_load(open("config/multimodal_context_v2.yml"))
+    raw.update(hidden_size=HID, hidden_size_s2eg=HID, n_layers=1, wordembed_dim=EMB,
+               random_seed=3, loss_warmup=-1)
+    cfg_path = tmp_path / "cfg.yml"
+    cfg_path.write_text(yaml.safe_dump(raw))
+    trainer = tmain.main(["-b", str(tmp_path / "base"), "-c", str(cfg_path),
+                          "--synthetic-data", "true", "--device", "cpu", "--batch-size", "4",
+                          "--s2ag-num-epoch", "1", "--synthetic-videos", "2",
+                          "--synthetic-seconds", "4", "--log-interval", "1"] + flag)
+    assert trainer.epoch_engine == "scanned" and trainer.steps_per_program == 2
+    log = (tmp_path / "base/models/s2ag_v2_mfcc_torch/ted_db/log.txt").read_text()
+    assert "epoch engine: scanned (2 train steps a program" in log
+    [epoch] = [line for line in log.splitlines() if "epoch 0 train:" in line]
+    assert epoch.endswith("engine scanned)")
+    iters = [line.split("Done. | ")[1] for line in log.splitlines() if "Done. | " in line]
+    assert len(iters) == 1
+    values = [float(tok.split(": ")[1]) for line in iters for tok in line.split(" | ")]
+    assert np.isfinite(values).all()
 
 
 @pytest.mark.parametrize("route", ["archive", "lmdb"])
