@@ -128,7 +128,21 @@ toolkit. In order:
    precision, fused, remat full), with their distance from the per-step
    loop logged; the step's p50, launches, busy share and peak memory one
    step at a time and as graphs of K 1 and 4, float32 and mixed;
-15. timing: each kernel's time, its plain version's, a PyTorch library
+15. the streaming loader and resumed training (`grain_phase`): `main_v2
+   --loader grain --steps-per-program 2` at full width for 2 epochs (2
+   steps each from one stream), the counters set to 0 just before and
+   read just after (the float32 GRU forward, recurrence and dW must run),
+   every loss finite, the split off the card, the log naming loader grain,
+   the per-step engine and the fallback from K 2; under
+   `cudnn.deterministic`, a grain run cut in the middle of epoch 1, saved
+   and resumed by a trainer built with another seed, and device-loader
+   runs (per step and K 2) cut at an epoch's end and resumed so, each the
+   same bits as the uncut run; a grain batch decoded on the card against
+   `decode_rows` on the host, bit for bit; the step's p50 and busy share
+   fed by the device loader, by the stream with its rows made in the step
+   (the loader's way) and made ahead on a worker thread, launches alone
+   and beside such a thread, and the host's ms per batch;
+16. timing: each kernel's time, its plain version's, a PyTorch library
    call's that computes the same function, and the least time the card
    could take (bound), by CUDA events and by device time; the GRU
    backward (recurrence + dW) against cuDNN's recurrent backward; the L2
@@ -287,6 +301,10 @@ SCAN_PARITY = (("float32, LR decay", {"lr_decay": 0.5, "decay_steps_per_epoch": 
                ("remat full", {"remat": "full"}))
 SCAN_ROWS = 2048
 SCAN_K = 4
+# the streaming loader (`grain_phase`): main_v2's epochs with it, and the
+# steps and batches of its numbers
+GRAIN_EPOCHS = 2
+GRAIN_STEPS, GRAIN_DECODES = 6, 5
 # the capturable Adam against the host Adam on the same gradients: each
 # parameter within n updates x (CAP_ULPS of its tensor's largest value +
 # CAP_LR of the base rate)
@@ -3509,6 +3527,264 @@ def scanned_epoch_phase(device, work: pathlib.Path, embedding_net: pathlib.Path,
     return launches
 
 
+def _resume_trainer(device, data, work: pathlib.Path, seed: int, **kw):
+    """A full-width trainer at batch TRAIN_BATCH on `data`, the GAN terms on,
+    in `work`, its frozen TriModal from the work dir's
+    `trimodal_gen.pth.tar` (the first trainer's), as main_v2's
+    `--trimodal-checkpoint`: a checkpoint holds G and D alone."""
+    import torch
+    from speech2affective_gestures_torch.config import ModelConfig
+    from speech2affective_gestures_torch.train.trainer import Trainer
+
+    cfg = ModelConfig.from_yaml(CONFIG, loss_warmup=-1, batch_size=TRAIN_BATCH)
+    t = Trainer(cfg, str(work), train_data=data, device=device, seed=seed,
+                log_interval=10 ** 9, **kw)
+    tri = work / "trimodal_gen.pth.tar"
+    if not tri.exists():
+        torch.save({"trimodal_gen_dict": t.tri.state_dict()}, tri)
+    t.load_trimodal_torch_checkpoint(str(tri))
+    return t
+
+
+def _resume_check(label: str, a, b) -> None:
+    """The uncut trainer `a` and the resumed `b` after the same steps: the
+    same bits in both nets' parameters and buffers (BatchNorm statistics),
+    their Adam states, the step generator's state and the step count."""
+    diff = _step_differences(({}, a.step, a.generator.get_state()),
+                             ({}, b.step, b.generator.get_state()))
+    if a.step.step != b.step.step:
+        diff.append(f"the step count {a.step.step} != {b.step.step}")
+    if diff:
+        raise AssertionError(f"{label}: the resumed run differs from the uncut one: "
+                             f"{diff[:8]} ({len(diff)} in all)")
+    log(f"{label}: the resumed run equals the uncut one bit for bit after "
+        f"{a.step.step} steps (weights, BN statistics, Adam states, generator, count)")
+
+
+def grain_resume_checks(device, data, work: pathlib.Path) -> None:
+    """Resumed training on the card under `cudnn.deterministic` and
+    `torch.use_deterministic_algorithms` (warn only): `nn.Embedding`'s
+    backward on the card sums the rows of a repeated word id in no fixed
+    order unless asked, and the synthetic corpus's few words repeat
+    thousands of times a batch (without it, a resumed run differs from the
+    uncut one in the text encoder's embedding and its Adam moments alone).
+    Grain: a trainer runs epoch 0 and 1 step of epoch 1 (across the
+    stream's first epoch boundary at 1204 rows), saves, and finishes epoch
+    1; a trainer built with another seed loads the checkpoint (its
+    data-state file names the stream's next batch and seed) and finishes
+    epoch 1. The device loader, per step and as programs of SCAN_SPP: a
+    trainer runs epoch 0, saves, and runs 2 steps of epoch 1; another,
+    built with another seed, loads and runs the same 2 steps. Each pair
+    must hold the same bits."""
+    import torch
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        runs = (("grain mid-epoch", {"loader": "grain"}),
+                ("device loader per step", {"loader": "device"}),
+                (f"device loader K {SCAN_SPP}", {"loader": "device",
+                                                 "steps_per_program": SCAN_SPP}))
+        for label, kw in runs:
+            where = work / f"resume_{label.replace(' ', '_')}"
+            a = _resume_trainer(device, data, where, 5, **kw)
+            a.per_train_epoch()
+            if kw["loader"] == "grain":
+                a.epoch = 1
+                a.per_train_epoch(max_iters=1)
+                a.save_checkpoint(0.5)
+                a.per_train_epoch()
+                b = _resume_trainer(device, data, where, 6, **kw)
+                if not b.load_checkpoint("best") or b._iter_in_epoch != 1:
+                    raise AssertionError(f"{label}: resumed at iteration {b._iter_in_epoch}")
+                b.per_train_epoch()
+            else:
+                a.save_checkpoint(0.5)
+                a.epoch = 1
+                a.per_train_epoch(max_iters=2)
+                b = _resume_trainer(device, data, where, 6, **kw)
+                if not b.load_checkpoint(0):
+                    raise AssertionError(f"{label}: no checkpoint to resume from")
+                b.epoch = 1
+                b.per_train_epoch(max_iters=2)
+                if b.epoch_engine != a.epoch_engine:
+                    raise AssertionError(f"{label}: engines {a.epoch_engine}, {b.epoch_engine}")
+            _resume_check(label, a, b)
+            del a, b
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        torch.use_deterministic_algorithms(False)
+
+
+def grain_batch_check(loader) -> None:
+    """The stream's next batch, its rows decoded on the card
+    (`grain_loader.decode`), against `decode_rows` on the host on the same
+    rows: every array the same bits, the speakers the same."""
+    from speech2affective_gestures_torch.data.grain_loader import batch_rows
+    from speech2affective_gestures_torch.data.ted_db import decode_rows
+
+    t, ds = loader.next_batch, loader.ds
+    got = {k: v.cpu().numpy() for k, v in next(loader).items()}
+    want = decode_rows(ds, batch_rows(ds.n_samples, loader.batch_size, loader.seed, t))
+    want["vid_indices"] = loader.packed_batch(t, loader.seed)["vid_indices"].numpy()
+    bad = [k for k in want if got[k].dtype != want[k].dtype
+           or got[k].tobytes() != want[k].tobytes()]
+    if set(got) != set(want) or bad:
+        raise AssertionError(f"grain batch {t} decoded on the card differs from decode_rows: "
+                             f"{bad or sorted(set(got) ^ set(want))}")
+    log(f"grain batch {t} decoded on the card equals decode_rows on the host bit for bit "
+        f"({', '.join(sorted(want))})")
+
+
+def grain_numbers(trainer, smi: str) -> None:
+    """The train step at full width and batch TRAIN_BATCH fed three ways,
+    each step's batch fetched inside the timed step: by the device loader
+    (`DeviceDataset` gather from the host's draws), by the grain stream as
+    the trainer takes it (`next`: the rows gathered into pinned memory in
+    the step, copied without blocking, decoded on the card), and by the
+    grain stream with each batch's rows gathered one batch ahead on a
+    worker thread (the design the loader does not take). Per way the p50
+    over GRAIN_STEPS steps (host clock, each ended by a synchronize), and
+    for the two loaders the busy share from the profiler. Then what a
+    worker thread costs the launching thread: 3000 launches of a small op,
+    alone and beside a thread gathering batches without pause, p50 of 7;
+    and the host's part of one grain
+    batch (`packed_batch`), into pinned memory, and for comparison the
+    whole decode on the host (`decode_rows`), p50 over GRAIN_DECODES."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+    from speech2affective_gestures_torch.data.grain_loader import batch_rows, decode
+    from speech2affective_gestures_torch.data.ted_db import (BatchSampler, DeviceDataset,
+                                                             decode_rows)
+
+    loader, step, g = trainer._grain, trainer.step, trainer.generator
+    device = trainer.device
+    data = DeviceDataset(trainer.train_data, device)
+    sampler = BatchSampler(trainer.train_data, TRAIN_BATCH, seed=5)
+    worker = ThreadPoolExecutor(max_workers=1)
+    ahead = [worker.submit(loader.packed_batch, loader.next_batch, loader.seed, True)]
+
+    def made_ahead():
+        raw = ahead.pop().result()
+        loader.next_batch += 1
+        ahead.append(worker.submit(loader.packed_batch, loader.next_batch, loader.seed, True))
+        return decode({k: v.to(device, non_blocking=True) for k, v in raw.items()})
+
+    ways = (("device loader", lambda: data.batch(*sampler.draw())),
+            ("grain stream, rows made in the step", lambda: next(loader)),
+            ("grain stream, rows made ahead on a worker thread", made_ahead))
+    summary = []
+    for label, fetch in ways:
+        def fn(fetch=fetch):
+            return step.train_step(fetch(), g, gan_on=True)
+        fn()
+        fn()
+        times = []
+        for _ in range(GRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        p50 = float(np.median(times))
+        got = None if fetch is made_ahead else profile_device(
+            f"the train step fed by the {label}", "step", fn, n=3)
+        busy = "busy not measured" if got is None else f"busy {100 * got[1] / got[2]:.1f}%"
+        log(f"train step fed by the {label} (batch {TRAIN_BATCH}, full width): p50 {p50:.3f} "
+            f"ms over {GRAIN_STEPS} steps; all {[round(t, 3) for t in times]}; {busy}; {smi}")
+        summary.append(f"{label} p50 {p50:.3f} ms, {busy}")
+    ahead.pop().result()
+    worker.shutdown()
+
+    x = torch.ones(8, device=device)
+
+    def launches():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3000):
+            x.add_(1.0)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    launches()
+    alone = float(np.median([launches() for _ in range(7)]))
+    stop = threading.Event()
+
+    def gather():
+        while not stop.is_set():
+            loader.packed_batch(loader.next_batch, loader.seed, True)
+
+    thread = threading.Thread(target=gather)
+    thread.start()
+    try:
+        beside = float(np.median([launches() for _ in range(7)]))
+    finally:
+        stop.set()
+        thread.join()
+    host = {"packed rows pinned": [], "decode_rows": []}
+    ds, seed = loader.ds, loader.seed
+    for j in range(GRAIN_DECODES):
+        t = loader.next_batch + j
+        for name, fn in (("packed rows pinned", lambda: loader.packed_batch(t, seed, True)),
+                         ("decode_rows", lambda: decode_rows(ds, batch_rows(
+                             ds.n_samples, TRAIN_BATCH, seed, t)))):
+            t0 = time.perf_counter()
+            fn()
+            host[name].append((time.perf_counter() - t0) * 1e3)
+    log(f"grain loader numbers at batch {TRAIN_BATCH}: {'; '.join(summary)}; 3000 launches "
+        f"p50 {alone:.3f} ms alone, {beside:.3f} ms beside a thread gathering batches; host "
+        f"ms a batch, p50 over {GRAIN_DECODES}: "
+        + ", ".join(f"{k} {np.median(v):.3f} (all {[round(x, 3) for x in v]})"
+                    for k, v in host.items()) + f"; {smi}")
+
+
+def grain_phase(device, work: pathlib.Path, embedding_net: pathlib.Path,
+                smi: str) -> collections.Counter:
+    """`main_v2 --loader grain --steps-per-program SCAN_SPP` on the card
+    (`training_phase`: full width, batch 512, GRAIN_EPOCHS epochs of the
+    synthetic corpus's 1204 train windows, 2 steps an epoch from one
+    stream; the test split scored): the counters set to 0 just before and
+    read just after (the GRU forward, recurrence and dW float32 must run),
+    every loss finite; the split must not be on the card, the log must
+    name loader grain and the per-step engine, and the fallback from K
+    SCAN_SPP to one step at a time. Then the next batch decoded on the
+    card against `decode_rows` (`grain_batch_check`), the resumed runs
+    against the uncut ones (`grain_resume_checks`) and the step's numbers
+    by loader (`grain_numbers`). Returns the kernels' launches in the main_v2 run."""
+    t0 = time.perf_counter()
+    options = ("--loader", "grain", "--steps-per-program", str(SCAN_SPP),
+               "--s2ag-num-epoch", str(GRAIN_EPOCHS))
+    trainer, trained = training_phase(device, work, embedding_net, options=options)
+    log_txt = (pathlib.Path(trainer.work_dir) / "log.txt").read_text()
+    per_epoch = trainer.train_data.n_samples // TRAIN_BATCH
+    epochs = [ln for ln in log_txt.splitlines() if " train: mean_s2ag_loss" in ln]
+    if (trainer.loader != "grain" or trainer._device_train is not None
+            or trainer.epoch_engine != "per_step"
+            or "'device' loader" not in (trainer.epoch_engine_fallback or "")
+            or "epoch engine: per_step (1 train steps a program, loader grain); "
+               f"steps_per_program={SCAN_SPP} requested" not in log_txt
+            or len(epochs) != GRAIN_EPOCHS
+            or not all(ln.endswith(f"{per_epoch} iters, engine per_step)") for ln in epochs)
+            or trainer._grain.next_batch != GRAIN_EPOCHS * per_epoch):
+        raise AssertionError(f"main_v2 {' '.join(options)}: loader {trainer.loader}, engine "
+                             f"{trainer.epoch_engine} ({trainer.epoch_engine_fallback}), "
+                             f"epochs {epochs}, stream at {trainer._grain.next_batch}")
+    log(f"main_v2 {' '.join(options)}: {len(epochs)} epochs of {per_epoch} steps from one "
+        f"stream, engine per_step ({trainer.epoch_engine_fallback})")
+    grain_batch_check(trainer._grain)
+    parts = {"main_v2 run": time.perf_counter() - t0}
+    grain_resume_checks(device, trainer.train_data, work)
+    parts["resume checks"] = time.perf_counter() - t0 - sum(parts.values())
+    grain_numbers(trainer, smi)
+    parts["numbers"] = time.perf_counter() - t0 - sum(parts.values())
+    log(f"grain phase took {time.perf_counter() - t0:.1f} s "
+        f"({', '.join(f'{k} {v:.1f} s' for k, v in parts.items())}); {smi}")
+    return trained
+
+
 def bound(nbytes, flops, peak_flops=PEAK_F32_FLOPS):
     """The least time of a function on the card: its bytes over the memory
     rate or its operations over the peak rate of their type (float32
@@ -4296,6 +4572,8 @@ def main() -> int:
         launches.update(step_options_phase(device, work, embedding_net, smi))
         # main_v2's scanned epoch: K train steps a CUDA graph
         launches.update(scanned_epoch_phase(device, work, embedding_net, smi))
+        # the streaming loader, and resumed training on both loaders
+        launches.update(grain_phase(device, work, embedding_net, smi))
     kernels = timing_phase(device, errs, launches)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

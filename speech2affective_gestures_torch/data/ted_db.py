@@ -268,7 +268,8 @@ class DeviceDataset:
     and adversarial speakers, the only data that crosses per step (JAX
     data/ted_db.py:227-294; the reference re-uploads every batch,
     processor_v2.py:602-621). A split larger than the card's free memory
-    raises MemoryError: there is no host fallback."""
+    raises MemoryError, which names the streaming loader
+    (`data.grain_loader`); there is no silent fallback."""
 
     def __init__(self, dataset: PackedDataset, device: torch.device):
         self.device = torch.device(device)
@@ -283,7 +284,7 @@ class DeviceDataset:
                 raise MemoryError(
                     f"the device loader keeps the whole train split on {self.device}: "
                     f"{nbytes / 2**30:.2f} GiB of packed arrays, {free / 2**30:.2f} GiB "
-                    "free (a streaming loader is ROADMAP.md item 1.4)")
+                    "free; --loader grain streams the split from the host")
         self.arrays = {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
                        for k, v in arrays.items()}
 

@@ -32,9 +32,14 @@ BatchNorm updates as `none`. The train split lives on the card and each
 batch is gathered there (`--loader device`, the default); `--steps-per-program
 K` runs each epoch as programs of K train steps, one CUDA graph each (the
 JAX package's scanned epoch; the log names the engine that ran, and why
-it fell back to one step at a time if it did). A flag that selects
-something not ported yet raises and names its ROADMAP.md item: the grain
-loader.
+it fell back to one step at a time if it did). `--loader grain` keeps the
+split on the host and streams shuffled batches from it, one step at a
+time (the JAX package's grain pipeline, without grain), for a split
+larger than the card's memory. Each checkpoint has a
+`<checkpoint>_datastate.json` beside it (the step generator's state, the
+step count, the position in the epoch and the stream's), so that a run
+resumed from it draws what the uncut run draws, under grain from the
+middle of an epoch.
 `--mixed-precision true` runs the train steps at bf16 (the GRU kernels'
 bf16 instances on the card); validation and the test-split scoring stay
 float32.
@@ -67,9 +72,8 @@ from .data import ted_db
 from .device import resolve_device, set_f32_numerics
 from .train.evaluator import EmbeddingSpaceEvaluator
 from .train.gan_step import REMAT_MODES
-from .train.trainer import Trainer, check_loader, find_checkpoint
+from .train.trainer import Trainer, find_checkpoint
 
-_ROADMAP = "not ported yet (ROADMAP.md, queue 1)"
 # the work dir's suffix of each variant (JAX main_v2.py:232-234)
 WORK_DIR_SUFFIX = {"s2ag": "", "abl_audio": "_abl_audio", "abl_aff": "_abl_aff"}
 
@@ -115,9 +119,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "--gradient-clip")
     p.add_argument("--loader", type=str, default="device",
                    choices=("device", "grain"),
-                   help=f"'device' keeps the train split on the card and gathers "
-                        f"each batch there from the host's row draws; 'grain' is "
-                        f"{_ROADMAP}")
+                   help="'device' keeps the train split on the card and gathers "
+                        "each batch there from the host's row draws; 'grain' keeps "
+                        "it on the host and streams shuffled batches from it, "
+                        "resumable in the middle of an epoch")
     p.add_argument("--mixed-precision", type=str2bool, default=False,
                    help="bf16 train steps (parameters cast per call, float32 "
                         "master weights, losses and BatchNorm statistics)")
@@ -205,11 +210,6 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def check_ported(args) -> None:
-    """Raise for a flag that selects something this port does not have."""
-    check_loader(args.loader)
-
-
 def load_datasets(args, cfg: ModelConfig, device: torch.device, log=print):
     """(train, val, test) packed splits, the MFCCs of raw videos computed on
     `device`: the synthetic corpus cut 70/15/15 (`--synthetic-data`), an
@@ -275,7 +275,6 @@ def checkpoint_speakers(path: str | None) -> int | None:
 
 def main(argv=None, variant: str = "s2ag") -> Trainer:
     args = build_parser().parse_args(argv)
-    check_ported(args)
     device = resolve_device(args.device)
     if device.type == "cuda":
         set_f32_numerics()

@@ -4,24 +4,36 @@ gated by `epoch > loss_warmup`, validation, checkpoints named
 `epoch_{:06d}_loss_{:.4f}_model.pth.tar`, and the test-split evaluation
 (`generate_gestures`: L1, joint MAE, acceleration difference and FGD).
 
-The train split lives on the trainer's device (`ted_db.DeviceDataset`,
-the JAX trainer's default `loader="device"`): the host draws each step's
-rows and adversarial speakers, and the batch is gathered on the device.
-An epoch runs one step at a time, or, with `steps_per_program` K > 1, as
+With the default `loader="device"` the train split lives on the
+trainer's device (`ted_db.DeviceDataset`): the host draws each step's rows
+and adversarial speakers, and the batch is gathered on the device. An
+epoch runs one step at a time, or, with `steps_per_program` K > 1, as
 programs of K steps (`train.step_program`: one CUDA graph a program on the
-card), the JAX trainer's scanned epoch; `epoch_engine` says which.
+card), the JAX trainer's scanned epoch; `epoch_engine` says which. With
+`loader="grain"` the split stays on the host and the batches stream from
+`data.grain_loader.GrainLoader`, JAX's grain pipeline without grain, one
+step at a time: an epoch is n // B batches of one stream that runs on
+across epochs.
 
 A checkpoint is the reference's save blob (`gen_model_dict`,
 `dis_model_dict`, keys prefixed `module.` as its DataParallel wrapper
 writes them) plus both Adam states, in the form the reference's Adam
 writes whichever engine trained them, so the reference loads the weights
-and this trainer resumes from them with either engine (epoch-granular:
-the RNG state is not saved). The best-checkpoint choice takes the minimum
-positive loss, as the JAX package's does.
+and this trainer resumes from them with either engine. Beside it,
+`<checkpoint>_datastate.json` holds what the weights do not (JAX
+trainer.py:593-662): the step generator's state, the step count, the
+position in the epoch and, under grain, the stream's next batch and seed.
+So a resumed run draws what the uncut run draws: from an epoch's end on
+either loader, from the middle of an epoch under grain. A checkpoint
+without that file (the reference's, an older run's) loads as before. The
+best-checkpoint choice takes the minimum positive loss, as the JAX
+package's does.
 """
 
 from __future__ import annotations
 
+import base64
+import json
 import os
 import re
 import time
@@ -32,6 +44,7 @@ import torch
 
 from ..config import ModelConfig
 from ..convert.from_jax import strip_module_prefix
+from ..data.grain_loader import GrainLoader
 from ..data.ted_db import (BatchSampler, DeviceBatchSampler, DeviceDataset, PackedDataset,
                            decode_rows)
 from . import builder
@@ -48,15 +61,9 @@ MIN_TRAIN_EPOCHS = 20
 _CKPT_RE = re.compile(r"epoch_(\d+)_loss_(-?[\d.]+|nan|-?inf)_model\.pth\.tar$")
 
 
-def check_loader(loader: str) -> None:
-    """Raise for a loader this port does not have: "device" is the only
-    one; "grain" is not ported yet, another name is unknown (as JAX's
-    trainer.py:108)."""
-    if loader == "grain":
-        raise NotImplementedError("loader 'grain': not ported yet (ROADMAP.md, queue 1, "
-                                  "item 1.4)")
-    if loader != "device":
-        raise ValueError(f"unknown loader {loader!r} (device|grain)")
+def datastate_path(ckpt_path: str) -> str:
+    """The data-state file beside a `.pth.tar` checkpoint."""
+    return ckpt_path.removesuffix(".pth.tar") + "_datastate.json"
 
 
 def parse_checkpoint_name(name: str):
@@ -98,9 +105,10 @@ class Trainer:
     checkpoint trained on the train split and served with the test split
     alone carries the train split's count. `fused_pass` and `remat` (none,
     full or dots) set how the train step calls its nets (`GanConfig`; JAX
-    trainer.py:112-113). `loader` is "device" (the split on the device);
-    "grain" is not ported yet. `steps_per_program` K > 1 runs the epoch K
-    steps a program where it can (`_use_scanned_epoch`); where it cannot,
+    trainer.py:112-113). `loader` is "device" (the split on the device) or
+    "grain" (the split on the host, streamed; for a split past the card's
+    memory). `steps_per_program` K > 1 runs the epoch K steps a program
+    where it can (`_use_scanned_epoch`: the device loader); where it cannot,
     `epoch_engine_fallback` says why and K drops to 1, as in JAX
     (trainer.py:244-270)."""
 
@@ -119,7 +127,8 @@ class Trainer:
                  lr_decay: float = 1.0, n_speakers: int | None = None,
                  fused_pass: bool = False, remat: str = "none", loader: str = "device",
                  steps_per_program: int = 1):
-        check_loader(loader)
+        if loader not in ("device", "grain"):  # as JAX's trainer.py:242
+            raise ValueError(f"unknown loader {loader!r} (device|grain)")
         self.cfg = cfg
         self.variant = variant
         self.work_dir = work_dir
@@ -138,6 +147,7 @@ class Trainer:
         self.metrics_lag = max(0, metrics_lag)
         self.log_interval = log_interval
         self.steps_per_program = max(1, steps_per_program)
+        self.loader = loader
 
         ref = train_data or val_data or test_data
         n_words = ref.lang_model.n_words if ref and ref.lang_model else 1000
@@ -173,17 +183,24 @@ class Trainer:
         self.best_loss = np.inf
         self.best_loss_epoch = 0
         self.epoch = 0
-        # the train split on the device, and the K-step program over it
-        # (made at the first scanned epoch, dropped when a checkpoint loads)
-        self._device_train = (DeviceDataset(train_data, self.device)
-                              if train_data is not None else None)
+        # the device loader: the train split on the device, and the K-step
+        # program over it (made at the first scanned epoch, dropped when a
+        # checkpoint loads); grain: the stream, persistent across epochs,
+        # and the batches of the current epoch it has handed out
+        self._device_train = self._grain = None
+        if train_data is not None and loader == "device":
+            self._device_train = DeviceDataset(train_data, self.device)
+        elif train_data is not None:
+            self._grain = GrainLoader(train_data, cfg.batch_size, max(seed, 0), self.device)
+        self._iter_in_epoch = 0
         self._program: StepProgram | None = None
         self.epoch_engine_fallback: str | None = None
         if (self.steps_per_program > 1 and train_data is not None
                 and not self._use_scanned_epoch()):
             self.epoch_engine_fallback = (
                 f"steps_per_program={self.steps_per_program} requested but the scanned "
-                "epoch needs trimodal_metric_interval=1; fell back to the per-step loop")
+                "epoch needs the 'device' loader and trimodal_metric_interval=1; fell back "
+                "to the per-step loop")
             self.logger.print_log(f"Warning: {self.epoch_engine_fallback}")
             self.steps_per_program = 1
 
@@ -195,14 +212,13 @@ class Trainer:
         return "scanned" if self._use_scanned_epoch() else "per_step"
 
     def _use_scanned_epoch(self) -> bool:
-        """K steps a program need K > 1, a train split (the program
-        gathers its batches from the resident one) and the trimodal
-        comparison on every step (the body's gate is fixed), as JAX's
-        (trainer.py:317-336, less its loader condition, since the device
-        loader is the only one, and its mesh condition: multi-GPU training
-        is ROADMAP.md item 5)."""
-        return (self.steps_per_program > 1 and self._device_train is not None
-                and self.trimodal_metric_interval == 1)
+        """K steps a program need K > 1, the device loader with a train
+        split (the program gathers its batches from the resident one) and
+        the trimodal comparison on every step (the body's gate is fixed),
+        as JAX's (trainer.py:317-336, less its mesh condition: multi-GPU
+        training is ROADMAP.md item 5)."""
+        return (self.steps_per_program > 1 and self.loader == "device"
+                and self._device_train is not None and self.trimodal_metric_interval == 1)
 
     def _batch(self, batch: dict) -> dict:
         return builder.to_device(batch, self.device)
@@ -212,10 +228,34 @@ class Trainer:
             self._program = StepProgram(self.step, self._device_train, self.generator)
         return self._program
 
+    def _epoch_batches(self, max_iters: int | None = None):
+        """(iteration, batch) of the per-step loop (JAX trainer.py:279-311).
+        Grain: n // B batches (at least 1) an epoch from the persistent
+        stream, from `_iter_in_epoch` on, at most `max_iters` of them; the
+        count is kept after each step, so that a cut epoch resumes where it
+        stopped. Device: ceil(n / B) fresh draws an epoch (the first
+        `max_iters`), each epoch's sampler seeded by its number."""
+        if self._grain is not None:
+            steps = max(1, self.train_data.n_samples // self.cfg.batch_size)
+            stop = steps if max_iters is None else min(steps, self._iter_in_epoch + max_iters)
+            for i in range(self._iter_in_epoch, stop):
+                yield i, next(self._grain)
+                self._iter_in_epoch = i + 1
+            if self._iter_in_epoch >= steps:
+                self._iter_in_epoch = 0
+            return
+        sampler = DeviceBatchSampler(self.train_data, self.cfg.batch_size,
+                                     seed=self.epoch * 7919 + 1,
+                                     device_dataset=self._device_train)
+        for i, batch in enumerate(sampler):
+            if max_iters is not None and i >= max_iters:
+                return
+            yield i, batch
+
     def per_train_epoch(self, max_iters: int | None = None) -> float:
-        """One epoch of ceil(n / B) steps (the first `max_iters` of them
-        when given), per step or K steps a program; every `log_interval`-th
-        step's metrics logged, the epoch's mean returned."""
+        """One epoch (the first `max_iters` steps of it when given), per
+        step or K steps a program; every `log_interval`-th step's metrics
+        logged, the epoch's mean returned."""
         gan_on = self.epoch > self.gan_cfg.loss_warmup
         tri_every = self.trimodal_metric_interval
         total, n, total_l1, n_l1 = 0.0, 0, 0.0, 0
@@ -244,12 +284,7 @@ class Trainer:
                 consume(i, dict(zip(metrics, torch.stack(list(metrics.values())).tolist())))
 
             pending: deque = deque()
-            sampler = DeviceBatchSampler(self.train_data, self.cfg.batch_size,
-                                         seed=self.epoch * 7919 + 1,
-                                         device_dataset=self._device_train)
-            for i, batch in enumerate(sampler):
-                if max_iters is not None and i >= max_iters:
-                    break
+            for i, batch in self._epoch_batches(max_iters):
                 metrics = self.step.train_step(
                     batch, self.generator, gan_on=gan_on,
                     tri_metric=(tri_every == 1 or i % tri_every == 0))
@@ -339,6 +374,7 @@ class Trainer:
         return f"epoch_{self.epoch:06d}_loss_{loss:.4f}_model.pth.tar"
 
     def save_checkpoint(self, loss: float) -> str:
+        """The checkpoint of this epoch, and its data-state file."""
         path = os.path.join(os.path.abspath(self.work_dir), self._ckpt_name(loss))
         torch.save({
             "gen_model_dict": {f"module.{k}": v for k, v in self.gen.state_dict().items()},
@@ -346,13 +382,47 @@ class Trainer:
             "gen_optimizer_dict": reference_optimizer_state(self.step.gen_opt),
             "dis_optimizer_dict": reference_optimizer_state(self.step.dis_opt),
         }, path)
+        state = {
+            "iter_in_epoch": self._iter_in_epoch,
+            "generator_device": self.generator.device.type,
+            "generator_state": base64.b64encode(
+                self.generator.get_state().numpy().tobytes()).decode("ascii"),
+            "step": self.step.step,
+        }
+        if self._grain is not None:
+            state["grain"] = self._grain.state()
+        with open(datastate_path(path), "w") as f:
+            json.dump(state, f)
         self.logger.print_log(f"saved checkpoint {path}")
         return path
+
+    def _restore_data_state(self, path: str) -> None:
+        """The draws' state of a checkpoint's data-state file: the step
+        generator's (where it was saved from a generator on this device
+        type: a CPU generator's state is not a card's), the step count,
+        the position in the epoch and, under grain, the stream's next batch
+        and seed (the saved seed, whichever this trainer was built with,
+        as JAX trainer.py:633-646)."""
+        with open(path) as f:
+            state = json.load(f)
+        if state["generator_device"] == self.generator.device.type:
+            raw = np.frombuffer(base64.b64decode(state["generator_state"]), np.uint8)
+            self.generator.set_state(torch.from_numpy(raw.copy()))
+        else:
+            self.logger.print_log(
+                f"Warning: {path} holds a {state['generator_device']} generator's state; "
+                f"the {self.generator.device.type} generator keeps its own")
+        self.step.step = int(state["step"])
+        self._iter_in_epoch = int(state["iter_in_epoch"])
+        if self._grain is not None and "grain" in state:
+            self._grain.set_state(state["grain"])
 
     def load_checkpoint(self, epoch: int | str = "best") -> bool:
         """Resume from a checkpoint of `work_dir`: weights, BN statistics
         and both Adam states (whose update counts carry the learning-rate
-        schedule's); training continues at its epoch."""
+        schedule's), and, where its data-state file is beside it, the
+        draws' state (`_restore_data_state`); training continues at its
+        epoch (under grain, at its step)."""
         found = find_checkpoint(self.work_dir, epoch)
         if not found:
             self.logger.print_log("Warning! No saved model found.")
@@ -367,6 +437,11 @@ class Trainer:
         # a new one
         self.step.load_optimizer_states(blob["gen_optimizer_dict"],
                                         blob["dis_optimizer_dict"])
+        # in place: the generator object is the one the steps draw from,
+        # and the one a captured program registered
+        state_path = datastate_path(os.path.join(self.work_dir, name))
+        if os.path.exists(state_path):
+            self._restore_data_state(state_path)
         self._program = None
         self.epoch = ckpt_epoch
         self.best_loss, self.best_loss_epoch = loss, ckpt_epoch

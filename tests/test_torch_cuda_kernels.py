@@ -913,7 +913,8 @@ def test_checkpoint_from_a_capturable_trainer_on_the_card(cuda, tmp_path):
     trainer on the card, into one on the CPU and into a scanned trainer
     on the card with the same weights, statistics, moments and counts
     (the same bits) and the host schedule's rate (the graph's float32 rate
-    rounded from it); the loaded scanned trainer's next epoch equals the
+    rounded from it); the loaded scanned trainer's next epoch, its step
+    generator and count restored from the data-state file, equals the
     writer's next epoch, bit for bit, under `cudnn.deterministic`."""
     import dataclasses
 
@@ -967,8 +968,6 @@ def test_checkpoint_from_a_capturable_trainer_on_the_card(cuda, tmp_path):
                                  getattr(a.step, f"{w}_opt").param_groups):
                     assert g["lr"] == want and float(ga["lr"]) == np.float32(want), (name, w)
         b = loaded["scanned"]
-        b.generator.set_state(a.generator.get_state())
-        b.step.step = a.step.step
         for t in (a, b):
             t.epoch = 1
             t.per_train_epoch(max_iters=3)
@@ -979,3 +978,30 @@ def test_checkpoint_from_a_capturable_trainer_on_the_card(cuda, tmp_path):
         assert torch.equal(b.generator.get_state(), a.generator.get_state())
     finally:
         torch.backends.cudnn.deterministic = deterministic
+
+
+@pytest.mark.gpu
+def test_grain_loader_batches_on_the_card_equal_decode_rows(cuda):
+    """The streaming loader on the card (rows gathered into pinned memory,
+    copied without blocking, decoded there in float64) against
+    `decode_rows` on the host on the same rows, at batch 64 of a split of
+    150 (batches across epoch boundaries): every array the same bits; a
+    loader set to the state after batch 1 gives batch 2 again."""
+    from speech2affective_gestures_torch.config import ModelConfig
+    from speech2affective_gestures_torch.data.grain_loader import GrainLoader, batch_rows
+    from speech2affective_gestures_torch.data.ted_db import decode_rows
+    from speech2affective_gestures_torch.train import builder
+
+    ds = builder.synthetic_packed(np.random.default_rng(3), 150, ModelConfig(batch_size=64))
+    loader = GrainLoader(ds, 64, 7, cuda)
+    got = [next(loader) for _ in range(5)]
+    for t, batch in enumerate(got):
+        want = decode_rows(ds, batch_rows(150, 64, 7, t))
+        want["vid_indices"] = loader.packed_batch(t, 7)["vid_indices"].numpy()
+        assert batch.keys() == want.keys()
+        for k, v in want.items():
+            assert batch[k].device.type == "cuda"
+            assert batch[k].cpu().numpy().tobytes() == v.tobytes(), (t, k)
+    again = GrainLoader(ds, 64, 0, cuda)
+    again.set_state({"next_batch": 2, "seed": 7})
+    assert all(torch.equal(v, got[2][k]) for k, v in next(again).items())

@@ -258,10 +258,11 @@ def test_metrics_lag_gives_the_same_log_lines(corpus, tmp_path, engine):
 def test_checkpoint_after_scanned_epoch_resumes_per_step(corpus, tmp_path):
     """A checkpoint written after a scanned epoch loads into a per-step
     trainer with the same state (weights, BatchNorm statistics, Adam
-    states, counts and learning rates), in the reference's Adam form; the
-    next epoch from it, per step there and scanned in the trainer that
-    wrote it, gives the same bits. The reverse, a per-step checkpoint into
-    a scanned trainer, too."""
+    states, counts and learning rates, in the reference's Adam form; the
+    step generator's state and the step count from the data-state file,
+    with no hand copy); the next epoch from it, per step there and scanned
+    in the trainer that wrote it, gives the same bits. The reverse, a
+    per-step checkpoint into a scanned trainer, too."""
     _, tds = corpus
     cfg = TConfig(**WIDTHS)
     for first, then in ((4, 1), (1, 4)):
@@ -278,8 +279,6 @@ def test_checkpoint_after_scanned_epoch_resumes_per_step(corpus, tmp_path):
                        for s in blob[key]["state"].values())
         b = _trainer(tds, work, "run", then, cfg=cfg, lr_decay=0.5)
         assert b.load_checkpoint(0)
-        b.generator.set_state(a.generator.get_state())
-        b.step.step = a.step.step
         _assert_same_state(a, b)
         for t in (a, b):
             t.epoch = 1
@@ -387,11 +386,18 @@ def test_epoch_engine_in_log_line(corpus, tmp_path, spp, engine):
 
 
 def test_loaders(corpus, tmp_path):
-    """'grain' is not ported (it names ROADMAP.md); another name is an
-    error, as in JAX."""
+    """'grain' constructs and trains: the split stays on the host (no
+    `DeviceDataset`), its epoch is n // B steps one at a time, and K 2
+    falls back to the per-step loop naming the device loader; another
+    name is an error, as in JAX."""
     _, tds = corpus
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        _trainer(tds, tmp_path, "grain", loader="grain")
+    t = _trainer(tds, tmp_path, "grain", 2, loader="grain")
+    assert t._device_train is None and t._grain is not None
+    assert t.steps_per_program == 1 and "'device' loader" in t.epoch_engine_fallback
+    t.log_interval = 10 ** 9
+    assert np.isfinite(t.per_train_epoch())
+    [epoch] = [ln for ln in t.lines if "train: " in ln]
+    assert epoch.endswith(f"{tds.n_samples // 4} iters, engine per_step)"), epoch
     with pytest.raises(ValueError, match="unknown loader"):
         _trainer(tds, tmp_path, "bogus", loader="bogus")
 

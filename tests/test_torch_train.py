@@ -37,6 +37,7 @@ Tolerances, all float32 with sums in another order:
 """
 
 import functools
+import json
 
 import jax
 import jax.numpy as jnp
@@ -609,17 +610,14 @@ def test_main_v2_trains_on_cpu_and_writes_a_checkpoint(tmp_path):
 
 @pytest.mark.parametrize("flag", [["--steps-per-program", "2"], ["--loader", "grain"]])
 def test_main_v2_rejects_unported_options(tmp_path, flag):
-    """The two options main_v2 once refused: `--loader grain` still raises
-    and names ROADMAP.md; `--steps-per-program 2` is ported and trains
-    (hidden 16, batch 4, the smallest corpus: one step, a partial program;
-    tests/test_torch_scanned_epoch.py runs whole ones), its log naming
-    the scanned engine, every loss finite."""
-    if flag[0] == "--loader":
-        argv = ["-b", str(tmp_path), "-c", "config/multimodal_context_v2.yml",
-                "--device", "cpu", "--synthetic-data", "true"] + flag
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tmain.main(argv)
-        return
+    """The two options main_v2 once refused, both ported now, train
+    (hidden 16, batch 4, the smallest corpus, every loss finite):
+    `--steps-per-program 2` runs one step, a partial program, its log
+    naming the scanned engine (tests/test_torch_scanned_epoch.py runs
+    whole ones); `--loader grain` runs its epoch of max(1, n // B) steps one at
+    a time, its log naming the loader and the per-step engine, and writes
+    the checkpoint's data-state file with the stream's position
+    (tests/test_torch_grain_loader.py resumes from it)."""
     import yaml
 
     raw = yaml.safe_load(open("config/multimodal_context_v2.yml"))
@@ -631,15 +629,25 @@ def test_main_v2_rejects_unported_options(tmp_path, flag):
                           "--synthetic-data", "true", "--device", "cpu", "--batch-size", "4",
                           "--s2ag-num-epoch", "1", "--synthetic-videos", "2",
                           "--synthetic-seconds", "4", "--log-interval", "1"] + flag)
+    work = tmp_path / "base/models/s2ag_v2_mfcc_torch/ted_db"
+    log = (work / "log.txt").read_text()
+    iters = [line.split("Done. | ")[1] for line in log.splitlines() if "Done. | " in line]
+    values = [float(tok.split(": ")[1]) for it in iters for tok in it.split(" | ")]
+    assert np.isfinite(values).all()
+    if flag[0] == "--loader":
+        n_steps = max(1, trainer.train_data.n_samples // 4)
+        assert trainer.epoch_engine == "per_step" and trainer.loader == "grain"
+        assert "epoch engine: per_step (1 train steps a program, loader grain)" in log
+        [epoch] = [line for line in log.splitlines() if "epoch 0 train:" in line]
+        assert epoch.endswith(f"{n_steps} iters, engine per_step)") and len(iters) == n_steps
+        [state] = work.glob("epoch_000000_loss_*_model_datastate.json")
+        assert json.loads(state.read_text())["grain"] == {"next_batch": n_steps, "seed": 3}
+        return
     assert trainer.epoch_engine == "scanned" and trainer.steps_per_program == 2
-    log = (tmp_path / "base/models/s2ag_v2_mfcc_torch/ted_db/log.txt").read_text()
     assert "epoch engine: scanned (2 train steps a program" in log
     [epoch] = [line for line in log.splitlines() if "epoch 0 train:" in line]
     assert epoch.endswith("engine scanned)")
-    iters = [line.split("Done. | ")[1] for line in log.splitlines() if "Done. | " in line]
     assert len(iters) == 1
-    values = [float(tok.split(": ")[1]) for line in iters for tok in line.split(" | ")]
-    assert np.isfinite(values).all()
 
 
 @pytest.mark.parametrize("route", ["archive", "lmdb"])
