@@ -28,7 +28,8 @@ toolkit. In order:
    and against float32, each tensor tier also where its plan takes the
    register tier; and the GRU forward, recurrence and dW at the
    ConvDiscriminator's shape (T 28, B 512, H 64) and at the fused step's
-   batch (B 1024, H 300 and 64), float32 and bf16;
+   batch (B 1024, H 300 and 64) and at a data-parallel rank's batches (B
+   256 and 128, H 300 and 64), float32 and bf16;
 3. service phase: a full-width s2ag generator (config/multimodal_context_v2.yml:
    hidden 300, 4 GRU layers, embed 300; 1000 words, 100 speakers; random
    weights from seed 0) behind the HTTP server answers /synthesize for a
@@ -142,7 +143,21 @@ toolkit. In order:
    fed by the device loader, by the stream with its rows made in the step
    (the loader's way) and made ahead on a worker thread, launches alone
    and beside such a thread, and the host's ms per batch;
-16. timing: each kernel's time, its plain version's, a PyTorch library
+16. data-parallel training (`data_parallel_phase`, `parallel.mesh`): (a)
+   two gloo ranks on this card, 256 rows each of batch 512, 3 steps,
+   each against one process's step on the same global batch from the same
+   state (metrics, weights, BN stats at JAX's mesh bounds), the ranks the
+   same bits after each step, and a mixed-precision step; (b) one NCCL
+   rank's K 2 graphs, their all-reduces captured, against their eager
+   steps bit for bit under `cudnn.deterministic`; (c) with more than one
+   card, `main_v2` over NCCL on every card for 2 epochs (with one card it
+   logs that (c) did not run); (d) 4 gloo ranks on this card (128 rows
+   each) resumed from a checkpoint against the uncut run bit for bit
+   under `torch.use_deterministic_algorithms`, and a mixed step; the step
+   p50s, the all-reduces' count, bytes and ms a step, the GRU launches a
+   step; the GRU kernels checked and timed at a rank's batch (B 256 and
+   128, float32 and bf16);
+17. timing: each kernel's time, its plain version's, a PyTorch library
    call's that computes the same function, and the least time the card
    could take (bound), by CUDA events and by device time; the GRU
    backward (recurrence + dW) against cuDNN's recurrent backward; the L2
@@ -150,7 +165,8 @@ toolkit. In order:
    bf16 forward's and recurrence's two register-range tiers against each
    other across batches); the mel kernel's mixed-radix FFT at n_fft 400
    and its DFT tier against `rfft`; the GRU kernels at the
-   ConvDiscriminator's shape and at the fused batch (B 1024, H 300);
+   ConvDiscriminator's shape, at the fused batch (B 1024, H 300) and at a
+   rank's batch (B 256 and 128, H 300);
    the service's synthesize p50; the
    train step's p50, samples/s and its device profile; `generate_gestures`'
    wall time and device profile; the embedding train step's p50.
@@ -305,6 +321,22 @@ SCAN_K = 4
 # steps and batches of its numbers
 GRAIN_EPOCHS = 2
 GRAIN_STEPS, GRAIN_DECODES = 6, 5
+# data-parallel training (`data_parallel_phase`): the checked steps of two
+# gloo ranks on one card and the timed ones after them; the ranks of the
+# resume check (a rank's batch TRAIN_BATCH / 4); each launch's timeout
+DP_STEPS, DP_TIMED = 3, 4
+DP_RESUME_RANKS = 4
+DP_TIMEOUT = 600
+# (a)'s Adam first moments against one process's: each tensor's moment
+# difference (norm 2) within DP_MOMENT_RTOL of its gradient's share of
+# the moment, plus that much of the net's share scaled to the tensor's
+# size (a gradient that is exactly 0, as a bias a BatchNorm follows,
+# leaves only rounding). Float32 rounding came to 1.4e-3 of it at most
+# at full width on the H100; a rank's own rows' gradient comes to 0.53
+# and more, a summed or lost one to 1.0
+DP_MOMENT_RTOL = 1e-2
+# (c)'s timed steps a rank count, after DP_WARM steps
+DP_SCALING_TIMED, DP_WARM = 8, 3
 # the capturable Adam against the host Adam on the same gradients: each
 # parameter within n updates x (CAP_ULPS of its tensor's largest value +
 # CAP_LR of the base rate)
@@ -1155,6 +1187,19 @@ def _fused_batch_counters() -> collections.Counter:
     out = collections.Counter()
     for (kernel, dtype, B, H, _), n in gru_cuda.batch_launches.items():
         if (B, H) == (FUSED_B, 300) and not kernel.endswith("_v1"):
+            out[f"{kernel}_b{B}{'_bf16' if dtype == 'bfloat16' else ''}"] += n
+    return out
+
+
+def _rank_batch_counters(B: int) -> collections.Counter:
+    """The GRU kernels' launches since the last reset at a data-parallel
+    rank's batch B and the generator's H 300, under their names in the
+    kernels line: "gru_fwd_b256", "gru_bwd_b128_bf16", ..."""
+    from speech2affective_gestures_torch.ops import gru_cuda
+
+    out = collections.Counter()
+    for (kernel, dtype, b, H, _), n in gru_cuda.batch_launches.items():
+        if (b, H) == (B, 300) and not kernel.endswith("_v1"):
             out[f"{kernel}_b{B}{'_bf16' if dtype == 'bfloat16' else ''}"] += n
     return out
 
@@ -2438,6 +2483,21 @@ def fused_batch_kernel_phase(device) -> dict:
     return shape_kernel_phase(device, 34, FUSED_B,
                               ((300, 88), (300, 600), (64, 8), (64, 128)),
                               f"_b{FUSED_B}", "the fused step's batch")
+
+
+def rank_batch_kernel_phase(device) -> dict:
+    """The GRU kernels at a data-parallel rank's batch of TRAIN_BATCH (B 256
+    on each of 2 ranks, 128 on each of 4; T 34, D 2), the generator's
+    layers (H 300, 88 and 600 features) and the discriminator's (H 64, 8
+    and 128): `shape_kernel_phase`, under "gru_fwd_b256", ...,
+    "gru_dw_b128_bf16"."""
+    errs = {}
+    for ranks in (2, DP_RESUME_RANKS):
+        B = TRAIN_BATCH // ranks
+        errs.update(shape_kernel_phase(device, 34, B, ((300, 88), (300, 600), (64, 8),
+                                                       (64, 128)),
+                                       f"_b{B}", f"a rank's batch of {ranks}"))
+    return errs
 
 
 def shape_kernel_phase(device, T: int, B: int, shapes, tag: str, what: str) -> dict:
@@ -3785,6 +3845,557 @@ def grain_phase(device, work: pathlib.Path, embedding_net: pathlib.Path,
     return trained
 
 
+def _dp_setup(device, mesh=None, mixed: bool = False):
+    """A full-width train step at global batch TRAIN_BATCH
+    (`builder.init_training` from seed 0, the GAN terms on) on `device`,
+    one rank of `mesh` where given (the state broadcast from rank 0), and
+    its step generator from seed 16."""
+    import torch
+    from speech2affective_gestures_torch.config import ModelConfig
+    from speech2affective_gestures_torch.parallel import mesh as P
+    from speech2affective_gestures_torch.train import builder
+
+    cfg = ModelConfig.from_yaml(CONFIG, loss_warmup=-1, batch_size=TRAIN_BATCH)
+    step = builder.init_training(cfg, 0, 1000, 100, device=device,
+                                 mixed_precision=mixed)["step"]
+    if mesh is not None:
+        step.mesh = mesh
+        P.replicate_state((step.gen, step.dis, step.tri), (step.gen_opt, step.dis_opt), mesh)
+    return cfg, step, torch.Generator(device=device).manual_seed(16)
+
+
+def _dp_batches(cfg, device, rows=slice(None)) -> list:
+    """DP_STEPS global batches of TRAIN_BATCH random rows
+    (`builder.synthetic_batch`, seeds 40, 41, ...), `rows` of each on
+    `device`."""
+    from speech2affective_gestures_torch.train import builder
+
+    return [builder.to_device({k: v[rows] for k, v in builder.synthetic_batch(
+        np.random.default_rng(40 + i), TRAIN_BATCH, cfg, 1000, 100).items()}, device)
+        for i in range(DP_STEPS)]
+
+
+def _dp_state(step, generator) -> dict:
+    """What a step starts from, copied to the host: both nets' parameters
+    and buffers, both Adams' states and the step generator's state."""
+    def host(sd):
+        return {k: host(v) if isinstance(v, dict) else
+                v.detach().cpu().clone() if hasattr(v, "detach") else v for k, v in sd.items()}
+
+    return {"gen": host(step.gen.state_dict()), "dis": host(step.dis.state_dict()),
+            "gen_opt": {"state": host(step.gen_opt.state_dict()["state"]),
+                        "param_groups": step.gen_opt.state_dict()["param_groups"]},
+            "dis_opt": {"state": host(step.dis_opt.state_dict()["state"]),
+                        "param_groups": step.dis_opt.state_dict()["param_groups"]},
+            "generator": generator.get_state()}
+
+
+def _dp_load_state(step, generator, state: dict) -> None:
+    import copy
+
+    step.gen.load_state_dict(state["gen"])
+    step.dis.load_state_dict(state["dis"])
+    step.gen_opt.load_state_dict(copy.deepcopy(state["gen_opt"]))
+    step.dis_opt.load_state_dict(copy.deepcopy(state["dis_opt"]))
+    generator.set_state(state["generator"])
+
+
+def _dp_snapshot(step, metrics) -> dict:
+    """The step's metrics, both nets' parameters and buffers and both
+    Adams' first moments (by parameter index), on the host."""
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            **{w: {k: v.detach().cpu().clone() for k, v in getattr(step, w).state_dict().items()}
+               for w in ("gen", "dis")},
+            "moments": {w: {i: st["exp_avg"].detach().cpu().clone() for i, st in
+                            getattr(step, f"{w}_opt").state_dict()["state"].items()}
+                        for w in ("gen", "dis")}}
+
+
+def _dp_in_sync(step, generator, mesh) -> bool:
+    """Whether every rank holds rank 0's bits: both nets' parameters and
+    buffers, both Adams' states and the step generator's state (rank 0's
+    bytes broadcast and compared on each rank, the verdicts summed)."""
+    import torch
+    from speech2affective_gestures_torch.parallel import mesh as P
+
+    tensors = [t for w in ("gen", "dis") for t in getattr(step, w).state_dict().values()]
+    for opt in (step.gen_opt, step.dis_opt):
+        tensors += [v for st in opt.state.values() for v in st.values()
+                    if isinstance(v, torch.Tensor)]
+    mine = torch.cat([t.detach().reshape(-1).cpu().contiguous().view(torch.uint8)
+                      for t in tensors] + [generator.get_state()])
+    theirs = mine.clone()
+    P.broadcast_([theirs], mesh)
+    apart = torch.tensor([float(not torch.equal(mine, theirs))], device=mesh.device)
+    return P.all_reduce_(apart, mesh).item() == 0
+
+
+def _dp_steps_rank(mesh, out: pathlib.Path) -> None:
+    """(a), one rank: DP_STEPS full-width steps on its rows of the global
+    batches, float32, the ranks compared bit for bit after each
+    (`_dp_in_sync`; it raises if they part); the all-reduces' count and
+    bytes a step; DP_TIMED steps timed; the gradients' all-reduce timed
+    alone; one mixed-precision step, finite and in sync. Rank 0 writes
+    to `out` the state before each step (`_dp_state`), the snapshot
+    after it and its numbers."""
+    import torch
+    from speech2affective_gestures_torch.device import set_f32_numerics
+    from speech2affective_gestures_torch.parallel import mesh as P
+
+    set_f32_numerics()
+    cfg, step, g = _dp_setup(mesh.device, mesh)
+    batches = _dp_batches(cfg, mesh.device, mesh.rows(TRAIN_BATCH))
+    snaps, pre, synced, traffic = [], [], [], collections.Counter()
+    _reset_counters()
+    for b in batches:
+        if mesh.rank == 0:
+            pre.append(_dp_state(step, g))
+        before = collections.Counter(P.traffic)
+        metrics = step.train_step(b, g, gan_on=True)
+        torch.cuda.synchronize()
+        traffic.update(collections.Counter(P.traffic) - before)
+        snaps.append(_dp_snapshot(step, metrics))
+        synced.append(_dp_in_sync(step, g, mesh))
+    launches = _counters() + _rank_batch_counters(TRAIN_BATCH // mesh.world)
+    times = []
+    for _ in range(DP_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step.train_step(batches[0], g, gan_on=True)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    grads = {w: [p.grad for p in getattr(step, w).parameters() if p.grad is not None]
+             for w in ("gen", "dis")}
+    reduce_ms = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for w in ("gen", "dis"):
+            P.all_reduce_mean_(grads[w], mesh)
+        torch.cuda.synchronize()
+        reduce_ms.append((time.perf_counter() - t0) * 1e3)
+    grad_bytes = sum(t.numel() * t.element_size() for ts in grads.values() for t in ts)
+    del step, grads
+    _, mstep, mg = _dp_setup(mesh.device, mesh, mixed=True)
+    _reset_counters()
+    mixed = {k: float(v) for k, v in mstep.train_step(batches[0], mg, gan_on=True).items()}
+    mixed_launches = _counters() + _rank_batch_counters(TRAIN_BATCH // mesh.world)
+    mixed_sync = _dp_in_sync(mstep, mg, mesh)
+    if mesh.rank == 0:
+        torch.save({"snaps": snaps, "pre": pre, "synced": synced, "traffic": dict(traffic),
+                 "launches": dict(launches), "times": times, "reduce_ms": reduce_ms,
+                 "grad_bytes": grad_bytes, "mixed": mixed, "mixed_sync": mixed_sync,
+                 "mixed_launches": dict(mixed_launches)}, out)
+    if not (all(synced) and mixed_sync and np.isfinite(list(mixed.values())).all()):
+        raise AssertionError(f"rank {mesh.rank}: ranks in sync after each step {synced}, "
+                             f"after the mixed step {mixed_sync}; mixed metrics {mixed}")
+
+
+def _dp_graph_rank(mesh, out: pathlib.Path) -> None:
+    """(b), one NCCL rank: the K-step program (`_program_setup`: full
+    width, batch TRAIN_BATCH, a random split of SCAN_ROWS rows) with the
+    step's all-reduces on the mesh of one, a program of 1 step then one of
+    2, as captured graphs and as the same body run eagerly, from the same
+    weights, rows and generator seed, under `cudnn.deterministic`: the
+    same bits (`_step_differences`; it raises if not); then the graph's
+    step p50 over DP_TIMED replays of 2 steps, and its GRU launches and
+    all-reduces a step."""
+    import json
+
+    import torch
+    from speech2affective_gestures_torch.device import set_f32_numerics
+    from speech2affective_gestures_torch.parallel import mesh as P
+    from speech2affective_gestures_torch.train.step_program import StepProgram
+
+    set_f32_numerics()
+    torch.backends.cudnn.deterministic = True
+    runs = {}
+    for how in ("graph", "eager"):
+        step, data, g = _program_setup(mesh.device, {})
+        step.mesh = mesh
+        program = StepProgram(step, data, g, capture=how == "graph")
+        rng = np.random.default_rng(17)
+        metrics = collections.defaultdict(list)
+        P.traffic.clear()
+        for k in (1, 2):
+            keys, values = program.run(*_program_draws(rng, k), gan_on=True)
+            for key, v in zip(keys, values.T):
+                metrics[key].append(v)
+        torch.cuda.synchronize()
+        runs[how] = ({key: torch.cat(v) for key, v in metrics.items()}, step, g.get_state(),
+                     program, dict(P.traffic))
+    diff = _step_differences(runs["graph"][:3], runs["eager"][:3])
+    program = runs["graph"][3]
+    idx, adv = _program_draws(np.random.default_rng(18), 2)
+    times = []
+    for _ in range(DP_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        program.run(idx, adv, gan_on=True)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3 / 2)
+    record = {str(key): ({"/".join(k): v for k, v in n.items()}, r)
+              for key, (n, r) in program.launch_record().items()}
+    out.write_text(json.dumps({"diff": diff, "times": times, "record": record,
+                               "capture traffic": runs["graph"][4],
+                               "eager traffic": runs["eager"][4]}))
+    if diff:
+        raise AssertionError(f"the NCCL rank's K-step graph is not its eager steps: {diff[:16]}")
+
+
+def _dp_resume_rank(mesh, work: pathlib.Path) -> None:
+    """(d), one of DP_RESUME_RANKS gloo ranks on the card: a full-width
+    trainer on a random split of SCAN_ROWS rows runs 2 steps of epoch 0,
+    writes a checkpoint (rank 0) and runs 2 steps of epoch 1; another, built
+    with another seed, loads it and runs the same 2 steps; both under
+    `cudnn.deterministic` and `torch.use_deterministic_algorithms`: the
+    same bits on every rank (`_step_differences`; it raises if not). Then
+    one mixed-precision step (`_dp_setup`), finite. Rank 0 writes its
+    launches (at its batch too) and the checkpoint writes."""
+    import json
+
+    import torch
+    from speech2affective_gestures_torch.config import ModelConfig
+    from speech2affective_gestures_torch.data.vocab import make_speaker_vocab
+    from speech2affective_gestures_torch.device import set_f32_numerics
+    from speech2affective_gestures_torch.train import builder
+    from speech2affective_gestures_torch.train.trainer import Trainer
+
+    set_f32_numerics()
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    cfg = ModelConfig.from_yaml(CONFIG, loss_warmup=-1, batch_size=TRAIN_BATCH)
+    data = builder.synthetic_packed(np.random.default_rng(16), SCAN_ROWS, cfg)
+    data.speaker_model = make_speaker_vocab(f"video{i}" for i in range(100))
+    tri = work / "dp_resume_trimodal.pth.tar"
+    writes = []
+
+    def trainer(seed):
+        t = Trainer(cfg, str(work / "dp_resume"), train_data=data, seed=seed,
+                    log_interval=10 ** 9, mesh=mesh)
+        write = t._write_checkpoint
+        t._write_checkpoint = lambda path: (writes.append(path), write(path))
+        if seed == 5 and mesh.rank == 0:
+            torch.save({"trimodal_gen_dict": t.tri.state_dict()}, tri)
+        mesh.barrier()
+        t.load_trimodal_torch_checkpoint(str(tri))
+        return t
+
+    _reset_counters()
+    a = trainer(5)
+    a.per_train_epoch(max_iters=2)
+    a.save_checkpoint(0.5)
+    a.epoch = 1
+    a.per_train_epoch(max_iters=2)
+    b = trainer(6)
+    if not b.load_checkpoint(0):
+        raise AssertionError(f"rank {mesh.rank}: no checkpoint to resume from")
+    b.epoch = 1
+    b.per_train_epoch(max_iters=2)
+    diff = _step_differences(({}, a.step, a.generator.get_state()),
+                             ({}, b.step, b.generator.get_state()))
+    if a.step.step != b.step.step:
+        diff.append(f"the step count {a.step.step} != {b.step.step}")
+    steps = a.step.step
+    del a, b
+    _, mstep, mg = _dp_setup(mesh.device, mesh, mixed=True)
+    mixed = mstep.train_step(_dp_batches(cfg, mesh.device, mesh.rows(TRAIN_BATCH))[0], mg,
+                             gan_on=True)
+    if not np.isfinite([float(v) for v in mixed.values()]).all():
+        diff.append(f"the mixed step's metrics {mixed}")
+    launches = _counters() + _rank_batch_counters(TRAIN_BATCH // mesh.world)
+    if mesh.rank == 0:
+        (work / "dp_resume.json").write_text(json.dumps(
+            {"diff": diff, "launches": dict(launches), "steps": steps,
+             "writes": len(writes)}))
+    elif writes:
+        diff.append(f"rank {mesh.rank} wrote {writes}")
+    if diff:
+        raise AssertionError(f"rank {mesh.rank}: the resumed run differs from the uncut one: "
+                             f"{diff[:8]} ({len(diff)} in all)")
+
+
+def _dp_errors(got: dict, want: dict) -> dict:
+    """Of a rank's snapshot after a step against one process's step from
+    the same state, each check's largest error over its tolerance (a check
+    holds at 1 or less), JAX's bounds (tests/test_mesh_2d.py:61-116): the
+    metrics (rtol 1e-3, atol 1e-5), the weights (rtol 1e-4, atol 1.1e-3:
+    Adam's first update turns a near-zero gradient's rounding into up to
+    lr either way, as for the bias of a convolution that a BatchNorm
+    follows, whose exact gradient is 0) and the BatchNorm running stats
+    (rtol 5e-3, atol 1e-4; the running means 1e-4 more, 0.1 of such a
+    bias's 2 lr, since D's last forward of the step runs after its
+    update)."""
+    lr = 5e-4
+    out = {"metrics": max(abs(got["metrics"][k] - v) / (1e-5 + 1e-3 * abs(v))
+                          for k, v in want["metrics"].items())}
+    weights = stats = 0.0
+    for w in ("gen", "dis"):
+        for k, v in want[w].items():
+            if k.endswith("num_batches_tracked"):
+                continue
+            a, b = got[w][k].double(), v.double()
+            if k.endswith(("running_mean", "running_var")):
+                atol = 1e-4 + (0.1 * 2 * lr if k.endswith("running_mean") else 0.0)
+                stats = max(stats, ((a - b).abs() / (atol + 5e-3 * b.abs())).max().item())
+            else:
+                atol = 2 * lr + 1e-4
+                weights = max(weights, ((a - b).abs() / (atol + 1e-4 * b.abs())).max().item())
+    return {**out, "weights": weights, "BN stats": stats}
+
+
+def _dp_moment_errors(got: dict, want: dict, pre: dict, names=None) -> float:
+    """Of a snapshot's Adam first moments against one process's after a
+    step from `pre`, the largest over both nets' tensors of the moments'
+    difference over its tolerance (DP_MOMENT_RTOL; a check holds at 1 or
+    less). The difference is (1 - beta1) times the gradients', so it is
+    held to the gradient's share of the one process's moment, m - beta1
+    m0, which pre's moments m0 give. With `names` ({net: parameter
+    names}), the three largest are logged with their tensors."""
+    worst, each = 0.0, []
+    for w in ("gen", "dis"):
+        beta1 = pre[f"{w}_opt"]["param_groups"][0]["betas"][0]
+        m0 = {i: st["exp_avg"].double() for i, st in pre[f"{w}_opt"]["state"].items()}
+        share = {i: m.double() - beta1 * m0.get(i, 0.0) for i, m in want["moments"][w].items()}
+        n_net = sum(v.numel() for v in share.values())
+        net = _norm(share.values())
+        for i, g in share.items():
+            diff = (got["moments"][w][i].double() - want["moments"][w][i].double()).norm().item()
+            tol = DP_MOMENT_RTOL * (g.norm().item() + net * (g.numel() / n_net) ** 0.5)
+            worst = max(worst, diff / tol)
+            if names is not None:
+                each.append((round(diff / tol, 4), f"{w}.{names[w][i]}"))
+    if names is not None:
+        log(f"data parallel (a) moments, the largest errors over their tolerance: "
+            f"{sorted(each, reverse=True)[:3]}")
+    return worst
+
+
+def _norm(tensors) -> float:
+    """The norm 2 of the tensors taken as one vector."""
+    return sum(float(t.double().pow(2).sum()) for t in tensors) ** 0.5
+
+
+def _dp_mutants(want: dict, pre: dict, half: dict) -> dict:
+    """The moment errors (`_dp_moment_errors`) that a wrong gradient would
+    make against one process's step from `pre`: the gradients summed where
+    they are averaged (twice the share), lost (none of it), or rank 0's
+    rows alone (`half`: one process's step on them)."""
+    def scaled(c):
+        out = {"moments": {}}
+        for w in ("gen", "dis"):
+            beta1 = pre[f"{w}_opt"]["param_groups"][0]["betas"][0]
+            m0 = {i: st["exp_avg"] for i, st in pre[f"{w}_opt"]["state"].items()}
+            out["moments"][w] = {i: beta1 * m0.get(i, 0.0) + c * (m - beta1 * m0.get(i, 0.0))
+                                 for i, m in want["moments"][w].items()}
+        return out
+
+    return {"summed": _dp_moment_errors(scaled(2.0), want, pre),
+            "lost": _dp_moment_errors(scaled(0.0), want, pre),
+            "rank 0's rows": _dp_moment_errors(half, want, pre)}
+
+
+def _dp_time_rank(mesh, out: pathlib.Path) -> None:
+    """(c)'s timing, one NCCL rank a card: the full-width step (`_dp_setup`)
+    on this rank's rows of one global batch of TRAIN_BATCH, DP_WARM steps,
+    then DP_SCALING_TIMED timed one by one; rank 0 writes the times (ms)."""
+    import json
+
+    import torch
+    from speech2affective_gestures_torch.device import set_f32_numerics
+
+    set_f32_numerics()
+    cfg, step, g = _dp_setup(mesh.device, mesh)
+    batch = _dp_batches(cfg, mesh.device, mesh.rows(TRAIN_BATCH))[0]
+    times = []
+    for i in range(DP_WARM + DP_SCALING_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step.train_step(batch, g, gan_on=True)
+        torch.cuda.synchronize()
+        if i >= DP_WARM:
+            times.append((time.perf_counter() - t0) * 1e3)
+    if mesh.rank == 0:
+        out.write_text(json.dumps(times))
+
+
+def _dp_scaling(work: pathlib.Path, n_cards: int, one: list, smi: str) -> None:
+    """(c)'s step p50 by card count: one NCCL rank a card on 1, 2 and 4
+    (of those visible) cards, each on its rows of the same global batch
+    (`_dp_time_rank`), beside one process without a mesh (`one`, (a)'s
+    times on the same batch)."""
+    import json
+
+    from speech2affective_gestures_torch.parallel import mesh as P
+
+    p50 = {"one process": float(np.median(one))}
+    for world in (1, 2, 4):
+        if world > n_cards:
+            continue
+        out = work / f"dp_time_{world}.json"
+        P.launch(_dp_time_rank, world, "nccl", args=(out,), timeout=DP_TIMEOUT)
+        times = json.loads(out.read_text())
+        p50[f"{world} NCCL"] = float(np.median(times))
+        log(f"data parallel (c) timing, {world} NCCL rank(s), {TRAIN_BATCH // world} rows "
+            f"each: step p50 {p50[f'{world} NCCL']:.3f} ms (all "
+            f"{[round(t, 3) for t in times]})")
+    log(f"data parallel (c) step p50 by cards at global batch {TRAIN_BATCH} ({smi}): "
+        + ", ".join(f"{k} {v:.3f} ms ({TRAIN_BATCH / v * 1e3:.0f} samples/s)"
+                    for k, v in p50.items()))
+
+
+def data_parallel_phase(device, work: pathlib.Path, embedding_net: pathlib.Path,
+                        smi: str) -> collections.Counter:
+    """Data-parallel training (`parallel.mesh`), float32 with TF32 off, full
+    width, global batch TRAIN_BATCH:
+    (a) two gloo ranks on this card (`_dp_steps_rank`, 256 rows each),
+        DP_STEPS steps, each against one process's step on the same global
+        batch from the same state (weights, Adams, generator;
+        `_dp_errors`, and the Adam first moments, `_dp_moment_errors`,
+        whose tolerance must fail the gradients summed, lost or of rank
+        0's rows alone, `_dp_mutants`); the ranks the same bits after each
+        step; a mixed-precision step;
+    (b) one NCCL rank's K-step graph, its all-reduces captured, against its
+        eager steps (`_dp_graph_rank`);
+    (c) with more than one card, the step p50 on 1, 2 and 4 cards over
+        NCCL beside one process's (`_dp_scaling`), then `main_v2` over
+        NCCL on every visible card for 2 epochs (`_dp_main_v2`); with one,
+        logged as not run;
+    (d) DP_RESUME_RANKS gloo ranks (128 rows each) resumed from a
+        checkpoint against the uncut run (`_dp_resume_rank`).
+    Logs the step p50s, the all-reduces' ms and bytes a step and the
+    launches a step. Returns the ranks' launches: rank 0's of (a), (d)
+    and its mixed step, under the plain names and at its batch."""
+    import json
+
+    import torch
+    from speech2affective_gestures_torch.parallel import mesh as P
+
+    t0 = time.perf_counter()
+    launches = collections.Counter()
+    out = work / "dp_steps.pt"
+    P.launch(_dp_steps_rank, 2, "gloo", devices=[device, device], args=(out,),
+             timeout=DP_TIMEOUT)
+    got = torch.load(out, weights_only=False)
+    cfg, step, g = _dp_setup(device)
+    errs, mutants, times = [], [], []
+    for b, pre, snap in zip(_dp_batches(cfg, device), got["pre"], got["snaps"]):
+        _dp_load_state(step, g, pre)
+        half = {k: v[:TRAIN_BATCH // 2] for k, v in b.items()}
+        half = (step.train_step(half, g, gan_on=True), _dp_snapshot(step, {}))[1]
+        _dp_load_state(step, g, pre)
+        want = _dp_snapshot(step, step.train_step(b, g, gan_on=True))
+        names = {w: [n for n, _ in getattr(step, w).named_parameters()] for w in ("gen", "dis")}
+        errs.append({**_dp_errors(snap, want),
+                     "moments": _dp_moment_errors(snap, want, pre, names)})
+        mutants.append(_dp_mutants(want, pre, half))
+    for _ in range(DP_TIMED):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        step.train_step(b, g, gan_on=True)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3)
+    del step, got["pre"]
+    torch.cuda.empty_cache()
+    per_step = {k: v / DP_STEPS for k, v in got["traffic"].items()}
+    launches.update(got["launches"])
+    launches.update(got["mixed_launches"])
+    gru = {k: v / DP_STEPS for k, v in got["launches"].items() if not re.search(r"_b\d", k)}
+    log(f"data parallel (a), two gloo ranks on one card, 256 rows each of batch "
+        f"{TRAIN_BATCH}, each step against one process's from the same state, each check's "
+        f"error over its tolerance by step: {[{k: round(v, 4) for k, v in e.items()} for e in errs]}; the ranks the "
+        f"same bits after each step {got['synced']}, after a mixed-precision step "
+        f"{got['mixed_sync']} (its metrics {got['mixed']}); the Adam first moments' error "
+        f"over its tolerance for wrong gradients, by step (each must pass 1): "
+        f"{[{k: round(v, 2) for k, v in m.items()} for m in mutants]}")
+    rounded = {k: [round(t, 3) for t in v] for k, v in
+               (("ranks", got["times"]), ("one", times), ("reduce", got["reduce_ms"]))}
+    log(f"data parallel (a) numbers ({smi}): step p50 {np.median(got['times']):.3f} ms with "
+        f"two ranks sharing the card (not a scaling figure: both ranks run on one card) "
+        f"against one process's {np.median(times):.3f} ms (all {rounded['ranks']} and "
+        f"{rounded['one']}); all-reduces a step {per_step.get('all_reduce', 0):.1f}, "
+        f"{per_step.get('all_reduce_bytes', 0):.0f} bytes, of them the gradients' "
+        f"{got['grad_bytes']} bytes in {np.median(got['reduce_ms']):.3f} ms (p50 of "
+        f"{rounded['reduce']}, through the host under gloo); GRU launches a step on a rank "
+        f"{gru}")
+    if not all(v <= 1 for e in errs for v in e.values()):
+        raise AssertionError(f"two ranks are not one process: {errs}")
+    if not all(v > 1 for m in mutants for v in m.values()):
+        raise AssertionError(f"the moment check would pass a wrong gradient: {mutants}")
+
+    out = work / "dp_graph.json"
+    P.launch(_dp_graph_rank, 1, "nccl", devices=[device], args=(out,), timeout=DP_TIMEOUT)
+    graph = json.loads(out.read_text())
+    log(f"data parallel (b), one NCCL rank, K 2 graphs with the all-reduces captured, "
+        f"against their eager steps under cudnn.deterministic: the same bits; step p50 "
+        f"{np.median(graph['times']):.3f} ms ({smi}; all "
+        f"{[round(t, 3) for t in graph['times']]}); graphs {graph['record']}; all-reduces "
+        f"at the capture {graph['capture traffic']}, in the eager steps "
+        f"{graph['eager traffic']}")
+
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:
+        _dp_scaling(work, n_cards, times, smi)
+        _dp_main_v2(work, embedding_net, n_cards, smi)
+    else:
+        log("data parallel (c), main_v2 over NCCL on several cards: not run, one card "
+            "visible (torch.cuda.device_count() == 1)")
+
+    P.launch(_dp_resume_rank, DP_RESUME_RANKS, "gloo", devices=[device] * DP_RESUME_RANKS,
+             args=(work,), timeout=DP_TIMEOUT)
+    resume = json.loads((work / "dp_resume.json").read_text())
+    launches.update(resume["launches"])
+    log(f"data parallel (d), {DP_RESUME_RANKS} gloo ranks on one card, "
+        f"{TRAIN_BATCH // DP_RESUME_RANKS} rows each: the resumed run equals the uncut one "
+        f"bit for bit after {resume['steps']} steps on every rank (weights, BN statistics, "
+        f"Adam states, generator, count); checkpoints written: {resume['writes']} (rank 0)")
+    log(f"data parallel phase took {time.perf_counter() - t0:.1f} s; rank launches "
+        f"{dict(launches)}")
+    for name in ("gru_fwd", "gru_bwd", "gru_dw"):
+        for B in (TRAIN_BATCH // 2, TRAIN_BATCH // DP_RESUME_RANKS):
+            if launches[f"{name}_b{B}"] == 0:
+                raise AssertionError(f"{name} did not run at a rank's batch {B}")
+    return launches
+
+
+def _dp_main_v2(work: pathlib.Path, embedding_net: pathlib.Path, n_cards: int,
+                smi: str) -> None:
+    """(c): `main_v2 --use-multiple-gpus true` at full width, batch
+    TRAIN_BATCH, 2 epochs of the synthetic corpus, one NCCL rank a card:
+    rank 0's log must name the ranks, hold finite losses for both epochs
+    and the test split's scores; one checkpoint of epoch 0."""
+    import yaml
+    from speech2affective_gestures_torch import main_v2
+
+    raw = yaml.safe_load(CONFIG.read_text())
+    raw["loss_warmup"] = -1
+    cfg_path = work / "multimodal_context_v2_gan_on.yml"
+    cfg_path.write_text(yaml.safe_dump(raw))
+    base = work / "base_data_parallel"
+    t0 = time.perf_counter()
+    result = main_v2.main(["-b", str(base), "-c", str(cfg_path), "--synthetic-data", "true",
+                           "--synthetic-videos", str(TRAIN_VIDEOS), "--synthetic-seconds",
+                           str(TRAIN_SECONDS), "--batch-size", str(TRAIN_BATCH),
+                           "--s2ag-num-epoch", "2", "--log-interval", "1",
+                           "--embedding-net-checkpoint", str(embedding_net),
+                           "--use-multiple-gpus", "true"])
+    wall = time.perf_counter() - t0
+    work_dir = base / "models" / "s2ag_v2_mfcc_torch" / "ted_db"
+    text = (work_dir / "log.txt").read_text()
+    epochs = [ln for ln in text.splitlines() if " train: mean_s2ag_loss" in ln]
+    values = [float(tok.split(": ")[1]) for ln in text.splitlines() if "Done. | " in ln
+              for tok in ln.split("Done. | ")[1].split(" | ")]
+    ckpts = sorted(p.name for p in work_dir.glob("*.pth.tar"))
+    if (result is not None or f"data parallel: {n_cards} ranks over nccl" not in text
+            or len(epochs) != 2 or not values or not np.isfinite(values).all()
+            or "eval: l1" not in text or len(ckpts) != 1):
+        raise AssertionError(f"main_v2 on {n_cards} cards: returned {result}, epochs {epochs}, "
+                             f"checkpoints {ckpts}; log tail {text[-2000:]}")
+    log(f"data parallel (c), main_v2 over NCCL on {n_cards} cards, "
+        f"{TRAIN_BATCH // n_cards} rows each, 2 epochs: {epochs}; "
+        f"{[ln for ln in text.splitlines() if 'eval: ' in ln]}; {wall:.1f} s in all ({smi})")
+
+
 def bound(nbytes, flops, peak_flops=PEAK_F32_FLOPS):
     """The least time of a function on the card: its bytes over the memory
     rate or its operations over the peak rate of their type (float32
@@ -4321,6 +4932,17 @@ def fused_batch_timing(device) -> list:
                         "the fused step's batch", seed=34)
 
 
+def rank_batch_timing(device) -> list:
+    """The GRU kernels at a data-parallel rank's batch with the generator's
+    layers (T 34, B 256 and 128, H 300, D 2, 600 inputs): `shape_timing`."""
+    rows = []
+    for ranks in (2, DP_RESUME_RANKS):
+        B = TRAIN_BATCH // ranks
+        rows += shape_timing(device, 34, B, 300, 600, f"_b{B}", f"a rank's batch of {ranks}",
+                             seed=B)
+    return rows
+
+
 def shape_timing(device, T: int, B: int, H: int, cin: int, tag: str, what: str,
                  seed: int) -> list:
     """The GRU kernels at (T, B, H, D 2, cin inputs), float32 and bf16, under
@@ -4464,7 +5086,7 @@ def timing_phase(device, errs, launches) -> list[dict]:
              "speech2affective_gestures_tpu/ops/dsp_pallas.py:57",
              mel_ms, mel_plain_ms, mel_lib_ms, mel_bytes, mel_flops, mel_dev, mel_lib_dev),
             *mel_other_timing(device), *bwd_timing(device), *bf16_timing(device),
-            *conv_dis_timing(device), *fused_batch_timing(device)):
+            *conv_dis_timing(device), *fused_batch_timing(device), *rank_batch_timing(device)):
         b_ms, b_by = bound(nbytes, flops, *peak)
         rows_out.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -4479,7 +5101,20 @@ def timing_phase(device, errs, launches) -> list[dict]:
     return rows_out
 
 
+def _ok_line(torch) -> None:
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
 def main() -> int:
+    """Every phase; with `--data-parallel`, the data-parallel phase alone
+    (and the embedding net that its main_v2 run scores with), for a run
+    on several cards."""
+    only_dp = sys.argv[1:] == ["--data-parallel"]
+    if sys.argv[1:] and not only_dp:
+        print("usage: chip_smoke.py [--data-parallel]", file=sys.stderr)
+        return 2
     if not (PKG / "csrc").is_dir() or not CONFIG.is_file():
         print(f"chip_smoke: the port ({PKG.name}/) and config/ must sit beside "
               "this script", file=sys.stderr)
@@ -4495,6 +5130,8 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     log(smi)
+    # one line for the numbers' notes, whatever the cards
+    smi = smi.replace("\n", "; ")
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
 
@@ -4519,12 +5156,19 @@ def main() -> int:
                 log(f"  ptxas {name} {entry}: {line.strip()}")
 
     device = torch.device("cuda", 0)
+    if only_dp:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as work:
+            work = pathlib.Path(work)
+            data_parallel_phase(device, work, embedding_phase(device, work), smi)
+        _ok_line(torch)
+        return 0
     errs = kernel_phase(device)
     errs.update(bwd_kernel_phase(device))
     errs.update(v1_kernel_phase(device))
     errs.update(bf16_kernel_phase(device))
     errs.update(conv_dis_kernel_phase(device))
     errs.update(fused_batch_kernel_phase(device))
+    errs.update(rank_batch_kernel_phase(device))
     # each kernel's launches on the paths that run it: the service's two
     # requests and the bf16 service's one, the training runs (float32 and
     # mixed precision) with their test-split scoring, run_layer in float32
@@ -4574,11 +5218,12 @@ def main() -> int:
         launches.update(scanned_epoch_phase(device, work, embedding_net, smi))
         # the streaming loader, and resumed training on both loaders
         launches.update(grain_phase(device, work, embedding_net, smi))
+        # data-parallel training: ranks over gloo on this card, one NCCL
+        # rank's K-step graph, main_v2 over NCCL where there are cards
+        launches.update(data_parallel_phase(device, work, embedding_net, smi))
     kernels = timing_phase(device, errs, launches)
     log(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+    _ok_line(torch)
     return 0
 
 

@@ -168,14 +168,18 @@ class GrainLoader:
     (`chip_smoke.py` `grain_numbers` times both), since the launching
     thread, which takes and drops the interpreter lock at every operation,
     slows beside another thread that takes it. `next_batch` counts the
-    batches handed out."""
+    batches handed out. `part` picks the rows of each batch that this
+    loader hands out: a data-parallel rank's (`DataMesh.rows`), every rank
+    running the same global stream, with the speakers drawn over the whole
+    batch (JAX's trainer splits its grain batches so, trainer.py:237-239,
+    :274-277); all of them by default."""
 
     # the packed arrays a batch copies, in their dtypes in the split
     FIELDS = ("extended_word_seq", "vec_seq", "audio", "audio_max", "mfcc_features")
 
     def __init__(self, dataset: PackedDataset, batch_size: int, seed: int,
-                 device: str | torch.device = "cpu"):
-        self.ds, self.batch_size = dataset, batch_size
+                 device: str | torch.device = "cpu", part: slice = slice(None)):
+        self.ds, self.batch_size, self.part = dataset, batch_size, part
         self.device = torch.device(device)
         pool = speaker_id_pool(dataset)
         self.speakers = np.arange(1) if pool is None else pool
@@ -189,21 +193,23 @@ class GrainLoader:
 
     def packed_batch(self, t: int, seed: int, pin: bool = False) -> dict:
         """Batch t of the stream of `seed` as CPU tensors (in pinned memory
-        with `pin`): its rows of the packed split in the split's dtypes,
-        each field copied by one `np.take`, and its adversarial speakers
-        (int64, `vid_indices`)."""
+        with `pin`), `part` of its rows: those rows of the packed split in
+        the split's dtypes, each field copied by one `np.take`, and their
+        adversarial speakers (int64, `vid_indices`) of the whole batch's
+        draw."""
         ds, bs = self.ds, self.batch_size
         rows = batch_rows(ds.n_samples, bs, seed, t)
+        mine = rows[self.part]
         out = {}
         for k in self.FIELDS:
             src = getattr(ds, k)
             # np.take fills the tensor's numpy view, of the source's dtype
-            out[k] = torch.empty((bs, *src.shape[1:]), dtype=torch.from_numpy(src[:0]).dtype,
-                                 pin_memory=pin)
-            np.take(src, rows, axis=0, out=out[k].numpy(), mode="clip")
+            out[k] = torch.empty((len(mine), *src.shape[1:]),
+                                 dtype=torch.from_numpy(src[:0]).dtype, pin_memory=pin)
+            np.take(src, mine, axis=0, out=out[k].numpy(), mode="clip")
         rng = np.random.Generator(np.random.Philox(key=seed + (t + 1) * bs - 1))
         out["vid_indices"] = torch.from_numpy(sample_adversarial_speakers(
-            self.speakers, ds.vid_indices[rows], rng, bs).astype(np.int64))
+            self.speakers, ds.vid_indices[rows], rng, bs).astype(np.int64)[self.part])
         return out
 
     def __iter__(self):

@@ -300,16 +300,20 @@ class DeviceDataset:
 
 class DeviceBatchSampler(BatchSampler):
     """`BatchSampler`'s draws, in its order (the rows, then the adversarial
-    speakers), with each batch gathered on the device (`DeviceDataset`)."""
+    speakers), with each batch gathered on the device (`DeviceDataset`):
+    the rows `part` of each draw (a data-parallel rank's; all of them by
+    default)."""
 
     def __init__(self, dataset: PackedDataset, batch_size: int, seed: int,
-                 device_dataset: DeviceDataset):
+                 device_dataset: DeviceDataset, part: slice = slice(None)):
         super().__init__(dataset, batch_size, seed)
         self.device_ds = device_dataset
+        self.part = part
 
     def __iter__(self) -> Iterator[dict]:
         for _ in range(self.pseudo_passes()):
-            yield self.device_ds.batch(*self.draw())
+            idx, adv = self.draw()
+            yield self.device_ds.batch(idx[self.part], adv[self.part])
 
 
 # --------------------------------------------------------------------------

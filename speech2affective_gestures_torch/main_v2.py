@@ -40,6 +40,13 @@ larger than the card's memory. Each checkpoint has a
 step count, the position in the epoch and the stream's), so that a run
 resumed from it draws what the uncut run draws, under grain from the
 middle of an epoch.
+With more than one card visible, `--use-multiple-gpus true` (the default)
+trains data-parallel, one process a card over NCCL, as the JAX package's
+data mesh: the global `--batch-size` split over the cards, BatchNorm's
+statistics and every random draw taken over the global batch, the
+gradients averaged before the clip and Adam (`parallel.mesh`); rank 0 logs
+and writes the checkpoints. `--use-multiple-gpus false`, a `--device`
+index or one card trains in one process.
 `--mixed-precision true` runs the train steps at bf16 (the GRU kernels'
 bf16 instances on the card); validation and the test-split scoring stay
 float32.
@@ -60,6 +67,7 @@ from __future__ import annotations
 
 import argparse
 import os
+import sys
 import time
 from os.path import join as jn
 
@@ -70,6 +78,7 @@ from .config import ModelConfig
 from .convert.from_jax import reference_state_dict
 from .data import ted_db
 from .device import resolve_device, set_f32_numerics
+from .parallel import mesh as P
 from .train.evaluator import EmbeddingSpaceEvaluator
 from .train.gan_step import REMAT_MODES
 from .train.trainer import Trainer, find_checkpoint
@@ -99,8 +108,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--frame-drop", type=int, default=2)
     p.add_argument("--train-s2ag", type=str2bool, default=True)
     p.add_argument("--use-multiple-gpus", type=str2bool, default=True,
-                   help="accepted; training runs on one card (cuda:0) until "
-                        "multi-GPU is ported (ROADMAP.md, queue 1)")
+                   help="with more than one visible card (and no --device index), "
+                        "train data-parallel in one process a card over NCCL: the "
+                        "batch split over the cards, BatchNorm statistics and "
+                        "random draws over the global batch, gradients averaged")
     p.add_argument("--s2ag-load-last-best", type=str2bool, default=True)
     p.add_argument("--batch-size", type=int, default=512)
     p.add_argument("--num-worker", type=int, default=4)
@@ -273,9 +284,29 @@ def checkpoint_speakers(path: str | None) -> int | None:
     return None if table is None else table.shape[0]
 
 
-def main(argv=None, variant: str = "s2ag") -> Trainer:
+def main(argv=None, variant: str = "s2ag") -> Trainer | None:
+    """Train and score in this process, or, with `--use-multiple-gpus
+    true` (the default), no `--device` index and more than one visible
+    card, in one process a card over NCCL (`parallel.mesh.launch`: a
+    rank's failure stops every rank and raises here); then None."""
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
+    if (args.use_multiple_gpus and device.type == "cuda" and device.index is None
+            and torch.cuda.device_count() > 1):
+        P.launch(_rank_main, torch.cuda.device_count(), "nccl", args=(argv, variant))
+        return None
+    return run(args, variant, device)
+
+
+def _rank_main(mesh: P.DataMesh, argv: list, variant: str) -> None:
+    run(build_parser().parse_args(argv), variant, mesh.device, mesh)
+
+
+def run(args, variant: str, device: torch.device, mesh: P.DataMesh | None = None) -> Trainer:
+    """`main`'s flow on `device`: as one rank of `mesh` where one is given
+    (the splits built by rank 0 first, which writes their caches, then by
+    the other ranks, which read them)."""
     if device.type == "cuda":
         set_f32_numerics()
     cfg = ModelConfig.from_yaml(args.config, batch_size=args.batch_size)
@@ -287,7 +318,11 @@ def main(argv=None, variant: str = "s2ag") -> Trainer:
                    "videos_trimodal_style"), exist_ok=True)
 
     logs: list[str] = []
+    if mesh is not None and mesh.rank != 0:
+        mesh.barrier()
     train_data, val_data, test_data = load_datasets(args, cfg, device, logs.append)
+    if mesh is not None and mesh.rank == 0:
+        mesh.barrier()
     evaluator = None
     if args.embedding_net_checkpoint:
         evaluator = EmbeddingSpaceEvaluator.from_torch_checkpoint(
@@ -304,7 +339,7 @@ def main(argv=None, variant: str = "s2ag") -> Trainer:
         lr_decay=args.lr_s2ag_decay if args.apply_lr_decay else 1.0,
         n_speakers=checkpoint_speakers(checkpoint_to_load(args, work_dir)),
         fused_pass=args.fused_pass, remat=args.remat, loader=args.loader,
-        steps_per_program=args.steps_per_program)
+        steps_per_program=args.steps_per_program, mesh=mesh)
     trainer.logger.save_arg(vars(args))
     for line in logs:
         trainer.logger.print_log(line)
@@ -322,10 +357,10 @@ def main(argv=None, variant: str = "s2ag") -> Trainer:
             "--gradient-clip accepted for compatibility but UNUSED (the "
             "reference parses and drops it); pass --apply-gradient-clip "
             "true to enable.")
-    if device.type == "cuda" and torch.cuda.device_count() > 1:
+    if mesh is not None:
         trainer.logger.print_log(
-            f"{torch.cuda.device_count()} cards visible; training on cuda:0 "
-            "(multi-GPU training: ROADMAP.md, queue 1, item 5)")
+            f"data parallel: {mesh.world} ranks over {mesh.backend}, global batch "
+            f"{cfg.batch_size}, {cfg.batch_size // mesh.world} rows a rank")
 
     if args.trimodal_checkpoint:
         trainer.load_trimodal_torch_checkpoint(args.trimodal_checkpoint)

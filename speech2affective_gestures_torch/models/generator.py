@@ -105,12 +105,12 @@ class _GRUGenerator(nn.Module):
     @staticmethod
     def _noise(shape, like: torch.Tensor, eps: torch.Tensor | None,
                generator: torch.Generator | None) -> torch.Tensor:
-        """eps, or a draw of `shape` from `generator` on the generator's
-        own device, at `like`'s dtype and device."""
+        """eps, or a draw of `shape` (batch first) from `generator` on the
+        generator's own device, at `like`'s dtype and device."""
         if eps is None:
             gen_device = generator.device if generator is not None else like.device
-            eps = L.draw(generator, lambda: torch.randn(shape, generator=generator,
-                                                        device=gen_device))
+            eps = L.draw(generator, lambda full: torch.randn(full, generator=generator,
+                                                             device=gen_device), shape)
         return eps.to(like)
 
     def speaker_z(self, vid_indices: torch.Tensor, eps: torch.Tensor | None = None,

@@ -35,6 +35,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import gru_cuda
+from ..parallel import mesh as P
 
 
 def leaky_relu(x: torch.Tensor, slope: float) -> torch.Tensor:
@@ -65,7 +66,8 @@ def dropout_rng(generator: torch.Generator | None):
 def dropout(x: torch.Tensor, p: float, training: bool) -> torch.Tensor:
     """Inverted dropout: zero each value with probability p, scale the rest
     by 1/(1-p); the identity in eval mode or at p = 0, zeros at p = 1 (as
-    flax's Dropout: the SER nets' reference default)."""
+    flax's Dropout: the SER nets' reference default). x is batch first: a
+    data-parallel step draws the mask over the global batch (`draw`)."""
     if not training or p == 0.0:
         return x
     if p >= 1.0:
@@ -73,7 +75,8 @@ def dropout(x: torch.Tensor, p: float, training: bool) -> torch.Tensor:
     if _dropout_generator is None:
         return F.dropout(x, p, training=True)
     gen = _dropout_generator
-    keep = draw(gen, lambda: torch.rand(x.shape, generator=gen, device=gen.device) >= p)
+    keep = draw(gen, lambda shape: torch.rand(shape, generator=gen, device=gen.device) >= p,
+                x.shape)
     return x * keep.to(x.device) / (1.0 - p)
 
 
@@ -113,14 +116,16 @@ class DrawTape:
 _tape: DrawTape | None = None
 
 
-def draw(generator: torch.Generator | None, fn):
-    """fn(), a tensor drawn from `generator`; inside a `DrawTape` block of
-    that generator, recorded or replayed."""
+def draw(generator: torch.Generator | None, fn, shape):
+    """fn(shape), a tensor drawn from `generator` whose first axis runs
+    over the batch; in a data-parallel step this rank's rows of the global
+    draw (`parallel.mesh.draw_local`); inside a `DrawTape` block of that
+    generator, recorded or replayed."""
     tape = _tape
     if tape is None or generator is not tape.generator:
-        return fn()
+        return P.draw_local(fn, shape)
     if tape.position is None:
-        tape.draws.append(fn())
+        tape.draws.append(P.draw_local(fn, shape))
         return tape.draws[-1]
     tape.position += 1
     return tape.draws[tape.position - 1]
@@ -142,6 +147,48 @@ def sum_bidirectional(out: torch.Tensor, hidden_size: int) -> torch.Tensor:
     return out[..., :hidden_size] + out[..., hidden_size:]
 
 
+def _batch_norm_global(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
+                       mesh: P.DataMesh) -> torch.Tensor:
+    """Train-mode BatchNorm over the global batch of a data-parallel step,
+    by JAX `layers.BatchNorm`'s two-pass formula (its :186-209): the mean
+    of x over the batch and the other non-channel axes of every rank, then
+    the mean of (x - mean)^2, each sum all-reduced (`AllReduceSum`, whose
+    backward sums the gradients of every rank's loss), in float32 at a bf16
+    input; the running stats updated alike on every rank, the variance
+    unbiased with the global count."""
+    dims = [0, *range(2, x.dim())]
+    shape = [1, -1] + [1] * (x.dim() - 2)
+    xf = x.float() if x.dtype == torch.bfloat16 else x
+    count = xf.numel() // xf.shape[1] * mesh.world
+    mean = P.AllReduceSum.apply(xf.sum(dims), mesh) / count
+    centred = xf - mean.view(shape)
+    var = P.AllReduceSum.apply((centred * centred).sum(dims), mesh) / count
+    with torch.no_grad():
+        bn.num_batches_tracked.add_(1)
+        m = bn.momentum
+        bn.running_mean.mul_(1 - m).add_(mean.detach().to(bn.running_mean.dtype), alpha=m)
+        bn.running_var.mul_(1 - m).add_(
+            (var.detach() * (count / (count - 1))).to(bn.running_var.dtype), alpha=m)
+    out = centred * torch.rsqrt(var + bn.eps).view(shape)
+    if bn.weight is not None:
+        out = out * bn.weight.to(out.dtype).view(shape) + bn.bias.to(out.dtype).view(shape)
+    return out.to(x.dtype)
+
+
+def _batch_norm(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor, forward):
+    """`forward(x)`, torch's BatchNorm, but at a bf16 input
+    (`_batch_norm_f32`) and in train mode inside a data-parallel step
+    (`_batch_norm_global`)."""
+    stepping = P.current()
+    if bn.training and stepping is not None:
+        bn._check_input_dim(x)
+        return _batch_norm_global(bn, x, stepping[0])
+    if x.dtype != torch.bfloat16:
+        return forward(x)
+    bn._check_input_dim(x)
+    return _batch_norm_f32(bn, x)
+
+
 def _batch_norm_f32(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor) -> torch.Tensor:
     """JAX `layers.BatchNorm` at a bf16 activation (its :186-209): the
     statistics from x in float32, the running stats (float32 buffers)
@@ -157,24 +204,18 @@ def _batch_norm_f32(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor) -> tor
 
 class BatchNorm1d(nn.BatchNorm1d):
     """nn.BatchNorm1d (its state-dict names), with float32 statistics at a
-    bf16 input (`_batch_norm_f32`)."""
+    bf16 input and global ones in a data-parallel step (`_batch_norm`)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if x.dtype != torch.bfloat16:
-            return super().forward(x)
-        self._check_input_dim(x)
-        return _batch_norm_f32(self, x)
+        return _batch_norm(self, x, super().forward)
 
 
 class BatchNorm2d(nn.BatchNorm2d):
     """nn.BatchNorm2d (its state-dict names), with float32 statistics at a
-    bf16 input (`_batch_norm_f32`)."""
+    bf16 input and global ones in a data-parallel step (`_batch_norm`)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if x.dtype != torch.bfloat16:
-            return super().forward(x)
-        self._check_input_dim(x)
-        return _batch_norm_f32(self, x)
+        return _batch_norm(self, x, super().forward)
 
 
 class WNConv1d(nn.Module):
@@ -265,7 +306,8 @@ class GRU(_Recurrent):
                 torch.stack(self._layer("bias_hh", layer)))
             finals.extend(h_last.unbind(0))
             if layer < self.num_layers - 1:
-                out = dropout(out, self.dropout, self.training)
+                # the mask drawn batch first
+                out = dropout(out.transpose(0, 1), self.dropout, self.training).transpose(0, 1)
         return out, torch.stack(finals)
 
 
@@ -320,7 +362,7 @@ class LSTM(_Recurrent):
             h_finals.extend(h_last.unbind(0))
             c_finals.extend(c_last.unbind(0))
             if layer < self.num_layers - 1:
-                out = dropout(out, self.dropout, self.training)
+                out = dropout(out.transpose(0, 1), self.dropout, self.training).transpose(0, 1)
         return out.transpose(0, 1), (torch.stack(h_finals), torch.stack(c_finals))
 
 

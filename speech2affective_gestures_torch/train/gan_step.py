@@ -76,6 +76,7 @@ from torch.utils import checkpoint
 
 from .. import constants as C
 from ..models import layers as L
+from ..parallel import mesh as P
 from . import losses
 
 
@@ -218,14 +219,20 @@ def draw_other_speaker_ids(generator: torch.Generator, vids: torch.Tensor,
                            n_speakers: int) -> torch.Tensor:
     """Speaker ids for the diversity regularizer's second pass: with
     n_speakers > 1 a uniform draw over the vocabulary excluding each
-    sample's own id; otherwise a permutation of the batch's ids."""
+    sample's own id; otherwise a permutation of the batch's ids. In a
+    data-parallel step both are drawn over the global batch
+    (`parallel.mesh`): the uniform ids at its shape, the permutation of
+    every rank's ids, and this rank keeps its rows."""
     dev = generator.device
     if n_speakers > 1:
-        draw = torch.randint(0, n_speakers - 1, tuple(vids.shape),
-                             generator=generator, device=dev).to(vids)
+        draw = P.draw_local(lambda shape: torch.randint(
+            0, n_speakers - 1, shape, generator=generator, device=dev), vids.shape).to(vids)
         return draw + (draw >= vids).to(vids.dtype)
-    perm = torch.randperm(vids.shape[0], generator=generator, device=dev)
-    return vids[perm.to(vids.device)]
+    stepping = P.current()
+    every = vids if stepping is None else P.all_gather_rows(vids, stepping[0])
+    perm = torch.randperm(every.shape[0], generator=generator, device=dev)
+    out = every[perm.to(vids.device)]
+    return out if stepping is None else stepping[0].local(out, vids.shape[0])
 
 
 @torch.no_grad()
@@ -326,10 +333,12 @@ class GanStep:
 
     def __init__(self, gen: torch.nn.Module, dis: torch.nn.Module,
                  cfg: GanConfig, tri: torch.nn.Module | None = None,
-                 train_apply=None):
+                 train_apply=None, mesh: P.DataMesh | None = None):
         self.gen, self.dis, self.tri, self.cfg = gen, dis, tri, cfg
         self.gen_opt, self.dis_opt = make_optimizers(gen, dis, cfg)
         self.train_apply = train_apply
+        # the data axis of a data-parallel step (None: one process)
+        self.mesh = mesh
         self.step = 0
         # each net's gradient norm before its last clipped update
         self.grad_norms: dict[str, torch.Tensor] = {}
@@ -339,7 +348,11 @@ class GanStep:
         clipped, and with decay its learning rate set after the update to
         the next one's at its own update count, so that the optimizer
         always holds the rate its next update uses (its base rate before
-        the first)."""
+        the first). In a data-parallel step the gradients are first
+        averaged over the ranks, so that the clip sees the global norm."""
+        if self.mesh is not None:
+            P.all_reduce_mean_([p.grad for p in getattr(self, who).parameters()
+                                if p.grad is not None], self.mesh)
         if self.cfg.gradient_clip > 0.0:
             self.grad_norms[who] = clip_by_global_norm_(
                 getattr(self, who).parameters(), self.cfg.gradient_clip)
@@ -446,7 +459,7 @@ class GanStep:
         use_gan = gan_on and cfg.loss_gan_weight > 0.0
         metrics: dict[str, torch.Tensor] = {}
 
-        with L.dropout_rng(generator):
+        with L.dropout_rng(generator), P.stepping(self.mesh, bsz):
             # ---------------------------------------------------- D update
             if use_gan:
                 with torch.no_grad():
@@ -517,6 +530,13 @@ class GanStep:
                 metrics["s2ag_vs_trimodal_l1"] = s2ag_l1 - losses.l1(tri_out, target)
             metrics["s2ag_l1"] = s2ag_l1
         self.step += 1
+        return self._global_metrics(metrics)
+
+    def _global_metrics(self, metrics: dict) -> dict:
+        """In a data-parallel step, each metric (a mean over the rank's
+        rows) averaged over the ranks: the global batch's."""
+        if self.mesh is not None:
+            P.all_reduce_mean_(list(metrics.values()), self.mesh)
         return metrics
 
     @torch.no_grad()
@@ -527,6 +547,11 @@ class GanStep:
         updates) and the same loss terms (ref per_val_epoch,
         processor_v2.py:993-1030); `eps` and `eps_rand` as `train_step`'s.
         Returns (out, metrics)."""
+        with P.stepping(self.mesh, batch["vec_seq"].shape[0]):
+            out, metrics = self._eval(batch, generator, gan_on, eps, eps_rand)
+        return out, self._global_metrics(metrics)
+
+    def _eval(self, batch, generator, gan_on, eps, eps_rand):
         cfg = self.cfg
         gen, dis = self.gen.eval(), self.dis.eval()
         text, target = batch["extended_word_seq"], batch["vec_seq"]

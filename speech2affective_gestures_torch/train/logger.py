@@ -13,11 +13,17 @@ import yaml
 
 
 class TrainLogger:
-    def __init__(self, work_dir: str):
+    """Logs to stdout and `work_dir/log.txt`; with `enabled` false (a
+    data-parallel rank other than 0) it writes nothing."""
+
+    def __init__(self, work_dir: str, enabled: bool = True):
         self.work_dir = work_dir
+        self.enabled = enabled
         os.makedirs(work_dir, exist_ok=True)
 
     def print_log(self, msg: str):
+        if not self.enabled:
+            return
         msg = time.strftime("[ %a %b %d %H:%M:%S %Y ] ", time.localtime()) + msg
         print(msg)
         with open(os.path.join(self.work_dir, "log.txt"), "a") as f:
@@ -25,6 +31,8 @@ class TrainLogger:
 
     def save_arg(self, arg_obj):
         """Session dump (torchlight io.py:109-119)."""
+        if not self.enabled:
+            return
         arg_dict = (
             vars(arg_obj) if not isinstance(arg_obj, dict) else dict(arg_obj)
         )

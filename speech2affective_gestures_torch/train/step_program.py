@@ -26,6 +26,11 @@ and one graph launch a program. What capture needs:
   none, so the counts a capture adds are taken off again, kept as the
   graph's, and added at every replay (`launch_record`).
 Replay raises if the capture did; nothing falls back to the eager body.
+On a data-parallel mesh (`GanStep.mesh`, NCCL) the step's collectives
+(the gradients' and metrics' all-reduces, BatchNorm's global sums, the
+permutation's gather) are captured with it; the warm-up's eager
+collectives set up the communicator first. The trainer hands each rank
+its columns of the (K, B) draws.
 
 On the CPU, which the tests use, the same body runs eagerly: with the same
 draws in the same order it equals the per-step loop bit for bit.

@@ -28,6 +28,17 @@ either loader, from the middle of an epoch under grain. A checkpoint
 without that file (the reference's, an older run's) loads as before. The
 best-checkpoint choice takes the minimum positive loss, as the JAX
 package's does.
+
+With a `mesh` (`parallel.mesh.DataMesh`) the trainer is one rank of a
+data-parallel run, JAX's trainer on its data mesh (trainer.py:201-206):
+the state is replicated from rank 0, each step takes this rank's rows of
+the global batch, and the step averages the gradients and metrics over
+the ranks (`GanStep.mesh`). With the device loader each rank holds a
+replica of the split and gathers its rows of each draw there, one step at
+a time or K steps a program; grain runs the global stream on every rank,
+each taking its rows; validation and scoring decode each batch on the
+host and upload the rank's rows. Rank 0 alone logs and writes
+checkpoints; every rank reads them.
 """
 
 from __future__ import annotations
@@ -47,6 +58,7 @@ from ..convert.from_jax import strip_module_prefix
 from ..data.grain_loader import GrainLoader
 from ..data.ted_db import (BatchSampler, DeviceBatchSampler, DeviceDataset, PackedDataset,
                            decode_rows)
+from ..parallel import mesh as P
 from . import builder
 from .evaluator import EmbeddingSpaceEvaluator, push_sample_metrics
 from .gan_step import reference_optimizer_state
@@ -110,7 +122,9 @@ class Trainer:
     memory). `steps_per_program` K > 1 runs the epoch K steps a program
     where it can (`_use_scanned_epoch`: the device loader); where it cannot,
     `epoch_engine_fallback` says why and K drops to 1, as in JAX
-    (trainer.py:244-270)."""
+    (trainer.py:244-270). `mesh` makes it one rank of a data-parallel run
+    (module docstring) on the mesh's device, `cfg.batch_size` being the
+    global batch."""
 
     def __init__(self, cfg: ModelConfig, work_dir: str,
                  train_data: PackedDataset | None = None,
@@ -126,13 +140,16 @@ class Trainer:
                  mixed_precision: bool = False, gradient_clip: float = 0.0,
                  lr_decay: float = 1.0, n_speakers: int | None = None,
                  fused_pass: bool = False, remat: str = "none", loader: str = "device",
-                 steps_per_program: int = 1):
+                 steps_per_program: int = 1, mesh: P.DataMesh | None = None):
         if loader not in ("device", "grain"):  # as JAX's trainer.py:242
             raise ValueError(f"unknown loader {loader!r} (device|grain)")
         self.cfg = cfg
         self.variant = variant
         self.work_dir = work_dir
-        self.logger = TrainLogger(work_dir)
+        self.mesh = mesh
+        self.logger = TrainLogger(work_dir, enabled=mesh is None or mesh.rank == 0)
+        if mesh is not None:
+            device = mesh.device
         self.train_data, self.val_data, self.test_data = train_data, val_data, test_data
         self.val_interval = val_interval
         self.save_interval = save_interval
@@ -177,6 +194,9 @@ class Trainer:
         self.gen, self.dis, self.tri = setup["gen"], setup["dis"], setup["tri"]
         self.step = setup["step"]
         self.gan_cfg = setup["gan_cfg"]
+        if mesh is not None:
+            self.step.mesh = mesh
+            self._replicate()
         # speaker noise, dropout masks and div-reg draws, on the device
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed if seed >= 0 else int(time.time()))
@@ -191,7 +211,8 @@ class Trainer:
         if train_data is not None and loader == "device":
             self._device_train = DeviceDataset(train_data, self.device)
         elif train_data is not None:
-            self._grain = GrainLoader(train_data, cfg.batch_size, max(seed, 0), self.device)
+            self._grain = GrainLoader(train_data, cfg.batch_size, max(seed, 0), self.device,
+                                      part=self._rows(cfg.batch_size))
         self._iter_in_epoch = 0
         self._program: StepProgram | None = None
         self.epoch_engine_fallback: str | None = None
@@ -199,10 +220,23 @@ class Trainer:
                 and not self._use_scanned_epoch()):
             self.epoch_engine_fallback = (
                 f"steps_per_program={self.steps_per_program} requested but the scanned "
-                "epoch needs the 'device' loader and trimodal_metric_interval=1; fell back "
-                "to the per-step loop")
+                "epoch needs the 'device' loader, trimodal_metric_interval=1 and, on a "
+                "data-parallel mesh, a batch size that divides its ranks and NCCL (a CUDA "
+                f"graph cannot capture gloo's collectives); here: "
+                f"{'; '.join(self._scanned_epoch_blockers())}; fell back to the per-step loop")
             self.logger.print_log(f"Warning: {self.epoch_engine_fallback}")
             self.steps_per_program = 1
+
+    def _rows(self, n: int) -> slice:
+        """This rank's rows of a global batch of n (all of them without a
+        mesh)."""
+        return slice(None) if self.mesh is None else self.mesh.rows(n)
+
+    def _replicate(self) -> None:
+        """Every net's weights and buffers and both Adams' states from rank
+        0 (JAX's `replicate_state`)."""
+        P.replicate_state((self.gen, self.dis, self.tri),
+                          (self.step.gen_opt, self.step.dis_opt), self.mesh)
 
     # ------------------------------------------------------------- epochs
     @property
@@ -213,15 +247,46 @@ class Trainer:
 
     def _use_scanned_epoch(self) -> bool:
         """K steps a program need K > 1, the device loader with a train
-        split (the program gathers its batches from the resident one) and
-        the trimodal comparison on every step (the body's gate is fixed),
-        as JAX's (trainer.py:317-336, less its mesh condition: multi-GPU
-        training is ROADMAP.md item 5)."""
-        return (self.steps_per_program > 1 and self.loader == "device"
-                and self._device_train is not None and self.trimodal_metric_interval == 1)
+        split (the program gathers its batches from the resident one), the
+        trimodal comparison on every step (the body's gate is fixed) and,
+        on a mesh, a batch that divides the ranks, as JAX's
+        (trainer.py:317-336), and collectives that a CUDA graph captures
+        (NCCL's)."""
+        return self.steps_per_program > 1 and not self._scanned_epoch_blockers()
+
+    def _scanned_epoch_blockers(self) -> list[str]:
+        """What keeps the K-step programs from running (none: they run)."""
+        out = []
+        if self.loader != "device" or self._device_train is None:
+            out.append(f"the loader is {self.loader!r}" if self.loader != "device"
+                       else "no train split")
+        if self.trimodal_metric_interval != 1:
+            out.append(f"trimodal_metric_interval={self.trimodal_metric_interval}")
+        if self.mesh is not None:
+            if self.cfg.batch_size % self.mesh.world:
+                out.append(f"batch size {self.cfg.batch_size} over {self.mesh.world} ranks")
+            if self.mesh.backend != "nccl":
+                out.append(f"the mesh runs {self.mesh.backend}")
+        return out
 
     def _batch(self, batch: dict) -> dict:
         return builder.to_device(batch, self.device)
+
+    def _local(self, host_batch: dict) -> dict:
+        """This rank's rows of a global host batch (all of them without a
+        mesh), on the device."""
+        if self.mesh is None:
+            return self._batch(host_batch)
+        return P.shard_batch(host_batch, self.mesh)
+
+    def _host_batch(self, ds: PackedDataset, idx: np.ndarray, adv) -> dict:
+        """The rows `idx` of `ds` decoded on the host (`decode_rows`), their
+        speakers those of `adv` (None: a split without a speaker model):
+        this rank's rows of them on the device."""
+        batch = decode_rows(ds, idx)
+        if adv is not None:
+            batch["vid_indices"] = adv
+        return self._local(batch)
 
     def _step_program(self) -> StepProgram:
         if self._program is None:
@@ -234,7 +299,9 @@ class Trainer:
         stream, from `_iter_in_epoch` on, at most `max_iters` of them; the
         count is kept after each step, so that a cut epoch resumes where it
         stopped. Device: ceil(n / B) fresh draws an epoch (the first
-        `max_iters`), each epoch's sampler seeded by its number."""
+        `max_iters`), each epoch's sampler seeded by its number, each
+        batch gathered on the device (on a mesh this rank's rows of each
+        draw, from its replica of the split)."""
         if self._grain is not None:
             steps = max(1, self.train_data.n_samples // self.cfg.batch_size)
             stop = steps if max_iters is None else min(steps, self._iter_in_epoch + max_iters)
@@ -246,7 +313,8 @@ class Trainer:
             return
         sampler = DeviceBatchSampler(self.train_data, self.cfg.batch_size,
                                      seed=self.epoch * 7919 + 1,
-                                     device_dataset=self._device_train)
+                                     device_dataset=self._device_train,
+                                     part=self._rows(self.cfg.batch_size))
         for i, batch in enumerate(sampler):
             if max_iters is not None and i >= max_iters:
                 return
@@ -333,7 +401,9 @@ class Trainer:
             adv = np.empty((k, bs), np.int64)
             for j in range(k):
                 idx[j], adv[j] = sampler.draw()
-            keys, values = program.run(idx, adv, gan_on)
+            # on a mesh each rank gathers its rows from its replica
+            rows = self._rows(bs)
+            keys, values = program.run(idx[:, rows], adv[:, rows], gan_on)
             pending.append((done, k, keys, values))
             pend_steps += k
             done += k
@@ -344,12 +414,14 @@ class Trainer:
         drain()
 
     def per_val_epoch(self) -> float:
+        """The validation split's mean loss (on a mesh each batch split over
+        the ranks, its metrics the global batch's)."""
         sampler = BatchSampler(self.val_data, self.cfg.batch_size, seed=999)
         gan_on = self.epoch > self.gan_cfg.loss_warmup
         collected = []
-        for batch in sampler:
-            _, metrics = self.step.eval_step(self._batch(batch), self.generator,
-                                             gan_on=gan_on)
+        for _ in range(sampler.pseudo_passes()):
+            _, metrics = self.step.eval_step(self._host_batch(self.val_data, *sampler.draw()),
+                                             self.generator, gan_on=gan_on)
             collected.append(metrics.get("s2ag_vs_trimodal_l1", metrics["s2ag_l1"]))
         mean = float(torch.stack(collected).mean()) if collected else 0.0
         self.logger.print_log(f"epoch {self.epoch} val: mean_s2ag_loss {mean:.4f}")
@@ -374,8 +446,18 @@ class Trainer:
         return f"epoch_{self.epoch:06d}_loss_{loss:.4f}_model.pth.tar"
 
     def save_checkpoint(self, loss: float) -> str:
-        """The checkpoint of this epoch, and its data-state file."""
+        """The checkpoint of this epoch, and its data-state file, written by
+        rank 0 alone on a mesh (every rank holds the same state), the
+        others waiting until they are written."""
         path = os.path.join(os.path.abspath(self.work_dir), self._ckpt_name(loss))
+        if self.mesh is None or self.mesh.rank == 0:
+            self._write_checkpoint(path)
+        if self.mesh is not None:
+            self.mesh.barrier()
+        self.logger.print_log(f"saved checkpoint {path}")
+        return path
+
+    def _write_checkpoint(self, path: str) -> None:
         torch.save({
             "gen_model_dict": {f"module.{k}": v for k, v in self.gen.state_dict().items()},
             "dis_model_dict": {f"module.{k}": v for k, v in self.dis.state_dict().items()},
@@ -393,8 +475,6 @@ class Trainer:
             state["grain"] = self._grain.state()
         with open(datastate_path(path), "w") as f:
             json.dump(state, f)
-        self.logger.print_log(f"saved checkpoint {path}")
-        return path
 
     def _restore_data_state(self, path: str) -> None:
         """The draws' state of a checkpoint's data-state file: the step
@@ -442,6 +522,8 @@ class Trainer:
         state_path = datastate_path(os.path.join(self.work_dir, name))
         if os.path.exists(state_path):
             self._restore_data_state(state_path)
+        if self.mesh is not None:
+            self._replicate()
         self._program = None
         self.epoch = ckpt_epoch
         self.best_loss, self.best_loss_epoch = loss, ckpt_epoch
@@ -479,7 +561,12 @@ class Trainer:
         vocabulary (ref processor_v2.py:724-726), with numpy's
         `default_rng(seed)` in the JAX trainer's order. `eps` (n, 16), when
         given, is the speaker noise of the scored samples in order (tests
-        inject it); otherwise it comes from the trainer's generator."""
+        inject it); otherwise it comes from the trainer's generator.
+
+        On a mesh each chunk is cut to a multiple of the ranks, the cut rows
+        named in a warning, and split over the ranks; every rank gathers
+        the outputs and scores the whole chunk, rank 0 logs (JAX
+        trainer.py:712-758). It raises when nothing was scored."""
         ds = self.test_data
         rng = np.random.default_rng(seed)
         if full_test:
@@ -490,25 +577,39 @@ class Trainer:
                        else np.arange(n))
         speaker_pool = sorted(ds.speaker_model.word2index.values())
         losses_all, joint_mae, accel = (AverageMeter(k) for k in ("loss", "mae", "accel"))
-        n_scored = 0
+        n_dev = 1 if self.mesh is None else self.mesh.world
+        n_scored = n_dropped = 0
         for start in range(0, len(idx_all), batch_size):
             idx = idx_all[start:start + batch_size]
+            keep = len(idx) // n_dev * n_dev
+            n_dropped += len(idx) - keep
+            idx = idx[:keep]
+            if len(idx) == 0:
+                break
             batch = decode_rows(ds, idx)
             batch["vid_indices"] = rng.choice(speaker_pool, len(idx)).astype(np.int64)
+            rows = self._rows(len(idx))
             chunk_eps = None
             if eps is not None:
-                chunk_eps = torch.as_tensor(eps[n_scored:n_scored + len(idx)],
+                chunk_eps = torch.as_tensor(eps[n_scored:n_scored + len(idx)][rows],
                                             dtype=torch.float32, device=self.device)
-            out, _ = self.step.eval_step(self._batch(batch), self.generator,
+            out, _ = self.step.eval_step(self._local(batch), self.generator,
                                          gan_on=self.epoch > self.gan_cfg.loss_warmup,
                                          eps=chunk_eps)
+            if self.mesh is not None:
+                out = P.all_gather_rows(out, self.mesh)
             push_sample_metrics(batch["vec_seq"], out, self.cfg.mean_dir_vec_array,
                                 losses_all, joint_mae, accel, self.cfg.n_pre_poses,
                                 self.evaluator)
             n_scored += len(idx)
+        if n_dropped:
+            # never let the rounding to the ranks hide test samples quietly
+            self.logger.print_log(
+                f"Warning: eval dropped {n_dropped} of {len(idx_all)} samples to align "
+                f"with the {n_dev}-rank data axis")
         if n_scored == 0:
-            raise RuntimeError(f"eval scored 0 samples ({ds.n_samples} in the test "
-                               "split): the metrics would be meaningless")
+            raise RuntimeError(f"eval scored 0 samples ({len(idx_all)} available, "
+                               f"{n_dev}-rank data axis): the metrics would be meaningless")
         result = {"l1": losses_all.avg, "joint_mae": joint_mae.avg, "accel": accel.avg}
         if self.evaluator is not None and self.evaluator.get_no_of_samples() > 0:
             result["FGD"], result["feat_dist"] = self.evaluator.get_scores()

@@ -611,6 +611,46 @@ def test_gru_bf16_main_shapes_take_the_tensor_cores(cuda, H, B, tier):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch", [256, 128])
+@pytest.mark.parametrize("H,cin", [(300, 88), (300, 600), (64, 8), (64, 128)])
+def test_gru_kernels_at_the_data_parallel_batches(cuda, dtype, batch, H, cin):
+    """The GRU forward, recurrence and dW at a rank's batch of a
+    data-parallel step at global batch 512 (256 rows on each of 2 ranks,
+    128 on each of 4), the generator's and the discriminator's layers, in
+    the tiers their plans name: each launch counted once, against the
+    plain twins at the float32 and bf16 tolerances, the same bits twice."""
+    T, D = 34, 2
+    name = str(dtype)[6:]
+    xp, w_hh, b_ih, b_hh, dys = (t.to(dtype).contiguous() for t in
+                                 _layer_inputs(T, batch, cin, H, D, batch + H + cin, cuda))
+    before = _counts("gru_fwd", "gru_bwd", "gru_dw", dtype=name)
+    ys, h_last, hp = gru_cuda.gru_layer_forward(xp, w_hh, b_ih, b_hh, save_hp=True)
+    dxp, gn = gru_cuda.gru_bwd_recurrence(xp, w_hh, b_ih, b_hh, ys, dys, hp)
+    dw, db = gru_cuda.gru_dw(ys, dxp, gn, D)
+    torch.cuda.synchronize()
+    assert _counts("gru_fwd", "gru_bwd", "gru_dw", dtype=name) == tuple(b + 1 for b in before)
+    tol = BF16_TOL if dtype == torch.bfloat16 else 1e-4
+    want_ys, want_h, want_hp = gru_cuda.gru_layer_plain(xp, w_hh, b_ih, b_hh, save_hp=True)
+    assert (ys.float() - want_ys.float()).abs().max().item() <= tol
+    assert (h_last.float() - want_h.float()).abs().max().item() <= tol
+    assert _rel(hp, want_hp) <= tol
+    want_dxp, want_gn = gru_cuda.gru_bwd_recurrence_plain(xp, w_hh, b_ih, b_hh, ys, dys, hp)
+    if dtype == torch.bfloat16:
+        assert _rel(dxp, want_dxp) <= tol and _rel(gn, want_gn) <= tol
+    else:
+        assert (dxp - want_dxp).abs().max().item() <= 1e-4
+        assert (gn - want_gn).abs().max().item() <= 1e-4
+    dw, db = gru_cuda.gru_dw(ys, want_dxp, want_gn, D)
+    want_dw, want_db = gru_cuda.gru_dw_plain(ys, want_dxp, want_gn, D)
+    assert _rel(dw, want_dw) <= 1e-4 and _rel(db, want_db) <= 1e-4
+    again = gru_cuda.gru_dw(ys, want_dxp, want_gn, D)
+    assert torch.equal(dw, again[0]) and torch.equal(db, again[1])
+    assert torch.equal(ys, gru_cuda.gru_layer_forward(xp, w_hh, b_ih, b_hh)[0])
+    assert torch.equal(dxp, gru_cuda.gru_bwd_recurrence(xp, w_hh, b_ih, b_hh, ys, dys, hp)[0])
+
+
+@pytest.mark.gpu
 def test_gru_kernels_refuse_float16_and_mixed(cuda):
     xp, w_hh, b_ih, b_hh, _ = _layer_inputs(4, 2, 8, 64, 2, 0, cuda)
     with pytest.raises(TypeError):
