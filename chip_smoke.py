@@ -29,7 +29,9 @@ toolkit. In order:
    register tier; and the GRU forward, recurrence and dW at the
    ConvDiscriminator's shape (T 28, B 512, H 64) and at the fused step's
    batch (B 1024, H 300 and 64) and at a data-parallel rank's batches (B
-   256 and 128, H 300 and 64), float32 and bf16;
+   256 and 128, H 300 and 64), float32 and bf16; and at the embedding
+   net's context encoder (T 34, B 64, H 256, one direction; 64 and 256
+   inputs), float32;
 3. service phase: a full-width s2ag generator (config/multimodal_context_v2.yml:
    hidden 300, 4 GRU layers, embed 300; 1000 words, 100 speakers; random
    weights from seed 0) behind the HTTP server answers /synthesize for a
@@ -43,10 +45,28 @@ toolkit. In order:
    dtype must have run; the mel path: `ops.dsp.mel_power_spectrogram` at
    n_fft 400, 80 bands (the FFT tier's mixed-radix kernel must have run),
    and at 44.1 kHz with n_fft 882 (the DFT tier must have run);
-5. embedding phase: `train_embedding.main` trains the FGD embedding net on
+5. the auxiliary nets: the text-to-gesture path (`t2g_phase`): a
+   synthetic corpus in the MPI Emotional Body Expressions layout (64
+   clips of 80-240 frames of a 23-joint skeleton, sentences over 300
+   words, a 300-d GloVe-format file, all from a seed) loaded by
+   `load_data_with_glove`, which writes its cache, and read again from the
+   cache; `train_t2g` at its defaults for 3 epochs (every loss finite);
+   one step on the card against the CPU plain step from the same weights
+   and batch at dropout 0; the step's p50, launches and busy share; the
+   greedy decode of 8 clips over all 240 frames (unit quaternions, the
+   same bits twice, against the CPU decode), its wall time and launches;
+   then `aux_nets_phase`: `EmbeddingNet` in speech mode and in random mode
+   (each pick) at batch 64 on raw audio, `PoseDecoderFC`,
+   `DiscriminatorTriModal` at batch 512 with and without text features,
+   each forward and backward in train mode on the card against the CPU on
+   the same weights, inputs and dropout masks; the counters set to 0 just
+   before and read just after: the GRU forward, recurrence and dW must run
+   at (T 34, H 256), in each of the context encoder's two layers, and at
+   (T 34, H 300);
+6. embedding phase: `train_embedding.main` trains the FGD embedding net on
    the card on the synthetic corpus (every loss finite) and writes the
    `.pth.tar` that the training phase loads;
-6. training phase: `main_v2.main` trains the paper's GAN at full width
+7. training phase: `main_v2.main` trains the paper's GAN at full width
    (generator hidden 300 with 4 bi-GRU layers, discriminator hidden 64,
    TriModal comparator hidden 300) at batch 512 for one epoch of a
    synthetic corpus (3 train steps, 1 validation batch), with the GAN terms
@@ -57,10 +77,10 @@ toolkit. In order:
    (`--embedding-net-checkpoint`); the counters are set to 0 again just
    before `generate_gestures` and read just after: the GRU forward must
    have run; L1, joint MAE, accel, FGD and feat_dist must be finite;
-7. evaluation parity: `generate_gestures` from the same weights, speakers
+8. evaluation parity: `generate_gestures` from the same weights, speakers
    and speaker noise on the card and on the CPU plain path: the generated
    poses, the embedding features and FGD must agree within tolerance;
-8. one train step at full width and batch 16 on the card and on the CPU
+9. one train step at full width and batch 16 on the card and on the CPU
    plain path (in float64, the reference, and in float32), from the same
    weights, batch and noise: the card's metrics, BN running stats and
    Adam's first moments must agree with the float64 step within tolerance;
@@ -73,16 +93,16 @@ toolkit. In order:
    service at `--serve-precision bf16` (/healthz and
    /metrics report bf16, its /synthesize runs the bf16 forward, its output
    against the CPU bf16 path, its p50 and p90);
-9. the TED formats' route: `main_v2 --packed-data` on a raw export archive
+10. the TED formats' route: `main_v2 --packed-data` on a raw export archive
    with clipping and LR decay, the trained checkpoint served over HTTP and
    streamed (`real_data_phase`, `trained_service_phase`, `stream_phase`);
-10. the long-clip rendering of that archive's test split, of a test split
+11. the long-clip rendering of that archive's test split, of a test split
    of short clips and of a GENEA clip (`clip_render_phase`): both
    generators, per clip and batched, the
    counters set to 0 just before each and read just after (the mel kernel
    and the GRU forward must have run), batched against per clip, the card
    against the CPU plain path, the pickles loaded with `pickle` alone;
-11. the paper's ablations (`ablation_phase`): `main_v2_abl_audio` and
+12. the paper's ablations (`ablation_phase`): `main_v2_abl_audio` and
    `main_v2_abl_aff` each train one epoch at full width and batch 512 and
    score the test split with FGD, at float32 and in mixed precision, the
    counters set to 0 just before each and read just after (the GRU
@@ -94,7 +114,7 @@ toolkit. In order:
    launch for abl_audio's generator, which eats raw audio); abl_audio's
    long-clip rendering of a test split of short clips, per clip and
    batched, with no mel launch;
-12. the v1 pipeline (`v1_phase`): `main_v1` at its defaults (batch 32)
+13. the v1 pipeline (`v1_phase`): `main_v1` at its defaults (batch 32)
    trains the SER net (AttConvRNN at full width on (300, 40, 3) blocks)
    for one epoch of random blocks, then the emotion-conditioned GAN (the
    v1 generator at hidden 300, 4 layers; its discriminator at hidden 64)
@@ -105,7 +125,7 @@ toolkit. In order:
    CPU in float64 and float32, max-pool picks and ReLU branches replayed
    where float32 rounding flips them; each warm step's p50 and profile:
    the SER step, the GAN step, the SER forward on the zero blocks;
-13. `main_v2`'s step options (`step_options_phase`): `main_v2` with
+14. `main_v2`'s step options (`step_options_phase`): `main_v2` with
    `--fused-pass true` (float32 and mixed precision: the GRU kernels must
    run at B 1024, `gru_cuda.batch_launches`), `--remat full` and `--remat
    dots --mixed-precision true`, the counters set to 0 just before each
@@ -117,7 +137,7 @@ toolkit. In order:
    at batch 16 against the CPU float64 fused step; each step's p50,
    profile and peak memory, plain, fused, remat full and dots, float32
    and mixed;
-14. `main_v2`'s scanned epoch (`scanned_epoch_phase`): `main_v2
+15. `main_v2`'s scanned epoch (`scanned_epoch_phase`): `main_v2
    --steps-per-program 2` at full width, float32, mixed precision,
    `--fused-pass true` and `--remat full` (3 train steps: a CUDA graph of
    2 steps and one of 1), the counters set to 0 just before each and read
@@ -129,7 +149,7 @@ toolkit. In order:
    precision, fused, remat full), with their distance from the per-step
    loop logged; the step's p50, launches, busy share and peak memory one
    step at a time and as graphs of K 1 and 4, float32 and mixed;
-15. the streaming loader and resumed training (`grain_phase`): `main_v2
+16. the streaming loader and resumed training (`grain_phase`): `main_v2
    --loader grain --steps-per-program 2` at full width for 2 epochs (2
    steps each from one stream), the counters set to 0 just before and
    read just after (the float32 GRU forward, recurrence and dW must run),
@@ -143,7 +163,7 @@ toolkit. In order:
    fed by the device loader, by the stream with its rows made in the step
    (the loader's way) and made ahead on a worker thread, launches alone
    and beside such a thread, and the host's ms per batch;
-16. data-parallel training (`data_parallel_phase`, `parallel.mesh`): (a)
+17. data-parallel training (`data_parallel_phase`, `parallel.mesh`): (a)
    two gloo ranks on this card, 256 rows each of batch 512, 3 steps,
    each against one process's step on the same global batch from the same
    state (metrics, weights, BN stats at JAX's mesh bounds), the ranks the
@@ -157,7 +177,7 @@ toolkit. In order:
    p50s, the all-reduces' count, bytes and ms a step, the GRU launches a
    step; the GRU kernels checked and timed at a rank's batch (B 256 and
    128, float32 and bf16);
-17. timing: each kernel's time, its plain version's, a PyTorch library
+18. timing: each kernel's time, its plain version's, a PyTorch library
    call's that computes the same function, and the least time the card
    could take (bound), by CUDA events and by device time; the GRU
    backward (recurrence + dW) against cuDNN's recurrent backward; the L2
@@ -165,8 +185,10 @@ toolkit. In order:
    bf16 forward's and recurrence's two register-range tiers against each
    other across batches); the mel kernel's mixed-radix FFT at n_fft 400
    and its DFT tier against `rfft`; the GRU kernels at the
-   ConvDiscriminator's shape, at the fused batch (B 1024, H 300) and at a
-   rank's batch (B 256 and 128, H 300);
+   ConvDiscriminator's shape, at the fused batch (B 1024, H 300), at a
+   rank's batch (B 256 and 128, H 300) and at the context encoder's
+   (H 256, one direction, each layer's input width, against cuDNN's
+   unidirectional `nn.GRU`);
    the service's synthesize p50; the
    train step's p50, samples/s and its device profile; `generate_gestures`'
    wall time and device profile; the embedding train step's p50.
@@ -341,6 +363,45 @@ DP_SCALING_TIMED, DP_WARM = 8, 3
 # parameter within n updates x (CAP_ULPS of its tensor's largest value +
 # CAP_LR of the base rate)
 CAP_ULPS, CAP_LR = 2.0 ** -22, 2e-5
+# the text-to-gesture phase (`t2g_phase`): a synthetic corpus in the MPI
+# Emotional Body Expressions layout, T2G_CLIPS clips of T2G_FRAMES frames
+# (the longest sets max_time_steps) of a 23-joint skeleton (quat_dim 92),
+# sentences over T2G_WORDS words, and a GloVe-format file of width
+# T2G_GLOVE_DIM (that of the public 300-d GloVe tables), trained
+# T2G_EPOCHS epochs at `train_t2g`'s defaults (batch T2G_BATCH, lr 1e-3);
+# T2G_DECODE_CLIPS clips decoded. One step on the card against the CPU
+# plain step from the same weights and batch at dropout 0 (`t2g_step_parity`
+# says how far); the decode within T2G_TOL absolute
+T2G_CLIPS, T2G_FRAMES, T2G_WORDS, T2G_GLOVE_DIM = 64, (80, 240), 300, 300
+T2G_EPOCHS, T2G_BATCH, T2G_DECODE_CLIPS = 3, 8, 8
+T2G_TOL = 1e-4
+MPI_JOINTS = (("Hips", -1), ("Spine", 0), ("Spine1", 1), ("Spine2", 2), ("Spine3", 3),
+              ("Neck", 4), ("Head", 5), ("LeftShoulder", 4), ("LeftArm", 7),
+              ("LeftForeArm", 8), ("LeftHand", 9), ("RightShoulder", 4), ("RightArm", 11),
+              ("RightForeArm", 12), ("RightHand", 13), ("LeftUpLeg", 0), ("LeftLeg", 15),
+              ("LeftFoot", 16), ("LeftToeBase", 17), ("RightUpLeg", 0), ("RightLeg", 19),
+              ("RightFoot", 20), ("RightToeBase", 21))
+MPI_TAGS = {"Intended emotion": ("amusement", "anger", "disgust", "fear", "joy", "neutral",
+                                 "pride"),
+            "Intended polarity": ("positive", "negative", "neutral"),
+            "Perceived category": ("amusement", "anger", "disgust", "fear", "joy", "neutral",
+                                   "pride"),
+            "Perceived polarity": ("positive", "negative", "neutral"),
+            "Acting task": ("narration", "monologue", "dialogue"),
+            "Gender": ("female", "male"), "Age": None, "Handedness": ("right", "left"),
+            "Native tongue": ("german", "english", "french", "spanish")}
+# the auxiliary nets (`aux_nets_phase`): the embedding net at the embedding
+# trainer's batch on a window's raw audio, a vocabulary of AUX_WORDS words;
+# DiscriminatorTriModal at the training batch; card against the CPU plain
+# path on the same weights, inputs and dropout masks: outputs within
+# AUX_TOL absolute, gradients within AUX_TOL of each tensor's largest (a
+# bias ahead of a train-mode batch norm, zero but for rounding, of the
+# net's largest)
+AUX_BATCH, AUX_DIS_BATCH, AUX_WORDS, AUX_TOL = EMB_BATCH, TRAIN_BATCH, 1000, 1e-4
+AUDIO_SAMPLES = 36267
+# the context encoder's GRU: H 256, one direction; layer 0 takes 64
+# inputs, layer 1 256
+CONTEXT_H, CONTEXT_INPUTS = 256, (64, 256)
 # the GRU kernels' symbols in the profiler's kernel names, by the launch
 # counters' kernel (the dW reduction's second pass, which follows each dW
 # launch, left out)
@@ -2500,9 +2561,10 @@ def rank_batch_kernel_phase(device) -> dict:
     return errs
 
 
-def shape_kernel_phase(device, T: int, B: int, shapes, tag: str, what: str) -> dict:
-    """The GRU kernels at T, B and each (H, input width) of `shapes`, D 2,
-    float32 and bf16, against their plain twins on the same inputs: the
+def shape_kernel_phase(device, T: int, B: int, shapes, tag: str, what: str, D: int = 2,
+                       dtypes=("float32", "bfloat16")) -> dict:
+    """The GRU kernels at T, B and each (H, input width) of `shapes`, D
+    directions, in each of `dtypes`, against their plain twins on the same inputs: the
     forward (ys, h_last; hp relative), the recurrence (dxp and gn; float32
     absolute, bf16 relative to the largest) and dW (dW_hh and db_hh from
     the same inputs, relative to the largest) at the kernel phases'
@@ -2515,9 +2577,8 @@ def shape_kernel_phase(device, T: int, B: int, shapes, tag: str, what: str) -> d
     import torch
     from speech2affective_gestures_torch.ops import gru_cuda
 
-    D = 2
     errs = {}
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (getattr(torch, name) for name in dtypes):
         bf16 = dtype == torch.bfloat16
         sfx = tag + ("_bf16" if bf16 else "")
         tol = BF16_TOL if bf16 else GRU_TOL
@@ -4396,6 +4457,397 @@ def _dp_main_v2(work: pathlib.Path, embedding_net: pathlib.Path, n_cards: int,
         f"{[ln for ln in text.splitlines() if 'eval: ' in ln]}; {wall:.1f} s in all ({smi})")
 
 
+def write_mpi_corpus(root: pathlib.Path, seed: int) -> tuple[pathlib.Path, pathlib.Path]:
+    """A synthetic corpus in the MPI Emotional Body Expressions layout under
+    root/mpi (tag_names.txt, tags/<clip>.txt, bvh/<clip>.bvh through the
+    port's BVH writer: smooth random joint angles, a drifting root), and a
+    GloVe-format text file of T2G_GLOVE_DIM floats a word for most of the
+    vocabulary, all from `seed`. Returns (root, the GloVe file)."""
+    import shutil
+
+    from speech2affective_gestures_torch.render import bvh
+
+    rng = np.random.default_rng(seed)
+    mpi = root / "mpi"
+    (mpi / "tags").mkdir(parents=True)
+    (mpi / "bvh").mkdir()
+    tag_names = ["ID", *MPI_TAGS, "Text"]
+    (mpi / "tag_names.txt").write_text("".join(t + "\n" for t in tag_names))
+    names = [n for n, _ in MPI_JOINTS]
+    parents = [p for _, p in MPI_JOINTS]
+    offsets = rng.uniform(-0.3, 0.3, (len(names), 3))
+    offsets[0] = 0.0
+    words = [f"w{i:03d}" for i in range(T2G_WORDS)]
+    lengths = rng.integers(T2G_FRAMES[0], T2G_FRAMES[1] + 1, T2G_CLIPS)
+    lengths[0] = T2G_FRAMES[1]
+    for c, n in enumerate(lengths):
+        t = np.arange(n)[:, None, None]
+        shape = (1, len(names), 3)
+        angles = rng.uniform(0.05, 0.6, shape) * np.sin(
+            rng.uniform(0.02, 0.15, shape) * t + rng.uniform(0, 2 * np.pi, shape))
+        positions = np.zeros((n, len(names), 3))
+        positions[:, 0] = np.cumsum(rng.normal(0, 0.01, (n, 3)), axis=0)
+        out = bvh.save_as_bvh({"joint_names": names, "joint_parents": parents,
+                               "joint_offsets": offsets, "positions": positions,
+                               "rotations": bvh.from_euler(angles, "xyz")}, str(root / "anim"))
+        clip = f"clip_{c:03d}"
+        shutil.move(out, mpi / "bvh" / f"{clip}.bvh")
+        values = [clip] + [str(rng.integers(20, 70)) if cats is None else rng.choice(cats)
+                           for cats in MPI_TAGS.values()]
+        values.append(" ".join(rng.choice(words, rng.integers(5, 16))))
+        (mpi / "tags" / f"{clip}.txt").write_text("".join(v + "\n" for v in values))
+    glove = root / "glove.300d.txt"
+    with open(glove, "w") as f:
+        for w in words:
+            if rng.random() < 0.9:    # the rest take the loader's random rows
+                f.write(w + " " + " ".join(f"{x:.5f}" for x in
+                                           rng.normal(0, 0.4, T2G_GLOVE_DIM)) + "\n")
+    return root, glove
+
+
+def _grad_errors(got: dict, want: dict, top: float | None = None) -> tuple[float, float]:
+    """The largest gradient error, each tensor's relative to its largest
+    value, a tensor whose gradient is zero but for rounding (its largest
+    at most 1e-3 of the net's, `top`, by default the largest of `want`)
+    relative to the net's largest; and that largest."""
+    if top is None:
+        top = max(w.abs().max().item() for w in want.values())
+    worst = 0.0
+    for name, w in want.items():
+        scale = w.abs().max().item()
+        scale = top if scale <= 1e-3 * top else scale
+        worst = max(worst, (got[name].cpu() - w).abs().max().item() / scale)
+    return worst, top
+
+
+def t2g_step_parity(state: dict, arrays: dict, table, device) -> None:
+    """One T2G step (`t2g_train_step`, dropout 0) from the same weights
+    (`state`) and batch (the first T2G_BATCH clips) on the card and on the
+    CPU plain path in float64, the reference, and in float32, whose
+    distance is logged as a reading of float32 rounding and held to
+    nothing: the card's loss within T2G_TOL relative; each of its gradients
+    within T2G_TOL of its tensor's largest (`_grad_errors`); its weights
+    after the update within T2G_TOL absolute, 2 lr where the float64
+    gradient is zero but for rounding, at most 1e-6 of the net's largest
+    (there Adam's first step is about sign(g) lr)."""
+    import torch
+    from speech2affective_gestures_torch.train import t2g_trainer as T2G
+
+    lr = 1e-3
+    nets, metrics = {}, {}
+    for side, dev, dtype in (("card", device, torch.float32),
+                             ("cpu", torch.device("cpu"), torch.float32),
+                             ("float64", torch.device("cpu"), torch.float64)):
+        net = T2G.build_t2g_net(table, arrays, dev, dropout=0.0)
+        net.load_state_dict(state)
+        net.to(dtype)
+        data = {k: [t.to(dtype) for t in v] if k == "tags" else
+                v.to(dtype) if v.is_floating_point() else v
+                for k, v in T2G.to_device(arrays, dev).items()}
+        metrics[side] = T2G.t2g_train_step(net, T2G.make_optimizer(net, lr),
+                                           T2G.select(data, torch.arange(T2G_BATCH, device=dev)),
+                                           arrays["n_joints"])
+        nets[side] = {k: p for k, p in net.named_parameters()}
+    want = {k: p.grad for k, p in nets["float64"].items()}
+    loss_rel = abs(metrics["card"]["loss"].item() - metrics["float64"]["loss"].item()) \
+        / abs(metrics["float64"]["loss"].item())
+    top = max(w.abs().max().item() for w in want.values())
+    worst = {"card": (0.0, ""), "cpu": (0.0, "")}
+    for name, w in want.items():
+        for side in worst:
+            err = _grad_errors({name: nets[side][name].grad.double()}, {name: w}, top)[0]
+            worst[side] = max(worst[side], (err, name))
+    w_err = zero_err = 0.0
+    for name, p in nets["float64"].items():
+        err = (nets["card"][name].detach().cpu().double() - p.detach()).abs()
+        near_zero = p.grad.abs() <= 1e-6 * top
+        w_err = max(w_err, err[~near_zero].max().item() if (~near_zero).any() else 0.0)
+        zero_err = max(zero_err, err[near_zero].max().item() if near_zero.any() else 0.0)
+    log(f"t2g step (batch {T2G_BATCH}, dropout 0) against the CPU's float64 step: loss "
+        f"{metrics['card']['loss'].item():.6f} against {metrics['float64']['loss'].item():.6f} "
+        f"(relative {loss_rel:.3e}); gradients: the card's worst {worst['card'][0]:.3e} of its "
+        f"tensor's largest ({worst['card'][1]}), the CPU float32 step's {worst['cpu'][0]:.3e} "
+        f"({worst['cpu'][1]}, a reading); weights after the update {w_err:.3e} absolute, "
+        f"where the float64 gradient is zero but for rounding {zero_err:.3e} (tol {T2G_TOL}, "
+        f"{2 * lr})")
+    if not (loss_rel <= T2G_TOL and worst["card"][0] <= T2G_TOL and w_err <= T2G_TOL
+            and zero_err <= 2 * lr):
+        raise AssertionError(f"the T2G step on the card disagrees with the CPU: {loss_rel}, "
+                             f"{worst}, {w_err}, {zero_err}")
+
+
+def t2g_phase(device, work: pathlib.Path, smi: str) -> None:
+    """The text-to-gesture path on the card: `write_mpi_corpus`, loaded by
+    `load_data_with_glove` (which writes its cache) and read again from the
+    cache (the same corpus); `train_t2g` at its defaults for T2G_EPOCHS
+    epochs (every loss finite); one step against the CPU
+    (`t2g_step_parity`); the step's p50, launches and busy share; the
+    greedy decode of T2G_DECODE_CLIPS clips over every frame: unit
+    quaternions, the same bits twice, against the CPU decode; its wall
+    time and launches."""
+    import torch
+    from speech2affective_gestures_torch.data import mpi_glove
+    from speech2affective_gestures_torch.train import t2g_trainer as T2G
+
+    t0 = time.perf_counter()
+    root, glove = write_mpi_corpus(work / "t2g", seed=18)
+    t1 = time.perf_counter()
+    corpus = mpi_glove.load_data_with_glove(str(root), "mpi", str(glove))
+    t2 = time.perf_counter()
+    cache = root / "mpi" / "data_dict_glove_drop_1.npz"
+    again = mpi_glove.load_data_with_glove(str(root), "mpi", str(glove))
+    t3 = time.perf_counter()
+    data_dict, word2idx, table, cats, max_t = corpus
+    same = (cache.is_file() and again[1] == word2idx and np.array_equal(again[2], table)
+            and again[4] == max_t == T2G_FRAMES[1] and sorted(again[0]) == sorted(data_dict)
+            and all(np.array_equal(again[0][c]["rotations"], data_dict[c]["rotations"])
+                    for c in data_dict))
+    log(f"t2g corpus: {len(data_dict)} clips of a {len(MPI_JOINTS)}-joint skeleton, "
+        f"max_time_steps {max_t}, {len(word2idx)} words, table {table.shape}; written in "
+        f"{t1 - t0:.1f} s, loaded in {t2 - t1:.1f} s, read from its cache in {t3 - t2:.2f} s "
+        f"(the same corpus: {same})")
+    if not (same and table.shape == (len(word2idx), T2G_GLOVE_DIM)):
+        raise AssertionError("the T2G corpus read from its cache differs from the loaded one")
+
+    t0 = time.perf_counter()
+    out = T2G.train_t2g(data_dict, word2idx, table, cats, max_t, epochs=T2G_EPOCHS,
+                        batch_size=T2G_BATCH, device=device)
+    torch.cuda.synchronize()
+    hist = out["history"]
+    log(f"train_t2g on the card: {T2G_EPOCHS} epochs of {len(data_dict)} clips at batch "
+        f"{T2G_BATCH} in {time.perf_counter() - t0:.1f} s; mean losses {hist}")
+    if not (len(hist) == T2G_EPOCHS and np.isfinite(hist).all()):
+        raise AssertionError(f"train_t2g's losses are not finite: {hist}")
+    net, opt, arrays = out["net"], out["optimizer"], out["arrays"]
+    t2g_step_parity({k: v.detach().clone() for k, v in net.state_dict().items()}, arrays,
+                    table, device)
+
+    n_joints = arrays["n_joints"]
+    batch = T2G.select(T2G.to_device(arrays, device), torch.arange(T2G_BATCH, device=device))
+    gen = torch.Generator(device=device).manual_seed(1)
+    step_p50 = _p50_and_profile(
+        f"t2g train step (batch {T2G_BATCH}, T {max_t}, quat_dim {4 * n_joints}, text width "
+        f"{table.shape[1]}, 4 heads, 256 units, 2 layers a side)",
+        lambda: T2G.t2g_train_step(net, opt, batch, n_joints, gen), smi, n=20)
+
+    k = T2G_DECODE_CLIPS
+    args = (arrays["text"][:k], [t[:k] for t in arrays["tags"]], arrays["offset_lengths"][:k])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = T2G.generate_quat_sequence(net, *args, device=device)
+    wall = time.perf_counter() - t0
+    again = T2G.generate_quat_sequence(net, *args, device=device)
+    norms = np.linalg.norm(got.reshape(k, max_t, -1, 4), axis=-1)
+    norm_err = float(np.abs(norms - 1.0).max())
+    prof = profile_device(f"t2g decode ({k} clips, {max_t} frames)", "decode",
+                          lambda: T2G.generate_quat_sequence(net, *args, device=device), n=1)
+    t0 = time.perf_counter()
+    cpu = T2G.generate_quat_sequence(copy.deepcopy(net), *args, device="cpu")
+    cpu_wall = time.perf_counter() - t0
+    err = float(np.abs(got - cpu).max())
+    log(f"t2g decode on the card: {k} clips x {max_t} frames in {wall:.3f} s wall "
+        f"({1e3 * wall / max_t:.3f} ms a frame), "
+        f"{'not measured' if prof is None else f'{prof[0]:.0f}'} launches, unit norms within "
+        f"{norm_err:.2e}, the same bits twice {np.array_equal(got, again)}; against the CPU "
+        f"decode ({cpu_wall:.1f} s) max_abs_err {err:.3e} (tol {T2G_TOL}); step p50 "
+        f"{step_p50:.3f} ms; {smi}")
+    if not (got.shape == (k, max_t, 4 * n_joints) and norm_err <= 1e-5
+            and np.array_equal(got, again) and err <= T2G_TOL):
+        raise AssertionError(f"the T2G decode on the card fails: {got.shape}, {norm_err}, "
+                             f"{err}")
+
+
+def _aux_inputs(device):
+    """The auxiliary nets' inputs from a seed, on the CPU and on `device`."""
+    import torch
+
+    rng = np.random.default_rng(21)
+    poses = (rng.standard_normal((AUX_DIS_BATCH, 34, 27)) * 0.3).astype(np.float32)
+    cpu = {"in_text": torch.from_numpy(rng.integers(0, AUX_WORDS, (AUX_BATCH, 34))),
+           "in_audio": torch.from_numpy((rng.standard_normal((AUX_BATCH, AUDIO_SAMPLES))
+                                         * 0.1).astype(np.float32)),
+           "poses": torch.from_numpy(poses[:AUX_BATCH]),
+           "pre_poses": torch.from_numpy(poses[:AUX_BATCH, :4].copy()),
+           "latent": torch.from_numpy(rng.standard_normal((AUX_BATCH, 32)).astype(np.float32)),
+           "eps": torch.from_numpy(rng.standard_normal((AUX_BATCH, 32)).astype(np.float32)),
+           "dis_poses": torch.from_numpy(poses),
+           "text_feat": torch.from_numpy(rng.standard_normal((AUX_DIS_BATCH, 34, 32))
+                                         .astype(np.float32))}
+    return cpu, {k: v.to(device) for k, v in cpu.items()}
+
+
+def _aux_run(net, call, x: dict, seed: int) -> tuple[list, dict]:
+    """net's train-mode outputs on x, dropout masks from a CPU generator of
+    `seed` (the same masks on either device), and the gradients of a fixed
+    random weighting of them."""
+    import torch
+    from speech2affective_gestures_torch.models import layers as L
+
+    net.train()
+    with L.dropout_rng(torch.Generator().manual_seed(seed)):
+        outs = [o for o in call(net, x) if o is not None]
+    rng = np.random.default_rng(seed)
+    weights = [torch.from_numpy(rng.standard_normal(tuple(o.shape)).astype(np.float32))
+               .to(o.device) for o in outs]
+    sum((o * w).sum() for o, w in zip(outs, weights)).backward()
+    return ([o.detach() for o in outs],
+            {k: p.grad for k, p in net.named_parameters() if p.grad is not None})
+
+
+@contextlib.contextmanager
+def _launches_by_layer(net, counts: collections.Counter):
+    """`gru_cuda.gru_layer` wrapped while the block runs: the float32 GRU
+    kernels' launches in each layer of net's one-direction GRUs of H
+    CONTEXT_H (told apart by their recurrent biases), its forward's and its
+    backward's (those between its autograd node's pre-hook and hook), added
+    to counts[(kernel, the layer's input width)]."""
+    import torch
+    from speech2affective_gestures_torch.models import layers as L
+    from speech2affective_gestures_torch.ops import gru_cuda
+
+    layers = [(getattr(m, f"bias_hh_l{i}"), getattr(m, f"weight_ih_l{i}").shape[1])
+              for m in net.modules() if isinstance(m, L.GRU)
+              and m.hidden_size == CONTEXT_H and m.num_dir == 1
+              for i in range(m.num_layers)]
+    layer_fn = gru_cuda.gru_layer
+
+    def add(cin, before):
+        for (kernel, dtype), n in gru_cuda.launches.items():
+            if dtype == "float32":
+                counts[(kernel, cin)] += n - before[(kernel, dtype)]
+
+    def counted(xp, w_hh, b_ih, b_hh):
+        cin = next((c for b, c in layers if b_hh.shape == (1, *b.shape)
+                    and torch.equal(b_hh[0], b)), None)
+        before = collections.Counter(gru_cuda.launches)
+        out, h_last = layer_fn(xp, w_hh, b_ih, b_hh)
+        if cin is not None:
+            add(cin, before)
+            if out.grad_fn is not None:
+                start = {}
+                out.grad_fn.register_prehook(
+                    lambda grads: start.update(at=collections.Counter(gru_cuda.launches)))
+                out.grad_fn.register_hook(lambda grads_in, grads_out: add(cin, start["at"]))
+        return out, h_last
+
+    gru_cuda.gru_layer = counted
+    try:
+        yield
+    finally:
+        gru_cuda.gru_layer = layer_fn
+
+
+def aux_nets_phase(device, smi: str) -> collections.Counter:
+    """The auxiliary nets forward and backward in train mode on the card
+    against the CPU plain path on the same weights (random, from a seed),
+    inputs and dropout masks: `EmbeddingNet` in speech mode and in random
+    mode (the generator's pick, each way) at batch AUX_BATCH on a window's
+    raw audio, words of a AUX_WORDS-word vocabulary, 4 seed poses and 34
+    poses; `PoseDecoderFC` with seed poses; `DiscriminatorTriModal` at
+    batch AUX_DIS_BATCH with and without text features; each output and
+    gradient within AUX_TOL. The counters are set to 0 just before the
+    card's runs and read just after: the GRU forward, recurrence and dW
+    must have run at (T 34, H CONTEXT_H), the context encoder's, and (T 34,
+    H 300), the GRU decoder's and the discriminator's, and each launch at
+    H CONTEXT_H in one of the context encoder's layers, counted by layer
+    (`_launches_by_layer`). Returns the kernels' launches, those of each
+    layer also under its row name ("gru_fwd_h256_x64", ...)."""
+    import torch
+    from speech2affective_gestures_torch.models import discriminator as Dis
+    from speech2affective_gestures_torch.models import embedding_net as E
+    from speech2affective_gestures_torch.ops import gru_cuda
+
+    t0 = time.perf_counter()
+    cpu_x, dev_x = _aux_inputs(device)
+    picks = {}
+    for seed in range(64):       # a generator seed for each pick
+        g = torch.Generator(device=device).manual_seed(seed)
+        picks.setdefault(bool(torch.rand((), generator=g, device=device) < 0.5), seed)
+        if len(picks) == 2:
+            break
+
+    def embedding(pick):
+        def call(net, x):
+            kw = ({} if pick is None else
+                  {"pick_speech": pick} if x["poses"].device.type == "cpu" else
+                  {"generator": torch.Generator(device=device).manual_seed(picks[pick])})
+            return net(x["poses"], in_text=x["in_text"], in_audio=x["in_audio"],
+                       pre_poses=x["pre_poses"], context_eps=x["eps"], **kw)
+        return call
+
+    cases = [("EmbeddingNet speech", lambda: E.EmbeddingNet(mode="speech", n_words=AUX_WORDS),
+              embedding(None))]
+    cases += [(f"EmbeddingNet random ({'speech' if pick else 'pose'} pick)",
+               lambda: E.EmbeddingNet(mode="random", n_words=AUX_WORDS), embedding(pick))
+              for pick in (True, False)]
+    cases += [("PoseDecoderFC with seed poses", lambda: E.PoseDecoderFC(34, 27, True),
+               lambda net, x: (net(x["latent"], x["pre_poses"]),)),
+              ("DiscriminatorTriModal", lambda: Dis.DiscriminatorTriModal(),
+               lambda net, x: (net(x["dis_poses"]),)),
+              ("DiscriminatorTriModal with text", lambda: Dis.DiscriminatorTriModal(text_size=32),
+               lambda net, x: (net(x["dis_poses"], x["text_feat"]),))]
+    launches = collections.Counter()
+    shapes = collections.Counter()
+    by_layer = collections.Counter()
+    for i, (label, make, call) in enumerate(cases):
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(30 + i)
+            cpu_net = make()
+        dev_net = copy.deepcopy(cpu_net).to(device)
+        _reset_counters()
+        with _launches_by_layer(dev_net, by_layer):
+            got, got_grads = _aux_run(dev_net, call, dev_x, seed=40 + i)
+        torch.cuda.synchronize()
+        launches.update(_counters())
+        shapes.update(gru_cuda.shape_launches)
+        want, want_grads = _aux_run(cpu_net, call, cpu_x, seed=40 + i)
+        out_err = max((g.cpu() - w).abs().max().item() for g, w in zip(got, want))
+        grad_err, _ = _grad_errors(got_grads, want_grads)
+        log(f"aux nets: {label} on the card against the CPU, train mode: outputs "
+            f"max_abs_err {out_err:.3e}, gradients {grad_err:.3e} of each tensor's largest "
+            f"(tol {AUX_TOL}); {len(want_grads)} parameter tensors")
+        if not (len(got) == len(want) and sorted(got_grads) == sorted(want_grads)
+                and out_err <= AUX_TOL and grad_err <= AUX_TOL):
+            raise AssertionError(f"{label} on the card disagrees with the CPU: {out_err}, "
+                                 f"{grad_err}")
+    kernels = ("gru_fwd", "gru_bwd", "gru_dw")
+    ran = {(k, H): shapes[(k, "float32", 34, H)] for k in kernels for H in (CONTEXT_H, 300)}
+    layer_ran = {(k, cin): by_layer[(k, cin)] for k in kernels for cin in CONTEXT_INPUTS}
+    log(f"aux nets: GRU launches at (T 34, H): {ran}; at H {CONTEXT_H} by the context "
+        f"encoder's layer (kernel, input width): {layer_ran}; the phase took "
+        f"{time.perf_counter() - t0:.1f} s; {smi}")
+    if not (all(ran.values()) and all(layer_ran.values()) and all(
+            sum(layer_ran[(k, cin)] for cin in CONTEXT_INPUTS) == ran[(k, CONTEXT_H)]
+            for k in kernels)):
+        raise AssertionError(f"a GRU kernel did not run at the aux nets' shapes, or not in "
+                             f"each context encoder layer: {ran}, {layer_ran}")
+    for (k, cin), n in layer_ran.items():
+        launches[f"{k}_h{CONTEXT_H}_x{cin}"] = n
+    return launches
+
+
+def context_kernel_phase(device) -> dict:
+    """The float32 GRU kernels at the context encoder's shape (T 34, B
+    AUX_BATCH, H CONTEXT_H, D 1; 64 inputs, then 256): `shape_kernel_phase`,
+    under "gru_fwd_h256_x64", ..., "gru_dw_h256_x256"."""
+    errs = {}
+    for cin in CONTEXT_INPUTS:
+        errs.update(shape_kernel_phase(device, 34, AUX_BATCH, ((CONTEXT_H, cin),),
+                                       f"_h{CONTEXT_H}_x{cin}", "the context encoder's GRU",
+                                       D=1, dtypes=("float32",)))
+    return errs
+
+
+def context_timing(device) -> list:
+    """The float32 GRU kernels at the context encoder's shape, each layer's
+    input width: `shape_timing` with cuDNN's unidirectional `nn.GRU`."""
+    rows = []
+    for cin in CONTEXT_INPUTS:
+        rows += shape_timing(device, 34, AUX_BATCH, CONTEXT_H, cin, f"_h{CONTEXT_H}_x{cin}",
+                             "the context encoder's GRU", seed=cin, D=1, dtypes=("float32",))
+    return rows
+
+
 def bound(nbytes, flops, peak_flops=PEAK_F32_FLOPS):
     """The least time of a function on the card: its bytes over the memory
     rate or its operations over the peak rate of their type (float32
@@ -4405,14 +4857,22 @@ def bound(nbytes, flops, peak_flops=PEAK_F32_FLOPS):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def cudnn_recurrent_fwd(lib, x) -> tuple[float, float]:
-    """cuDNN's recurrent forward: the forward of the bidirectional
-    `nn.GRU` lib on x (T, B, cin) less its input projection's matmul, in
-    ms by CUDA events and by device time (`device_ms`, which counts the
-    two directions' overlapping kernels once)."""
+def _lib_w_ih(lib):
+    """The input weights of a one-layer `nn.GRU`, both directions' stacked."""
     import torch
 
-    w_ih = torch.cat([lib.weight_ih_l0, lib.weight_ih_l0_reverse]).detach()
+    return torch.cat([lib.weight_ih_l0] + ([lib.weight_ih_l0_reverse] if lib.bidirectional
+                                           else [])).detach()
+
+
+def cudnn_recurrent_fwd(lib, x) -> tuple[float, float]:
+    """cuDNN's recurrent forward: the forward of the one-layer `nn.GRU` lib
+    on x (T, B, cin) less its input projection's matmul, in ms by CUDA
+    events and by device time (`device_ms`, which counts a bidirectional
+    GRU's two overlapping directions once)."""
+    import torch
+
+    w_ih = _lib_w_ih(lib)
     with torch.no_grad():
         def full():
             return lib(x)
@@ -4426,13 +4886,13 @@ def cudnn_recurrent_fwd(lib, x) -> tuple[float, float]:
 
 def cudnn_recurrent_bwd(lib, x, dys, dh) -> tuple[float, float]:
     """cuDNN's recurrent backward, its dW_hh and bias gradients included:
-    the forward + backward of the bidirectional `nn.GRU` lib on x (T, B,
-    cin, requiring grad) with the output gradients (dys, dh), less its
-    forward and less the input projection's two backward products, in ms
-    by CUDA events and by device time."""
+    the forward + backward of the one-layer `nn.GRU` lib on x (T, B, cin,
+    requiring grad) with the output gradients (dys, dh), less its forward
+    and less the input projection's two backward products, in ms by CUDA
+    events and by device time."""
     import torch
 
-    w_ih = torch.cat([lib.weight_ih_l0, lib.weight_ih_l0_reverse]).detach()
+    w_ih = _lib_w_ih(lib)
     xd = x.detach()
     T, B, cin = x.shape
     dxp = torch.randn(T, B, w_ih.shape[0], device=x.device, dtype=x.dtype)
@@ -4944,22 +5404,21 @@ def rank_batch_timing(device) -> list:
 
 
 def shape_timing(device, T: int, B: int, H: int, cin: int, tag: str, what: str,
-                 seed: int) -> list:
-    """The GRU kernels at (T, B, H, D 2, cin inputs), float32 and bf16, under
-    their names with `tag`: rows as `bwd_timing`'s and `bf16_timing`'s,
-    with the same bounds (the bf16 instances' bytes and the tensor-core
-    rate), and as library times cuDNN's `nn.GRU` at that shape less its
-    input projection (forward; backward with dW_hh) and cuBLAS's dW
-    product on prepared operands."""
+                 seed: int, D: int = 2, dtypes=("float32", "bfloat16")) -> list:
+    """The GRU kernels at (T, B, H, D directions, cin inputs), in each of
+    `dtypes`, under their names with `tag`: rows as `bwd_timing`'s and
+    `bf16_timing`'s, with the same bounds (the bf16 instances' bytes and
+    the tensor-core rate), and as library times cuDNN's `nn.GRU` at that
+    shape less its input projection (forward; backward with dW_hh) and
+    cuBLAS's dW product on prepared operands."""
     import torch
     from speech2affective_gestures_torch.ops import gru_cuda
 
     fwd_src = "speech2affective_gestures_torch/csrc/gru_fwd.cu"
     bwd_src = "speech2affective_gestures_torch/csrc/gru_bwd.cu"
     tpu = "speech2affective_gestures_tpu/ops/gru_pallas.py"
-    D = 2
     rows = []
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (getattr(torch, name) for name in dtypes):
         bf16 = dtype == torch.bfloat16
         xp, w_hh, b_ih, b_hh = (t.to(dtype).contiguous()
                                 for t in gru_inputs(T, B, cin, H, D, seed=seed, device=device))
@@ -4979,7 +5438,7 @@ def shape_timing(device, T: int, B: int, H: int, cin: int, tag: str, what: str,
                      time_ms(plain, iters=5 if k == "rec" else 10))
                  for k, (fn, plain) in fns.items()}
         torch.manual_seed(seed)
-        lib = torch.nn.GRU(cin, H, bidirectional=True).to(device, dtype)
+        lib = torch.nn.GRU(cin, H, bidirectional=D == 2).to(device, dtype)
         x = torch.randn(T, B, cin, generator=g).to(device, dtype)
         lib_fwd = cudnn_recurrent_fwd(lib, x)
         lib_bwd = cudnn_recurrent_bwd(lib, x.clone().requires_grad_(), dys, dh)
@@ -5086,7 +5545,8 @@ def timing_phase(device, errs, launches) -> list[dict]:
              "speech2affective_gestures_tpu/ops/dsp_pallas.py:57",
              mel_ms, mel_plain_ms, mel_lib_ms, mel_bytes, mel_flops, mel_dev, mel_lib_dev),
             *mel_other_timing(device), *bwd_timing(device), *bf16_timing(device),
-            *conv_dis_timing(device), *fused_batch_timing(device), *rank_batch_timing(device)):
+            *conv_dis_timing(device), *fused_batch_timing(device), *rank_batch_timing(device),
+            *context_timing(device)):
         b_ms, b_by = bound(nbytes, flops, *peak)
         rows_out.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -5169,6 +5629,7 @@ def main() -> int:
     errs.update(conv_dis_kernel_phase(device))
     errs.update(fused_batch_kernel_phase(device))
     errs.update(rank_batch_kernel_phase(device))
+    errs.update(context_kernel_phase(device))
     # each kernel's launches on the paths that run it: the service's two
     # requests and the bf16 service's one, the training runs (float32 and
     # mixed precision) with their test-split scoring, run_layer in float32
@@ -5179,6 +5640,10 @@ def main() -> int:
     launches.update(mel_path_phase(device))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as work:
         work = pathlib.Path(work)
+        # the auxiliary nets: T2GNet's text-to-gesture path, the embedding
+        # net's speech and random modes, DiscriminatorTriModal
+        t2g_phase(device, work, smi)
+        launches.update(aux_nets_phase(device, smi))
         embedding_net = embedding_phase(device, work)
         trainer, trained = training_phase(device, work, embedding_net)
         launches.update(trained)

@@ -1,8 +1,8 @@
 """Weight bridge: the JAX package's model variables (the s2ag
 PoseGenerator and its ablations, the TriModal generator, the
-AffDiscriminator, the ConvDiscriminator, the FGD EmbeddingNet, and the v1
-pipeline's SER net, generator and discriminator) -> this port's state
-dicts.
+AffDiscriminator, the ConvDiscriminator, the DiscriminatorTriModal, the
+EmbeddingNet in each mode and its PoseDecoderFC, the v1 pipeline's SER
+net, generator and discriminator, and T2GNet) -> this port's state dicts.
 
 The JAX variables are a nested dict of numpy arrays (`params` plus
 `batch_stats`, what `jax.device_get` returns for a flax variable tree). The
@@ -294,24 +294,29 @@ def att_conv_rnn(variables: Mapping[str, Any]) -> dict[str, Array]:
     return out
 
 
+def _pose_encoder(enc: Mapping[str, Any], enc_s: Mapping[str, Any],
+                  prefix: str) -> dict[str, Array]:
+    out: dict[str, Array] = {}
+    for i in range(3):   # conv_norm_relu blocks: net.{i}.0 conv, net.{i}.1 BN
+        out.update(conv1d(enc[f"net{i}"]["conv"], f"{prefix}net.{i}.0"))
+        out.update(batch_norm(enc[f"net{i}"]["bn"], enc_s[f"net{i}"]["bn"],
+                              f"{prefix}net.{i}.1"))
+    out.update(conv1d(enc["net3"], f"{prefix}net.3"))
+    for name, i in (("out_net0", 0), ("out_net1", 3), ("out_net2", 6)):
+        out.update(linear(enc[name], f"{prefix}out_net.{i}"))
+    for name, i in (("out_bn0", 1), ("out_bn1", 4)):
+        out.update(batch_norm(enc[name], enc_s[name], f"{prefix}out_net.{i}"))
+    out.update(linear(enc["fc_mu"], f"{prefix}fc_mu"))
+    out.update(linear(enc["fc_log_var"], f"{prefix}fc_log_var"))
+    return out
+
+
 def embedding_net_pose(variables: Mapping[str, Any]) -> dict[str, Array]:
     """The FGD EmbeddingNet(mode='pose')'s flax variables -> reference
     state-dict keys (the layout of outputs/embedding_net.pth.tar's
     `embedding_dict`)."""
     p, s = variables["params"], variables.get("batch_stats", {})
-    enc, enc_s = p["pose_encoder"], s["pose_encoder"]
-    out: dict[str, Array] = {}
-    for i in range(3):   # conv_norm_relu blocks: net.{i}.0 conv, net.{i}.1 BN
-        out.update(conv1d(enc[f"net{i}"]["conv"], f"pose_encoder.net.{i}.0"))
-        out.update(batch_norm(enc[f"net{i}"]["bn"], enc_s[f"net{i}"]["bn"],
-                              f"pose_encoder.net.{i}.1"))
-    out.update(conv1d(enc["net3"], "pose_encoder.net.3"))
-    for name, i in (("out_net0", 0), ("out_net1", 3), ("out_net2", 6)):
-        out.update(linear(enc[name], f"pose_encoder.out_net.{i}"))
-    for name, i in (("out_bn0", 1), ("out_bn1", 4)):
-        out.update(batch_norm(enc[name], enc_s[name], f"pose_encoder.out_net.{i}"))
-    out.update(linear(enc["fc_mu"], "pose_encoder.fc_mu"))
-    out.update(linear(enc["fc_log_var"], "pose_encoder.fc_log_var"))
+    out = _pose_encoder(p["pose_encoder"], s["pose_encoder"], "pose_encoder.")
     dec, dec_s = p["decoder"], s["decoder"]
     out.update(linear(dec["pre0"], "decoder.pre_net.0"))
     out.update(batch_norm(dec["pre_bn0"], dec_s["pre_bn0"], "decoder.pre_net.1"))
@@ -325,6 +330,124 @@ def embedding_net_pose(variables: Mapping[str, Any]) -> dict[str, Array]:
     return out
 
 
+def _pre_pose_net(p: Mapping[str, Any], s: Mapping[str, Any],
+                  prefix: str) -> dict[str, Array]:
+    out = linear(p["pre_net0"], f"{prefix}pre_pose_net.0")
+    out.update(batch_norm(p["pre_bn"], s["pre_bn"], f"{prefix}pre_pose_net.1"))
+    out.update(linear(p["pre_net1"], f"{prefix}pre_pose_net.3"))
+    return out
+
+
+def pose_decoder_fc(variables: Mapping[str, Any]) -> dict[str, Array]:
+    """PoseDecoderFC's flax variables -> reference state-dict keys: the
+    seed poses' net where it has one, `net` Linear/BN at 3i and 3i + 1, the
+    last Linear at 12."""
+    p, s = variables["params"], variables.get("batch_stats", {})
+    out = _pre_pose_net(p, s, "") if "pre_net0" in p else {}
+    for i in range(4):
+        out.update(linear(p[f"net{i}"], f"net.{3 * i}"))
+        out.update(batch_norm(p[f"bn{i}"], s[f"bn{i}"], f"net.{3 * i + 1}"))
+    out.update(linear(p["net4"], "net.12"))
+    return out
+
+
+def context_encoder(variables: Mapping[str, Any]) -> dict[str, Array]:
+    """ContextEncoder's flax variables -> reference state-dict keys: the
+    text TCN, the WavEncoder, the GRU, `out` Linear/BN at 0, 1 and 3, the
+    VAE heads."""
+    p, s = variables["params"], variables.get("batch_stats", {})
+    out = text_encoder_tcn(p["text_encoder"], "text_encoder.")
+    out.update(wav_encoder(p["audio_encoder"], s["audio_encoder"], "audio_encoder."))
+    out.update(gru(p["gru"], "gru."))
+    out.update(linear(p["out0"], "out.0"))
+    out.update(batch_norm(p["out_bn"], s["out_bn"], "out.1"))
+    out.update(linear(p["out1"], "out.3"))
+    out.update(linear(p["fc_mu"], "fc_mu"))
+    out.update(linear(p["fc_log_var"], "fc_log_var"))
+    return out
+
+
+def pose_decoder_gru(variables: Mapping[str, Any]) -> dict[str, Array]:
+    """PoseDecoderGRU's flax variables -> reference state-dict keys: the seed
+    poses' net, the GRU, `out` at 0 and 2."""
+    p, s = variables["params"], variables.get("batch_stats", {})
+    out = _pre_pose_net(p, s, "")
+    out.update(gru(p["gru"], "gru."))
+    out.update(linear(p["out0"], "out.0"))
+    out.update(linear(p["out1"], "out.2"))
+    return out
+
+
+def embedding_net(variables: Mapping[str, Any]) -> dict[str, Array]:
+    """EmbeddingNet(mode='speech' or 'random')'s flax variables ->
+    reference state-dict keys: `context_encoder`, `pose_encoder` and the
+    GRU `decoder`."""
+    p, s = variables["params"], variables.get("batch_stats", {})
+    out = _pose_encoder(p["pose_encoder"], s["pose_encoder"], "pose_encoder.")
+    for name, mapper in (("context_encoder", context_encoder), ("decoder", pose_decoder_gru)):
+        part = mapper({"params": p[name], "batch_stats": s[name]})
+        out.update({f"{name}.{k}": v for k, v in part.items()})
+    return out
+
+
+def discriminator_trimodal(variables: Mapping[str, Any]) -> dict[str, Array]:
+    """DiscriminatorTriModal's flax variables -> reference state-dict keys."""
+    p = variables["params"]
+    out = gru(p["gru"], "gru.")
+    out.update(linear(p["out"], "out"))
+    out.update(linear(p["out2"], "out2"))
+    return out
+
+
+def attention(p: Mapping[str, Any], prefix: str) -> dict[str, Array]:
+    """flax MultiHeadDotProductAttention -> the port's four (d, d) linears:
+    the q, k, v kernels (d, heads, head_dim) and biases (heads, head_dim),
+    the output kernel (heads, head_dim, d), the head axes flattened."""
+    out: dict[str, Array] = {}
+    for name in ("query", "key", "value"):
+        kernel = np.asarray(p[name]["kernel"])
+        out[f"{prefix}{name}.weight"] = kernel.reshape(kernel.shape[0], -1).T
+        out[f"{prefix}{name}.bias"] = np.asarray(p[name]["bias"]).reshape(-1)
+    kernel = np.asarray(p["out"]["kernel"])
+    out[f"{prefix}out.weight"] = kernel.reshape(-1, kernel.shape[-1]).T
+    out[f"{prefix}out.bias"] = np.asarray(p["out"]["bias"])
+    return out
+
+
+def layer_norm(p: Mapping[str, Array], prefix: str) -> dict[str, Array]:
+    return {f"{prefix}.weight": np.asarray(p["scale"]), f"{prefix}.bias": np.asarray(p["bias"])}
+
+
+def t2g_net(variables: Mapping[str, Any]) -> dict[str, Array]:
+    """T2GNet's flax variables -> the port's state dict: each encoder layer's
+    self-attention, norms and feed-forward (`enc.{i}`), each decoder layer's
+    with its cross-attention (`dec.{i}`), the two projections to the
+    memory, the time-mixing convolutions, and the word table where it is a
+    parameter (the GloVe table is the constructor's)."""
+    p = variables["params"]
+    out: dict[str, Array] = {}
+    if "text_embedding" in p:
+        out.update(embedding(p["text_embedding"], "text_embedding"))
+    for kind, attn, norms in (("enc", ("self_attn",), 2),
+                              ("dec", ("self_attn", "cross_attn"), 3)):
+        i = 0
+        while f"{kind}{i}" in p:
+            layer, prefix = p[f"{kind}{i}"], f"{kind}.{i}."
+            for k, name in enumerate(attn):
+                out.update(attention(layer[f"MultiHeadDotProductAttention_{k}"],
+                                     prefix + name + "."))
+            for k in range(norms):
+                out.update(layer_norm(layer[f"LayerNorm_{k}"], f"{prefix}norm{k + 1}"))
+            out.update(linear(layer["Dense_0"], f"{prefix}linear1"))
+            out.update(linear(layer["Dense_1"], f"{prefix}linear2"))
+            i += 1
+    out.update(linear(p["text_embed"], "text_embed"))
+    out.update(linear(p["text_offsets_to_gestures"], "text_offsets_to_gestures"))
+    for i in range(2):
+        out.update(conv1d(p[f"smooth{i}"], f"smooth.{i}"))
+    return out
+
+
 def to_state_dict(arrays: Mapping[str, Array]) -> dict[str, torch.Tensor]:
     """numpy arrays -> contiguous, writable CPU tensors."""
     return {k: torch.from_numpy(np.array(v, copy=True, order="C"))
@@ -334,8 +457,11 @@ def to_state_dict(arrays: Mapping[str, Array]) -> dict[str, torch.Tensor]:
 def load_jax(model: torch.nn.Module, mapper, variables: Mapping[str, Any]) -> None:
     """Load JAX variables into `model` through one of the mappers above
     (`pose_generator`, `pose_generator_trimodal`, `aff_discriminator`,
-    `conv_discriminator_trimodal`, `embedding_net_pose`, `pose_generator_v1`,
-    `aff_discriminator_v1`, `att_conv_rnn`), strict."""
+    `conv_discriminator_trimodal`, `discriminator_trimodal`,
+    `embedding_net_pose`, `embedding_net`, `context_encoder`,
+    `pose_decoder_gru`, `pose_decoder_fc`,
+    `pose_generator_v1`, `aff_discriminator_v1`, `att_conv_rnn`, `t2g_net`),
+    strict."""
     model.load_state_dict(to_state_dict(mapper(variables)), strict=True)
 
 

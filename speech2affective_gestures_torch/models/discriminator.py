@@ -8,7 +8,10 @@
   :394-439): three unpadded Conv1d (T -> T - 6) -> the same bi-GRU and
   heads, the last over T - 6 frames;
 - `AffDiscriminatorV1`, the v1 pipeline's emotion-conditioned D
-  (net/multimodal_context_net_v1.py:363-463).
+  (net/multimodal_context_net_v1.py:363-463);
+- `DiscriminatorTriModal` (:346-387): the poses, with the text's features
+  a frame when given, through a 4-layer bi-GRU(300) with summed
+  directions -> per-frame Linear -> Linear(T -> 1) -> sigmoid.
 """
 
 from __future__ import annotations
@@ -66,6 +69,32 @@ class ConvDiscriminatorTriModal(nn.Module):
     def forward(self, poses: torch.Tensor, in_text=None) -> torch.Tensor:
         x = self.pre_conv(poses.transpose(1, 2))              # (B, 8, T - 6)
         out, _ = self.gru(x.transpose(1, 2))                  # (T - 6, B, 2H)
+        out = self.out(L.sum_bidirectional(out, self.hidden_size))[..., 0]
+        return torch.sigmoid(self.out2(out.t()))              # (B, 1)
+
+
+class DiscriminatorTriModal(nn.Module):
+    """poses (B, T, pose_dim), text_feat (B, T, text_size) or None -> (B, 1)
+    in (0, 1) (JAX `models/discriminator.py:123-144`): `text_size` is the
+    width of the text features concatenated to the poses (0 for none). The
+    reference's GRU dropout is `dropout_prob`, 0.3."""
+
+    def __init__(self, pose_dim: int = C.POSE_DIM, n_poses: int = C.N_POSES,
+                 hidden_size: int = 300, n_layers: int = 4, dropout_prob: float = 0.3,
+                 text_size: int = 0):
+        super().__init__()
+        self.hidden_size, self.text_size = hidden_size, text_size
+        self.gru = L.GRU(pose_dim + text_size, hidden_size, num_layers=n_layers,
+                         bidirectional=True, dropout=dropout_prob)
+        self.out = nn.Linear(hidden_size, 1)
+        self.out2 = nn.Linear(n_poses, 1)
+
+    def forward(self, poses: torch.Tensor, text_feat: torch.Tensor | None = None):
+        if (text_feat is None) != (self.text_size == 0):
+            raise ValueError(f"DiscriminatorTriModal(text_size={self.text_size}) takes "
+                             f"{'no ' if self.text_size == 0 else ''}text_feat")
+        x = poses if text_feat is None else torch.cat([poses, text_feat.to(poses)], dim=-1)
+        out, _ = self.gru(x)                                  # (T, B, 2H)
         out = self.out(L.sum_bidirectional(out, self.hidden_size))[..., 0]
         return torch.sigmoid(self.out2(out.t()))              # (B, 1)
 

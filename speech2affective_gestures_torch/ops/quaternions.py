@@ -1,9 +1,10 @@
 """Quaternion algebra on tensors (w, x, y, z convention), the ops that the
-BVH reader and writer need (reference `utils/Quaternions_torch.py`, as the
-JAX package's `ops/quaternions.py` carries them): the product, the
-rotation of vectors, sign continuity along time and the Euler angles in
-the writer's order. The JAX package's other ops wait for the quaternion
-losses, their first caller.
+BVH reader and writer and the T2G loss need (reference
+`utils/Quaternions_torch.py`, as the JAX package's `ops/quaternions.py`
+carries them): the product, the rotation of vectors, sign continuity along
+time and the Euler angles in each of the six orders. The JAX package's
+other ops (`qinv`, `euler_to_quaternion`, `expmap_to_quaternion`) wait for
+their first caller.
 
 Every function works over any leading dimensions and computes in the
 input's dtype; the JAX package computes them in float32.
@@ -34,13 +35,41 @@ def qrot(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return v + 2.0 * (q[..., :1] * uv + uuv)
 
 
-def qeuler_xyz(q: torch.Tensor) -> torch.Tensor:
-    """Quaternions -> Euler angles (..., 3) as (x, y, z) in the order xyz
-    (ref utils/Quaternions_torch.py:56-66, epsilon 0)."""
+def qeuler(q: torch.Tensor, order: str, epsilon: float = 0.0) -> torch.Tensor:
+    """Quaternions -> Euler angles (..., 3) as (x, y, z) in one of the six
+    orders (ref utils/Quaternions_torch.py:56-100); the arcsin's input is
+    clamped to [-1 + epsilon, 1 - epsilon]."""
     q0, q1, q2, q3 = q.unbind(-1)
-    x = torch.atan2(2 * (q0 * q1 - q2 * q3), 1 - 2 * (q1 * q1 + q2 * q2))
-    y = torch.asin(torch.clamp(2 * (q1 * q3 + q0 * q2), -1.0, 1.0))
-    z = torch.atan2(2 * (q0 * q3 - q1 * q2), 1 - 2 * (q2 * q2 + q3 * q3))
+
+    def asin(x):
+        return torch.asin(torch.clamp(x, -1.0 + epsilon, 1.0 - epsilon))
+
+    if order == "xyz":
+        x = torch.atan2(2 * (q0 * q1 - q2 * q3), 1 - 2 * (q1 * q1 + q2 * q2))
+        y = asin(2 * (q1 * q3 + q0 * q2))
+        z = torch.atan2(2 * (q0 * q3 - q1 * q2), 1 - 2 * (q2 * q2 + q3 * q3))
+    elif order == "yzx":
+        x = torch.atan2(2 * (q0 * q1 - q2 * q3), 1 - 2 * (q1 * q1 + q3 * q3))
+        y = torch.atan2(2 * (q0 * q2 - q1 * q3), 1 - 2 * (q2 * q2 + q3 * q3))
+        z = asin(2 * (q1 * q2 + q0 * q3))
+    elif order == "zxy":
+        x = asin(2 * (q0 * q1 + q2 * q3))
+        y = torch.atan2(2 * (q0 * q2 - q1 * q3), 1 - 2 * (q1 * q1 + q2 * q2))
+        z = torch.atan2(2 * (q0 * q3 - q1 * q2), 1 - 2 * (q1 * q1 + q3 * q3))
+    elif order == "xzy":
+        x = torch.atan2(2 * (q0 * q1 + q2 * q3), 1 - 2 * (q1 * q1 + q3 * q3))
+        y = torch.atan2(2 * (q0 * q2 + q1 * q3), 1 - 2 * (q2 * q2 + q3 * q3))
+        z = asin(2 * (q0 * q3 - q1 * q2))
+    elif order == "yxz":
+        x = asin(2 * (q0 * q1 - q2 * q3))
+        y = torch.atan2(2 * (q1 * q3 + q0 * q2), 1 - 2 * (q1 * q1 + q2 * q2))
+        z = torch.atan2(2 * (q1 * q2 + q0 * q3), 1 - 2 * (q1 * q1 + q3 * q3))
+    elif order == "zyx":
+        x = torch.atan2(2 * (q0 * q1 + q2 * q3), 1 - 2 * (q1 * q1 + q2 * q2))
+        y = asin(2 * (q0 * q2 - q1 * q3))
+        z = torch.atan2(2 * (q0 * q3 + q1 * q2), 1 - 2 * (q2 * q2 + q3 * q3))
+    else:
+        raise ValueError("order must be one of xyz, yzx, zxy, xzy, yxz, zyx")
     return torch.stack((x, y, z), dim=-1)
 
 

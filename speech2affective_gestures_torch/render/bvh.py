@@ -181,7 +181,7 @@ def save_as_bvh(animation: dict, save_path: str, frame_time: float = 0.032) -> s
     os.makedirs(save_path, exist_ok=True)
     out = os.path.join(save_path, "root.bvh")
     rot_string = "Xrotation Yrotation Zrotation"
-    eulers = np.degrees(Q.qeuler_xyz(_f32(rotations)).numpy())  # (L, J, 3)
+    eulers = np.degrees(Q.qeuler(_f32(rotations), "xyz").numpy())  # (L, J, 3)
     with open(out, "w") as f:
         f.write("HIERARCHY\n")
         f.write(f"ROOT {names[0]}\n{{\n")

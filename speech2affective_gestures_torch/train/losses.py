@@ -6,12 +6,18 @@
 - scaled Huber: smooth_l1(x/beta, y/beta) * beta with beta = 0.1;
 - speaker-embedding KLD;
 - speaker diversity regularizer: -pose_l1/(z_l1 + 1e-5) clamped at -1000;
-- L1, and a running mean for logging.
+- L1, and a running mean for logging;
+- the T2G quaternion objective (ref utils/losses.py:29-45): a wrap-around
+  Euler L1 and a drift term.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
+
+from ..ops.quaternions import qeuler
 
 _EPS = 1e-8
 
@@ -58,6 +64,30 @@ def diversity_regularizer(out: torch.Tensor, out_rand: torch.Tensor,
 
 def l1(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return (x - y).abs().mean()
+
+
+def quat_angle_loss(quats_pred: torch.Tensor, quats_target: torch.Tensor,
+                    num_joints: int, dims: int = 4, lower_body_start: int = 15,
+                    upper_body_weights: float = 1.0, drift_len: int = 20):
+    """(angle, drift) of (B, T, num_joints * dims) quaternion sequences (ref
+    utils/losses.py:29-45, JAX `train/losses.py:82-102`): Euler angles in
+    order yzx (epsilon 1e-6); angle is the mean |wrap(pred - target)| over
+    frames 1.., wrapped into [-pi, pi); drift the mean of |sum over offsets
+    1..drift_len-1 of the offset differences of pred less those of target|,
+    each offset's differences added from the first frame on. Joints below
+    `lower_body_start` are weighted by `upper_body_weights`."""
+    qp = quats_pred.reshape(-1, quats_pred.shape[1], num_joints, dims)
+    qt = quats_target.reshape(-1, quats_target.shape[1], num_joints, dims)
+    ep = qeuler(qp, "yzx", epsilon=1e-6)
+    et = qeuler(qt, "yzx", epsilon=1e-6)
+    dist = torch.remainder(ep[:, 1:] - et[:, 1:] + math.pi, 2 * math.pi) - math.pi
+    weights = torch.ones(num_joints, 1, dtype=dist.dtype, device=dist.device)
+    weights[:lower_body_start] = upper_body_weights
+    drift = torch.zeros_like(dist)
+    for idx in range(1, min(drift_len, ep.shape[1])):   # longer offsets add nothing
+        upd = ep[:, idx:] - ep[:, :-idx] - et[:, idx:] + et[:, :-idx]
+        drift = drift + torch.nn.functional.pad(upd, (0, 0, 0, 0, idx - 1, 0))
+    return (dist * weights).abs().mean(), (drift * weights).abs().mean()
 
 
 class AverageMeter:

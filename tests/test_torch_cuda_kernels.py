@@ -170,10 +170,12 @@ def test_gru_kernel_against_plain(cuda, batch, cin):
 @pytest.mark.parametrize("H,cin,batch", [(300, 600, 1), (300, 600, 3), (300, 88, 16),
                                          (300, 600, 258), (300, 600, 512),
                                          (64, 8, 1), (64, 8, 258), (64, 128, 512),
-                                         (64, 128, 3), (40, 24, 6)])
+                                         (64, 128, 3), (40, 24, 6),
+                                         (256, 64, 64), (256, 256, 64)])
 def test_gru_kernel_plans_against_plain(cuda, H, cin, batch):
     """Each launch plan at the main paths' shapes (the generator's H 300,
-    the discriminator's H 64; batch 1 serving, 258 scoring, 512 training)
+    the discriminator's H 64; batch 1 serving, 258 scoring, 512 training;
+    the embedding net's context encoder, H 256 at batch 64, one direction)
     and a ragged one: within 1e-4 of the plain loop, the same bits twice,
     and one direction alone."""
     for D in (2, 1):
@@ -288,6 +290,31 @@ def test_gru_function_against_autograd_of_plain(cuda, H, cin, batch):
     got = torch.autograd.grad((ys * dys).sum() + (h_last * dh).sum(), leaves)
     ys, h_last = gru_cuda.gru_layer_plain(*leaves)
     want = torch.autograd.grad((ys * dys).sum() + (h_last * dh).sum(), leaves)
+    assert (got[0] - want[0]).abs().max().item() <= 1e-4
+    for g, w in zip(got[1:], want[1:]):
+        assert _rel(g, w) <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cin", [64, 256])
+def test_gru_backward_at_h256_one_direction(cuda, cin):
+    """The context encoder's layers (T 34, B 64, H 256, D 1; 64 inputs,
+    then 256): `GRULayerFunction`'s backward, the recurrence and dW kernels
+    one launch each, against autograd through `gru_layer_plain`: dxp within
+    1e-4 absolute, dW_hh and the bias gradients within 1e-4 of each largest
+    value."""
+    T, B, H, D = 34, 64, 256, 1
+    xp, w_hh, b_ih, b_hh, dys = _layer_inputs(T, B, cin, H, D, cin, cuda)
+    dh = torch.randn(D, B, H, generator=torch.Generator().manual_seed(cin)).to(cuda)
+    leaves = [t.clone().requires_grad_() for t in (xp, w_hh, b_ih, b_hh)]
+    ys, h_last = gru_cuda.GRULayerFunction.apply(*leaves)
+    before = _counts("gru_bwd", "gru_dw")
+    got = torch.autograd.grad((ys, h_last), leaves, (dys, dh))
+    torch.cuda.synchronize()
+    assert _counts("gru_bwd", "gru_dw") == tuple(b + 1 for b in before)
+    want_ys, want_h = gru_cuda.gru_layer_plain(*leaves)
+    want = torch.autograd.grad((want_ys, want_h), leaves, (dys, dh))
+    assert (ys - want_ys).abs().max().item() <= 1e-4
     assert (got[0] - want[0]).abs().max().item() <= 1e-4
     for g, w in zip(got[1:], want[1:]):
         assert _rel(g, w) <= 1e-4

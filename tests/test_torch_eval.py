@@ -109,14 +109,15 @@ def test_embedding_net_matches_jax(jax_net, train):
 
 def test_embedding_net_keys_are_the_reference_checkpoints():
     """The keys JAX's reader of the reference's embedding_net.pth.tar
-    expects, and only those."""
+    expects, and only those; speech mode adds the context encoder's."""
     from speech2affective_gestures_tpu.convert import torch_ckpt
 
     sd = {k: v.numpy() for k, v in TNet().state_dict().items()}
     params, stats = torch_ckpt.embedding_net_pose(sd)
     assert set(params) == {"pose_encoder", "decoder"}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TNet(mode="speech")
+    # speech mode builds, with the reference's key groups beside these
+    speech = {k.split(".")[0] for k in TNet(mode="speech").state_dict()}
+    assert speech == {"context_encoder", "pose_encoder", "decoder"}
 
 
 def test_port_checkpoint_loads_in_jax_evaluator(tmp_path, jax_net):

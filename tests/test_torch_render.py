@@ -51,15 +51,20 @@ def _case(name, rng):
         q[1::3] *= -1.0
         return TQ.qfix, JQ.qfix, (q,)
     q = _quats(rng, (5, 7))
-    if name == "qeuler_xyz:gimbal":
-        # pitch at +-90 degrees: 2 (q1 q3 + q0 q2) rounds to +-1 and past it
+    order = name.split(":")[0].removeprefix("qeuler_")
+    if name.endswith(":gimbal"):
+        # 90 degrees either way about the order's middle axis: the arcsin's
+        # input, 2 (q1 q3 + q0 q2) in xyz, rounds to +-1 and past it
         half = np.float32(np.sqrt(0.5))
-        q[:, :3] = np.array([half, 0.0, half, 0.0], np.float32)
-        q[:, 3:] = np.array([half, 0.0, -half, 0.0], np.float32)
-    return TQ.qeuler_xyz, lambda x: JQ.qeuler(x, "xyz"), (q,)
+        axis = 1 + "xyz".index(order[1])
+        q[:] = 0.0
+        q[..., 0] = half
+        q[:, :3, axis], q[:, 3:, axis] = half, -half
+    return (lambda x: TQ.qeuler(x, order)), (lambda x: JQ.qeuler(x, order)), (q,)
 
 
-@pytest.mark.parametrize("name", ["qmul", "qrot", "qfix", "qeuler_xyz", "qeuler_xyz:gimbal"])
+@pytest.mark.parametrize("name", ["qmul", "qrot", "qfix",
+                                  *(f"qeuler_{o}" for o in ORDERS), "qeuler_xyz:gimbal"])
 def test_quaternion_op_matches_jax(name):
     port, ref, args = _case(name, np.random.default_rng(0))
     got = port(*(torch.from_numpy(a) for a in args))
