@@ -177,7 +177,24 @@ toolkit. In order:
    p50s, the all-reduces' count, bytes and ms a step, the GRU launches a
    step; the GRU kernels checked and timed at a rank's batch (B 256 and
    128, float32 and bf16);
-18. timing: each kernel's time, its plain version's, a PyTorch library
+18. the 2-D (data, model) grid (`model_parallel_phase`,
+   `parallel.mesh.make_mesh_2d`, `shard_params_2d`): four gloo ranks on
+   this card as a 2 x 2 grid at full width and 2048 words (the text
+   tables split by row, G's and the TriModal's GRU gates by column at
+   tp_min_cols 900), 256 rows a data rank of batch 512: (a) 2 steps, each
+   against one process's step from the same state (metrics, weights, BN
+   stats at JAX's mesh bounds, Adam's first moments), the data axis' ranks
+   the same bits, the placement and the slices' shapes, a clipped step,
+   and three wrong grids (the slices' gradients summed over the model
+   axis, BatchNorm's count over the world, the clip counting each slice
+   twice) that must fail those checks; (b) a mixed-precision step against
+   one process's; (c) the batched synthesis of 4 clips of 3-12 s split
+   over the data axis (pad_to 2) against one process's, the GRU and mel
+   kernels counted on each rank; (d) with four cards the grid over NCCL
+   a card a rank, its step p50 (with fewer it logs that (d) did not
+   run); the collectives and bytes a step by axis, a rank's memory and
+   the GRU launches on rank 0, which must be above zero;
+19. timing: each kernel's time, its plain version's, a PyTorch library
    call's that computes the same function, and the least time the card
    could take (bound), by CUDA events and by device time; the GRU
    backward (recurrence + dW) against cuDNN's recurrent backward; the L2
@@ -359,6 +376,19 @@ DP_TIMEOUT = 600
 DP_MOMENT_RTOL = 1e-2
 # (c)'s timed steps a rank count, after DP_WARM steps
 DP_SCALING_TIMED, DP_WARM = 8, 3
+# the 2-D grid (`model_parallel_phase`): a GRID_SHAPE (data, model) grid,
+# its vocabulary (the text tables split by row at min_rows 1024) and
+# tp_min_cols (3H: G's and the TriModal's GRU gates split by column); the
+# steps checked against one process and the timed ones after them; the
+# clip norm of the clipped step and its mutant; the synthesis' clips (s)
+GRID_SHAPE = (2, 2)
+GRID_WORDS, GRID_TP_COLS = 2048, 900
+GRID_STEPS, GRID_TIMED = 2, 3
+GRID_CLIP = 0.1
+GRID_CLIPS = (3.0, 6.0, 9.0, 12.0)
+GRID_MUTANTS = ("shard gradient summed", "BN count over the world", "clip counts shards twice")
+# the sharded synthesis against one process's, absolute
+GRID_SYNTH_TOL = 1e-5
 # the capturable Adam against the host Adam on the same gradients: each
 # parameter within n updates x (CAP_ULPS of its tensor's largest value +
 # CAP_LR of the base rate)
@@ -3925,29 +3955,42 @@ def _dp_setup(device, mesh=None, mixed: bool = False):
     return cfg, step, torch.Generator(device=device).manual_seed(16)
 
 
-def _dp_batches(cfg, device, rows=slice(None)) -> list:
-    """DP_STEPS global batches of TRAIN_BATCH random rows
-    (`builder.synthetic_batch`, seeds 40, 41, ...), `rows` of each on
-    `device`."""
+def _dp_batches(cfg, device, rows=slice(None), n_steps: int = DP_STEPS,
+                n_words: int = 1000) -> list:
+    """n_steps global batches of TRAIN_BATCH random rows over n_words
+    words (`builder.synthetic_batch`, seeds 40, 41, ...), `rows` of each
+    on `device`."""
     from speech2affective_gestures_torch.train import builder
 
     return [builder.to_device({k: v[rows] for k, v in builder.synthetic_batch(
-        np.random.default_rng(40 + i), TRAIN_BATCH, cfg, 1000, 100).items()}, device)
-        for i in range(DP_STEPS)]
+        np.random.default_rng(40 + i), TRAIN_BATCH, cfg, n_words, 100).items()}, device)
+        for i in range(n_steps)]
+
+
+def _whole_states(step) -> tuple[list, list]:
+    """Both nets' state dicts and both Adams' state dicts, whole: on a
+    (data, model) grid gathered (`parallel.mesh.gather_params_2d`, a
+    collective that every rank makes)."""
+    from speech2affective_gestures_torch.parallel import mesh as P
+
+    nets, opts = (step.gen, step.dis), (step.gen_opt, step.dis_opt)
+    if step.grid is not None:
+        return P.gather_params_2d(nets, opts, step.grid)
+    return [n.state_dict() for n in nets], [o.state_dict() for o in opts]
 
 
 def _dp_state(step, generator) -> dict:
-    """What a step starts from, copied to the host: both nets' parameters
-    and buffers, both Adams' states and the step generator's state."""
+    """What a step starts from, whole (`_whole_states`) and copied to the
+    host: both nets' parameters and buffers, both Adams' states and the
+    step generator's state."""
     def host(sd):
         return {k: host(v) if isinstance(v, dict) else
                 v.detach().cpu().clone() if hasattr(v, "detach") else v for k, v in sd.items()}
 
-    return {"gen": host(step.gen.state_dict()), "dis": host(step.dis.state_dict()),
-            "gen_opt": {"state": host(step.gen_opt.state_dict()["state"]),
-                        "param_groups": step.gen_opt.state_dict()["param_groups"]},
-            "dis_opt": {"state": host(step.dis_opt.state_dict()["state"]),
-                        "param_groups": step.dis_opt.state_dict()["param_groups"]},
+    (gen, dis), (gen_opt, dis_opt) = _whole_states(step)
+    return {"gen": host(gen), "dis": host(dis),
+            "gen_opt": {"state": host(gen_opt["state"]), "param_groups": gen_opt["param_groups"]},
+            "dis_opt": {"state": host(dis_opt["state"]), "param_groups": dis_opt["param_groups"]},
             "generator": generator.get_state()}
 
 
@@ -3963,13 +4006,14 @@ def _dp_load_state(step, generator, state: dict) -> None:
 
 def _dp_snapshot(step, metrics) -> dict:
     """The step's metrics, both nets' parameters and buffers and both
-    Adams' first moments (by parameter index), on the host."""
+    Adams' first moments (by parameter index), whole (`_whole_states`), on
+    the host."""
+    nets, opts = _whole_states(step)
     return {"metrics": {k: float(v) for k, v in metrics.items()},
-            **{w: {k: v.detach().cpu().clone() for k, v in getattr(step, w).state_dict().items()}
-               for w in ("gen", "dis")},
-            "moments": {w: {i: st["exp_avg"].detach().cpu().clone() for i, st in
-                            getattr(step, f"{w}_opt").state_dict()["state"].items()}
-                        for w in ("gen", "dis")}}
+            **{w: {k: v.detach().cpu().clone() for k, v in sd.items()}
+               for w, sd in zip(("gen", "dis"), nets)},
+            "moments": {w: {i: st["exp_avg"].detach().cpu().clone() for i, st in sd["state"].items()}
+                        for w, sd in zip(("gen", "dis"), opts)}}
 
 
 def _dp_in_sync(step, generator, mesh) -> bool:
@@ -4280,11 +4324,11 @@ def _dp_time_rank(mesh, out: pathlib.Path) -> None:
         out.write_text(json.dumps(times))
 
 
-def _dp_scaling(work: pathlib.Path, n_cards: int, one: list, smi: str) -> None:
+def _dp_scaling(work: pathlib.Path, n_cards: int, one: list, smi: str) -> dict:
     """(c)'s step p50 by card count: one NCCL rank a card on 1, 2 and 4
     (of those visible) cards, each on its rows of the same global batch
     (`_dp_time_rank`), beside one process without a mesh (`one`, (a)'s
-    times on the same batch)."""
+    times on the same batch). Returns the p50s (ms) by label."""
     import json
 
     from speech2affective_gestures_torch.parallel import mesh as P
@@ -4303,10 +4347,11 @@ def _dp_scaling(work: pathlib.Path, n_cards: int, one: list, smi: str) -> None:
     log(f"data parallel (c) step p50 by cards at global batch {TRAIN_BATCH} ({smi}): "
         + ", ".join(f"{k} {v:.3f} ms ({TRAIN_BATCH / v * 1e3:.0f} samples/s)"
                     for k, v in p50.items()))
+    return p50
 
 
 def data_parallel_phase(device, work: pathlib.Path, embedding_net: pathlib.Path,
-                        smi: str) -> collections.Counter:
+                        smi: str) -> tuple[collections.Counter, dict]:
     """Data-parallel training (`parallel.mesh`), float32 with TF32 off, full
     width, global batch TRAIN_BATCH:
     (a) two gloo ranks on this card (`_dp_steps_rank`, 256 rows each),
@@ -4325,8 +4370,9 @@ def data_parallel_phase(device, work: pathlib.Path, embedding_net: pathlib.Path,
     (d) DP_RESUME_RANKS gloo ranks (128 rows each) resumed from a
         checkpoint against the uncut run (`_dp_resume_rank`).
     Logs the step p50s, the all-reduces' ms and bytes a step and the
-    launches a step. Returns the ranks' launches: rank 0's of (a), (d)
-    and its mixed step, under the plain names and at its batch."""
+    launches a step. Returns the ranks' launches (rank 0's of (a), (d)
+    and its mixed step, under the plain names and at its batch) and (c)'s
+    step p50s by card count (none with one card)."""
     import json
 
     import torch
@@ -4374,8 +4420,8 @@ def data_parallel_phase(device, work: pathlib.Path, embedding_net: pathlib.Path,
     log(f"data parallel (a) numbers ({smi}): step p50 {np.median(got['times']):.3f} ms with "
         f"two ranks sharing the card (not a scaling figure: both ranks run on one card) "
         f"against one process's {np.median(times):.3f} ms (all {rounded['ranks']} and "
-        f"{rounded['one']}); all-reduces a step {per_step.get('all_reduce', 0):.1f}, "
-        f"{per_step.get('all_reduce_bytes', 0):.0f} bytes, of them the gradients' "
+        f"{rounded['one']}); all-reduces a step {per_step.get('data all_reduce', 0):.1f}, "
+        f"{per_step.get('data all_reduce bytes', 0):.0f} bytes, of them the gradients' "
         f"{got['grad_bytes']} bytes in {np.median(got['reduce_ms']):.3f} ms (p50 of "
         f"{rounded['reduce']}, through the host under gloo); GRU launches a step on a rank "
         f"{gru}")
@@ -4395,8 +4441,9 @@ def data_parallel_phase(device, work: pathlib.Path, embedding_net: pathlib.Path,
         f"{graph['eager traffic']}")
 
     n_cards = torch.cuda.device_count()
+    scaling = {}
     if n_cards > 1:
-        _dp_scaling(work, n_cards, times, smi)
+        scaling = _dp_scaling(work, n_cards, times, smi)
         _dp_main_v2(work, embedding_net, n_cards, smi)
     else:
         log("data parallel (c), main_v2 over NCCL on several cards: not run, one card "
@@ -4416,7 +4463,7 @@ def data_parallel_phase(device, work: pathlib.Path, embedding_net: pathlib.Path,
         for B in (TRAIN_BATCH // 2, TRAIN_BATCH // DP_RESUME_RANKS):
             if launches[f"{name}_b{B}"] == 0:
                 raise AssertionError(f"{name} did not run at a rank's batch {B}")
-    return launches
+    return launches, scaling
 
 
 def _dp_main_v2(work: pathlib.Path, embedding_net: pathlib.Path, n_cards: int,
@@ -4455,6 +4502,371 @@ def _dp_main_v2(work: pathlib.Path, embedding_net: pathlib.Path, n_cards: int,
     log(f"data parallel (c), main_v2 over NCCL on {n_cards} cards, "
         f"{TRAIN_BATCH // n_cards} rows each, 2 epochs: {epochs}; "
         f"{[ln for ln in text.splitlines() if 'eval: ' in ln]}; {wall:.1f} s in all ({smi})")
+
+
+def _grid_setup(device, grid=None, mixed: bool = False, gradient_clip: float = 0.0):
+    """`_dp_setup`'s full-width step at GRID_WORDS words (`builder.init_training`
+    from seed 0, the GAN terms on) on `device`, on `grid` where given (its
+    nets and Adams split by `shard_params_2d` at tp_min_cols GRID_TP_COLS),
+    and its step generator from seed 16."""
+    import torch
+    from speech2affective_gestures_torch.config import ModelConfig
+    from speech2affective_gestures_torch.parallel import mesh as P
+    from speech2affective_gestures_torch.train import builder
+
+    cfg = ModelConfig.from_yaml(CONFIG, loss_warmup=-1, batch_size=TRAIN_BATCH)
+    step = builder.init_training(cfg, 0, GRID_WORDS, 100, device=device, mixed_precision=mixed,
+                                 gradient_clip=gradient_clip, mesh=grid)["step"]
+    if grid is not None:
+        P.shard_params_2d((step.gen, step.dis, step.tri), (step.gen_opt, step.dis_opt), grid,
+                          tp_min_cols=GRID_TP_COLS)
+    return cfg, step, torch.Generator(device=device).manual_seed(16)
+
+
+@contextlib.contextmanager
+def _grid_mutant(name: str, grid):
+    """The grid's step with one fault: the split parameters' gradients
+    summed over the model axis (the gathers' backward a reduce-scatter
+    sum, the tables' sum an all-reduce), BatchNorm's count taken over the
+    world, or the clip's norm summing the slices over the world (each
+    counted twice)."""
+    import dataclasses
+
+    from speech2affective_gestures_torch.models import layers as L
+    from speech2affective_gestures_torch.parallel import mesh as P
+    from speech2affective_gestures_torch.train import gan_step
+
+    saved = []
+
+    def patch(owner, attr, value):
+        saved.append((owner, attr, owner.__dict__[attr]))
+        setattr(owner, attr, value)
+
+    if name == "shard gradient summed":
+        gather_bwd = P._GatherShards.backward
+        patch(P._GatherShards, "backward", staticmethod(lambda ctx, *gs: gather_bwd(
+            ctx, *(None if g is None else P.all_reduce_(g.clone(), ctx.mesh) for g in gs))))
+        patch(P._SumOverModel, "backward",
+              staticmethod(lambda ctx, g: (P.all_reduce_(g.clone(), ctx.mesh), None)))
+    elif name == "BN count over the world":
+        bn = L._batch_norm_global
+        patch(L, "_batch_norm_global", lambda m, x, mesh: bn(
+            m, x, dataclasses.replace(mesh, world=grid.world)))
+    else:
+        clip = gan_step.clip_by_global_norm_
+        world = P.DataMesh(grid.rank, grid.world, grid.device, axis="model")
+        patch(gan_step, "clip_by_global_norm_", lambda params, max_norm, g=None: clip(
+            params, max_norm, None if g is None else dataclasses.replace(g, model=world)))
+    try:
+        yield
+    finally:
+        for owner, attr, value in reversed(saved):
+            setattr(owner, attr, value)
+
+
+def _grid_memory(step) -> dict:
+    """This rank's parameter and Adam-moment bytes against the whole
+    nets' (G, D and the TriModal; Adam's for G and D)."""
+    def nbytes(p, whole):
+        shape = p.model_shard.shape if whole and hasattr(p, "model_shard") else p.shape
+        return int(np.prod(shape)) * p.element_size()
+
+    out = {}
+    for whole in (False, True):
+        params = sum(nbytes(p, whole) for w in ("gen", "dis", "tri")
+                     for p in getattr(step, w).parameters())
+        adam = sum(2 * nbytes(p, whole) for opt in (step.gen_opt, step.dis_opt)
+                   for p in opt.state)
+        out["whole" if whole else "rank"] = {"params": params, "adam": adam}
+    return out
+
+
+def _grid_synthesis_inputs():
+    """The sharded synthesis' clips (GRID_CLIPS, words with ids in both
+    halves of the table), its vocabulary and its per-window noise rows."""
+    from speech2affective_gestures_torch.data.vocab import placeholder_vocab
+
+    words = [[f"<w{37 + 171 * i}>", 0.4 + 0.9 * i, 0.8 + 0.9 * i] for i in range(12)]
+    clips = [(clip_audio(sec, 60 + i), [w for w in words if w[2] < sec], 11 * i)
+             for i, sec in enumerate(GRID_CLIPS)]
+    eps = np.random.default_rng(61).standard_normal((16, len(clips), 16)).astype(np.float32)
+    return clips, placeholder_vocab(GRID_WORDS), eps
+
+
+def _grid_rank(mesh, out: pathlib.Path) -> None:
+    """(a)-(c) of `model_parallel_phase`, one gloo rank of the grid on the
+    card: GRID_STEPS full-width steps on its rows of the global batches
+    (the state before each and the snapshot after it gathered whole), the
+    data axis' ranks compared bit for bit after each (`_dp_in_sync` over
+    the data axis; it raises if they part), the collectives a step by
+    axis, the placement and this rank's shapes, its memory, GRID_TIMED
+    steps timed; a clipped step and the mutants' steps (`_grid_mutant`)
+    from the first state; a mixed-precision step; then the sharded batched
+    synthesis (pad_to the data axis). Rank 0 writes its results to
+    `out`; every rank its synthesis launches beside it."""
+    import collections as co
+    import json
+
+    import torch
+    from speech2affective_gestures_torch.device import set_f32_numerics
+    from speech2affective_gestures_torch.parallel import mesh as P
+    from speech2affective_gestures_torch.train import synthesis
+
+    set_f32_numerics()
+    grid = P.make_mesh_2d(*GRID_SHAPE)
+    dev = mesh.device
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, step, g = _grid_setup(dev, grid)
+    nets = {w: getattr(step, w) for w in ("gen", "dis", "tri")}
+    kinds = {w: {n: p.model_shard.kind if hasattr(p, "model_shard") else "rep"
+                 for n, p in net.named_parameters()} for w, net in nets.items()}
+    placed = {w: P.placement(net, grid.n_model, tp_min_cols=GRID_TP_COLS)
+              for w, net in nets.items()}
+    shapes = {f"{w}.{n}": tuple(p.shape) for w, net in nets.items()
+              for n, p in net.named_parameters() if kinds[w][n] != "rep"}
+    batches = _dp_batches(cfg, dev, grid.data.rows(TRAIN_BATCH), GRID_STEPS, GRID_WORDS)
+    res = {"pre": [], "snaps": [], "synced": [], "traffic": co.Counter(), "kinds": kinds,
+           "placement": placed, "shapes": shapes}
+    _reset_counters()
+    for b in batches:
+        res["pre"].append(_dp_state(step, g))
+        before = co.Counter(P.traffic)
+        metrics = step.train_step(b, g, gan_on=True)
+        torch.cuda.synchronize()
+        res["traffic"].update(co.Counter(P.traffic) - before)
+        res["snaps"].append(_dp_snapshot(step, metrics))
+        res["synced"].append(_dp_in_sync(step, g, grid.data))
+    res["launches"] = _counters() + _rank_batch_counters(TRAIN_BATCH // grid.n_data)
+    res["memory"] = _grid_memory(step)
+    res["times"] = []
+    for _ in range(GRID_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step.train_step(batches[0], g, gan_on=True)
+        torch.cuda.synchronize()
+        res["times"].append((time.perf_counter() - t0) * 1e3)
+    res["peak"] = torch.cuda.max_memory_allocated() - base
+    del step
+    res["mutants"] = {}
+    for name in ("clipped",) + GRID_MUTANTS:
+        clipped = name.startswith("clip")
+        with (_grid_mutant(name, grid) if name != "clipped" else contextlib.nullcontext()):
+            _, mstep, mg = _grid_setup(dev, grid, gradient_clip=GRID_CLIP if clipped else 0.0)
+            metrics = mstep.train_step(batches[0], mg, gan_on=True)
+        res["mutants"][name] = _dp_snapshot(mstep, metrics)
+        del mstep
+    _, mstep, mg = _grid_setup(dev, grid, mixed=True)
+    metrics = mstep.train_step(batches[0], mg, gan_on=True)
+    res["mixed"] = {k: float(v) for k, v in metrics.items()}
+    res["mixed dtypes"] = sorted({str(p.dtype) for w in ("gen", "dis")
+                                  for p in getattr(mstep, w).parameters()})
+    res["mixed sync"] = _dp_in_sync(mstep, mg, grid.data)
+    del mstep
+    torch.cuda.empty_cache()
+
+    gen = _grid_setup(dev, grid)[1].gen.eval()
+    clips, vocab, eps = _grid_synthesis_inputs()
+    _reset_counters()
+    t0 = time.perf_counter()
+    results = synthesis.synthesize_clips_batched(gen, clips, vocab, cfg,
+                                                 eps=torch.from_numpy(eps), mesh=grid,
+                                                 pad_to=grid.n_data)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counters()
+    (out.parent / f"{out.stem}_synthesis_rank{grid.rank}.json").write_text(json.dumps(
+        {"launches": {k: counts[k] for k in ("gru_fwd", "mel_power")}, "wall": wall}))
+    if grid.rank == 0:
+        res["synthesis"] = results
+        torch.save(res, out)
+    if not (all(res["synced"]) and res["mixed sync"]
+            and np.isfinite(list(res["mixed"].values())).all()):
+        raise AssertionError(f"rank {grid.rank}: the data axis' ranks in sync after each step "
+                             f"{res['synced']}, after the mixed step {res['mixed sync']}; "
+                             f"mixed metrics {res['mixed']}")
+
+
+def _grid_time_rank(mesh, out: pathlib.Path) -> None:
+    """(d), one NCCL rank a card on the grid: the full-width step
+    (`_grid_setup`) on its rows of one global batch, DP_WARM steps, then
+    DP_SCALING_TIMED timed one by one; rank 0 writes the times (ms)."""
+    import json
+
+    import torch
+    from speech2affective_gestures_torch.device import set_f32_numerics
+    from speech2affective_gestures_torch.parallel import mesh as P
+
+    set_f32_numerics()
+    grid = P.make_mesh_2d(*GRID_SHAPE)
+    cfg, step, g = _grid_setup(mesh.device, grid)
+    batch = _dp_batches(cfg, mesh.device, grid.data.rows(TRAIN_BATCH), 1, GRID_WORDS)[0]
+    times = []
+    for i in range(DP_WARM + DP_SCALING_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step.train_step(batch, g, gan_on=True)
+        torch.cuda.synchronize()
+        if i >= DP_WARM:
+            times.append((time.perf_counter() - t0) * 1e3)
+    if grid.rank == 0:
+        out.write_text(json.dumps(times))
+
+
+def model_parallel_phase(device, work: pathlib.Path, smi: str,
+                         scaling: dict) -> collections.Counter:
+    """The 2-D (data, model) grid (`parallel.mesh.make_mesh_2d`,
+    `shard_params_2d`), float32 with TF32 off, full width (hidden 300, 4
+    bi-GRU layers, embedding 300, 100 speakers, the AffDiscriminator and
+    the frozen TriModal) at GRID_WORDS words, global batch TRAIN_BATCH,
+    tp_min_cols GRID_TP_COLS; four gloo ranks on this card as a 2 x 2 grid
+    (`_grid_rank`, 256 rows a data rank):
+    (a) GRID_STEPS steps, each against one process's step on the same
+        global batch from the same state (`_dp_errors`, JAX's mesh bounds,
+        and the Adam first moments, `_dp_moment_errors`); the data axis'
+        ranks the same bits; the placement `placement`'s, the tables 1024
+        rows on each rank and the GRU weight_hh 450; the mutants
+        (`_grid_mutant`) must fail the bounds, a clipped step (GRID_CLIP)
+        pass them;
+    (b) one mixed-precision step: finite, float32 masters, its metrics
+        within MP_TOL of one process's mixed step;
+    (c) the batched synthesis of GRID_CLIPS on the grid (pad_to 2, the MFCC
+        route) against one process's within GRID_SYNTH_TOL, the GRU and
+        mel launches read on each rank;
+    (d) with four or more cards, the grid over NCCL a card a rank: its step
+        p50 beside one process's and the 1-D four-card mesh's
+        (`scaling`, `data_parallel_phase`'s (c)); with fewer, logged as not
+        run.
+    Logs the collectives and bytes a step by axis, the memory a rank and
+    the launches on rank 0. Returns rank 0's launches of (a), at its batch
+    too, and of (c)."""
+    import json
+
+    import torch
+    from speech2affective_gestures_torch.parallel import mesh as P
+    from speech2affective_gestures_torch.train import synthesis
+
+    t0 = time.perf_counter()
+    out = work / "grid.pt"
+    n_ranks = GRID_SHAPE[0] * GRID_SHAPE[1]
+    P.launch(_grid_rank, n_ranks, "gloo", devices=[device] * n_ranks, args=(out,),
+             timeout=DP_TIMEOUT)
+    got = torch.load(out, weights_only=False)
+    ranks_s = time.perf_counter() - t0
+
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, step, g = _grid_setup(device)
+    names = {w: [n for n, _ in getattr(step, w).named_parameters()] for w in ("gen", "dis")}
+    errs, wants = [], []
+    batches = _dp_batches(cfg, device, n_steps=GRID_STEPS, n_words=GRID_WORDS)
+    for b, pre, snap in zip(batches, got["pre"], got["snaps"]):
+        _dp_load_state(step, g, pre)
+        wants.append(_dp_snapshot(step, step.train_step(b, g, gan_on=True)))
+        errs.append({**_dp_errors(snap, wants[-1]),
+                     "moments": _dp_moment_errors(snap, wants[-1], pre, names)})
+    times = []
+    for _ in range(GRID_TIMED):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        step.train_step(batches[0], g, gan_on=True)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3)
+    one_peak = torch.cuda.max_memory_allocated() - base
+    del step
+    _, cstep, cg = _grid_setup(device, gradient_clip=GRID_CLIP)
+    clipped = _dp_snapshot(cstep, cstep.train_step(batches[0], cg, gan_on=True))
+    del cstep
+    pre0 = got["pre"][0]
+
+    def worst(snap, want):
+        return {**_dp_errors(snap, want), "moments": _dp_moment_errors(snap, want, pre0)}
+
+    checks = {name: worst(got["mutants"][name], clipped if name.startswith("clip") else wants[0])
+              for name in ("clipped",) + GRID_MUTANTS}
+    _, mstep, mg = _grid_setup(device, mixed=True)
+    mixed_one = {k: float(v) for k, v in mstep.train_step(batches[0], mg, gan_on=True).items()}
+    del mstep
+    mixed_err = (max(abs(got["mixed"][k] - v) / (abs(v) + 5e-4 / MP_TOL)
+                     for k, v in mixed_one.items())
+                 if set(got["mixed"]) == set(mixed_one) else np.inf)
+
+    gen = _grid_setup(device)[1].gen.eval()
+    clips, vocab, eps = _grid_synthesis_inputs()
+    one = synthesis.synthesize_clips_batched(gen, clips, vocab, cfg, eps=torch.from_numpy(eps))
+    del gen
+    torch.cuda.empty_cache()
+    synth_err = max(float(np.abs(a - b).max()) for mine, ref in zip(got["synthesis"], one)
+                    for a, b in zip(mine, ref))
+    synth = [json.loads((work / f"grid_synthesis_rank{r}.json").read_text())
+             for r in range(n_ranks)]
+
+    per_step = {k: v / GRID_STEPS for k, v in sorted(got["traffic"].items())}
+    gru = {k: v / GRID_STEPS for k, v in got["launches"].items() if not re.search(r"_b\d", k)}
+    mem = got["memory"]
+    log(f"model parallel (a), a {GRID_SHAPE[0]} x {GRID_SHAPE[1]} (data, model) grid of gloo "
+        f"ranks on one card, {TRAIN_BATCH // GRID_SHAPE[0]} rows a data rank of batch "
+        f"{TRAIN_BATCH}, {GRID_WORDS} words, tp_min_cols {GRID_TP_COLS}: each step against one "
+        f"process's from the same state, each check's error over its tolerance by step: "
+        f"{[{k: round(v, 4) for k, v in e.items()} for e in errs]}; the data axis' ranks the "
+        f"same bits after each step {got['synced']}; a clipped step ({GRID_CLIP}) "
+        f"{ {k: round(v, 4) for k, v in checks['clipped'].items()} }; the mutants (each must "
+        f"pass 1 somewhere): "
+        f"{ {n: {k: round(v, 2) for k, v in checks[n].items()} for n in GRID_MUTANTS} }")
+    log(f"model parallel (a) numbers ({smi}): step p50 {np.median(got['times']):.3f} ms with "
+        f"four ranks sharing the card (all {[round(t, 3) for t in got['times']]}) against one "
+        f"process's {np.median(times):.3f} ms ({[round(t, 3) for t in times]}); collectives a "
+        f"step by axis {per_step}; a rank's parameters {mem['rank']['params']} bytes and Adam "
+        f"moments {mem['rank']['adam']} bytes against the whole nets' {mem['whole']['params']} "
+        f"and {mem['whole']['adam']}; peak allocated from the nets' set-up through the timed "
+        f"steps, above what the process held before: rank 0 {got['peak']} bytes, one process "
+        f"{one_peak}; split "
+        f"shapes on rank 0 {got['shapes']}; GRU launches a step on rank 0 {gru}")
+    log(f"model parallel (b), one mixed-precision step on the grid: metrics {got['mixed']}, "
+        f"masters {got['mixed dtypes']}, the data axis' ranks in sync {got['mixed sync']}; "
+        f"against one process's mixed step {mixed_err:.3e} relative (tol {MP_TOL})")
+    log(f"model parallel (c), the batched synthesis of {len(clips)} clips of "
+        f"{GRID_CLIPS} s on the grid (pad_to {GRID_SHAPE[0]}): largest difference from one "
+        f"process's {synth_err:.3e} (tol {GRID_SYNTH_TOL}); each rank's launches and wall s "
+        f"{synth}; ranks' part of the phase {ranks_s:.1f} s")
+    n_cards = torch.cuda.device_count()
+    if n_cards >= n_ranks:
+        t_out = work / "grid_time.json"
+        P.launch(_grid_time_rank, n_ranks, "nccl", args=(t_out,), timeout=DP_TIMEOUT)
+        grid_times = json.loads(t_out.read_text())
+        log(f"model parallel (d), the 2 x 2 grid over NCCL, a card a rank ({smi}): step p50 "
+            f"{np.median(grid_times):.3f} ms (all {[round(t, 3) for t in grid_times]}) against "
+            f"one process's {np.median(times):.3f} ms and the 1-D mesh's on four cards "
+            f"{scaling.get('4 NCCL', float('nan')):.3f} ms (`data_parallel_phase` (c))")
+    else:
+        log(f"model parallel (d), the 2 x 2 grid over NCCL on four cards: not run, "
+            f"{n_cards} card(s) visible (torch.cuda.device_count())")
+    log(f"model parallel phase took {time.perf_counter() - t0:.1f} s")
+
+    launches = collections.Counter(got["launches"])
+    for r, each in enumerate(synth):
+        if not (each["launches"]["gru_fwd"] > 0 and each["launches"]["mel_power"] > 0):
+            raise AssertionError(f"rank {r}'s synthesis launched {each['launches']}")
+    launches.update(synth[0]["launches"])
+    for name in ("gru_fwd", "gru_bwd", "gru_dw"):
+        if launches[name] == 0 or launches[f"{name}_b{TRAIN_BATCH // GRID_SHAPE[0]}"] == 0:
+            raise AssertionError(f"{name} did not run on the grid's rank 0")
+    if got["kinds"] != got["placement"]:
+        raise AssertionError(f"the grid's placement is not `placement`'s: {got['kinds']}")
+    table, gates = got["shapes"]["gen.text_encoder.embedding.weight"], \
+        got["shapes"]["gen.gru.weight_hh_l0"]
+    hidden = cfg.hidden_size_s2eg
+    if table != (GRID_WORDS // 2, cfg.wordembed_dim) or gates != (3 * hidden // 2, hidden):
+        raise AssertionError(f"rank 0 holds the table as {table}, weight_hh as {gates}")
+    if not all(v <= 1 for e in errs + [checks["clipped"]] for v in e.values()):
+        raise AssertionError(f"the grid's step is not one process's: {errs}, {checks['clipped']}")
+    if not all(max(checks[n].values()) > 1 for n in GRID_MUTANTS):
+        raise AssertionError(f"the checks would pass a wrong grid: {checks}")
+    if not mixed_err <= MP_TOL or got["mixed dtypes"] != ["torch.float32"]:
+        raise AssertionError(f"the grid's mixed step: {mixed_err}, {got['mixed dtypes']}")
+    if not synth_err <= GRID_SYNTH_TOL:
+        raise AssertionError(f"the grid's synthesis is {synth_err} from one process's")
+    return launches
 
 
 def write_mpi_corpus(root: pathlib.Path, seed: int) -> tuple[pathlib.Path, pathlib.Path]:
@@ -5568,9 +5980,9 @@ def _ok_line(torch) -> None:
 
 
 def main() -> int:
-    """Every phase; with `--data-parallel`, the data-parallel phase alone
-    (and the embedding net that its main_v2 run scores with), for a run
-    on several cards."""
+    """Every phase; with `--data-parallel`, the data- and model-parallel
+    phases alone (and the embedding net that the former's main_v2 run
+    scores with), for a run on several cards."""
     only_dp = sys.argv[1:] == ["--data-parallel"]
     if sys.argv[1:] and not only_dp:
         print("usage: chip_smoke.py [--data-parallel]", file=sys.stderr)
@@ -5619,7 +6031,8 @@ def main() -> int:
     if only_dp:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as work:
             work = pathlib.Path(work)
-            data_parallel_phase(device, work, embedding_phase(device, work), smi)
+            _, scaling = data_parallel_phase(device, work, embedding_phase(device, work), smi)
+            model_parallel_phase(device, work, smi, scaling)
         _ok_line(torch)
         return 0
     errs = kernel_phase(device)
@@ -5685,7 +6098,10 @@ def main() -> int:
         launches.update(grain_phase(device, work, embedding_net, smi))
         # data-parallel training: ranks over gloo on this card, one NCCL
         # rank's K-step graph, main_v2 over NCCL where there are cards
-        launches.update(data_parallel_phase(device, work, embedding_net, smi))
+        dp_launches, scaling = data_parallel_phase(device, work, embedding_net, smi)
+        launches.update(dp_launches)
+        # the 2-D (data, model) grid: its step and its sharded synthesis
+        launches.update(model_parallel_phase(device, work, smi, scaling))
     kernels = timing_phase(device, errs, launches)
     log(json.dumps({"kernels": kernels}))
     _ok_line(torch)

@@ -36,6 +36,21 @@ captured; on a gloo mesh the trainer runs one step at a time.
 
 `launch` starts the ranks (`torch.multiprocessing`, spawned), each pinned
 to its device; several ranks may share one device over gloo.
+
+The JAX package's 2-D `(data, model)` mesh (`parallel/mesh.py:122-169`) is
+`make_mesh_2d`: rank r at (d, m) = (r // n_model, r % n_model), its data
+axis the ranks of its column m and its model axis those of its row d,
+which hold the same batch rows. `shard_params_2d` applies JAX's placement
+rule to each parameter's JAX shape: a table of `min_rows` rows or more is
+split by row over the model axis, and with `tp_min_cols` a wide kernel by
+column (tensor parallelism); each rank keeps its slice and its Adam
+moments' slices. A row-split embedding looks up the ids in its rows and
+sums over the model axis; a column-split weight is gathered whole before
+its module runs, as GSPMD gathers W_hh for the GRU's custom call, so the
+GRU kernels see whole weights (W_ih is gathered with it, where GSPMD may
+split the input product by column instead). The data axis is a
+`DataMesh` of its own group: the step's gradients, BatchNorm's
+statistics, draws and metrics reduce over it alone, as on the 1-D mesh.
 """
 
 from __future__ import annotations
@@ -55,17 +70,20 @@ import torch.distributed as dist
 
 @dataclasses.dataclass(eq=False)
 class DataMesh:
-    """This process's place on the data axis, the default process group:
-    its rank, the axis' size (`world`) and the device its tensors live
-    on."""
+    """This process's place on one axis of ranks: its rank on the axis,
+    the axis' size (`world`), the device its tensors live on, the axis'
+    process group (None: the default group, every rank) and the axis'
+    name, which labels its collectives in `traffic`."""
 
     rank: int
     world: int
     device: torch.device
+    group: dist.ProcessGroup | None = None
+    axis: str = "data"
 
     @functools.cached_property
     def backend(self) -> str:
-        return dist.get_backend()
+        return dist.get_backend(self.group)
 
     def rows(self, n: int) -> slice:
         """This rank's rows of a global axis of n."""
@@ -89,7 +107,7 @@ class DataMesh:
         reading files that rank 0 has not written yet). The NCCL case
         needs cards: the tests on the CPU run gloo only."""
         flag = torch.zeros(1, device=self.device if self.backend == "nccl" else "cpu")
-        dist.all_reduce(flag)
+        dist.all_reduce(flag, group=self.group)
         flag.item()
 
 
@@ -129,22 +147,28 @@ def make_mesh(device: torch.device | str | None = None) -> DataMesh | None:
 
 # ------------------------------------------------------------ collectives
 
-# the all-reduces this process issued, and their bytes ("all_reduce",
-# "all_reduce_bytes"); a CUDA graph's count once, at its capture
+# the collectives this process issued and their bytes (an all-reduce's
+# tensor, an all-gather's whole result), by axis: "data all_reduce",
+# "data all_reduce bytes", "model all_gather", ...; a CUDA graph's count
+# once, at its capture
 traffic: collections.Counter = collections.Counter()
 
 
+def _count(mesh: DataMesh, op: str, t: torch.Tensor) -> None:
+    traffic[f"{mesh.axis} {op}"] += 1
+    traffic[f"{mesh.axis} {op} bytes"] += t.numel() * t.element_size()
+
+
 def all_reduce_(t: torch.Tensor, mesh: DataMesh) -> torch.Tensor:
-    """t summed over the ranks, in place (through the host under gloo,
-    which takes host tensors)."""
-    traffic["all_reduce"] += 1
-    traffic["all_reduce_bytes"] += t.numel() * t.element_size()
+    """t summed over the axis' ranks, in place (through the host under
+    gloo, which takes host tensors)."""
+    _count(mesh, "all_reduce", t)
     if mesh.backend == "gloo" and t.device.type != "cpu":
         host = t.cpu()
-        dist.all_reduce(host)
+        dist.all_reduce(host, group=mesh.group)
         t.copy_(host)
     else:
-        dist.all_reduce(t)
+        dist.all_reduce(t, group=mesh.group)
     return t
 
 
@@ -167,26 +191,30 @@ def all_reduce_mean_(tensors, mesh: DataMesh) -> None:
 
 
 def broadcast_(tensors, mesh: DataMesh, src: int = 0) -> None:
-    """Each tensor replaced by rank `src`'s, one flat bucket a (device,
-    dtype); host tensors travel through the mesh's device under NCCL."""
+    """Each tensor replaced by that of the axis' rank `src`, one flat
+    bucket a (device, dtype); host tensors travel through the mesh's
+    device under NCCL."""
+    root = src if mesh.group is None else dist.get_global_rank(mesh.group, src)
+
     def op(flat):
         moved = flat.to(torch.device("cpu") if mesh.backend == "gloo" else mesh.device)
-        dist.broadcast(moved, src)
+        dist.broadcast(moved, root, group=mesh.group)
         return moved.to(flat.device)
 
     _bucketed_(tensors, op)
 
 
 def all_gather_rows(x: torch.Tensor, mesh: DataMesh) -> torch.Tensor:
-    """Every rank's x concatenated along dim 0 in rank order: the global
-    tensor of which x holds this rank's rows."""
+    """Every rank's x concatenated along dim 0 in the axis' rank order:
+    the global tensor of which x holds this rank's rows."""
     on = x.device
     src = x.cpu() if mesh.backend == "gloo" else x.contiguous()
     out = src.new_empty((mesh.world * src.shape[0], *src.shape[1:]))
+    _count(mesh, "all_gather", out)
     if mesh.backend == "gloo":
-        dist.all_gather(list(out.chunk(mesh.world)), src)
+        dist.all_gather(list(out.chunk(mesh.world)), src, group=mesh.group)
     else:
-        dist.all_gather_into_tensor(out, src)
+        dist.all_gather_into_tensor(out, src, group=mesh.group)
     return out.to(on)
 
 
@@ -264,6 +292,313 @@ def draw_local(fn, shape) -> torch.Tensor:
     if shape[0] % block:
         raise ValueError(f"a draw of {shape[0]} rows does not split into steps of {block}")
     return mesh.local(fn((shape[0] * mesh.world, *shape[1:])), block)
+
+
+# ----------------------------------------------------------- the 2-D grid
+
+@dataclasses.dataclass(eq=False)
+class Mesh2D:
+    """This process's place on a (data, model) grid (`make_mesh_2d`):
+    `data`, its data axis (the ranks of its column, which split the batch
+    and share each parameter slice), and `model`, its model axis (the
+    ranks of its row, which hold the same batch rows and split the sharded
+    parameters)."""
+
+    n_data: int
+    n_model: int
+    data: DataMesh
+    model: DataMesh
+
+    @property
+    def rank(self) -> int:
+        return self.data.rank * self.n_model + self.model.rank
+
+    @property
+    def world(self) -> int:
+        return self.n_data * self.n_model
+
+    @property
+    def device(self) -> torch.device:
+        return self.data.device
+
+
+def make_mesh_2d(n_data: int, n_model: int, device: torch.device | str | None = None) -> Mesh2D:
+    """The (data, model) grid over every process of the default group
+    (JAX `make_mesh_2d`: the devices reshaped (n_data, n_model)), with
+    this process's tensors on `device` (as `make_mesh`). Raises
+    ValueError unless n_data x n_model is the group's size. Every rank
+    forms every group of both axes, in the same order."""
+    flat = make_mesh(device)
+    if flat is None:
+        raise ValueError("a (data, model) grid needs a process group (`launch`)")
+    if n_data < 1 or n_model < 1 or n_data * n_model != flat.world:
+        raise ValueError(f"a {n_data} x {n_model} grid does not cover {flat.world} ranks")
+    columns = [dist.new_group([d * n_model + m for d in range(n_data)]) for m in range(n_model)]
+    rows = [dist.new_group([d * n_model + m for m in range(n_model)]) for d in range(n_data)]
+    d, m = divmod(flat.rank, n_model)
+    return Mesh2D(n_data, n_model, DataMesh(d, n_data, flat.device, columns[m], "data"),
+                  DataMesh(m, n_model, flat.device, rows[d], "model"))
+
+
+@dataclasses.dataclass(frozen=True)
+class Shard:
+    """How a parameter is split over the model axis: `kind` "row" or
+    "col" in the JAX package's orientation, `dim` the torch dim that is
+    split, `shape` the whole tensor's torch shape."""
+
+    kind: str
+    dim: int
+    shape: tuple
+
+
+def _jax_shape(owner: torch.nn.Module, shape: tuple) -> tuple:
+    """The JAX package's shape of a 2-D parameter of `owner` whose torch
+    shape is `shape`: an embedding's (V, E) is torch's; a Linear's kernel
+    (in, out) and a recurrent layer's w_ih (cin, G H) and w_hh (H, G H)
+    are the transposes of torch's weights (JAX `models/layers.py:474-483`)."""
+    from ..models.layers import _Recurrent
+
+    if isinstance(owner, torch.nn.Embedding):
+        return shape
+    if isinstance(owner, (torch.nn.Linear, _Recurrent)):
+        return shape[::-1]
+    raise ValueError(f"no JAX layout known for a 2-D parameter of {type(owner).__name__}")
+
+
+def placement(module: torch.nn.Module, n_model: int, min_rows: int = 1024,
+              tp_min_cols: int | None = None) -> dict[str, str]:
+    """{parameter name: "row" | "col" | "rep"}: JAX `shard_params_2d`'s
+    rule (`parallel/mesh.py:159-169`) on each parameter's JAX shape. A 2-D
+    parameter of min_rows rows or more, divisible by n_model, is split by
+    row; otherwise, with tp_min_cols, one of tp_min_cols columns or more,
+    divisible by n_model, by column; the rest is replicated. A split
+    parameter counts at its whole shape."""
+    out = {}
+    for name, p in module.named_parameters():
+        kind = "rep"
+        shape = p.model_shard.shape if hasattr(p, "model_shard") else tuple(p.shape)
+        if len(shape) == 2:
+            rows, cols = _jax_shape(module.get_submodule(name.rpartition(".")[0]), shape)
+            if rows >= min_rows and rows % n_model == 0:
+                kind = "row"
+            elif tp_min_cols is not None and cols >= tp_min_cols and cols % n_model == 0:
+                kind = "col"
+        out[name] = kind
+    return out
+
+
+def _shards(module: torch.nn.Module):
+    """(owner, name, parameter) of each sharded parameter of `module`."""
+    for owner in module.modules():
+        for name, p in owner._parameters.items():
+            if hasattr(p, "model_shard"):
+                yield owner, name, p
+
+
+def _gather(shards, dims, mesh: DataMesh) -> list[torch.Tensor]:
+    """The whole tensors of which `shards` hold this rank's slices along
+    `dims`, in one all-gather over the model axis (one flat bucket)."""
+    moved = [s.movedim(d, 0) for s, d in zip(shards, dims)]
+    flat = torch.cat([t.reshape(-1) for t in moved])
+    every = all_gather_rows(flat, mesh).view(mesh.world, -1)
+    out, at = [], 0
+    for t, d in zip(moved, dims):
+        n = t.numel()
+        whole = torch.cat([every[r, at:at + n].view(t.shape) for r in range(mesh.world)])
+        out.append(whole.movedim(0, d).contiguous() if d else whole)
+        at += n
+    return out
+
+
+class _GatherShards(torch.autograd.Function):
+    """The whole weights of the shards, gathered over the model axis. The
+    backward hands each shard its own slice of its whole weight's gradient:
+    the model axis' ranks compute the same whole gradient from the same
+    rows, so a sum over them (an all-gather's usual reduce-scatter) would
+    count it n_model times."""
+
+    @staticmethod
+    def forward(ctx, mesh: DataMesh, dims: tuple, *shards):
+        ctx.mesh, ctx.dims = mesh, dims
+        return tuple(_gather(shards, dims, mesh))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        mesh = ctx.mesh
+        return (None, None, *(None if g is None else
+                              g.chunk(mesh.world, d)[mesh.rank].contiguous()
+                              for g, d in zip(grads, ctx.dims)))
+
+
+class _SumOverModel(torch.autograd.Function):
+    """x summed over the model axis; the backward is the identity: every
+    rank of the axis computes the same loss from the sum, so each rank's
+    term takes the sum's gradient once."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, mesh: DataMesh) -> torch.Tensor:
+        ctx.mesh = mesh
+        return all_reduce_(x.clone(), mesh)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return grad, None
+
+
+def _gather_hooks(owner: torch.nn.Module, specs: dict[str, Shard], mesh: DataMesh) -> None:
+    """Before each call of `owner`, its sharded parameters (`specs`) stand
+    in their slots as the whole weights (`_GatherShards`); after it, the
+    slots hold what they held: the shards, or their bf16 casts under
+    `builder.bf16_parameters`. Slots that already hold whole tensors
+    (`gathered`) are left alone."""
+    names = list(specs)
+    dims = tuple(specs[n].dim for n in names)
+    held = []
+
+    def pre(module, args):
+        slots = [module._parameters[n] for n in names]
+        if tuple(slots[0].shape) == specs[names[0]].shape:
+            return
+        held.append(slots)
+        for n, whole in zip(names, _GatherShards.apply(mesh, dims, *slots)):
+            module._parameters[n] = whole
+
+    def post(module, args, out):
+        if held:
+            for n, t in zip(names, held.pop()):
+                module._parameters[n] = t
+
+    owner.register_forward_pre_hook(pre)
+    owner.register_forward_hook(post, always_call=True)
+
+
+def _lookup_hooks(owner: torch.nn.Embedding, spec: Shard, mesh: DataMesh) -> None:
+    """A row-split table's lookup: each rank looks up the ids in its rows
+    (the others clamped to its first row), zeroes the rest and sums over
+    the model axis (`_SumOverModel`), which gives the whole table's lookup
+    exactly. A slot that holds the whole table (`gathered`) is looked up
+    as it is."""
+    if owner.padding_idx is not None or owner.max_norm is not None:
+        raise ValueError("a row-split embedding takes no padding_idx or max_norm")
+    rows = spec.shape[0] // mesh.world
+    lo = mesh.rank * rows
+    masks = []
+
+    def pre(module, args):
+        if module._parameters["weight"].shape[0] != rows:
+            return None
+        local = args[0] - lo
+        mask = (local >= 0) & (local < rows)
+        masks.append(mask)
+        return (torch.where(mask, local, 0), *args[1:])
+
+    def post(module, args, out):
+        if masks:
+            keep = masks.pop().unsqueeze(-1)
+            return _SumOverModel.apply(torch.where(keep, out, 0), mesh)
+        return None
+
+    owner.register_forward_pre_hook(pre)
+    owner.register_forward_hook(post, always_call=True)
+
+
+def shard_params_2d(modules, optimizers, mesh: Mesh2D, min_rows: int = 1024,
+                    tp_min_cols: int | None = None) -> list[dict[str, str]]:
+    """Each module's parameters placed on the grid by `placement`, in
+    place: a split parameter becomes this rank's slice of it (an
+    `nn.Parameter` carrying its `Shard` as `model_shard`) in its module and
+    in the optimizers, whose states of it (Adam's moments) are sliced
+    alike. A row-split embedding looks up through `_lookup_hooks`; every
+    other owner of split parameters gathers them before it runs
+    (`_gather_hooks`). Every rank must hold the same whole parameters
+    first (one seed, or `replicate_state`). Returns each module's
+    placement."""
+    axis = mesh.model
+    swapped: dict = {}
+    out = []
+    for module in modules:
+        kinds = placement(module, mesh.n_model, min_rows, tp_min_cols)
+        out.append(kinds)
+        owners: dict = {}
+        for name, kind in kinds.items():
+            if kind == "rep":
+                continue
+            path, _, attr = name.rpartition(".")
+            owner = module.get_submodule(path)
+            p = owner._parameters[attr]
+            embedding = isinstance(owner, torch.nn.Embedding)
+            dim = (0 if kind == "row" else 1) if embedding else (1 if kind == "row" else 0)
+            spec = Shard(kind, dim, tuple(p.shape))
+            shard = torch.nn.Parameter(p.detach().chunk(axis.world, dim)[axis.rank].clone(),
+                                       requires_grad=p.requires_grad)
+            shard.model_shard = spec
+            owner._parameters[attr] = shard
+            swapped[p] = shard
+            owners.setdefault(owner, {})[attr] = spec
+        for owner, specs in owners.items():
+            if isinstance(owner, torch.nn.Embedding) and specs["weight"].kind == "row":
+                _lookup_hooks(owner, specs["weight"], axis)
+            else:
+                _gather_hooks(owner, specs, axis)
+    for opt in optimizers:
+        for group in opt.param_groups:
+            group["params"] = [swapped.get(p, p) for p in group["params"]]
+        for old, new in swapped.items():
+            if old in opt.state:
+                spec = new.model_shard
+                opt.state[new] = {
+                    k: (v.chunk(axis.world, spec.dim)[axis.rank].clone()
+                        if isinstance(v, torch.Tensor) and tuple(v.shape) == spec.shape else v)
+                    for k, v in opt.state.pop(old).items()}
+    return out
+
+
+@contextlib.contextmanager
+def gathered(modules, mesh: Mesh2D):
+    """Inside the block each split parameter of the modules stands whole
+    in its slot (gathered once, without gradient), so that the modules run
+    as one process's; after it the shards are put back. A collective:
+    every rank enters it."""
+    held = []
+    with torch.no_grad():
+        for module in modules:
+            found = list(_shards(module))
+            if not found:
+                continue
+            wholes = _gather([p for _, _, p in found], [p.model_shard.dim for _, _, p in found],
+                             mesh.model)
+            for (owner, name, p), whole in zip(found, wholes):
+                held.append((owner, name, p))
+                owner._parameters[name] = whole
+    try:
+        yield
+    finally:
+        for owner, name, p in held:
+            owner._parameters[name] = p
+
+
+def gather_params_2d(modules, optimizers, mesh: Mesh2D) -> tuple[list[dict], list[dict]]:
+    """The modules' whole state dicts and the optimizers' whole state dicts
+    (the `torch.optim` form, each split state gathered), as one process
+    holds them: for the tests and the card's checks. A collective: every
+    rank calls it."""
+    with gathered(modules, mesh):
+        states = [{k: v.detach().clone() for k, v in m.state_dict().items()} for m in modules]
+    opt_states = []
+    for opt in optimizers:
+        sd = opt.state_dict()
+        sd["state"] = {i: dict(st) for i, st in sd["state"].items()}
+        params = [p for group in opt.param_groups for p in group["params"]]
+        split = [(i, k) for i, p in enumerate(params) if hasattr(p, "model_shard")
+                 for k, v in sd["state"].get(i, {}).items()
+                 if isinstance(v, torch.Tensor) and v.shape == p.shape]
+        if split:
+            wholes = _gather([sd["state"][i][k] for i, k in split],
+                             [params[i].model_shard.dim for i, _ in split], mesh.model)
+            for (i, k), whole in zip(split, wholes):
+                sd["state"][i][k] = whole
+        opt_states.append(sd)
+    return states, opt_states
 
 
 # ------------------------------------------------------------------ launch

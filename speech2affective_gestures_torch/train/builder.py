@@ -159,7 +159,7 @@ def init_training(cfg: ModelConfig, seed: int, n_words: int = 1000,
                   divreg_draw: str = "permutation",
                   mixed_precision: bool = False, gradient_clip: float = 0.0,
                   lr_decay: float = 1.0, decay_steps_per_epoch: int = 0,
-                  fused_pass: bool = False, remat: str = "none") -> dict:
+                  fused_pass: bool = False, remat: str = "none", mesh=None) -> dict:
     """Models of `variant` (`build_models`) with weights drawn from `seed`
     on `device` (the card unless `device="cpu"`), and the step over them,
     which feeds abl_audio's generator the raw audio: with `mixed_precision` its
@@ -167,7 +167,9 @@ def init_training(cfg: ModelConfig, seed: int, n_words: int = 1000,
     `init_training`, builder.py:204-215); its eval step stays float32.
     `gradient_clip`, `lr_decay`, `decay_steps_per_epoch`, `fused_pass` and
     `remat` go to the step's `GanConfig` (JAX builder.py:120-183); an
-    unknown `remat` raises ValueError before any model is built."""
+    unknown `remat` raises ValueError before any model is built. `mesh`
+    (a `parallel.mesh.DataMesh` or `Mesh2D`) is the step's; on a grid the
+    caller splits the nets (`parallel.mesh.shard_params_2d`)."""
     gan_cfg = gan_config(cfg, n_speakers, divreg_draw, gradient_clip, lr_decay,
                          decay_steps_per_epoch, variant, fused_pass, remat)
     dev = resolve_device(device)
@@ -177,5 +179,5 @@ def init_training(cfg: ModelConfig, seed: int, n_words: int = 1000,
                                      variant=variant)
     gen, dis, tri = gen.to(dev), dis.to(dev), tri.to(dev).requires_grad_(False)
     return dict(gen=gen, dis=dis, tri=tri, gan_cfg=gan_cfg, device=dev,
-                step=GanStep(gen, dis, gan_cfg, tri,
+                step=GanStep(gen, dis, gan_cfg, tri, mesh=mesh,
                              train_apply=mixed_precision_apply if mixed_precision else None))

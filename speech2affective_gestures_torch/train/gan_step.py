@@ -193,14 +193,26 @@ def reference_optimizer_state(opt: torch.optim.Optimizer) -> dict:
     return {"state": state, "param_groups": groups}
 
 
-def clip_by_global_norm_(params, max_norm: float) -> torch.Tensor:
+def clip_by_global_norm_(params, max_norm: float,
+                         grid: P.Mesh2D | None = None) -> torch.Tensor:
     """optax's `clip_by_global_norm` on the gradients of `params`, in
     place: all of them times max_norm / g_norm when their global norm
     g_norm is max_norm or more, untouched below (no epsilon, unlike
-    `torch.nn.utils.clip_grad_norm_`). Returns g_norm, on the device,
+    `torch.nn.utils.clip_grad_norm_`). On a (data, model) `grid` the norm
+    counts each split parameter's slices once, summed over the model axis,
+    and each replicated parameter once. Returns g_norm, on the device,
     without a host sync."""
-    grads = [p.grad for p in params if p.grad is not None]
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    params = [p for p in params if p.grad is not None]
+    grads = [p.grad for p in params]
+    norms = torch._foreach_norm(grads)
+    if grid is None:
+        norm = torch.linalg.vector_norm(torch.stack(norms))
+    else:
+        def squares(split: bool) -> torch.Tensor:
+            of = [n for n, p in zip(norms, params) if hasattr(p, "model_shard") == split]
+            return torch.stack(of).square().sum() if of else norms[0].new_zeros(())
+
+        norm = torch.sqrt(P.all_reduce_(squares(True), grid.model) + squares(False))
     scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
     torch._foreach_mul_(grads, scale)
     return norm
@@ -333,12 +345,15 @@ class GanStep:
 
     def __init__(self, gen: torch.nn.Module, dis: torch.nn.Module,
                  cfg: GanConfig, tri: torch.nn.Module | None = None,
-                 train_apply=None, mesh: P.DataMesh | None = None):
+                 train_apply=None, mesh: P.DataMesh | P.Mesh2D | None = None):
         self.gen, self.dis, self.tri, self.cfg = gen, dis, tri, cfg
         self.gen_opt, self.dis_opt = make_optimizers(gen, dis, cfg)
         self.train_apply = train_apply
+        # the (data, model) grid of a 2-D step, whose nets
+        # `parallel.mesh.shard_params_2d` splits (None: no model axis)
+        self.grid = mesh if isinstance(mesh, P.Mesh2D) else None
         # the data axis of a data-parallel step (None: one process)
-        self.mesh = mesh
+        self.mesh = mesh.data if self.grid is not None else mesh
         self.step = 0
         # each net's gradient norm before its last clipped update
         self.grad_norms: dict[str, torch.Tensor] = {}
@@ -349,13 +364,15 @@ class GanStep:
         the next one's at its own update count, so that the optimizer
         always holds the rate its next update uses (its base rate before
         the first). In a data-parallel step the gradients are first
-        averaged over the ranks, so that the clip sees the global norm."""
+        averaged over the data axis, so that the clip sees the global norm
+        (on a grid each split parameter's slice over the ranks that hold
+        it)."""
         if self.mesh is not None:
             P.all_reduce_mean_([p.grad for p in getattr(self, who).parameters()
                                 if p.grad is not None], self.mesh)
         if self.cfg.gradient_clip > 0.0:
             self.grad_norms[who] = clip_by_global_norm_(
-                getattr(self, who).parameters(), self.cfg.gradient_clip)
+                getattr(self, who).parameters(), self.cfg.gradient_clip, self.grid)
         getattr(self, f"{who}_opt").step()
         if self.cfg.decays:
             self.sync_lr(who)

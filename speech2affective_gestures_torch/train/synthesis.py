@@ -17,6 +17,12 @@ generator's forwards at bf16 (`precision_wrap`); the MFCC front-end, the
 crossfade and FK stay float32. With `use_mfcc=False` the windows' raw
 audio goes to the generator as it is (the TriModal baseline's
 WavEncoder), and no MFCC is computed.
+
+`synthesize_clips_batched(mesh=, pad_to=)` splits the clip axis over a
+mesh's data axis, as the JAX package's `make_batched_clip_fn(mesh=)`
+shards it (`train/synthesis.py:393-430`): each rank runs its lanes with
+the generator whole (on a (data, model) grid its split tables and GRU
+weights gathered first) and every rank gets every clip's result.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from .. import constants as C
 from ..config import ModelConfig
 from ..ops import dsp
 from ..ops import pose as pose_ops
+from ..parallel import mesh as P
 from .builder import bf16_parameters, cast_floats
 
 
@@ -226,7 +233,7 @@ def clip_body(gen, cfg: ModelConfig, audio_windows: torch.Tensor,
               text_windows: torch.Tensor, vid_idx: torch.Tensor,
               seed: torch.Tensor, n_valid, eps: torch.Tensor | None = None,
               generator: torch.Generator | None = None, precision: str = "f32",
-              use_mfcc: bool = True):
+              use_mfcc: bool = True, n_run: int | None = None):
     """The serving computation for B clips at once, the generator at
     `precision` (`precision_wrap`).
 
@@ -237,17 +244,18 @@ def clip_body(gen, cfg: ModelConfig, audio_windows: torch.Tensor,
     window's MFCCs, or with `use_mfcc=False` its raw audio (B, L).
 
     Returns dir_vec (B, F, D) and poses (B, F, J, 3) with F = (S' - 1) *
-    stride + T, S' = max(n_valid). Rows past a clip's own
-    (n_valid - 1) * stride + T are not its output; the caller slices them
-    off. Windows past max(n_valid) only ever appended such rows, so the loop
-    stops there.
+    stride + T, S' = max(n_valid), or `n_run` windows where given (ranks
+    that split a batch run its longest clip's count). Rows past a clip's
+    own (n_valid - 1) * stride + T are not its output; the caller slices
+    them off. Windows past max(n_valid) only ever append such rows, so the
+    loop stops there.
     """
     n_pre, t = cfg.n_pre_poses, cfg.n_poses
     stride = t - n_pre
     b, s, _ = audio_windows.shape
     device = audio_windows.device
     n_valid = [int(n) for n in n_valid]
-    s_run = max(n_valid)
+    s_run = max(n_valid) if n_run is None else n_run
 
     if use_mfcc:
         feat = window_features(audio_windows.reshape(b * s, -1), cfg)
@@ -294,7 +302,9 @@ def synthesize_clips_batched(gen, clips, lang_model, cfg: ModelConfig,
                              generator: torch.Generator | None = None,
                              sample_rate: int = C.AUDIO_SR, fade_out=False,
                              seeds=None, timings: dict | None = None,
-                             precision: str = "f32", use_mfcc: bool = True):
+                             precision: str = "f32", use_mfcc: bool = True,
+                             mesh: P.DataMesh | P.Mesh2D | None = None,
+                             pad_to: int | None = None):
     """Synthesize many clips in one pass, the clips as the generator batch.
 
     clips: iterable of (clip_audio, clip_words, vid_idx). All clips are
@@ -304,16 +314,29 @@ def synthesize_clips_batched(gen, clips, lang_model, cfg: ModelConfig,
     optional per-clip (n_pre, D) seed vectors (default zeros, the mean
     pose); fade_out: a bool or one per clip; precision: the generator's,
     "f32" or "bf16" (`precision_wrap`); use_mfcc: False for a generator
-    that eats raw audio (`clip_body`). Returns a list of (dir_vec (F_i, D), poses
-    (F_i, J, 3)) numpy pairs. timings, if given, receives prep_ms (host
-    window planning), device_ms (the body and the copy back) and post_ms
-    (host slicing and fades).
+    that eats raw audio (`clip_body`). pad_to: pad the clip axis to a
+    multiple of it with dummy lanes (speaker 0, one window of silence,
+    zero noise), whose results are dropped. mesh: split the lanes over its
+    data axis (JAX `make_batched_clip_fn(mesh=)`), which they must divide
+    (ValueError otherwise), and which takes `pad_to`; a collective, every
+    rank of the mesh calls it with the same clips; the noise drawn from
+    `generator` is then the draw over all lanes. Returns a list of
+    (dir_vec (F_i, D), poses (F_i, J, 3)) numpy pairs, every clip's on
+    every rank. timings, if given, receives prep_ms (host window
+    planning), device_ms (the body and the copy back) and post_ms (host
+    slicing and fades).
     """
     t_start = time.perf_counter()
     clips = list(clips)
     if not clips:
         return []
+    if mesh is not None and pad_to is None:
+        raise ValueError("synthesis over a mesh takes pad_to")
+    grid = mesh if isinstance(mesh, P.Mesh2D) else None
+    data = mesh.data if grid is not None else mesh
     n_clips = len(clips)
+    n_lanes = n_clips + ((-n_clips) % pad_to if pad_to else 0)
+    lanes = slice(None) if data is None else data.rows(n_lanes)
     fades = (list(fade_out) if isinstance(fade_out, (list, tuple, np.ndarray))
              else [fade_out] * n_clips)
     device = _device_of(gen)
@@ -321,24 +344,34 @@ def synthesize_clips_batched(gen, clips, lang_model, cfg: ModelConfig,
                for audio, words, _ in clips]
     n_windows = [len(a) for a, _, _ in prepped]
     bucket = window_bucket(max(n_windows))
-    audio_w = np.zeros((n_clips, bucket, prepped[0][0].shape[1]), np.float32)
-    text_w = np.zeros((n_clips, bucket, cfg.n_poses), np.int64)
+    audio_w = np.zeros((n_lanes, bucket, prepped[0][0].shape[1]), np.float32)
+    text_w = np.zeros((n_lanes, bucket, cfg.n_poses), np.int64)
     for i, (a, tx, _) in enumerate(prepped):
         audio_w[i, : len(a)] = a
         text_w[i, : len(tx)] = tx
-    if seeds is None:
-        seed_arr = np.zeros((n_clips, cfg.n_pre_poses, C.POSE_DIM), np.float32)
-    else:
-        seed_arr = np.stack([np.asarray(s[: cfg.n_pre_poses], np.float32)
-                             for s in seeds])
-    vids = torch.tensor([int(vid) for _, _, vid in clips], device=device)
+    seed_arr = np.zeros((n_lanes, cfg.n_pre_poses, C.POSE_DIM), np.float32)
+    if seeds is not None:
+        seed_arr[:n_clips] = np.stack([np.asarray(s[: cfg.n_pre_poses], np.float32)
+                                       for s in seeds])
+    vids = np.array([int(vid) for _, _, vid in clips] + [0] * (n_lanes - n_clips))
+    n_valid = np.array(n_windows + [1] * (n_lanes - n_clips))
+    if eps is not None and n_lanes > n_clips:
+        eps = torch.cat([eps, eps.new_zeros(eps.shape[0], n_lanes - n_clips, *eps.shape[2:])],
+                        dim=1)
     t_prep = time.perf_counter()
-    dir_vec_full, poses_full = clip_body(
-        gen, cfg,
-        torch.from_numpy(audio_w).to(device), torch.from_numpy(text_w).to(device),
-        vids, torch.from_numpy(seed_arr).to(device), n_windows,
-        eps=None if eps is None else eps.to(device), generator=generator,
-        precision=precision, use_mfcc=use_mfcc)
+    with (P.gathered((gen,), grid) if grid is not None else contextlib.nullcontext()), \
+            P.stepping(data, len(vids[lanes])):
+        dir_vec_full, poses_full = clip_body(
+            gen, cfg,
+            torch.from_numpy(audio_w[lanes]).to(device),
+            torch.from_numpy(text_w[lanes]).to(device),
+            torch.from_numpy(vids[lanes]).to(device),
+            torch.from_numpy(seed_arr[lanes]).to(device), n_valid[lanes],
+            eps=None if eps is None else eps[:, lanes].to(device), generator=generator,
+            precision=precision, use_mfcc=use_mfcc, n_run=max(n_windows))
+    if data is not None:
+        dir_vec_full = P.all_gather_rows(dir_vec_full, data)
+        poses_full = P.all_gather_rows(poses_full, data)
     dir_vec_full = dir_vec_full.cpu().numpy()
     poses_full = poses_full.cpu().numpy()
     t_device = time.perf_counter()

@@ -342,6 +342,35 @@ def test_gru_module_gradients_on_card_match_cpu(cuda):
         assert _rel(card[name], cpu[name]) <= 1e-4, name
 
 
+@pytest.mark.gpu
+def test_column_split_gru_layer_on_two_ranks(cuda, tmp_path):
+    """Two gloo ranks on the card as a 1 x 2 grid (the model axis alone,
+    `parallel.mesh.make_mesh_2d(1, 2)`): the generator's first bi-GRU
+    layer (input 88, H 300, B 64) with its gate weights split by column at
+    tp_min_cols 900 (`shard_params_2d`) and gathered whole before the
+    kernels run. The output and h_last (in [-1, 1]) within 1e-5 absolute
+    of the unsharded layer's on the same card, the input's gradient and
+    the slices' gradients, gathered, within 1e-5 of each one's largest
+    value; each rank launched the forward, the recurrence and dW."""
+    import _mesh_2d_worker as W
+    from speech2affective_gestures_torch.parallel import mesh as P
+
+    card = torch.device("cuda", torch.cuda.current_device())
+    P.launch(W.split_gru_rank, 2, "gloo", devices=[card, card], args=(tmp_path,), timeout=600)
+    got = [torch.load(tmp_path / f"split_gru_rank{r}.pt") for r in range(2)]
+    want = W.split_gru(None, card)
+    for r in got:
+        assert all(r["launches"].get(k, 0) > 0 for k in ("gru_fwd", "gru_bwd", "gru_dw"))
+        for key in ("out", "h_last"):
+            assert (r[key] - want[key]).abs().max().item() <= 1e-5, key
+        assert _rel(r["dx"], want["dx"]) <= 1e-5
+    for name, grad in want["grads"].items():
+        split = name.startswith("weight_")
+        whole = torch.cat([r["grads"][name] for r in got]) if split else got[0]["grads"][name]
+        assert whole.shape == grad.shape, name
+        assert _rel(whole, grad) <= 1e-5, name
+
+
 def _walk_inputs(T, B, cin, H, D, seed, device):
     """`run_layer`'s inputs from the model layout's: xp with b_ih added,
     direction 1 time-reversed (the walk layout), and dys in that layout."""

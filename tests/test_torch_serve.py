@@ -218,12 +218,14 @@ def test_default_device_raises_without_cuda(monkeypatch, tmp_path):
 
 
 def test_port_imports_no_jax():
-    """Neither the port nor chip_smoke.py imports jax or the JAX package."""
+    """Neither the port, chip_smoke.py nor the port's test workers (which
+    the card's tests import) import jax or the JAX package."""
     pat = re.compile(r"^\s*(import|from)\s+(jax|flax|speech2affective_gestures_tpu)\b",
                      re.M)
     files = sorted(f for f in (REPO / "speech2affective_gestures_torch").rglob("*.py")
                    if "_build" not in f.parts)
-    files.append(REPO / "chip_smoke.py")
+    files += [REPO / "chip_smoke.py", REPO / "tests/_data_parallel_worker.py",
+              REPO / "tests/_mesh_2d_worker.py"]
     assert len(files) > 10
     offenders = [str(f) for f in files if pat.search(f.read_text())]
     assert not offenders, offenders
