@@ -148,7 +148,16 @@ toolkit. In order:
    `cudnn.deterministic`, bit for bit (LR decay inside the program, mixed
    precision, fused, remat full), with their distance from the per-step
    loop logged; the step's p50, launches, busy share and peak memory one
-   step at a time and as graphs of K 1 and 4, float32 and mixed;
+   step at a time and as graphs of K 1 and 4, float32 and mixed; then the
+   step's MFU (`mfu_phase`): `train/flops.canonical_train_step_flops` at
+   batch 512 (within 2% of 4x the tests' pinned batch-128 count), the
+   card's measured bf16 and float32 peaks (`train/timing.measure_peak_flops`,
+   at most 1.05x the data sheet's), the float32 per-step loop and the
+   float32 and mixed K 4 graphs timed by `time_compiled_step` (the counters
+   set to 0 before each: the GRU forward, recurrence and dW must run, a
+   replay's launches equal to its capture's record), each MFU against the
+   data sheet's and the measured peak (at most 1), and a
+   `train/profiling.trace` of two steps whose file names the GRU kernels;
 16. the streaming loader and resumed training (`grain_phase`): `main_v2
    --loader grain --steps-per-program 2` at full width for 2 epochs (2
    steps each from one stream), the counters set to 0 just before and
@@ -3678,6 +3687,158 @@ def scanned_epoch_phase(device, work: pathlib.Path, embedding_net: pathlib.Path,
     return launches
 
 
+# the MFU phase: the tests' pinned count of one full-width step at batch 128
+# (tests/test_torch_flops.py, the JAX package's 427,243,749,959 within 2%),
+# the engines it times (label, mixed precision, K steps a graph or 0 for
+# the per-step loop) with their windows (in programs) and repeats
+MFU_PINNED_B128 = 427_243_749_959
+MFU_ENGINES = (("float32 per-step loop", False, 0, (4, 12)),
+               ("float32 K 4 graph", False, SCAN_K, (2, 6)),
+               ("mixed K 4 graph", True, SCAN_K, (2, 6)))
+MFU_REPS = 3
+
+
+def _gru_families(counts: collections.Counter) -> dict:
+    """The GRU forward's, recurrence's and dW's launches in `counts`, each
+    family over its float32 and bf16 instances."""
+    return {f: counts[f] + counts[f + "_bf16"] for f in ("gru_fwd", "gru_bwd", "gru_dw")}
+
+
+def _trace_kernels(path: pathlib.Path) -> dict:
+    """GRU kernel events in a Chrome trace written by `profiling.trace`, by
+    family (GRU_SYMBOLS)."""
+    events = json.loads(path.read_text()).get("traceEvents", [])
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    return {f: sum(1 for n in names if re.search(pat, n)) for f, pat in GRU_SYMBOLS.items()}
+
+
+def mfu_phase(device, smi: str) -> collections.Counter:
+    """The full-width train step's MFU (`train/flops.py`, `train/timing.py`,
+    `train/profiling.py`): the canonical count of one step at batch
+    TRAIN_BATCH (fake tensors on the host; within 2% of 4x the tests'
+    pinned batch-128 count), the card's measured dense-product peak at
+    bf16 and at float32 with TF32 off (`measure_peak_flops`, at most 1.05x
+    the data sheet's), each engine of MFU_ENGINES timed by
+    `time_compiled_step` (the two-window slope, value-fetch barriers) and
+    its MFU against the spec peak of its precision and against the
+    measured one (at most 1). The GRU forward, recurrence and dW must run
+    in the timed steps (the launch counters, reset before each engine's
+    timing; a graph's replays add its capture's record, and one replay's
+    launches seen by the profiler must equal that record,
+    `_replay_launches`). Then one `profiling.trace` of two eager steps,
+    whose trace file must name the GRU kernels. Returns the launches of
+    the timed steps."""
+    import torch
+    from speech2affective_gestures_torch.config import ModelConfig
+    from speech2affective_gestures_torch.data.ted_db import gather
+    from speech2affective_gestures_torch.train import flops, profiling, timing
+    from speech2affective_gestures_torch.train.step_program import StepProgram
+
+    t_phase = time.perf_counter()
+    cfg = ModelConfig.from_yaml(CONFIG, loss_warmup=-1)
+    t0 = time.perf_counter()
+    step_flops = flops.canonical_train_step_flops(cfg, TRAIN_BATCH)
+    want = MFU_PINNED_B128 * TRAIN_BATCH / 128
+    log(f"MFU: canonical flops of one train step (batch {TRAIN_BATCH}, full width, D and G "
+        f"updates): {step_flops:.0f} ({step_flops / want - 1:+.4%} from 4x the tests' pinned "
+        f"batch-128 count {MFU_PINNED_B128}), counted in {time.perf_counter() - t0:.1f} s "
+        f"on the host; {smi}")
+    if abs(step_flops / want - 1) > 0.02:
+        raise AssertionError(f"MFU: the step's count {step_flops:.0f} is more than 2% from "
+                             f"{want:.0f}")
+    spec = {"float32": PEAK_F32_FLOPS, "bfloat16": PEAK_BF16_FLOPS}
+    peaks = {}
+    for name, dtype, windows, reps in (("bfloat16", torch.bfloat16, (200, 600), 5),
+                                       ("float32", torch.float32, (50, 150), 3)):
+        t0 = time.perf_counter()
+        peaks[name] = timing.measure_peak_flops(4096, dtype, windows, reps, device)
+        log(f"MFU: measured {name} peak (4096^3 products, windows {windows}, {reps} reps, "
+            f"TF32 {'on' if torch.backends.cuda.matmul.allow_tf32 else 'off'}): "
+            f"{peaks[name] / 1e12:.3f} TFLOP/s, {peaks[name] / spec[name]:.4f} of the data "
+            f"sheet's {spec[name] / 1e12:.0f} ({time.perf_counter() - t0:.1f} s); {smi}")
+        if peaks[name] > 1.05 * spec[name]:
+            raise AssertionError(f"MFU: a measured {name} peak above 1.05x the data sheet's: "
+                                 f"{peaks[name]:.4g}")
+    launches = collections.Counter()
+    summary = []
+    for label, mixed, k, windows in MFU_ENGINES:
+        step, data, g = _program_setup(device, {"mixed": mixed}, seed=19)
+        rng = np.random.default_rng(19)
+        if k == 0:
+            def run(_, step=step, data=data, g=g, rng=rng):
+                idx, adv = _program_draws(rng, 1)
+                rows, vids = data.indices(idx[0], adv[0])
+                return step.train_step(gather(data.arrays, rows, vids), g, gan_on=True)
+        else:
+            program = StepProgram(step, data, g)
+
+            def run(_, program=program, rng=rng, k=k):
+                return program.run(*_program_draws(rng, k), gan_on=True)
+        timing.fetch_scalar(run(None))  # builds, plans and the capture
+        _reset_counters()
+        res = timing.time_compiled_step(run, lambda: None, windows, MFU_REPS)
+        counts = _counters()
+        n_steps = (1 + MFU_REPS * sum(windows)) * max(k, 1)
+        fams = _gru_families(counts)
+        if min(fams.values()) < 1:
+            raise AssertionError(f"MFU {label}: a GRU kernel did not run in the timed steps: "
+                                 f"{fams}")
+        launches.update(counts)
+        sec = res["sec_per_step"] / max(k, 1)
+        prec = "bfloat16" if mixed else "float32"
+        mfu_spec = step_flops / sec / spec[prec]
+        mfu_meas = step_flops / sec / peaks[prec]
+        log(f"MFU {label}: {sec * 1e3:.3f} ms a train step, {1 / sec:.3f} steps/s (slope of "
+            f"windows {windows} x{max(k, 1)} steps, {MFU_REPS} reps, samples "
+            f"{[round(x * 1e3 / max(k, 1), 3) for x in res['slope_samples']]} ms), "
+            f"{step_flops / sec / 1e12:.3f} TFLOP/s, MFU {mfu_spec:.4f} of the {prec} data "
+            f"sheet peak, {mfu_meas:.4f} of the measured; GRU launches in the "
+            f"{n_steps} timed and warm-up steps {fams}; {smi}")
+        if k:
+            got = profile_device(f"the MFU {label} train step", f"program of {k} steps",
+                                 lambda: run(None), n=1)
+            _replay_launches(f"MFU {label}", program, k, got)
+        if max(mfu_spec, mfu_meas) > 1.0:
+            raise AssertionError(f"MFU {label}: above 1 ({mfu_spec:.4f}, {mfu_meas:.4f})")
+        summary.append(f"{label} {sec * 1e3:.3f} ms MFU {mfu_spec:.4f} (spec) "
+                       f"{mfu_meas:.4f} (measured)")
+        del step, data, g, run
+        program = None
+    # one trace of two eager float32 steps, which must name the GRU kernels
+    step, data, g = _program_setup(device, {}, seed=20)
+    rng = np.random.default_rng(20)
+
+    def eager():
+        idx, adv = _program_draws(rng, 1)
+        rows, vids = data.indices(idx[0], adv[0])
+        with profiling.annotate("mfu_train_step"):
+            return step.train_step(gather(data.arrays, rows, vids), g, gan_on=True)
+
+    timing.fetch_scalar(eager())
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as tdir:
+        # a profiling session now and then records no device events
+        # (`_profile`): taken again, twice at most
+        for _ in range(3):
+            with profiling.trace(tdir):
+                for _ in range(2):
+                    timing.fetch_scalar(eager())
+            path = pathlib.Path(tdir) / "trace.json"
+            seen = _trace_kernels(path)
+            if min(seen.values()) > 0:
+                break
+        size = path.stat().st_size
+    log(f"MFU: profiling.trace of two eager float32 steps wrote {size} bytes, GRU kernels "
+        f"by name {seen}; {smi}")
+    if min(seen.values()) < 1:
+        raise AssertionError(f"MFU: the trace does not name every GRU kernel: {seen}")
+    del step, data, g
+    log(f"MFU at batch {TRAIN_BATCH}, {step_flops:.0f} flops a step: {'; '.join(summary)}; "
+        f"measured peaks bf16 {peaks['bfloat16'] / 1e12:.3f}, float32 "
+        f"{peaks['float32'] / 1e12:.3f} TFLOP/s; phase {time.perf_counter() - t_phase:.1f} s; "
+        f"{smi}")
+    return launches
+
+
 def _resume_trainer(device, data, work: pathlib.Path, seed: int, **kw):
     """A full-width trainer at batch TRAIN_BATCH on `data`, the GAN terms on,
     in `work`, its frozen TriModal from the work dir's
@@ -6094,6 +6255,8 @@ def main() -> int:
         launches.update(step_options_phase(device, work, embedding_net, smi))
         # main_v2's scanned epoch: K train steps a CUDA graph
         launches.update(scanned_epoch_phase(device, work, embedding_net, smi))
+        # the step's analytic flops, timed engines and MFU, and a trace
+        launches.update(mfu_phase(device, smi))
         # the streaming loader, and resumed training on both loaders
         launches.update(grain_phase(device, work, embedding_net, smi))
         # data-parallel training: ranks over gloo on this card, one NCCL

@@ -168,16 +168,18 @@ def _walk_forward(x: torch.Tensor, w_hh: torch.Tensor,
     """The time loop in walk order: x (T, D, B, 3H) with b_in included (at
     the storage dtype) -> ys (T, D, B, H) at x's dtype and hp (T, D, B, 3H)
     = h_prev . W_hh + b_rec at the compute dtype; h rounded to the storage
-    dtype every step."""
-    T, D, B, H3 = x.shape
+    dtype every step. The steps' inputs come from `unbind`, whose backward
+    stacks their gradients: indexing `x[t]` would add T full-size
+    gradients under autograd."""
+    _, D, B, H3 = x.shape
     H = H3 // 3
     dt, cd = x.dtype, _compute_dtype(x.dtype)
     x, w_hh, b_rec = x.to(cd), w_hh.to(cd), b_rec.to(cd)
     h = x.new_zeros(D, B, H)
     ys, hps = [], []
-    for t in range(T):
+    for xt in x.unbind(0):
         hp = torch.bmm(h, w_hh) + b_rec[:, None, :]
-        r, z, n = _cell(x[t], hp, H)
+        r, z, n = _cell(xt, hp, H)
         h = ((1.0 - z) * n + z * h).to(dt).to(cd)
         ys.append(h)
         hps.append(hp)

@@ -1,10 +1,9 @@
 """Quaternion algebra on tensors (w, x, y, z convention), the ops that the
 BVH reader and writer and the T2G loss need (reference
 `utils/Quaternions_torch.py`, as the JAX package's `ops/quaternions.py`
-carries them): the product, the rotation of vectors, sign continuity along
-time and the Euler angles in each of the six orders. The JAX package's
-other ops (`qinv`, `euler_to_quaternion`, `expmap_to_quaternion`) wait for
-their first caller.
+carries them): the product, the inverse, the rotation of vectors, sign
+continuity along time, the Euler angles in each of the six orders and
+back, and axis-angle to quaternion.
 
 Every function works over any leading dimensions and computes in the
 input's dtype; the JAX package computes them in float32.
@@ -33,6 +32,11 @@ def qrot(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     uv = torch.linalg.cross(qvec, v, dim=-1)
     uuv = torch.linalg.cross(qvec, uv, dim=-1)
     return v + 2.0 * (q[..., :1] * uv + uuv)
+
+
+def qinv(q: torch.Tensor) -> torch.Tensor:
+    """Inverse of unit quaternions (the conjugate)."""
+    return q * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype, device=q.device)
 
 
 def qeuler(q: torch.Tensor, order: str, epsilon: float = 0.0) -> torch.Tensor:
@@ -82,3 +86,31 @@ def qfix(q: torch.Tensor) -> torch.Tensor:
     sign = torch.cat([torch.ones((1,) + tuple(flips.shape[1:]), dtype=q.dtype, device=q.device),
                       1.0 - 2.0 * flips.to(q.dtype)], dim=0)
     return q * sign[..., None]
+
+
+def expmap_to_quaternion(e: torch.Tensor) -> torch.Tensor:
+    """Axis-angle (..., 3) -> quaternions (..., 4); the normalized sinc
+    keeps it exact at a zero angle."""
+    theta = torch.linalg.vector_norm(e, dim=-1, keepdim=True)
+    w = torch.cos(0.5 * theta)
+    xyz = 0.5 * torch.sinc(0.5 * theta / torch.pi) * e
+    return torch.cat((w, xyz), dim=-1)
+
+
+def euler_to_quaternion(e: torch.Tensor, order: str) -> torch.Tensor:
+    """Euler angles (..., 3) as (x, y, z) -> quaternions, the rotations of
+    each axis composed in `order`; the orders xyz, yzx and zxy flip the
+    sign (ref utils/Quaternions_torch.py:209-247)."""
+    x, y, z = e.unbind(-1)
+    zeros = torch.zeros_like(x)
+    rot = {
+        "x": torch.stack((torch.cos(x / 2), torch.sin(x / 2), zeros, zeros), dim=-1),
+        "y": torch.stack((torch.cos(y / 2), zeros, torch.sin(y / 2), zeros), dim=-1),
+        "z": torch.stack((torch.cos(z / 2), zeros, zeros, torch.sin(z / 2)), dim=-1),
+    }
+    result = rot[order[0]]
+    for axis in order[1:]:
+        result = qmul(result, rot[axis])
+    if order in ("xyz", "yzx", "zxy"):
+        result = -result
+    return result

@@ -158,12 +158,13 @@ def _write_hierarchy(f, names, offsets, children, joint, tabs, rot_string):
         f.write(f"{tabs}}}\n")
 
 
-def save_as_bvh(animation: dict, save_path: str, frame_time: float = 0.032) -> str:
+def save_as_bvh(animation: dict, save_path: str, frame_time: float = 0.032, *,
+                include_default_pose: bool = True) -> str:
     """Write one animation {'joint_names', 'joint_offsets' (J-1, 3) or (J, 3),
     'joint_parents', 'positions' (L, J, 3), 'rotations' (L, J, 4)} to
-    save_path/root.bvh (ref utils/mocap_dataset.py:257-357), after a first
-    frame of the default pose (the root at its first position, every angle
-    0); returns its path."""
+    save_path/root.bvh (ref utils/mocap_dataset.py:257-357), with
+    `include_default_pose` after a first frame of the default pose (the
+    root at its first position, every angle 0); returns its path."""
     names = animation["joint_names"]
     parents = list(animation["joint_parents"])
     offsets = np.asarray(animation["joint_offsets"])
@@ -189,8 +190,10 @@ def save_as_bvh(animation: dict, save_path: str, frame_time: float = 0.032) -> s
         f.write(f"\tCHANNELS 6 Xposition Yposition Zposition {rot_string}\n")
         _write_hierarchy(f, names, offsets, children, 0, "\t", rot_string)
         f.write("}\n")
-        f.write(f"MOTION\nFrames: {num_frames + 1}\nFrame Time: {frame_time}\n")
-        f.write(" ".join(map(str, trajectory[0])) + " 0.000000" * (num_joints * 3) + "\n")
+        f.write(f"MOTION\nFrames: {num_frames + int(include_default_pose)}\n"
+                f"Frame Time: {frame_time}\n")
+        if include_default_pose:
+            f.write(" ".join(map(str, trajectory[0])) + " 0.000000" * (num_joints * 3) + "\n")
         for t in range(num_frames):
             vals = [str(trajectory[t, 0]), str(trajectory[t, 1]), str(trajectory[t, 2])]
             vals += [f"{e:.6f}" for e in eulers[t].reshape(-1)]

@@ -11,10 +11,11 @@ test-split metrics (reference `net/embedding_space_evaluator.py` and
   non-finite root and a complex one; feat_dist is the mean per-pair L1.
 - `push_sample_metrics`: the L1 of the direction vectors, the joint MAE
   after forward kinematics, and the acceleration difference.
-
-The plots of the embedding space (`get_features_for_viz`,
-`draw_embedding_space`: umap, sklearn, matplotlib) are not ported yet
-(ROADMAP.md).
+- The plots of the embedding space: `get_features_for_viz` projects the
+  features to 2-D with UMAP where it is installed, else with a PCA of
+  this module's own (`pca_2d`, sklearn's `PCA(n_components=2)` and its
+  sign convention, in numpy); `draw_embedding_space` scatters them with
+  matplotlib, imported when it runs.
 """
 
 from __future__ import annotations
@@ -40,6 +41,21 @@ def _sqrtm(m: np.ndarray) -> np.ndarray:
     if "disp" in inspect.signature(linalg.sqrtm).parameters:
         return linalg.sqrtm(m, disp=False)[0]
     return linalg.sqrtm(m)
+
+
+def pca_2d(x: np.ndarray) -> np.ndarray:
+    """The rows of x projected on their first two principal axes, as
+    sklearn's `PCA(n_components=2).fit_transform` gives them: the data
+    centered, the axes the right singular vectors, each axis's sign set so
+    that its component of largest magnitude is positive (sklearn's
+    `svd_flip(u_based_decision=False)`). Computed in float64, returned in
+    x's floating dtype."""
+    x = np.asarray(x)
+    centered = x.astype(np.float64) - x.mean(axis=0, dtype=np.float64)
+    vt = np.linalg.svd(centered, full_matrices=False)[2][:2]
+    vt *= np.sign(vt[np.arange(len(vt)), np.abs(vt).argmax(axis=1)])[:, None]
+    out = centered @ vt.T
+    return out.astype(x.dtype) if np.issubdtype(x.dtype, np.floating) else out
 
 
 class EmbeddingSpaceEvaluator:
@@ -109,6 +125,43 @@ class EmbeddingSpaceEvaluator:
         frechet_dist = self.frechet_distance(generated, real)
         feat_dist = float(np.mean(np.sum(np.abs(real - generated), axis=1)))
         return frechet_dist, feat_dist
+
+    def get_features_for_viz(self) -> tuple[np.ndarray, np.ndarray]:
+        """2-D projections of the (real, generated) features (ref
+        net/embedding_space_evaluator.py:63-72): UMAP where it is installed
+        (the reference's), else `pca_2d`."""
+        generated = np.vstack(self.generated_feat_list)
+        real = np.vstack(self.real_feat_list)
+        both = np.vstack((generated, real))
+        try:
+            import umap
+        except ImportError:
+            transformed = pca_2d(both)
+        else:
+            transformed = umap.UMAP().fit_transform(both)
+        n = transformed.shape[0] // 2
+        return transformed[n:], transformed[:n]
+
+    def draw_embedding_space(self, output_path: str) -> str:
+        """A scatter plot of the 2-D embedding space, real against
+        generated, written to `output_path`; needs matplotlib."""
+        try:
+            import matplotlib
+        except ImportError as e:
+            raise ImportError("draw_embedding_space needs matplotlib, which is not "
+                              "installed") from e
+        matplotlib.use("Agg", force=False)
+        import matplotlib.pyplot as plt
+
+        real2d, gen2d = self.get_features_for_viz()
+        fig, ax = plt.subplots(figsize=(6, 6))
+        ax.scatter(real2d[:, 0], real2d[:, 1], s=6, alpha=0.5, label="real")
+        ax.scatter(gen2d[:, 0], gen2d[:, 1], s=6, alpha=0.5, label="generated")
+        ax.legend()
+        ax.set_title("gesture embedding space")
+        fig.savefig(output_path, dpi=120, bbox_inches="tight")
+        plt.close(fig)
+        return output_path
 
     @staticmethod
     def frechet_distance(samples_a: np.ndarray, samples_b: np.ndarray) -> float:

@@ -227,6 +227,12 @@ def test_port_imports_no_jax():
     files += [REPO / "chip_smoke.py", REPO / "tests/_data_parallel_worker.py",
               REPO / "tests/_mesh_2d_worker.py"]
     assert len(files) > 10
+    # the measuring modules, the mocap toolkit and the tools among them
+    names = {f.relative_to(REPO).as_posix() for f in files}
+    assert {f"speech2affective_gestures_torch/{m}.py" for m in (
+        "train/flops", "train/timing", "train/profiling", "train/evaluator",
+        "ops/quaternions", "ops/quaternions_np", "render/mocap_tools", "tools/stats",
+        "tools/speech_to_text")} <= names
     offenders = [str(f) for f in files if pat.search(f.read_text())]
     assert not offenders, offenders
 
