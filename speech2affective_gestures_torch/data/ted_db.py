@@ -43,6 +43,7 @@ import torch
 from .. import constants as C
 from ..config import ModelConfig
 from ..ops import dsp
+from ..train import profiling
 from . import preprocessor as prep
 from .vocab import Vocab, build_vocab, make_speaker_vocab
 
@@ -294,8 +295,12 @@ class DeviceDataset:
         return host_indices(idx, adv_vids).to(self.device, non_blocking=True)
 
     def batch(self, idx: np.ndarray, adv_vids: np.ndarray) -> dict:
-        rows, vids = self.indices(idx, adv_vids)
-        return gather(self.arrays, rows, vids)
+        """The batch of the (B,) rows `idx`, speakers `adv_vids`: the
+        indices' upload and the gather, in the span `data.batch`
+        (`train.profiling.annotate`)."""
+        with profiling.annotate("data.batch"):
+            rows, vids = self.indices(idx, adv_vids)
+            return gather(self.arrays, rows, vids)
 
 
 class DeviceBatchSampler(BatchSampler):

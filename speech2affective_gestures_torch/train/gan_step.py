@@ -77,7 +77,7 @@ from torch.utils import checkpoint
 from .. import constants as C
 from ..models import layers as L
 from ..parallel import mesh as P
-from . import losses
+from . import losses, profiling
 
 
 REMAT_MODES = ("none", "full", "dots")
@@ -465,6 +465,17 @@ class GanStep:
                    gan_on: bool = True, tri_metric: bool = True,
                    eps: torch.Tensor | None = None,
                    eps_rand: torch.Tensor | None = None) -> dict[str, torch.Tensor]:
+        """One D update, then one G update, then the frozen comparator's
+        metric, inside the spans `gan.train_step` and, in call order,
+        `gan.dis.forward`, `.backward`, `.update` (with the GAN terms),
+        `gan.gen.forward`, `.backward`, `.update` and `gan.tri.forward`
+        (`profiling.annotate`)."""
+        with profiling.annotate("gan.train_step", self.step):
+            metrics = self._train_step(batch, generator, gan_on, tri_metric, eps, eps_rand)
+            self.step += 1
+            return self._global_metrics(metrics)
+
+    def _train_step(self, batch, generator, gan_on, tri_metric, eps, eps_rand):
         cfg = self.cfg
         self.gen.train()
         self.dis.train()
@@ -479,75 +490,81 @@ class GanStep:
         with L.dropout_rng(generator), P.stepping(self.mesh, bsz):
             # ---------------------------------------------------- D update
             if use_gan:
-                with torch.no_grad():
-                    fake = gen(pre_seq, text, mfcc, vids, eps, generator)[0]
-                dis_d = self._differentiated_fn(self.dis, generator)
-                if cfg.fused_pass:
-                    both = dis_d(torch.cat([target, fake]), torch.cat([text, text]))
-                    d_real, d_fake = both[:bsz], both[bsz:]
-                else:
-                    d_real, d_fake = dis_d(target, text), dis_d(fake, text)
-                d_loss = losses.dis_ns_gan(d_real, d_fake)
-                self.dis_opt.zero_grad(set_to_none=True)
-                d_loss.backward()
-                self._update("dis")
+                with profiling.annotate("gan.dis.forward"):
+                    with torch.no_grad():
+                        fake = gen(pre_seq, text, mfcc, vids, eps, generator)[0]
+                    dis_d = self._differentiated_fn(self.dis, generator)
+                    if cfg.fused_pass:
+                        both = dis_d(torch.cat([target, fake]), torch.cat([text, text]))
+                        d_real, d_fake = both[:bsz], both[bsz:]
+                    else:
+                        d_real, d_fake = dis_d(target, text), dis_d(fake, text)
+                    d_loss = losses.dis_ns_gan(d_real, d_fake)
+                with profiling.annotate("gan.dis.backward"):
+                    self.dis_opt.zero_grad(set_to_none=True)
+                    d_loss.backward()
+                with profiling.annotate("gan.dis.update"):
+                    self._update("dis")
                 metrics["dis"] = d_loss.detach()
 
             # ---------------------------------------------------- G update
-            gen_g = self._differentiated_fn(self.gen, generator)
-            fuse_g = cfg.fused_pass and self._div_reg_on()
-            if fuse_g:
-                # JAX draws the other speakers before the fused forward
-                rand_vids = self._other_speakers(generator, vids)
-                if (eps is None) != (eps_rand is None):
-                    raise ValueError("the fused pass takes eps and eps_rand together")
-                noise = None if eps is None else torch.cat([eps, eps_rand])
-                out2, z2, mu2, logvar2 = gen_g(
-                    *(torch.cat([x, x]) for x in (pre_seq, text, mfcc)),
-                    torch.cat([vids, rand_vids]), noise, generator)
-                out, out_rand = out2[:bsz], out2[bsz:]
-                z, z_rand = z2[:bsz], z2[bsz:]
-                mu, logvar = (None if x is None else x[:bsz] for x in (mu2, logvar2))
-            else:
-                out, z, mu, logvar = gen_g(pre_seq, text, mfcc, vids, eps, generator)
-            huber = losses.scaled_huber(out, target, beta=0.1)
-            loss = cfg.loss_regression_weight * huber
-            metrics["loss"] = loss.detach()
-            if self._div_reg_on():
-                if not fuse_g:
+            with profiling.annotate("gan.gen.forward"):
+                gen_g = self._differentiated_fn(self.gen, generator)
+                fuse_g = cfg.fused_pass and self._div_reg_on()
+                if fuse_g:
+                    # JAX draws the other speakers before the fused forward
                     rand_vids = self._other_speakers(generator, vids)
-                    with torch.no_grad():
-                        out_rand, z_rand, *_ = gen(pre_seq, text, mfcc, rand_vids,
-                                                   eps_rand, generator)
-                div_reg = cfg.loss_reg_weight * losses.diversity_regularizer(
-                    out, out_rand, z, z_rand)
-                loss = loss + div_reg
-                metrics["DIV_REG"] = div_reg.detach()
-                if cfg.z_type == "speaker":
-                    kld = cfg.loss_kld_weight * losses.kld_speaker(mu, logvar)
-                    loss = loss + kld
-                    metrics["KLD"] = kld.detach()
-            if use_gan:
-                dis_g = self._differentiated_fn(self.dis, generator, frozen=True)
-                gen_err = cfg.loss_gan_weight * losses.gen_ns_gan(dis_g(out, text))
-                loss = loss + gen_err
-                metrics["gen"] = gen_err.detach()
-            self.gen_opt.zero_grad(set_to_none=True)
-            loss.backward()
-            self._update("gen")
+                    if (eps is None) != (eps_rand is None):
+                        raise ValueError("the fused pass takes eps and eps_rand together")
+                    noise = None if eps is None else torch.cat([eps, eps_rand])
+                    out2, z2, mu2, logvar2 = gen_g(
+                        *(torch.cat([x, x]) for x in (pre_seq, text, mfcc)),
+                        torch.cat([vids, rand_vids]), noise, generator)
+                    out, out_rand = out2[:bsz], out2[bsz:]
+                    z, z_rand = z2[:bsz], z2[bsz:]
+                    mu, logvar = (None if x is None else x[:bsz] for x in (mu2, logvar2))
+                else:
+                    out, z, mu, logvar = gen_g(pre_seq, text, mfcc, vids, eps, generator)
+                huber = losses.scaled_huber(out, target, beta=0.1)
+                loss = cfg.loss_regression_weight * huber
+                metrics["loss"] = loss.detach()
+                if self._div_reg_on():
+                    if not fuse_g:
+                        rand_vids = self._other_speakers(generator, vids)
+                        with torch.no_grad():
+                            out_rand, z_rand, *_ = gen(pre_seq, text, mfcc, rand_vids,
+                                                       eps_rand, generator)
+                    div_reg = cfg.loss_reg_weight * losses.diversity_regularizer(
+                        out, out_rand, z, z_rand)
+                    loss = loss + div_reg
+                    metrics["DIV_REG"] = div_reg.detach()
+                    if cfg.z_type == "speaker":
+                        kld = cfg.loss_kld_weight * losses.kld_speaker(mu, logvar)
+                        loss = loss + kld
+                        metrics["KLD"] = kld.detach()
+                if use_gan:
+                    dis_g = self._differentiated_fn(self.dis, generator, frozen=True)
+                    gen_err = cfg.loss_gan_weight * losses.gen_ns_gan(dis_g(out, text))
+                    loss = loss + gen_err
+                    metrics["gen"] = gen_err.detach()
+            with profiling.annotate("gan.gen.backward"):
+                self.gen_opt.zero_grad(set_to_none=True)
+                loss.backward()
+            with profiling.annotate("gan.gen.update"):
+                self._update("gen")
             metrics["g_total"] = loss.detach()
 
             # ------------------------------ trimodal comparison (frozen)
             out = out.detach()
             s2ag_l1 = losses.l1(out, target)
             if tri_metric and self.tri is not None:
-                tri_out = _forward_discarding_stats(
-                    self.tri.train(), self._train_fn(self.tri), pre_seq, text,
-                    batch["audio"], vids, eps, generator)[0]
-                metrics["s2ag_vs_trimodal_l1"] = s2ag_l1 - losses.l1(tri_out, target)
+                with profiling.annotate("gan.tri.forward"):
+                    tri_out = _forward_discarding_stats(
+                        self.tri.train(), self._train_fn(self.tri), pre_seq, text,
+                        batch["audio"], vids, eps, generator)[0]
+                    metrics["s2ag_vs_trimodal_l1"] = s2ag_l1 - losses.l1(tri_out, target)
             metrics["s2ag_l1"] = s2ag_l1
-        self.step += 1
-        return self._global_metrics(metrics)
+        return metrics
 
     def _global_metrics(self, metrics: dict) -> dict:
         """In a data-parallel step, each metric (a mean over the rank's

@@ -45,6 +45,7 @@ import torch
 
 from ..data.ted_db import DeviceDataset, gather, host_indices
 from ..ops import gru_cuda, mel_cuda
+from . import profiling
 from .gan_step import GanStep
 
 # every launch counter of the kernels a train step may run
@@ -96,22 +97,29 @@ class StepProgram:
 
     def run(self, idx: np.ndarray, adv: np.ndarray, gan_on: bool):
         """One program on the (K, B) host draws: (metric names, (K,
-        n_metrics) tensor on the device, not yet read)."""
+        n_metrics) tensor on the device, not yet read). The span
+        `program.run` holds the ids' copy, the replay and the output's
+        clone (or the eager body); the graph's launch, which waits there
+        once the device's queue holds earlier replays, has the span
+        `program.replay` of its own (`profiling.annotate`)."""
         if not self.capture:
-            rows, vids = self.data.indices(idx, adv)
-            return self.body(rows, vids, gan_on)
+            with profiling.annotate("program.run", self.step.step):
+                rows, vids = self.data.indices(idx, adv)
+                return self.body(rows, vids, gan_on)
         k = len(idx)
         graph = self.graphs.get((k, gan_on))
         if graph is None:
             graph = self.graphs[(k, gan_on)] = self._capture(idx, adv, gan_on)
-        graph.ids.copy_(host_indices(idx, adv), non_blocking=True)
-        graph.graph.replay()
-        graph.replays += 1
-        for counter, n in zip(COUNTERS, graph.launches):
-            counter.update(n)
-        self.step.step += k
-        # the next replay rewrites the graph's output
-        return graph.keys, graph.out.clone()
+        with profiling.annotate("program.run", self.step.step):
+            graph.ids.copy_(host_indices(idx, adv), non_blocking=True)
+            with profiling.annotate("program.replay"):
+                graph.graph.replay()
+            graph.replays += 1
+            for counter, n in zip(COUNTERS, graph.launches):
+                counter.update(n)
+            self.step.step += k
+            # the next replay rewrites the graph's output
+            return graph.keys, graph.out.clone()
 
     # ------------------------------------------------------------ capture
     def _state_tensors(self) -> list[torch.Tensor]:

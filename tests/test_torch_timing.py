@@ -1,17 +1,20 @@
-"""The port's honest timing and step timer (`train/timing.py`,
-`train/profiling.py`) against the JAX package's (`train/timing.py`,
-`train/profiling.py`).
+"""The port's honest timing (`train/timing.py`) against the JAX package's
+(`train/timing.py`), and the port's spans and trace
+(`train/profiling.py`).
 
 The estimator cases are JAX's tests/test_timing.py's, run through both
 packages with the same synthetic `run_window` (a clock of constant
 overhead plus a per-step time; a spike in one repeat): the results must be
 equal. No case times real work over short windows: JAX's own case with
 windows of 4 and 12 failed on a loaded machine, so `measure_peak_flops`'s
-arithmetic is checked through an injected window, and the step timers run
-trivial steps whose times are only checked to be positive or of a sane
-magnitude.
+arithmetic is checked through an injected window, and the timed steps
+are trivial ones whose times are only checked to be finite. The spans are
+checked against the CPU profiler's own events, and in GAN steps and an
+eager K-step program at a tiny width.
 """
 
+import copy
+import dataclasses
 import json
 
 import jax
@@ -20,9 +23,11 @@ import numpy as np
 import pytest
 import torch
 
+from speech2affective_gestures_torch.config import ModelConfig
+from speech2affective_gestures_torch.data.ted_db import DeviceDataset, PackedDataset
+from speech2affective_gestures_torch.train import builder
 from speech2affective_gestures_torch.train import profiling as tprof
 from speech2affective_gestures_torch.train import timing as ttiming
-from speech2affective_gestures_tpu.train import profiling as jprof
 from speech2affective_gestures_tpu.train import timing as jtiming
 
 
@@ -159,30 +164,6 @@ def test_time_compiled_step_carry_factory_called_per_window():
     assert made["torch"] == made["jax"] == 5
 
 
-def test_step_timer_value_fetch_sync():
-    for timer, f, x in ((tprof.StepTimer(), lambda x: x * 2.0, torch.ones(8, 8)),
-                        (jprof.StepTimer(), jax.jit(lambda x: x * 2.0), jnp.ones((8, 8)))):
-        for _ in range(3):
-            timer.start()
-            y = f(x)
-            timer.stop(y)
-        with timer.measure(y):
-            y = f(x)
-        s = timer.summary()
-        assert s["steps"] == 4
-        assert s["steps_per_sec"] > 0
-        assert set(s) == {"steps", "mean_s", "p50_s", "p95_s", "steps_per_sec"}
-    assert tprof.StepTimer().summary() == jprof.StepTimer().summary() == {}
-
-
-def test_step_timer_summary_matches_jax():
-    """The same recorded times give the same summary in both packages."""
-    times = [0.1, 0.3, 0.2, 0.25]
-    a, b = tprof.StepTimer(), jprof.StepTimer()
-    a.times, b.times = list(times), list(times)
-    assert a.summary() == b.summary()
-
-
 def test_trace_writes_a_chrome_trace_with_annotations(tmp_path):
     """`trace` writes <log_dir>/trace.json; `annotate`'s span is in it."""
     with tprof.trace(str(tmp_path / "prof")):
@@ -192,3 +173,149 @@ def test_trace_writes_a_chrome_trace_with_annotations(tmp_path):
     names = {e.get("name") for e in events}
     assert "s2ag_span" in names
     assert any(str(n).startswith("aten::mm") for n in names)
+
+
+def test_trace_writes_the_program_spans_on_its_timeline(tmp_path):
+    """Each span is an event of its own, nested in time as recorded, and
+    holds the profiler's event of the work it opened around."""
+    with tprof.trace(str(tmp_path / "prof")):
+        with tprof.annotate("outer", step=7):
+            with tprof.annotate("inner"):
+                with torch.profiler.record_function("work"):
+                    (torch.ones(16, 16) @ torch.ones(16, 16)).sum().item()
+    events = json.loads((tmp_path / "prof" / "trace.json").read_text())["traceEvents"]
+    spans = {e["name"]: e for e in events if e.get("cat") == "program_span"}
+    assert set(spans) == {"outer", "inner"}
+    outer, inner = spans["outer"], spans["inner"]
+    assert inner["args"] == {"id": inner["args"]["id"], "parent": outer["args"]["id"],
+                             "step": 7}
+    assert outer["args"]["parent"] is None and outer["args"]["step"] == 7
+    work = next(e for e in events if e.get("name") == "work" and e.get("ph") == "X")
+    assert outer["ts"] <= inner["ts"] <= work["ts"]
+    assert work["ts"] + work["dur"] <= inner["ts"] + inner["dur"] <= outer["ts"] + outer["dur"]
+    assert tprof.drain() == []
+
+
+def test_annotate_without_a_profiler_records_nothing():
+    tprof.drain()
+    off = tprof.annotate("a")
+    assert tprof.annotate("b", step=3) is off
+    with off:
+        with tprof.annotate("c"):
+            pass
+    assert tprof.drain() == []
+
+
+def test_span_holds_its_record_function_on_the_kineto_clock():
+    """Placed by its origin, Kineto's own trace start, a span contains the
+    profiler's event of the `record_function` range it was opened around,
+    and shows in the profiler's events under its own name."""
+    tprof.drain()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with tprof.annotate("outer"):
+            with torch.profiler.record_function("inner"):
+                (torch.ones(32, 32) @ torch.ones(32, 32)).sum().item()
+    (span,) = tprof.drain()
+    start_ns = prof.profiler.kineto_results.trace_start_ns()
+    assert span.origin_ns == start_ns
+    inner = next(e for e in prof.events() if e.name == "inner")
+    assert (span.start_ns - start_ns) / 1e3 <= inner.time_range.start
+    assert inner.time_range.end <= (span.end_ns - start_ns) / 1e3
+    assert span.end_ns - span.start_ns < 10**9
+    outer = next(e for e in prof.events() if e.name == "outer")
+    assert outer.time_range.start <= inner.time_range.start
+    assert inner.time_range.end <= outer.time_range.end
+
+
+def _profiled(fn):
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        fn()
+    return prof.profiler.kineto_results.trace_start_ns()
+
+
+def test_each_session_gives_its_spans_its_origin():
+    """Sessions back to back, with no span between them: each span takes
+    its own session's trace start. A profiler that no caller holds in a
+    variable leaves the origin unknown."""
+    tprof.drain()
+
+    def spans():
+        with tprof.annotate("a"):
+            with tprof.annotate("b"):
+                pass
+
+    first, second = _profiled(spans), _profiled(spans)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        spans()
+    got = tprof.drain()
+    assert [(s.name, s.origin_ns) for s in got] == [
+        ("a", first), ("b", first), ("a", second), ("b", second), ("a", None), ("b", None)]
+    assert first < second
+
+
+@pytest.fixture(scope="module")
+def tiny_steps():
+    """Per variant, a GAN step at width 16 and batch 4 on the CPU, and a
+    device loader over 8 random rows."""
+    cfg = ModelConfig(batch_size=4, hidden_size=16, hidden_size_s2eg=16, wordembed_dim=16)
+    rng = np.random.default_rng(0)
+    n = 8
+    packed = PackedDataset(
+        extended_word_seq=rng.integers(0, 50, (n, cfg.n_poses)),
+        vec_seq=rng.normal(size=(n, cfg.n_poses, 27)).astype(np.float32) * 0.1,
+        audio=rng.integers(-3000, 3000, (n, cfg.expected_audio_length)).astype(np.int16),
+        audio_max=np.full(n, 0.3),
+        mfcc_features=rng.normal(size=(n, cfg.num_mfcc_combined,
+                                       cfg.mfcc_length)).astype(np.float16),
+        vid_indices=rng.integers(0, 10, n))
+    steps = {v: builder.init_training(cfg, 0, n_words=50, n_speakers=10, device="cpu",
+                                      variant=v)["step"] for v in ("s2ag", "abl_aff")}
+    return steps, DeviceDataset(packed, "cpu")
+
+
+GAN_PHASES = ["gan.dis.forward", "gan.dis.backward", "gan.dis.update"]
+GEN_PHASES = ["gan.gen.forward", "gan.gen.backward", "gan.gen.update", "gan.tri.forward"]
+
+
+@pytest.mark.parametrize("variant", ["s2ag", "abl_aff"])
+@pytest.mark.parametrize("gan_on,fused", [(True, False), (False, False), (True, True)])
+def test_gan_step_records_its_phases(tiny_steps, variant, gan_on, fused):
+    """The batch's span, then `gan.train_step` with its phases as children
+    in call order, every span of the step carrying the step's count and
+    all the session's origin."""
+    steps, data = tiny_steps
+    step = copy.copy(steps[variant])
+    step.cfg = dataclasses.replace(step.cfg, fused_pass=fused)
+    tprof.drain()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        step.train_step(data.batch(np.arange(4), np.arange(4)),
+                        torch.Generator().manual_seed(0), gan_on=gan_on)
+    spans = tprof.drain()
+    assert [s.name for s in spans] == (["data.batch", "gan.train_step"]
+                                       + (GAN_PHASES if gan_on else []) + GEN_PHASES)
+    top = spans[1]
+    assert [s.parent for s in spans] == [None, None] + [top.id] * (len(spans) - 2)
+    # the batch is gathered before the step it feeds, knowing no step
+    assert [s.step for s in spans] == [None] + [step.step - 1] * (len(spans) - 1)
+    assert {s.origin_ns for s in spans} == {prof.profiler.kineto_results.trace_start_ns()}
+    for a, b in zip(spans[2:], spans[3:]):
+        assert top.start_ns <= a.start_ns <= a.end_ns <= b.start_ns <= b.end_ns <= top.end_ns
+
+
+def test_eager_step_program_records_its_steps(tiny_steps):
+    from speech2affective_gestures_torch.train.step_program import StepProgram
+
+    steps, data = tiny_steps
+    step = steps["abl_aff"]
+    prog = StepProgram(step, data, torch.Generator().manual_seed(0))
+    first = step.step
+    tprof.drain()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        prog.run(np.arange(8).reshape(2, 4), np.arange(8).reshape(2, 4) % 10, True)
+    spans = tprof.drain()
+    run = spans[0]
+    assert (run.name, run.parent, run.step) == ("program.run", None, first)
+    children = [s for s in spans if s.parent == run.id]
+    assert [(s.name, s.step) for s in children] == [("gan.train_step", first),
+                                                     ("gan.train_step", first + 1)]
+    assert len(spans) == 1 + 2 * (1 + len(GAN_PHASES) + len(GEN_PHASES))
